@@ -1,0 +1,42 @@
+"""
+Device and dtype policy
+=======================
+
+* Coordinate streams are float32; accumulators are float64 (sums and
+  pair counts, exact below 2^53) or int64.
+* Float32 matrix products run in full float32.  TF32 keeps about three
+  decimal digits, which would smear the factorized S(q) sums the same
+  way a single bf16 pass on the TPU matrix unit does; the JAX package
+  pins those products to ``Precision.HIGHEST`` for the same reason.
+* Every device is passed explicitly (``device=``); nothing here sets a
+  global default device.
+"""
+
+import torch
+
+__all__ = ["set_precision_policy", "require_cuda", "resolve_device"]
+
+
+def set_precision_policy() -> None:
+    """Forbid TF32 in float32 matrix products and convolutions."""
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def require_cuda() -> torch.device:
+    """The first CUDA device; raises when there is no card."""
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "No CUDA device is available: this path runs only on a GPU."
+        )
+    return torch.device("cuda", 0)
+
+
+def resolve_device(device) -> torch.device:
+    """``device=`` argument to a :class:`torch.device` (``None`` is the
+    CPU)."""
+
+    return torch.device("cpu" if device is None else device)

@@ -1,0 +1,315 @@
+"""
+Analysis base classes
+=====================
+
+The streaming runtime, ported from :mod:`mdhelper_tpu.analysis.base`.
+Frames are a batch axis: the trajectory is read in fixed-size chunks of
+``(B, N, 3)`` float32 coordinates, each chunk is copied to the
+analysis's device, and a per-chunk ``_update(carry, positions,
+dimensions, mask)`` folds it into an accumulator ("carry").  Store-type
+analyses also return per-chunk extras, fetched to the host one chunk
+late so the copy overlaps the next chunk's compute.
+
+On a CUDA device the host side of a chunk goes through a pinned buffer
+and a ``non_blocking`` copy on a side stream, one chunk ahead of the
+compute.  The port runs on one device; there is no frame sharding,
+host pipeline, multi-host mode or checkpointing yet.
+"""
+
+import logging
+from datetime import datetime
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+
+__all__ = ["Hash", "SerialAnalysisBase", "carry_from_numpy"]
+
+
+class Hash(dict):
+    """A `dict` with attribute access; the results container."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+        for arg in args:
+            if not isinstance(arg, dict):
+                raise TypeError("Positional arguments must be dictionaries.")
+            self.update(arg)
+        self.update(kwargs)
+
+    def __getattr__(self, name):
+        return self.get(name)
+
+    def __setattr__(self, name, value):
+        self[name] = value
+
+    def __delattr__(self, name):
+        del self[name]
+
+
+class _Batch:
+    """One device-ready chunk of trajectory data."""
+
+    __slots__ = ("positions", "dimensions", "mask", "indices", "n_real")
+
+    def __init__(self, positions, dimensions, mask, indices):
+        self.positions = positions
+        self.dimensions = dimensions
+        self.mask = mask
+        self.indices = indices
+        self.n_real = len(indices)
+
+
+def carry_from_numpy(analysis, tree):
+    """The port's carry for a prepared `analysis` from a carry of the
+    JAX package's counterpart whose leaves were fetched as numpy
+    (``jax.tree.map(np.asarray, jax_analysis._carry)``).
+
+    Leaves take the dtype and device of the port's own prepared carry,
+    so a run can start in JAX and continue in the port (see
+    ``run_together(..., initial=)``).  Dict carries may lack keys the
+    port's carry has (the JAX RDF's XLA route keeps no ``"max_occ"``);
+    those keep their prepared values.
+    """
+
+    template = analysis._carry
+
+    def leaf(value, like):
+        return torch.as_tensor(np.array(value)).to(
+            device=like.device, dtype=like.dtype
+        )
+
+    if isinstance(template, dict):
+        unknown = set(tree) - set(template)
+        if unknown:
+            raise ValueError(
+                f"{type(analysis).__name__} carries no {sorted(unknown)}."
+            )
+        return {
+            key: leaf(tree[key], value) if key in tree else value
+            for key, value in template.items()
+        }
+    if len(tree) != len(template):
+        raise ValueError(
+            f"{type(analysis).__name__}'s carry has {len(template)} "
+            f"leaves, not {len(tree)}."
+        )
+    return tuple(leaf(t, like) for t, like in zip(tree, template))
+
+
+class SerialAnalysisBase:
+    """Single-device streaming analysis driver.
+
+    Subclasses implement :meth:`_prepare` (set ``self._carry`` and
+    ``self._update``), optionally ``_store_chunk(extras, batch)`` (then
+    ``_update`` returns ``(carry, extras)``), and :meth:`_conclude`.
+
+    Parameters
+    ----------
+    trajectory : `TrajectoryReader`
+        The stream's source.
+    verbose : `bool`
+        Log start and end of :meth:`run`.
+    device : `torch.device` or `str`, optional
+        Where the chunks are folded (default: the CPU).
+    """
+
+    #: bytes of float32 coordinates per streamed chunk.
+    _chunk_bytes: int = 128 << 20
+    #: atom columns to read per frame (None = all atoms).
+    _atom_indices = None
+    #: host half of the chunk protocol (see the class docstring).
+    _store_chunk = None
+    _update = None
+
+    def __init__(self, trajectory, verbose: bool = False, *, device=None):
+        self._trajectory = trajectory
+        self._verbose = verbose
+        self._device = resolve_device(device)
+        self._pending_stores = []
+        self.results = Hash()
+
+    # -- frame bookkeeping -------------------------------------------------
+    def _setup_frames(self, trajectory=None, start=None, stop=None,
+                      step=None, frames=None) -> None:
+        trajectory = trajectory or self._trajectory
+        if frames is not None:
+            if start is not None or stop is not None or step is not None:
+                raise ValueError(
+                    "start/stop/step cannot be combined with frames."
+                )
+            self.frames = np.arange(trajectory.n_frames)[frames]
+            self.start = self.stop = self.step = None
+        else:
+            start, stop, step = trajectory.check_slice_indices(
+                start, stop, step
+            )
+            self.start, self.stop, self.step = start, stop, step
+            self.frames = np.arange(start, stop, step)
+        self.n_frames = len(self.frames)
+        self.times = np.asarray(
+            [trajectory._read_time(int(i)) for i in self.frames]
+        )
+
+    def _prepare(self) -> None:
+        pass
+
+    def _conclude(self) -> None:
+        pass
+
+    def _require_box(self, what: str) -> None:
+        dims = self.universe.dimensions
+        if dims is None or not (np.asarray(dims[:3]) > 0).all():
+            raise ValueError(
+                f"{what} needs a periodic box with non-zero "
+                "dimensions (this universe has none)."
+            )
+
+    def _require_orthorhombic(self, what: str) -> None:
+        dims = self.universe.dimensions
+        if len(dims) >= 6 and not np.allclose(dims[3:6], 90.0):
+            raise NotImplementedError(
+                f"{what}: triclinic boxes are not ported yet."
+            )
+
+    # -- chunk protocol ----------------------------------------------------
+    def _batched_update(self, carry, batch: _Batch):
+        """Fold one chunk into the carry; store extras are queued and
+        absorbed one chunk late."""
+
+        out = self._update(
+            carry, batch.positions, batch.dimensions, batch.mask
+        )
+        if self._store_chunk is None:
+            return out
+        carry, extras = out
+        self._queue_store(extras, batch)
+        return carry
+
+    def _queue_store(self, extras, batch: _Batch) -> None:
+        """Start the device-to-host copy of one chunk's extras (a
+        tensor), then absorb the previously queued chunk, whose copy has
+        had a chunk of compute to finish."""
+
+        event = None
+        if extras.device.type == "cuda":
+            host = torch.empty(
+                extras.shape, dtype=extras.dtype, pin_memory=True
+            )
+            host.copy_(extras, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(extras.device))
+            extras = host
+        self._drain_stores()
+        self._pending_stores.append((extras, event, batch))
+
+    def _drain_stores(self) -> None:
+        for extras, event, batch in self._pending_stores:
+            if event is not None:
+                event.synchronize()
+            self._store_chunk(extras.numpy(), batch)
+        self._pending_stores.clear()
+
+    def _effective_atom_indices(self):
+        """``_atom_indices``, with the identity selection normalized to
+        ``None`` (an identity gather would copy every chunk)."""
+
+        idx = self._atom_indices
+        if idx is None:
+            return None
+        n = self._trajectory.n_atoms
+        if len(idx) == n and np.array_equal(idx, np.arange(n)):
+            return None
+        return idx
+
+    def _stream_batches(self) -> Iterator[_Batch]:
+        """Stream the selected frames in chunks of ``_chunk_bytes`` of
+        float32 coordinates, copied to the device one chunk ahead."""
+
+        device = self._device
+        atom_indices = self._effective_atom_indices()
+        n_atoms = (
+            len(atom_indices) if atom_indices is not None
+            else self._trajectory.n_atoms
+        )
+        chunk = max(1, self._chunk_bytes // max(n_atoms * 3 * 4, 1))
+        blocks = [
+            self.frames[lo:lo + chunk]
+            for lo in range(0, self.n_frames, chunk)
+        ]
+        cuda = device.type == "cuda"
+        copy_stream = torch.cuda.Stream(device) if cuda else None
+
+        def stage(block):
+            positions, dimensions = self._trajectory.read_frames(block)
+            if atom_indices is not None:
+                positions = positions[:, atom_indices]
+            pos = torch.from_numpy(
+                np.ascontiguousarray(positions, dtype=np.float32)
+            )
+            dims = torch.from_numpy(
+                np.ascontiguousarray(dimensions, dtype=np.float64)
+            )
+            if cuda:
+                pos, dims = pos.pin_memory(), dims.pin_memory()
+                with torch.cuda.stream(copy_stream):
+                    pos = pos.to(device, non_blocking=True)
+                    dims = dims.to(device, non_blocking=True)
+            mask = torch.ones(len(block), dtype=torch.float64, device=device)
+            return _Batch(pos, dims, mask, block)
+
+        staged = stage(blocks[0]) if blocks else None
+        for i in range(len(blocks)):
+            batch = staged
+            if cuda:
+                compute = torch.cuda.current_stream(device)
+                compute.wait_stream(copy_stream)
+                # The allocator must not reuse these buffers until the
+                # compute stream is done with them.
+                batch.positions.record_stream(compute)
+                batch.dimensions.record_stream(compute)
+            staged = stage(blocks[i + 1]) if i + 1 < len(blocks) else None
+            yield batch
+
+    def _fused_parts(self):
+        """``(device_fn, absorb)`` for fused streaming
+        (:func:`mdhelper_tpu_torch.analysis.multi.run_together`):
+        ``device_fn(carry, positions, dimensions, mask) -> (carry,
+        extras)`` and the host absorb of the extras (or ``None``)."""
+
+        update = self._update
+        if self._store_chunk is not None:
+            return update, self._queue_store
+
+        def device_fn(carry, positions, dimensions, mask):
+            return update(carry, positions, dimensions, mask), None
+
+        return device_fn, None
+
+    # -- driver ------------------------------------------------------------
+    def run(self, start: int = None, stop: int = None, step: int = None,
+            frames=None, verbose: bool = None):
+        """Run the analysis over the selected frames."""
+
+        verbose = self._verbose if verbose is None else verbose
+        if verbose:
+            time_start = datetime.now()
+            logging.info(f"Starting {type(self).__name__} analysis...")
+        self._setup_frames(
+            self._trajectory, start=start, stop=stop, step=step,
+            frames=frames,
+        )
+        self._prepare()
+        carry = self._carry
+        for batch in self._stream_batches():
+            carry = self._batched_update(carry, batch)
+        self._carry = carry
+        self._drain_stores()
+        self._conclude()
+        if verbose:
+            logging.info(
+                f"Analysis finished in {datetime.now() - time_start}."
+            )
+        return self

@@ -1,0 +1,106 @@
+"""
+Fused multi-analysis streaming
+==============================
+
+:func:`run_together` reads the trajectory ONCE and folds every chunk
+into several analyses' carries, so host reading and host-to-device
+copies are paid once instead of once per analysis.  Ported from
+:mod:`mdhelper_tpu.analysis.multi` (serial, without checkpointing).
+"""
+
+from typing import Sequence
+
+import torch
+
+from .base import SerialAnalysisBase, carry_from_numpy
+
+__all__ = ["run_together"]
+
+
+def run_together(
+    analyses: Sequence[SerialAnalysisBase],
+    start: int = None,
+    stop: int = None,
+    step: int = None,
+    frames=None,
+    on_chunk=None,
+    initial=None,
+):
+    """Run several analyses over one shared trajectory stream.
+
+    Parameters
+    ----------
+    analyses : sequence of analysis instances
+        Carry-protocol analyses sharing the same trajectory reader and
+        the same device.
+    start, stop, step, frames
+        Frame selection, as in ``run()``.
+    on_chunk : callable, optional
+        Called with each streamed batch after every analysis has folded
+        it.
+    initial : sequence, optional
+        Per analysis, ``None`` or a carry of the JAX package's
+        counterpart fetched as numpy, to continue a run that the JAX
+        package started (see
+        :func:`~mdhelper_tpu_torch.analysis.base.carry_from_numpy`).
+
+    Returns
+    -------
+    analyses : the input sequence, with ``results`` populated as
+        individual ``run()`` calls would have.
+    """
+
+    if not analyses:
+        raise ValueError("No analyses given.")
+    trajectory = analyses[0]._trajectory
+    device = analyses[0]._device
+    for a in analyses:
+        if a._trajectory is not trajectory:
+            raise ValueError(
+                "All analyses must share the same trajectory reader."
+            )
+        if a._device != device:
+            raise ValueError("All analyses must run on the same device.")
+    if initial is not None and len(initial) != len(analyses):
+        raise ValueError("initial= needs one entry per analysis.")
+
+    for i, a in enumerate(analyses):
+        a._setup_frames(
+            a._trajectory, start=start, stop=stop, step=step, frames=frames
+        )
+        a._prepare()
+        if initial is not None and initial[i] is not None:
+            a._carry = carry_from_numpy(a, initial[i])
+
+    parts = [a._fused_parts() for a in analyses]
+    gathers = []
+    for a in analyses:
+        idx = a._effective_atom_indices()
+        gathers.append(
+            None if idx is None else torch.as_tensor(idx, device=device)
+        )
+
+    # The stream reads every atom; each analysis gathers its columns.
+    driver = SerialAnalysisBase(trajectory, device=device)
+    driver._setup_frames(
+        trajectory, start=start, stop=stop, step=step, frames=frames
+    )
+    driver._chunk_bytes = min(a._chunk_bytes for a in analyses)
+
+    carries = [a._carry for a in analyses]
+    for batch in driver._stream_batches():
+        for i, ((device_fn, absorb), idx) in enumerate(zip(parts, gathers)):
+            pos = batch.positions if idx is None else batch.positions[:, idx]
+            carries[i], aux = device_fn(
+                carries[i], pos, batch.dimensions, batch.mask
+            )
+            if absorb is not None and aux is not None:
+                absorb(aux, batch)
+        if on_chunk is not None:
+            on_chunk(batch)
+
+    for a, carry in zip(analyses, carries):
+        a._carry = carry
+        a._drain_stores()
+        a._conclude()
+    return analyses

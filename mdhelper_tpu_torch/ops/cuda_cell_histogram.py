@@ -1,0 +1,385 @@
+r"""
+Cell-list pair histogram (CUDA)
+===============================
+
+Counterpart of :mod:`mdhelper_tpu.ops.pallas_cell_histogram` for the
+self-group, half-shell, orthorhombic, 3-D, exact mode that the RDF main
+path runs.  Sorted atom positions are packed into a padded
+``(n_cells * capacity, 4)`` float32 slot table (xyz, atom id); the
+hand-written kernel ``csrc/cell_pair_histogram.cu`` sweeps each home
+cell against its 14-entry half-shell neighbor row and bins every pair in
+exact double-float arithmetic.
+
+:func:`cell_pair_histogram` launches that kernel for tensors on a CUDA
+device and runs :func:`cell_pair_histogram_reference` -- the same
+computation in plain torch -- for tensors on the CPU.  There is no
+fallback between the two: a CUDA tensor launches the kernel or raises.
+"""
+
+import itertools
+import math
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from . import _build
+from .doublefloat import df_add, df_ge, df_lt, f32_constant, two_prod
+from .histogram import _exact_d2_orthorhombic
+
+__all__ = [
+    "CellCapacityOverflow",
+    "cell_plan_search",
+    "cell_pair_histogram",
+    "cell_pair_histogram_reference",
+]
+
+#: half-shell neighbor-table width: the home cell plus the 13
+#: positive-lexicographic offsets.
+N_HALF = 14
+
+#: capacity granule (one warp of slots).
+_CAP_STEP = 32
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+class CellCapacityOverflow(RuntimeError):
+    """A frame's densest cell exceeded the planned slot capacity.
+
+    The plan leaves ``capacity_sigmas`` Poisson sigmas of headroom
+    above the mean occupancy; analyses catch this and retry with a
+    larger ``capacity_sigmas``."""
+
+
+def _capacity(n_atoms, n_cells, capacity_sigmas):
+    """Per-cell slot capacity: ``mean + sigmas * sqrt(mean) + 4``
+    rounded up to a multiple of 32, at least 32 and at most the whole
+    group (rounded up)."""
+
+    mean = n_atoms / n_cells
+    cap = math.ceil(mean + capacity_sigmas * math.sqrt(mean) + 4)
+    cap = _cdiv(cap, _CAP_STEP) * _CAP_STEP
+    whole = _cdiv(max(n_atoms, 1), _CAP_STEP) * _CAP_STEP
+    return max(_CAP_STEP, min(cap, whole))
+
+
+def cell_plan_search(n_atoms, box, r_max, *, capacity_sigmas=4.0):
+    """Cost-driven cell grid (host side): the ``n_cells_dim`` that
+    minimizes the kernel's padded pair work
+    ``n_cells * 14 * capacity**2`` (ties to fewer cells).
+
+    Legal grids have at least 3 cells per axis, each at least ``r_max``
+    wide (``3 <= n_i <= floor(L_i / r_max)``).  Boxes under 3 cutoffs
+    on some axis need the generalized grids of the JAX package, which
+    the port does not have yet: they raise `ValueError`.
+
+    Returns ``{"n_cells_dim", "n_cells", "capacity", "reach", "_cost"}``.
+    """
+
+    box = np.asarray(box, dtype=float)
+    if box.shape != (3,):
+        raise ValueError("cell_plan_search takes 3 box lengths.")
+    floors = np.floor(box / r_max).astype(int)
+    if not np.all(floors >= 3):
+        raise ValueError(
+            "The cell-list kernel needs a box at least 3 cutoffs wide "
+            f"on every axis (box {box.tolist()}, r_max {r_max})."
+        )
+
+    # Every legal grid, in order.  The cost depends on a grid only
+    # through its cell-count product and ties keep the first grid, so
+    # a product seen before cannot win and is skipped.
+    best = None
+    seen = set()
+    for dims in itertools.product(*[range(3, int(m) + 1) for m in floors]):
+        n_cells = dims[0] * dims[1] * dims[2]
+        if n_cells in seen:
+            continue
+        seen.add(n_cells)
+        cap = _capacity(n_atoms, n_cells, capacity_sigmas)
+        cost = n_cells * N_HALF * cap * cap
+        key = (cost, n_cells)
+        if best is None or key < best[0]:
+            best = (key, {
+                "n_cells_dim": dims,
+                "n_cells": n_cells,
+                "capacity": cap,
+                "reach": (1, 1, 1),
+                "_cost": cost,
+            })
+    return best[1]
+
+
+def _bin_boundary_constants(r_max, n_bins):
+    """``(inv_dr, dr2_hi, dr2_lo)`` for uniform bins from 0:
+    ``r_max / n_bins`` rounded in float64 first, then squared and split
+    into a double-float pair (the "zero" convention of the JAX
+    kernels, which matches the XLA sweep's edge width)."""
+
+    inv_dr = np.float32(np.float64(n_bins) / np.float64(r_max))
+    dr2_wide = (np.float64(r_max) / np.float64(n_bins)) ** 2
+    dr2_hi = np.float32(dr2_wide)
+    dr2_lo = np.float32(dr2_wide - np.float64(dr2_hi))
+    return inv_dr, dr2_hi, dr2_lo
+
+
+@lru_cache(maxsize=None)
+def _half_table(n_cells_dim):
+    """``(n_cells, 14)`` int32 half-shell table: the home cell, then the
+    13 positive-lexicographic offsets in {-1, 0, 1}^3, wrapped.  With
+    at least 3 cells per axis every unordered cell pair appears once."""
+
+    dims = tuple(int(n) for n in n_cells_dim)
+    if any(n < 3 for n in dims):
+        raise ValueError("The half-shell table needs >= 3 cells per axis.")
+    grids = np.meshgrid(*[np.arange(n) for n in dims], indexing="ij")
+    offsets = list(itertools.product((-1, 0, 1), repeat=3))
+    half = [(0, 0, 0)] + [o for o in offsets if o > (0, 0, 0)]
+    cols = []
+    for o in half:
+        c = np.zeros(dims, dtype=np.int64)
+        for ax in range(3):
+            stride = int(np.prod(dims[ax + 1:]))
+            c = c + ((grids[ax] + o[ax]) % dims[ax]) * stride
+        cols.append(c.reshape(-1))
+    return np.stack(cols, axis=-1).astype(np.int32)
+
+
+def _slot_table(positions, n_cells_dim, capacity, cell_size):
+    """Batched cell build: cell ids, a stable ``argsort``,
+    ``searchsorted`` cell starts and a padded gather.
+
+    ``positions`` ``(B, N, 3)`` float32, ``cell_size`` ``(B, 3)``
+    float32.  Returns the ``(B, n_cells * capacity, 4)`` slot table
+    (xyz, atom id; slots past a cell's occupancy hold neighbouring
+    atoms, which the kernel masks), the ``(B, n_cells)`` int32
+    occupancy and the ``(B,)`` maximum occupancy."""
+
+    nx, ny, nz = n_cells_dim
+    n_cells = nx * ny * nz
+    b, n, _ = positions.shape
+    device = positions.device
+    hi = torch.tensor([nx - 1, ny - 1, nz - 1], dtype=torch.int32,
+                      device=device)
+    cell_xyz = (positions / cell_size[:, None, :]).to(torch.int32)
+    cell_xyz = torch.minimum(torch.clamp(cell_xyz, min=0), hi)
+    cid = (cell_xyz[..., 0] * ny + cell_xyz[..., 1]) * nz + cell_xyz[..., 2]
+    order = torch.argsort(cid, dim=1, stable=True)
+    sorted_cid = torch.gather(cid, 1, order).contiguous()
+    cells = torch.arange(n_cells, dtype=torch.int32, device=device)
+    cells = cells.expand(b, n_cells).contiguous()
+    starts = torch.searchsorted(sorted_cid, cells, side="left")
+    ends = torch.searchsorted(sorted_cid, cells, side="right")
+    occupancy = (ends - starts).to(torch.int32)
+
+    atom_id = torch.arange(n, dtype=torch.float32, device=device)
+    packed = torch.cat(
+        (positions, atom_id.expand(b, n)[..., None]), dim=-1
+    )
+    packed = torch.gather(packed, 1, order[..., None].expand(b, n, 4))
+    slots = torch.arange(capacity, device=device)
+    index = torch.clamp(starts[:, :, None] + slots, max=n - 1)
+    index = index.reshape(b, n_cells * capacity)
+    table = torch.gather(packed, 1, index[..., None].expand(-1, -1, 4))
+    return table.contiguous(), occupancy, occupancy.amax(dim=1)
+
+
+def _cell_sweep_ok(extents, n_cells_dim, r_max):
+    """``(B,)`` bool: is the reach-1 sweep complete for each frame's
+    box?  Every cell must be at least ``r_max`` wide, except along axes
+    of exactly 3 cells, where the sweep already spans the whole axis."""
+
+    dims = torch.tensor(n_cells_dim, dtype=torch.float32,
+                        device=extents.device)
+    whole_axis = torch.tensor([n <= 3 for n in n_cells_dim],
+                              device=extents.device)
+    # Python floats of float32 values: weak scalars, float32 products.
+    wide_enough = (
+        extents * float(np.float32(1 + 1e-6))
+        >= dims * float(np.float32(r_max))
+    )
+    return (wide_enough | whole_axis).all(dim=-1)
+
+
+def _bin_index(d2, consts, n_bins):
+    """Exact bin index from a double-float ``d2`` (the ``"zero"`` branch
+    of ``_exact_index_from_d2``); ``n_bins`` or above means out of
+    range."""
+
+    inv_dr, dr2_hi, dr2_lo = consts
+    est = torch.sqrt(torch.clamp(d2[0], min=0.0)) * inv_dr
+    # Clamp before the truncating cast: far pairs of huge boxes stay in
+    # int32 range, and trunc(min(x, n)) == min(trunc(x), n) for x >= 0.
+    idx = torch.clamp(est, max=float(n_bins)).to(torch.int32)
+    zero = torch.zeros_like(d2[0])
+
+    def boundary(k):
+        k2 = (k * k).to(torch.float32)
+        bh, bl = two_prod(k2, dr2_hi)
+        return df_add((zero, zero), (bh, bl + k2 * dr2_lo))
+
+    return (
+        idx
+        + df_ge(d2, boundary(idx + 1)).to(torch.int32)
+        - df_lt(d2, boundary(idx)).to(torch.int32)
+    )
+
+
+def cell_pair_histogram_reference(
+    positions, *, box, r_max, n_cells_dim, capacity, n_bins,
+):
+    """Plain-torch version of the kernel: the same slot table, the same
+    half-shell sweep and masks, the same exact binning; integer counts
+    equal the kernel's.  Arguments and returns as
+    :func:`cell_pair_histogram`."""
+
+    positions, box, dims = _check_inputs(positions, box, n_cells_dim)
+    b = positions.shape[0]
+    device = positions.device
+    n_cells = int(np.prod(dims))
+    table, occupancy, max_occ = _slot_table(
+        positions, dims, capacity, box / torch.tensor(
+            dims, dtype=torch.float32, device=device)
+    )
+    nbr = torch.as_tensor(_half_table(dims), device=device).long()
+    consts = tuple(
+        f32_constant(c, device)
+        for c in _bin_boundary_constants(r_max, n_bins)
+    )
+    slots = torch.arange(capacity, device=device)
+    upper = slots[:, None] < slots[None, :]
+    # home cells per step: bounds each (cells, cap, cap) temporary
+    chunk = max(1, (1 << 22) // (capacity * capacity))
+    counts = torch.zeros((b, n_bins + 1), dtype=torch.int64, device=device)
+    blocks = table.reshape(b, n_cells, capacity, 4)
+    for f in range(b):
+        occ = torch.clamp(occupancy[f], max=capacity)
+        for c0 in range(0, n_cells, chunk):
+            home = torch.arange(c0, min(c0 + chunk, n_cells), device=device)
+            ip = blocks[f, home]
+            i_valid = slots[None, :] < occ[home][:, None]
+            for entry in range(N_HALF):
+                other = nbr[home, entry]
+                jp = blocks[f, other]
+                j_valid = slots[None, :] < occ[other][:, None]
+                d2 = _exact_d2_orthorhombic(
+                    ip[:, :, None, :3], jp[:, None, :, :3], box[f]
+                )
+                idx = _bin_index(d2, consts, n_bins)
+                valid = (
+                    i_valid[:, :, None] & j_valid[:, None, :]
+                    & (idx < n_bins)
+                )
+                if entry == 0:
+                    valid = valid & upper
+                idx = torch.where(valid, idx, n_bins).long()
+                counts[f] += torch.bincount(
+                    idx.reshape(-1), minlength=n_bins + 1
+                )
+    return _finish(counts[:, :n_bins], box, dims, r_max), max_occ
+
+
+def _check_inputs(positions, box, n_cells_dim):
+    positions = torch.as_tensor(positions)
+    if positions.ndim == 2:
+        positions = positions[None]
+    if positions.ndim != 3 or positions.shape[-1] != 3:
+        raise ValueError("positions must have shape (B, N, 3) or (N, 3).")
+    positions = positions.to(torch.float32).contiguous()
+    box = torch.as_tensor(box, device=positions.device)
+    box = box.to(torch.float32).reshape(-1, 3)
+    box = box.expand(positions.shape[0], 3).contiguous()
+    dims = tuple(int(n) for n in n_cells_dim)
+    if len(dims) != 3:
+        raise ValueError("n_cells_dim must have 3 entries.")
+    return positions, box, dims
+
+
+def _finish(counts, box, dims, r_max):
+    """Double the half-shell counts (ordered-pair convention) and
+    NaN-poison frames whose box invalidates the planned grid."""
+
+    counts = counts.to(torch.float64) * 2.0
+    ok = _cell_sweep_ok(box, dims, r_max)
+    return torch.where(ok[:, None], counts, torch.nan)
+
+
+def cell_pair_histogram(
+    positions, *, box, r_max, n_cells_dim, capacity, n_bins,
+):
+    r"""Self pair-distance histogram on ``[0, r_max]`` through the cell
+    list; returns ``(counts, max_occupancy)``.
+
+    Parameters
+    ----------
+    positions : `torch.Tensor`
+        Coordinates ``(B, N, 3)`` (or one frame ``(N, 3)``), cast to
+        float32, wrapped into the box.
+    box : `torch.Tensor` or array-like
+        Orthorhombic box lengths, ``(3,)`` or per frame ``(B, 3)``.
+    r_max : `float`
+        Histogram range ``[0, r_max]``.
+    n_cells_dim, capacity
+        A plan from :func:`cell_plan_search`.
+    n_bins : `int`
+        Number of uniform bins.
+
+    Returns
+    -------
+    counts : `torch.Tensor`
+        float64 ``(B, n_bins)`` ordered-pair counts (each unordered pair
+        counted twice), NaN for frames whose box shrank below
+        ``n_cells_dim * r_max``.
+    max_occupancy : `torch.Tensor`
+        int32 ``(B,)`` densest-cell occupancy; above ``capacity`` means
+        the counts are incomplete (:class:`CellCapacityOverflow`).
+
+    A CUDA tensor launches the kernel (and adds one to
+    ``cell_pair_histogram.launches``); a CPU tensor runs
+    :func:`cell_pair_histogram_reference`.
+    """
+
+    positions = torch.as_tensor(positions)
+    if positions.device.type == "cpu":
+        return cell_pair_histogram_reference(
+            positions, box=box, r_max=r_max, n_cells_dim=n_cells_dim,
+            capacity=capacity, n_bins=n_bins,
+        )
+    if positions.device.type != "cuda":
+        raise ValueError(
+            f"cell_pair_histogram runs on CUDA or CPU tensors, not "
+            f"{positions.device.type}."
+        )
+    positions, box, dims = _check_inputs(positions, box, n_cells_dim)
+    b = positions.shape[0]
+    device = positions.device
+    n_cells = int(np.prod(dims))
+    table, occupancy, max_occ = _slot_table(
+        positions, dims, capacity, box / torch.tensor(
+            dims, dtype=torch.float32, device=device)
+    )
+    nbr = torch.as_tensor(_half_table(dims), device=device).contiguous()
+    occupancy = occupancy.contiguous()
+    out = torch.zeros((b, n_bins), dtype=torch.int64, device=device)
+    inv_dr, dr2_hi, dr2_lo = _bin_boundary_constants(r_max, n_bins)
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = lib.cell_pair_histogram_launch(
+            table.data_ptr(), occupancy.data_ptr(),
+            nbr.data_ptr(), box.data_ptr(), out.data_ptr(),
+            b, n_cells, N_HALF, int(capacity), int(n_bins),
+            float(inv_dr), float(dr2_hi), float(dr2_lo), stream,
+        )
+    _build.check(status, "cell_pair_histogram kernel launch")
+    cell_pair_histogram.launches += 1
+    return _finish(out, box, dims, r_max), max_occ
+
+
+#: kernel launches made by :func:`cell_pair_histogram` (CUDA tensors
+#: only); a run sets it to 0 and reads it back to show that its main
+#: path went through the kernel.
+cell_pair_histogram.launches = 0

@@ -1,0 +1,150 @@
+"""
+Brute-force pair-distance histogram
+===================================
+
+Torch counterpart of the exact orthorhombic part of
+:mod:`mdhelper_tpu.ops.histogram`: squared minimum-image distances of
+float32 coordinates in error-free double-float arithmetic, and
+``numpy.histogram``-compatible binning against the exact uniform edges
+(bin k is ``[e_k, e_{k+1})``, the last bin closed).
+
+This all-pairs sweep is the port's oracle: the tests and
+``chip_smoke.py`` hold the cell-list kernel
+(:mod:`mdhelper_tpu_torch.ops.cuda_cell_histogram`) against it, the way
+the JAX package holds its Pallas kernel against the XLA sweep.
+"""
+
+import numpy as np
+import torch
+
+from .doublefloat import (
+    df_add,
+    df_ge,
+    df_lt,
+    df_sub,
+    df_sum3,
+    df_square,
+    f32_constant,
+    two_diff,
+    two_prod,
+)
+
+__all__ = ["radial_histogram_frame"]
+
+
+def _exact_d2_orthorhombic(p1, p2, box):
+    """Squared minimum-image distances in double-float.  Assumes
+    wrapped inputs (image multiple in {-1, 0, 1}, so ``m * box`` is
+    exact).  ``p1``/``p2`` are broadcast-compatible ``(..., 3)`` float32
+    tensors; ``box`` is a float32 ``(3,)`` tensor."""
+
+    components = []
+    for k in range(3):
+        s, e = two_diff(p1[..., k], p2[..., k])
+        # torch.round rounds half to even, like jnp.round.
+        m = torch.round(s / box[k])
+        d = df_sub((s, e), (m * box[k], torch.zeros_like(s)))
+        components.append(df_square(d))
+    return df_sum3(*components)
+
+
+def _uniform_edge_constants(edges, device):
+    """Double-float splits of the uniform-edge constants ``e0^2``,
+    ``2 e0 h`` and ``h^2`` (from the float64 edges), with the float32
+    ``e0`` and ``1 / h`` of the index estimate."""
+
+    edges = np.asarray(edges, dtype=np.float64)
+    n_bins = len(edges) - 1
+    e0 = edges[0]
+    h = (edges[-1] - edges[0]) / n_bins
+
+    def split(x):
+        hi = np.float32(x)
+        return (f32_constant(hi, device),
+                f32_constant(x - np.float64(hi), device))
+
+    return (
+        split(e0 * e0),
+        split(2.0 * e0 * h),
+        split(h * h),
+        f32_constant(e0, device),
+        f32_constant(1.0 / h, device),
+    )
+
+
+def _exact_bin_indices(p1, p2, box, edges):
+    """Exact bin index of every pair of the ``(N1, N2)`` block (spill
+    index ``n_bins`` for out-of-range pairs), replicating
+    ``mdhelper_tpu.ops.histogram._exact_bin_indices`` operation for
+    operation."""
+
+    n_bins = len(edges) - 1
+    device = p1.device
+    c0, c1, c2, e0_f32, inv_h = _uniform_edge_constants(edges, device)
+    d2 = _exact_d2_orthorhombic(p1[:, None, :], p2[None, :, :], box)
+
+    def boundary(k):
+        kf = k.to(torch.float32)
+        k2 = kf * kf
+        t1 = two_prod(kf, c1[0])
+        t2 = two_prod(k2, c2[0])
+        acc = df_add(c0, (t1[0], t1[1] + kf * c1[1]))
+        return df_add(acc, (t2[0], t2[1] + k2 * c2[1]))
+
+    dist = torch.sqrt(torch.clamp(d2[0], min=0.0))
+    # float -> int32 truncates toward zero, like convert_element_type.
+    idx = torch.clamp(((dist - e0_f32) * inv_h).to(torch.int32), 0, n_bins)
+    idx = (
+        idx
+        + df_ge(d2, boundary(idx + 1)).to(torch.int32)
+        - df_lt(d2, boundary(idx)).to(torch.int32)
+    )
+    b_last = boundary(torch.full_like(idx, n_bins))
+    b_first = boundary(torch.zeros_like(idx))
+    at_last = (d2[0] == b_last[0]) & (d2[1] == b_last[1])
+    in_range = df_ge(d2, b_first) & (df_lt(d2, b_last) | at_last)
+    return torch.where(
+        in_range, torch.clamp(idx, max=n_bins - 1), n_bins
+    )
+
+
+def radial_histogram_frame(pos1, pos2, box, edges, *, exclusion=None,
+                           tile=2048):
+    r"""Exact all-pairs histogram of one frame's minimum-image distances.
+
+    Parameters
+    ----------
+    pos1, pos2 : `torch.Tensor`
+        float32 positions ``(N1, 3)`` and ``(N2, 3)``, wrapped into the
+        box.
+    box : `torch.Tensor`
+        float32 orthorhombic box lengths ``(3,)``.
+    edges : array-like
+        Uniform float64 bin edges ``(n_bins + 1,)``.
+    exclusion : `tuple`, optional
+        ``(e0, e1)``: drop pairs with ``i // e0 == j // e1``.
+    tile : `int`
+        Rows of ``pos1`` per pair block (bounds memory).
+
+    Returns
+    -------
+    counts : `torch.Tensor`
+        int64 counts ``(n_bins,)``.
+    """
+
+    n_bins = len(edges) - 1
+    pos1 = pos1.to(torch.float32)
+    pos2 = pos2.to(torch.float32)
+    box = box.to(torch.float32)
+    counts = torch.zeros(n_bins + 1, dtype=torch.int64, device=pos1.device)
+    j_idx = torch.arange(pos2.shape[0], device=pos1.device)
+    for i0 in range(0, pos1.shape[0], tile):
+        a = pos1[i0:i0 + tile]
+        idx = _exact_bin_indices(a, pos2, box, edges)
+        if exclusion is not None:
+            e0, e1 = exclusion
+            i_idx = torch.arange(i0, i0 + a.shape[0], device=pos1.device)
+            keep = (i_idx[:, None] // e0) != (j_idx[None, :] // e1)
+            idx = torch.where(keep, idx, n_bins)
+        counts += torch.bincount(idx.reshape(-1), minlength=n_bins + 1)
+    return counts[:n_bins]

@@ -1,0 +1,46 @@
+"""
+Test inputs and float64 oracles
+===============================
+
+NumPy helpers shared by the port's tests and ``chip_smoke.py``: the
+bin-edge straddle fixture and the float64 all-pairs histogram the
+cell-list kernel is held against.
+"""
+
+import numpy as np
+
+__all__ = ["edge_straddle_positions", "f64_pair_histogram"]
+
+
+def edge_straddle_positions(rng, box):
+    """float32 positions ``(390, 3)`` in a cubic box of side ``box``
+    (at least 4): 300 uniform atoms, and 90 partners placed along x at
+    the bin edge 1.25 from the first 90 of them -- 30 exactly at it, 30
+    one float32 ulp below and 30 one ulp above (the construction of
+    ``tests/test_analysis_structure.py``).  The 90 anchors sit at least
+    2 from the upper x face, so their partners stay wrapped."""
+
+    pos = (rng.random((300, 3)) * box).astype(np.float32)
+    pos[:90, 0] = pos[:90, 0] * np.float32((box - 2.0) / box)
+    seps = np.float32(
+        [1.25, np.nextafter(1.25, 0, dtype=np.float32),
+         np.nextafter(1.25, 2, dtype=np.float32)]
+    )
+    partners = np.concatenate(
+        [pos[30 * i:30 * (i + 1)] + np.array([s, 0, 0], np.float32)
+         for i, s in enumerate(seps)]
+    ).astype(np.float32)
+    return np.concatenate((pos, partners))
+
+
+def f64_pair_histogram(pos, box, r_max, n_bins):
+    """float64 minimum-image histogram on ``[0, r_max]`` of all ordered
+    pairs of the float32 positions ``pos`` ``(N, 3)`` (self pairs
+    dropped), in a cubic box of side ``box``."""
+
+    p64 = pos.astype(np.float64)
+    d = p64[:, None] - p64[None]
+    d -= box * np.round(d / box)
+    dist = np.sqrt((d**2).sum(-1))
+    dist[np.arange(len(pos)), np.arange(len(pos))] = np.inf
+    return np.histogram(dist, bins=n_bins, range=(0.0, r_max))[0]
