@@ -5,14 +5,20 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``mdhelper_tpu_torch/csrc`` with
-nvcc, holds each kernel against its plain-torch version on the card at
-the main path's shapes, then drives the main path once -- the fused
-RDF + S(q) + MSD pass of 100k atoms through
-``mdhelper_tpu_torch.analysis.multi.run_together`` -- and checks its
-results.  Every check raises on failure, so any failed phase exits
-non-zero.  The last lines of standard output are the card's name and
-power limit, a JSON line of per-kernel measurements, and
-``{"ok": true, "device": {...}}``.
+nvcc (one process per source, in parallel) and holds each kernel
+against its plain-torch version on the card: the self kernel at the
+fused path's shape, the cross kernel at the cross-RDF and Van Hove
+shapes, both at 400k atoms (where the JAX package runs its streaming
+kernels), and both on the bin-edge straddle fixtures and the (2, 3)
+molecule-exclusion fixture against float64 oracles.  Then it drives
+three paths through ``mdhelper_tpu_torch.analysis.multi.run_together``
+at 100k atoms, each with the launch counts set to 0 just before it and
+read just after: the fused RDF + S(q) + MSD pass, the cross RDF of two
+50k groups, and the Van Hove function over a 64-frame ring with 21 log
+lags; and it checks their results.  Every check raises on failure, so
+any failed phase exits non-zero.  The last lines of standard output are
+the card's name and power limit, a JSON line of per-kernel
+measurements, and ``{"ok": true, "device": {...}}``.
 
 Imports neither JAX nor the JAX package.
 """
@@ -33,6 +39,11 @@ BOX = float(N_ATOMS / 0.8) ** (1 / 3)  # LJ-liquid density 0.8: 50.0
 R_MAX, N_BINS = 6.0, 200
 N_QPTS = 24
 CHUNK, N_FRAMES = 8, 8 + 32
+# The new paths' depths (bench.py: one warm-up chunk + N_FRAMES), and
+# the Van Hove ring and lag grid.
+RDF_FRAMES, VH_FRAMES, VH_LAGS = 8 + 48, 8 + 96, 64
+# Where the JAX package streams both cell sweeps (tables over 12 MB).
+STREAM_ATOMS = 400_000
 SEED = 2026
 
 
@@ -65,8 +76,91 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def kernel_vs_plain(kernel, plain, n_frames, what):
+    """Run a kernel wrapper and its plain version on the same inputs
+    (each a no-argument call returning ``(counts, *occupancies)``),
+    check that every output is equal as integers, then time them in
+    turns -- plain, kernel, kernel, plain -- in ms per frame."""
+
+    import torch
+
+    k_out, p_out = kernel(), plain()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(k_out[0]).all()), f"{what}: counts not finite")
+    for k, p in zip(k_out, p_out):
+        check(torch.equal(k, p), f"{what}: kernel differs from plain")
+    max_abs_err = float((k_out[0] - p_out[0]).abs().max())
+    plain_ms = [time_ms(plain, 1)]
+    kernel_ms = [time_ms(kernel, 5) for _ in range(2)]
+    plain_ms.append(time_ms(plain, 1))
+    out = {
+        "max_abs_err": max_abs_err,
+        "ms": float(np.mean(kernel_ms)) / n_frames,
+        "plain_ms": float(np.mean(plain_ms)) / n_frames,
+    }
+    print(f"{what}: {int(k_out[0].sum())} pairs in [0, r_max) over "
+          f"{n_frames} frame(s), kernel == plain; per frame kernel "
+          f"{out['ms']:.3f} ms (runs "
+          f"{[round(x / n_frames, 3) for x in kernel_ms]}), plain torch "
+          f"{out['plain_ms']:.3f} ms (runs "
+          f"{[round(x / n_frames, 3) for x in plain_ms]})")
+    return out, k_out
+
+
+def self_kernel_vs_plain(device, rng, n_atoms, n_frames):
+    """The self kernel against its plain version on uniform frames of
+    `n_atoms` at density 0.8 (box from the count)."""
+
+    import torch
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    box = float(n_atoms / 0.8) ** (1 / 3)
+    plan = cch.cell_plan_search(n_atoms, [box] * 3, R_MAX)
+    frames = torch.from_numpy(
+        (rng.random((n_frames, n_atoms, 3)) * box).astype(np.float32)
+    ).to(device)
+    args = dict(box=(box,) * 3, r_max=R_MAX,
+                n_cells_dim=plan["n_cells_dim"],
+                capacity=plan["capacity"], n_bins=N_BINS)
+    out, (_, occ) = kernel_vs_plain(
+        lambda: cch.cell_pair_histogram(frames, **args),
+        lambda: cch.cell_pair_histogram_reference(frames, **args),
+        n_frames,
+        f"self kernel, {n_atoms} atoms, plan {plan['n_cells_dim']} "
+        f"capacity {plan['capacity']}",
+    )
+    check(int(occ.max()) <= plan["capacity"], "capacity overflow")
+    return out
+
+
+def cross_kernel_vs_plain(frames1, frames2, box, what, exclusion=None):
+    """The cross kernel against its plain version on the given
+    (B, N1, 3) and (B, N2, 3) device frames in a cubic box."""
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    plan = cch.cell_plan_search(frames1.shape[1], [box] * 3, R_MAX,
+                                n_atoms2=frames2.shape[1])
+    args = dict(box=(box,) * 3, r_max=R_MAX,
+                n_cells_dim=plan["n_cells_dim"],
+                capacity1=plan["capacity"], capacity2=plan["capacity2"],
+                n_bins=N_BINS, exclusion=exclusion)
+    out, (_, occ1, occ2) = kernel_vs_plain(
+        lambda: cch.cross_pair_histogram(frames1, frames2, **args),
+        lambda: cch.cross_pair_histogram_reference(frames1, frames2,
+                                                   **args),
+        frames1.shape[0],
+        f"{what}, plan {plan['n_cells_dim']} capacities "
+        f"{plan['capacity']}/{plan['capacity2']}",
+    )
+    check(int(occ1.max()) <= plan["capacity"]
+          and int(occ2.max()) <= plan["capacity2"], "capacity overflow")
+    return out
+
+
 def phase_kernels(device, rng):
-    """Kernel vs plain version at the main path's shape and on the
+    """Self kernel vs plain version at the main path's shape and on the
     edge-straddle fixture."""
 
     import torch
@@ -77,38 +171,7 @@ def phase_kernels(device, rng):
         f64_pair_histogram,
     )
 
-    plan = cch.cell_plan_search(N_ATOMS, [BOX] * 3, R_MAX)
-    frames = torch.from_numpy(
-        (rng.random((2, N_ATOMS, 3)) * BOX).astype(np.float32)
-    ).to(device)
-    args = dict(box=(BOX,) * 3, r_max=R_MAX,
-                n_cells_dim=plan["n_cells_dim"],
-                capacity=plan["capacity"], n_bins=N_BINS)
-    kernel, occ = cch.cell_pair_histogram(frames, **args)
-    plain, plain_occ = cch.cell_pair_histogram_reference(frames, **args)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(kernel).all()), "kernel counts not finite")
-    check(int(occ.max()) <= plan["capacity"], "capacity overflow")
-    check(torch.equal(occ, plain_occ), "occupancy differs")
-    check(torch.equal(kernel, plain),
-          "kernel counts differ from the plain version")
-    max_abs_err = float((kernel - plain).abs().max())
-    print(f"cell plan {plan['n_cells_dim']} capacity {plan['capacity']}: "
-          f"{int(kernel.sum())} ordered pairs in [0, {R_MAX}) over 2 "
-          "frames; kernel == plain")
-
-    # In turns: plain, kernel, kernel, plain (ms per 2-frame call).
-    plain_ms = [time_ms(lambda: cch.cell_pair_histogram_reference(
-        frames, **args), 1)]
-    kernel_ms = [time_ms(lambda: cch.cell_pair_histogram(frames, **args), 5)
-                 for _ in range(2)]
-    plain_ms.append(time_ms(lambda: cch.cell_pair_histogram_reference(
-        frames, **args), 1))
-    ms = float(np.mean(kernel_ms)) / 2
-    p_ms = float(np.mean(plain_ms)) / 2
-    print(f"cell_pair_histogram per frame: kernel {ms:.3f} ms "
-          f"(runs {[round(x / 2, 3) for x in kernel_ms]}), plain torch "
-          f"{p_ms:.3f} ms (runs {[round(x / 2, 3) for x in plain_ms]})")
+    timing = self_kernel_vs_plain(device, rng, N_ATOMS, 2)
 
     box_s, r_s, bins_s = 16.0, 4.0, 16
     fixture = edge_straddle_positions(rng, box_s)
@@ -125,7 +188,94 @@ def phase_kernels(device, rng):
                          f64_pair_histogram(fixture, box_s, r_s, bins_s)),
           "straddle fixture: kernel != float64 oracle")
     print("edge-straddle fixture: kernel == plain == float64 oracle")
-    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": p_ms}
+    return timing
+
+
+def phase_cross_kernels(device, rng):
+    """Cross kernel vs plain version at the two new paths' shapes, on
+    the (2, 3) molecule-exclusion fixture and on the cross straddle
+    fixture (both also against the float64 oracle)."""
+
+    import torch
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+    from mdhelper_tpu_torch.testing import (
+        edge_straddle_cross_positions,
+        f64_cross_histogram,
+    )
+
+    def uniform(n_frames, n_atoms, box):
+        return torch.from_numpy(
+            (rng.random((n_frames, n_atoms, 3)) * box).astype(np.float32)
+        ).to(device)
+
+    frames = uniform(2, N_ATOMS, BOX)
+    timing = {
+        "rdf": cross_kernel_vs_plain(
+            frames[:, 0::2].contiguous(), frames[:, 1::2].contiguous(), BOX,
+            f"cross kernel, cross-RDF shape {N_ATOMS // 2} x "
+            f"{N_ATOMS // 2}",
+        ),
+        # Two different frames of the same atoms, as the Van Hove
+        # distinct part compares them.
+        "vanhove": cross_kernel_vs_plain(
+            frames[:1], frames[1:], BOX,
+            f"cross kernel, Van Hove shape {N_ATOMS} x {N_ATOMS}, "
+            "exclusion (1, 1)", exclusion=(1, 1),
+        ),
+    }
+
+    fixtures = {
+        "molecule-exclusion (2, 3) fixture": (
+            uniform(1, 600, 16.0)[0], uniform(1, 900, 16.0)[0],
+            16.0, 3.5, 96, (2, 3),
+        ),
+        "cross straddle fixture": (
+            *(torch.from_numpy(p).to(device)
+              for p in edge_straddle_cross_positions(rng, 16.0)),
+            16.0, 4.0, 16, None,
+        ),
+    }
+    for what, (p1, p2, box, r_max, n_bins, ex) in fixtures.items():
+        plan = cch.cell_plan_search(len(p1), [box] * 3, r_max,
+                                    n_atoms2=len(p2))
+        args = dict(box=(box,) * 3, r_max=r_max,
+                    n_cells_dim=plan["n_cells_dim"],
+                    capacity1=plan["capacity"],
+                    capacity2=plan["capacity2"], n_bins=n_bins,
+                    exclusion=ex)
+        k, _, _ = cch.cross_pair_histogram(p1, p2, **args)
+        p, _, _ = cch.cross_pair_histogram_reference(p1, p2, **args)
+        torch.cuda.synchronize()
+        check(torch.equal(k, p), f"{what}: kernel != plain")
+        oracle = f64_cross_histogram(p1.cpu().numpy(), p2.cpu().numpy(),
+                                     box, r_max, n_bins, ex)
+        check(np.array_equal(k[0].cpu().numpy().astype(np.int64), oracle),
+              f"{what}: kernel != float64 oracle")
+        print(f"{what}: kernel == plain == float64 oracle "
+              f"({int(oracle.sum())} pairs)")
+    return timing
+
+
+def phase_stream_sizes(device, rng):
+    """Both kernels against their plain versions at 400k atoms, where
+    the JAX package's plans exceed its 12 MB resident-table budget and
+    run its streaming kernels."""
+
+    import torch
+
+    n = STREAM_ATOMS
+    box = float(n / 0.8) ** (1 / 3)
+    frames = torch.from_numpy(
+        (rng.random((1, n, 3)) * box).astype(np.float32)
+    ).to(device)
+    return {
+        "self": self_kernel_vs_plain(device, rng, n, 1),
+        "cross": cross_kernel_vs_plain(
+            frames[:, 0::2].contiguous(), frames[:, 1::2].contiguous(), box,
+            f"cross kernel, {n // 2} x {n // 2}",
+        ),
+    }
 
 
 def direct_msd(pos):
@@ -138,13 +288,13 @@ def direct_msd(pos):
     ])
 
 
-def slice_universe(rng):
-    """The main path's trajectory: N_FRAMES frames of N_ATOMS uniform
-    float32 atoms in the cubic box, as an in-memory universe."""
+def slice_universe(rng, n_frames=N_FRAMES):
+    """A path's trajectory: `n_frames` uncorrelated frames of N_ATOMS
+    uniform float32 atoms in the cubic box, as an in-memory universe."""
 
     from mdhelper_tpu_torch.core.universe import Universe
 
-    traj = rng.random((N_FRAMES, N_ATOMS, 3), dtype=np.float32) * np.float32(
+    traj = rng.random((n_frames, N_ATOMS, 3), dtype=np.float32) * np.float32(
         BOX
     )
     return traj, Universe.from_arrays(
@@ -181,9 +331,34 @@ def slice_analyses(u, device, parts=("rdf", "sq", "msd")):
     return analyses
 
 
-def run_timed(analyses):
-    """``run_together(analyses)``; returns frames/s clocked from the end
-    of the first chunk to the end of the conclusions."""
+def path_analysis(u, device, path):
+    """The analysis of one of slice 2's paths with the bench's
+    settings and CHUNK-frame chunks: ``"cross_rdf"`` (bench.py's cross
+    phase) or ``"vanhove"`` (its vanhove phase)."""
+
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+        VanHoveFunction,
+    )
+
+    if path == "cross_rdf":
+        analysis = RadialDistributionFunction(
+            u.atoms[0::2], u.atoms[1::2], n_bins=N_BINS,
+            range=(0.0, R_MAX), verbose=False, device=device,
+        )
+    else:
+        analysis = VanHoveFunction(
+            u.atoms, n_bins=N_BINS, range=(0.0, R_MAX), n_lags=VH_LAGS,
+            lags="log", verbose=False, device=device,
+        )
+    analysis._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
+    return analysis
+
+
+def run_timed(analyses, n_frames=N_FRAMES):
+    """``run_together(analyses)`` over `n_frames` frames; returns
+    frames/s clocked from the end of the first chunk to the end of the
+    conclusions."""
 
     import torch
 
@@ -197,7 +372,7 @@ def run_timed(analyses):
         marks.append(time.perf_counter())
 
     run_together(analyses, on_chunk=on_chunk)
-    return (N_FRAMES - CHUNK) / (time.perf_counter() - marks[0])
+    return (n_frames - CHUNK) / (time.perf_counter() - marks[0])
 
 
 def phase_slice(device, rng):
@@ -257,6 +432,100 @@ def phase_slice(device, rng):
     return launches, fps
 
 
+def phase_cross_rdf(device, rng):
+    """The cross-RDF path: run_together([RDF(u.atoms[0::2],
+    u.atoms[1::2])]) at 100k atoms, the bench's cross phase uncut."""
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    _, u = slice_universe(rng, RDF_FRAMES)
+    rdf = path_analysis(u, device, "cross_rdf")
+    cch.cross_pair_histogram.launches = 0
+    fps = run_timed([rdf], RDF_FRAMES)
+    launches = cch.cross_pair_histogram.launches
+    n_chunks = -(-RDF_FRAMES // CHUNK)
+    check(launches == n_chunks,
+          f"{launches} cross kernel launches for {n_chunks} chunks")
+    g = rdf.results.rdf
+    check(np.all(np.isfinite(g)) and g.shape == (N_BINS,), "g(r) shape")
+    check(np.all(np.abs(g[-20:] - 1.0) < 0.02),
+          f"cross g(r) tail off 1: {g[-20:]}")
+    print(f"cross RDF: {N_ATOMS // 2} x {N_ATOMS // 2} atoms, "
+          f"{RDF_FRAMES} frames in chunks of {CHUNK}, {launches} launches; "
+          f"g(r) tail mean {g[-20:].mean():.5f}")
+    return launches, fps
+
+
+def phase_vanhove(device, rng):
+    """The Van Hove path: run_together([VanHoveFunction(u.atoms,
+    n_lags=64, lags="log")]) at 100k atoms, the bench's vanhove phase
+    uncut, on uncorrelated uniform frames."""
+
+    import torch
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    traj, u = slice_universe(rng, VH_FRAMES)
+    vh = path_analysis(u, device, "vanhove")
+    cch.cross_pair_histogram.launches = 0
+    fps = run_timed([vh], VH_FRAMES)
+    launches = cch.cross_pair_histogram.launches
+    lags = np.rint(vh.results.times).astype(int)  # dt = 1, step 1
+    sweeps = int(sum(np.sum(lags <= f) for f in range(VH_FRAMES)))
+    # One launch a frame over all of its lags; lag 0 serves every frame.
+    check(launches == VH_FRAMES,
+          f"{launches} cross kernel launches for {VH_FRAMES} frames")
+    check(len(lags) == 21, f"{len(lags)} lags, not 21")
+
+    # Lag 0: every unordered pair in both orders, with the same d^2, so
+    # the distinct counts equal the self kernel's ordered-pair counts.
+    plan = cch.cell_plan_search(N_ATOMS, [BOX] * 3, R_MAX)
+    self_counts = torch.zeros(N_BINS, dtype=torch.float64, device=device)
+    box = torch.full((3,), BOX, dtype=torch.float32, device=device)
+    for lo in range(0, VH_FRAMES, CHUNK):
+        pos = torch.from_numpy(traj[lo:lo + CHUNK]).to(device)
+        pos = pos - box * torch.floor(pos / box)  # the path's wrap
+        counts, _ = cch.cell_pair_histogram(
+            pos, box=box, r_max=R_MAX, n_cells_dim=plan["n_cells_dim"],
+            capacity=plan["capacity"], n_bins=N_BINS,
+        )
+        self_counts += counts.sum(dim=0)
+    distinct = vh.results.counts_distinct
+    check(np.array_equal(distinct[0],
+                         self_counts.cpu().numpy().astype(np.int64)),
+          "lag-0 distinct counts != self kernel counts")
+
+    counts_self = vh.results.counts_self
+    check(counts_self[0, 0] == N_ATOMS * VH_FRAMES
+          and counts_self[0, 1:].sum() == 0,
+          "lag-0 self counts not all in bin 0")
+    # Uncorrelated uniform frames: each minimum-image component is
+    # uniform on [-L/2, L/2], so <r^2> = 3 L^2 / 12.
+    msd = vh.results.msd
+    check(msd[0] == 0 and np.all(np.abs(msd[1:] / (BOX**2 / 4) - 1) < 0.01),
+          f"msd off L^2/4: {msd}")
+    gd = vh.results.gd
+    check(np.all(np.isfinite(gd)) and np.all(np.abs(gd[:, -20:] - 1) < 0.02),
+          "distinct g(r, t) tail off 1")
+    # The longest lag's self counts against float64 numpy, every origin.
+    lag = int(lags[-1])
+    ref = np.zeros(N_BINS, dtype=np.int64)
+    for t in range(VH_FRAMES - lag):
+        d = traj[t + lag].astype(np.float64) - traj[t].astype(np.float64)
+        d -= BOX * np.round(d / BOX)
+        ref += np.histogram(np.sqrt((d**2).sum(-1)), bins=N_BINS,
+                            range=(0.0, R_MAX))[0]
+    check(np.array_equal(counts_self[-1], ref),
+          f"lag-{lag} self counts != float64 numpy")
+    print(f"Van Hove: {N_ATOMS} atoms, {VH_FRAMES} frames in chunks of "
+          f"{CHUNK}, {len(lags)} lags (ring {VH_LAGS}), {sweeps} distinct "
+          f"sweeps in {launches} launches; lag-0 distinct == self kernel; "
+          f"msd/(L^2/4) in [{msd[1:].min() / (BOX**2 / 4):.5f}, "
+          f"{msd[1:].max() / (BOX**2 / 4):.5f}]; lag-{lag} self counts == "
+          "float64 numpy")
+    return launches, fps
+
+
 def main():
     import torch
 
@@ -274,22 +543,53 @@ def main():
     print(info["log"].strip())
 
     rng = np.random.default_rng(SEED)
-    timing = phase_kernels(device, rng)
+    self_timing = phase_kernels(device, rng)
+    cross_timing = phase_cross_kernels(device, rng)
+    stream_timing = phase_stream_sizes(device, rng)
     launches, fps = phase_slice(device, rng)
     print(f"fused RDF+S(q)+MSD: {fps:.3f} frames/s on {card} "
           "(information, not a claim)")
+    rdf_launches, rdf_fps = phase_cross_rdf(device, rng)
+    print(f"cross RDF: {rdf_fps:.3f} frames/s on {card} "
+          "(information, not a claim)")
+    vh_launches, vh_fps = phase_vanhove(device, rng)
+    print(f"Van Hove: {vh_fps:.3f} frames/s on {card} "
+          "(information, not a claim)")
 
+    source = "mdhelper_tpu_torch/csrc/{}.cu"
+    tpu = "mdhelper_tpu/ops/pallas_cell_histogram.py:{}"
+    # Each entry names the TPU kernel that the JAX package runs at its
+    # shape: the resident-table kernels at 100k atoms, the streaming
+    # ones at 400k.  `launches` is the count of the path whose shape an
+    # entry times; the 400k entries, which no path runs, carry every
+    # path's count of that kernel.
+    rows = [
+        ("cell_pair_histogram", 1070, launches,
+         f"{N_ATOMS} atoms (fused path)", self_timing),
+        ("cell_pair_histogram", 1340, launches,
+         f"{STREAM_ATOMS} atoms", stream_timing["self"]),
+        ("cross_pair_histogram", 1916, rdf_launches,
+         f"{N_ATOMS // 2} x {N_ATOMS // 2} (cross-RDF path)",
+         cross_timing["rdf"]),
+        ("cross_pair_histogram", 1916, vh_launches,
+         f"{N_ATOMS} x {N_ATOMS}, exclusion (1, 1) (Van Hove path)",
+         cross_timing["vanhove"]),
+        ("cross_pair_histogram", 1486, rdf_launches + vh_launches,
+         f"{STREAM_ATOMS // 2} x {STREAM_ATOMS // 2}",
+         stream_timing["cross"]),
+    ]
     print(card)
     print(json.dumps({"kernels": [{
-        "name": "cell_pair_histogram",
+        "name": kernel,
         "route": "cuda",
-        "source": "mdhelper_tpu_torch/csrc/cell_pair_histogram.cu",
-        "replaces": "mdhelper_tpu/ops/pallas_cell_histogram.py:1070",
-        "launches": launches,
+        "source": source.format(kernel),
+        "replaces": tpu.format(line),
+        "shape": shape,
+        "launches": n,
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
-    }]}))
+    } for kernel, line, n, shape, timing in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count(),

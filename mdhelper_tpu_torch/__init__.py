@@ -8,11 +8,13 @@ The module layout mirrors the JAX package so each counterpart is easy
 to find; the JAX package stays the reference the port is tested
 against, and this package never imports it (nor JAX).
 
-The port currently covers the fused RDF + S(q) + MSD main path:
-:func:`mdhelper_tpu_torch.analysis.multi.run_together` over
+The port currently covers the fused RDF + S(q) + MSD main path
+(:func:`mdhelper_tpu_torch.analysis.multi.run_together` over
 :class:`~mdhelper_tpu_torch.analysis.structure.RadialDistributionFunction`,
 :class:`~mdhelper_tpu_torch.analysis.structure.StructureFactor` and
-:class:`~mdhelper_tpu_torch.analysis.transport.Onsager`.
+:class:`~mdhelper_tpu_torch.analysis.transport.Onsager`), the cross RDF
+of two disjoint groups, and
+:class:`~mdhelper_tpu_torch.analysis.structure.VanHoveFunction`.
 """
 
 from ._device import set_precision_policy

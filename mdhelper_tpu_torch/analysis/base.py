@@ -99,6 +99,20 @@ def carry_from_numpy(analysis, tree):
     return tuple(leaf(t, like) for t, like in zip(tree, template))
 
 
+def _check_even_frame_spacing(frames) -> int:
+    """Validate evenly spaced, forward-in-time frame selections (lag
+    rings and MSDs index time in frame steps); returns the frame
+    step."""
+
+    df = np.diff(frames)
+    if len(df) and (df[0] <= 0 or not np.allclose(df, df[0])):
+        raise ValueError(
+            "The selected frames must be evenly spaced and proceed "
+            "forward in time."
+        )
+    return int(df[0]) if len(df) else 1
+
+
 class SerialAnalysisBase:
     """Single-device streaming analysis driver.
 

@@ -42,7 +42,9 @@ def run_together(
         Per analysis, ``None`` or a carry of the JAX package's
         counterpart fetched as numpy, to continue a run that the JAX
         package started (see
-        :func:`~mdhelper_tpu_torch.analysis.base.carry_from_numpy`).
+        :func:`~mdhelper_tpu_torch.analysis.base.carry_from_numpy`);
+        an order-dependent carry, such as the Van Hove ring and its
+        frame counter, resumes where that run stopped.
 
     Returns
     -------

@@ -4,16 +4,21 @@ Structural analysis
 
 Ported from :mod:`mdhelper_tpu.analysis.structure`:
 
-* :class:`RadialDistributionFunction` for one group against itself in
-  an orthorhombic 3-D box with bins from 0, through the cell-list pair
-  histogram (:mod:`mdhelper_tpu_torch.ops.cuda_cell_histogram`): the
-  hand-written CUDA kernel on a GPU, its plain-torch version on the
-  CPU.  This cell route is the port's only RDF route.
+* :class:`RadialDistributionFunction` for one group against itself or
+  between two disjoint groups, in an orthorhombic 3-D box with bins
+  from 0, through the cell-list pair histograms
+  (:mod:`mdhelper_tpu_torch.ops.cuda_cell_histogram`): the hand-written
+  CUDA kernels on a GPU, their plain-torch versions on the CPU.  This
+  cell route is the port's only RDF route.
 * :class:`StructureFactor` over reciprocal-lattice wavevectors through
   the factorized trig sums (:mod:`mdhelper_tpu_torch.ops.factor_scattering`).
+* :class:`VanHoveFunction`, the self and distinct parts of
+  :math:`G(r, t)` over a ring of past frames: the exact displacement
+  histogram for the self part, the cross cell-list kernel for the
+  distinct part.
 
-Cross-group, triclinic, 2-D and offset-range RDFs and the direct and
-mesh S(q) methods are not ported yet.
+Overlapping-group, triclinic, 2-D and offset-range RDFs, COM groupings,
+and the direct and mesh S(q) methods are not ported yet.
 """
 
 import warnings
@@ -25,13 +30,16 @@ from ..ops.cuda_cell_histogram import (
     CellCapacityOverflow,
     cell_pair_histogram,
     cell_plan_search,
+    cross_pair_histogram,
 )
 from ..ops.factor_scattering import factor_plan, factor_trig_sums
-from .base import SerialAnalysisBase
+from ..ops.histogram import _min_image_distance, displacement_histogram_frame
+from .base import SerialAnalysisBase, _check_even_frame_spacing
 
 __all__ = [
     "RadialDistributionFunction",
     "StructureFactor",
+    "VanHoveFunction",
     "unique_wavenumber_groups",
     "group_mean_last_axis",
 ]
@@ -40,121 +48,26 @@ __all__ = [
 _NO_EXCESS = -(2**30)
 
 
-class RadialDistributionFunction(SerialAnalysisBase):
-    r"""Radial distribution function :math:`g(r)` of one group with
-    itself.
+class _CellPlanned(SerialAnalysisBase):
+    """Shared by the analyses on the cell-list kernels: the plan cache,
+    capacity escalation in :meth:`run` and the carry checks.
+    Subclasses set ``_plan_atoms``: ``(n1, None)`` plans the self
+    sweep, ``(n1, n2)`` the cross sweep."""
 
-    Parameters
-    ----------
-    ag1 : `AtomGroup`
-        The group.
-    ag2 : `AtomGroup`, optional
-        Must be `ag1` (or omitted): cross-group RDFs are not ported yet.
-    n_bins : `int`, default 201
-        Number of bins.
-    range : `tuple`, default ``(0.0, 15.0)``
-        Histogram range; it must start at 0.
-    norm : `str`, default ``"rdf"``
-        ``"rdf"``, ``"density"`` or ``None``.
-    exclusion : `tuple`, optional
-        ``None`` (identical-atom pairs land in bin 0, as in the
-        reference) or ``(1, 1)`` (they are dropped).
-    capacity_sigmas : `float`, default 4.0
-        Cell-capacity headroom in Poisson sigmas; :meth:`run` raises it
-        by 2 and re-runs after a capacity overflow (twice at most).
-    device : optional
-        Device the chunks are folded on.
-    """
-
-    def __init__(self, ag1, ag2=None, n_bins: int = 201,
-                 range: tuple = (0.0, 15.0), *, norm: str = "rdf",
-                 exclusion: tuple = None, capacity_sigmas: float = 4.0,
-                 verbose: bool = True, device=None):
-        if ag2 is not None and ag2 != ag1:
-            raise NotImplementedError(
-                "Cross-group RDFs are not ported yet."
-            )
-        self.ag1 = self.ag2 = ag1
-        self.universe = ag1.universe
-        super().__init__(self.universe.trajectory, verbose, device=device)
-        self._require_box("RadialDistributionFunction")
-        self._require_orthorhombic("RadialDistributionFunction")
-        if range[0] != 0:
-            raise NotImplementedError(
-                "RDF ranges starting above 0 are not ported yet."
-            )
-        if exclusion is not None and tuple(exclusion) != (1, 1):
-            raise NotImplementedError(
-                "Tile exclusions other than (1, 1) are not ported yet."
-            )
-        self._n_bins = n_bins
-        self._range = tuple(range)
-        self._norm = norm
-        self._exclusion = None if exclusion is None else (1, 1)
-        self._capacity_sigmas = float(capacity_sigmas)
-        self._atom_indices = np.asarray(ag1.ix)
-        self._n1 = self._n2 = ag1.n_atoms
-        self._cell_plan_cache = None
+    _cell_plan_cache = None
+    _plan_atoms = None
 
     def _searched_cell_plan(self):
         if self._cell_plan_cache is None:
+            n1, n2 = self._plan_atoms
             self._cell_plan_cache = cell_plan_search(
-                self._n1,
+                n1,
                 np.asarray(self.universe.dimensions[:3], np.float64),
                 float(self._range[1]),
+                n_atoms2=n2,
                 capacity_sigmas=self._capacity_sigmas,
             )
         return self._cell_plan_cache
-
-    def _prepare(self) -> None:
-        self.results.edges = np.linspace(*self._range, self._n_bins + 1)
-        self.results.bins = (
-            self.results.edges[:-1] + self.results.edges[1:]
-        ) / 2
-        device = self._device
-        self._carry = {
-            "counts": torch.zeros(
-                self._n_bins, dtype=torch.float64, device=device
-            ),
-            "volume": torch.zeros((), dtype=torch.float64, device=device),
-            "max_occ": torch.full(
-                (), _NO_EXCESS, dtype=torch.int32, device=device
-            ),
-        }
-        plan = self._searched_cell_plan()
-        r_max = float(self._range[1])
-        n_bins = self._n_bins
-        # exclusion=None (the reference default): the kernel drops
-        # identical-atom pairs, whose distance is exactly 0, so they are
-        # added back into bin 0.
-        self_pairs = self._n1 if self._exclusion is None else 0
-
-        def update(carry, positions, dimensions, mask):
-            box = dimensions[:, :3].to(torch.float32)
-            counts, occ = cell_pair_histogram(
-                positions, box=box, r_max=r_max,
-                n_cells_dim=plan["n_cells_dim"],
-                capacity=plan["capacity"], n_bins=n_bins,
-            )
-            if self_pairs:
-                counts[:, 0] += self_pairs
-            valid = mask > 0
-            # `occ` becomes the occupancy excess over capacity (> 0 is
-            # an overflow).
-            excess = torch.where(
-                valid, occ - plan["capacity"], _NO_EXCESS
-            ).max().to(torch.int32)
-            # where, not a product: a NaN-poisoned padding frame times 0
-            # would still be NaN.
-            counts = torch.where(valid[:, None], counts, 0.0)
-            volume = (dimensions[:, :3].prod(dim=1) * mask).sum()
-            return {
-                "counts": carry["counts"] + counts.sum(dim=0),
-                "volume": carry["volume"] + volume,
-                "max_occ": torch.maximum(carry["max_occ"], excess),
-            }
-
-        self._update = update
 
     def run(self, *args, **kwargs):
         """Run, re-planning with ``capacity_sigmas += 2`` (twice at
@@ -176,7 +89,7 @@ class RadialDistributionFunction(SerialAnalysisBase):
             )
             return self.run(*args, **kwargs)
 
-    def _check_pallas_carry(self) -> None:
+    def _check_cell_carry(self, counts_key) -> None:
         """Raise on a capacity overflow or a NaN-poisoned frame."""
 
         if "max_occ" not in self._carry:
@@ -189,7 +102,7 @@ class RadialDistributionFunction(SerialAnalysisBase):
                 "or clustering). Re-run with a larger capacity_sigmas= "
                 "(default 4.0)."
             )
-        if torch.isnan(self._carry["counts"]).any():
+        if torch.isnan(self._carry[counts_key]).any():
             raise RuntimeError(
                 "A frame's box shrank below the planned cell grid (box "
                 "/ n_cells_dim under r_max on some axis); the neighbor "
@@ -197,8 +110,152 @@ class RadialDistributionFunction(SerialAnalysisBase):
                 "box along the trajectory."
             )
 
+
+class RadialDistributionFunction(_CellPlanned):
+    r"""Radial distribution function :math:`g(r)` of one group with
+    itself, or between two disjoint groups.
+
+    Parameters
+    ----------
+    ag1 : `AtomGroup`
+        The group (group :math:`i`).
+    ag2 : `AtomGroup`, optional
+        Group :math:`j`; omitted or equal to `ag1` for the self RDF.  A
+        different group must share no atom with `ag1`: overlapping
+        groups are not ported yet.
+    n_bins : `int`, default 201
+        Number of bins.
+    range : `tuple`, default ``(0.0, 15.0)``
+        Histogram range; it must start at 0.
+    norm : `str`, default ``"rdf"``
+        ``"rdf"``, ``"density"`` or ``None``.
+    exclusion : `tuple`, optional
+        Self RDF: ``None`` (identical-atom pairs land in bin 0, as in
+        the reference) or ``(1, 1)`` (they are dropped).  Cross RDF:
+        ``None`` or any ``(e0, e1)`` tile exclusion, which drops pairs
+        with ``i // e0 == j // e1`` on the group-local indices (e.g.
+        cation-anion pairs of one molecule).
+    capacity_sigmas : `float`, default 4.0
+        Cell-capacity headroom in Poisson sigmas; :meth:`run` raises it
+        by 2 and re-runs after a capacity overflow (twice at most).
+    device : optional
+        Device the chunks are folded on.
+    """
+
+    def __init__(self, ag1, ag2=None, n_bins: int = 201,
+                 range: tuple = (0.0, 15.0), *, norm: str = "rdf",
+                 exclusion: tuple = None, capacity_sigmas: float = 4.0,
+                 verbose: bool = True, device=None):
+        self._cross = ag2 is not None and ag2 != ag1
+        self.ag1 = ag1
+        self.ag2 = ag2 if self._cross else ag1
+        self.universe = ag1.universe
+        super().__init__(self.universe.trajectory, verbose, device=device)
+        self._require_box("RadialDistributionFunction")
+        self._require_orthorhombic("RadialDistributionFunction")
+        if range[0] != 0:
+            raise NotImplementedError(
+                "RDF ranges starting above 0 are not ported yet."
+            )
+        if self._cross:
+            if np.intersect1d(ag1.ix, ag2.ix).size:
+                raise NotImplementedError(
+                    "Cross RDFs of overlapping groups are not ported yet "
+                    "(the cross kernel applies no identical-atom mask)."
+                )
+            self._exclusion = (
+                None if exclusion is None
+                else tuple(int(e) for e in exclusion)
+            )
+            self._atom_indices = np.concatenate((ag1.ix, ag2.ix))
+        else:
+            if exclusion is not None and tuple(exclusion) != (1, 1):
+                raise NotImplementedError(
+                    "Self-RDF tile exclusions other than (1, 1) are not "
+                    "ported yet."
+                )
+            self._exclusion = None if exclusion is None else (1, 1)
+            self._atom_indices = np.asarray(ag1.ix)
+        self._n_bins = n_bins
+        self._range = tuple(range)
+        self._norm = norm
+        self._capacity_sigmas = float(capacity_sigmas)
+        self._n1 = self.ag1.n_atoms
+        self._n2 = self.ag2.n_atoms
+        self._plan_atoms = (self._n1, self._n2 if self._cross else None)
+
+    def _prepare(self) -> None:
+        self.results.edges = np.linspace(*self._range, self._n_bins + 1)
+        self.results.bins = (
+            self.results.edges[:-1] + self.results.edges[1:]
+        ) / 2
+        device = self._device
+        self._carry = {
+            "counts": torch.zeros(
+                self._n_bins, dtype=torch.float64, device=device
+            ),
+            "volume": torch.zeros((), dtype=torch.float64, device=device),
+            "max_occ": torch.full(
+                (), _NO_EXCESS, dtype=torch.int32, device=device
+            ),
+        }
+        plan = self._searched_cell_plan()
+        r_max = float(self._range[1])
+        n_bins = self._n_bins
+        n1 = self._n1
+        cross = self._cross
+        exclusion = self._exclusion
+        # exclusion=None (the reference default) of a self RDF: the
+        # kernel drops identical-atom pairs, whose distance is exactly
+        # 0, so they are added back into bin 0.
+        self_pairs = n1 if not cross and exclusion is None else 0
+
+        def sweep(positions, box):
+            """(counts, occupancy excess over capacity) per frame."""
+
+            grid = dict(box=box, r_max=r_max,
+                        n_cells_dim=plan["n_cells_dim"], n_bins=n_bins)
+            if cross:
+                # The stream holds group 1's columns, then group 2's.
+                counts, occ1, occ2 = cross_pair_histogram(
+                    positions[:, :n1], positions[:, n1:],
+                    capacity1=plan["capacity"],
+                    capacity2=plan["capacity2"], exclusion=exclusion,
+                    **grid,
+                )
+                return counts, torch.maximum(
+                    occ1 - plan["capacity"], occ2 - plan["capacity2"]
+                )
+            counts, occ = cell_pair_histogram(
+                positions, capacity=plan["capacity"], **grid
+            )
+            if self_pairs:
+                counts[:, 0] += self_pairs
+            return counts, occ - plan["capacity"]
+
+        def update(carry, positions, dimensions, mask):
+            counts, excess = sweep(
+                positions, dimensions[:, :3].to(torch.float32)
+            )
+            valid = mask > 0
+            # > 0 is an overflow.
+            excess = torch.where(valid, excess, _NO_EXCESS).max().to(
+                torch.int32
+            )
+            # where, not a product: a NaN-poisoned padding frame times 0
+            # would still be NaN.
+            counts = torch.where(valid[:, None], counts, 0.0)
+            volume = (dimensions[:, :3].prod(dim=1) * mask).sum()
+            return {
+                "counts": carry["counts"] + counts.sum(dim=0),
+                "volume": carry["volume"] + volume,
+                "max_occ": torch.maximum(carry["max_occ"], excess),
+            }
+
+        self._update = update
+
     def _conclude(self) -> None:
-        self._check_pallas_carry()
+        self._check_cell_carry("counts")
         self.results.counts = (
             self._carry["counts"].cpu().numpy().astype(np.int64)
         )
@@ -384,3 +441,266 @@ class StructureFactor(SerialAnalysisBase):
             self.results.wavenumbers = self.results.wavenumbers[order]
             ssf = ssf[:, order]
         self.results.ssf = ssf
+
+
+def _resolve_lag_values(spec, n_lags, n_frames):
+    """Resolve a ``lags=`` specification against the ring length
+    ``n_lags`` (``None`` = analyzed frame count).  Returns
+    ``(lag_values, n_lags)`` with ``lag_values`` an ascending `numpy`
+    array of frame offsets."""
+
+    resolved = n_lags or n_frames
+    if resolved > n_frames:
+        resolved = n_frames
+    if spec is None:
+        lag_values = np.arange(resolved)
+    elif isinstance(spec, str):
+        if spec != "log":
+            raise ValueError(f"Invalid lags specification: {spec!r}.")
+        # Every lag through 8, then quarter-octave geometric spacing;
+        # always include the longest resident lag.
+        short = np.arange(min(resolved, 9))
+        if resolved > 9:
+            geometric = np.round(
+                2.0 ** np.arange(3.0, np.log2(resolved - 1) + 0.25, 0.25)
+            ).astype(np.int64)
+            lag_values = np.union1d(
+                np.union1d(short, geometric[geometric < resolved]),
+                [resolved - 1],
+            )
+        else:
+            lag_values = short
+    else:
+        lag_values = np.unique(np.asarray(spec, dtype=np.int64))
+        if len(lag_values) == 0 or lag_values[0] < 0:
+            raise ValueError("lags must be non-negative frame offsets.")
+        if n_lags is None:
+            resolved = min(int(lag_values[-1]) + 1, n_frames)
+        dropped = lag_values[lag_values >= resolved]
+        if len(dropped):
+            raise ValueError(
+                f"lags {dropped.tolist()} are not below n_lags "
+                f"({resolved}; n_lags is capped at the analyzed frame "
+                f"count {n_frames}) -- the ring holds lags 0..n_lags - 1 "
+                "only."
+            )
+    return lag_values, resolved
+
+
+class VanHoveFunction(_CellPlanned):
+    r"""Van Hove space-time correlation function :math:`G(r, t)`.
+
+    .. math::
+
+       G(r, t) = \underbrace{\frac{1}{N}\Bigl\langle\sum_i
+       \delta\bigl(r - |\mathbf{r}_i(t) - \mathbf{r}_i(0)|\bigr)
+       \Bigr\rangle}_{G_\mathrm{s}(r,t)}
+       + \underbrace{\frac{1}{N}\Bigl\langle\sum_{i \ne j}
+       \delta\bigl(r - |\mathbf{r}_j(t) - \mathbf{r}_i(0)|\bigr)
+       \Bigr\rangle}_{G_\mathrm{d}(r,t)}
+
+    Each streamed frame is wrapped into the box and written to a ring of
+    the last ``n_lags`` frames, then compared with the ring frame of
+    every selected lag that has one (lags longer than the frames seen so
+    far are skipped, as the JAX package masks them): the self part by
+    the exact displacement histogram and the exact moments
+    :math:`\langle r^2\rangle`, :math:`\langle r^4\rangle`; the distinct
+    part by the cross cell-list kernel with exclusion ``(1, 1)``, one
+    launch a frame over all of its lags.
+
+    Results (lag rows follow ``results.times``): ``counts_self``,
+    ``counts_distinct`` (ordered pairs, ``i != j``), ``gs`` (a
+    probability density), ``gd`` (a time-lagged RDF), ``msd`` and the
+    non-Gaussian parameter ``alpha2``.
+
+    Parameters
+    ----------
+    group : `AtomGroup`
+        Atoms to analyze.
+    n_bins : `int`, default 201
+        Number of radial bins.
+    range : `tuple`, default ``(0.0, 15.0)``
+        Radii range; it must start at 0 and stay below a third of the
+        box (the cell grid needs 3 cells per axis).
+    grouping : `str`, default ``"atoms"``
+        Only ``"atoms"`` is ported.
+    dt : `float`, optional
+        Time between frames (defaults to the trajectory's ``dt``).
+    n_lags : `int`, optional
+        Ring length in frames (defaults to the analyzed frame count).
+    lags : `str` or array-like, optional
+        ``"log"`` or explicit frame offsets below ``n_lags``.
+    self_part, distinct_part : `bool`, default True
+        Which parts to accumulate.
+    capacity_sigmas : `float`, default 4.0
+        Cell-capacity headroom in Poisson sigmas (see
+        :class:`RadialDistributionFunction`).
+    device : optional
+        Device the chunks are folded on.
+    """
+
+    def __init__(self, group, n_bins: int = 201,
+                 range: tuple = (0.0, 15.0), *, grouping: str = "atoms",
+                 dt=None, n_lags: int = None, lags=None,
+                 self_part: bool = True, distinct_part: bool = True,
+                 capacity_sigmas: float = 4.0, verbose: bool = True,
+                 device=None):
+        self.group = group
+        self.universe = group.universe
+        super().__init__(self.universe.trajectory, verbose, device=device)
+        if not (self_part or distinct_part):
+            raise ValueError(
+                "At least one of self_part/distinct_part is required."
+            )
+        if grouping != "atoms":
+            raise NotImplementedError("Only grouping='atoms' is ported.")
+        self._require_box("VanHoveFunction")
+        self._require_orthorhombic("VanHoveFunction")
+        if range[0] != 0:
+            raise NotImplementedError(
+                "Van Hove ranges starting above 0 are not ported yet."
+            )
+        self._n_bins = int(n_bins)
+        self._range = tuple(range)
+        self._self_part = bool(self_part)
+        self._distinct_part = bool(distinct_part)
+        self._n_lags = n_lags
+        self._lag_spec = lags
+        self._dt = dt or self._trajectory.dt
+        self._capacity_sigmas = float(capacity_sigmas)
+        self._atom_indices = np.asarray(group.ix)
+        self._n = group.n_atoms
+        # The cross kernel over one group at two times: a joint
+        # (equal-count) grid.
+        self._plan_atoms = (self._n, self._n)
+
+    def _prepare(self) -> None:
+        lag_values, n_lags = _resolve_lag_values(
+            self._lag_spec, self._n_lags, self.n_frames
+        )
+        step = _check_even_frame_spacing(self.frames)
+        self.results.edges = np.linspace(*self._range, self._n_bins + 1)
+        self.results.bins = (
+            self.results.edges[:-1] + self.results.edges[1:]
+        ) / 2
+        self.results.times = step * self._dt * lag_values
+
+        device = self._device
+        n_sel = len(lag_values)
+
+        def zeros(*shape, dtype=torch.float64):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self._carry = {
+            "ring": zeros(n_lags, self._n, 3, dtype=torch.float32),
+            "self": zeros(n_sel, self._n_bins),
+            "distinct": zeros(n_sel, self._n_bins),
+            "m2": zeros(n_sel),
+            "m4": zeros(n_sel),
+            "origins": zeros(n_sel),
+            "volume": zeros(),
+            # The frame counter stays on the host: it picks the ring
+            # slots and the lags each frame can serve, with no device
+            # round trip.  A carry taken over from the JAX package brings
+            # its own count, so the ring resumes where it left off.
+            "frame": torch.zeros((), dtype=torch.int64),
+        }
+        edges = self.results.edges
+        self_part = self._self_part
+        distinct_part = self._distinct_part
+        if distinct_part:
+            plan = self._searched_cell_plan()
+            self._carry["max_occ"] = torch.full(
+                (), _NO_EXCESS, dtype=torch.int32, device=device
+            )
+            cell = dict(
+                r_max=float(self._range[1]),
+                n_cells_dim=plan["n_cells_dim"],
+                capacity1=plan["capacity"], capacity2=plan["capacity"],
+                n_bins=self._n_bins, exclusion=(1, 1),
+            )
+
+        def fold_frame(carry, pos, dims):
+            """Fold one frame into the carry, in place (the ring alone
+            is n_lags x N x 3 floats; a copy a frame would double it)."""
+
+            box = dims[:3].to(torch.float32)
+            # The cell kernel needs wrapped coordinates.
+            pos = pos - box * torch.floor(pos / box)
+            fi = int(carry["frame"])
+            carry["ring"][fi % n_lags] = pos
+            carry["volume"] += dims[:3].prod()
+            carry["frame"] += 1
+            # Lags longer than the frames seen so far have no partner yet.
+            sel = np.flatnonzero(lag_values <= fi)
+            if not len(sel):
+                return
+            past = carry["ring"][
+                torch.as_tensor((fi - lag_values[sel]) % n_lags,
+                                device=device)
+            ]
+            rows = torch.as_tensor(sel, device=device)
+            carry["origins"][rows] += 1.0
+            if self_part:
+                # Per-atom math in float32, per-lag sums cast to float64
+                # (the JAX package's order of rounding).
+                dmin = _min_image_distance(pos - past, box)
+                r2 = dmin * dmin
+                carry["m2"].index_add_(0, rows, r2.sum(dim=1).double())
+                carry["m4"].index_add_(
+                    0, rows, (r2 * r2).sum(dim=1).double()
+                )
+                carry["self"].index_add_(
+                    0, rows,
+                    displacement_histogram_frame(pos, past, box, edges)
+                    .double(),
+                )
+            if distinct_part:
+                counts, occ1, occ2 = cross_pair_histogram(
+                    past, pos.expand_as(past), box=box, **cell
+                )
+                carry["distinct"].index_add_(0, rows, counts)
+                excess = torch.maximum(occ1, occ2).max() - cell["capacity1"]
+                carry["max_occ"] = torch.maximum(
+                    carry["max_occ"], excess.to(torch.int32)
+                )
+
+        def update(carry, positions, dimensions, mask):
+            # The port streams no padding frames (every mask entry is
+            # 1), and the ring makes the frames of a chunk sequential.
+            del mask
+            for pos, dims in zip(positions, dimensions):
+                fold_frame(carry, pos, dims)
+            return carry
+
+        self._update = update
+
+    def _conclude(self) -> None:
+        if self._distinct_part:
+            self._check_cell_carry("distinct")
+        carry = {
+            k: self._carry[k].cpu().numpy()
+            for k in ("self", "distinct", "m2", "m4", "origins", "volume",
+                      "frame")
+        }
+        origins = carry["origins"]
+        # Frames folded, counted from the carry: a run resumed from
+        # another's carry averages the volume over every frame.
+        volume_mean = float(carry["volume"]) / int(carry["frame"])
+        shell = 4 * np.pi * np.diff(self.results.edges**3) / 3
+        n = self._n
+        if self._self_part:
+            self.results.counts_self = carry["self"].astype(np.int64)
+            self.results.gs = carry["self"] / (origins[:, None] * n * shell)
+            m2 = carry["m2"] / (origins * n)
+            m4 = carry["m4"] / (origins * n)
+            self.results.msd = m2
+            with np.errstate(divide="ignore", invalid="ignore"):
+                self.results.alpha2 = 3 * m4 / (5 * m2**2) - 1
+        if self._distinct_part:
+            self.results.counts_distinct = carry["distinct"].astype(
+                np.int64
+            )
+            self.results.gd = carry["distinct"] * volume_mean / (
+                origins[:, None] * n * (n - 1) * shell
+            )

@@ -19,7 +19,7 @@ import torch
 from ..algorithm.correlation import msd_fft
 from ..algorithm.topology import unwrap_edge
 from ..ops.pbc import unwrap_scan
-from .base import SerialAnalysisBase
+from .base import SerialAnalysisBase, _check_even_frame_spacing
 
 __all__ = ["Onsager"]
 
@@ -95,13 +95,7 @@ class Onsager(SerialAnalysisBase):
             self._atom_indices = None
 
     def _prepare(self) -> None:
-        df = np.diff(self.frames)
-        if len(df) and (df[0] <= 0 or not np.allclose(df, df[0])):
-            raise ValueError(
-                "The selected frames must be evenly spaced and proceed "
-                "forward in time."
-            )
-        self._frame_step = int(df[0]) if len(df) else 1
+        self._frame_step = _check_even_frame_spacing(self.frames)
         self.results.pairs = tuple(
             itertools.combinations_with_replacement(
                 range(self._n_groups), 2

@@ -4,7 +4,8 @@ Universe and atom groups
 
 The subset of :mod:`mdhelper_tpu.core.universe` the ported analyses
 touch: :meth:`Universe.from_arrays` and an :class:`AtomGroup` with
-indices, masses and current-frame positions.  The universe is
+indices, masses, current-frame positions and indexing into
+sub-groups.  The universe is
 host-side metadata only; analyses stream coordinates from
 ``universe.trajectory.read_frames`` onto their device.  Selections,
 bonds and file parsers are not ported yet.
@@ -64,6 +65,15 @@ class AtomGroup:
     @property
     def n_atoms(self) -> int:
         return len(self._ix)
+
+    def __len__(self) -> int:
+        return len(self._ix)
+
+    def __getitem__(self, item) -> "AtomGroup":
+        """Sub-group by slice, integer index or array, or boolean
+        mask (``u.atoms[0::2]``)."""
+
+        return AtomGroup(self.universe, np.atleast_1d(self._ix[item]))
 
     def __eq__(self, other) -> bool:
         return (

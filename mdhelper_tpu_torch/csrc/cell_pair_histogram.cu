@@ -30,30 +30,16 @@
 // it and give the same integer counts.  Warp-level histogram
 // privatisation, persistent blocks and tighter capacities are later work.
 //
-// Precision traps, each named where it bites below: FMA contraction
-// (doublefloat.cuh), half-to-even rounding of the image multiple,
-// IEEE sqrt and division (no --use_fast_math), and truncating
-// float -> int conversion of the bin estimate.
+// The pair-binning math (exact d^2, estimate, +-1 boundary correction and
+// its precision traps) lives in cell_bin.cuh, shared with the cross kernel.
 
 #include <cuda_runtime.h>
 
-#include "doublefloat.cuh"
-
-using dfloat::df;
+#include "cell_bin.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-// Exact boundary (k * dr)^2 of the "zero" convention: k^2 formed in
-// integers, then two_prod(k^2, dr2_hi) + k^2 * dr2_lo, normalized by a
-// df_add onto zero exactly as the JAX kernels do (split-sensitive).
-__device__ __forceinline__ df boundary(int k, float dr2_hi, float dr2_lo) {
-  float k2 = static_cast<float>(k * k);
-  df b = dfloat::two_prod(k2, dr2_hi);
-  b.lo = __fadd_rn(b.lo, __fmul_rn(k2, dr2_lo));
-  return dfloat::df_add({0.0f, 0.0f}, b);
-}
 
 __global__ void __launch_bounds__(kThreads)
 cell_pair_histogram_kernel(const float4* __restrict__ table,
@@ -95,31 +81,8 @@ cell_pair_histogram_kernel(const float4* __restrict__ table,
     const int j = p - i * oj;
     // Home block: strict upper slot triangle (drops identical atoms too).
     if (self_block && i >= j) continue;
-    const float4 a = si[i];
-    const float4 c = sj[j];
-    const float pa[3] = {a.x, a.y, a.z};
-    const float pc[3] = {c.x, c.y, c.z};
-    df sq[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      df s = dfloat::two_diff(pa[k], pc[k]);
-      // Rounding trap: jnp.round rounds half to even; rintf does, roundf
-      // would not.  IEEE division (__fdiv_rn), never the fast approximation.
-      float m = rintf(__fdiv_rn(s.hi, box[k]));
-      // Wrapped inputs give m in {-1, 0, 1}, so m * L is exact.
-      df d = dfloat::df_sub(s, {__fmul_rn(m, box[k]), 0.0f});
-      sq[k] = dfloat::df_square(d);
-    }
-    const df d2 = dfloat::df_sum3(sq[0], sq[1], sq[2]);
-    // Truncation trap: convert_element_type truncates toward zero, so the
-    // estimate uses a C cast, not __float2int_rn.  IEEE sqrt (__fsqrt_rn).
-    // Clamping to n_bins before the cast keeps far pairs of huge boxes in
-    // int range; it equals min((int)x, n_bins) for any x >= 0.
-    const float est = __fmul_rn(__fsqrt_rn(fmaxf(d2.hi, 0.0f)), inv_dr);
-    int idx = static_cast<int>(fminf(est, static_cast<float>(n_bins)));
-    const int up = dfloat::df_ge(d2, boundary(idx + 1, dr2_hi, dr2_lo));
-    const int down = dfloat::df_lt(d2, boundary(idx, dr2_hi, dr2_lo));
-    idx += up - down;
+    const int idx = cellbin::exact_bin(si[i], sj[j], box, n_bins, inv_dr,
+                                       dr2_hi, dr2_lo);
     if (idx < n_bins) atomicAdd(&hist[idx], 1u);
   }
   __syncthreads();

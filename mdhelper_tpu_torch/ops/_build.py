@@ -2,8 +2,9 @@
 Build and load the hand-written CUDA kernels
 ============================================
 
-At first use, every ``csrc/*.cu`` is compiled with ``nvcc`` into one
-shared library with a plain C interface under
+At first use, every ``csrc/*.cu`` is compiled with ``nvcc`` -- one
+process per source, all started together -- and the objects are linked
+into one shared library with a plain C interface under
 ``mdhelper_tpu_torch/_build/`` (ignored by git), named by a hash of the
 sources and flags so an edited source rebuilds, and loaded with
 :mod:`ctypes`.  Pointers and the CUDA stream pass as ``c_void_p``; each C
@@ -36,8 +37,12 @@ _BUILD = _PACKAGE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: the link of the objects into one shared library (runtime linked
+#: statically, nvcc's default).
+_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +52,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "cell_pair_histogram_launch": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+    ),
+    "cross_pair_histogram_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _F, _F, _F, _P,
     ),
 }
 
@@ -72,7 +81,7 @@ def load_library() -> ctypes.CDLL:
 
     sources = sorted(_CSRC.glob("*.cu"))
     headers = sorted(_CSRC.glob("*.cuh"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + _LINK_FLAGS).encode())
     for path in sources + headers:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
@@ -81,18 +90,7 @@ def load_library() -> ctypes.CDLL:
     log_path = lib_path.with_suffix(".log")
     start = time.perf_counter()
     if not lib_path.exists():
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), *NVCC_FLAGS, "-I", str(_CSRC),
-            "-o", str(tmp), *map(str, sources),
-        ]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log_path.write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
+        _compile_and_link(sources, lib_path, log_path)
     _info["seconds"] = time.perf_counter() - start
     _info["path"] = str(lib_path)
     _info["log"] = log_path.read_text() if log_path.exists() else ""
@@ -102,6 +100,46 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def _compile_and_link(sources, lib_path, log_path) -> None:
+    """One ``nvcc -c`` per source, run in parallel, then one link."""
+
+    stem = f"{lib_path.name}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sources:
+        obj = lib_path.with_name(f"{stem}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", str(obj),
+               str(src)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True,
+        )))
+    log, failed = [], []
+    for src, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    tmp = lib_path.with_name(f"{stem}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *_LINK_FLAGS, "-o", str(tmp),
+             *[str(obj) for _, obj, _ in jobs]],
+            capture_output=True, text=True,
+        )
+        log.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    log_path.write_text("".join(log))
+    if failed:
+        raise RuntimeError(
+            f"nvcc failed ({', '.join(failed)}):\n{''.join(log)}"
+        )
+    os.replace(tmp, lib_path)
 
 
 def build_info() -> dict:

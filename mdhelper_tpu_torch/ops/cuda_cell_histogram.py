@@ -1,19 +1,28 @@
 r"""
-Cell-list pair histogram (CUDA)
-===============================
+Cell-list pair histograms (CUDA)
+================================
 
 Counterpart of :mod:`mdhelper_tpu.ops.pallas_cell_histogram` for the
-self-group, half-shell, orthorhombic, 3-D, exact mode that the RDF main
-path runs.  Sorted atom positions are packed into a padded
-``(n_cells * capacity, 4)`` float32 slot table (xyz, atom id); the
-hand-written kernel ``csrc/cell_pair_histogram.cu`` sweeps each home
-cell against its 14-entry half-shell neighbor row and bins every pair in
-exact double-float arithmetic.
+orthorhombic, 3-D, exact modes that the ported analyses run:
 
-:func:`cell_pair_histogram` launches that kernel for tensors on a CUDA
-device and runs :func:`cell_pair_histogram_reference` -- the same
-computation in plain torch -- for tensors on the CPU.  There is no
-fallback between the two: a CUDA tensor launches the kernel or raises.
+* the self-group half-shell sweep (:func:`cell_pair_histogram`, kernel
+  ``csrc/cell_pair_histogram.cu``): each home cell against its 14-entry
+  half-shell neighbour row, counts doubled to ordered pairs;
+* the cross-group full-shell sweep (:func:`cross_pair_histogram`,
+  kernel ``csrc/cross_pair_histogram.cu``): each group-1 home cell
+  against the 27 cells around it in group 2's table, ordered pairs of
+  two disjoint groups, with an optional ``(e0, e1)`` tile exclusion.
+
+Sorted atom positions are packed into a padded ``(n_cells * capacity,
+4)`` float32 slot table (xyz, then an id column: the atom index, or its
+exclusion tile ``index // e``); both kernels bin every pair in exact
+double-float arithmetic through the same device function
+(``csrc/cell_bin.cuh``).
+
+Each wrapper launches its kernel for tensors on a CUDA device and runs
+its ``*_reference`` twin -- the same computation in plain torch -- for
+tensors on the CPU.  There is no fallback between the two: a CUDA
+tensor launches the kernel or raises.
 """
 
 import itertools
@@ -32,11 +41,19 @@ __all__ = [
     "cell_plan_search",
     "cell_pair_histogram",
     "cell_pair_histogram_reference",
+    "cross_pair_histogram",
+    "cross_pair_histogram_reference",
 ]
 
 #: half-shell neighbor-table width: the home cell plus the 13
 #: positive-lexicographic offsets.
 N_HALF = 14
+
+#: full-shell neighbor-table width: every offset in {-1, 0, 1}^3.
+N_FULL = 27
+
+#: float32 holds every integer id below 2^24 exactly.
+_MAX_EXACT_ID = 1 << 24
 
 #: capacity granule (one warp of slots).
 _CAP_STEP = 32
@@ -66,17 +83,21 @@ def _capacity(n_atoms, n_cells, capacity_sigmas):
     return max(_CAP_STEP, min(cap, whole))
 
 
-def cell_plan_search(n_atoms, box, r_max, *, capacity_sigmas=4.0):
+def cell_plan_search(n_atoms, box, r_max, *, n_atoms2=None,
+                     capacity_sigmas=4.0):
     """Cost-driven cell grid (host side): the ``n_cells_dim`` that
-    minimizes the kernel's padded pair work
-    ``n_cells * 14 * capacity**2`` (ties to fewer cells).
+    minimizes the kernel's padded pair work, ``n_cells * 14 *
+    capacity**2`` for the self sweep or, with ``n_atoms2``, ``n_cells *
+    27 * capacity * capacity2`` for the cross sweep, whose two groups
+    share one grid (ties to fewer cells).
 
     Legal grids have at least 3 cells per axis, each at least ``r_max``
     wide (``3 <= n_i <= floor(L_i / r_max)``).  Boxes under 3 cutoffs
     on some axis need the generalized grids of the JAX package, which
     the port does not have yet: they raise `ValueError`.
 
-    Returns ``{"n_cells_dim", "n_cells", "capacity", "reach", "_cost"}``.
+    Returns ``{"n_cells_dim", "n_cells", "capacity", "reach", "_cost"}``,
+    plus ``"capacity2"`` (group 2's slots) for a cross plan.
     """
 
     box = np.asarray(box, dtype=float)
@@ -100,16 +121,22 @@ def cell_plan_search(n_atoms, box, r_max, *, capacity_sigmas=4.0):
             continue
         seen.add(n_cells)
         cap = _capacity(n_atoms, n_cells, capacity_sigmas)
-        cost = n_cells * N_HALF * cap * cap
+        plan = {
+            "n_cells_dim": dims,
+            "n_cells": n_cells,
+            "capacity": cap,
+            "reach": (1, 1, 1),
+        }
+        if n_atoms2 is None:
+            cost = n_cells * N_HALF * cap * cap
+        else:
+            plan["capacity2"] = _capacity(n_atoms2, n_cells,
+                                          capacity_sigmas)
+            cost = n_cells * N_FULL * cap * plan["capacity2"]
+        plan["_cost"] = cost
         key = (cost, n_cells)
         if best is None or key < best[0]:
-            best = (key, {
-                "n_cells_dim": dims,
-                "n_cells": n_cells,
-                "capacity": cap,
-                "reach": (1, 1, 1),
-                "_cost": cost,
-            })
+            best = (key, plan)
     return best[1]
 
 
@@ -126,20 +153,16 @@ def _bin_boundary_constants(r_max, n_bins):
     return inv_dr, dr2_hi, dr2_lo
 
 
-@lru_cache(maxsize=None)
-def _half_table(n_cells_dim):
-    """``(n_cells, 14)`` int32 half-shell table: the home cell, then the
-    13 positive-lexicographic offsets in {-1, 0, 1}^3, wrapped.  With
-    at least 3 cells per axis every unordered cell pair appears once."""
+def _neighbor_table(n_cells_dim, offsets):
+    """``(n_cells, len(offsets))`` int32 table of each cell's wrapped
+    neighbours at the given offsets."""
 
     dims = tuple(int(n) for n in n_cells_dim)
     if any(n < 3 for n in dims):
-        raise ValueError("The half-shell table needs >= 3 cells per axis.")
+        raise ValueError("The neighbor tables need >= 3 cells per axis.")
     grids = np.meshgrid(*[np.arange(n) for n in dims], indexing="ij")
-    offsets = list(itertools.product((-1, 0, 1), repeat=3))
-    half = [(0, 0, 0)] + [o for o in offsets if o > (0, 0, 0)]
     cols = []
-    for o in half:
+    for o in offsets:
         c = np.zeros(dims, dtype=np.int64)
         for ax in range(3):
             stride = int(np.prod(dims[ax + 1:]))
@@ -148,14 +171,39 @@ def _half_table(n_cells_dim):
     return np.stack(cols, axis=-1).astype(np.int32)
 
 
-def _slot_table(positions, n_cells_dim, capacity, cell_size):
+@lru_cache(maxsize=None)
+def _half_table(n_cells_dim):
+    """``(n_cells, 14)`` int32 half-shell table: the home cell, then the
+    13 positive-lexicographic offsets in {-1, 0, 1}^3, wrapped.  With
+    at least 3 cells per axis every unordered cell pair appears once."""
+
+    offsets = list(itertools.product((-1, 0, 1), repeat=3))
+    half = [(0, 0, 0)] + [o for o in offsets if o > (0, 0, 0)]
+    return _neighbor_table(n_cells_dim, half)
+
+
+@lru_cache(maxsize=None)
+def _full_table(n_cells_dim):
+    """``(n_cells, 27)`` int32 full-shell table: every offset in
+    {-1, 0, 1}^3, wrapped (the full table of the JAX package's
+    ``_neighbor_tables``).  With at least 3 cells per axis the 27
+    neighbours of a cell are distinct, so every ordered cell pair within
+    reach appears once."""
+
+    return _neighbor_table(
+        n_cells_dim, list(itertools.product((-1, 0, 1), repeat=3))
+    )
+
+
+def _slot_table(positions, n_cells_dim, capacity, cell_size, ex=None):
     """Batched cell build: cell ids, a stable ``argsort``,
     ``searchsorted`` cell starts and a padded gather.
 
     ``positions`` ``(B, N, 3)`` float32, ``cell_size`` ``(B, 3)``
     float32.  Returns the ``(B, n_cells * capacity, 4)`` slot table
-    (xyz, atom id; slots past a cell's occupancy hold neighbouring
-    atoms, which the kernel masks), the ``(B, n_cells)`` int32
+    (xyz, then the id ``index // ex`` as float32 -- the atom index when
+    ``ex`` is None; slots past a cell's occupancy hold neighbouring
+    atoms, which the kernels mask), the ``(B, n_cells)`` int32
     occupancy and the ``(B,)`` maximum occupancy."""
 
     nx, ny, nz = n_cells_dim
@@ -175,9 +223,11 @@ def _slot_table(positions, n_cells_dim, capacity, cell_size):
     ends = torch.searchsorted(sorted_cid, cells, side="right")
     occupancy = (ends - starts).to(torch.int32)
 
-    atom_id = torch.arange(n, dtype=torch.float32, device=device)
+    ids = torch.arange(n, device=device)
+    if ex is not None:
+        ids = ids // int(ex)
     packed = torch.cat(
-        (positions, atom_id.expand(b, n)[..., None]), dim=-1
+        (positions, ids.to(torch.float32).expand(b, n)[..., None]), dim=-1
     )
     packed = torch.gather(packed, 1, order[..., None].expand(b, n, 4))
     slots = torch.arange(capacity, device=device)
@@ -228,6 +278,55 @@ def _bin_index(d2, consts, n_bins):
     )
 
 
+def _sweep_reference(table1, occupancy1, capacity1, table2, occupancy2,
+                     capacity2, nbr, box, r_max, n_bins, *, half, exclude):
+    """The kernels' sweep in plain torch: every home cell of slot table
+    1 against its neighbour row ``nbr`` in slot table 2, the kernels'
+    masks (occupied slots; ``half``: strict upper slot triangle in the
+    home block; ``exclude``: drop equal ids), exact bins of the pairs
+    kept.  int64 ``(B, n_bins)``."""
+
+    b = table1.shape[0]
+    device = table1.device
+    n_cells, n_nbr = nbr.shape
+    consts = tuple(
+        f32_constant(c, device)
+        for c in _bin_boundary_constants(r_max, n_bins)
+    )
+    slots1 = torch.arange(capacity1, device=device)
+    slots2 = torch.arange(capacity2, device=device)
+    upper = slots1[:, None] < slots2[None, :]
+    # home cells per step: bounds each (cells, cap1, cap2) temporary
+    chunk = max(1, (1 << 22) // (capacity1 * capacity2))
+    counts = torch.zeros((b, n_bins + 1), dtype=torch.int64, device=device)
+    blocks1 = table1.reshape(b, n_cells, capacity1, 4)
+    blocks2 = table2.reshape(b, n_cells, capacity2, 4)
+    for f in range(b):
+        occ1 = torch.clamp(occupancy1[f], max=capacity1)
+        occ2 = torch.clamp(occupancy2[f], max=capacity2)
+        for c0 in range(0, n_cells, chunk):
+            home = torch.arange(c0, min(c0 + chunk, n_cells), device=device)
+            ip = blocks1[f, home]
+            i_valid = slots1[None, :] < occ1[home][:, None]
+            for entry in range(n_nbr):
+                other = nbr[home, entry]
+                jp = blocks2[f, other]
+                j_valid = slots2[None, :] < occ2[other][:, None]
+                valid = i_valid[:, :, None] & j_valid[:, None, :]
+                if half and entry == 0:
+                    valid = valid & upper
+                if exclude:
+                    valid = valid & (ip[:, :, None, 3] != jp[:, None, :, 3])
+                # Bin the kept slot pairs only, as the kernels do.
+                cell, i, j = valid.nonzero(as_tuple=True)
+                d2 = _exact_d2_orthorhombic(
+                    ip[cell, i, :3], jp[cell, j, :3], box[f]
+                )
+                idx = torch.clamp(_bin_index(d2, consts, n_bins), max=n_bins)
+                counts[f] += torch.bincount(idx.long(), minlength=n_bins + 1)
+    return counts[:, :n_bins]
+
+
 def cell_pair_histogram_reference(
     positions, *, box, r_max, n_cells_dim, capacity, n_bins,
 ):
@@ -237,49 +336,17 @@ def cell_pair_histogram_reference(
     :func:`cell_pair_histogram`."""
 
     positions, box, dims = _check_inputs(positions, box, n_cells_dim)
-    b = positions.shape[0]
     device = positions.device
-    n_cells = int(np.prod(dims))
     table, occupancy, max_occ = _slot_table(
         positions, dims, capacity, box / torch.tensor(
             dims, dtype=torch.float32, device=device)
     )
     nbr = torch.as_tensor(_half_table(dims), device=device).long()
-    consts = tuple(
-        f32_constant(c, device)
-        for c in _bin_boundary_constants(r_max, n_bins)
+    counts = _sweep_reference(
+        table, occupancy, capacity, table, occupancy, capacity, nbr, box,
+        r_max, n_bins, half=True, exclude=False,
     )
-    slots = torch.arange(capacity, device=device)
-    upper = slots[:, None] < slots[None, :]
-    # home cells per step: bounds each (cells, cap, cap) temporary
-    chunk = max(1, (1 << 22) // (capacity * capacity))
-    counts = torch.zeros((b, n_bins + 1), dtype=torch.int64, device=device)
-    blocks = table.reshape(b, n_cells, capacity, 4)
-    for f in range(b):
-        occ = torch.clamp(occupancy[f], max=capacity)
-        for c0 in range(0, n_cells, chunk):
-            home = torch.arange(c0, min(c0 + chunk, n_cells), device=device)
-            ip = blocks[f, home]
-            i_valid = slots[None, :] < occ[home][:, None]
-            for entry in range(N_HALF):
-                other = nbr[home, entry]
-                jp = blocks[f, other]
-                j_valid = slots[None, :] < occ[other][:, None]
-                d2 = _exact_d2_orthorhombic(
-                    ip[:, :, None, :3], jp[:, None, :, :3], box[f]
-                )
-                idx = _bin_index(d2, consts, n_bins)
-                valid = (
-                    i_valid[:, :, None] & j_valid[:, None, :]
-                    & (idx < n_bins)
-                )
-                if entry == 0:
-                    valid = valid & upper
-                idx = torch.where(valid, idx, n_bins).long()
-                counts[f] += torch.bincount(
-                    idx.reshape(-1), minlength=n_bins + 1
-                )
-    return _finish(counts[:, :n_bins], box, dims, r_max), max_occ
+    return _poison(counts * 2, box, dims, r_max), max_occ
 
 
 def _check_inputs(positions, box, n_cells_dim):
@@ -298,13 +365,12 @@ def _check_inputs(positions, box, n_cells_dim):
     return positions, box, dims
 
 
-def _finish(counts, box, dims, r_max):
-    """Double the half-shell counts (ordered-pair convention) and
-    NaN-poison frames whose box invalidates the planned grid."""
+def _poison(counts, box, dims, r_max):
+    """float64 counts, NaN for frames whose box invalidates the planned
+    grid."""
 
-    counts = counts.to(torch.float64) * 2.0
     ok = _cell_sweep_ok(box, dims, r_max)
-    return torch.where(ok[:, None], counts, torch.nan)
+    return torch.where(ok[:, None], counts.to(torch.float64), torch.nan)
 
 
 def cell_pair_histogram(
@@ -376,10 +442,156 @@ def cell_pair_histogram(
         )
     _build.check(status, "cell_pair_histogram kernel launch")
     cell_pair_histogram.launches += 1
-    return _finish(out, box, dims, r_max), max_occ
+    # Each unordered pair was visited once: double to ordered pairs.
+    return _poison(out * 2, box, dims, r_max), max_occ
 
 
 #: kernel launches made by :func:`cell_pair_histogram` (CUDA tensors
 #: only); a run sets it to 0 and reads it back to show that its main
 #: path went through the kernel.
 cell_pair_histogram.launches = 0
+
+
+def _check_cross_inputs(positions1, positions2, box, n_cells_dim,
+                        exclusion):
+    positions1, box, dims = _check_inputs(positions1, box, n_cells_dim)
+    positions2 = torch.as_tensor(positions2)
+    if positions2.device != positions1.device:
+        raise ValueError("Both groups' positions must be on one device.")
+    positions2, _, _ = _check_inputs(positions2, box, dims)
+    if positions2.shape[0] != positions1.shape[0]:
+        raise ValueError("Both groups need the same number of frames.")
+    if max(positions1.shape[1], positions2.shape[1]) >= _MAX_EXACT_ID:
+        raise ValueError(
+            "The cross sweep stores atom ids as float32, exact only for "
+            f"groups under {_MAX_EXACT_ID} atoms."
+        )
+    ex = (None, None) if exclusion is None else tuple(
+        int(e) for e in exclusion
+    )
+    if len(ex) != 2 or (exclusion is not None and min(ex) < 1):
+        raise ValueError("exclusion must be None or (e0, e1), both >= 1.")
+    return positions1, positions2, box, dims, ex
+
+
+def _cross_tables(positions1, positions2, box, dims, capacity1, capacity2,
+                  ex):
+    cell_size = box / torch.tensor(dims, dtype=torch.float32,
+                                   device=box.device)
+    t1, occ1, max1 = _slot_table(positions1, dims, capacity1, cell_size,
+                                 ex=ex[0])
+    t2, occ2, max2 = _slot_table(positions2, dims, capacity2, cell_size,
+                                 ex=ex[1])
+    return t1, occ1, max1, t2, occ2, max2
+
+
+def cross_pair_histogram_reference(
+    positions1, positions2, *, box, r_max, n_cells_dim, capacity1,
+    capacity2, n_bins, exclusion=None,
+):
+    """Plain-torch version of the cross kernel: the same two slot
+    tables, the same full-shell sweep and masks, the same exact
+    binning; integer counts equal the kernel's.  Arguments and returns
+    as :func:`cross_pair_histogram`."""
+
+    positions1, positions2, box, dims, ex = _check_cross_inputs(
+        positions1, positions2, box, n_cells_dim, exclusion
+    )
+    t1, occ1, max1, t2, occ2, max2 = _cross_tables(
+        positions1, positions2, box, dims, capacity1, capacity2, ex
+    )
+    nbr = torch.as_tensor(_full_table(dims), device=box.device).long()
+    counts = _sweep_reference(
+        t1, occ1, capacity1, t2, occ2, capacity2, nbr, box, r_max, n_bins,
+        half=False, exclude=exclusion is not None,
+    )
+    return _poison(counts, box, dims, r_max), max1, max2
+
+
+def cross_pair_histogram(
+    positions1, positions2, *, box, r_max, n_cells_dim, capacity1,
+    capacity2, n_bins, exclusion=None,
+):
+    r"""Cross-group pair-distance histogram on ``[0, r_max]`` through
+    the cell list: every (group-1, group-2) pair of two disjoint groups
+    (the contract of the JAX package's ``cross_pair_histogram_pallas``,
+    batched over frames); returns ``(counts, max_occ1, max_occ2)``.
+
+    Parameters
+    ----------
+    positions1, positions2 : `torch.Tensor`
+        Coordinates ``(B, N1, 3)`` and ``(B, N2, 3)`` (or one frame
+        each), cast to float32, wrapped into the box.  No identical-atom
+        mask is applied: the groups must be disjoint.
+    box : `torch.Tensor` or array-like
+        Orthorhombic box lengths, ``(3,)`` or per frame ``(B, 3)``.
+    r_max : `float`
+        Histogram range ``[0, r_max]``.
+    n_cells_dim, capacity1, capacity2
+        A cross plan from ``cell_plan_search(..., n_atoms2=)``
+        (``capacity1`` is its ``"capacity"``).
+    n_bins : `int`
+        Number of uniform bins.
+    exclusion : `tuple`, optional
+        ``(e0, e1)``: drop pairs with ``i // e0 == j // e1`` on the
+        group-local indices (molecule blocks; ``(1, 1)`` drops
+        ``i == j``, as the Van Hove distinct part needs).
+
+    Returns
+    -------
+    counts : `torch.Tensor`
+        float64 ``(B, n_bins)`` ordered-pair counts (each pair once,
+        not doubled), NaN for frames whose box shrank below
+        ``n_cells_dim * r_max``.
+    max_occ1, max_occ2 : `torch.Tensor`
+        int32 ``(B,)`` densest-cell occupancy of each group; above its
+        capacity means the counts are incomplete.
+
+    A CUDA tensor launches the kernel (and adds one to
+    ``cross_pair_histogram.launches``); a CPU tensor runs
+    :func:`cross_pair_histogram_reference`.
+    """
+
+    positions1 = torch.as_tensor(positions1)
+    if positions1.device.type == "cpu":
+        return cross_pair_histogram_reference(
+            positions1, positions2, box=box, r_max=r_max,
+            n_cells_dim=n_cells_dim, capacity1=capacity1,
+            capacity2=capacity2, n_bins=n_bins, exclusion=exclusion,
+        )
+    if positions1.device.type != "cuda":
+        raise ValueError(
+            f"cross_pair_histogram runs on CUDA or CPU tensors, not "
+            f"{positions1.device.type}."
+        )
+    positions1, positions2, box, dims, ex = _check_cross_inputs(
+        positions1, positions2, box, n_cells_dim, exclusion
+    )
+    b = positions1.shape[0]
+    device = positions1.device
+    n_cells = int(np.prod(dims))
+    t1, occ1, max1, t2, occ2, max2 = _cross_tables(
+        positions1, positions2, box, dims, capacity1, capacity2, ex
+    )
+    nbr = torch.as_tensor(_full_table(dims), device=device).contiguous()
+    occ1, occ2 = occ1.contiguous(), occ2.contiguous()
+    out = torch.zeros((b, n_bins), dtype=torch.int64, device=device)
+    inv_dr, dr2_hi, dr2_lo = _bin_boundary_constants(r_max, n_bins)
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = lib.cross_pair_histogram_launch(
+            t1.data_ptr(), occ1.data_ptr(), t2.data_ptr(), occ2.data_ptr(),
+            nbr.data_ptr(), box.data_ptr(), out.data_ptr(),
+            b, n_cells, N_FULL, int(capacity1), int(capacity2),
+            int(n_bins), int(exclusion is not None),
+            float(inv_dr), float(dr2_hi), float(dr2_lo), stream,
+        )
+    _build.check(status, "cross_pair_histogram kernel launch")
+    cross_pair_histogram.launches += 1
+    return _poison(out, box, dims, r_max), max1, max2
+
+
+#: kernel launches made by :func:`cross_pair_histogram` (CUDA tensors
+#: only), read the same way as ``cell_pair_histogram.launches``.
+cross_pair_histogram.launches = 0

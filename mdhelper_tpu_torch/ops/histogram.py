@@ -29,7 +29,7 @@ from .doublefloat import (
     two_prod,
 )
 
-__all__ = ["radial_histogram_frame"]
+__all__ = ["radial_histogram_frame", "displacement_histogram_frame"]
 
 
 def _exact_d2_orthorhombic(p1, p2, box):
@@ -72,16 +72,20 @@ def _uniform_edge_constants(edges, device):
     )
 
 
-def _exact_bin_indices(p1, p2, box, edges):
+def _exact_bin_indices(p1, p2, box, edges, *, elementwise=False):
     """Exact bin index of every pair of the ``(N1, N2)`` block (spill
     index ``n_bins`` for out-of-range pairs), replicating
     ``mdhelper_tpu.ops.histogram._exact_bin_indices`` operation for
-    operation."""
+    operation.  With ``elementwise=True``, `p1` and `p2` pair row for
+    row instead (broadcast-compatible ``(..., 3)`` -> ``(...)``
+    displacement indices)."""
 
     n_bins = len(edges) - 1
     device = p1.device
     c0, c1, c2, e0_f32, inv_h = _uniform_edge_constants(edges, device)
-    d2 = _exact_d2_orthorhombic(p1[:, None, :], p2[None, :, :], box)
+    if not elementwise:
+        p1, p2 = p1[:, None, :], p2[None, :, :]
+    d2 = _exact_d2_orthorhombic(p1, p2, box)
 
     def boundary(k):
         kf = k.to(torch.float32)
@@ -106,6 +110,18 @@ def _exact_bin_indices(p1, p2, box, edges):
     return torch.where(
         in_range, torch.clamp(idx, max=n_bins - 1), n_bins
     )
+
+
+def _min_image_distance(delta, box):
+    """Minimum-image lengths of displacements `delta` ``(..., 3)`` in
+    the dtype of `delta`, for orthorhombic lengths `box` ``(3,)``;
+    non-positive lengths are aperiodic axes and do not fold (the
+    orthorhombic branch of the JAX package's function)."""
+
+    period = torch.where(box > 0, box, torch.inf)
+    shift = torch.where(box > 0, torch.round(delta / period), 0.0)
+    delta = delta - box * shift
+    return torch.sqrt((delta * delta).sum(dim=-1))
 
 
 def radial_histogram_frame(pos1, pos2, box, edges, *, exclusion=None,
@@ -148,3 +164,38 @@ def radial_histogram_frame(pos1, pos2, box, edges, *, exclusion=None,
             idx = torch.where(keep, idx, n_bins)
         counts += torch.bincount(idx.reshape(-1), minlength=n_bins + 1)
     return counts[:n_bins]
+
+
+def displacement_histogram_frame(pos1, pos2, box, edges):
+    r"""Exact histogram of elementwise minimum-image displacement
+    lengths :math:`|\mathbf{r}_{1,i} - \mathbf{r}_{2,i}|` -- the Van
+    Hove self part (exact precision of the JAX package's function).
+
+    Parameters
+    ----------
+    pos1, pos2 : `torch.Tensor`
+        float32 positions of the same atoms in the same order,
+        ``(..., N, 3)``, wrapped into the box.
+    box : `torch.Tensor`
+        float32 orthorhombic box lengths ``(3,)``.
+    edges : array-like
+        Uniform float64 bin edges ``(n_bins + 1,)``.
+
+    Returns
+    -------
+    counts : `torch.Tensor`
+        int64 counts ``(..., n_bins)``, one histogram per leading index.
+    """
+
+    n_bins = len(edges) - 1
+    idx = _exact_bin_indices(
+        pos1.to(torch.float32), pos2.to(torch.float32),
+        box.to(torch.float32), edges, elementwise=True,
+    )
+    lead = idx.shape[:-1]
+    rows = idx.reshape(-1, idx.shape[-1])
+    # One bincount for every leading index: offset each row's bins.
+    offset = torch.arange(rows.shape[0], device=rows.device)[:, None]
+    flat = (rows + offset * (n_bins + 1)).reshape(-1)
+    counts = torch.bincount(flat, minlength=rows.shape[0] * (n_bins + 1))
+    return counts.reshape(*lead, n_bins + 1)[..., :n_bins]

@@ -3,13 +3,18 @@ Test inputs and float64 oracles
 ===============================
 
 NumPy helpers shared by the port's tests and ``chip_smoke.py``: the
-bin-edge straddle fixture and the float64 all-pairs histogram the
-cell-list kernel is held against.
+bin-edge straddle fixtures and the float64 all-pairs histograms the
+cell-list kernels are held against.
 """
 
 import numpy as np
 
-__all__ = ["edge_straddle_positions", "f64_pair_histogram"]
+__all__ = [
+    "edge_straddle_positions",
+    "edge_straddle_cross_positions",
+    "f64_pair_histogram",
+    "f64_cross_histogram",
+]
 
 
 def edge_straddle_positions(rng, box):
@@ -33,6 +38,15 @@ def edge_straddle_positions(rng, box):
     return np.concatenate((pos, partners))
 
 
+def edge_straddle_cross_positions(rng, box):
+    """The straddle fixture split into two disjoint groups: the 300
+    uniform atoms (group 1) and the 90 partners (group 2), so the 90
+    bin-edge pairs are cross pairs."""
+
+    pos = edge_straddle_positions(rng, box)
+    return pos[:300], pos[300:]
+
+
 def f64_pair_histogram(pos, box, r_max, n_bins):
     """float64 minimum-image histogram on ``[0, r_max]`` of all ordered
     pairs of the float32 positions ``pos`` ``(N, 3)`` (self pairs
@@ -43,4 +57,21 @@ def f64_pair_histogram(pos, box, r_max, n_bins):
     d -= box * np.round(d / box)
     dist = np.sqrt((d**2).sum(-1))
     dist[np.arange(len(pos)), np.arange(len(pos))] = np.inf
+    return np.histogram(dist, bins=n_bins, range=(0.0, r_max))[0]
+
+
+def f64_cross_histogram(pos1, pos2, box, r_max, n_bins, exclusion=None):
+    """float64 minimum-image histogram on ``[0, r_max]`` of every pair
+    (i of ``pos1``, j of ``pos2``) of float32 positions in a cubic box
+    of side ``box``; ``exclusion=(e0, e1)`` drops pairs with
+    ``i // e0 == j // e1``."""
+
+    d = pos1.astype(np.float64)[:, None] - pos2.astype(np.float64)[None]
+    d -= box * np.round(d / box)
+    dist = np.sqrt((d**2).sum(-1))
+    if exclusion is not None:
+        e0, e1 = exclusion
+        same = (np.arange(len(pos1))[:, None] // e0
+                == np.arange(len(pos2))[None, :] // e1)
+        dist[same] = np.inf
     return np.histogram(dist, bins=n_bins, range=(0.0, r_max))[0]

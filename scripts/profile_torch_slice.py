@@ -1,17 +1,23 @@
-"""Where the PyTorch port's fused slice spends its time on one CUDA card.
+"""Where the PyTorch port's paths spend their time on one CUDA card.
 
 Run from the repository root::
 
-    python3 scripts/profile_torch_slice.py [--out PATH]
+    python3 scripts/profile_torch_slice.py [--path P] [--seed N] [--out FILE]
 
-In one process, on ``chip_smoke.py``'s main path (100k atoms, 40
-frames in 8-frame chunks), it times the fused RDF + S(q) + MSD pass,
-each analysis alone, and the fused pass again, and prints frames/s for
-each with the card's name and power limit.  Then it runs one fused pass
-under ``torch.profiler`` and prints the device's busy share of that
-pass's wall time (the union of all device-side activity intervals) and
-the kernels that took the most device time.  With ``--out PATH`` the
-full profiler table is also written to PATH.
+``--path fused`` (the default) takes ``chip_smoke.py``'s main path
+(100k atoms, 40 frames in 8-frame chunks): in one process it times the
+fused RDF + S(q) + MSD pass, each analysis alone, and the fused pass
+again.  ``--path cross_rdf`` and ``--path vanhove`` take its cross-RDF
+(56 frames) and Van Hove (104 frames, 21 lags) paths at 100k atoms and
+time two passes.  Each prints frames/s with the card's name and power
+limit after one warm-up pass, then runs one more pass under
+``torch.profiler`` and prints the device's busy share of that pass's
+wall time (the union of all device-side activity intervals) and the
+kernels that took the most device time.  With ``--out FILE`` the full
+profiler table is also written to FILE.  ``--seed`` picks the uniform
+trajectory (default ``chip_smoke.SEED``): a pass whose densest cell
+exceeds the planned capacity raises ``CellCapacityOverflow``, as
+``run_together`` does, and another seed gives another draw.
 
 Imports neither JAX nor the JAX package.
 """
@@ -52,6 +58,10 @@ def busy_us(events):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--path", default="fused",
+                        choices=("fused", "cross_rdf", "vanhove"))
+    parser.add_argument("--seed", type=int, default=chip_smoke.SEED,
+                        help="seed of the uniform trajectory")
     parser.add_argument("--out", help="file for the full profiler table")
     args = parser.parse_args()
 
@@ -63,31 +73,47 @@ def main():
 
     device = require_cuda()
     card = chip_smoke.card_line()
-    _, u = chip_smoke.slice_universe(np.random.default_rng(chip_smoke.SEED))
+    if args.path == "fused":
+        n_frames, passes = chip_smoke.N_FRAMES, PASSES
 
-    # Warm-up: builds the kernel and the first-call caches.
-    chip_smoke.run_timed(chip_smoke.slice_analyses(u, device))
-    print(f"{card}; {chip_smoke.N_ATOMS} atoms, {chip_smoke.N_FRAMES} "
+        def make(parts):
+            return chip_smoke.slice_analyses(u, device, parts)
+    else:
+        n_frames = (chip_smoke.RDF_FRAMES if args.path == "cross_rdf"
+                    else chip_smoke.VH_FRAMES)
+        passes = ((args.path, None), (f"{args.path} again", None))
+
+        def make(parts):
+            return [chip_smoke.path_analysis(u, device, args.path)]
+    _, u = chip_smoke.slice_universe(
+        np.random.default_rng(args.seed), n_frames
+    )
+
+    def run(parts):
+        return chip_smoke.run_timed(make(parts), n_frames)
+
+    # Warm-up: builds the kernels and the first-call caches.
+    run(passes[0][1])
+    print(f"{card}; {args.path}: {chip_smoke.N_ATOMS} atoms, {n_frames} "
           f"frames in chunks of {chip_smoke.CHUNK}")
     print("| Pass | frames/s | ms a frame |")
     print("| --- | --- | --- |")
-    for name, parts in PASSES:
-        fps = chip_smoke.run_timed(chip_smoke.slice_analyses(u, device, parts))
+    for name, parts in passes:
+        fps = run(parts)
         print(f"| {name} | {fps:.3f} | {1e3 / fps:.3f} |")
 
-    analyses = chip_smoke.slice_analyses(u, device)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        chip_smoke.run_timed(analyses)
+        run(passes[0][1])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     on_device = [
         (e.time_range.start, e.time_range.end) for e in prof.events()
         if e.device_type == DeviceType.CUDA
     ]
-    print(f"profiled fused pass: wall {wall_us / 1e6:.3f} s with the "
+    print(f"profiled {args.path} pass: wall {wall_us / 1e6:.3f} s with the "
           f"profiler on; {len(on_device)} device activities; device busy "
           f"{100 * busy_us(on_device) / wall_us:.1f} % of the wall time")
     averages = prof.key_averages()

@@ -13,7 +13,9 @@ torch = pytest.importorskip("torch")
 
 from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch  # noqa: E402
 from mdhelper_tpu_torch.testing import (  # noqa: E402
+    edge_straddle_cross_positions,
     edge_straddle_positions,
+    f64_cross_histogram,
     f64_pair_histogram,
 )
 
@@ -79,4 +81,108 @@ def test_cuda_wrapper_rejects_other_devices():
         cch.cell_pair_histogram(
             torch.zeros((1, 8, 3), device="meta"), box=(BOX,) * 3,
             r_max=4.0, n_cells_dim=(4, 4, 4), capacity=32, n_bins=8,
+        )
+
+
+def _cross_inputs(rng, n_frames=2):
+    p1 = (rng.random((n_frames, 600, 3)) * BOX).astype(np.float32)
+    p2 = (rng.random((n_frames, 900, 3)) * BOX).astype(np.float32)
+    return p1, p2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exclusion", [None, (1, 1), (2, 3)])
+def test_cross_kernel_equals_reference(cuda_device, exclusion):
+    p1, p2 = _cross_inputs(np.random.default_rng(41))
+    r_max, n_bins = 3.5, 96
+    plan = cch.cell_plan_search(600, [BOX] * 3, r_max, n_atoms2=900)
+    args = dict(box=(BOX,) * 3, r_max=r_max,
+                n_cells_dim=plan["n_cells_dim"],
+                capacity1=plan["capacity"], capacity2=plan["capacity2"],
+                n_bins=n_bins, exclusion=exclusion)
+    f1 = torch.from_numpy(p1).to(cuda_device)
+    f2 = torch.from_numpy(p2).to(cuda_device)
+    before = cch.cross_pair_histogram.launches
+    kernel = cch.cross_pair_histogram(f1, f2, **args)
+    torch.cuda.synchronize()
+    assert cch.cross_pair_histogram.launches == before + 1
+    plain = cch.cross_pair_histogram_reference(f1, f2, **args)
+    for k, p in zip(kernel, plain):
+        torch.testing.assert_close(k, p, rtol=0, atol=0)
+    np.testing.assert_array_equal(
+        kernel[0][0].cpu().numpy(),
+        f64_cross_histogram(p1[0], p2[0], BOX, r_max, n_bins, exclusion),
+    )
+
+
+@pytest.mark.cuda
+def test_cross_kernel_straddle(cuda_device):
+    a, b = edge_straddle_cross_positions(np.random.default_rng(99), BOX)
+    plan = cch.cell_plan_search(len(a), [BOX] * 3, 4.0, n_atoms2=len(b))
+    kernel, _, _ = cch.cross_pair_histogram(
+        torch.from_numpy(a).to(cuda_device),
+        torch.from_numpy(b).to(cuda_device), box=(BOX,) * 3, r_max=4.0,
+        n_cells_dim=plan["n_cells_dim"], capacity1=plan["capacity"],
+        capacity2=plan["capacity2"], n_bins=16,
+    )
+    np.testing.assert_array_equal(
+        kernel[0].cpu().numpy(), f64_cross_histogram(a, b, BOX, 4.0, 16)
+    )
+
+
+@pytest.mark.cuda
+def test_cross_kernel_large_capacity_and_shrunken_box(cuda_device):
+    """Capacities above 48 KB of shared memory take the opt-in launch
+    path; a frame whose box is too small comes back NaN."""
+
+    p1, p2 = _cross_inputs(np.random.default_rng(7))
+    p1[1] *= np.float32(0.7)
+    p2[1] *= np.float32(0.7)
+    args = dict(box=torch.tensor([[BOX] * 3, [0.7 * BOX] * 3]),
+                r_max=4.0, n_cells_dim=(3, 3, 4), capacity1=1600,
+                capacity2=1600, n_bins=64, exclusion=(2, 3))
+    f1 = torch.from_numpy(p1).to(cuda_device)
+    f2 = torch.from_numpy(p2).to(cuda_device)
+    kernel, _, _ = cch.cross_pair_histogram(f1, f2, **args)
+    plain, _, _ = cch.cross_pair_histogram_reference(f1, f2, **args)
+    torch.cuda.synchronize()
+    assert torch.isnan(kernel[1]).all()
+    torch.testing.assert_close(kernel[0], plain[0], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_vanhove_and_cross_rdf_on_the_card_equal_cpu(cuda_device):
+    """The two new paths give the same counts on the card as on the
+    CPU (plain versions)."""
+
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+        VanHoveFunction,
+    )
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    rng = np.random.default_rng(12)
+    traj = (rng.random((6, 1200, 3)) * BOX).astype(np.float32)
+    u = Universe.from_arrays(traj, np.array([BOX] * 3))
+    results = []
+    for device in ("cpu", cuda_device):
+        vh = VanHoveFunction(u.atoms, n_bins=32, range=(0.0, 4.0),
+                             lags="log", verbose=False,
+                             device=device).run()
+        rdf = RadialDistributionFunction(
+            u.atoms[0::2], u.atoms[1::2], n_bins=32, range=(0.0, 4.0),
+            exclusion=(2, 3), verbose=False, device=device,
+        ).run()
+        results.append((vh.results.counts_self, vh.results.counts_distinct,
+                        rdf.results.counts))
+    for cpu, card in zip(*results):
+        np.testing.assert_array_equal(cpu, card)
+
+
+def test_cross_wrapper_rejects_other_devices():
+    pos = torch.zeros((1, 8, 3), device="meta")
+    with pytest.raises(ValueError):
+        cch.cross_pair_histogram(
+            pos, pos, box=(BOX,) * 3, r_max=4.0, n_cells_dim=(4, 4, 4),
+            capacity1=32, capacity2=32, n_bins=8,
         )
