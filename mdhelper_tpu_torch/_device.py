@@ -8,8 +8,10 @@ Device and dtype policy
   decimal digits, which would smear the factorized S(q) sums the same
   way a single bf16 pass on the TPU matrix unit does; the JAX package
   pins those products to ``Precision.HIGHEST`` for the same reason.
-* Every device is passed explicitly (``device=``); nothing here sets a
-  global default device.
+* Analyses run on the first CUDA device unless the caller passes
+  another (``device="cpu"`` for the CPU); without a card the default
+  raises instead of falling back.  Nothing here sets a global default
+  device.
 """
 
 import torch
@@ -36,7 +38,8 @@ def require_cuda() -> torch.device:
 
 
 def resolve_device(device) -> torch.device:
-    """``device=`` argument to a :class:`torch.device` (``None`` is the
-    CPU)."""
+    """``device=`` argument to a :class:`torch.device`: ``None`` is the
+    first CUDA device (:func:`require_cuda`, which raises when there is
+    no card)."""
 
-    return torch.device("cpu" if device is None else device)
+    return require_cuda() if device is None else torch.device(device)

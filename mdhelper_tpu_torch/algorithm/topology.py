@@ -7,8 +7,38 @@ call.
 """
 
 import numpy as np
+import torch
 
-__all__ = ["unwrap_edge"]
+__all__ = ["triclinic_matrices", "unwrap_edge"]
+
+
+def triclinic_matrices(dimensions):
+    r"""``(..., 6)`` box parameters :math:`(a, b, c, \alpha, \beta,
+    \gamma)` (degrees) to ``(..., 3, 3)`` lower-triangular box matrices
+    whose rows are the box vectors, operation for operation as
+    ``mdhelper_tpu.algorithm.topology.triclinic_matrices``.  Takes a
+    NumPy array (returns NumPy) or a torch tensor (returns a tensor on
+    its device, in its dtype)."""
+
+    d = dimensions
+    xp = torch if isinstance(d, torch.Tensor) else np
+    a, b, c = d[..., 0], d[..., 1], d[..., 2]
+    alpha, beta, gamma = (xp.deg2rad(d[..., i]) for i in (3, 4, 5))
+    cos_a, cos_b, cos_g = xp.cos(alpha), xp.cos(beta), xp.cos(gamma)
+    sin_g = xp.sin(gamma)
+    bx, by = b * cos_g, b * sin_g
+    cx = c * cos_b
+    cy = c * (cos_a - cos_b * cos_g) / sin_g
+    cz = xp.sqrt(xp.maximum(c * c - cx * cx - cy * cy, xp.zeros_like(c)))
+    zero = xp.zeros_like(a)
+    return xp.stack(
+        (
+            xp.stack((a, zero, zero), axis=-1),
+            xp.stack((bx, by, zero), axis=-1),
+            xp.stack((cx, cy, cz), axis=-1),
+        ),
+        axis=-2,
+    )
 
 
 def unwrap_edge(*, group):

@@ -127,7 +127,9 @@ class SerialAnalysisBase:
     verbose : `bool`
         Log start and end of :meth:`run`.
     device : `torch.device` or `str`, optional
-        Where the chunks are folded (default: the CPU).
+        Where the chunks are folded (default: the first CUDA device;
+        raises `RuntimeError` without one).  Pass ``"cpu"`` to run on
+        the CPU.
     """
 
     #: bytes of float32 coordinates per streamed chunk.
@@ -181,12 +183,17 @@ class SerialAnalysisBase:
                 "dimensions (this universe has none)."
             )
 
-    def _require_orthorhombic(self, what: str) -> None:
+    def _setup_periodic_box(self) -> None:
+        """Set ``self._triclinic`` from the universe's box angles.
+        Zero-length boxes are aperiodic, not triclinic."""
+
         dims = self.universe.dimensions
-        if len(dims) >= 6 and not np.allclose(dims[3:6], 90.0):
-            raise NotImplementedError(
-                f"{what}: triclinic boxes are not ported yet."
-            )
+        self._triclinic = bool(
+            dims is not None
+            and len(dims) >= 6
+            and (np.asarray(dims[:3]) > 0).all()
+            and not np.allclose(dims[3:6], 90.0)
+        )
 
     # -- chunk protocol ----------------------------------------------------
     def _batched_update(self, carry, batch: _Batch):

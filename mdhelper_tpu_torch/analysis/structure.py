@@ -5,8 +5,8 @@ Structural analysis
 Ported from :mod:`mdhelper_tpu.analysis.structure`:
 
 * :class:`RadialDistributionFunction` for one group against itself or
-  between two disjoint groups, in an orthorhombic 3-D box with bins
-  from 0, through the cell-list pair histograms
+  between two disjoint groups, in an orthorhombic or triclinic 3-D box
+  with bins from 0, through the cell-list pair histograms
   (:mod:`mdhelper_tpu_torch.ops.cuda_cell_histogram`): the hand-written
   CUDA kernels on a GPU, their plain-torch versions on the CPU.  This
   cell route is the port's only RDF route.
@@ -17,8 +17,12 @@ Ported from :mod:`mdhelper_tpu.analysis.structure`:
   histogram for the self part, the cross cell-list kernel for the
   distinct part.
 
-Overlapping-group, triclinic, 2-D and offset-range RDFs, COM groupings,
-and the direct and mesh S(q) methods are not ported yet.
+A triclinic box runs the triclinic kernels, whose (cell, neighbour)
+blocks each take one lattice translation; that needs every
+perpendicular width at least 3 cutoffs.  Narrower triclinic boxes (the
+JAX package's per-pair ``tri_pp`` mode), overlapping-group, 2-D and
+offset-range RDFs, COM groupings, and the direct and mesh S(q) methods
+are not ported yet.
 """
 
 import warnings
@@ -26,11 +30,15 @@ import warnings
 import numpy as np
 import torch
 
+from ..algorithm.topology import triclinic_matrices
 from ..ops.cuda_cell_histogram import (
     CellCapacityOverflow,
     cell_pair_histogram,
     cell_plan_search,
     cross_pair_histogram,
+    triclinic_cell_pair_histogram,
+    triclinic_cross_pair_histogram,
+    triclinic_perpendicular_widths,
 )
 from ..ops.factor_scattering import factor_plan, factor_trig_sums
 from ..ops.histogram import _min_image_distance, displacement_histogram_frame
@@ -48,21 +56,63 @@ __all__ = [
 _NO_EXCESS = -(2**30)
 
 
+def _plan_extents(dimensions, triclinic):
+    """Per-axis extents a cell plan sees: the orthorhombic box lengths,
+    or the perpendicular widths of the float32-rounded triclinic cell
+    (the rounding the kernels' shift table uses; the JAX package's
+    ``_pallas_plan_extents``)."""
+
+    dims = np.asarray(dimensions, np.float64)
+    if not triclinic:
+        return dims[:3]
+    h32 = triclinic_matrices(dims).astype(np.float32)
+    return np.asarray(triclinic_perpendicular_widths(h32), np.float64)
+
+
+def _frame_boxes(dimensions, triclinic):
+    """``(kernel box, volume)`` of each frame of a chunk's ``(B, 6)``
+    float64 dimensions: the float32 lengths ``(B, 3)`` and their
+    product, or the float32 box matrices ``(B, 3, 3)`` and
+    ``h00 * h11 * h22`` of the float64 ones."""
+
+    if triclinic:
+        h = triclinic_matrices(dimensions)
+        return h.to(torch.float32), h[:, 0, 0] * h[:, 1, 1] * h[:, 2, 2]
+    lengths = dimensions[:, :3]
+    return lengths.to(torch.float32), lengths.prod(dim=1)
+
+
 class _CellPlanned(SerialAnalysisBase):
-    """Shared by the analyses on the cell-list kernels: the plan cache,
-    capacity escalation in :meth:`run` and the carry checks.
-    Subclasses set ``_plan_atoms``: ``(n1, None)`` plans the self
-    sweep, ``(n1, n2)`` the cross sweep."""
+    """Shared by the analyses on the cell-list kernels: the box check,
+    the plan cache, capacity escalation in :meth:`run` and the carry
+    checks.  Subclasses set ``_plan_atoms``: ``(n1, None)`` plans the
+    self sweep, ``(n1, n2)`` the cross sweep."""
 
     _cell_plan_cache = None
     _plan_atoms = None
+
+    def _setup_cell_box(self, what: str) -> None:
+        """Set ``self._triclinic``; a triclinic box must be at least 3
+        cutoffs wide along every lattice direction."""
+
+        self._setup_periodic_box()
+        if not self._triclinic:
+            return
+        widths = _plan_extents(self.universe.dimensions, True)
+        if np.any(widths < 3 * self._range[1]):
+            raise NotImplementedError(
+                f"{what}: this triclinic box's perpendicular widths "
+                f"{widths.round(3).tolist()} are not all at least 3 "
+                f"cutoffs ({3 * self._range[1]}); the per-pair triclinic "
+                "mode that such boxes need is not ported yet."
+            )
 
     def _searched_cell_plan(self):
         if self._cell_plan_cache is None:
             n1, n2 = self._plan_atoms
             self._cell_plan_cache = cell_plan_search(
                 n1,
-                np.asarray(self.universe.dimensions[:3], np.float64),
+                _plan_extents(self.universe.dimensions, self._triclinic),
                 float(self._range[1]),
                 n_atoms2=n2,
                 capacity_sigmas=self._capacity_sigmas,
@@ -105,15 +155,20 @@ class _CellPlanned(SerialAnalysisBase):
         if torch.isnan(self._carry[counts_key]).any():
             raise RuntimeError(
                 "A frame's box shrank below the planned cell grid (box "
-                "/ n_cells_dim under r_max on some axis); the neighbor "
-                "sweep would miss pairs. Re-plan against the smallest "
-                "box along the trajectory."
+                "length, or perpendicular width of a triclinic box, "
+                "over n_cells_dim under r_max on some axis); the "
+                "neighbor sweep would miss pairs. Re-plan against the "
+                "smallest box along the trajectory."
             )
 
 
 class RadialDistributionFunction(_CellPlanned):
     r"""Radial distribution function :math:`g(r)` of one group with
     itself, or between two disjoint groups.
+
+    The box may be orthorhombic or triclinic (then every perpendicular
+    width must be at least 3 cutoffs, and the volume is
+    :math:`h_{00} h_{11} h_{22}` of the box matrix).
 
     Parameters
     ----------
@@ -139,7 +194,8 @@ class RadialDistributionFunction(_CellPlanned):
         Cell-capacity headroom in Poisson sigmas; :meth:`run` raises it
         by 2 and re-runs after a capacity overflow (twice at most).
     device : optional
-        Device the chunks are folded on.
+        Device the chunks are folded on (default: the first CUDA
+        device, which must exist; ``"cpu"`` for the CPU).
     """
 
     def __init__(self, ag1, ag2=None, n_bins: int = 201,
@@ -152,11 +208,12 @@ class RadialDistributionFunction(_CellPlanned):
         self.universe = ag1.universe
         super().__init__(self.universe.trajectory, verbose, device=device)
         self._require_box("RadialDistributionFunction")
-        self._require_orthorhombic("RadialDistributionFunction")
         if range[0] != 0:
             raise NotImplementedError(
                 "RDF ranges starting above 0 are not ported yet."
             )
+        self._range = tuple(range)
+        self._setup_cell_box("RadialDistributionFunction")
         if self._cross:
             if np.intersect1d(ag1.ix, ag2.ix).size:
                 raise NotImplementedError(
@@ -177,7 +234,6 @@ class RadialDistributionFunction(_CellPlanned):
             self._exclusion = None if exclusion is None else (1, 1)
             self._atom_indices = np.asarray(ag1.ix)
         self._n_bins = n_bins
-        self._range = tuple(range)
         self._norm = norm
         self._capacity_sigmas = float(capacity_sigmas)
         self._n1 = self.ag1.n_atoms
@@ -205,6 +261,11 @@ class RadialDistributionFunction(_CellPlanned):
         n1 = self._n1
         cross = self._cross
         exclusion = self._exclusion
+        triclinic = self._triclinic
+        self_sweep, cross_sweep = (
+            (triclinic_cell_pair_histogram, triclinic_cross_pair_histogram)
+            if triclinic else (cell_pair_histogram, cross_pair_histogram)
+        )
         # exclusion=None (the reference default) of a self RDF: the
         # kernel drops identical-atom pairs, whose distance is exactly
         # 0, so they are added back into bin 0.
@@ -217,7 +278,7 @@ class RadialDistributionFunction(_CellPlanned):
                         n_cells_dim=plan["n_cells_dim"], n_bins=n_bins)
             if cross:
                 # The stream holds group 1's columns, then group 2's.
-                counts, occ1, occ2 = cross_pair_histogram(
+                counts, occ1, occ2 = cross_sweep(
                     positions[:, :n1], positions[:, n1:],
                     capacity1=plan["capacity"],
                     capacity2=plan["capacity2"], exclusion=exclusion,
@@ -226,7 +287,7 @@ class RadialDistributionFunction(_CellPlanned):
                 return counts, torch.maximum(
                     occ1 - plan["capacity"], occ2 - plan["capacity2"]
                 )
-            counts, occ = cell_pair_histogram(
+            counts, occ = self_sweep(
                 positions, capacity=plan["capacity"], **grid
             )
             if self_pairs:
@@ -234,9 +295,8 @@ class RadialDistributionFunction(_CellPlanned):
             return counts, occ - plan["capacity"]
 
         def update(carry, positions, dimensions, mask):
-            counts, excess = sweep(
-                positions, dimensions[:, :3].to(torch.float32)
-            )
+            box, frame_volume = _frame_boxes(dimensions, triclinic)
+            counts, excess = sweep(positions, box)
             valid = mask > 0
             # > 0 is an overflow.
             excess = torch.where(valid, excess, _NO_EXCESS).max().to(
@@ -245,7 +305,7 @@ class RadialDistributionFunction(_CellPlanned):
             # where, not a product: a NaN-poisoned padding frame times 0
             # would still be NaN.
             counts = torch.where(valid[:, None], counts, 0.0)
-            volume = (dimensions[:, :3].prod(dim=1) * mask).sum()
+            volume = (frame_volume * mask).sum()
             return {
                 "counts": carry["counts"] + counts.sum(dim=0),
                 "volume": carry["volume"] + volume,
@@ -339,6 +399,9 @@ class StructureFactor(SerialAnalysisBase):
         for the port's float32 streams) or ``"fast"``.
     method : `str`, default ``"factor"``
         Only ``"factor"``.
+    device : optional
+        Device the chunks are folded on (default: the first CUDA
+        device, which must exist; ``"cpu"`` for the CPU).
     """
 
     def __init__(self, groups, groupings="atoms", *, mode: str = None,
@@ -499,11 +562,14 @@ class VanHoveFunction(_CellPlanned):
        \delta\bigl(r - |\mathbf{r}_j(t) - \mathbf{r}_i(0)|\bigr)
        \Bigr\rangle}_{G_\mathrm{d}(r,t)}
 
-    Each streamed frame is wrapped into the box and written to a ring of
-    the last ``n_lags`` frames, then compared with the ring frame of
-    every selected lag that has one (lags longer than the frames seen so
-    far are skipped, as the JAX package masks them): the self part by
-    the exact displacement histogram and the exact moments
+    Each streamed frame is wrapped into the box (an orthorhombic one; a
+    triclinic frame is kept as streamed, since the triclinic kernel
+    folds fractionally and the self part searches the 27 images) and
+    written to a ring of the last ``n_lags`` frames, then compared with
+    the ring frame of every selected lag that has one (lags longer than
+    the frames seen so far are skipped, as the JAX package masks them):
+    the self part by the exact displacement histogram and the exact
+    moments
     :math:`\langle r^2\rangle`, :math:`\langle r^4\rangle`; the distinct
     part by the cross cell-list kernel with exclusion ``(1, 1)``, one
     launch a frame over all of its lags.
@@ -521,7 +587,8 @@ class VanHoveFunction(_CellPlanned):
         Number of radial bins.
     range : `tuple`, default ``(0.0, 15.0)``
         Radii range; it must start at 0 and stay below a third of the
-        box (the cell grid needs 3 cells per axis).
+        box (the cell grid needs 3 cells per axis; a third of every
+        perpendicular width in a triclinic box).
     grouping : `str`, default ``"atoms"``
         Only ``"atoms"`` is ported.
     dt : `float`, optional
@@ -536,7 +603,8 @@ class VanHoveFunction(_CellPlanned):
         Cell-capacity headroom in Poisson sigmas (see
         :class:`RadialDistributionFunction`).
     device : optional
-        Device the chunks are folded on.
+        Device the chunks are folded on (default: the first CUDA
+        device, which must exist; ``"cpu"`` for the CPU).
     """
 
     def __init__(self, group, n_bins: int = 201,
@@ -555,13 +623,13 @@ class VanHoveFunction(_CellPlanned):
         if grouping != "atoms":
             raise NotImplementedError("Only grouping='atoms' is ported.")
         self._require_box("VanHoveFunction")
-        self._require_orthorhombic("VanHoveFunction")
         if range[0] != 0:
             raise NotImplementedError(
                 "Van Hove ranges starting above 0 are not ported yet."
             )
         self._n_bins = int(n_bins)
         self._range = tuple(range)
+        self._setup_cell_box("VanHoveFunction")
         self._self_part = bool(self_part)
         self._distinct_part = bool(distinct_part)
         self._n_lags = n_lags
@@ -608,6 +676,11 @@ class VanHoveFunction(_CellPlanned):
         edges = self.results.edges
         self_part = self._self_part
         distinct_part = self._distinct_part
+        triclinic = self._triclinic
+        distinct_sweep = (
+            triclinic_cross_pair_histogram if triclinic
+            else cross_pair_histogram
+        )
         if distinct_part:
             plan = self._searched_cell_plan()
             self._carry["max_occ"] = torch.full(
@@ -620,16 +693,16 @@ class VanHoveFunction(_CellPlanned):
                 n_bins=self._n_bins, exclusion=(1, 1),
             )
 
-        def fold_frame(carry, pos, dims):
+        def fold_frame(carry, pos, box, volume):
             """Fold one frame into the carry, in place (the ring alone
             is n_lags x N x 3 floats; a copy a frame would double it)."""
 
-            box = dims[:3].to(torch.float32)
-            # The cell kernel needs wrapped coordinates.
-            pos = pos - box * torch.floor(pos / box)
+            if not triclinic:
+                # The orthorhombic cell kernel needs wrapped coordinates.
+                pos = pos - box * torch.floor(pos / box)
             fi = int(carry["frame"])
             carry["ring"][fi % n_lags] = pos
-            carry["volume"] += dims[:3].prod()
+            carry["volume"] += volume
             carry["frame"] += 1
             # Lags longer than the frames seen so far have no partner yet.
             sel = np.flatnonzero(lag_values <= fi)
@@ -656,7 +729,7 @@ class VanHoveFunction(_CellPlanned):
                     .double(),
                 )
             if distinct_part:
-                counts, occ1, occ2 = cross_pair_histogram(
+                counts, occ1, occ2 = distinct_sweep(
                     past, pos.expand_as(past), box=box, **cell
                 )
                 carry["distinct"].index_add_(0, rows, counts)
@@ -669,8 +742,9 @@ class VanHoveFunction(_CellPlanned):
             # The port streams no padding frames (every mask entry is
             # 1), and the ring makes the frames of a chunk sequential.
             del mask
-            for pos, dims in zip(positions, dimensions):
-                fold_frame(carry, pos, dims)
+            boxes, volumes = _frame_boxes(dimensions, triclinic)
+            for pos, box, volume in zip(positions, boxes, volumes):
+                fold_frame(carry, pos, box, volume)
             return carry
 
         self._update = update

@@ -51,7 +51,8 @@ class Onsager(SerialAnalysisBase):
     unwrap : `bool`, keyword-only, default False
         Unwrap positions by image-flag tracking.
     device : optional
-        Device the chunks are folded on.
+        Device the chunks are folded on (default: the first CUDA
+        device, which must exist; ``"cpu"`` for the CPU).
     """
 
     def __init__(self, groups, groupings="atoms", *,

@@ -1,23 +1,40 @@
-// Cell-list pair-distance histogram, half-shell, orthorhombic, exact.
+// Cell-list pair-distance histogram, half-shell, exact: orthorhombic and
+// triclinic boxes.
 //
-// Replaces the TPU kernel mdhelper_tpu/ops/pallas_cell_histogram.py::_kernel
-// (launched from cell_pair_histogram_pallas) in the mode the RDF main path
-// uses: half-shell 14-entry neighbor table, orthorhombic box, all three
-// axes, exact double-float binning (_bin_exact + _exact_index_from_d2 with
-// the "zero" boundary constants), no exclusion-id rows.
+// Replaces two TPU kernels of mdhelper_tpu/ops/pallas_cell_histogram.py,
+// both launched from cell_pair_histogram_pallas, in the modes the RDF uses:
+// half-shell 14-entry neighbor table, all three axes, exact double-float
+// binning (the "zero" boundary constants), no exclusion-id rows.
+//   * _kernel (orthorhombic; per-pair minimum image, _bin_exact), and its
+//     streaming twin _kernel_stream: cell_pair_histogram_kernel<OrthoBlock>,
+//     entry point cell_pair_histogram_launch;
+//   * _kernel_tri (triclinic; one lattice translation per (cell, neighbour)
+//     block, _bin_exact_shift), and its streaming twin _kernel_tri_stream:
+//     cell_pair_histogram_kernel<TriclinicBlock>, entry point
+//     triclinic_cell_pair_histogram_launch.
+// One block per (cell, neighbour) with both slot blocks staged in shared
+// memory is already the streaming layout, so each instantiation serves both
+// TPU layouts.
 //
 // What it computes.  For each frame, home cell c and entry nb of c's
 // half-shell row (entry 0 is c itself), every slot pair (i, j) with
 // i < occ[c], j < occ[nbr] -- and i < j inside the home block -- gets the
-// exact minimum-image d^2 in double-float, a float32-estimated bin with a
+// exact d^2 of cell_bin.cuh in double-float, a float32-estimated bin with a
 // +-1 correction against the exact (k*dr)^2 boundaries, and one count when
 // the bin is below n_bins.  The wrapper doubles the counts (each unordered
-// pair was visited once).
+// pair was visited once).  In a triclinic grid the atoms are folded into
+// the primary cell and assigned cells in fractional coordinates by the
+// wrapper; the block's image row (images[c, nb]) picks the frame's
+// double-float translation that moves the neighbour's atoms next to the
+// home cell.  That image is the minimum image of every pair within r_max
+// while each cell is at least r_max wide along every lattice direction,
+// which the wrapper checks per frame (NaN otherwise).
 //
 // What bounds it on the card: pair math, not bytes.  At the main path's
-// plan (100k atoms, 8x8x8 cells, capacity 256) a frame sweeps about
-// 470M padded slot pairs, each some 150 float32 operations of double-float
-// arithmetic, against about 8 MB of slot table read per frame.
+// plan (100k atoms, 8x8x8 cells, capacity 256) a frame bins about 263M
+// occupied slot pairs, each 254 float32 operations (245 for a shifted
+// block; counted in cell_bin.cuh), against about 8 MB of slot table read
+// per frame.
 //
 // This first design: one thread block per (frame, home cell, neighbor):
 // 7,168 blocks per frame at that plan, enough to fill 132 SMs.  The two
@@ -29,9 +46,6 @@
 // because the TPU has no fast scatter; the shared-memory atomics replace
 // it and give the same integer counts.  Warp-level histogram
 // privatisation, persistent blocks and tighter capacities are later work.
-//
-// The pair-binning math (exact d^2, estimate, +-1 boundary correction and
-// its precision traps) lives in cell_bin.cuh, shared with the cross kernel.
 
 #include <cuda_runtime.h>
 
@@ -41,11 +55,15 @@ namespace {
 
 constexpr int kThreads = 256;
 
+using cellbin::OrthoBlock;
+using cellbin::TriclinicBlock;
+
+template <class Geometry>
 __global__ void __launch_bounds__(kThreads)
 cell_pair_histogram_kernel(const float4* __restrict__ table,
                            const int* __restrict__ occupancy,
                            const int* __restrict__ neighbors,
-                           const float* __restrict__ boxes,
+                           Geometry geometry,
                            unsigned long long* __restrict__ out,
                            int n_cells, int n_nbr, int capacity, int n_bins,
                            float inv_dr, float dr2_hi, float dr2_lo) {
@@ -65,8 +83,7 @@ cell_pair_histogram_kernel(const float4* __restrict__ table,
   const int oj = min(occ[other], capacity);
   const float4* frame_table =
       table + static_cast<long long>(frame) * n_cells * capacity;
-  const float box[3] = {boxes[3 * frame], boxes[3 * frame + 1],
-                        boxes[3 * frame + 2]};
+  const auto image = geometry.at(frame, home, entry);
 
   for (int b = threadIdx.x; b < n_bins; b += blockDim.x) hist[b] = 0u;
   for (int s = threadIdx.x; s < oi; s += blockDim.x)
@@ -81,7 +98,7 @@ cell_pair_histogram_kernel(const float4* __restrict__ table,
     const int j = p - i * oj;
     // Home block: strict upper slot triangle (drops identical atoms too).
     if (self_block && i >= j) continue;
-    const int idx = cellbin::exact_bin(si[i], sj[j], box, n_bins, inv_dr,
+    const int idx = cellbin::exact_bin(si[i], sj[j], image, n_bins, inv_dr,
                                        dr2_hi, dr2_lo);
     if (idx < n_bins) atomicAdd(&hist[idx], 1u);
   }
@@ -92,6 +109,30 @@ cell_pair_histogram_kernel(const float4* __restrict__ table,
     const unsigned int h = hist[b];
     if (h) atomicAdd(&frame_out[b], static_cast<unsigned long long>(h));
   }
+}
+
+template <class Geometry>
+int launch(const void* table, const void* occupancy, const void* neighbors,
+           Geometry geometry, void* out, int n_frames, int n_cells, int n_nbr,
+           int capacity, int n_bins, float inv_dr, float dr2_hi,
+           float dr2_lo, void* stream) {
+  const size_t smem = 2 * sizeof(float4) * static_cast<size_t>(capacity) +
+                      sizeof(unsigned int) * static_cast<size_t>(n_bins);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        cell_pair_histogram_kernel<Geometry>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned int>(n_cells * n_nbr),
+                  static_cast<unsigned int>(n_frames));
+  cell_pair_histogram_kernel<Geometry><<<grid, kThreads, smem,
+                                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(table), static_cast<const int*>(occupancy),
+      static_cast<const int*>(neighbors), geometry,
+      static_cast<unsigned long long*>(out), n_cells, n_nbr, capacity,
+      n_bins, inv_dr, dr2_hi, dr2_lo);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -106,21 +147,26 @@ extern "C" int cell_pair_histogram_launch(
     const void* boxes, void* out, int n_frames, int n_cells, int n_nbr,
     int capacity, int n_bins, float inv_dr, float dr2_hi, float dr2_lo,
     void* stream) {
-  const size_t smem = 2 * sizeof(float4) * static_cast<size_t>(capacity) +
-                      sizeof(unsigned int) * static_cast<size_t>(n_bins);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        cell_pair_histogram_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(static_cast<unsigned int>(n_cells * n_nbr),
-                  static_cast<unsigned int>(n_frames));
-  cell_pair_histogram_kernel<<<grid, kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(table), static_cast<const int*>(occupancy),
-      static_cast<const int*>(neighbors), static_cast<const float*>(boxes),
-      static_cast<unsigned long long*>(out), n_cells, n_nbr, capacity,
-      n_bins, inv_dr, dr2_hi, dr2_lo);
-  return static_cast<int>(cudaGetLastError());
+  return launch(table, occupancy, neighbors,
+                OrthoBlock{static_cast<const float*>(boxes)}, out, n_frames,
+                n_cells, n_nbr, capacity, n_bins, inv_dr, dr2_hi, dr2_lo,
+                stream);
+}
+
+// The triclinic sweep: as cell_pair_histogram_launch, with the slot table
+// of the fractionally folded atoms, `images` (n_cells, n_nbr) int32 rows of
+// the shift table for the half-shell table's entries, and `shift_hi`,
+// `shift_lo` (n_frames, 27, 3) float32, each frame's 27 lattice
+// translations as double-floats, in place of `boxes`.
+extern "C" int triclinic_cell_pair_histogram_launch(
+    const void* table, const void* occupancy, const void* neighbors,
+    const void* images, const void* shift_hi, const void* shift_lo,
+    void* out, int n_frames, int n_cells, int n_nbr, int capacity,
+    int n_bins, float inv_dr, float dr2_hi, float dr2_lo, void* stream) {
+  const TriclinicBlock geometry{static_cast<const int*>(images),
+                                static_cast<const float*>(shift_hi),
+                                static_cast<const float*>(shift_lo), n_nbr};
+  return launch(table, occupancy, neighbors, geometry, out, n_frames,
+                n_cells, n_nbr, capacity, n_bins, inv_dr, dr2_hi, dr2_lo,
+                stream);
 }

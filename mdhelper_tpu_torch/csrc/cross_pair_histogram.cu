@@ -1,27 +1,34 @@
 // Cell-list pair-distance histogram between two disjoint groups, full shell,
-// orthorhombic, exact.
+// exact: orthorhombic and triclinic boxes.
 //
-// Replaces the TPU kernels mdhelper_tpu/ops/pallas_cell_histogram.py::
-// _cross_kernel (the resident-table layout) and ::_cross_kernel_stream (the
-// per-(cell, neighbour) streaming layout that the JAX package picks for slot
-// tables over 12 MB), both launched from cross_pair_histogram_pallas, in the
-// mode the cross RDF and the Van Hove distinct part use: 27-entry full
-// neighbour table, reach 1, orthorhombic box, all three axes, exact
-// double-float binning with the "zero" boundary constants, optional (e0, e1)
-// exclusion ids.  One block per (cell, neighbour) with its two slot blocks
-// staged in shared memory is already the streaming layout, so this one
-// kernel serves both TPU layouts.
+// Replaces four TPU kernels of mdhelper_tpu/ops/pallas_cell_histogram.py,
+// all launched from cross_pair_histogram_pallas, in the modes the cross RDF
+// and the Van Hove distinct part use: 27-entry full neighbour table, reach
+// 1, all three axes, exact double-float binning with the "zero" boundary
+// constants, optional (e0, e1) exclusion ids.
+//   * _cross_kernel (orthorhombic, the resident-table layout) and
+//     _cross_kernel_stream (the per-(cell, neighbour) streaming layout that
+//     the JAX package picks for slot tables over 12 MB):
+//     cross_pair_histogram_kernel<OrthoBlock>, entry point
+//     cross_pair_histogram_launch;
+//   * _cross_kernel_tri and _cross_kernel_tri_stream (triclinic, one lattice
+//     translation per block): cross_pair_histogram_kernel<TriclinicBlock>,
+//     entry point triclinic_cross_pair_histogram_launch.
+// One block per (cell, neighbour) with its two slot blocks staged in shared
+// memory is already the streaming layout, so each instantiation serves both
+// TPU layouts.
 //
 // What it computes.  For each frame, group-1 home cell c and entry e of c's
 // full-shell row, every slot pair (i, j) with i < occ1[c] and
 // j < occ2[nbr[c, e]] -- minus the pairs with equal exclusion ids when
-// exclusion is on -- gets the exact minimum-image bin of cell_bin.cuh and
-// one count when the bin is below n_bins.  No triangle mask and no
-// identical-atom mask: the groups are disjoint and every ordered
+// exclusion is on -- gets the exact bin of cell_bin.cuh (per-pair minimum
+// image, or the block's lattice translation images[c, e] in a triclinic
+// grid) and one count when the bin is below n_bins.  No triangle mask and
+// no identical-atom mask: the groups are disjoint and every ordered
 // (group-1, group-2) pair is visited once, so the counts are not doubled.
 //
 // What bounds it on the card: pair math, not bytes.  Each slot pair costs
-// the same ~150 float32 operations of double-float arithmetic as in the
+// the same 254 float32 operations (245 triclinic; cell_bin.cuh) as in the
 // self kernel; without the half shell it sweeps 27 neighbour blocks instead
 // of 14, so at equal N it does about twice the self kernel's pairs, against
 // a slot-table read of 16 B a slot per block.
@@ -45,13 +52,17 @@ namespace {
 
 constexpr int kThreads = 256;
 
+using cellbin::OrthoBlock;
+using cellbin::TriclinicBlock;
+
+template <class Geometry>
 __global__ void __launch_bounds__(kThreads)
 cross_pair_histogram_kernel(const float4* __restrict__ table1,
                             const int* __restrict__ occupancy1,
                             const float4* __restrict__ table2,
                             const int* __restrict__ occupancy2,
                             const int* __restrict__ neighbors,
-                            const float* __restrict__ boxes,
+                            Geometry geometry,
                             unsigned long long* __restrict__ out,
                             int n_cells, int n_nbr, int capacity1,
                             int capacity2, int n_bins, int exclude,
@@ -74,8 +85,7 @@ cross_pair_histogram_kernel(const float4* __restrict__ table1,
   if (oi == 0 || oj == 0) return;
   const float4* block1 = table1 + (frame_cells + home) * capacity1;
   const float4* block2 = table2 + (frame_cells + other) * capacity2;
-  const float box[3] = {boxes[3 * frame], boxes[3 * frame + 1],
-                        boxes[3 * frame + 2]};
+  const auto image = geometry.at(frame, home, entry);
 
   for (int b = threadIdx.x; b < n_bins; b += blockDim.x) hist[b] = 0u;
   for (int s = threadIdx.x; s < oi; s += blockDim.x) si[s] = block1[s];
@@ -91,7 +101,7 @@ cross_pair_histogram_kernel(const float4* __restrict__ table1,
     // Exclusion ids (index // e0, index // e1) are exact float32 integers.
     if (exclude && a.w == c.w) continue;
     const int idx =
-        cellbin::exact_bin(a, c, box, n_bins, inv_dr, dr2_hi, dr2_lo);
+        cellbin::exact_bin(a, c, image, n_bins, inv_dr, dr2_hi, dr2_lo);
     if (idx < n_bins) atomicAdd(&hist[idx], 1u);
   }
   __syncthreads();
@@ -101,6 +111,35 @@ cross_pair_histogram_kernel(const float4* __restrict__ table1,
     const unsigned int h = hist[b];
     if (h) atomicAdd(&frame_out[b], static_cast<unsigned long long>(h));
   }
+}
+
+template <class Geometry>
+int launch(const void* table1, const void* occupancy1, const void* table2,
+           const void* occupancy2, const void* neighbors, Geometry geometry,
+           void* out, int n_frames, int n_cells, int n_nbr, int capacity1,
+           int capacity2, int n_bins, int exclude, float inv_dr,
+           float dr2_hi, float dr2_lo, void* stream) {
+  const size_t smem =
+      sizeof(float4) * (static_cast<size_t>(capacity1) + capacity2) +
+      sizeof(unsigned int) * static_cast<size_t>(n_bins);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        cross_pair_histogram_kernel<Geometry>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned int>(n_cells * n_nbr),
+                  static_cast<unsigned int>(n_frames));
+  cross_pair_histogram_kernel<Geometry><<<grid, kThreads, smem,
+                                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(table1),
+      static_cast<const int*>(occupancy1),
+      static_cast<const float4*>(table2),
+      static_cast<const int*>(occupancy2),
+      static_cast<const int*>(neighbors), geometry,
+      static_cast<unsigned long long*>(out), n_cells, n_nbr, capacity1,
+      capacity2, n_bins, exclude, inv_dr, dr2_hi, dr2_lo);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -118,25 +157,27 @@ extern "C" int cross_pair_histogram_launch(
     void* out, int n_frames, int n_cells, int n_nbr, int capacity1,
     int capacity2, int n_bins, int exclude, float inv_dr, float dr2_hi,
     float dr2_lo, void* stream) {
-  const size_t smem =
-      sizeof(float4) * (static_cast<size_t>(capacity1) + capacity2) +
-      sizeof(unsigned int) * static_cast<size_t>(n_bins);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        cross_pair_histogram_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(static_cast<unsigned int>(n_cells * n_nbr),
-                  static_cast<unsigned int>(n_frames));
-  cross_pair_histogram_kernel<<<grid, kThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(table1),
-      static_cast<const int*>(occupancy1),
-      static_cast<const float4*>(table2),
-      static_cast<const int*>(occupancy2),
-      static_cast<const int*>(neighbors), static_cast<const float*>(boxes),
-      static_cast<unsigned long long*>(out), n_cells, n_nbr, capacity1,
-      capacity2, n_bins, exclude, inv_dr, dr2_hi, dr2_lo);
-  return static_cast<int>(cudaGetLastError());
+  return launch(table1, occupancy1, table2, occupancy2, neighbors,
+                OrthoBlock{static_cast<const float*>(boxes)}, out, n_frames,
+                n_cells, n_nbr, capacity1, capacity2, n_bins, exclude,
+                inv_dr, dr2_hi, dr2_lo, stream);
+}
+
+// The triclinic sweep: as cross_pair_histogram_launch, with the slot tables
+// of the fractionally folded atoms, `images` (n_cells, n_nbr) int32 rows of
+// the shift table for the full-shell table's entries, and `shift_hi`,
+// `shift_lo` (n_frames, 27, 3) float32, each frame's 27 lattice
+// translations as double-floats, in place of `boxes`.
+extern "C" int triclinic_cross_pair_histogram_launch(
+    const void* table1, const void* occupancy1, const void* table2,
+    const void* occupancy2, const void* neighbors, const void* images,
+    const void* shift_hi, const void* shift_lo, void* out, int n_frames,
+    int n_cells, int n_nbr, int capacity1, int capacity2, int n_bins,
+    int exclude, float inv_dr, float dr2_hi, float dr2_lo, void* stream) {
+  const TriclinicBlock geometry{static_cast<const int*>(images),
+                                static_cast<const float*>(shift_hi),
+                                static_cast<const float*>(shift_lo), n_nbr};
+  return launch(table1, occupancy1, table2, occupancy2, neighbors, geometry,
+                out, n_frames, n_cells, n_nbr, capacity1, capacity2, n_bins,
+                exclude, inv_dr, dr2_hi, dr2_lo, stream);
 }

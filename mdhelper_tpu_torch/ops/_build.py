@@ -57,6 +57,13 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
         _F, _F, _F, _P,
     ),
+    "triclinic_cell_pair_histogram_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+    ),
+    "triclinic_cross_pair_histogram_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _F, _F, _F, _P,
+    ),
 }
 
 _info = {}

@@ -3,7 +3,7 @@ Cell-list pair histograms (CUDA)
 ================================
 
 Counterpart of :mod:`mdhelper_tpu.ops.pallas_cell_histogram` for the
-orthorhombic, 3-D, exact modes that the ported analyses run:
+reach-1, 3-D, exact modes that the ported analyses run:
 
 * the self-group half-shell sweep (:func:`cell_pair_histogram`, kernel
   ``csrc/cell_pair_histogram.cu``): each home cell against its 14-entry
@@ -11,18 +11,24 @@ orthorhombic, 3-D, exact modes that the ported analyses run:
 * the cross-group full-shell sweep (:func:`cross_pair_histogram`,
   kernel ``csrc/cross_pair_histogram.cu``): each group-1 home cell
   against the 27 cells around it in group 2's table, ordered pairs of
-  two disjoint groups, with an optional ``(e0, e1)`` tile exclusion.
+  two disjoint groups, with an optional ``(e0, e1)`` tile exclusion;
+* their triclinic twins (:func:`triclinic_cell_pair_histogram`,
+  :func:`triclinic_cross_pair_histogram`, the triclinic entry points of
+  the same two sources): the atoms are folded into the primary cell and
+  gridded in fractional coordinates, and each (cell, neighbour) block
+  takes one lattice translation from the frame's double-float image
+  table (:func:`_image_shift_table`) instead of a per-pair image.
 
 Sorted atom positions are packed into a padded ``(n_cells * capacity,
 4)`` float32 slot table (xyz, then an id column: the atom index, or its
-exclusion tile ``index // e``); both kernels bin every pair in exact
+exclusion tile ``index // e``); every kernel bins every pair in exact
 double-float arithmetic through the same device function
 (``csrc/cell_bin.cuh``).
 
 Each wrapper launches its kernel for tensors on a CUDA device and runs
-its ``*_reference`` twin -- the same computation in plain torch -- for
-tensors on the CPU.  There is no fallback between the two: a CUDA
-tensor launches the kernel or raises.
+its ``*_reference`` twin -- the same computation in plain torch, on the
+same slot tables -- for tensors on the CPU.  There is no fallback
+between the two: a CUDA tensor launches the kernel or raises.
 """
 
 import itertools
@@ -33,8 +39,18 @@ import numpy as np
 import torch
 
 from . import _build
-from .doublefloat import df_add, df_ge, df_lt, f32_constant, two_prod
-from .histogram import _exact_d2_orthorhombic
+from .doublefloat import (
+    df_add,
+    df_ge,
+    df_lt,
+    df_sub,
+    df_sum3,
+    df_square,
+    f32_constant,
+    two_diff,
+    two_prod,
+)
+from .histogram import _exact_d2_orthorhombic, _inv3, _row_times
 
 __all__ = [
     "CellCapacityOverflow",
@@ -43,6 +59,12 @@ __all__ = [
     "cell_pair_histogram_reference",
     "cross_pair_histogram",
     "cross_pair_histogram_reference",
+    "triclinic_cell_pair_histogram",
+    "triclinic_cell_pair_histogram_reference",
+    "triclinic_cross_pair_histogram",
+    "triclinic_cross_pair_histogram_reference",
+    "triclinic_perpendicular_widths",
+    "swept_pairs",
 ]
 
 #: half-shell neighbor-table width: the home cell plus the 13
@@ -51,6 +73,15 @@ N_HALF = 14
 
 #: full-shell neighbor-table width: every offset in {-1, 0, 1}^3.
 N_FULL = 27
+
+#: every offset in {-1, 0, 1}^3, lexicographic (the full shell), and the
+#: home cell followed by the 13 positive ones (the half shell).
+_FULL_OFFSETS = list(itertools.product((-1, 0, 1), repeat=3))
+_HALF_OFFSETS = [(0, 0, 0)] + [o for o in _FULL_OFFSETS if o > (0, 0, 0)]
+
+#: the 27 per-axis wrap counts ``w`` in {-1, 0, 1}^3, indexed by the
+#: image row ``k = (wx+1)*9 + (wy+1)*3 + (wz+1)`` (13 is the zero image).
+_IMAGE_COMBOS = np.array(_FULL_OFFSETS, dtype=np.float32)
 
 #: float32 holds every integer id below 2^24 exactly.
 _MAX_EXACT_ID = 1 << 24
@@ -91,10 +122,13 @@ def cell_plan_search(n_atoms, box, r_max, *, n_atoms2=None,
     27 * capacity * capacity2`` for the cross sweep, whose two groups
     share one grid (ties to fewer cells).
 
-    Legal grids have at least 3 cells per axis, each at least ``r_max``
-    wide (``3 <= n_i <= floor(L_i / r_max)``).  Boxes under 3 cutoffs
-    on some axis need the generalized grids of the JAX package, which
-    the port does not have yet: they raise `ValueError`.
+    ``box`` holds the three extents the grid spans: the box lengths of
+    an orthorhombic box, or the perpendicular widths of a triclinic one
+    (:func:`triclinic_perpendicular_widths`).  Legal grids have at least
+    3 cells per axis, each at least ``r_max`` wide (``3 <= n_i <=
+    floor(L_i / r_max)``).  Boxes under 3 cutoffs on some axis need the
+    generalized grids of the JAX package, which the port does not have
+    yet: they raise `ValueError`.
 
     Returns ``{"n_cells_dim", "n_cells", "capacity", "reach", "_cost"}``,
     plus ``"capacity2"`` (group 2's slots) for a cross plan.
@@ -102,7 +136,7 @@ def cell_plan_search(n_atoms, box, r_max, *, n_atoms2=None,
 
     box = np.asarray(box, dtype=float)
     if box.shape != (3,):
-        raise ValueError("cell_plan_search takes 3 box lengths.")
+        raise ValueError("cell_plan_search takes 3 box extents.")
     floors = np.floor(box / r_max).astype(int)
     if not np.all(floors >= 3):
         raise ValueError(
@@ -153,14 +187,18 @@ def _bin_boundary_constants(r_max, n_bins):
     return inv_dr, dr2_hi, dr2_lo
 
 
+def _grid(n_cells_dim):
+    dims = tuple(int(n) for n in n_cells_dim)
+    if any(n < 3 for n in dims):
+        raise ValueError("The neighbor tables need >= 3 cells per axis.")
+    return dims, np.meshgrid(*[np.arange(n) for n in dims], indexing="ij")
+
+
 def _neighbor_table(n_cells_dim, offsets):
     """``(n_cells, len(offsets))`` int32 table of each cell's wrapped
     neighbours at the given offsets."""
 
-    dims = tuple(int(n) for n in n_cells_dim)
-    if any(n < 3 for n in dims):
-        raise ValueError("The neighbor tables need >= 3 cells per axis.")
-    grids = np.meshgrid(*[np.arange(n) for n in dims], indexing="ij")
+    dims, grids = _grid(n_cells_dim)
     cols = []
     for o in offsets:
         c = np.zeros(dims, dtype=np.int64)
@@ -171,15 +209,31 @@ def _neighbor_table(n_cells_dim, offsets):
     return np.stack(cols, axis=-1).astype(np.int32)
 
 
+def _image_table(n_cells_dim, offsets):
+    """``(n_cells, len(offsets))`` int32 image rows aligned with
+    :func:`_neighbor_table`: ``k = (wx+1)*9 + (wy+1)*3 + (wz+1)`` with
+    ``w`` the per-axis wrap count ``floor((cell + offset) / n)`` in
+    {-1, 0, 1} -- the row of :func:`_image_shift_table` that moves the
+    neighbour's atoms next to the home cell (the JAX package's
+    ``full_img`` and ``half_img``)."""
+
+    dims, grids = _grid(n_cells_dim)
+    cols = []
+    for o in offsets:
+        k = np.zeros(dims, dtype=np.int64)
+        for ax in range(3):
+            k = k * 3 + (grids[ax] + o[ax]) // dims[ax] + 1
+        cols.append(k.reshape(-1))
+    return np.stack(cols, axis=-1).astype(np.int32)
+
+
 @lru_cache(maxsize=None)
 def _half_table(n_cells_dim):
     """``(n_cells, 14)`` int32 half-shell table: the home cell, then the
     13 positive-lexicographic offsets in {-1, 0, 1}^3, wrapped.  With
     at least 3 cells per axis every unordered cell pair appears once."""
 
-    offsets = list(itertools.product((-1, 0, 1), repeat=3))
-    half = [(0, 0, 0)] + [o for o in offsets if o > (0, 0, 0)]
-    return _neighbor_table(n_cells_dim, half)
+    return _neighbor_table(n_cells_dim, _HALF_OFFSETS)
 
 
 @lru_cache(maxsize=None)
@@ -190,30 +244,147 @@ def _full_table(n_cells_dim):
     neighbours of a cell are distinct, so every ordered cell pair within
     reach appears once."""
 
-    return _neighbor_table(
-        n_cells_dim, list(itertools.product((-1, 0, 1), repeat=3))
+    return _neighbor_table(n_cells_dim, _FULL_OFFSETS)
+
+
+@lru_cache(maxsize=None)
+def _half_images(n_cells_dim):
+    """Image rows of :func:`_half_table`'s entries."""
+
+    return _image_table(n_cells_dim, _HALF_OFFSETS)
+
+
+@lru_cache(maxsize=None)
+def _full_images(n_cells_dim):
+    """Image rows of :func:`_full_table`'s entries."""
+
+    return _image_table(n_cells_dim, _FULL_OFFSETS)
+
+
+def _image_shift_table(box):
+    """Each frame's 27 lattice translations ``w @ H`` (``w`` the rows of
+    ``_IMAGE_COMBOS``) as double-floats: ``(hi, lo)``, each ``(B, 27,
+    3)`` float32, for float32 box matrices ``box`` ``(B, 3, 3)``.
+
+    Column ``k`` accumulates the diagonal term first, then the rows
+    below (the matrix is lower-triangular), one double-float op at a
+    time -- the order of the JAX package's ``_image_shift_table`` and
+    of the 27-image sweep ``ops/histogram._exact_d2_triclinic``, so a
+    pair's d^2 splits the same way in the kernels and in that sweep
+    (double-float compares are split-sensitive on bin-edge ties)."""
+
+    combos = torch.as_tensor(_IMAGE_COMBOS, device=box.device)
+    hi, lo = [], []
+    for col in range(3):
+        t = two_prod(combos[:, col], box[:, col, col, None])
+        for row in range(col + 1, 3):
+            t = df_add(t, two_prod(combos[:, row], box[:, row, col, None]))
+        hi.append(t[0])
+        lo.append(t[1])
+    return (torch.stack(hi, dim=-1).contiguous(),
+            torch.stack(lo, dim=-1).contiguous())
+
+
+def triclinic_perpendicular_widths(box_matrix):
+    """Perpendicular widths ``V / |row_j x row_k|`` of lower-triangular
+    box matrices ``(..., 3, 3)`` -- the distance between the periodic
+    faces along each lattice direction, operation for operation as the
+    JAX package's function.  A triclinic grid is legal when ``n_i <=
+    floor(w_i / r_max)``.  NumPy in, NumPy out; torch in, torch out."""
+
+    h = box_matrix
+    xp = torch if isinstance(h, torch.Tensor) else np
+    volume = xp.abs(h[..., 0, 0] * h[..., 1, 1] * h[..., 2, 2])
+
+    def cross_norm(u, v):
+        c0 = u[..., 1] * v[..., 2] - u[..., 2] * v[..., 1]
+        c1 = u[..., 2] * v[..., 0] - u[..., 0] * v[..., 2]
+        c2 = u[..., 0] * v[..., 1] - u[..., 1] * v[..., 0]
+        return xp.sqrt(c0 * c0 + c1 * c1 + c2 * c2)
+
+    rows = [h[..., i, :] for i in range(3)]
+    norms = xp.stack(
+        [cross_norm(rows[1], rows[2]), cross_norm(rows[0], rows[2]),
+         cross_norm(rows[0], rows[1])],
+        axis=-1,
     )
+    return volume[..., None] / norms
 
 
-def _slot_table(positions, n_cells_dim, capacity, cell_size, ex=None):
+def _cell_sweep_ok(extents, n_cells_dim, r_max):
+    """``(B,)`` bool: is the reach-1 sweep complete for each frame's
+    box?  Every cell must be at least ``r_max`` wide, except along axes
+    of exactly 3 cells, where the sweep already spans the whole axis."""
+
+    dims = torch.tensor(n_cells_dim, dtype=torch.float32,
+                        device=extents.device)
+    whole_axis = torch.tensor([n <= 3 for n in n_cells_dim],
+                              device=extents.device)
+    # Python floats of float32 values: weak scalars, float32 products.
+    wide_enough = (
+        extents * float(np.float32(1 + 1e-6))
+        >= dims * float(np.float32(r_max))
+    )
+    return (wide_enough | whole_axis).all(dim=-1)
+
+
+def _triclinic_sweep_ok(box, n_cells_dim, r_max):
+    """``(B,)`` bool: is every cell of each frame's triclinic grid at
+    least ``r_max`` wide along every lattice direction?  Strict: a
+    block's one lattice translation is the minimum image only then, so
+    unlike :func:`_cell_sweep_ok` there is no 3-cell exception.  A zero
+    (padding) box has NaN widths and fails."""
+
+    dims = torch.tensor(n_cells_dim, dtype=torch.float32, device=box.device)
+    widths = triclinic_perpendicular_widths(box)
+    return (
+        widths * float(np.float32(1 + 1e-6))
+        >= dims * float(np.float32(r_max))
+    ).all(dim=-1)
+
+
+def _triclinic_wrap_cells(positions, box, n_cells_dim):
+    """Fold ``(B, N, 3)`` positions into each frame's primary triclinic
+    cell and assign cells in fractional coordinates; returns ``(wrapped,
+    cell_xyz)``.  ``frac = p @ inv(H)`` and the fold ``p - floor(frac) @
+    H`` are written out elementwise in a fixed order, so the fold is the
+    identity (bit for bit) for positions already inside the cell away
+    from its faces, and the same on the card and on the CPU."""
+
+    frac = _row_times(positions, _inv3(box)[:, None])
+    m = torch.floor(frac)
+    wrapped = positions - _row_times(m, box[:, None])
+    hi = torch.tensor([n - 1 for n in n_cells_dim], dtype=torch.int32,
+                      device=positions.device)
+    dims = torch.tensor(n_cells_dim, dtype=torch.float32,
+                        device=positions.device)
+    cell_xyz = ((frac - m) * dims).to(torch.int32)
+    return wrapped, torch.minimum(torch.clamp(cell_xyz, min=0), hi)
+
+
+def _slot_table(positions, n_cells_dim, capacity, cell_size, ex=None,
+                cell_xyz=None):
     """Batched cell build: cell ids, a stable ``argsort``,
     ``searchsorted`` cell starts and a padded gather.
 
     ``positions`` ``(B, N, 3)`` float32, ``cell_size`` ``(B, 3)``
-    float32.  Returns the ``(B, n_cells * capacity, 4)`` slot table
-    (xyz, then the id ``index // ex`` as float32 -- the atom index when
-    ``ex`` is None; slots past a cell's occupancy hold neighbouring
-    atoms, which the kernels mask), the ``(B, n_cells)`` int32
-    occupancy and the ``(B,)`` maximum occupancy."""
+    float32, or ``cell_xyz`` ``(B, N, 3)`` int32 cell coordinates in
+    its place (the triclinic fractional build).  Returns the ``(B,
+    n_cells * capacity, 4)`` slot table (xyz, then the id ``index //
+    ex`` as float32 -- the atom index when ``ex`` is None; slots past a
+    cell's occupancy hold neighbouring atoms, which the kernels mask),
+    the ``(B, n_cells)`` int32 occupancy and the ``(B,)`` maximum
+    occupancy."""
 
     nx, ny, nz = n_cells_dim
     n_cells = nx * ny * nz
     b, n, _ = positions.shape
     device = positions.device
-    hi = torch.tensor([nx - 1, ny - 1, nz - 1], dtype=torch.int32,
-                      device=device)
-    cell_xyz = (positions / cell_size[:, None, :]).to(torch.int32)
-    cell_xyz = torch.minimum(torch.clamp(cell_xyz, min=0), hi)
+    if cell_xyz is None:
+        hi = torch.tensor([nx - 1, ny - 1, nz - 1], dtype=torch.int32,
+                          device=device)
+        cell_xyz = (positions / cell_size[:, None, :]).to(torch.int32)
+        cell_xyz = torch.minimum(torch.clamp(cell_xyz, min=0), hi)
     cid = (cell_xyz[..., 0] * ny + cell_xyz[..., 1]) * nz + cell_xyz[..., 2]
     order = torch.argsort(cid, dim=1, stable=True)
     sorted_cid = torch.gather(cid, 1, order).contiguous()
@@ -237,21 +408,21 @@ def _slot_table(positions, n_cells_dim, capacity, cell_size, ex=None):
     return table.contiguous(), occupancy, occupancy.amax(dim=1)
 
 
-def _cell_sweep_ok(extents, n_cells_dim, r_max):
-    """``(B,)`` bool: is the reach-1 sweep complete for each frame's
-    box?  Every cell must be at least ``r_max`` wide, except along axes
-    of exactly 3 cells, where the sweep already spans the whole axis."""
+def _tables(positions, box, dims, capacity, ex=None):
+    """Slot table, occupancy and maximum occupancy of one group: cells
+    of ``box / dims`` for orthorhombic ``(B, 3)`` boxes, the fractional
+    fold and grid of :func:`_triclinic_wrap_cells` for ``(B, 3, 3)``
+    box matrices.  A kernel and its plain version both take their slot
+    tables from here, so they bin the same float32 coordinates and agree
+    as integers whatever the cell assignment."""
 
-    dims = torch.tensor(n_cells_dim, dtype=torch.float32,
-                        device=extents.device)
-    whole_axis = torch.tensor([n <= 3 for n in n_cells_dim],
-                              device=extents.device)
-    # Python floats of float32 values: weak scalars, float32 products.
-    wide_enough = (
-        extents * float(np.float32(1 + 1e-6))
-        >= dims * float(np.float32(r_max))
-    )
-    return (wide_enough | whole_axis).all(dim=-1)
+    if box.ndim == 3:
+        wrapped, cell_xyz = _triclinic_wrap_cells(positions, box, dims)
+        return _slot_table(wrapped, dims, capacity, None, ex=ex,
+                           cell_xyz=cell_xyz)
+    cell_size = box / torch.tensor(dims, dtype=torch.float32,
+                                   device=box.device)
+    return _slot_table(positions, dims, capacity, cell_size, ex=ex)
 
 
 def _bin_index(d2, consts, n_bins):
@@ -278,13 +449,30 @@ def _bin_index(d2, consts, n_bins):
     )
 
 
+def _shifted_d2(p1, p2, shift_hi, shift_lo):
+    """d^2 of ``(p1 - p2) - shift`` in double-float, the pair difference
+    error-free and the shift a double-float lattice translation (the
+    kernels' ``ShiftImage``, the JAX package's ``_bin_exact_shift``)."""
+
+    components = []
+    for k in range(3):
+        s, e = two_diff(p1[..., k], p2[..., k])
+        d = df_sub((s, e), (shift_hi[..., k], shift_lo[..., k]))
+        components.append(df_square(d))
+    return df_sum3(*components)
+
+
 def _sweep_reference(table1, occupancy1, capacity1, table2, occupancy2,
-                     capacity2, nbr, box, r_max, n_bins, *, half, exclude):
+                     capacity2, nbr, box, r_max, n_bins, *, half, exclude,
+                     images=None, shifts=None):
     """The kernels' sweep in plain torch: every home cell of slot table
     1 against its neighbour row ``nbr`` in slot table 2, the kernels'
     masks (occupied slots; ``half``: strict upper slot triangle in the
     home block; ``exclude``: drop equal ids), exact bins of the pairs
-    kept.  int64 ``(B, n_bins)``."""
+    kept -- per-pair orthorhombic minimum images in ``box`` ``(B, 3)``,
+    or, with ``images`` (the neighbour rows' image table) and ``shifts``
+    (:func:`_image_shift_table`), each block's lattice translation.
+    int64 ``(B, n_bins)``."""
 
     b = table1.shape[0]
     device = table1.device
@@ -319,46 +507,39 @@ def _sweep_reference(table1, occupancy1, capacity1, table2, occupancy2,
                     valid = valid & (ip[:, :, None, 3] != jp[:, None, :, 3])
                 # Bin the kept slot pairs only, as the kernels do.
                 cell, i, j = valid.nonzero(as_tuple=True)
-                d2 = _exact_d2_orthorhombic(
-                    ip[cell, i, :3], jp[cell, j, :3], box[f]
-                )
+                if images is None:
+                    d2 = _exact_d2_orthorhombic(
+                        ip[cell, i, :3], jp[cell, j, :3], box[f]
+                    )
+                else:
+                    img = images[home, entry][cell]
+                    d2 = _shifted_d2(ip[cell, i, :3], jp[cell, j, :3],
+                                     shifts[0][f, img], shifts[1][f, img])
                 idx = torch.clamp(_bin_index(d2, consts, n_bins), max=n_bins)
                 counts[f] += torch.bincount(idx.long(), minlength=n_bins + 1)
     return counts[:, :n_bins]
 
 
-def cell_pair_histogram_reference(
-    positions, *, box, r_max, n_cells_dim, capacity, n_bins,
-):
-    """Plain-torch version of the kernel: the same slot table, the same
-    half-shell sweep and masks, the same exact binning; integer counts
-    equal the kernel's.  Arguments and returns as
-    :func:`cell_pair_histogram`."""
+def _check_inputs(positions, box, n_cells_dim, triclinic=False):
+    """float32 ``(B, N, 3)`` positions, one box per frame (``(B, 3)``
+    lengths, or ``(B, 3, 3)`` matrices when `triclinic`) and the grid
+    as a tuple."""
 
-    positions, box, dims = _check_inputs(positions, box, n_cells_dim)
-    device = positions.device
-    table, occupancy, max_occ = _slot_table(
-        positions, dims, capacity, box / torch.tensor(
-            dims, dtype=torch.float32, device=device)
-    )
-    nbr = torch.as_tensor(_half_table(dims), device=device).long()
-    counts = _sweep_reference(
-        table, occupancy, capacity, table, occupancy, capacity, nbr, box,
-        r_max, n_bins, half=True, exclude=False,
-    )
-    return _poison(counts * 2, box, dims, r_max), max_occ
-
-
-def _check_inputs(positions, box, n_cells_dim):
     positions = torch.as_tensor(positions)
     if positions.ndim == 2:
         positions = positions[None]
     if positions.ndim != 3 or positions.shape[-1] != 3:
         raise ValueError("positions must have shape (B, N, 3) or (N, 3).")
     positions = positions.to(torch.float32).contiguous()
-    box = torch.as_tensor(box, device=positions.device)
-    box = box.to(torch.float32).reshape(-1, 3)
-    box = box.expand(positions.shape[0], 3).contiguous()
+    shape = (3, 3) if triclinic else (3,)
+    box = torch.as_tensor(box, device=positions.device).to(torch.float32)
+    if box.shape[-len(shape):] != shape or box.ndim > len(shape) + 1:
+        raise ValueError(
+            f"box must have shape {shape} or (B, *{shape}), not "
+            f"{tuple(box.shape)}."
+        )
+    box = box.reshape(-1, *shape)
+    box = box.expand(positions.shape[0], *shape).contiguous()
     dims = tuple(int(n) for n in n_cells_dim)
     if len(dims) != 3:
         raise ValueError("n_cells_dim must have 3 entries.")
@@ -369,8 +550,109 @@ def _poison(counts, box, dims, r_max):
     """float64 counts, NaN for frames whose box invalidates the planned
     grid."""
 
-    ok = _cell_sweep_ok(box, dims, r_max)
+    if box.ndim == 3:
+        ok = _triclinic_sweep_ok(box, dims, r_max)
+    else:
+        ok = _cell_sweep_ok(box, dims, r_max)
     return torch.where(ok[:, None], counts.to(torch.float64), torch.nan)
+
+
+def _on_cpu(positions, what):
+    """True for a CPU tensor (plain version), False for a CUDA tensor
+    (kernel); other devices raise."""
+
+    if positions.device.type == "cpu":
+        return True
+    if positions.device.type != "cuda":
+        raise ValueError(
+            f"{what} runs on CUDA or CPU tensors, not "
+            f"{positions.device.type}."
+        )
+    return False
+
+
+def _launch(entry, device, *args):
+    """Call the C entry point `entry` on the current stream of `device`;
+    tensors pass as their data pointers, numpy floats as floats."""
+
+    lib = _build.load_library()
+    args = [
+        a.data_ptr() if isinstance(a, torch.Tensor)
+        else float(a) if isinstance(a, np.floating) else a
+        for a in args
+    ]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = getattr(lib, entry)(*args, stream)
+    _build.check(status, f"{entry} kernel")
+
+
+def _self_inputs(positions, box, n_cells_dim, capacity, triclinic):
+    """What the self kernel and its plain version share: the checked
+    inputs, the slot table, the occupancy and its maximum, and the
+    half-shell neighbour table (int64)."""
+
+    positions, box, dims = _check_inputs(positions, box, n_cells_dim,
+                                         triclinic)
+    table, occupancy, max_occ = _tables(positions, box, dims, capacity)
+    nbr = torch.as_tensor(_half_table(dims), device=positions.device)
+    return positions, box, dims, table, occupancy, max_occ, nbr.long()
+
+
+def _self_reference(positions, box, r_max, n_cells_dim, capacity, n_bins,
+                    triclinic):
+    positions, box, dims, table, occupancy, max_occ, nbr = _self_inputs(
+        positions, box, n_cells_dim, capacity, triclinic
+    )
+    geometry = dict(box=box)
+    if triclinic:
+        geometry = dict(
+            box=None,
+            images=torch.as_tensor(_half_images(dims),
+                                   device=box.device).long(),
+            shifts=_image_shift_table(box),
+        )
+    counts = _sweep_reference(
+        table, occupancy, capacity, table, occupancy, capacity, nbr,
+        r_max=r_max, n_bins=n_bins, half=True, exclude=False, **geometry,
+    )
+    return _poison(counts * 2, box, dims, r_max), max_occ
+
+
+def _self_kernel(positions, box, r_max, n_cells_dim, capacity, n_bins,
+                 triclinic):
+    positions, box, dims, table, occupancy, max_occ, nbr = _self_inputs(
+        positions, box, n_cells_dim, capacity, triclinic
+    )
+    device = positions.device
+    b = positions.shape[0]
+    nbr = nbr.to(torch.int32).contiguous()
+    out = torch.zeros((b, n_bins), dtype=torch.int64, device=device)
+    grid = (b, int(np.prod(dims)), N_HALF, int(capacity), int(n_bins),
+            *_bin_boundary_constants(r_max, n_bins))
+    if triclinic:
+        images = torch.as_tensor(_half_images(dims), device=device)
+        shift_hi, shift_lo = _image_shift_table(box)
+        _launch("triclinic_cell_pair_histogram_launch", device, table,
+                occupancy, nbr, images.contiguous(), shift_hi, shift_lo,
+                out, *grid)
+    else:
+        _launch("cell_pair_histogram_launch", device, table, occupancy,
+                nbr, box, out, *grid)
+    # Each unordered pair was visited once: double to ordered pairs.
+    return _poison(out * 2, box, dims, r_max), max_occ
+
+
+def cell_pair_histogram_reference(
+    positions, *, box, r_max, n_cells_dim, capacity, n_bins,
+):
+    """Plain-torch version of the kernel: the same slot table, the same
+    half-shell sweep and masks, the same exact binning; integer counts
+    equal the kernel's.  Arguments and returns as
+    :func:`cell_pair_histogram`."""
+
+    return _self_reference(positions, box, r_max, n_cells_dim, capacity,
+                           n_bins, triclinic=False)
 
 
 def cell_pair_histogram(
@@ -409,41 +691,15 @@ def cell_pair_histogram(
     """
 
     positions = torch.as_tensor(positions)
-    if positions.device.type == "cpu":
+    if _on_cpu(positions, "cell_pair_histogram"):
         return cell_pair_histogram_reference(
             positions, box=box, r_max=r_max, n_cells_dim=n_cells_dim,
             capacity=capacity, n_bins=n_bins,
         )
-    if positions.device.type != "cuda":
-        raise ValueError(
-            f"cell_pair_histogram runs on CUDA or CPU tensors, not "
-            f"{positions.device.type}."
-        )
-    positions, box, dims = _check_inputs(positions, box, n_cells_dim)
-    b = positions.shape[0]
-    device = positions.device
-    n_cells = int(np.prod(dims))
-    table, occupancy, max_occ = _slot_table(
-        positions, dims, capacity, box / torch.tensor(
-            dims, dtype=torch.float32, device=device)
-    )
-    nbr = torch.as_tensor(_half_table(dims), device=device).contiguous()
-    occupancy = occupancy.contiguous()
-    out = torch.zeros((b, n_bins), dtype=torch.int64, device=device)
-    inv_dr, dr2_hi, dr2_lo = _bin_boundary_constants(r_max, n_bins)
-    lib = _build.load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = lib.cell_pair_histogram_launch(
-            table.data_ptr(), occupancy.data_ptr(),
-            nbr.data_ptr(), box.data_ptr(), out.data_ptr(),
-            b, n_cells, N_HALF, int(capacity), int(n_bins),
-            float(inv_dr), float(dr2_hi), float(dr2_lo), stream,
-        )
-    _build.check(status, "cell_pair_histogram kernel launch")
+    out = _self_kernel(positions, box, r_max, n_cells_dim, capacity, n_bins,
+                       triclinic=False)
     cell_pair_histogram.launches += 1
-    # Each unordered pair was visited once: double to ordered pairs.
-    return _poison(out * 2, box, dims, r_max), max_occ
+    return out
 
 
 #: kernel launches made by :func:`cell_pair_histogram` (CUDA tensors
@@ -452,13 +708,89 @@ def cell_pair_histogram(
 cell_pair_histogram.launches = 0
 
 
-def _check_cross_inputs(positions1, positions2, box, n_cells_dim,
-                        exclusion):
-    positions1, box, dims = _check_inputs(positions1, box, n_cells_dim)
+def triclinic_cell_pair_histogram_reference(
+    positions, *, box, r_max, n_cells_dim, capacity, n_bins,
+):
+    """Plain-torch version of the triclinic self kernel: the same folded
+    slot table, half-shell sweep, block translations and exact binning;
+    integer counts equal the kernel's.  Arguments and returns as
+    :func:`triclinic_cell_pair_histogram`."""
+
+    return _self_reference(positions, box, r_max, n_cells_dim, capacity,
+                           n_bins, triclinic=True)
+
+
+def triclinic_cell_pair_histogram(
+    positions, *, box, r_max, n_cells_dim, capacity, n_bins,
+):
+    r"""Self pair-distance histogram on ``[0, r_max]`` in a triclinic
+    box (the triclinic mode of the JAX package's
+    ``cell_pair_histogram_pallas``, batched over frames); returns
+    ``(counts, max_occupancy)``.
+
+    The positions are folded into the primary cell (the identity for
+    positions already inside it) and gridded in fractional coordinates;
+    every (cell, neighbour) block of the half shell takes one lattice
+    translation, the minimum image of all its pairs within ``r_max``.
+
+    Parameters
+    ----------
+    positions : `torch.Tensor`
+        Coordinates ``(B, N, 3)`` (or one frame ``(N, 3)``), cast to
+        float32.
+    box : `torch.Tensor` or array-like
+        Lower-triangular box matrices (rows are the box vectors,
+        :func:`~mdhelper_tpu_torch.algorithm.topology.triclinic_matrices`),
+        ``(3, 3)`` or per frame ``(B, 3, 3)``, cast to float32.
+    r_max, n_bins
+        As :func:`cell_pair_histogram`.
+    n_cells_dim, capacity
+        A plan from :func:`cell_plan_search` over the perpendicular
+        widths (:func:`triclinic_perpendicular_widths`).
+
+    Returns
+    -------
+    counts : `torch.Tensor`
+        float64 ``(B, n_bins)`` ordered-pair counts, NaN for frames
+        whose perpendicular widths fall below ``n_cells_dim * r_max``
+        (strictly: no 3-cell exception).
+    max_occupancy : `torch.Tensor`
+        int32 ``(B,)`` densest-cell occupancy.
+
+    A CUDA tensor launches the kernel (and adds one to
+    ``triclinic_cell_pair_histogram.launches``); a CPU tensor runs
+    :func:`triclinic_cell_pair_histogram_reference`.
+    """
+
+    positions = torch.as_tensor(positions)
+    if _on_cpu(positions, "triclinic_cell_pair_histogram"):
+        return triclinic_cell_pair_histogram_reference(
+            positions, box=box, r_max=r_max, n_cells_dim=n_cells_dim,
+            capacity=capacity, n_bins=n_bins,
+        )
+    out = _self_kernel(positions, box, r_max, n_cells_dim, capacity, n_bins,
+                       triclinic=True)
+    triclinic_cell_pair_histogram.launches += 1
+    return out
+
+
+#: kernel launches made by :func:`triclinic_cell_pair_histogram`, read
+#: the same way as ``cell_pair_histogram.launches``.
+triclinic_cell_pair_histogram.launches = 0
+
+
+def _cross_inputs(positions1, positions2, box, n_cells_dim, capacity1,
+                  capacity2, exclusion, triclinic):
+    """What the cross kernel and its plain version share: the checked
+    inputs, both groups' slot tables (exclusion ids in column 4), their
+    occupancies and maxima, and the full-shell table (int64)."""
+
+    positions1, box, dims = _check_inputs(positions1, box, n_cells_dim,
+                                          triclinic)
     positions2 = torch.as_tensor(positions2)
     if positions2.device != positions1.device:
         raise ValueError("Both groups' positions must be on one device.")
-    positions2, _, _ = _check_inputs(positions2, box, dims)
+    positions2, _, _ = _check_inputs(positions2, box, dims, triclinic)
     if positions2.shape[0] != positions1.shape[0]:
         raise ValueError("Both groups need the same number of frames.")
     if max(positions1.shape[1], positions2.shape[1]) >= _MAX_EXACT_ID:
@@ -471,18 +803,57 @@ def _check_cross_inputs(positions1, positions2, box, n_cells_dim,
     )
     if len(ex) != 2 or (exclusion is not None and min(ex) < 1):
         raise ValueError("exclusion must be None or (e0, e1), both >= 1.")
-    return positions1, positions2, box, dims, ex
+    t1, occ1, max1 = _tables(positions1, box, dims, capacity1, ex=ex[0])
+    t2, occ2, max2 = _tables(positions2, box, dims, capacity2, ex=ex[1])
+    nbr = torch.as_tensor(_full_table(dims), device=box.device).long()
+    return box, dims, (t1, occ1, max1), (t2, occ2, max2), nbr
 
 
-def _cross_tables(positions1, positions2, box, dims, capacity1, capacity2,
-                  ex):
-    cell_size = box / torch.tensor(dims, dtype=torch.float32,
-                                   device=box.device)
-    t1, occ1, max1 = _slot_table(positions1, dims, capacity1, cell_size,
-                                 ex=ex[0])
-    t2, occ2, max2 = _slot_table(positions2, dims, capacity2, cell_size,
-                                 ex=ex[1])
-    return t1, occ1, max1, t2, occ2, max2
+def _cross_reference(positions1, positions2, box, r_max, n_cells_dim,
+                     capacity1, capacity2, n_bins, exclusion, triclinic):
+    box, dims, (t1, occ1, max1), (t2, occ2, max2), nbr = _cross_inputs(
+        positions1, positions2, box, n_cells_dim, capacity1, capacity2,
+        exclusion, triclinic,
+    )
+    geometry = dict(box=box)
+    if triclinic:
+        geometry = dict(
+            box=None,
+            images=torch.as_tensor(_full_images(dims),
+                                   device=box.device).long(),
+            shifts=_image_shift_table(box),
+        )
+    counts = _sweep_reference(
+        t1, occ1, capacity1, t2, occ2, capacity2, nbr, r_max=r_max,
+        n_bins=n_bins, half=False, exclude=exclusion is not None,
+        **geometry,
+    )
+    return _poison(counts, box, dims, r_max), max1, max2
+
+
+def _cross_kernel(positions1, positions2, box, r_max, n_cells_dim,
+                  capacity1, capacity2, n_bins, exclusion, triclinic):
+    box, dims, (t1, occ1, max1), (t2, occ2, max2), nbr = _cross_inputs(
+        positions1, positions2, box, n_cells_dim, capacity1, capacity2,
+        exclusion, triclinic,
+    )
+    device = box.device
+    b = box.shape[0]
+    nbr = nbr.to(torch.int32).contiguous()
+    out = torch.zeros((b, n_bins), dtype=torch.int64, device=device)
+    grid = (b, int(np.prod(dims)), N_FULL, int(capacity1), int(capacity2),
+            int(n_bins), int(exclusion is not None),
+            *_bin_boundary_constants(r_max, n_bins))
+    tables = (t1, occ1.contiguous(), t2, occ2.contiguous(), nbr)
+    if triclinic:
+        images = torch.as_tensor(_full_images(dims), device=device)
+        shift_hi, shift_lo = _image_shift_table(box)
+        _launch("triclinic_cross_pair_histogram_launch", device, *tables,
+                images.contiguous(), shift_hi, shift_lo, out, *grid)
+    else:
+        _launch("cross_pair_histogram_launch", device, *tables, box, out,
+                *grid)
+    return _poison(out, box, dims, r_max), max1, max2
 
 
 def cross_pair_histogram_reference(
@@ -494,18 +865,9 @@ def cross_pair_histogram_reference(
     binning; integer counts equal the kernel's.  Arguments and returns
     as :func:`cross_pair_histogram`."""
 
-    positions1, positions2, box, dims, ex = _check_cross_inputs(
-        positions1, positions2, box, n_cells_dim, exclusion
-    )
-    t1, occ1, max1, t2, occ2, max2 = _cross_tables(
-        positions1, positions2, box, dims, capacity1, capacity2, ex
-    )
-    nbr = torch.as_tensor(_full_table(dims), device=box.device).long()
-    counts = _sweep_reference(
-        t1, occ1, capacity1, t2, occ2, capacity2, nbr, box, r_max, n_bins,
-        half=False, exclude=exclusion is not None,
-    )
-    return _poison(counts, box, dims, r_max), max1, max2
+    return _cross_reference(positions1, positions2, box, r_max,
+                            n_cells_dim, capacity1, capacity2, n_bins,
+                            exclusion, triclinic=False)
 
 
 def cross_pair_histogram(
@@ -553,45 +915,94 @@ def cross_pair_histogram(
     """
 
     positions1 = torch.as_tensor(positions1)
-    if positions1.device.type == "cpu":
+    if _on_cpu(positions1, "cross_pair_histogram"):
         return cross_pair_histogram_reference(
             positions1, positions2, box=box, r_max=r_max,
             n_cells_dim=n_cells_dim, capacity1=capacity1,
             capacity2=capacity2, n_bins=n_bins, exclusion=exclusion,
         )
-    if positions1.device.type != "cuda":
-        raise ValueError(
-            f"cross_pair_histogram runs on CUDA or CPU tensors, not "
-            f"{positions1.device.type}."
-        )
-    positions1, positions2, box, dims, ex = _check_cross_inputs(
-        positions1, positions2, box, n_cells_dim, exclusion
-    )
-    b = positions1.shape[0]
-    device = positions1.device
-    n_cells = int(np.prod(dims))
-    t1, occ1, max1, t2, occ2, max2 = _cross_tables(
-        positions1, positions2, box, dims, capacity1, capacity2, ex
-    )
-    nbr = torch.as_tensor(_full_table(dims), device=device).contiguous()
-    occ1, occ2 = occ1.contiguous(), occ2.contiguous()
-    out = torch.zeros((b, n_bins), dtype=torch.int64, device=device)
-    inv_dr, dr2_hi, dr2_lo = _bin_boundary_constants(r_max, n_bins)
-    lib = _build.load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = lib.cross_pair_histogram_launch(
-            t1.data_ptr(), occ1.data_ptr(), t2.data_ptr(), occ2.data_ptr(),
-            nbr.data_ptr(), box.data_ptr(), out.data_ptr(),
-            b, n_cells, N_FULL, int(capacity1), int(capacity2),
-            int(n_bins), int(exclusion is not None),
-            float(inv_dr), float(dr2_hi), float(dr2_lo), stream,
-        )
-    _build.check(status, "cross_pair_histogram kernel launch")
+    out = _cross_kernel(positions1, positions2, box, r_max, n_cells_dim,
+                        capacity1, capacity2, n_bins, exclusion,
+                        triclinic=False)
     cross_pair_histogram.launches += 1
-    return _poison(out, box, dims, r_max), max1, max2
+    return out
 
 
 #: kernel launches made by :func:`cross_pair_histogram` (CUDA tensors
 #: only), read the same way as ``cell_pair_histogram.launches``.
 cross_pair_histogram.launches = 0
+
+
+def triclinic_cross_pair_histogram_reference(
+    positions1, positions2, *, box, r_max, n_cells_dim, capacity1,
+    capacity2, n_bins, exclusion=None,
+):
+    """Plain-torch version of the triclinic cross kernel: the same
+    folded slot tables, full-shell sweep, block translations, masks and
+    exact binning; integer counts equal the kernel's.  Arguments and
+    returns as :func:`triclinic_cross_pair_histogram`."""
+
+    return _cross_reference(positions1, positions2, box, r_max,
+                            n_cells_dim, capacity1, capacity2, n_bins,
+                            exclusion, triclinic=True)
+
+
+def triclinic_cross_pair_histogram(
+    positions1, positions2, *, box, r_max, n_cells_dim, capacity1,
+    capacity2, n_bins, exclusion=None,
+):
+    r"""Cross-group pair-distance histogram on ``[0, r_max]`` in a
+    triclinic box: :func:`cross_pair_histogram`'s contract (disjoint
+    groups, optional ``(e0, e1)`` exclusion, counts not doubled) with
+    :func:`triclinic_cell_pair_histogram`'s box, fold, grid and NaN
+    rule.  ``box`` is ``(3, 3)`` or ``(B, 3, 3)``; the plan comes from
+    ``cell_plan_search(widths, ..., n_atoms2=)`` over the perpendicular
+    widths.  Returns ``(counts, max_occ1, max_occ2)``.
+
+    A CUDA tensor launches the kernel (and adds one to
+    ``triclinic_cross_pair_histogram.launches``); a CPU tensor runs
+    :func:`triclinic_cross_pair_histogram_reference`.
+    """
+
+    positions1 = torch.as_tensor(positions1)
+    if _on_cpu(positions1, "triclinic_cross_pair_histogram"):
+        return triclinic_cross_pair_histogram_reference(
+            positions1, positions2, box=box, r_max=r_max,
+            n_cells_dim=n_cells_dim, capacity1=capacity1,
+            capacity2=capacity2, n_bins=n_bins, exclusion=exclusion,
+        )
+    out = _cross_kernel(positions1, positions2, box, r_max, n_cells_dim,
+                        capacity1, capacity2, n_bins, exclusion,
+                        triclinic=True)
+    triclinic_cross_pair_histogram.launches += 1
+    return out
+
+
+#: kernel launches made by :func:`triclinic_cross_pair_histogram`, read
+#: the same way as ``cell_pair_histogram.launches``.
+triclinic_cross_pair_histogram.launches = 0
+
+
+def swept_pairs(positions1, positions2=None, *, box, n_cells_dim,
+                triclinic=False):
+    """Slot pairs with both slots occupied that the kernels bin for these
+    inputs, summed over frames (an `int`): the half shell of one group
+    (the home block's strict upper triangle plus the 13 neighbour
+    blocks), or with `positions2` the full shell of two.  ``box`` is
+    orthorhombic ``(3,)``/``(B, 3)``, or with `triclinic` ``(3, 3)``/
+    ``(B, 3, 3)``.  The pair count of a kernel's operation bound;
+    exclusion masks are not subtracted."""
+
+    positions1, box, dims = _check_inputs(positions1, box, n_cells_dim,
+                                          triclinic)
+    _, occ1, _ = _tables(positions1, box, dims, _CAP_STEP)
+    occ1 = occ1.long()
+    if positions2 is None:
+        nbr = torch.as_tensor(_half_table(dims), device=box.device).long()
+        home = occ1 * (occ1 - 1) // 2
+        others = occ1[:, :, None] * occ1[:, nbr[:, 1:]]
+        return int(home.sum() + others.sum())
+    positions2, _, _ = _check_inputs(positions2, box, dims, triclinic)
+    _, occ2, _ = _tables(positions2, box, dims, _CAP_STEP)
+    nbr = torch.as_tensor(_full_table(dims), device=box.device).long()
+    return int((occ1[:, :, None] * occ2.long()[:, nbr]).sum())

@@ -2,16 +2,25 @@
 Brute-force pair-distance histogram
 ===================================
 
-Torch counterpart of the exact orthorhombic part of
-:mod:`mdhelper_tpu.ops.histogram`: squared minimum-image distances of
-float32 coordinates in error-free double-float arithmetic, and
+Torch counterpart of the exact part of :mod:`mdhelper_tpu.ops.histogram`:
+squared minimum-image distances of float32 coordinates in error-free
+double-float arithmetic, in orthorhombic boxes (per-axis image
+multiples) and triclinic ones (the 27-candidate image search), and
 ``numpy.histogram``-compatible binning against the exact uniform edges
 (bin k is ``[e_k, e_{k+1})``, the last bin closed).
 
 This all-pairs sweep is the port's oracle: the tests and
-``chip_smoke.py`` hold the cell-list kernel
+``chip_smoke.py`` hold the cell-list kernels
 (:mod:`mdhelper_tpu_torch.ops.cuda_cell_histogram`) against it, the way
-the JAX package holds its Pallas kernel against the XLA sweep.
+the JAX package holds its Pallas kernels against the XLA sweep.
+
+A triclinic box is the ``(3, 3)`` lower-triangular float32 matrix whose
+rows are the box vectors
+(:func:`mdhelper_tpu_torch.algorithm.topology.triclinic_matrices`).
+The JAX package forms fractional coordinates with float32 matrix
+products; here they are written out elementwise in a fixed order
+(:func:`_row_times`), so the base image multiple cannot depend on a
+BLAS library's summation order.
 """
 
 import numpy as np
@@ -21,6 +30,7 @@ from .doublefloat import (
     df_add,
     df_ge,
     df_lt,
+    df_min,
     df_sub,
     df_sum3,
     df_square,
@@ -30,6 +40,58 @@ from .doublefloat import (
 )
 
 __all__ = ["radial_histogram_frame", "displacement_histogram_frame"]
+
+#: the 26 non-zero image shifts in {-1, 0, 1}^3, lexicographic (the
+#: triclinic minimum-image search; the zero shift is tried first).
+_IMAGE_SHIFTS = [
+    (sx, sy, sz)
+    for sx in (-1, 0, 1)
+    for sy in (-1, 0, 1)
+    for sz in (-1, 0, 1)
+    if (sx, sy, sz) != (0, 0, 0)
+]
+
+
+def _inv3(m):
+    """Closed-form inverse (adjugate over determinant) of ``(..., 3,
+    3)`` matrices, term for term as the JAX package's ``_inv3``."""
+
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    ca = e * i - f * h
+    cb = -(d * i - f * g)
+    cc = d * h - e * g
+    cd = -(b * i - c * h)
+    ce = a * i - c * g
+    cf = -(a * h - b * g)
+    cg = b * f - c * e
+    ch = -(a * f - c * d)
+    ci = a * e - b * d
+    det = a * ca + b * cb + c * cc
+    adj = torch.stack(
+        (
+            torch.stack((ca, cd, cg), dim=-1),
+            torch.stack((cb, ce, ch), dim=-1),
+            torch.stack((cc, cf, ci), dim=-1),
+        ),
+        dim=-2,
+    )
+    return adj / det[..., None, None]
+
+
+def _row_times(v, m):
+    """``v @ m`` for row vectors ``v`` ``(..., 3)`` and a matrix ``m``
+    ``(..., 3, 3)`` broadcast against them, written out elementwise:
+    column ``j`` is ``(v0 m0j + v1 m1j) + v2 m2j``."""
+
+    cols = []
+    for j in range(3):
+        acc = v[..., 0] * m[..., 0, j]
+        acc = acc + v[..., 1] * m[..., 1, j]
+        acc = acc + v[..., 2] * m[..., 2, j]
+        cols.append(acc)
+    return torch.stack(cols, dim=-1)
 
 
 def _exact_d2_orthorhombic(p1, p2, box):
@@ -46,6 +108,49 @@ def _exact_d2_orthorhombic(p1, p2, box):
         d = df_sub((s, e), (m * box[k], torch.zeros_like(s)))
         components.append(df_square(d))
     return df_sum3(*components)
+
+
+def _exact_d2_triclinic(p1, p2, box):
+    """Squared minimum-image distances in a triclinic cell, in
+    double-float: the base image multiple ``n0`` comes from rounding the
+    float32 fractional displacement, and all 27 candidates around it
+    are evaluated exactly, the minimum taken in double-float (the JAX
+    package's ``_exact_d2_triclinic``, with ``n0`` formed elementwise
+    instead of by a matrix product; the window absorbs a +-1 difference
+    in ``n0``).  ``box`` is the float32 ``(3, 3)`` lower-triangular
+    matrix; its zeros above the diagonal are skipped."""
+
+    inv = _inv3(box)
+    s_hi, s_lo = [], []
+    for k in range(3):
+        s, e = two_diff(p1[..., k], p2[..., k])
+        s_hi.append(s)
+        s_lo.append(e)
+    n0 = torch.round(_row_times(torch.stack(s_hi, dim=-1), inv))
+
+    best = None
+    for shift in [(0, 0, 0)] + _IMAGE_SHIFTS:
+        m = [n0[..., j] + float(shift[j]) for j in range(3)]
+        components = []
+        for k in range(3):
+            # t = sum_{j >= k} m_j * box[j, k] (lower-triangular).
+            t = two_prod(m[k], box[k, k])
+            for j in range(k + 1, 3):
+                t = df_add(t, two_prod(m[j], box[j, k]))
+            d = df_sub((s_hi[k], s_lo[k]), t)
+            components.append(df_square(d))
+        d2 = df_sum3(*components)
+        best = d2 if best is None else df_min(best, d2)
+    return best
+
+
+def _exact_d2(p1, p2, box):
+    """Exact squared minimum-image distances for an orthorhombic
+    ``(3,)`` or a triclinic ``(3, 3)`` float32 box."""
+
+    if box.ndim == 2:
+        return _exact_d2_triclinic(p1, p2, box)
+    return _exact_d2_orthorhombic(p1, p2, box)
 
 
 def _uniform_edge_constants(edges, device):
@@ -85,7 +190,7 @@ def _exact_bin_indices(p1, p2, box, edges, *, elementwise=False):
     c0, c1, c2, e0_f32, inv_h = _uniform_edge_constants(edges, device)
     if not elementwise:
         p1, p2 = p1[:, None, :], p2[None, :, :]
-    d2 = _exact_d2_orthorhombic(p1, p2, box)
+    d2 = _exact_d2(p1, p2, box)
 
     def boundary(k):
         kf = k.to(torch.float32)
@@ -114,10 +219,20 @@ def _exact_bin_indices(p1, p2, box, edges, *, elementwise=False):
 
 def _min_image_distance(delta, box):
     """Minimum-image lengths of displacements `delta` ``(..., 3)`` in
-    the dtype of `delta`, for orthorhombic lengths `box` ``(3,)``;
-    non-positive lengths are aperiodic axes and do not fold (the
-    orthorhombic branch of the JAX package's function)."""
+    the dtype of `delta`, for orthorhombic lengths `box` ``(3,)`` (non-
+    positive lengths are aperiodic axes and do not fold) or a
+    ``(3, 3)`` lower-triangular box matrix (fractional fold, then the
+    smallest of the 27 images), as the JAX package's function."""
 
+    if box.ndim == 2:
+        frac = _row_times(delta, _inv3(box))
+        base = _row_times(frac - torch.round(frac), box)
+        d2 = (base * base).sum(dim=-1)
+        for shift in _IMAGE_SHIFTS:
+            w = torch.tensor(shift, dtype=delta.dtype, device=delta.device)
+            cand = base + _row_times(w, box)
+            d2 = torch.minimum(d2, (cand * cand).sum(dim=-1))
+        return torch.sqrt(d2)
     period = torch.where(box > 0, box, torch.inf)
     shift = torch.where(box > 0, torch.round(delta / period), 0.0)
     delta = delta - box * shift
@@ -132,9 +247,10 @@ def radial_histogram_frame(pos1, pos2, box, edges, *, exclusion=None,
     ----------
     pos1, pos2 : `torch.Tensor`
         float32 positions ``(N1, 3)`` and ``(N2, 3)``, wrapped into the
-        box.
+        box (orthorhombic; the triclinic search takes any positions).
     box : `torch.Tensor`
-        float32 orthorhombic box lengths ``(3,)``.
+        float32 orthorhombic box lengths ``(3,)``, or a ``(3, 3)``
+        lower-triangular box matrix.
     edges : array-like
         Uniform float64 bin edges ``(n_bins + 1,)``.
     exclusion : `tuple`, optional
@@ -175,9 +291,11 @@ def displacement_histogram_frame(pos1, pos2, box, edges):
     ----------
     pos1, pos2 : `torch.Tensor`
         float32 positions of the same atoms in the same order,
-        ``(..., N, 3)``, wrapped into the box.
+        ``(..., N, 3)``, wrapped into the box (orthorhombic; the
+        triclinic search takes any positions).
     box : `torch.Tensor`
-        float32 orthorhombic box lengths ``(3,)``.
+        float32 orthorhombic box lengths ``(3,)``, or a ``(3, 3)``
+        lower-triangular box matrix.
     edges : array-like
         Uniform float64 bin edges ``(n_bins + 1,)``.
 

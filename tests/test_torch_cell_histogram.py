@@ -139,7 +139,8 @@ def test_capacity_overflow_on_clustered_frame():
     pos[0, :500] = 1.0 + rng.random((500, 3)) * 2.0  # one dense cell
     u = Universe.from_arrays(pos.astype(np.float32), [box] * 3)
     rdf = RadialDistributionFunction(
-        u.atoms, n_bins=20, range=(0.0, 4.0), verbose=False
+        u.atoms, n_bins=20, range=(0.0, 4.0), verbose=False,
+        device="cpu",
     )
     with pytest.warns(UserWarning, match="capacity"):
         with pytest.raises(cch.CellCapacityOverflow):

@@ -252,7 +252,7 @@ def test_cross_rdf_matches_jax(trajectory, exclusion, entry):
     )
     rdf = RadialDistributionFunction(
         u.atoms[0::2], u.atoms[1::2], n_bins=RDF_BINS, range=(0.0, 3.0),
-        exclusion=exclusion, verbose=False,
+        exclusion=exclusion, verbose=False, device="cpu",
     )
     rdf._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
     if entry == "run":
@@ -269,7 +269,8 @@ def test_cross_rdf_matches_jax(trajectory, exclusion, entry):
 def test_cross_rdf_rejects_overlapping_groups(trajectory):
     u = Universe.from_arrays(trajectory, np.array([RDF_BOX] * 3))
     with pytest.raises(NotImplementedError):
-        RadialDistributionFunction(u.atoms[:10], u.atoms[5:20])
+        RadialDistributionFunction(u.atoms[:10], u.atoms[5:20],
+                                   device="cpu")
 
 
 @pytest.mark.parametrize("item", [

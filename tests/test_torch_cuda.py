@@ -186,3 +186,161 @@ def test_cross_wrapper_rejects_other_devices():
             pos, pos, box=(BOX,) * 3, r_max=4.0, n_cells_dim=(4, 4, 4),
             capacity1=32, capacity2=32, n_bins=8,
         )
+
+
+# -- the triclinic kernels ----------------------------------------------------
+
+#: the tilted cell of tests/test_pallas.py, and a small xy-square rhombic
+#: dodecahedron (3 cells of r_max 4 on every axis).
+TRICLINIC = {
+    "dims6": np.array([16.0, 15.0, 14.0, 80.0, 95.0, 100.0]),
+    "dodeca": np.array([18.0, 18.0, 18.0, 60.0, 60.0, 90.0]),
+}
+
+
+def _triclinic_frames(rng, name, n_frames, n_atoms, outside=False):
+    """float32 frames at uniform fractional coordinates and the float32
+    box matrix; with `outside`, every atom moved by a random lattice
+    vector (the wrappers fold them back)."""
+
+    from mdhelper_tpu_torch.algorithm.topology import triclinic_matrices
+
+    h64 = triclinic_matrices(TRICLINIC[name])
+    frac = rng.random((n_frames, n_atoms, 3))
+    if outside:
+        frac += rng.integers(-1, 2, frac.shape)
+    return (frac @ h64).astype(np.float32), h64.astype(np.float32)
+
+
+def _triclinic_plan(box, r_max, n1, n2=None):
+    widths = cch.triclinic_perpendicular_widths(box).astype(np.float64)
+    return cch.cell_plan_search(n1, widths, r_max, n_atoms2=n2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dims6", "dodeca"])
+@pytest.mark.parametrize("outside", [False, True], ids=["inside", "outside"])
+def test_triclinic_self_kernel_equals_reference(cuda_device, name, outside):
+    rng = np.random.default_rng(51)
+    frames, box = _triclinic_frames(rng, name, 2, 900, outside)
+    plan = _triclinic_plan(box, 3.5 if name == "dims6" else 4.0, 900)
+    args = dict(box=box, r_max=3.5 if name == "dims6" else 4.0,
+                n_cells_dim=plan["n_cells_dim"], capacity=plan["capacity"],
+                n_bins=64)
+    f = torch.from_numpy(frames).to(cuda_device)
+    before = cch.triclinic_cell_pair_histogram.launches
+    kernel = cch.triclinic_cell_pair_histogram(f, **args)
+    torch.cuda.synchronize()
+    assert cch.triclinic_cell_pair_histogram.launches == before + 1
+    plain = cch.triclinic_cell_pair_histogram_reference(f, **args)
+    for k, p in zip(kernel, plain):
+        torch.testing.assert_close(k, p, rtol=0, atol=0)
+    assert kernel[0].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exclusion", [None, (1, 1), (2, 1)])
+def test_triclinic_cross_kernel_equals_reference(cuda_device, exclusion):
+    rng = np.random.default_rng(52)
+    p1, box = _triclinic_frames(rng, "dims6", 2, 600, outside=True)
+    p2, _ = _triclinic_frames(rng, "dims6", 2, 400)
+    plan = _triclinic_plan(box, 3.0, 600, 400)
+    args = dict(box=box, r_max=3.0, n_cells_dim=plan["n_cells_dim"],
+                capacity1=plan["capacity"], capacity2=plan["capacity2"],
+                n_bins=64, exclusion=exclusion)
+    f1 = torch.from_numpy(p1).to(cuda_device)
+    f2 = torch.from_numpy(p2).to(cuda_device)
+    before = cch.triclinic_cross_pair_histogram.launches
+    kernel = cch.triclinic_cross_pair_histogram(f1, f2, **args)
+    torch.cuda.synchronize()
+    assert cch.triclinic_cross_pair_histogram.launches == before + 1
+    plain = cch.triclinic_cross_pair_histogram_reference(f1, f2, **args)
+    for k, p in zip(kernel, plain):
+        torch.testing.assert_close(k, p, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_triclinic_kernels_straddle(cuda_device):
+    from mdhelper_tpu_torch.testing import (
+        edge_straddle_triclinic_positions,
+        f64_triclinic_pair_histogram,
+    )
+
+    _, box = _triclinic_frames(np.random.default_rng(0), "dodeca", 1, 1)
+    pos = edge_straddle_triclinic_positions(np.random.default_rng(99), box)
+    plan = _triclinic_plan(box, 4.0, len(pos))
+    self_counts, _ = cch.triclinic_cell_pair_histogram(
+        torch.from_numpy(pos).to(cuda_device), box=box, r_max=4.0,
+        n_cells_dim=plan["n_cells_dim"], capacity=plan["capacity"],
+        n_bins=16,
+    )
+    np.testing.assert_array_equal(
+        self_counts[0].cpu().numpy(),
+        f64_triclinic_pair_histogram(pos, pos, box, 4.0, 16, (1, 1)),
+    )
+    a, b = pos[:300], pos[300:]
+    plan = _triclinic_plan(box, 4.0, 300, 90)
+    cross_counts, _, _ = cch.triclinic_cross_pair_histogram(
+        torch.from_numpy(a).to(cuda_device),
+        torch.from_numpy(b).to(cuda_device), box=box, r_max=4.0,
+        n_cells_dim=plan["n_cells_dim"], capacity1=plan["capacity"],
+        capacity2=plan["capacity2"], n_bins=16,
+    )
+    np.testing.assert_array_equal(
+        cross_counts[0].cpu().numpy(),
+        f64_triclinic_pair_histogram(a, b, box, 4.0, 16),
+    )
+
+
+@pytest.mark.cuda
+def test_triclinic_kernels_large_capacity_and_shrunken_box(cuda_device):
+    """Capacities above 48 KB of shared memory take the opt-in launch
+    path; a frame whose c-vector shrank comes back NaN."""
+
+    rng = np.random.default_rng(53)
+    frames, box = _triclinic_frames(rng, "dodeca", 2, 3000)
+    bad = box.copy()
+    bad[2] *= np.float32(0.5)
+    boxes = torch.from_numpy(np.stack([box, bad]))
+    f = torch.from_numpy(frames).to(cuda_device)
+    grid = dict(box=boxes, r_max=4.0, n_cells_dim=(3, 3, 3), n_bins=64)
+    kernel, _ = cch.triclinic_cell_pair_histogram(f, capacity=1600, **grid)
+    plain, _ = cch.triclinic_cell_pair_histogram_reference(
+        f, capacity=1600, **grid)
+    cross, _, _ = cch.triclinic_cross_pair_histogram(
+        f, f.flip(1), capacity1=1600, capacity2=1600, exclusion=(1, 1),
+        **grid)
+    cross_plain, _, _ = cch.triclinic_cross_pair_histogram_reference(
+        f, f.flip(1), capacity1=1600, capacity2=1600, exclusion=(1, 1),
+        **grid)
+    torch.cuda.synchronize()
+    for k, p in ((kernel, plain), (cross, cross_plain)):
+        assert torch.isnan(k[1]).all()
+        torch.testing.assert_close(k[0], p[0], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_triclinic_paths_on_the_card_equal_cpu(cuda_device):
+    """The triclinic RDF (self and cross) and Van Hove give the same
+    counts on the card as on the CPU (plain versions)."""
+
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+        VanHoveFunction,
+    )
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    traj, _ = _triclinic_frames(np.random.default_rng(54), "dodeca", 5, 900)
+    u = Universe.from_arrays(traj, TRICLINIC["dodeca"])
+    results = []
+    for device in ("cpu", cuda_device):
+        kw = dict(n_bins=32, range=(0.0, 4.0), verbose=False, device=device)
+        vh = VanHoveFunction(u.atoms, lags="log", **kw).run()
+        rdf = RadialDistributionFunction(u.atoms, exclusion=(1, 1),
+                                         **kw).run()
+        cross = RadialDistributionFunction(u.atoms[0::2], u.atoms[1::2],
+                                           exclusion=(2, 3), **kw).run()
+        results.append((vh.results.counts_self, vh.results.counts_distinct,
+                        rdf.results.counts, cross.results.counts))
+    for cpu, card in zip(*results):
+        np.testing.assert_array_equal(cpu, card)

@@ -1,0 +1,98 @@
+"""Two rules of the port, checked without a card.
+
+* The port imports neither JAX nor the JAX package: every module of
+  ``mdhelper_tpu_torch/`` and ``chip_smoke.py`` is parsed and its import
+  statements are read (the machine with the card has no JAX).
+* The analyses run on the card unless the caller asks for the CPU: with
+  no card, constructing one without ``device=`` raises, and
+  ``device="cpu"`` runs.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from mdhelper_tpu_torch.analysis.structure import (  # noqa: E402
+    RadialDistributionFunction,
+    StructureFactor,
+    VanHoveFunction,
+)
+from mdhelper_tpu_torch.analysis.transport import Onsager  # noqa: E402
+from mdhelper_tpu_torch.core.universe import Universe  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+SOURCES = sorted((ROOT / "mdhelper_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+
+
+def _forbidden(name):
+    """jax and its submodules, and the JAX package and its submodules
+    (the port's own name only shares a prefix)."""
+
+    top = name.split(".")[0]
+    return top in ("jax", "mdhelper_tpu")
+
+
+def _imported_names(path):
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_port_never_imports_jax(path):
+    bad = [n for n in _imported_names(path) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_rule_catches_both_packages():
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("mdhelper_tpu") and _forbidden("mdhelper_tpu.ops.x")
+    assert not _forbidden("mdhelper_tpu_torch.ops")
+    assert not _forbidden("jaxtyping")
+
+
+def _analyses(u, **device):
+    return {
+        "rdf": lambda: RadialDistributionFunction(
+            u.atoms, n_bins=8, range=(0.0, 2.5), verbose=False, **device
+        ),
+        "cross_rdf": lambda: RadialDistributionFunction(
+            u.atoms[0::2], u.atoms[1::2], n_bins=8, range=(0.0, 2.5),
+            verbose=False, **device
+        ),
+        "vanhove": lambda: VanHoveFunction(
+            u.atoms, n_bins=8, range=(0.0, 2.5), verbose=False, **device
+        ),
+        "sq": lambda: StructureFactor(u.atoms, n_points=3, verbose=False,
+                                      **device),
+        "onsager": lambda: Onsager(u.atoms, verbose=False, **device),
+    }
+
+
+@pytest.fixture
+def universe():
+    rng = np.random.default_rng(0)
+    traj = (rng.random((2, 60, 3)) * 8.0).astype(np.float32)
+    return Universe.from_arrays(traj, [8.0] * 3 + [90.0] * 3)
+
+
+@pytest.mark.parametrize("name", ["rdf", "cross_rdf", "vanhove", "sq",
+                                  "onsager"])
+def test_default_device_is_the_card(monkeypatch, universe, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _analyses(universe)[name]()
+    analysis = _analyses(universe, device="cpu")[name]()
+    assert analysis._device == torch.device("cpu")
+    analysis.run()

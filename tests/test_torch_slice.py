@@ -94,11 +94,11 @@ def _port_analyses(trajectory):
     return _chunked([
         RadialDistributionFunction(u.atoms, n_bins=N_BINS,
                                    range=(0.0, R_MAX), exclusion=(1, 1),
-                                   verbose=False),
+                                   verbose=False, device="cpu"),
         StructureFactor(u.atoms, n_points=N_POINTS, sort=False,
                         unique=False, method="factor", precision="exact",
-                        verbose=False),
-        Onsager(u.atoms, unwrap=True, verbose=False),
+                        verbose=False, device="cpu"),
+        Onsager(u.atoms, unwrap=True, verbose=False, device="cpu"),
     ], 4)
 
 

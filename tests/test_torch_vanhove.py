@@ -86,7 +86,7 @@ def _jax_vanhove(trajectory, chunk, run_kwargs=None, **kwargs):
 def _port_vanhove(trajectory, chunk, **kwargs):
     u = Universe.from_arrays(trajectory, DIMENSIONS, dt=0.5)
     vh = VanHoveFunction(u.atoms, n_bins=N_BINS, range=(0.0, R_MAX),
-                         verbose=False, **kwargs)
+                         verbose=False, device="cpu", **kwargs)
     vh._chunk_bytes = chunk * N_ATOMS * 3 * 4
     return vh
 
@@ -149,10 +149,11 @@ def test_vanhove_lag0_distinct_equals_self_rdf(trajectory):
 
     u = Universe.from_arrays(trajectory[:3], DIMENSIONS)
     vh = VanHoveFunction(u.atoms, n_bins=N_BINS, range=(0.0, R_MAX),
-                         lags=[0], self_part=False, verbose=False).run()
+                         lags=[0], self_part=False, verbose=False,
+                         device="cpu").run()
     rdf = RadialDistributionFunction(
         u.atoms, n_bins=N_BINS, range=(0.0, R_MAX), exclusion=(1, 1),
-        verbose=False,
+        verbose=False, device="cpu",
     ).run()
     np.testing.assert_array_equal(vh.results.counts_distinct[0],
                                   rdf.results.counts)
@@ -208,10 +209,17 @@ def test_displacement_histogram_matches_jax(trajectory):
 def test_vanhove_rejects_unported(trajectory, kwargs):
     u = Universe.from_arrays(trajectory, DIMENSIONS)
     with pytest.raises((NotImplementedError, ValueError)):
-        VanHoveFunction(u.atoms, **kwargs)
+        VanHoveFunction(u.atoms, device="cpu", **kwargs)
 
 
 def test_vanhove_rejects_triclinic(trajectory):
-    u = Universe.from_arrays(trajectory, [BOX] * 3 + [90.0, 80.0, 90.0])
-    with pytest.raises(NotImplementedError):
-        VanHoveFunction(u.atoms)
+    """A triclinic box whose perpendicular widths are under 3 cutoffs
+    needs the per-pair triclinic mode, which is not ported; wider
+    triclinic boxes run (tests/test_torch_triclinic.py)."""
+
+    dims = [BOX] * 3 + [90.0, 80.0, 90.0]
+    u = Universe.from_arrays(trajectory, dims)
+    with pytest.raises(NotImplementedError, match="perpendicular"):
+        VanHoveFunction(u.atoms, range=(0.0, R_MAX + 1.0), device="cpu")
+    assert VanHoveFunction(u.atoms, range=(0.0, R_MAX),
+                           device="cpu")._triclinic
