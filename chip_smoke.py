@@ -20,7 +20,16 @@ atoms, each with the launch counts set to 0 just before it and read
 just after: the fused RDF + S(q) + MSD pass, the cross RDF of two 50k
 groups, the Van Hove function over a 64-frame ring with 21 log lags,
 and, in the dodecahedron, the self RDF, the cross RDF and the Van Hove
-function; and it checks their results.  Every check raises on failure,
+function; and it checks their results.  Then boxes under 3 cutoffs:
+the generalized half-shell, ordered and cross kernels and the per-pair
+27-image (tri_pp) self and cross kernels against their plain versions
+on explicit plans, on the straddle fixtures (against float64 oracles)
+and on shrunk frames (NaN); tri_pp and reach-2 kernels against the
+per-block and reach-1 ones at 100k atoms; and seven paths at the
+classes' defaults (self and cross RDF and Van Hove in a 50k-atom cube
+of 39.685 A, the ordered self RDF of 5,000 atoms, and in rhombic
+dodecahedra the tri_pp self and cross RDF of 50k atoms and Van Hove of
+5,000), launch counts read by sweep mode.  Every check raises on failure,
 so any failed phase exits non-zero.  The last lines of standard output
 are the card's name and power limit, a JSON line of per-kernel
 measurements (each beside its bound: the larger of the float32
@@ -59,8 +68,25 @@ SEED = 2026
 DODECA_A, DODECA_STREAM_A = 56.12, 89.09
 TRI_RDF_FRAMES, TRI_VH_FRAMES = 8 + 48, 8 + 32
 
-#: float32 operations of one binned pair, counted in csrc/cell_bin.cuh.
-OPS_PER_PAIR = {False: 254, True: 245}
+# Slice 4: boxes under 3 cutoffs at the classes' defaults (201 bins on
+# [0, 15]).  A 50k-atom cube (2.65 cutoffs) and a 50k-atom xy-square
+# rhombic dodecahedron (perpendicular widths 36.37, 36.37, 31.49) at the
+# density above; the 5,000-atom cube of the ordered sweep (r_max 8) and
+# the 5,000-atom dodecahedron of the tri_pp kernel checks and Van Hove
+# (r_max 6); the paths' depths (the tri_pp RDF paths cut to 8 + 16).
+GEN_ATOMS, SMALL_ATOMS = 50_000, 5_000
+GEN_R, GEN_BINS, ORDERED_R, TRI_PP_R = 15.0, 201, 8.0, 6.0
+GEN_DODECA_A, TRI_PP_A = 44.54, 20.67
+GEN_RDF_FRAMES, GEN_VH_FRAMES = 8 + 48, 8 + 32
+SMALL_RDF_FRAMES, TRI_PP_RDF_FRAMES, TRI_PP_VH_FRAMES = 8 + 16, 8 + 16, 8 + 32
+
+#: float32 operations of one binned pair under each displacement policy,
+#: counted in csrc/cell_bin.cuh: per-pair orthorhombic image, one
+#: lattice translation per block, and the per-pair 27-candidate search.
+OPS_PER_PAIR = {"ortho": 254, "shift": 245, "tri27": 7186}
+#: the policy of each sweep mode (cuda_cell_histogram._sweep_mode).
+POLICY = {"reach1": "ortho", "general": "ortho", "ordered": "ortho",
+          "block": "shift", "tri_pp": "tri27"}
 #: one H100 SXM's published peaks (NVIDIA's data sheet): float32 outside
 #: the tensor cores, and HBM3 bytes/s.
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
@@ -95,18 +121,20 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(pairs, n_bytes, triclinic, n_frames):
+def bound(pairs, n_bytes, mode, n_frames):
     """The least time a frame could take on the card for a kernel's
     work (``bound_ms``, and ``bound_by``, the larger term): `pairs`
-    binned slot pairs times the float32 operations of one pair over the
-    float32 peak, against `n_bytes` (the slot tables read once and the
-    counts written once) over the memory rate, both over `n_frames`.
-    No single PyTorch call computes a binned cell-list pair histogram,
-    so ``library_ms`` is None."""
+    binned slot pairs times the float32 operations of one pair under the
+    sweep `mode`'s policy over the float32 peak, against `n_bytes` (the
+    slot tables read once and the counts written once) over the memory
+    rate, both over `n_frames`.  No single PyTorch call computes a
+    binned cell-list pair histogram, so ``library_ms`` is None."""
 
-    ops_ms = pairs * OPS_PER_PAIR[triclinic] / PEAK_F32 * 1e3 / n_frames
+    ops_ms = (pairs * OPS_PER_PAIR[POLICY[mode]] / PEAK_F32 * 1e3
+              / n_frames)
     bytes_ms = n_bytes / PEAK_BYTES * 1e3 / n_frames
     return {
+        "mode": mode,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,
@@ -114,24 +142,41 @@ def bound(pairs, n_bytes, triclinic, n_frames):
     }
 
 
-def kernel_vs_plain(kernel, plain, n_frames, what, work):
-    """Run a kernel wrapper and its plain version on the same inputs
-    (each a no-argument call returning ``(counts, *occupancies)``),
-    check that every output is equal as integers, then time them in
-    turns -- plain, kernel, kernel, plain -- in ms per frame, beside
-    the bound of `work` (:func:`bound`)."""
+def timed_call(fn):
+    """``fn()`` and its device milliseconds."""
 
     import torch
 
-    k_out, p_out = kernel(), plain()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
     torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def kernel_vs_plain(kernel, plain, n_frames, what, work, plain_runs=2):
+    """Run a kernel wrapper and its plain version on the same inputs
+    (each a no-argument call returning ``(counts, *occupancies)``),
+    check that every output is equal as integers, then time them in
+    turns -- plain (the checked call), kernel, kernel, plain -- in ms
+    per frame, beside the bound of `work` (:func:`bound`).  With
+    ``plain_runs=1`` the plain version runs only once, for the check,
+    which is also its time (where it takes tens of seconds)."""
+
+    import torch
+
+    k_out = kernel()
+    p_out, first_plain_ms = timed_call(plain)
     check(bool(torch.isfinite(k_out[0]).all()), f"{what}: counts not finite")
     for k, p in zip(k_out, p_out):
         check(torch.equal(k, p), f"{what}: kernel differs from plain")
     max_abs_err = float((k_out[0] - p_out[0]).abs().max())
-    plain_ms = [time_ms(plain, 1)]
+    del p_out
+    plain_ms = [first_plain_ms]
     kernel_ms = [time_ms(kernel, 5) for _ in range(2)]
-    plain_ms.append(time_ms(plain, 1))
+    plain_ms += [time_ms(plain, 1) for _ in range(plain_runs - 1)]
     out = {
         "max_abs_err": max_abs_err,
         "ms": float(np.mean(kernel_ms)) / n_frames,
@@ -197,72 +242,101 @@ def plan_extents(box):
     return np.asarray(box, np.float64)
 
 
-def self_kernel_vs_plain(frames, box, what):
-    """The self kernel (triclinic for a box matrix) against its plain
-    version on the (B, N, 3) device frames."""
+def plan_text(plan, mode):
+    reach = plan["reach"]
+    return (f"plan {plan['n_cells_dim']}"
+            + (f" reach {reach}" if reach != (1, 1, 1) else "")
+            + f" ({mode})")
+
+
+def sweep_calls(frames1, frames2, box, plan, r_max, n_bins, exclusion=None):
+    """The kernel wrapper and its plain version on `plan`, each a
+    no-argument call returning ``(counts, *occupancies)``: the self sweep
+    of the (B, N, 3) device frames `frames1` when `frames2` is None, else
+    the cross sweep of the two groups (triclinic for a box matrix); with
+    the bound of its work (:func:`bound`) and the plan's text."""
 
     from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
 
     triclinic = np.ndim(box) == 2
-    n_frames, n_atoms = frames.shape[:2]
-    plan = cch.cell_plan_search(n_atoms, plan_extents(box), R_MAX)
-    kernel, plain = (
-        (cch.triclinic_cell_pair_histogram,
-         cch.triclinic_cell_pair_histogram_reference) if triclinic
-        else (cch.cell_pair_histogram, cch.cell_pair_histogram_reference)
-    )
-    args = dict(box=box, r_max=R_MAX, n_cells_dim=plan["n_cells_dim"],
-                capacity=plan["capacity"], n_bins=N_BINS)
-    pairs = cch.swept_pairs(frames, box=box, n_cells_dim=plan["n_cells_dim"],
-                            triclinic=triclinic)
-    n_bytes = n_frames * (16 * plan["n_cells"] * plan["capacity"]
-                          + 4 * plan["n_cells"] + 8 * N_BINS)
-    out, (_, occ) = kernel_vs_plain(
-        lambda: kernel(frames, **args), lambda: plain(frames, **args),
-        n_frames,
-        f"{what}, plan {plan['n_cells_dim']} capacity {plan['capacity']}",
-        bound(pairs, n_bytes, triclinic, n_frames),
-    )
-    check(int(occ.max()) <= plan["capacity"], "capacity overflow")
+    cross = frames2 is not None
+    groups = (frames1, frames2) if cross else (frames1,)
+    n_frames = frames1.shape[0]
+    mode = cch._sweep_mode(plan["n_cells_dim"], plan["reach"], triclinic,
+                           cross=cross)
+    args = dict(box=box, r_max=r_max, n_cells_dim=plan["n_cells_dim"],
+                reach=plan["reach"], n_bins=n_bins)
+    if cross:
+        kernel, plain = (
+            (cch.triclinic_cross_pair_histogram,
+             cch.triclinic_cross_pair_histogram_reference) if triclinic
+            else (cch.cross_pair_histogram,
+                  cch.cross_pair_histogram_reference)
+        )
+        args.update(capacity1=plan["capacity"], capacity2=plan["capacity2"],
+                    exclusion=exclusion)
+        slots = plan["capacity"] + plan["capacity2"]
+        text = f"capacities {plan['capacity']}/{plan['capacity2']}"
+    else:
+        kernel, plain = (
+            (cch.triclinic_cell_pair_histogram,
+             cch.triclinic_cell_pair_histogram_reference) if triclinic
+            else (cch.cell_pair_histogram, cch.cell_pair_histogram_reference)
+        )
+        args.update(capacity=plan["capacity"])
+        slots = plan["capacity"]
+        text = f"capacity {plan['capacity']}"
+    pairs = cch.swept_pairs(*groups, box=box, n_cells_dim=plan["n_cells_dim"],
+                            triclinic=triclinic, reach=plan["reach"])
+    n_bytes = n_frames * (16 * plan["n_cells"] * slots
+                          + 4 * len(groups) * plan["n_cells"] + 8 * n_bins)
+    return (lambda: kernel(*groups, **args), lambda: plain(*groups, **args),
+            bound(pairs, n_bytes, mode, n_frames),
+            f"{plan_text(plan, mode)} {text}")
+
+
+def check_capacity(k_out, plan):
+    """Every cell of a kernel's output fits its plan's capacities."""
+
+    caps = (plan["capacity"], plan.get("capacity2"))
+    for occ, cap in zip(k_out[1:], caps):
+        check(int(occ.max()) <= cap, "capacity overflow")
+
+
+def self_kernel_vs_plain(frames, box, what, plan=None, r_max=R_MAX,
+                         n_bins=N_BINS):
+    """The self kernel (triclinic for a box matrix) against its plain
+    version on the (B, N, 3) device frames, on `plan` (by default the
+    planner's)."""
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    plan = plan or cch.cell_plan_search(frames.shape[1], plan_extents(box),
+                                        r_max)
+    kernel, plain, work, text = sweep_calls(frames, None, box, plan, r_max,
+                                            n_bins)
+    out, k_out = kernel_vs_plain(kernel, plain, frames.shape[0],
+                                 f"{what}, {text}", work)
+    check_capacity(k_out, plan)
     return out
 
 
-def cross_kernel_vs_plain(frames1, frames2, box, what, exclusion=None):
+def cross_kernel_vs_plain(frames1, frames2, box, what, exclusion=None,
+                          plan=None, r_max=R_MAX, n_bins=N_BINS):
     """The cross kernel (triclinic for a box matrix) against its plain
-    version on the given (B, N1, 3) and (B, N2, 3) device frames."""
+    version on the given (B, N1, 3) and (B, N2, 3) device frames, on
+    `plan` (by default the planner's)."""
 
     from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
 
-    triclinic = np.ndim(box) == 2
-    n_frames = frames1.shape[0]
-    plan = cch.cell_plan_search(frames1.shape[1], plan_extents(box), R_MAX,
-                                n_atoms2=frames2.shape[1])
-    kernel, plain = (
-        (cch.triclinic_cross_pair_histogram,
-         cch.triclinic_cross_pair_histogram_reference) if triclinic
-        else (cch.cross_pair_histogram, cch.cross_pair_histogram_reference)
-    )
-    args = dict(box=box, r_max=R_MAX,
-                n_cells_dim=plan["n_cells_dim"],
-                capacity1=plan["capacity"], capacity2=plan["capacity2"],
-                n_bins=N_BINS, exclusion=exclusion)
-    pairs = cch.swept_pairs(frames1, frames2, box=box,
-                            n_cells_dim=plan["n_cells_dim"],
-                            triclinic=triclinic)
-    n_bytes = n_frames * (
-        16 * plan["n_cells"] * (plan["capacity"] + plan["capacity2"])
-        + 8 * plan["n_cells"] + 8 * N_BINS
-    )
-    out, (_, occ1, occ2) = kernel_vs_plain(
-        lambda: kernel(frames1, frames2, **args),
-        lambda: plain(frames1, frames2, **args),
-        n_frames,
-        f"{what}, plan {plan['n_cells_dim']} capacities "
-        f"{plan['capacity']}/{plan['capacity2']}",
-        bound(pairs, n_bytes, triclinic, n_frames),
-    )
-    check(int(occ1.max()) <= plan["capacity"]
-          and int(occ2.max()) <= plan["capacity2"], "capacity overflow")
+    plan = plan or cch.cell_plan_search(
+        frames1.shape[1], plan_extents(box), r_max,
+        n_atoms2=frames2.shape[1])
+    kernel, plain, work, text = sweep_calls(frames1, frames2, box, plan,
+                                            r_max, n_bins, exclusion)
+    out, k_out = kernel_vs_plain(kernel, plain, frames1.shape[0],
+                                 f"{what}, {text}", work)
+    check_capacity(k_out, plan)
     return out
 
 
@@ -638,7 +712,8 @@ def phase_vanhove(device, rng):
 
 
 def reset_launches():
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch counts (in all and by sweep
+    mode) to 0."""
 
     from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
 
@@ -646,6 +721,8 @@ def reset_launches():
                    cch.triclinic_cell_pair_histogram,
                    cch.triclinic_cross_pair_histogram):
         kernel.launches = 0
+        for mode in kernel.mode_launches:
+            kernel.mode_launches[mode] = 0
 
 
 def phase_triclinic_kernels(device, rng):
@@ -868,6 +945,610 @@ def phase_triclinic_vanhove(device, rng):
     return launches, fps
 
 
+def forced_plan(n_atoms, box, r_max, grid, mode, n_atoms2=None):
+    """The generalized plan of `grid` (``grid_plan``), checked to run
+    the sweep `mode`: the kernel checks take their plans from here, so
+    they do not depend on the planner."""
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    plan = cch.grid_plan(n_atoms, plan_extents(box), r_max, grid,
+                         n_atoms2=n_atoms2)
+    got = cch._sweep_mode(grid, plan["reach"], np.ndim(box) == 2,
+                          n_atoms2 is not None)
+    check(got == mode, f"grid {grid} runs {got}, not {mode}")
+    return plan
+
+
+def straddle_and_poison(device, rng, triclinic):
+    """The new modes on the bin-edge straddle fixtures in a box under 3
+    cutoffs (a cube of 16, or the small dodecahedron, under r_max 6):
+    kernel == plain == float64 oracle (27-image for tri_pp); then a
+    frame whose box shrank below a grid with an axis the sweep does not
+    span whole: kernel and plain both NaN there, equal elsewhere."""
+
+    import torch
+
+    from mdhelper_tpu_torch.algorithm.topology import triclinic_matrices
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+    from mdhelper_tpu_torch.testing import (
+        edge_straddle_cross_positions,
+        edge_straddle_positions,
+        edge_straddle_triclinic_positions,
+        f64_cross_histogram,
+        f64_pair_histogram,
+        f64_triclinic_pair_histogram,
+    )
+
+    r_s, bins_s = 6.0, 24
+    if triclinic:
+        box = triclinic_matrices(dodecahedron(18.0)).astype(np.float32)
+        fixture = edge_straddle_triclinic_positions(rng, box)
+        self_kernel = (cch.triclinic_cell_pair_histogram,
+                       cch.triclinic_cell_pair_histogram_reference)
+        cross_kernel = (cch.triclinic_cross_pair_histogram,
+                        cch.triclinic_cross_pair_histogram_reference)
+        self_oracle = f64_triclinic_pair_histogram(fixture, fixture, box,
+                                                   r_s, bins_s, (1, 1))
+        a, b = fixture[:300], fixture[300:]
+        cross_oracle = f64_triclinic_pair_histogram(a, b, box, r_s, bins_s)
+        self_grids = [((2, 5, 6), "tri_pp")]
+        cross_grid, cross_mode = (2, 5, 6), "tri_pp"
+    else:
+        box = (16.0,) * 3
+        fixture = edge_straddle_positions(rng, 16.0)
+        self_kernel = (cch.cell_pair_histogram,
+                       cch.cell_pair_histogram_reference)
+        cross_kernel = (cch.cross_pair_histogram,
+                        cch.cross_pair_histogram_reference)
+        self_oracle = f64_pair_histogram(fixture, 16.0, r_s, bins_s)
+        a, b = edge_straddle_cross_positions(rng, 16.0)
+        cross_oracle = f64_cross_histogram(a, b, 16.0, r_s, bins_s)
+        self_grids = [((5, 5, 5), "general"), ((1, 2, 6), "ordered")]
+        cross_grid, cross_mode = (2, 5, 6), "general"
+    fx = torch.from_numpy(fixture).to(device)
+    results = []
+    for grid, mode in self_grids:
+        plan = forced_plan(len(fixture), box, r_s, grid, mode)
+        args = dict(box=box, r_max=r_s, n_cells_dim=grid,
+                    reach=plan["reach"], capacity=plan["capacity"],
+                    n_bins=bins_s)
+        results.append((f"self {mode}", self_kernel[0](fx, **args),
+                        self_kernel[1](fx, **args), self_oracle))
+    plan = forced_plan(len(a), box, r_s, cross_grid, cross_mode,
+                       n_atoms2=len(b))
+    args = dict(box=box, r_max=r_s, n_cells_dim=cross_grid,
+                reach=plan["reach"], capacity1=plan["capacity"],
+                capacity2=plan["capacity2"], n_bins=bins_s)
+    fa = torch.from_numpy(a).to(device)
+    fb = torch.from_numpy(b).to(device)
+    results.append((f"cross {cross_mode}", cross_kernel[0](fa, fb, **args),
+                    cross_kernel[1](fa, fb, **args), cross_oracle))
+    torch.cuda.synchronize()
+    for what, kern, plain, oracle in results:
+        check(torch.equal(kern[0], plain[0]),
+              f"straddle fixture, {what}: kernel != plain")
+        check(np.array_equal(kern[0][0].cpu().numpy().astype(np.int64),
+                             oracle),
+              f"straddle fixture, {what}: kernel != float64 oracle")
+    print(f"{'triclinic ' if triclinic else ''}straddle fixture under 3 "
+          f"cutoffs: {', '.join(r[0] for r in results)} kernels == plain "
+          "== float64 oracle "
+          f"(self {int(self_oracle.sum())}, cross {int(cross_oracle.sum())} "
+          "pairs)")
+
+    # Shrunk frames: a half-shell grid of reach 2 along z and an ordered
+    # grid in boxes shrunk to 0.7, or a tri_pp grid of 4 cells along c
+    # with the c-vector halved; both sweeps of each must poison frame 1
+    # only.
+    n = 3000
+    if triclinic:
+        good = triclinic_matrices(dodecahedron(18.0)).astype(np.float32)
+        bad = good.copy()
+        bad[2] *= np.float32(0.5)
+        boxes = np.stack([good, bad])
+        frac = rng.random((2, n, 3))
+        pos = np.stack([frac[f] @ boxes[f].astype(np.float64)
+                        for f in range(2)]).astype(np.float32)
+        cases = [(boxes, pos, 3.0, (1, 1, 4), "tri_pp", good)]
+    else:
+        cases = []
+        for lengths, r_p, grid, mode in (((40.0,) * 3, 6.0, (3, 3, 10),
+                                          "general"),
+                                         ((16.0, 16.0, 40.0), 6.0,
+                                          (1, 2, 10), "ordered")):
+            good = np.float32(lengths)
+            boxes = np.stack([good, good * np.float32(0.7)])
+            pos = (rng.random((2, n, 3)) * boxes[:, None]).astype(np.float32)
+            cases.append((boxes, pos, r_p, grid, mode, good))
+    for boxes, pos, r_p, grid, mode, good in cases:
+        plan = forced_plan(n, good, r_p, grid, mode)
+        f = torch.from_numpy(pos).to(device)
+        grid_args = dict(box=torch.from_numpy(boxes), r_max=r_p,
+                         n_cells_dim=grid, reach=plan["reach"], n_bins=64)
+        outs = [
+            (self_kernel[0](f, capacity=plan["capacity"], **grid_args),
+             self_kernel[1](f, capacity=plan["capacity"], **grid_args)),
+            (cross_kernel[0](f, f.flip(1), capacity1=plan["capacity"],
+                             capacity2=plan["capacity"], exclusion=(1, 1),
+                             **grid_args),
+             cross_kernel[1](f, f.flip(1), capacity1=plan["capacity"],
+                             capacity2=plan["capacity"], exclusion=(1, 1),
+                             **grid_args)),
+        ]
+        torch.cuda.synchronize()
+        for kern, plain in outs:
+            check(bool(torch.isnan(kern[0][1]).all()
+                       and torch.isnan(plain[0][1]).all()),
+                  f"shrunk frame, {mode} grid {grid}: not NaN-poisoned")
+            check(torch.equal(kern[0][0], plain[0][0])
+                  and kern[0][0].sum() > 0,
+                  f"shrunk frame, {mode} grid {grid}: frame 0 differs")
+        print(f"shrunk frame, {mode} grid {grid}: self and cross kernels "
+              "and plain versions NaN-poison it, equal on the other frame")
+
+
+def check_planner_constants():
+    """The card's SM count and opt-in shared memory a block beside the
+    planner's constants (its SM-fill term and launch limit)."""
+
+    import torch
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    props = torch.cuda.get_device_properties(0)
+    smem = getattr(props, "shared_memory_per_block_optin", None)
+    print(f"card: {props.multi_processor_count} SMs (planner assumes "
+          f"{cch._N_SMS}), opt-in shared memory a block {smem} B "
+          f"(planner and launch limit {cch._SMEM_BYTES})")
+    if smem is not None:
+        check(smem == cch._SMEM_BYTES, "opt-in shared memory differs from "
+              "the wrappers' launch limit")
+
+
+def planner_variants(n_atoms, extents, r_max, n_atoms2=None):
+    """The planner's plan, and the plan it picks with its SM-fill floor
+    ``_FILL_BLOCKS`` set to 0: what that GPU cost term changes."""
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    def search():
+        return cch.cell_plan_search(n_atoms, extents, r_max,
+                                    n_atoms2=n_atoms2)
+
+    plans = {"planner": search()}
+    kept = cch._FILL_BLOCKS
+    cch._FILL_BLOCKS = 0
+    try:
+        plans["no SM-fill term"] = search()
+    finally:
+        cch._FILL_BLOCKS = kept
+    return plans
+
+
+def kernel_timed(kernel, n_frames, what, work):
+    """A kernel wrapper alone (no plain version), in ms a frame beside the
+    bound of `work`."""
+
+    import torch
+
+    k_out = kernel()
+    check(bool(torch.isfinite(k_out[0]).all()), f"{what}: counts not finite")
+    kernel_ms = [time_ms(kernel, 3) for _ in range(2)]
+    out = {"ms": float(np.mean(kernel_ms)) / n_frames, **work}
+    print(f"{what}: {int(k_out[0].sum())} pairs in [0, r_max) over "
+          f"{n_frames} frame(s); per frame kernel {out['ms']:.3f} ms (runs "
+          f"{[round(x / n_frames, 3) for x in kernel_ms]}); "
+          f"{out['pairs_per_frame']:.0f} slot pairs binned a frame, bound "
+          f"{out['bound_ms']:.3f} ms by {out['bound_by']}")
+    return out, k_out
+
+
+def plans_compared(frames1, frames2, box, r_max, what, jax_grid,
+                   exclusion=None, with_plain=True):
+    """One small-box shape's kernel (self when `frames2` is None, else
+    cross) on the plan its path runs -- the planner's -- and, as extra
+    cases, on the JAX package's grid `jax_grid` and on the planner's
+    pick without its SM-fill term; every plan's kernel timed
+    and its counts equal as integers.  With `with_plain`, the planner's
+    and the JAX grid's kernels are held against their plain versions;
+    without it (where the plain version would take minutes) the
+    planner's kernel is held against the kernel on the JAX grid.
+    Returns the planner plan's timing (its kernels-line row) and its
+    plan."""
+
+    import torch
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    n_frames, n1 = frames1.shape[:2]
+    n2 = None if frames2 is None else frames2.shape[1]
+    extents = plan_extents(box)
+    plans = planner_variants(n1, extents, r_max, n2)
+    plans["JAX package's"] = cch.grid_plan(n1, extents, r_max, jax_grid,
+                                           n_atoms2=n2)
+    order = ("planner", "JAX package's", "no SM-fill term")
+    timings, seen, want = {}, {}, None
+    for name in order:
+        plan = plans[name]
+        grid = plan["n_cells_dim"]
+        if grid in seen:
+            timings[name] = timings[seen[grid]]
+            continue
+        seen[grid] = name
+        kernel, plain, work, text = sweep_calls(
+            frames1, frames2, box, plan, r_max, GEN_BINS, exclusion)
+        label = f"{what}, {name} plan, {text}"
+        if with_plain and name in ("planner", "JAX package's"):
+            out, k_out = kernel_vs_plain(
+                kernel, plain, n_frames, label, work,
+                plain_runs=2 if name == "planner" else 1)
+        else:
+            out, k_out = kernel_timed(kernel, n_frames, label, work)
+        check_capacity(k_out, plan)
+        if want is None:
+            want = k_out[0]
+        else:
+            check(torch.equal(k_out[0], want),
+                  f"{label}: counts differ from the planner plan's")
+            print(f"{label}: counts == the planner plan's")
+            if not with_plain and name == "JAX package's":
+                timings["planner"]["max_abs_err"] = float(
+                    (k_out[0] - want).abs().max())
+        timings[name] = out
+        del k_out
+    print(f"{what}, kernel ms a frame by plan: " + "; ".join(
+        f"{name} {plans[name]['n_cells_dim']} {timings[name]['ms']:.3f}"
+        for name in order))
+    return timings["planner"], plans["planner"]
+
+
+def phase_generalized_kernels(device, rng):
+    """The generalized orthorhombic kernels vs their plain versions at
+    the shapes of the small-box paths, each on the plan its path runs
+    (the planner's) and, as extra cases, on the JAX package's choice and
+    the planner's pick without its SM-fill term (:func:`plans_compared`):
+    the half-shell self sweep of reach 2 in the 50k-atom cube, the cross
+    sweep at the cross-RDF and Van Hove shapes there, and the ordered
+    self sweep in the 5,000-atom cube; then the straddle fixtures and
+    shrunk frames."""
+
+    frames, box = uniform_frames(rng, device, 2, GEN_ATOMS, cube(GEN_ATOMS))
+    timing = {
+        "general": plans_compared(
+            frames[:1], None, box, GEN_R,
+            f"generalized self kernel, {GEN_ATOMS} atoms", (5, 5, 5)),
+        "cross": plans_compared(
+            frames[:1, 0::2].contiguous(), frames[:1, 1::2].contiguous(),
+            box, GEN_R, f"generalized cross kernel, {GEN_ATOMS // 2} x "
+            f"{GEN_ATOMS // 2}", (2, 5, 6)),
+        "vanhove": plans_compared(
+            frames[:1], frames[1:], box, GEN_R,
+            f"generalized cross kernel, Van Hove shape {GEN_ATOMS} x "
+            f"{GEN_ATOMS}, exclusion (1, 1)", (2, 6, 10), exclusion=(1, 1)),
+    }
+    del frames
+    small, small_box = uniform_frames(rng, device, 2, SMALL_ATOMS,
+                                      cube(SMALL_ATOMS))
+    timing["ordered"] = plans_compared(
+        small, None, small_box, ORDERED_R,
+        f"ordered self kernel, {SMALL_ATOMS} atoms", (1, 2, 6))
+    straddle_and_poison(device, rng, triclinic=False)
+    return timing
+
+
+def phase_tri_pp_kernels(device, rng):
+    """The tri_pp kernels (:func:`plans_compared`).  In the 5,000-atom
+    dodecahedron under r_max 6 (widths 2.4-2.8 cutoffs), against their
+    plain versions: cross 5,000 x 5,000 with exclusion (1, 1) (the Van
+    Hove path's shape), self, and cross 2,500 x 2,500 (the plain times
+    of the 50k rows below).  In the 50k-atom dodecahedron under r_max 15,
+    the self and the 25,000 x 25,000 cross RDF paths' shapes, where the
+    plain version would take minutes a frame: each on its path's plan
+    against the kernel on the JAX package's grid.  Then the straddle
+    fixtures against the float64 27-image oracle and a halved
+    c-vector."""
+
+    frames, box = uniform_frames(rng, device, 2, SMALL_ATOMS,
+                                 dodecahedron(TRI_PP_A))
+    half = SMALL_ATOMS // 2
+    timing = {
+        "vanhove": plans_compared(
+            frames[:1], frames[1:], box, TRI_PP_R,
+            f"tri_pp cross kernel, Van Hove shape {SMALL_ATOMS} x "
+            f"{SMALL_ATOMS}, exclusion (1, 1)", (2, 5, 6), exclusion=(1, 1)),
+        "self_small": plans_compared(
+            frames[:1], None, box, TRI_PP_R,
+            f"tri_pp self kernel, {SMALL_ATOMS} atoms", (2, 5, 6)),
+        "cross_small": plans_compared(
+            frames[:1, 0::2].contiguous(), frames[:1, 1::2].contiguous(),
+            box, TRI_PP_R, f"tri_pp cross kernel, {half} x {half}",
+            (2, 3, 5)),
+    }
+    del frames
+    # Their own generator: the draws of the phases after this one stay
+    # what they were before these shapes were added.
+    frames, box = uniform_frames(np.random.default_rng(SEED + 3), device, 1,
+                                 GEN_ATOMS, dodecahedron(GEN_DODECA_A))
+    timing["self"] = plans_compared(
+        frames, None, box, GEN_R, f"tri_pp self kernel, {GEN_ATOMS} atoms",
+        (6, 9, 11), with_plain=False)
+    timing["cross"] = plans_compared(
+        frames[:, 0::2].contiguous(), frames[:, 1::2].contiguous(), box,
+        GEN_R, f"tri_pp cross kernel, {GEN_ATOMS // 2} x {GEN_ATOMS // 2}",
+        (6, 7, 7), with_plain=False)
+    del frames
+    straddle_and_poison(device, rng, triclinic=True)
+    return timing
+
+
+def phase_full_size_cross_checks(device, rng):
+    """At 100k atoms, no plain version: in the dodecahedron the tri_pp
+    self and cross kernels forced onto the planner's reach-1 grid equal
+    the per-block kernels as integers; in the cube a generalized reach-2
+    grid equals the planner's reach-1 grid, self and cross."""
+
+    import torch
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    frames, box = uniform_frames(rng, device, 2, N_ATOMS,
+                                 dodecahedron(DODECA_A))
+    plan = cch.cell_plan_search(N_ATOMS, plan_extents(box), R_MAX)
+    check(not cch.plan_is_tri_pp(plan, True), "expected a per-block grid")
+    grid = dict(r_max=R_MAX, n_cells_dim=plan["n_cells_dim"], n_bins=N_BINS)
+    block, _ = cch._self_kernel(frames, box, capacity=plan["capacity"],
+                                triclinic=True, **grid)
+    per_pair, _ = cch._self_kernel(frames, box, capacity=plan["capacity"],
+                                   triclinic=True, mode="tri_pp", **grid)
+    g1, g2 = frames[:, 0::2].contiguous(), frames[:, 1::2].contiguous()
+    cplan = cch.cell_plan_search(N_ATOMS // 2, plan_extents(box), R_MAX,
+                                 n_atoms2=N_ATOMS // 2)
+    cgrid = dict(r_max=R_MAX, n_cells_dim=cplan["n_cells_dim"],
+                 n_bins=N_BINS, capacity1=cplan["capacity"],
+                 capacity2=cplan["capacity2"], exclusion=None,
+                 triclinic=True)
+    cross_block = cch._cross_kernel(g1, g2, box, **cgrid)
+    cross_pp = cch._cross_kernel(g1, g2, box, mode="tri_pp", **cgrid)
+    torch.cuda.synchronize()
+    check(torch.equal(block, per_pair) and bool(torch.isfinite(block).all()),
+          "tri_pp self kernel != per-block self kernel at 100k atoms")
+    check(torch.equal(cross_block[0], cross_pp[0]),
+          "tri_pp cross kernel != per-block cross kernel at 50k x 50k")
+    print(f"dodecahedron, {N_ATOMS} atoms: tri_pp self and cross kernels "
+          f"on the reach-1 grids {plan['n_cells_dim']} and "
+          f"{cplan['n_cells_dim']} == per-block kernels "
+          f"({int(block.sum())} and {int(cross_block[0].sum())} pairs)")
+    del frames, g1, g2
+
+    frames, box = uniform_frames(rng, device, 2, N_ATOMS, cube(N_ATOMS))
+    out = []
+    for grid in (None, (16, 16, 16)):
+        plan = (cch.cell_plan_search(N_ATOMS, plan_extents(box), R_MAX)
+                if grid is None else
+                forced_plan(N_ATOMS, box, R_MAX, grid, "general"))
+        cplan = (cch.cell_plan_search(N_ATOMS // 2, plan_extents(box), R_MAX,
+                                      n_atoms2=N_ATOMS // 2)
+                 if grid is None else
+                 forced_plan(N_ATOMS // 2, box, R_MAX, grid, "general",
+                             n_atoms2=N_ATOMS // 2))
+        self_counts, _ = cch.cell_pair_histogram(
+            frames, box=box, r_max=R_MAX, n_cells_dim=plan["n_cells_dim"],
+            reach=plan["reach"], capacity=plan["capacity"], n_bins=N_BINS)
+        cross_counts, _, _ = cch.cross_pair_histogram(
+            frames[:, 0::2].contiguous(), frames[:, 1::2].contiguous(),
+            box=box, r_max=R_MAX, n_cells_dim=cplan["n_cells_dim"],
+            reach=cplan["reach"], capacity1=cplan["capacity"],
+            capacity2=cplan["capacity2"], n_bins=N_BINS)
+        out.append((plan, self_counts, cross_counts))
+    torch.cuda.synchronize()
+    (p1, s1, c1), (p2, s2, c2) = out
+    check(torch.equal(s1, s2) and torch.equal(c1, c2)
+          and bool(torch.isfinite(s1).all()),
+          "generalized reach-2 kernels != reach-1 kernels at 100k atoms")
+    print(f"cube, {N_ATOMS} atoms: generalized reach-{p2['reach'][0]} grid "
+          f"{p2['n_cells_dim']} == reach-1 grid {p1['n_cells_dim']}, self "
+          f"and {N_ATOMS // 2} x {N_ATOMS // 2} cross "
+          f"({int(s1.sum())} and {int(c1.sum())} pairs)")
+
+
+def small_box_universe(rng, n_atoms, dims6, n_frames):
+    """`n_frames` uncorrelated frames of `n_atoms` uniform float32 atoms
+    (at uniform fractional coordinates in a triclinic box), as an
+    in-memory universe; also returns the trajectory and the kernels'
+    box (lengths, or the float32 matrix)."""
+
+    from mdhelper_tpu_torch.algorithm.topology import triclinic_matrices
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    frac = rng.random((n_frames, n_atoms, 3), dtype=np.float32)
+    if np.allclose(dims6[3:], 90.0):
+        traj = frac * np.float32(dims6[:3])
+        box = tuple(float(x) for x in dims6[:3])
+    else:
+        h64 = triclinic_matrices(dims6)
+        traj = (frac.astype(np.float64) @ h64).astype(np.float32)
+        box = h64.astype(np.float32)
+    return traj, Universe.from_arrays(traj, dims6, dt=1.0), box
+
+
+def run_rdf_path(u, groups, r_max, n_frames, kernel, mode, what, device):
+    """run_together([RDF(*groups)]) at the classes' defaults but for
+    `r_max`, launch counts set to 0 just before and read just after:
+    every chunk must launch `kernel` in sweep `mode`; the g(r) tail
+    within 0.02 of 1.  Returns (launches, frames/s, the path's plan)."""
+
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+    )
+
+    n_atoms = u.atoms.n_atoms
+    rdf = RadialDistributionFunction(*groups, n_bins=GEN_BINS,
+                                     range=(0.0, r_max), verbose=False,
+                                     device=device)
+    rdf._chunk_bytes = CHUNK * n_atoms * 3 * 4
+    reset_launches()
+    fps = run_timed([rdf], n_frames)
+    launches = kernel.mode_launches[mode]
+    n_chunks = -(-n_frames // CHUNK)
+    check(launches == n_chunks == kernel.launches,
+          f"{what}: {launches} {mode} launches ({kernel.launches} in all) "
+          f"for {n_chunks} chunks")
+    g = rdf.results.rdf
+    check(np.all(np.isfinite(g)) and g.shape == (GEN_BINS,), "g(r) shape")
+    check(np.all(np.abs(g[-20:] - 1.0) < 0.02),
+          f"{what} g(r) tail off 1: {g[-20:]}")
+    plan = rdf._searched_cell_plan()
+    print(f"{what}: {n_atoms} atoms, plan {plan['n_cells_dim']} reach "
+          f"{plan['reach']} capacity {plan['capacity']}, {n_frames} frames "
+          f"in chunks of "
+          f"{CHUNK}, {launches} launches; g(r) tail mean "
+          f"{g[-20:].mean():.5f}; {fps:.3f} frames/s (information, not a "
+          "claim)")
+    return launches, fps, plan
+
+
+def phase_small_box_rdf(device, rng):
+    """The small-box RDF paths, 201 bins on [0, r_max]: in the 50k-atom
+    cube (r_max 15, 2.65 cutoffs) the self RDF (generalized half shell)
+    and the cross RDF of atoms[0::2] and atoms[1::2] (generalized cross),
+    8 + 48 frames; in the 5,000-atom cube under r_max 8 the self RDF
+    (ordered sweep), 8 + 16 frames; in the 50k-atom dodecahedron (r_max
+    15) the self and cross RDF (tri_pp), 8 + 16 frames."""
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    out = {}
+    _, u, _ = small_box_universe(rng, GEN_ATOMS, cube(GEN_ATOMS),
+                                 GEN_RDF_FRAMES)
+    out["general"] = run_rdf_path(
+        u, (u.atoms,), GEN_R, GEN_RDF_FRAMES, cch.cell_pair_histogram,
+        "general", "small-box self RDF", device)
+    out["cross"] = run_rdf_path(
+        u, (u.atoms[0::2], u.atoms[1::2]), GEN_R, GEN_RDF_FRAMES,
+        cch.cross_pair_histogram, "general", "small-box cross RDF", device)
+    _, u, _ = small_box_universe(rng, SMALL_ATOMS, cube(SMALL_ATOMS),
+                                 SMALL_RDF_FRAMES)
+    out["ordered"] = run_rdf_path(
+        u, (u.atoms,), ORDERED_R, SMALL_RDF_FRAMES, cch.cell_pair_histogram,
+        "ordered", "ordered self RDF", device)
+    _, u, _ = small_box_universe(rng, GEN_ATOMS, dodecahedron(GEN_DODECA_A),
+                                 TRI_PP_RDF_FRAMES)
+    out["tri_pp_self"] = run_rdf_path(
+        u, (u.atoms,), GEN_R, TRI_PP_RDF_FRAMES,
+        cch.triclinic_cell_pair_histogram, "tri_pp", "tri_pp self RDF",
+        device)
+    out["tri_pp_cross"] = run_rdf_path(
+        u, (u.atoms[0::2], u.atoms[1::2]), GEN_R, TRI_PP_RDF_FRAMES,
+        cch.triclinic_cross_pair_histogram, "tri_pp", "tri_pp cross RDF",
+        device)
+    return out
+
+
+def run_vanhove_path(device, traj, u, box, r_max, n_frames, cross_kernel,
+                     self_kernel, mode, what):
+    """run_together([VanHoveFunction(u.atoms, n_lags=64, lags="log")])
+    at the classes' defaults but for `r_max`, on uncorrelated frames,
+    with the Van Hove paths' checks: one `cross_kernel` launch a frame
+    in sweep `mode`; 19 lags; the lag-0 distinct counts equal the self
+    kernel's (`self_kernel` on the planner's self plan); the lag-0 self
+    counts all in bin 0; each lag's distinct g(r, t) tail (the mean of
+    its last 20 bins) within 0.02 of 1; the longest lag's self counts
+    equal to float64 numpy over the minimum image (27 images in a
+    triclinic box).  Returns (launches, frames/s, the path's plan)."""
+
+    import torch
+
+    from mdhelper_tpu_torch.analysis.structure import VanHoveFunction
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+    from mdhelper_tpu_torch.testing import f64_triclinic_distances
+
+    n_atoms = u.atoms.n_atoms
+    triclinic = np.ndim(box) == 2
+    vh = VanHoveFunction(u.atoms, n_bins=GEN_BINS, range=(0.0, r_max),
+                         n_lags=VH_LAGS, lags="log", verbose=False,
+                         device=device)
+    vh._chunk_bytes = CHUNK * n_atoms * 3 * 4
+    reset_launches()
+    fps = run_timed([vh], n_frames)
+    launches = cross_kernel.mode_launches[mode]
+    lags = np.rint(vh.results.times).astype(int)  # dt = 1, step 1
+    sweeps = int(sum(np.sum(lags <= f) for f in range(n_frames)))
+    check(launches == n_frames == cross_kernel.launches,
+          f"{what}: {launches} {mode} launches ({cross_kernel.launches} in "
+          f"all) for {n_frames} frames")
+    check(len(lags) == 19, f"{what}: {len(lags)} lags, not 19")
+
+    plan = cch.cell_plan_search(n_atoms, plan_extents(box), r_max)
+    self_counts = torch.zeros(GEN_BINS, dtype=torch.float64, device=device)
+    for lo in range(0, n_frames, CHUNK):
+        pos = torch.from_numpy(traj[lo:lo + CHUNK]).to(device)
+        if not triclinic:
+            lengths = torch.tensor(box, dtype=torch.float32, device=device)
+            pos = pos - lengths * torch.floor(pos / lengths)  # the path's
+        counts, _ = self_kernel(
+            pos, box=box, r_max=r_max, n_cells_dim=plan["n_cells_dim"],
+            reach=plan["reach"], capacity=plan["capacity"], n_bins=GEN_BINS)
+        self_counts += counts.sum(dim=0)
+    check(np.array_equal(vh.results.counts_distinct[0],
+                         self_counts.cpu().numpy().astype(np.int64)),
+          f"{what}: lag-0 distinct counts != self kernel counts")
+    counts_self = vh.results.counts_self
+    check(counts_self[0, 0] == n_atoms * n_frames
+          and counts_self[0, 1:].sum() == 0,
+          f"{what}: lag-0 self counts not all in bin 0")
+    gd = vh.results.gd
+    # A per-lag tail mean: the longest lags of the 5,000-atom path have
+    # one origin, where single bins scatter by about half a percent.
+    tail = gd[:, -20:].mean(axis=1)
+    check(np.all(np.isfinite(gd)) and np.all(np.abs(tail - 1) < 0.02),
+          f"{what}: distinct g(r, t) tail off 1: {tail}")
+    lag = int(lags[-1])
+    ref = np.zeros(GEN_BINS, dtype=np.int64)
+    for t in range(n_frames - lag):
+        if triclinic:
+            dist = f64_triclinic_distances(traj[t + lag], traj[t], box)
+        else:
+            lengths = np.asarray(box, np.float64)
+            d = traj[t + lag].astype(np.float64) - traj[t].astype(np.float64)
+            d -= lengths * np.round(d / lengths)
+            dist = np.sqrt((d**2).sum(-1))
+        ref += np.histogram(dist, bins=GEN_BINS, range=(0.0, r_max))[0]
+    check(np.array_equal(counts_self[-1], ref),
+          f"{what}: lag-{lag} self counts != float64 numpy")
+    plan = vh._searched_cell_plan()
+    print(f"{what}: {n_atoms} atoms, plan {plan['n_cells_dim']} reach "
+          f"{plan['reach']} capacity {plan['capacity']}, {n_frames} frames "
+          f"in chunks of {CHUNK}, {len(lags)} lags, {sweeps} distinct sweeps "
+          f"in {launches} launches; lag-0 distinct == self kernel; lag-{lag} "
+          f"self counts == float64 numpy; {fps:.3f} frames/s (information, "
+          "not a claim)")
+    return launches, fps, plan
+
+
+def phase_small_box_vanhove(device, rng):
+    """The small-box Van Hove paths: the 50k-atom cube under r_max 15
+    (generalized cross sweep), 8 + 32 frames, and the 5,000-atom
+    dodecahedron under r_max 6 (tri_pp), 8 + 32 frames."""
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    traj, u, box = small_box_universe(rng, GEN_ATOMS, cube(GEN_ATOMS),
+                                      GEN_VH_FRAMES)
+    out = {"general": run_vanhove_path(
+        device, traj, u, box, GEN_R, GEN_VH_FRAMES, cch.cross_pair_histogram,
+        cch.cell_pair_histogram, "general", "small-box Van Hove")}
+    del traj, u
+    traj, u, box = small_box_universe(rng, SMALL_ATOMS,
+                                      dodecahedron(TRI_PP_A),
+                                      TRI_PP_VH_FRAMES)
+    out["tri_pp"] = run_vanhove_path(
+        device, traj, u, box, TRI_PP_R, TRI_PP_VH_FRAMES,
+        cch.triclinic_cross_pair_histogram,
+        cch.triclinic_cell_pair_histogram, "tri_pp", "tri_pp Van Hove")
+    return out
+
+
 def main():
     import torch
 
@@ -883,6 +1564,7 @@ def main():
     info = _build.build_info()
     print(f"kernels built in {info['seconds']:.1f} s: {info['path']}")
     print(info["log"].strip())
+    check_planner_constants()
 
     rng = np.random.default_rng(SEED)
     self_timing = phase_kernels(device, rng)
@@ -910,6 +1592,30 @@ def main():
           "(information, not a claim)")
     tri_self_launches = tri_rdf["self"][0]
     tri_cross_launches = tri_rdf["cross"][0]
+    # Slice 4 draws from its own generator too.
+    gen_rng = np.random.default_rng(SEED + 2)
+    gen_timing = phase_generalized_kernels(device, gen_rng)
+    tri_pp_timing = phase_tri_pp_kernels(device, gen_rng)
+    phase_full_size_cross_checks(device, gen_rng)
+    small_rdf = phase_small_box_rdf(device, gen_rng)
+    small_vh = phase_small_box_vanhove(device, gen_rng)
+
+    def path_row(shape, timing_plan, path, plain_from=None, plain_shape=None):
+        """(launches, shape, timing) of a slice-4 row, whose kernel was
+        timed on the plan its path ran (checked here); a row whose shape
+        is too large for the plain version takes the plain time of the
+        smaller shape `plain_shape` (`plain_from`)."""
+
+        timing, plan = timing_plan
+        path_launches, _, path_plan = path
+        check(all(plan.get(k) == path_plan.get(k) for k in
+                  ("n_cells_dim", "reach", "capacity", "capacity2")),
+              f"{shape}: timed on {plan}, but the path ran {path_plan}")
+        if plain_from is not None:
+            timing = {**timing, "plain_ms": plain_from[0]["plain_ms"],
+                      "plain_shape": f"{plain_shape}, plan "
+                      f"{plain_from[1]['n_cells_dim']}"}
+        return path_launches, shape, timing
 
     self_src = "mdhelper_tpu_torch/csrc/cell_pair_histogram.cu"
     cross_src = "mdhelper_tpu_torch/csrc/cross_pair_histogram.cu"
@@ -949,6 +1655,43 @@ def main():
          tri_cross_launches + tri_vh_launches,
          f"{STREAM_ATOMS // 2} x {STREAM_ATOMS // 2}, dodecahedron",
          tri_timing["cross_stream"]),
+        # Slice 4: the generalized and tri_pp modes of _kernel and
+        # _cross_kernel (and of their streaming twins, which the same
+        # kernels serve), each timed on its path's plan; `launches`
+        # counts the mode on that path.
+        ("cell_pair_histogram", self_src, 1070, *path_row(
+            f"{GEN_ATOMS} atoms, cube {cube(GEN_ATOMS)[0]:.3f} A, r_max 15 "
+            "(small-box self RDF path)",
+            gen_timing["general"], small_rdf["general"])),
+        ("cell_pair_histogram", self_src, 1070, *path_row(
+            f"{SMALL_ATOMS} atoms, cube {cube(SMALL_ATOMS)[0]:.3f} A, "
+            "r_max 8 (ordered self RDF path)",
+            gen_timing["ordered"], small_rdf["ordered"])),
+        ("cross_pair_histogram", cross_src, 1916, *path_row(
+            f"{GEN_ATOMS // 2} x {GEN_ATOMS // 2}, cube, r_max 15 "
+            "(small-box cross RDF path)",
+            gen_timing["cross"], small_rdf["cross"])),
+        ("cross_pair_histogram", cross_src, 1916, *path_row(
+            f"{GEN_ATOMS} x {GEN_ATOMS}, exclusion (1, 1), cube, r_max 15 "
+            "(small-box Van Hove path)",
+            gen_timing["vanhove"], small_vh["general"])),
+        ("triclinic_cell_pair_histogram", self_src, 1070, *path_row(
+            f"{GEN_ATOMS} atoms, dodecahedron a = {GEN_DODECA_A} A, "
+            "r_max 15 (tri_pp self RDF path)",
+            tri_pp_timing["self"], small_rdf["tri_pp_self"],
+            tri_pp_timing["self_small"],
+            f"{SMALL_ATOMS} atoms, dodecahedron a = {TRI_PP_A} A, r_max 6")),
+        ("triclinic_cross_pair_histogram", cross_src, 1916, *path_row(
+            f"{GEN_ATOMS // 2} x {GEN_ATOMS // 2}, dodecahedron a = "
+            f"{GEN_DODECA_A} A, r_max 15 (tri_pp cross RDF path)",
+            tri_pp_timing["cross"], small_rdf["tri_pp_cross"],
+            tri_pp_timing["cross_small"],
+            f"{SMALL_ATOMS // 2} x {SMALL_ATOMS // 2}, dodecahedron a = "
+            f"{TRI_PP_A} A, r_max 6")),
+        ("triclinic_cross_pair_histogram", cross_src, 1916, *path_row(
+            f"{SMALL_ATOMS} x {SMALL_ATOMS}, exclusion (1, 1), dodecahedron "
+            f"a = {TRI_PP_A} A, r_max 6 (tri_pp Van Hove path)",
+            tri_pp_timing["vanhove"], small_vh["tri_pp"])),
     ]
     print(card)
     print(json.dumps({"kernels": [{
@@ -956,6 +1699,7 @@ def main():
         "route": "cuda",
         "source": source,
         "replaces": tpu.format(line),
+        "mode": timing["mode"],
         "shape": shape,
         "launches": n,
         "max_abs_err": timing["max_abs_err"],
@@ -965,6 +1709,8 @@ def main():
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
         "pairs_per_frame": timing["pairs_per_frame"],
+        **({"plain_shape": timing["plain_shape"]}
+           if "plain_shape" in timing else {}),
     } for kernel, source, line, n, shape, timing in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

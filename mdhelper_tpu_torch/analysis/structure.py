@@ -17,12 +17,16 @@ Ported from :mod:`mdhelper_tpu.analysis.structure`:
   histogram for the self part, the cross cell-list kernel for the
   distinct part.
 
-A triclinic box runs the triclinic kernels, whose (cell, neighbour)
-blocks each take one lattice translation; that needs every
-perpendicular width at least 3 cutoffs.  Narrower triclinic boxes (the
-JAX package's per-pair ``tri_pp`` mode), overlapping-group, 2-D and
-offset-range RDFs, COM groupings, and the direct and mesh S(q) methods
-are not ported yet.
+The RDF and Van Hove run in any periodic 3-D box.  Boxes at least 3
+cutoffs wide on every axis (perpendicular width, for a triclinic box)
+take reach-1 cell grids; narrower ones take the generalized grids of
+:func:`~mdhelper_tpu_torch.ops.cuda_cell_histogram.cell_plan_search`
+(cells narrower than the cutoff, swept several cells out).  A triclinic
+box runs the triclinic kernels: on a reach-1 grid each (cell,
+neighbour) block takes one lattice translation, on a generalized grid
+each pair searches its 27 nearest images (the JAX package's ``tri_pp``
+mode).  Overlapping-group, 2-D and offset-range RDFs, COM groupings,
+and the direct and mesh S(q) methods are not ported yet.
 """
 
 import warnings
@@ -83,29 +87,13 @@ def _frame_boxes(dimensions, triclinic):
 
 
 class _CellPlanned(SerialAnalysisBase):
-    """Shared by the analyses on the cell-list kernels: the box check,
-    the plan cache, capacity escalation in :meth:`run` and the carry
-    checks.  Subclasses set ``_plan_atoms``: ``(n1, None)`` plans the
-    self sweep, ``(n1, n2)`` the cross sweep."""
+    """Shared by the analyses on the cell-list kernels: the plan cache,
+    capacity escalation in :meth:`run` and the carry checks.
+    Subclasses set ``_plan_atoms``: ``(n1, None)`` plans the self sweep,
+    ``(n1, n2)`` the cross sweep."""
 
     _cell_plan_cache = None
     _plan_atoms = None
-
-    def _setup_cell_box(self, what: str) -> None:
-        """Set ``self._triclinic``; a triclinic box must be at least 3
-        cutoffs wide along every lattice direction."""
-
-        self._setup_periodic_box()
-        if not self._triclinic:
-            return
-        widths = _plan_extents(self.universe.dimensions, True)
-        if np.any(widths < 3 * self._range[1]):
-            raise NotImplementedError(
-                f"{what}: this triclinic box's perpendicular widths "
-                f"{widths.round(3).tolist()} are not all at least 3 "
-                f"cutoffs ({3 * self._range[1]}); the per-pair triclinic "
-                "mode that such boxes need is not ported yet."
-            )
 
     def _searched_cell_plan(self):
         if self._cell_plan_cache is None:
@@ -166,9 +154,9 @@ class RadialDistributionFunction(_CellPlanned):
     r"""Radial distribution function :math:`g(r)` of one group with
     itself, or between two disjoint groups.
 
-    The box may be orthorhombic or triclinic (then every perpendicular
-    width must be at least 3 cutoffs, and the volume is
-    :math:`h_{00} h_{11} h_{22}` of the box matrix).
+    The box may be orthorhombic or triclinic (then the volume is
+    :math:`h_{00} h_{11} h_{22}` of the box matrix), of any size: boxes
+    under 3 cutoffs take generalized cell grids.
 
     Parameters
     ----------
@@ -213,7 +201,7 @@ class RadialDistributionFunction(_CellPlanned):
                 "RDF ranges starting above 0 are not ported yet."
             )
         self._range = tuple(range)
-        self._setup_cell_box("RadialDistributionFunction")
+        self._setup_periodic_box()
         if self._cross:
             if np.intersect1d(ag1.ix, ag2.ix).size:
                 raise NotImplementedError(
@@ -275,7 +263,8 @@ class RadialDistributionFunction(_CellPlanned):
             """(counts, occupancy excess over capacity) per frame."""
 
             grid = dict(box=box, r_max=r_max,
-                        n_cells_dim=plan["n_cells_dim"], n_bins=n_bins)
+                        n_cells_dim=plan["n_cells_dim"],
+                        reach=plan["reach"], n_bins=n_bins)
             if cross:
                 # The stream holds group 1's columns, then group 2's.
                 counts, occ1, occ2 = cross_sweep(
@@ -586,9 +575,7 @@ class VanHoveFunction(_CellPlanned):
     n_bins : `int`, default 201
         Number of radial bins.
     range : `tuple`, default ``(0.0, 15.0)``
-        Radii range; it must start at 0 and stay below a third of the
-        box (the cell grid needs 3 cells per axis; a third of every
-        perpendicular width in a triclinic box).
+        Radii range; it must start at 0.
     grouping : `str`, default ``"atoms"``
         Only ``"atoms"`` is ported.
     dt : `float`, optional
@@ -629,7 +616,7 @@ class VanHoveFunction(_CellPlanned):
             )
         self._n_bins = int(n_bins)
         self._range = tuple(range)
-        self._setup_cell_box("VanHoveFunction")
+        self._setup_periodic_box()
         self._self_part = bool(self_part)
         self._distinct_part = bool(distinct_part)
         self._n_lags = n_lags
@@ -688,7 +675,7 @@ class VanHoveFunction(_CellPlanned):
             )
             cell = dict(
                 r_max=float(self._range[1]),
-                n_cells_dim=plan["n_cells_dim"],
+                n_cells_dim=plan["n_cells_dim"], reach=plan["reach"],
                 capacity1=plan["capacity"], capacity2=plan["capacity"],
                 n_bins=self._n_bins, exclusion=(1, 1),
             )

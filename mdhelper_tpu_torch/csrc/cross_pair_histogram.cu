@@ -1,19 +1,26 @@
 // Cell-list pair-distance histogram between two disjoint groups, full shell,
 // exact: orthorhombic and triclinic boxes.
 //
-// Replaces four TPU kernels of mdhelper_tpu/ops/pallas_cell_histogram.py,
-// all launched from cross_pair_histogram_pallas, in the modes the cross RDF
-// and the Van Hove distinct part use: 27-entry full neighbour table, reach
-// 1, all three axes, exact double-float binning with the "zero" boundary
-// constants, optional (e0, e1) exclusion ids.
+// Replaces the TPU kernels of mdhelper_tpu/ops/pallas_cell_histogram.py
+// launched from cross_pair_histogram_pallas, in the modes the cross RDF and
+// the Van Hove distinct part use: all three axes, exact double-float
+// binning with the "zero" boundary constants, optional (e0, e1) exclusion
+// ids.
 //   * _cross_kernel (orthorhombic, the resident-table layout) and
 //     _cross_kernel_stream (the per-(cell, neighbour) streaming layout that
-//     the JAX package picks for slot tables over 12 MB):
+//     the JAX package picks for slot tables over 12 MB), over the reach-1
+//     27-entry table or the deduped full table of a generalized reach-m
+//     grid (any box size; the same code, another table):
 //     cross_pair_histogram_kernel<OrthoBlock>, entry point
 //     cross_pair_histogram_launch;
 //   * _cross_kernel_tri and _cross_kernel_tri_stream (triclinic, one lattice
 //     translation per block): cross_pair_histogram_kernel<TriclinicBlock>,
-//     entry point triclinic_cross_pair_histogram_launch.
+//     entry point triclinic_cross_pair_histogram_launch;
+//   * _cross_kernel and _cross_kernel_stream in tri_pp mode (triclinic grids
+//     under 3 cells or of reach above 1, over the deduped full table;
+//     per-pair 27-candidate minimum image, _bin_exact_tri27):
+//     cross_pair_histogram_kernel<Tri27Block>, entry point
+//     tri_pp_cross_pair_histogram_launch.
 // One block per (cell, neighbour) with its two slot blocks staged in shared
 // memory is already the streaming layout, so each instantiation serves both
 // TPU layouts.
@@ -22,16 +29,18 @@
 // full-shell row, every slot pair (i, j) with i < occ1[c] and
 // j < occ2[nbr[c, e]] -- minus the pairs with equal exclusion ids when
 // exclusion is on -- gets the exact bin of cell_bin.cuh (per-pair minimum
-// image, or the block's lattice translation images[c, e] in a triclinic
-// grid) and one count when the bin is below n_bins.  No triangle mask and
-// no identical-atom mask: the groups are disjoint and every ordered
-// (group-1, group-2) pair is visited once, so the counts are not doubled.
+// image, the block's lattice translation images[c, e] in a per-block
+// triclinic grid, or the per-pair 27-image search of tri_pp) and one count
+// when the bin is below n_bins.  No triangle mask and no identical-atom
+// mask: the groups are disjoint and every ordered (group-1, group-2) pair
+// is visited once (each table holds every ordered cell pair within reach
+// once), so the counts are not doubled.
 //
 // What bounds it on the card: pair math, not bytes.  Each slot pair costs
-// the same 254 float32 operations (245 triclinic; cell_bin.cuh) as in the
-// self kernel; without the half shell it sweeps 27 neighbour blocks instead
-// of 14, so at equal N it does about twice the self kernel's pairs, against
-// a slot-table read of 16 B a slot per block.
+// the same 254 float32 operations (245 per-block triclinic, 7,186 tri_pp;
+// cell_bin.cuh) as in the self kernel; without the half shell it sweeps 27
+// neighbour blocks instead of 14, so at equal N it does about twice the
+// self kernel's pairs, against a slot-table read of 16 B a slot per block.
 //
 // This first design mirrors the self kernel: one thread block per (frame,
 // home cell, neighbour); the two slot blocks (xyz + exclusion id as a
@@ -53,6 +62,7 @@ namespace {
 constexpr int kThreads = 256;
 
 using cellbin::OrthoBlock;
+using cellbin::Tri27Block;
 using cellbin::TriclinicBlock;
 
 template <class Geometry>
@@ -92,6 +102,7 @@ cross_pair_histogram_kernel(const float4* __restrict__ table1,
   for (int s = threadIdx.x; s < oj; s += blockDim.x) sj[s] = block2[s];
   __syncthreads();
 
+  // The wrapper bounds capacity1 * capacity2 below 2^31.
   const int n_pairs = oi * oj;
   for (int p = threadIdx.x; p < n_pairs; p += blockDim.x) {
     const int i = p / oj;
@@ -148,9 +159,9 @@ int launch(const void* table1, const void* occupancy1, const void* table2,
 // `table2` are the (n_frames, n_cells * capacity{1,2}, 4) float32 slot
 // tables of the two groups on one grid (xyz, exclusion id), `occupancy1`
 // and `occupancy2` (n_frames, n_cells) int32, `neighbors` (n_cells, n_nbr)
-// int32 full-shell table, `boxes` (n_frames, 3) float32, `out`
-// (n_frames, n_bins) 64-bit counts, zeroed by the caller; `exclude` != 0
-// drops pairs with equal ids.  Returns cudaGetLastError().
+// int32 full-shell table (reach-1 or deduped), `boxes` (n_frames, 3)
+// float32, `out` (n_frames, n_bins) 64-bit counts, zeroed by the caller;
+// `exclude` != 0 drops pairs with equal ids.  Returns cudaGetLastError().
 extern "C" int cross_pair_histogram_launch(
     const void* table1, const void* occupancy1, const void* table2,
     const void* occupancy2, const void* neighbors, const void* boxes,
@@ -180,4 +191,19 @@ extern "C" int triclinic_cross_pair_histogram_launch(
   return launch(table1, occupancy1, table2, occupancy2, neighbors, geometry,
                 out, n_frames, n_cells, n_nbr, capacity1, capacity2, n_bins,
                 exclude, inv_dr, dr2_hi, dr2_lo, stream);
+}
+
+// The tri_pp sweep: as cross_pair_histogram_launch over the deduped full
+// table of the folded atoms' grid, with `boxes` (n_frames, 18) float32:
+// each frame's box matrix and then its float32 inverse, both row-major.
+extern "C" int tri_pp_cross_pair_histogram_launch(
+    const void* table1, const void* occupancy1, const void* table2,
+    const void* occupancy2, const void* neighbors, const void* boxes,
+    void* out, int n_frames, int n_cells, int n_nbr, int capacity1,
+    int capacity2, int n_bins, int exclude, float inv_dr, float dr2_hi,
+    float dr2_lo, void* stream) {
+  return launch(table1, occupancy1, table2, occupancy2, neighbors,
+                Tri27Block{static_cast<const float*>(boxes)}, out, n_frames,
+                n_cells, n_nbr, capacity1, capacity2, n_bins, exclude,
+                inv_dr, dr2_hi, dr2_lo, stream);
 }

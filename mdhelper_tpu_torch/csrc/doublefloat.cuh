@@ -56,6 +56,18 @@ __device__ __forceinline__ df two_prod(float a, float b) {
   return {p, e};
 }
 
+// two_prod of factors split beforehand (as = split(a), bs = split(b)): the
+// same operations after the splits, for a factor that is split once and
+// multiplied many times.
+__device__ __forceinline__ df two_prod_split(float a, df as, float b, df bs) {
+  float p = __fmul_rn(a, b);
+  float e = __fsub_rn(__fmul_rn(as.hi, bs.hi), p);
+  e = __fadd_rn(e, __fmul_rn(as.hi, bs.lo));
+  e = __fadd_rn(e, __fmul_rn(as.lo, bs.hi));
+  e = __fadd_rn(e, __fmul_rn(as.lo, bs.lo));
+  return {p, e};
+}
+
 // (hi, lo) + (hi, lo) with renormalization.
 __device__ __forceinline__ df df_add(df x, df y) {
   df s = two_sum(x.hi, y.hi);

@@ -51,7 +51,14 @@ _F = ctypes.c_float
 #: C entry points and their argument types.
 _SIGNATURES = {
     "cell_pair_histogram_launch": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+    ),
+    "tri_pp_cell_pair_histogram_launch": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+    ),
+    "tri_pp_cross_pair_histogram_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _F, _F, _F, _P,
     ),
     "cross_pair_histogram_launch": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

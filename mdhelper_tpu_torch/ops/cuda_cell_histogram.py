@@ -3,21 +3,32 @@ Cell-list pair histograms (CUDA)
 ================================
 
 Counterpart of :mod:`mdhelper_tpu.ops.pallas_cell_histogram` for the
-reach-1, 3-D, exact modes that the ported analyses run:
+3-D, exact modes that the ported analyses run, in any periodic box:
 
-* the self-group half-shell sweep (:func:`cell_pair_histogram`, kernel
-  ``csrc/cell_pair_histogram.cu``): each home cell against its 14-entry
-  half-shell neighbour row, counts doubled to ordered pairs;
-* the cross-group full-shell sweep (:func:`cross_pair_histogram`,
-  kernel ``csrc/cross_pair_histogram.cu``): each group-1 home cell
-  against the 27 cells around it in group 2's table, ordered pairs of
-  two disjoint groups, with an optional ``(e0, e1)`` tile exclusion;
+* the self-group sweep (:func:`cell_pair_histogram`, kernel
+  ``csrc/cell_pair_histogram.cu``): each home cell against its
+  half-shell neighbour row, counts doubled to ordered pairs, or -- in a
+  small box whose grid has no half table -- against its deduped full
+  row, ordered pairs counted once;
+* the cross-group sweep (:func:`cross_pair_histogram`, kernel
+  ``csrc/cross_pair_histogram.cu``): each group-1 home cell against the
+  cells around it in group 2's table, ordered pairs of two disjoint
+  groups, with an optional ``(e0, e1)`` tile exclusion;
 * their triclinic twins (:func:`triclinic_cell_pair_histogram`,
   :func:`triclinic_cross_pair_histogram`, the triclinic entry points of
   the same two sources): the atoms are folded into the primary cell and
-  gridded in fractional coordinates, and each (cell, neighbour) block
-  takes one lattice translation from the frame's double-float image
-  table (:func:`_image_shift_table`) instead of a per-pair image.
+  gridded in fractional coordinates; on a reach-1 grid of at least 3
+  cells per axis each (cell, neighbour) block takes one lattice
+  translation from the frame's double-float image table
+  (:func:`_image_shift_table`), on any other grid (``tri_pp``,
+  :func:`plan_is_tri_pp`) each pair searches its 27 nearest images.
+
+Grids come from :func:`cell_plan_search`.  A box at least 3 cutoffs
+wide on every axis takes a reach-1 grid (cells at least ``r_max``
+wide, the 14-entry half shell or the 27-entry full shell); a narrower
+one takes a generalized grid: any cell count from 1 per axis, cells
+narrower than ``r_max`` swept ``reach`` cells out on each axis, through
+the deduped neighbour tables of :func:`_general_tables`.
 
 Sorted atom positions are packed into a padded ``(n_cells * capacity,
 4)`` float32 slot table (xyz, then an id column: the atom index, or its
@@ -28,7 +39,8 @@ double-float arithmetic through the same device function
 Each wrapper launches its kernel for tensors on a CUDA device and runs
 its ``*_reference`` twin -- the same computation in plain torch, on the
 same slot tables -- for tensors on the CPU.  There is no fallback
-between the two: a CUDA tensor launches the kernel or raises.
+between the two: a CUDA tensor launches the kernel or raises, and so
+does a plan that the kernel cannot launch.
 """
 
 import itertools
@@ -50,11 +62,18 @@ from .doublefloat import (
     two_diff,
     two_prod,
 )
-from .histogram import _exact_d2_orthorhombic, _inv3, _row_times
+from .histogram import (
+    _exact_d2_orthorhombic,
+    _exact_d2_triclinic,
+    _inv3,
+    _row_times,
+)
 
 __all__ = [
     "CellCapacityOverflow",
     "cell_plan_search",
+    "grid_plan",
+    "plan_is_tri_pp",
     "cell_pair_histogram",
     "cell_pair_histogram_reference",
     "cross_pair_histogram",
@@ -89,6 +108,22 @@ _MAX_EXACT_ID = 1 << 24
 #: capacity granule (one warp of slots).
 _CAP_STEP = 32
 
+#: shared memory one thread block of an H100 may opt in to (232,448
+#: bytes): a kernel's two slot blocks (16 B a slot) and its uint32
+#: histogram must fit in it.
+_SMEM_BYTES = 232_448
+
+#: the planner's capacity ceiling: two slot blocks of 4,096 slots take
+#: 128 KB of that, leaving room for a histogram of up to 25,000 bins, and
+#: keep a block's ``capacity1 * capacity2`` pair count far inside int32.
+_MAX_CAPACITY = 4096
+
+#: thread blocks a frame that fill the card: 132 SMs, each holding about
+#: four 256-thread blocks at once.  A plan with fewer (cell, neighbour)
+#: blocks a frame leaves SMs idle, so it is costed as if it had these.
+_N_SMS = 132
+_FILL_BLOCKS = 4 * _N_SMS
+
 
 def _cdiv(a, b):
     return -(-a // b)
@@ -116,33 +151,64 @@ def _capacity(n_atoms, n_cells, capacity_sigmas):
 
 def cell_plan_search(n_atoms, box, r_max, *, n_atoms2=None,
                      capacity_sigmas=4.0):
-    """Cost-driven cell grid (host side): the ``n_cells_dim`` that
-    minimizes the kernel's padded pair work, ``n_cells * 14 *
-    capacity**2`` for the self sweep or, with ``n_atoms2``, ``n_cells *
-    27 * capacity * capacity2`` for the cross sweep, whose two groups
-    share one grid (ties to fewer cells).
+    """Cost-driven cell grid (host side): the ``n_cells_dim`` (and
+    per-axis ``reach``) that minimizes the kernel's padded pair work.
+    Depends only on its arguments, never on whether a card is present.
 
     ``box`` holds the three extents the grid spans: the box lengths of
     an orthorhombic box, or the perpendicular widths of a triclinic one
-    (:func:`triclinic_perpendicular_widths`).  Legal grids have at least
-    3 cells per axis, each at least ``r_max`` wide (``3 <= n_i <=
-    floor(L_i / r_max)``).  Boxes under 3 cutoffs on some axis need the
-    generalized grids of the JAX package, which the port does not have
-    yet: they raise `ValueError`.
+    (:func:`triclinic_perpendicular_widths`).  Capacities follow
+    :func:`_capacity`; a plan whose capacity exceeds 4,096 slots
+    (``_MAX_CAPACITY``, from the H100's 227 KB of shared memory a block)
+    is never chosen.
 
-    Returns ``{"n_cells_dim", "n_cells", "capacity", "reach", "_cost"}``,
-    plus ``"capacity2"`` (group 2's slots) for a cross plan.
+    * **Reach 1**, for a box at least 3 cutoffs wide on every axis:
+      grids of ``3 <= n_i <= floor(L_i / r_max)`` cells, each at least
+      ``r_max`` wide, costed ``n_cells * 14 * capacity**2`` for the
+      self sweep or, with ``n_atoms2``, ``n_cells * 27 * capacity *
+      capacity2`` for the cross sweep, whose two groups share one grid
+      (ties to fewer cells).  ``reach`` is ``(1, 1, 1)``.
+    * **Generalized** (the JAX package's generalized space), for a box
+      under 3 cutoffs on some axis, or one whose every reach-1 plan is
+      over the capacity ceiling: any grid from 1 cell per axis up to
+      ``max(3, floor(L_i / r_max), n_target)``, ``n_target =
+      ceil((N / 64)^(1/3)) + 1`` (about 64 atoms a cell; a geometric
+      subset of the counts above 16 on an axis), each axis swept
+      ``reach_i = floor(r_max * n_i / L_i + 1e-9) + 1`` cells out.  An
+      axis with ``n_i <= 2 reach_i + 1`` is swept whole, so a cell has
+      ``n_full = prod(min(n_i, 2 reach_i + 1))`` distinct neighbours;
+      the self sweep visits ``n_eff = (n_full - 1) // 2 + 1`` of them
+      (half shell) when every ``n_i >= 2 reach_i + 1`` and all
+      ``n_full`` (ordered) otherwise, the cross sweep all ``n_full``.
+      The cost is ``max(blocks, 528) * capacity * capacity2`` with
+      ``blocks = n_cells * n_eff`` thread blocks a frame: the padded
+      pair work of a block, and a frame of fewer than 528 blocks
+      (``_FILL_BLOCKS``, about four on each of the H100's 132 SMs)
+      costed as if it had that many, since it leaves SMs idle.  Without
+      the ceiling and the fill term the search would put a small group
+      into one cell: one block a frame, and a slot block too large for
+      shared memory.  Padding each capacity to the 32-slot granule
+      makes grids much finer than a few atoms a cell cost more.
+
+    Returns ``{"n_cells_dim", "n_cells", "capacity", "reach",
+    "_cost"}``, plus ``"capacity2"`` (group 2's slots) for a cross
+    plan.  Raises `ValueError` when no grid has a launchable capacity.
     """
 
     box = np.asarray(box, dtype=float)
     if box.shape != (3,):
         raise ValueError("cell_plan_search takes 3 box extents.")
     floors = np.floor(box / r_max).astype(int)
-    if not np.all(floors >= 3):
-        raise ValueError(
-            "The cell-list kernel needs a box at least 3 cutoffs wide "
-            f"on every axis (box {box.tolist()}, r_max {r_max})."
-        )
+    if np.all(floors >= 3):
+        plan = _reach1_plan(n_atoms, floors, n_atoms2, capacity_sigmas)
+        if plan is not None:
+            return plan
+    return _general_plan(n_atoms, box, r_max, floors, n_atoms2,
+                         capacity_sigmas)
+
+
+def _reach1_plan(n_atoms, floors, n_atoms2, capacity_sigmas):
+    """The cheapest reach-1 plan within the capacity ceiling, or None."""
 
     # Every legal grid, in order.  The cost depends on a grid only
     # through its cell-count product and ties keep the first grid, so
@@ -167,11 +233,108 @@ def cell_plan_search(n_atoms, box, r_max, *, n_atoms2=None,
             plan["capacity2"] = _capacity(n_atoms2, n_cells,
                                           capacity_sigmas)
             cost = n_cells * N_FULL * cap * plan["capacity2"]
+        if max(cap, plan.get("capacity2", 0)) > _MAX_CAPACITY:
+            continue
         plan["_cost"] = cost
         key = (cost, n_cells)
         if best is None or key < best[0]:
             best = (key, plan)
+    return None if best is None else best[1]
+
+
+def _axis_candidates(m):
+    """Cell counts an axis of a generalized grid may take: every count
+    from 1 to ``m`` up to 16, else a geometric subset (steps of about
+    8 %, both ends kept), as in the JAX package's search."""
+
+    m = int(m)
+    if m <= 16:
+        return list(range(1, m + 1))
+    vals = {1, m}
+    v = 1.0
+    while v < m:
+        vals.add(int(round(v)))
+        v *= 1.08
+    return sorted(vals)
+
+
+def grid_plan(n_atoms, box, r_max, n_cells_dim, *, n_atoms2=None,
+              capacity_sigmas=4.0):
+    """The generalized plan of one given grid (a plan chosen by hand, as
+    the checks that must not depend on the search use): the capacities
+    of :func:`_capacity` and the per-axis reach ``floor(r_max * n_i /
+    L_i + 1e-9) + 1`` over the extents ``box``.  Returns the keys of
+    :func:`cell_plan_search` but ``"_cost"``."""
+
+    dims = tuple(int(n) for n in n_cells_dim)
+    n_cells = dims[0] * dims[1] * dims[2]
+    plan = {
+        "n_cells_dim": dims,
+        "n_cells": n_cells,
+        "capacity": _capacity(n_atoms, n_cells, capacity_sigmas),
+        "reach": tuple(
+            int(np.floor(r_max * n / w + 1e-9)) + 1
+            for n, w in zip(dims, np.asarray(box, dtype=float))
+        ),
+    }
+    if n_atoms2 is not None:
+        plan["capacity2"] = _capacity(n_atoms2, n_cells, capacity_sigmas)
+    return plan
+
+
+def _general_plan(n_atoms, box, r_max, floors, n_atoms2, capacity_sigmas):
+    """The cheapest generalized plan (see :func:`cell_plan_search`)."""
+
+    cross = n_atoms2 is not None
+    n_target = int(
+        np.ceil((max(n_atoms, n_atoms2 or 0) / 64.0) ** (1.0 / 3.0))
+    ) + 1
+    max_dims = np.maximum(3, np.maximum(floors, n_target))
+    best = None
+    for dims in itertools.product(*[_axis_candidates(m) for m in max_dims]):
+        plan = grid_plan(n_atoms, box, r_max, dims, n_atoms2=n_atoms2,
+                         capacity_sigmas=capacity_sigmas)
+        cap1 = plan["capacity"]
+        cap2 = plan.get("capacity2", cap1)
+        if max(cap1, cap2) > _MAX_CAPACITY:
+            continue
+        n_full = 1
+        for n, m in zip(dims, plan["reach"]):
+            n_full *= min(n, 2 * m + 1)
+        half_ok = all(n >= 2 * m + 1 for n, m in zip(dims, plan["reach"]))
+        if cross or not half_ok:
+            n_eff = n_full
+        else:
+            n_eff = (n_full - 1) // 2 + 1
+        blocks = plan["n_cells"] * n_eff
+        plan["_cost"] = max(blocks, _FILL_BLOCKS) * cap1 * cap2
+        key = (plan["_cost"], plan["n_cells"])
+        if best is None or key < best[0]:
+            best = (key, plan)
+    if best is None:
+        raise ValueError(
+            f"No cell grid of at most {_MAX_CAPACITY} slots a cell for "
+            f"{n_atoms} atoms (box {box.tolist()}, r_max {r_max})."
+        )
     return best[1]
+
+
+def plan_is_tri_pp(plan, triclinic):
+    """Does this plan run the per-pair 27-candidate triclinic sweep?
+    True for a triclinic box on any grid but a reach-1 grid of at least
+    3 cells per axis (there, each (cell, neighbour) block takes one
+    lattice translation).  The one definition of the route: the
+    triclinic wrappers and the analyses both call it."""
+
+    return bool(triclinic) and _generalized(plan["n_cells_dim"],
+                                            plan["reach"])
+
+
+def _generalized(n_cells_dim, reach):
+    """Is this grid off the reach-1, 3-cells-per-axis route?"""
+
+    return (tuple(int(m) for m in reach) != (1, 1, 1)
+            or any(int(n) < 3 for n in n_cells_dim))
 
 
 def _bin_boundary_constants(r_max, n_bins):
@@ -189,9 +352,20 @@ def _bin_boundary_constants(r_max, n_bins):
 
 def _grid(n_cells_dim):
     dims = tuple(int(n) for n in n_cells_dim)
-    if any(n < 3 for n in dims):
-        raise ValueError("The neighbor tables need >= 3 cells per axis.")
     return dims, np.meshgrid(*[np.arange(n) for n in dims], indexing="ij")
+
+
+def _reach1_grid(n_cells_dim):
+    """The grid of a reach-1 table: at least 3 cells per axis, so the
+    27 offsets in {-1, 0, 1}^3 wrap onto distinct cells."""
+
+    dims = tuple(int(n) for n in n_cells_dim)
+    if any(n < 3 for n in dims):
+        raise ValueError(
+            "The reach-1 neighbor tables need >= 3 cells per axis "
+            "(other grids take _general_tables)."
+        )
+    return dims
 
 
 def _neighbor_table(n_cells_dim, offsets):
@@ -233,7 +407,7 @@ def _half_table(n_cells_dim):
     13 positive-lexicographic offsets in {-1, 0, 1}^3, wrapped.  With
     at least 3 cells per axis every unordered cell pair appears once."""
 
-    return _neighbor_table(n_cells_dim, _HALF_OFFSETS)
+    return _neighbor_table(_reach1_grid(n_cells_dim), _HALF_OFFSETS)
 
 
 @lru_cache(maxsize=None)
@@ -244,21 +418,62 @@ def _full_table(n_cells_dim):
     neighbours of a cell are distinct, so every ordered cell pair within
     reach appears once."""
 
-    return _neighbor_table(n_cells_dim, _FULL_OFFSETS)
+    return _neighbor_table(_reach1_grid(n_cells_dim), _FULL_OFFSETS)
 
 
 @lru_cache(maxsize=None)
 def _half_images(n_cells_dim):
     """Image rows of :func:`_half_table`'s entries."""
 
-    return _image_table(n_cells_dim, _HALF_OFFSETS)
+    return _image_table(_reach1_grid(n_cells_dim), _HALF_OFFSETS)
 
 
 @lru_cache(maxsize=None)
 def _full_images(n_cells_dim):
     """Image rows of :func:`_full_table`'s entries."""
 
-    return _image_table(n_cells_dim, _FULL_OFFSETS)
+    return _image_table(_reach1_grid(n_cells_dim), _FULL_OFFSETS)
+
+
+@lru_cache(maxsize=None)
+def _general_tables(n_cells_dim, reach):
+    """Deduped neighbour tables of a 3-D grid with per-axis reach ``m_i``
+    (offsets in ``[-m_i, m_i]``), row for row and column for column the
+    JAX package's ``_neighbor_tables_general``.  Returns ``(full,
+    half)``:
+
+    * ``full`` -- ``(n_cells, n_full)`` int32: every DISTINCT wrapped
+      neighbour of each home cell within the reach block, the home cell
+      in column 0.  An axis with ``n_i <= 2 m_i + 1`` contributes each
+      of its cells once, starting at the home coordinate (the wrap
+      would otherwise alias offsets), so every ordered cell pair within
+      reach appears once and per-pair minimum images count every ordered
+      atom pair once (the ordered and cross sweeps);
+    * ``half`` -- ``(n_cells, n_half)`` int32, the home cell and then
+      the positive-lexicographic offsets (each unordered cell pair
+      once: the half-shell sweep), or None when some axis has ``n_i <
+      2 m_i + 1`` (wrapped offsets then collide)."""
+
+    dims, grids = _grid(n_cells_dim)
+    reach = tuple(int(m) for m in reach)
+    strides = (dims[1] * dims[2], dims[2], 1)
+    n_cells = dims[0] * dims[1] * dims[2]
+    cid = 0
+    for ax, (n, m) in enumerate(zip(dims, reach)):
+        if n <= 2 * m + 1:
+            offs = np.arange(n)
+        else:
+            offs = np.concatenate(([0], np.arange(-m, 0), np.arange(1, m + 1)))
+        coords = ((np.arange(n)[:, None] + offs[None, :]) % n)[grids[ax]]
+        shape = [*dims, 1, 1, 1]
+        shape[3 + ax] = len(offs)
+        cid = cid + coords.reshape(shape) * strides[ax]
+    full = cid.reshape(n_cells, -1).astype(np.int32)
+    if any(n < 2 * m + 1 for n, m in zip(dims, reach)):
+        return full, None
+    offsets = itertools.product(*[range(-m, m + 1) for m in reach])
+    half = [(0, 0, 0)] + [o for o in offsets if o > (0, 0, 0)]
+    return full, _neighbor_table(dims, half)
 
 
 def _image_shift_table(box):
@@ -311,18 +526,26 @@ def triclinic_perpendicular_widths(box_matrix):
     return volume[..., None] / norms
 
 
-def _cell_sweep_ok(extents, n_cells_dim, r_max):
-    """``(B,)`` bool: is the reach-1 sweep complete for each frame's
-    box?  Every cell must be at least ``r_max`` wide, except along axes
-    of exactly 3 cells, where the sweep already spans the whole axis."""
+def _cell_sweep_ok(extents, n_cells_dim, reach, r_max):
+    """``(B,)`` bool: is the sweep of reach ``m_i`` complete for each
+    frame's extents (orthorhombic box lengths, or the perpendicular
+    widths of a tri_pp grid)?  Cells at offset ``m_i + 1`` (the first
+    ring left out) are at least ``m_i * extents_i / n_i`` apart along
+    axis ``i``, so the sweep is complete when that is at least
+    ``r_max``, except along axes of at most ``2 m_i + 1`` cells, which
+    the sweep spans whole (the JAX package's ``_cell_sweep_ok``; with
+    ``reach == (1, 1, 1)``, cells at least ``r_max`` wide or 3 cells)."""
 
     dims = torch.tensor(n_cells_dim, dtype=torch.float32,
                         device=extents.device)
-    whole_axis = torch.tensor([n <= 3 for n in n_cells_dim],
-                              device=extents.device)
+    mr = torch.tensor(reach, dtype=torch.float32, device=extents.device)
+    whole_axis = torch.tensor(
+        [n <= 2 * m + 1 for n, m in zip(n_cells_dim, reach)],
+        device=extents.device,
+    )
     # Python floats of float32 values: weak scalars, float32 products.
     wide_enough = (
-        extents * float(np.float32(1 + 1e-6))
+        extents * mr * float(np.float32(1 + 1e-6))
         >= dims * float(np.float32(r_max))
     )
     return (wide_enough | whole_axis).all(dim=-1)
@@ -463,16 +686,19 @@ def _shifted_d2(p1, p2, shift_hi, shift_lo):
 
 
 def _sweep_reference(table1, occupancy1, capacity1, table2, occupancy2,
-                     capacity2, nbr, box, r_max, n_bins, *, half, exclude,
-                     images=None, shifts=None):
+                     capacity2, nbr, box, r_max, n_bins, *, home_mask,
+                     exclude, images=None, shifts=None, inverse=None):
     """The kernels' sweep in plain torch: every home cell of slot table
     1 against its neighbour row ``nbr`` in slot table 2, the kernels'
-    masks (occupied slots; ``half``: strict upper slot triangle in the
-    home block; ``exclude``: drop equal ids), exact bins of the pairs
-    kept -- per-pair orthorhombic minimum images in ``box`` ``(B, 3)``,
-    or, with ``images`` (the neighbour rows' image table) and ``shifts``
-    (:func:`_image_shift_table`), each block's lattice translation.
-    int64 ``(B, n_bins)``."""
+    masks (occupied slots; in the home block (entry 0), ``home_mask``
+    ``"triangle"`` keeps the strict upper slot triangle and ``"ids"``
+    drops equal atom ids; ``exclude``: drop equal ids everywhere),
+    exact bins of the pairs kept -- per-pair orthorhombic minimum
+    images in ``box`` ``(B, 3)``; with ``images`` (the neighbour rows'
+    image table) and ``shifts`` (:func:`_image_shift_table`), each
+    block's lattice translation; with ``inverse`` (``(B, 3, 3)``, the
+    inverses of the box matrices ``box``), the per-pair 27-candidate
+    search (tri_pp).  int64 ``(B, n_bins)``."""
 
     b = table1.shape[0]
     device = table1.device
@@ -484,8 +710,10 @@ def _sweep_reference(table1, occupancy1, capacity1, table2, occupancy2,
     slots1 = torch.arange(capacity1, device=device)
     slots2 = torch.arange(capacity2, device=device)
     upper = slots1[:, None] < slots2[None, :]
-    # home cells per step: bounds each (cells, cap1, cap2) temporary
-    chunk = max(1, (1 << 22) // (capacity1 * capacity2))
+    # home cells per step: bounds each (cells, cap1, cap2) temporary (a
+    # quarter as many for the 27-candidate search's temporaries)
+    pairs = (1 << 22) if inverse is None else (1 << 20)
+    chunk = max(1, pairs // (capacity1 * capacity2))
     counts = torch.zeros((b, n_bins + 1), dtype=torch.int64, device=device)
     blocks1 = table1.reshape(b, n_cells, capacity1, 4)
     blocks2 = table2.reshape(b, n_cells, capacity2, 4)
@@ -501,20 +729,21 @@ def _sweep_reference(table1, occupancy1, capacity1, table2, occupancy2,
                 jp = blocks2[f, other]
                 j_valid = slots2[None, :] < occ2[other][:, None]
                 valid = i_valid[:, :, None] & j_valid[:, None, :]
-                if half and entry == 0:
+                if entry == 0 and home_mask == "triangle":
                     valid = valid & upper
-                if exclude:
+                if exclude or (entry == 0 and home_mask == "ids"):
                     valid = valid & (ip[:, :, None, 3] != jp[:, None, :, 3])
                 # Bin the kept slot pairs only, as the kernels do.
                 cell, i, j = valid.nonzero(as_tuple=True)
-                if images is None:
-                    d2 = _exact_d2_orthorhombic(
-                        ip[cell, i, :3], jp[cell, j, :3], box[f]
-                    )
-                else:
+                a, c = ip[cell, i, :3], jp[cell, j, :3]
+                if images is not None:
                     img = images[home, entry][cell]
-                    d2 = _shifted_d2(ip[cell, i, :3], jp[cell, j, :3],
-                                     shifts[0][f, img], shifts[1][f, img])
+                    d2 = _shifted_d2(a, c, shifts[0][f, img],
+                                     shifts[1][f, img])
+                elif inverse is not None:
+                    d2 = _exact_d2_triclinic(a, c, box[f], inverse[f])
+                else:
+                    d2 = _exact_d2_orthorhombic(a, c, box[f])
                 idx = torch.clamp(_bin_index(d2, consts, n_bins), max=n_bins)
                 counts[f] += torch.bincount(idx.long(), minlength=n_bins + 1)
     return counts[:, :n_bins]
@@ -546,15 +775,115 @@ def _check_inputs(positions, box, n_cells_dim, triclinic=False):
     return positions, box, dims
 
 
-def _poison(counts, box, dims, r_max):
-    """float64 counts, NaN for frames whose box invalidates the planned
-    grid."""
+#: the sweep modes (:func:`_sweep_mode`) and, for each, the C entry
+#: point of the self and of the cross kernel.
+_ENTRIES = {
+    "reach1": ("cell_pair_histogram_launch", "cross_pair_histogram_launch"),
+    "general": ("cell_pair_histogram_launch", "cross_pair_histogram_launch"),
+    "ordered": ("cell_pair_histogram_launch", None),
+    "block": ("triclinic_cell_pair_histogram_launch",
+              "triclinic_cross_pair_histogram_launch"),
+    "tri_pp": ("tri_pp_cell_pair_histogram_launch",
+               "tri_pp_cross_pair_histogram_launch"),
+}
 
-    if box.ndim == 3:
+#: the self sweeps that visit every ordered cell pair once: identical
+#: atoms dropped by id in the home block, counts not doubled.
+_ORDERED_MODES = ("ordered", "tri_pp")
+
+
+def _sweep_mode(n_cells_dim, reach, triclinic, cross):
+    """The sweep a wrapper runs on this grid:
+
+    * ``"reach1"`` -- orthorhombic, reach 1, at least 3 cells per axis:
+      the 14-entry half shell (self) or the 27-entry full shell (cross);
+    * ``"general"`` -- orthorhombic, any other grid: the deduped half
+      table of :func:`_general_tables` (self; each unordered cell pair
+      once, doubled) or its deduped full table (cross);
+    * ``"ordered"`` -- orthorhombic self sweep of a grid without a half
+      table (some axis has ``n_i < 2 m_i + 1``): the deduped full
+      table, identical atoms dropped by id, counts not doubled;
+    * ``"block"`` -- triclinic, reach 1, at least 3 cells per axis: one
+      lattice translation per (cell, neighbour) block;
+    * ``"tri_pp"`` -- triclinic, any other grid
+      (:func:`plan_is_tri_pp`): the deduped full table and the per-pair
+      27-candidate minimum image, ordered."""
+
+    plan = {"n_cells_dim": n_cells_dim, "reach": reach}
+    if triclinic:
+        return "tri_pp" if plan_is_tri_pp(plan, True) else "block"
+    if not _generalized(n_cells_dim, reach):
+        return "reach1"
+    if not cross and _general_tables(n_cells_dim, reach)[1] is None:
+        return "ordered"
+    return "general"
+
+
+def _neighbors(dims, reach, mode, cross, device):
+    """int64 ``(n_cells, n_nbr)`` neighbour table of a sweep mode."""
+
+    if mode in ("reach1", "block"):
+        table = _full_table(dims) if cross else _half_table(dims)
+    else:
+        full, half = _general_tables(dims, reach)
+        table = half if mode == "general" and not cross else full
+    return torch.as_tensor(table, device=device).long()
+
+
+def _geometry(box, dims, mode, cross):
+    """What the pairs of a sweep are binned with: the plain version's
+    keyword arguments, and the kernel's geometry arguments (the
+    orthorhombic lengths; the image table and the double-float shift
+    table; or each frame's box matrix and its float32 inverse,
+    flattened to ``(B, 18)``)."""
+
+    if mode == "block":
+        images = torch.as_tensor(
+            _full_images(dims) if cross else _half_images(dims),
+            device=box.device,
+        )
+        shifts = _image_shift_table(box)
+        return (dict(box=None, images=images.long(), shifts=shifts),
+                (images.contiguous(), *shifts))
+    if mode == "tri_pp":
+        inverse = _inv3(box)
+        flat = torch.cat((box.reshape(-1, 9), inverse.reshape(-1, 9)), dim=1)
+        return dict(box=box, inverse=inverse), (flat.contiguous(),)
+    return dict(box=box), (box,)
+
+
+def _poison(counts, box, dims, reach, r_max, mode):
+    """float64 counts, NaN for frames whose box invalidates the planned
+    grid: the strict per-block test, or the reach test on the box
+    lengths or (tri_pp) the perpendicular widths."""
+
+    if mode == "block":
         ok = _triclinic_sweep_ok(box, dims, r_max)
     else:
-        ok = _cell_sweep_ok(box, dims, r_max)
+        extents = (triclinic_perpendicular_widths(box) if mode == "tri_pp"
+                   else box)
+        ok = _cell_sweep_ok(extents, dims, reach, r_max)
     return torch.where(ok[:, None], counts.to(torch.float64), torch.nan)
+
+
+def _check_launchable(capacity1, capacity2, n_bins):
+    """Raise for a plan the kernels cannot launch: two slot blocks and
+    the histogram over the shared memory of a block, or a block's pair
+    count over int32."""
+
+    smem = 16 * (capacity1 + capacity2) + 4 * n_bins
+    if smem > _SMEM_BYTES or capacity1 * capacity2 >= 1 << 31:
+        raise ValueError(
+            f"Capacities {capacity1}/{capacity2} with {n_bins} bins need "
+            f"{smem} bytes of shared memory a block (at most {_SMEM_BYTES})."
+        )
+
+
+def _reach(reach):
+    reach = (1, 1, 1) if reach is None else tuple(int(m) for m in reach)
+    if len(reach) != 3 or min(reach) < 1:
+        raise ValueError("reach must hold 3 positive cell counts.")
+    return reach
 
 
 def _on_cpu(positions, what):
@@ -587,76 +916,81 @@ def _launch(entry, device, *args):
     _build.check(status, f"{entry} kernel")
 
 
-def _self_inputs(positions, box, n_cells_dim, capacity, triclinic):
-    """What the self kernel and its plain version share: the checked
-    inputs, the slot table, the occupancy and its maximum, and the
-    half-shell neighbour table (int64)."""
+def _self_inputs(positions, box, n_cells_dim, capacity, triclinic,
+                 reach=None, n_bins=0, mode=None):
+    """What the self kernel and its plain version share: the checked box
+    and grid, the reach and the sweep mode, the slot table with its
+    occupancy and maximum, and the mode's neighbour table (int64).
+    ``mode`` overrides :func:`_sweep_mode` (a cross-check runs tri_pp on
+    a reach-1 grid)."""
 
     positions, box, dims = _check_inputs(positions, box, n_cells_dim,
                                          triclinic)
-    table, occupancy, max_occ = _tables(positions, box, dims, capacity)
-    nbr = torch.as_tensor(_half_table(dims), device=positions.device)
-    return positions, box, dims, table, occupancy, max_occ, nbr.long()
+    _check_launchable(capacity, capacity, n_bins)
+    reach = _reach(reach)
+    mode = mode or _sweep_mode(dims, reach, triclinic, cross=False)
+    if mode in _ORDERED_MODES and positions.shape[1] >= _MAX_EXACT_ID:
+        raise ValueError(
+            "The ordered sweep tells atoms apart by float32 ids, exact "
+            f"only for groups under {_MAX_EXACT_ID} atoms."
+        )
+    tables = _tables(positions, box, dims, capacity)
+    nbr = _neighbors(dims, reach, mode, False, positions.device)
+    return box, dims, reach, mode, tables, nbr
 
 
 def _self_reference(positions, box, r_max, n_cells_dim, capacity, n_bins,
-                    triclinic):
-    positions, box, dims, table, occupancy, max_occ, nbr = _self_inputs(
-        positions, box, n_cells_dim, capacity, triclinic
+                    triclinic, reach=None, mode=None):
+    box, dims, reach, mode, (table, occupancy, max_occ), nbr = _self_inputs(
+        positions, box, n_cells_dim, capacity, triclinic, reach, n_bins, mode
     )
-    geometry = dict(box=box)
-    if triclinic:
-        geometry = dict(
-            box=None,
-            images=torch.as_tensor(_half_images(dims),
-                                   device=box.device).long(),
-            shifts=_image_shift_table(box),
-        )
+    ordered = mode in _ORDERED_MODES
     counts = _sweep_reference(
         table, occupancy, capacity, table, occupancy, capacity, nbr,
-        r_max=r_max, n_bins=n_bins, half=True, exclude=False, **geometry,
+        r_max=r_max, n_bins=n_bins, exclude=False,
+        home_mask="ids" if ordered else "triangle",
+        **_geometry(box, dims, mode, cross=False)[0],
     )
-    return _poison(counts * 2, box, dims, r_max), max_occ
+    counts = counts if ordered else counts * 2
+    return _poison(counts, box, dims, reach, r_max, mode), max_occ
 
 
 def _self_kernel(positions, box, r_max, n_cells_dim, capacity, n_bins,
-                 triclinic):
-    positions, box, dims, table, occupancy, max_occ, nbr = _self_inputs(
-        positions, box, n_cells_dim, capacity, triclinic
+                 triclinic, reach=None, mode=None):
+    box, dims, reach, mode, (table, occupancy, max_occ), nbr = _self_inputs(
+        positions, box, n_cells_dim, capacity, triclinic, reach, n_bins, mode
     )
-    device = positions.device
-    b = positions.shape[0]
-    nbr = nbr.to(torch.int32).contiguous()
+    device = box.device
+    b = box.shape[0]
     out = torch.zeros((b, n_bins), dtype=torch.int64, device=device)
-    grid = (b, int(np.prod(dims)), N_HALF, int(capacity), int(n_bins),
+    sizes = (b, int(np.prod(dims)), nbr.shape[1], int(capacity),
+             int(n_bins))
+    if not triclinic:
+        # The orthorhombic entry point takes the sweep's order.
+        sizes += (int(mode == "ordered"),)
+    _launch(_ENTRIES[mode][0], device, table, occupancy,
+            nbr.to(torch.int32).contiguous(),
+            *_geometry(box, dims, mode, cross=False)[1], out, *sizes,
             *_bin_boundary_constants(r_max, n_bins))
-    if triclinic:
-        images = torch.as_tensor(_half_images(dims), device=device)
-        shift_hi, shift_lo = _image_shift_table(box)
-        _launch("triclinic_cell_pair_histogram_launch", device, table,
-                occupancy, nbr, images.contiguous(), shift_hi, shift_lo,
-                out, *grid)
-    else:
-        _launch("cell_pair_histogram_launch", device, table, occupancy,
-                nbr, box, out, *grid)
-    # Each unordered pair was visited once: double to ordered pairs.
-    return _poison(out * 2, box, dims, r_max), max_occ
+    if mode not in _ORDERED_MODES:
+        # Each unordered pair was visited once: double to ordered pairs.
+        out = out * 2
+    return _poison(out, box, dims, reach, r_max, mode), max_occ
 
 
 def cell_pair_histogram_reference(
-    positions, *, box, r_max, n_cells_dim, capacity, n_bins,
+    positions, *, box, r_max, n_cells_dim, capacity, n_bins, reach=None,
 ):
     """Plain-torch version of the kernel: the same slot table, the same
-    half-shell sweep and masks, the same exact binning; integer counts
-    equal the kernel's.  Arguments and returns as
-    :func:`cell_pair_histogram`."""
+    sweep and masks, the same exact binning; integer counts equal the
+    kernel's.  Arguments and returns as :func:`cell_pair_histogram`."""
 
     return _self_reference(positions, box, r_max, n_cells_dim, capacity,
-                           n_bins, triclinic=False)
+                           n_bins, triclinic=False, reach=reach)
 
 
 def cell_pair_histogram(
-    positions, *, box, r_max, n_cells_dim, capacity, n_bins,
+    positions, *, box, r_max, n_cells_dim, capacity, n_bins, reach=None,
 ):
     r"""Self pair-distance histogram on ``[0, r_max]`` through the cell
     list; returns ``(counts, max_occupancy)``.
@@ -670,8 +1004,13 @@ def cell_pair_histogram(
         Orthorhombic box lengths, ``(3,)`` or per frame ``(B, 3)``.
     r_max : `float`
         Histogram range ``[0, r_max]``.
-    n_cells_dim, capacity
-        A plan from :func:`cell_plan_search`.
+    n_cells_dim, capacity, reach
+        A plan from :func:`cell_plan_search` (``reach`` defaults to
+        ``(1, 1, 1)``).  A reach-1 grid of at least 3 cells per axis
+        sweeps the 14-entry half shell; any other grid the deduped half
+        table of :func:`_general_tables`, or, when it has none (a small
+        box), the deduped full table in ordered mode (see
+        :func:`_sweep_mode`).
     n_bins : `int`
         Number of uniform bins.
 
@@ -679,59 +1018,70 @@ def cell_pair_histogram(
     -------
     counts : `torch.Tensor`
         float64 ``(B, n_bins)`` ordered-pair counts (each unordered pair
-        counted twice), NaN for frames whose box shrank below
-        ``n_cells_dim * r_max``.
+        counted twice), NaN for frames whose box is too small for the
+        grid (:func:`_cell_sweep_ok`).
     max_occupancy : `torch.Tensor`
         int32 ``(B,)`` densest-cell occupancy; above ``capacity`` means
         the counts are incomplete (:class:`CellCapacityOverflow`).
 
     A CUDA tensor launches the kernel (and adds one to
-    ``cell_pair_histogram.launches``); a CPU tensor runs
-    :func:`cell_pair_histogram_reference`.
+    ``cell_pair_histogram.launches`` and to its sweep mode's entry of
+    ``cell_pair_histogram.mode_launches``); a CPU tensor runs
+    :func:`cell_pair_histogram_reference`.  A plan the kernel cannot
+    launch (slot blocks and histogram over 227 KB of shared memory)
+    raises `ValueError` on either.
     """
 
     positions = torch.as_tensor(positions)
     if _on_cpu(positions, "cell_pair_histogram"):
         return cell_pair_histogram_reference(
             positions, box=box, r_max=r_max, n_cells_dim=n_cells_dim,
-            capacity=capacity, n_bins=n_bins,
+            capacity=capacity, n_bins=n_bins, reach=reach,
         )
     out = _self_kernel(positions, box, r_max, n_cells_dim, capacity, n_bins,
-                       triclinic=False)
+                       triclinic=False, reach=reach)
     cell_pair_histogram.launches += 1
+    cell_pair_histogram.mode_launches[
+        _sweep_mode(n_cells_dim, _reach(reach), False, cross=False)
+    ] += 1
     return out
 
 
 #: kernel launches made by :func:`cell_pair_histogram` (CUDA tensors
-#: only); a run sets it to 0 and reads it back to show that its main
-#: path went through the kernel.
+#: only), in all and by sweep mode; a run sets them to 0 and reads them
+#: back to show that its main path went through the kernel.
 cell_pair_histogram.launches = 0
+cell_pair_histogram.mode_launches = {"reach1": 0, "general": 0,
+                                     "ordered": 0}
 
 
 def triclinic_cell_pair_histogram_reference(
-    positions, *, box, r_max, n_cells_dim, capacity, n_bins,
+    positions, *, box, r_max, n_cells_dim, capacity, n_bins, reach=None,
 ):
     """Plain-torch version of the triclinic self kernel: the same folded
-    slot table, half-shell sweep, block translations and exact binning;
-    integer counts equal the kernel's.  Arguments and returns as
+    slot table, sweep, images and exact binning; integer counts equal
+    the kernel's.  Arguments and returns as
     :func:`triclinic_cell_pair_histogram`."""
 
     return _self_reference(positions, box, r_max, n_cells_dim, capacity,
-                           n_bins, triclinic=True)
+                           n_bins, triclinic=True, reach=reach)
 
 
 def triclinic_cell_pair_histogram(
-    positions, *, box, r_max, n_cells_dim, capacity, n_bins,
+    positions, *, box, r_max, n_cells_dim, capacity, n_bins, reach=None,
 ):
     r"""Self pair-distance histogram on ``[0, r_max]`` in a triclinic
-    box (the triclinic mode of the JAX package's
+    box (the triclinic modes of the JAX package's
     ``cell_pair_histogram_pallas``, batched over frames); returns
     ``(counts, max_occupancy)``.
 
     The positions are folded into the primary cell (the identity for
-    positions already inside it) and gridded in fractional coordinates;
-    every (cell, neighbour) block of the half shell takes one lattice
-    translation, the minimum image of all its pairs within ``r_max``.
+    positions already inside it) and gridded in fractional coordinates.
+    On a reach-1 grid of at least 3 cells per axis every (cell,
+    neighbour) block of the half shell takes one lattice translation,
+    the minimum image of all its pairs within ``r_max``; on any other
+    grid (:func:`plan_is_tri_pp`) the deduped full table is swept in
+    ordered mode and every pair searches its 27 nearest images.
 
     Parameters
     ----------
@@ -744,7 +1094,7 @@ def triclinic_cell_pair_histogram(
         ``(3, 3)`` or per frame ``(B, 3, 3)``, cast to float32.
     r_max, n_bins
         As :func:`cell_pair_histogram`.
-    n_cells_dim, capacity
+    n_cells_dim, capacity, reach
         A plan from :func:`cell_plan_search` over the perpendicular
         widths (:func:`triclinic_perpendicular_widths`).
 
@@ -753,12 +1103,14 @@ def triclinic_cell_pair_histogram(
     counts : `torch.Tensor`
         float64 ``(B, n_bins)`` ordered-pair counts, NaN for frames
         whose perpendicular widths fall below ``n_cells_dim * r_max``
-        (strictly: no 3-cell exception).
+        (per-block grids: strictly, no 3-cell exception; tri_pp grids:
+        the reach test of :func:`_cell_sweep_ok` on the widths).
     max_occupancy : `torch.Tensor`
         int32 ``(B,)`` densest-cell occupancy.
 
     A CUDA tensor launches the kernel (and adds one to
-    ``triclinic_cell_pair_histogram.launches``); a CPU tensor runs
+    ``triclinic_cell_pair_histogram.launches`` and to
+    ``.mode_launches["block"]`` or ``["tri_pp"]``); a CPU tensor runs
     :func:`triclinic_cell_pair_histogram_reference`.
     """
 
@@ -766,24 +1118,31 @@ def triclinic_cell_pair_histogram(
     if _on_cpu(positions, "triclinic_cell_pair_histogram"):
         return triclinic_cell_pair_histogram_reference(
             positions, box=box, r_max=r_max, n_cells_dim=n_cells_dim,
-            capacity=capacity, n_bins=n_bins,
+            capacity=capacity, n_bins=n_bins, reach=reach,
         )
     out = _self_kernel(positions, box, r_max, n_cells_dim, capacity, n_bins,
-                       triclinic=True)
+                       triclinic=True, reach=reach)
     triclinic_cell_pair_histogram.launches += 1
+    triclinic_cell_pair_histogram.mode_launches[
+        _sweep_mode(n_cells_dim, _reach(reach), True, cross=False)
+    ] += 1
     return out
 
 
 #: kernel launches made by :func:`triclinic_cell_pair_histogram`, read
 #: the same way as ``cell_pair_histogram.launches``.
 triclinic_cell_pair_histogram.launches = 0
+triclinic_cell_pair_histogram.mode_launches = {"block": 0, "tri_pp": 0}
 
 
 def _cross_inputs(positions1, positions2, box, n_cells_dim, capacity1,
-                  capacity2, exclusion, triclinic):
-    """What the cross kernel and its plain version share: the checked
-    inputs, both groups' slot tables (exclusion ids in column 4), their
-    occupancies and maxima, and the full-shell table (int64)."""
+                  capacity2, exclusion, triclinic, reach=None, n_bins=0,
+                  mode=None):
+    """What the cross kernel and its plain version share: the checked box
+    and grid, the reach and the sweep mode, both groups' slot tables
+    (exclusion ids in column 4) with their occupancies and maxima, and
+    the mode's full table (int64).  ``mode`` as in
+    :func:`_self_inputs`."""
 
     positions1, box, dims = _check_inputs(positions1, box, n_cells_dim,
                                           triclinic)
@@ -803,76 +1162,68 @@ def _cross_inputs(positions1, positions2, box, n_cells_dim, capacity1,
     )
     if len(ex) != 2 or (exclusion is not None and min(ex) < 1):
         raise ValueError("exclusion must be None or (e0, e1), both >= 1.")
-    t1, occ1, max1 = _tables(positions1, box, dims, capacity1, ex=ex[0])
-    t2, occ2, max2 = _tables(positions2, box, dims, capacity2, ex=ex[1])
-    nbr = torch.as_tensor(_full_table(dims), device=box.device).long()
-    return box, dims, (t1, occ1, max1), (t2, occ2, max2), nbr
+    _check_launchable(capacity1, capacity2, n_bins)
+    reach = _reach(reach)
+    mode = mode or _sweep_mode(dims, reach, triclinic, cross=True)
+    tables1 = _tables(positions1, box, dims, capacity1, ex=ex[0])
+    tables2 = _tables(positions2, box, dims, capacity2, ex=ex[1])
+    nbr = _neighbors(dims, reach, mode, True, box.device)
+    return box, dims, reach, mode, tables1, tables2, nbr
 
 
 def _cross_reference(positions1, positions2, box, r_max, n_cells_dim,
-                     capacity1, capacity2, n_bins, exclusion, triclinic):
-    box, dims, (t1, occ1, max1), (t2, occ2, max2), nbr = _cross_inputs(
+                     capacity1, capacity2, n_bins, exclusion, triclinic,
+                     reach=None, mode=None):
+    (box, dims, reach, mode, (t1, occ1, max1), (t2, occ2, max2),
+     nbr) = _cross_inputs(
         positions1, positions2, box, n_cells_dim, capacity1, capacity2,
-        exclusion, triclinic,
+        exclusion, triclinic, reach, n_bins, mode,
     )
-    geometry = dict(box=box)
-    if triclinic:
-        geometry = dict(
-            box=None,
-            images=torch.as_tensor(_full_images(dims),
-                                   device=box.device).long(),
-            shifts=_image_shift_table(box),
-        )
     counts = _sweep_reference(
         t1, occ1, capacity1, t2, occ2, capacity2, nbr, r_max=r_max,
-        n_bins=n_bins, half=False, exclude=exclusion is not None,
-        **geometry,
+        n_bins=n_bins, home_mask=None, exclude=exclusion is not None,
+        **_geometry(box, dims, mode, cross=True)[0],
     )
-    return _poison(counts, box, dims, r_max), max1, max2
+    return _poison(counts, box, dims, reach, r_max, mode), max1, max2
 
 
 def _cross_kernel(positions1, positions2, box, r_max, n_cells_dim,
-                  capacity1, capacity2, n_bins, exclusion, triclinic):
-    box, dims, (t1, occ1, max1), (t2, occ2, max2), nbr = _cross_inputs(
+                  capacity1, capacity2, n_bins, exclusion, triclinic,
+                  reach=None, mode=None):
+    (box, dims, reach, mode, (t1, occ1, max1), (t2, occ2, max2),
+     nbr) = _cross_inputs(
         positions1, positions2, box, n_cells_dim, capacity1, capacity2,
-        exclusion, triclinic,
+        exclusion, triclinic, reach, n_bins, mode,
     )
     device = box.device
     b = box.shape[0]
-    nbr = nbr.to(torch.int32).contiguous()
     out = torch.zeros((b, n_bins), dtype=torch.int64, device=device)
-    grid = (b, int(np.prod(dims)), N_FULL, int(capacity1), int(capacity2),
-            int(n_bins), int(exclusion is not None),
+    _launch(_ENTRIES[mode][1], device, t1, occ1.contiguous(), t2,
+            occ2.contiguous(), nbr.to(torch.int32).contiguous(),
+            *_geometry(box, dims, mode, cross=True)[1], out, b,
+            int(np.prod(dims)), nbr.shape[1], int(capacity1),
+            int(capacity2), int(n_bins), int(exclusion is not None),
             *_bin_boundary_constants(r_max, n_bins))
-    tables = (t1, occ1.contiguous(), t2, occ2.contiguous(), nbr)
-    if triclinic:
-        images = torch.as_tensor(_full_images(dims), device=device)
-        shift_hi, shift_lo = _image_shift_table(box)
-        _launch("triclinic_cross_pair_histogram_launch", device, *tables,
-                images.contiguous(), shift_hi, shift_lo, out, *grid)
-    else:
-        _launch("cross_pair_histogram_launch", device, *tables, box, out,
-                *grid)
-    return _poison(out, box, dims, r_max), max1, max2
+    return _poison(out, box, dims, reach, r_max, mode), max1, max2
 
 
 def cross_pair_histogram_reference(
     positions1, positions2, *, box, r_max, n_cells_dim, capacity1,
-    capacity2, n_bins, exclusion=None,
+    capacity2, n_bins, exclusion=None, reach=None,
 ):
     """Plain-torch version of the cross kernel: the same two slot
-    tables, the same full-shell sweep and masks, the same exact
-    binning; integer counts equal the kernel's.  Arguments and returns
-    as :func:`cross_pair_histogram`."""
+    tables, the same sweep and masks, the same exact binning; integer
+    counts equal the kernel's.  Arguments and returns as
+    :func:`cross_pair_histogram`."""
 
     return _cross_reference(positions1, positions2, box, r_max,
                             n_cells_dim, capacity1, capacity2, n_bins,
-                            exclusion, triclinic=False)
+                            exclusion, triclinic=False, reach=reach)
 
 
 def cross_pair_histogram(
     positions1, positions2, *, box, r_max, n_cells_dim, capacity1,
-    capacity2, n_bins, exclusion=None,
+    capacity2, n_bins, exclusion=None, reach=None,
 ):
     r"""Cross-group pair-distance histogram on ``[0, r_max]`` through
     the cell list: every (group-1, group-2) pair of two disjoint groups
@@ -889,9 +1240,12 @@ def cross_pair_histogram(
         Orthorhombic box lengths, ``(3,)`` or per frame ``(B, 3)``.
     r_max : `float`
         Histogram range ``[0, r_max]``.
-    n_cells_dim, capacity1, capacity2
+    n_cells_dim, capacity1, capacity2, reach
         A cross plan from ``cell_plan_search(..., n_atoms2=)``
-        (``capacity1`` is its ``"capacity"``).
+        (``capacity1`` is its ``"capacity"``; ``reach`` defaults to
+        ``(1, 1, 1)``).  A reach-1 grid of at least 3 cells per axis
+        sweeps the 27-entry full shell, any other grid the deduped full
+        table of :func:`_general_tables`.
     n_bins : `int`
         Number of uniform bins.
     exclusion : `tuple`, optional
@@ -903,15 +1257,17 @@ def cross_pair_histogram(
     -------
     counts : `torch.Tensor`
         float64 ``(B, n_bins)`` ordered-pair counts (each pair once,
-        not doubled), NaN for frames whose box shrank below
-        ``n_cells_dim * r_max``.
+        not doubled), NaN for frames whose box is too small for the
+        grid (:func:`_cell_sweep_ok`).
     max_occ1, max_occ2 : `torch.Tensor`
         int32 ``(B,)`` densest-cell occupancy of each group; above its
         capacity means the counts are incomplete.
 
     A CUDA tensor launches the kernel (and adds one to
-    ``cross_pair_histogram.launches``); a CPU tensor runs
-    :func:`cross_pair_histogram_reference`.
+    ``cross_pair_histogram.launches`` and to its sweep mode's entry of
+    ``cross_pair_histogram.mode_launches``); a CPU tensor runs
+    :func:`cross_pair_histogram_reference`.  A plan the kernel cannot
+    launch raises `ValueError` on either.
     """
 
     positions1 = torch.as_tensor(positions1)
@@ -920,47 +1276,55 @@ def cross_pair_histogram(
             positions1, positions2, box=box, r_max=r_max,
             n_cells_dim=n_cells_dim, capacity1=capacity1,
             capacity2=capacity2, n_bins=n_bins, exclusion=exclusion,
+            reach=reach,
         )
     out = _cross_kernel(positions1, positions2, box, r_max, n_cells_dim,
                         capacity1, capacity2, n_bins, exclusion,
-                        triclinic=False)
+                        triclinic=False, reach=reach)
     cross_pair_histogram.launches += 1
+    cross_pair_histogram.mode_launches[
+        _sweep_mode(n_cells_dim, _reach(reach), False, cross=True)
+    ] += 1
     return out
 
 
 #: kernel launches made by :func:`cross_pair_histogram` (CUDA tensors
 #: only), read the same way as ``cell_pair_histogram.launches``.
 cross_pair_histogram.launches = 0
+cross_pair_histogram.mode_launches = {"reach1": 0, "general": 0}
 
 
 def triclinic_cross_pair_histogram_reference(
     positions1, positions2, *, box, r_max, n_cells_dim, capacity1,
-    capacity2, n_bins, exclusion=None,
+    capacity2, n_bins, exclusion=None, reach=None,
 ):
     """Plain-torch version of the triclinic cross kernel: the same
-    folded slot tables, full-shell sweep, block translations, masks and
-    exact binning; integer counts equal the kernel's.  Arguments and
-    returns as :func:`triclinic_cross_pair_histogram`."""
+    folded slot tables, sweep, images, masks and exact binning; integer
+    counts equal the kernel's.  Arguments and returns as
+    :func:`triclinic_cross_pair_histogram`."""
 
     return _cross_reference(positions1, positions2, box, r_max,
                             n_cells_dim, capacity1, capacity2, n_bins,
-                            exclusion, triclinic=True)
+                            exclusion, triclinic=True, reach=reach)
 
 
 def triclinic_cross_pair_histogram(
     positions1, positions2, *, box, r_max, n_cells_dim, capacity1,
-    capacity2, n_bins, exclusion=None,
+    capacity2, n_bins, exclusion=None, reach=None,
 ):
     r"""Cross-group pair-distance histogram on ``[0, r_max]`` in a
     triclinic box: :func:`cross_pair_histogram`'s contract (disjoint
     groups, optional ``(e0, e1)`` exclusion, counts not doubled) with
-    :func:`triclinic_cell_pair_histogram`'s box, fold, grid and NaN
-    rule.  ``box`` is ``(3, 3)`` or ``(B, 3, 3)``; the plan comes from
-    ``cell_plan_search(widths, ..., n_atoms2=)`` over the perpendicular
-    widths.  Returns ``(counts, max_occ1, max_occ2)``.
+    :func:`triclinic_cell_pair_histogram`'s box, fold, grid, routes
+    (per-block translations, or the per-pair 27-image search of
+    tri_pp) and NaN rule.  ``box`` is ``(3, 3)`` or ``(B, 3, 3)``; the
+    plan comes from ``cell_plan_search(widths, ..., n_atoms2=)`` over
+    the perpendicular widths.  Returns ``(counts, max_occ1,
+    max_occ2)``.
 
     A CUDA tensor launches the kernel (and adds one to
-    ``triclinic_cross_pair_histogram.launches``); a CPU tensor runs
+    ``triclinic_cross_pair_histogram.launches`` and to
+    ``.mode_launches["block"]`` or ``["tri_pp"]``); a CPU tensor runs
     :func:`triclinic_cross_pair_histogram_reference`.
     """
 
@@ -970,39 +1334,50 @@ def triclinic_cross_pair_histogram(
             positions1, positions2, box=box, r_max=r_max,
             n_cells_dim=n_cells_dim, capacity1=capacity1,
             capacity2=capacity2, n_bins=n_bins, exclusion=exclusion,
+            reach=reach,
         )
     out = _cross_kernel(positions1, positions2, box, r_max, n_cells_dim,
                         capacity1, capacity2, n_bins, exclusion,
-                        triclinic=True)
+                        triclinic=True, reach=reach)
     triclinic_cross_pair_histogram.launches += 1
+    triclinic_cross_pair_histogram.mode_launches[
+        _sweep_mode(n_cells_dim, _reach(reach), True, cross=True)
+    ] += 1
     return out
 
 
 #: kernel launches made by :func:`triclinic_cross_pair_histogram`, read
 #: the same way as ``cell_pair_histogram.launches``.
 triclinic_cross_pair_histogram.launches = 0
+triclinic_cross_pair_histogram.mode_launches = {"block": 0, "tri_pp": 0}
 
 
 def swept_pairs(positions1, positions2=None, *, box, n_cells_dim,
-                triclinic=False):
+                triclinic=False, reach=None):
     """Slot pairs with both slots occupied that the kernels bin for these
-    inputs, summed over frames (an `int`): the half shell of one group
-    (the home block's strict upper triangle plus the 13 neighbour
-    blocks), or with `positions2` the full shell of two.  ``box`` is
-    orthorhombic ``(3,)``/``(B, 3)``, or with `triclinic` ``(3, 3)``/
-    ``(B, 3, 3)``.  The pair count of a kernel's operation bound;
-    exclusion masks are not subtracted."""
+    inputs, summed over frames (an `int`): for one group, the home
+    block's strict upper triangle plus the other blocks of a half-shell
+    sweep, or the home block's off-diagonal pairs plus the other blocks
+    of an ordered one; with `positions2`, every block of the cross
+    sweep.  ``box`` is orthorhombic ``(3,)``/``(B, 3)``, or with
+    `triclinic` ``(3, 3)``/``(B, 3, 3)``; ``reach`` as the plan's.  The
+    pair count of a kernel's operation bound; exclusion masks are not
+    subtracted."""
 
     positions1, box, dims = _check_inputs(positions1, box, n_cells_dim,
                                           triclinic)
+    reach = _reach(reach)
+    cross = positions2 is not None
+    mode = _sweep_mode(dims, reach, triclinic, cross)
+    nbr = _neighbors(dims, reach, mode, cross, box.device)
     _, occ1, _ = _tables(positions1, box, dims, _CAP_STEP)
     occ1 = occ1.long()
-    if positions2 is None:
-        nbr = torch.as_tensor(_half_table(dims), device=box.device).long()
-        home = occ1 * (occ1 - 1) // 2
+    if not cross:
+        home = occ1 * (occ1 - 1)
+        if mode not in _ORDERED_MODES:
+            home = home // 2
         others = occ1[:, :, None] * occ1[:, nbr[:, 1:]]
         return int(home.sum() + others.sum())
     positions2, _, _ = _check_inputs(positions2, box, dims, triclinic)
     _, occ2, _ = _tables(positions2, box, dims, _CAP_STEP)
-    nbr = torch.as_tensor(_full_table(dims), device=box.device).long()
     return int((occ1[:, :, None] * occ2.long()[:, nbr]).sum())

@@ -110,7 +110,7 @@ def _exact_d2_orthorhombic(p1, p2, box):
     return df_sum3(*components)
 
 
-def _exact_d2_triclinic(p1, p2, box):
+def _exact_d2_triclinic(p1, p2, box, inv=None):
     """Squared minimum-image distances in a triclinic cell, in
     double-float: the base image multiple ``n0`` comes from rounding the
     float32 fractional displacement, and all 27 candidates around it
@@ -118,9 +118,13 @@ def _exact_d2_triclinic(p1, p2, box):
     package's ``_exact_d2_triclinic``, with ``n0`` formed elementwise
     instead of by a matrix product; the window absorbs a +-1 difference
     in ``n0``).  ``box`` is the float32 ``(3, 3)`` lower-triangular
-    matrix; its zeros above the diagonal are skipped."""
+    matrix; its zeros above the diagonal are skipped.  ``inv`` is its
+    float32 inverse, :func:`_inv3` of ``box`` unless given (the tri_pp
+    kernels take one computed once a frame, and so does their plain
+    version)."""
 
-    inv = _inv3(box)
+    if inv is None:
+        inv = _inv3(box)
     s_hi, s_lo = [], []
     for k in range(3):
         s, e = two_diff(p1[..., k], p2[..., k])

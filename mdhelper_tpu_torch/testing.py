@@ -113,7 +113,9 @@ def f64_triclinic_pair_histogram(pos1, pos2, box, r_max, n_bins,
 def f64_pair_histogram(pos, box, r_max, n_bins):
     """float64 minimum-image histogram on ``[0, r_max]`` of all ordered
     pairs of the float32 positions ``pos`` ``(N, 3)`` (self pairs
-    dropped), in a cubic box of side ``box``."""
+    dropped), in a cubic box of side ``box``.  Any box size: each pair
+    counts once, at its minimum image, even where ``r_max`` exceeds half
+    the box -- the convention of the cell kernels' generalized sweeps."""
 
     p64 = pos.astype(np.float64)
     d = p64[:, None] - p64[None]

@@ -100,13 +100,18 @@ def test_two_legal_plans_agree(uniform):
 
 def test_plan_search_main_path_shape():
     """At the benchmark's 100k atoms in a 50 A box with r_max 6 the
-    search lands on the (8, 8, 8) grid at capacity 256."""
+    search lands on the (8, 8, 8) reach-1 grid at capacity 256; a box
+    under 3 cutoffs gets a generalized grid, whose reach covers r_max
+    (tests/test_torch_generalized.py)."""
 
     plan = cch.cell_plan_search(100_000, [50.0] * 3, 6.0)
     assert plan["n_cells_dim"] == (8, 8, 8)
     assert plan["capacity"] == 256
-    with pytest.raises(ValueError):
-        cch.cell_plan_search(1000, [10.0] * 3, 4.0)
+    assert plan["reach"] == (1, 1, 1)
+    small = cch.cell_plan_search(1000, [10.0] * 3, 4.0)
+    assert cch._generalized(small["n_cells_dim"], small["reach"])
+    assert all(m * 10.0 / n >= 4.0 or n <= 2 * m + 1
+               for n, m in zip(small["n_cells_dim"], small["reach"]))
 
 
 def test_edge_straddle_fixture(straddle):

@@ -344,3 +344,237 @@ def test_triclinic_paths_on_the_card_equal_cpu(cuda_device):
                         rdf.results.counts, cross.results.counts))
     for cpu, card in zip(*results):
         np.testing.assert_array_equal(cpu, card)
+
+
+# -- generalized grids (boxes under 3 cutoffs) and tri_pp -------------------
+
+#: a cube of 16 under r_max 6 (2.67 cutoffs) and the small dodecahedron
+#: above under r_max 6 (perpendicular widths 14.70, 14.70, 12.73).
+SMALL_R, SMALL_BINS = 6.0, 24
+
+
+def _ortho_small_plan(grid, n1, n2=None, box=(BOX,) * 3, r_max=SMALL_R):
+    return cch.grid_plan(n1, box, r_max, grid, n_atoms2=n2)
+
+
+def _self_args(plan, box, r_max=SMALL_R, n_bins=SMALL_BINS, capacity=None):
+    return dict(box=box, r_max=r_max, n_cells_dim=plan["n_cells_dim"],
+                reach=plan["reach"], capacity=capacity or plan["capacity"],
+                n_bins=n_bins)
+
+
+def _cross_args(plan, box, r_max=SMALL_R, n_bins=SMALL_BINS, capacity=None,
+                exclusion=None):
+    """Cross-kernel arguments of `plan`; `capacity` overrides both
+    capacities (a self plan then serves a cross sweep)."""
+
+    return dict(box=box, r_max=r_max, n_cells_dim=plan["n_cells_dim"],
+                reach=plan["reach"],
+                capacity1=capacity or plan["capacity"],
+                capacity2=capacity or plan["capacity2"], n_bins=n_bins,
+                exclusion=exclusion)
+
+
+def _assert_kernel_equals_plain(kernel, plain):
+    for k, p in zip(kernel, plain):
+        torch.testing.assert_close(k, p, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid, mode", [
+    ((5, 5, 5), "general"), ((1, 2, 6), "ordered"),
+])
+def test_generalized_self_kernel_straddle(cuda_device, grid, mode):
+    """Generalized half-shell and ordered self kernels on the straddle
+    fixture in a box 2.67 cutoffs wide: equal to the plain version and
+    to the float64 oracle as integers."""
+
+    pos = edge_straddle_positions(np.random.default_rng(99), BOX)
+    plan = _ortho_small_plan(grid, len(pos))
+    assert cch._sweep_mode(grid, plan["reach"], False, False) == mode
+    args = _self_args(plan, (BOX,) * 3)
+    f = torch.from_numpy(pos).to(cuda_device)
+    before = cch.cell_pair_histogram.mode_launches[mode]
+    kernel = cch.cell_pair_histogram(f, **args)
+    torch.cuda.synchronize()
+    assert cch.cell_pair_histogram.mode_launches[mode] == before + 1
+    _assert_kernel_equals_plain(kernel,
+                                cch.cell_pair_histogram_reference(f, **args))
+    np.testing.assert_array_equal(
+        kernel[0][0].cpu().numpy(),
+        f64_pair_histogram(pos, BOX, SMALL_R, SMALL_BINS),
+    )
+
+
+@pytest.mark.cuda
+def test_generalized_cross_kernel_straddle(cuda_device):
+    a, b = edge_straddle_cross_positions(np.random.default_rng(99), BOX)
+    plan = _ortho_small_plan((2, 5, 6), len(a), len(b))
+    args = _cross_args(plan, (BOX,) * 3)
+    fa = torch.from_numpy(a).to(cuda_device)
+    fb = torch.from_numpy(b).to(cuda_device)
+    before = cch.cross_pair_histogram.mode_launches["general"]
+    kernel = cch.cross_pair_histogram(fa, fb, **args)
+    torch.cuda.synchronize()
+    assert cch.cross_pair_histogram.mode_launches["general"] == before + 1
+    _assert_kernel_equals_plain(
+        kernel, cch.cross_pair_histogram_reference(fa, fb, **args))
+    np.testing.assert_array_equal(
+        kernel[0][0].cpu().numpy(),
+        f64_cross_histogram(a, b, BOX, SMALL_R, SMALL_BINS),
+    )
+
+
+#: (box lengths, r_max, grid) of generalized grids with an axis that the
+#: sweep does not span whole, so a shrunk frame must poison: a half-shell
+#: grid of reach 2 along z and an ordered grid (its first axis is 1
+#: cell).  Few cells, so that the plain versions stay quick at a
+#: capacity of 1,600 slots.
+POISON_GRIDS = {
+    "general": ((40.0,) * 3, SMALL_R, (3, 3, 10)),
+    "ordered": ((BOX, BOX, 40.0), SMALL_R, (1, 2, 10)),
+}
+
+
+def _shrunk_frames(rng, lengths, n_atoms):
+    """Two frames of uniform atoms: one in `lengths`, one in the box
+    shrunk to 0.7 of it; the (2, 3) boxes."""
+
+    lengths = np.float32(lengths)
+    pos = (rng.random((2, n_atoms, 3)) * lengths).astype(np.float32)
+    pos[1] *= np.float32(0.7)
+    return pos, torch.from_numpy(np.stack([lengths, lengths * 0.7]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["general", "ordered"])
+def test_generalized_kernels_large_capacity_and_shrunken_box(cuda_device,
+                                                              mode):
+    """Generalized self and cross kernels at a capacity above 48 KB of
+    shared memory, on a frame whose box shrank below the grid (NaN)."""
+
+    lengths, r_max, grid = POISON_GRIDS[mode]
+    pos, boxes = _shrunk_frames(np.random.default_rng(61), lengths, 3000)
+    plan = cch.grid_plan(3000, lengths, r_max, grid)
+    assert cch._sweep_mode(grid, plan["reach"], False, False) == mode
+    f = torch.from_numpy(pos).to(cuda_device)
+    args = _self_args(plan, boxes, r_max, 64, capacity=1600)
+    kernel = cch.cell_pair_histogram(f, **args)
+    plain = cch.cell_pair_histogram_reference(f, **args)
+    cross_args = _cross_args(plan, boxes, r_max, 64,
+                             capacity=1600, exclusion=(1, 1))
+    cross = cch.cross_pair_histogram(f, f.flip(1), **cross_args)
+    cross_plain = cch.cross_pair_histogram_reference(f, f.flip(1),
+                                                     **cross_args)
+    torch.cuda.synchronize()
+    for k, p in ((kernel, plain), (cross, cross_plain)):
+        assert torch.isnan(k[0][1]).all() and k[0][0].sum() > 0
+        _assert_kernel_equals_plain(k, p)
+
+
+@pytest.mark.cuda
+def test_tri_pp_kernels_straddle(cuda_device):
+    """tri_pp self and cross kernels on the triclinic straddle fixture,
+    widths under 3 cutoffs: equal to the plain versions and to the
+    float64 27-image oracle."""
+
+    from mdhelper_tpu_torch.testing import (
+        edge_straddle_triclinic_positions,
+        f64_triclinic_pair_histogram,
+    )
+
+    _, box = _triclinic_frames(np.random.default_rng(0), "dodeca", 1, 1)
+    widths = cch.triclinic_perpendicular_widths(box).astype(np.float64)
+    pos = edge_straddle_triclinic_positions(np.random.default_rng(99), box)
+    f = torch.from_numpy(pos).to(cuda_device)
+    plan = cch.grid_plan(len(pos), widths, SMALL_R, (2, 5, 6))
+    assert cch.plan_is_tri_pp(plan, True)
+    args = _self_args(plan, box)
+    before = cch.triclinic_cell_pair_histogram.mode_launches["tri_pp"]
+    kernel = cch.triclinic_cell_pair_histogram(f, **args)
+    torch.cuda.synchronize()
+    assert (cch.triclinic_cell_pair_histogram.mode_launches["tri_pp"]
+            == before + 1)
+    _assert_kernel_equals_plain(
+        kernel, cch.triclinic_cell_pair_histogram_reference(f, **args))
+    np.testing.assert_array_equal(
+        kernel[0][0].cpu().numpy(),
+        f64_triclinic_pair_histogram(pos, pos, box, SMALL_R, SMALL_BINS,
+                                     (1, 1)),
+    )
+    plan = cch.grid_plan(300, widths, SMALL_R, (2, 5, 6), n_atoms2=90)
+    args = _cross_args(plan, box)
+    a, b = f[:300], f[300:]
+    kernel = cch.triclinic_cross_pair_histogram(a, b, **args)
+    _assert_kernel_equals_plain(
+        kernel, cch.triclinic_cross_pair_histogram_reference(a, b, **args))
+    np.testing.assert_array_equal(
+        kernel[0][0].cpu().numpy(),
+        f64_triclinic_pair_histogram(pos[:300], pos[300:], box, SMALL_R,
+                                     SMALL_BINS),
+    )
+
+
+@pytest.mark.cuda
+def test_tri_pp_kernels_large_capacity_and_shrunken_box(cuda_device):
+    """tri_pp self and cross kernels at a capacity above 48 KB, on a
+    frame whose c-vector shrank below the grid (NaN): a reach-1 grid of
+    one cell on a and b and 4 on c, swept ring by ring along c."""
+
+    frames, box = _triclinic_frames(np.random.default_rng(62), "dodeca", 2,
+                                    3000)
+    bad = box.copy()
+    bad[2] *= np.float32(0.5)
+    boxes = torch.from_numpy(np.stack([box, bad]))
+    widths = cch.triclinic_perpendicular_widths(box).astype(np.float64)
+    plan = cch.grid_plan(3000, widths, 3.0, (1, 1, 4))
+    assert plan["reach"] == (1, 1, 1) and cch.plan_is_tri_pp(plan, True)
+    f = torch.from_numpy(frames).to(cuda_device)
+    args = _self_args(plan, boxes, 3.0, 64, capacity=1600)
+    kernel = cch.triclinic_cell_pair_histogram(f, **args)
+    plain = cch.triclinic_cell_pair_histogram_reference(f, **args)
+    cross_args = _cross_args(plan, boxes, 3.0, 64,
+                             capacity=1600, exclusion=(1, 1))
+    cross = cch.triclinic_cross_pair_histogram(f, f.flip(1), **cross_args)
+    cross_plain = cch.triclinic_cross_pair_histogram_reference(
+        f, f.flip(1), **cross_args)
+    torch.cuda.synchronize()
+    for k, p in ((kernel, plain), (cross, cross_plain)):
+        assert torch.isnan(k[0][1]).all() and k[0][0].sum() > 0
+        _assert_kernel_equals_plain(k, p)
+
+
+@pytest.mark.cuda
+def test_small_box_paths_on_the_card_equal_cpu(cuda_device):
+    """The RDF (self and cross) and Van Hove in a cube and a
+    dodecahedron under 3 cutoffs give the same counts on the card as on
+    the CPU (plain versions)."""
+
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+        VanHoveFunction,
+    )
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    rng = np.random.default_rng(63)
+    cube = (rng.random((4, 400, 3)) * 12.0).astype(np.float32)
+    dodeca, _ = _triclinic_frames(rng, "dodeca", 4, 400)
+    for traj, dims in ((cube, np.array([12.0] * 3)),
+                       (dodeca, TRICLINIC["dodeca"])):
+        u = Universe.from_arrays(traj, dims)
+        results = []
+        for device in ("cpu", cuda_device):
+            kw = dict(n_bins=32, range=(0.0, 5.0), verbose=False,
+                      device=device)
+            vh = VanHoveFunction(u.atoms, lags="log", **kw).run()
+            rdf = RadialDistributionFunction(u.atoms, **kw).run()
+            cross = RadialDistributionFunction(
+                u.atoms[0::2], u.atoms[1::2], exclusion=(2, 3), **kw
+            ).run()
+            plan = cross._searched_cell_plan()
+            assert cch._generalized(plan["n_cells_dim"], plan["reach"])
+            results.append((vh.results.counts_self,
+                            vh.results.counts_distinct, rdf.results.counts,
+                            cross.results.counts))
+        for cpu, card in zip(*results):
+            np.testing.assert_array_equal(cpu, card)

@@ -325,7 +325,7 @@ def test_kernel_launch_shares_plain_inputs(monkeypatch, sweep):
     grid = dict(r_max=4.0, n_cells_dim=(3, 3, 3), n_bins=16)
     if sweep == "self":
         cch._self_kernel(pos, box, capacity=64, triclinic=True, **grid)
-        _, box_b, dims, table, occ, _, nbr = cch._self_inputs(
+        box_b, dims, _, _, (table, occ, _), nbr = cch._self_inputs(
             pos, box, (3, 3, 3), 64, True
         )
         tables = [table, occ, nbr]
@@ -333,7 +333,7 @@ def test_kernel_launch_shares_plain_inputs(monkeypatch, sweep):
     else:
         cch._cross_kernel(pos, pos, box, capacity1=64, capacity2=64,
                           exclusion=(1, 1), triclinic=True, **grid)
-        box_b, dims, (t1, o1, _), (t2, o2, _), nbr = cch._cross_inputs(
+        box_b, dims, _, _, (t1, o1, _), (t2, o2, _), nbr = cch._cross_inputs(
             pos, pos, box, (3, 3, 3), 64, 64, (1, 1), True
         )
         tables = [t1, o1, t2, o2, nbr]
@@ -454,8 +454,31 @@ def test_triclinic_vanhove_matches_jax(trajectory):
 @pytest.mark.parametrize("cls", [RadialDistributionFunction,
                                  VanHoveFunction])
 def test_narrow_triclinic_box_not_ported(trajectory, cls):
-    """Perpendicular widths under 3 cutoffs need the per-pair mode."""
+    """Perpendicular widths under 3 cutoffs (12.73 A against 3 x 4.5)
+    take the per-pair 27-candidate mode (tri_pp) on a generalized grid:
+    the self RDF (exclusion None) and the Van Hove (self and distinct
+    parts) equal the JAX classes as integers.  Two frames in one chunk:
+    the JAX Van Hove's compile grows with its lags.  Other RDF variants
+    in such boxes: tests/test_torch_generalized.py."""
 
-    u = Universe.from_arrays(trajectory, DODECA)
-    with pytest.raises(NotImplementedError, match="perpendicular"):
-        cls(u.atoms, range=(0.0, 4.5), device="cpu")
+    traj = trajectory[:2]
+    u = Universe.from_arrays(traj, DODECA, dt=1.0)
+    ju = JaxUniverse.from_arrays(traj.astype(np.float64), DODECA, dt=1.0)
+    kwargs = dict(n_bins=N_BINS, range=(0.0, 4.5), verbose=False)
+    if cls is VanHoveFunction:
+        kwargs["lags"] = "log"
+    port = cls(u.atoms, device="cpu", **kwargs)
+    assert cch.plan_is_tri_pp(port._searched_cell_plan(), True)
+    port._chunk_bytes = len(traj) * N_ATOMS * 3 * 4
+    port.run()
+    ref = _jax_run((JaxVanHove if cls is VanHoveFunction else JaxRDF)(
+        ju.atoms, **kwargs), chunk=len(traj))
+    names = (["counts_self", "counts_distinct"] if cls is VanHoveFunction
+             else ["counts"])
+    for name in names:
+        got = getattr(port.results, name)
+        np.testing.assert_array_equal(got, getattr(ref.results, name))
+        assert got.sum() > 0
+    if cls is RadialDistributionFunction:
+        np.testing.assert_allclose(port.results.rdf, ref.results.rdf,
+                                   rtol=1e-12)

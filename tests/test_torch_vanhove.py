@@ -35,7 +35,11 @@ from mdhelper_tpu_torch.analysis.structure import (  # noqa: E402
     VanHoveFunction,
     _resolve_lag_values,
 )
+from mdhelper_tpu_torch.algorithm.topology import (  # noqa: E402
+    triclinic_matrices,
+)
 from mdhelper_tpu_torch.core.universe import Universe  # noqa: E402
+from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch  # noqa: E402
 from mdhelper_tpu_torch.ops.histogram import (  # noqa: E402
     _min_image_distance,
     displacement_histogram_frame,
@@ -213,13 +217,34 @@ def test_vanhove_rejects_unported(trajectory, kwargs):
 
 
 def test_vanhove_rejects_triclinic(trajectory):
-    """A triclinic box whose perpendicular widths are under 3 cutoffs
-    needs the per-pair triclinic mode, which is not ported; wider
-    triclinic boxes run (tests/test_torch_triclinic.py)."""
+    """A monoclinic box whose perpendicular widths are under 3 cutoffs
+    runs the per-pair triclinic (tri_pp) sweep; its distinct counts (lags
+    0 and 1) equal the JAX class's as integers (the fixture's frames,
+    read as fractional coordinates of the tilted cell, stay inside it).
+    The self part in such a box is checked against the JAX class in
+    tests/test_torch_triclinic.py; two frames and no self part keep the
+    JAX compile here to one chunk function of two sweeps."""
 
-    dims = [BOX] * 3 + [90.0, 80.0, 90.0]
-    u = Universe.from_arrays(trajectory, dims)
-    with pytest.raises(NotImplementedError, match="perpendicular"):
-        VanHoveFunction(u.atoms, range=(0.0, R_MAX + 1.0), device="cpu")
-    assert VanHoveFunction(u.atoms, range=(0.0, R_MAX),
-                           device="cpu")._triclinic
+    dims = np.array([BOX] * 3 + [90.0, 80.0, 90.0])
+    h = np.asarray(triclinic_matrices(dims), np.float64)
+    n_atoms, n_frames = 300, 2
+    traj = ((trajectory[:n_frames, :n_atoms].astype(np.float64) / BOX)
+            @ h).astype(np.float32)
+    kwargs = dict(n_bins=N_BINS, range=(0.0, R_MAX + 1.0), lags="log",
+                  self_part=False, verbose=False)
+    u = Universe.from_arrays(traj, dims, dt=0.5)
+    vh = VanHoveFunction(u.atoms, device="cpu", **kwargs)
+    assert vh._triclinic
+    assert cch.plan_is_tri_pp(vh._searched_cell_plan(), True)
+    vh._chunk_bytes = n_frames * n_atoms * 3 * 4
+    vh.run()
+    ju = JaxUniverse.from_arrays(traj.astype(np.float64), dims, dt=0.5)
+    ref = JaxVanHove(ju.atoms, **kwargs)
+    ref._chunk_bytes = n_frames * n_atoms * 3 * 4
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_base.SerialAnalysisBase, "_coord_dtype", np.float32)
+        ref.run()
+    assert len(vh.results.counts_distinct) == 2
+    np.testing.assert_array_equal(vh.results.counts_distinct,
+                                  ref.results.counts_distinct)
+    assert vh.results.counts_distinct.sum() > 0
