@@ -80,10 +80,29 @@ GEN_DODECA_A, TRI_PP_A = 44.54, 20.67
 GEN_RDF_FRAMES, GEN_VH_FRAMES = 8 + 48, 8 + 32
 SMALL_RDF_FRAMES, TRI_PP_RDF_FRAMES, TRI_PP_VH_FRAMES = 8 + 16, 8 + 16, 8 + 32
 
-#: float32 operations of one binned pair under each displacement policy,
-#: counted in csrc/cell_bin.cuh: per-pair orthorhombic image, one
-#: lattice translation per block, and the per-pair 27-candidate search.
-OPS_PER_PAIR = {"ortho": 254, "shift": 245, "tri27": 7186}
+# Slice 5: the self tiles of a 3-site water model (3, 3) and an
+# asymmetric (2, 3), bins from r_min > 0 and the 2-D (drop_axis) RDF of a
+# 100k-atom film of 100 x 100 x 12.5 A (density 0.8), each through its
+# paths (the water and offset paths 8 + 32 frames, the film 8 + 16).
+WATER_TILES = ((3, 3), (2, 3))
+OFFSET_RANGE, VH_OFFSET_RANGE = (2.0, 6.0), (1.0, 6.0)
+FILM = (100.0, 100.0, 12.5)
+FILM_FRAMES = 8 + 16
+#: the JAX package's 2-D grids for the film's self and cross RDF
+#: (pallas_cell_plan_search over the two kept lengths, r_max 15).
+FILM_JAX_GRIDS = ((13, 19), (13, 13))
+
+#: float32 operations of one binned pair (counted in csrc/cell_bin.cuh)
+#: under each displacement policy -- per-pair orthorhombic image (3 or 2
+#: axes), one lattice translation per block, the per-pair 27-candidate
+#: search -- and binning: exact from 0 or from r_min, fast from 0 or from
+#: r_min.
+OPS_PER_PAIR = {
+    "ortho": {"exact": (254, 317), "fast": (24, 27)},
+    "ortho2": {"exact": (191, 254), "fast": (17, 20)},
+    "shift": {"exact": (245, 308), "fast": (15, 18)},
+    "tri27": {"exact": (7186, 7249), "fast": (510, 513)},
+}
 #: the policy of each sweep mode (cuda_cell_histogram._sweep_mode).
 POLICY = {"reach1": "ortho", "general": "ortho", "ordered": "ortho",
           "block": "shift", "tri_pp": "tri27"}
@@ -121,16 +140,25 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(pairs, n_bytes, mode, n_frames):
+def ops_per_pair(mode, n_axes=3, r_min=0.0, precision="exact"):
+    """float32 operations of one pair binned in sweep `mode` (on a 2-D
+    grid with ``n_axes=2``) under the binning options."""
+
+    policy = "ortho2" if n_axes == 2 else POLICY[mode]
+    return OPS_PER_PAIR[policy][precision][int(r_min > 0.0)]
+
+
+def bound(pairs, n_bytes, mode, n_frames, **binning):
     """The least time a frame could take on the card for a kernel's
     work (``bound_ms``, and ``bound_by``, the larger term): `pairs`
     binned slot pairs times the float32 operations of one pair under the
-    sweep `mode`'s policy over the float32 peak, against `n_bytes` (the
+    sweep `mode`'s policy and the `binning` options of
+    :func:`ops_per_pair` over the float32 peak, against `n_bytes` (the
     slot tables read once and the counts written once) over the memory
     rate, both over `n_frames`.  No single PyTorch call computes a
     binned cell-list pair histogram, so ``library_ms`` is None."""
 
-    ops_ms = (pairs * OPS_PER_PAIR[POLICY[mode]] / PEAK_F32 * 1e3
+    ops_ms = (pairs * ops_per_pair(mode, **binning) / PEAK_F32 * 1e3
               / n_frames)
     bytes_ms = n_bytes / PEAK_BYTES * 1e3 / n_frames
     return {
@@ -183,7 +211,7 @@ def kernel_vs_plain(kernel, plain, n_frames, what, work, plain_runs=2):
         "plain_ms": float(np.mean(plain_ms)) / n_frames,
         **work,
     }
-    print(f"{what}: {int(k_out[0].sum())} pairs in [0, r_max) over "
+    print(f"{what}: {int(k_out[0].sum())} pairs in range over "
           f"{n_frames} frame(s), kernel == plain; per frame kernel "
           f"{out['ms']:.3f} ms (runs "
           f"{[round(x / n_frames, 3) for x in kernel_ms]}), plain torch "
@@ -245,16 +273,18 @@ def plan_extents(box):
 def plan_text(plan, mode):
     reach = plan["reach"]
     return (f"plan {plan['n_cells_dim']}"
-            + (f" reach {reach}" if reach != (1, 1, 1) else "")
+            + (f" reach {reach}" if any(m != 1 for m in reach) else "")
             + f" ({mode})")
 
 
-def sweep_calls(frames1, frames2, box, plan, r_max, n_bins, exclusion=None):
+def sweep_calls(frames1, frames2, box, plan, r_max, n_bins, exclusion=None,
+                r_min=0.0, precision="exact", axes=None):
     """The kernel wrapper and its plain version on `plan`, each a
     no-argument call returning ``(counts, *occupancies)``: the self sweep
     of the (B, N, 3) device frames `frames1` when `frames2` is None, else
-    the cross sweep of the two groups (triclinic for a box matrix); with
-    the bound of its work (:func:`bound`) and the plan's text."""
+    the cross sweep of the two groups (triclinic for a box matrix), with
+    the exclusion, binning and 2-D ``axes`` options given; with the bound
+    of its work (:func:`bound`) and the plan's text."""
 
     from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
 
@@ -262,10 +292,15 @@ def sweep_calls(frames1, frames2, box, plan, r_max, n_bins, exclusion=None):
     cross = frames2 is not None
     groups = (frames1, frames2) if cross else (frames1,)
     n_frames = frames1.shape[0]
-    mode = cch._sweep_mode(plan["n_cells_dim"], plan["reach"], triclinic,
-                           cross=cross)
+    dims3, reach3, _ = cch._grid3(plan["n_cells_dim"], plan["reach"], axes,
+                                  triclinic)
+    mode = cch._sweep_mode(dims3, reach3, triclinic, cross=cross)
     args = dict(box=box, r_max=r_max, n_cells_dim=plan["n_cells_dim"],
-                reach=plan["reach"], n_bins=n_bins)
+                reach=plan["reach"], n_bins=n_bins, r_min=r_min,
+                precision=precision)
+    if axes is not None:
+        args["axes"] = axes
+    slot_bytes = cch._SLOT_BYTES
     if cross:
         kernel, plain = (
             (cch.triclinic_cross_pair_histogram,
@@ -283,16 +318,25 @@ def sweep_calls(frames1, frames2, box, plan, r_max, n_bins, exclusion=None):
              cch.triclinic_cell_pair_histogram_reference) if triclinic
             else (cch.cell_pair_histogram, cch.cell_pair_histogram_reference)
         )
-        args.update(capacity=plan["capacity"])
+        args.update(capacity=plan["capacity"], exclusion=exclusion)
         slots = plan["capacity"]
         text = f"capacity {plan['capacity']}"
+        if exclusion is not None and exclusion[0] != exclusion[1]:
+            slot_bytes = cch._ASYM_SLOT_BYTES
     pairs = cch.swept_pairs(*groups, box=box, n_cells_dim=plan["n_cells_dim"],
-                            triclinic=triclinic, reach=plan["reach"])
-    n_bytes = n_frames * (16 * plan["n_cells"] * slots
+                            triclinic=triclinic, reach=plan["reach"],
+                            axes=axes)
+    n_bytes = n_frames * (slot_bytes * plan["n_cells"] * slots
                           + 4 * len(groups) * plan["n_cells"] + 8 * n_bins)
+    options = [f"exclusion {exclusion}" if exclusion else "",
+               f"r_min {r_min}" if r_min else "",
+               "fast" if precision == "fast" else "",
+               f"axes {axes}" if axes else ""]
     return (lambda: kernel(*groups, **args), lambda: plain(*groups, **args),
-            bound(pairs, n_bytes, mode, n_frames),
-            f"{plan_text(plan, mode)} {text}")
+            bound(pairs, n_bytes, mode, n_frames,
+                  n_axes=len(plan["n_cells_dim"]), r_min=r_min,
+                  precision=precision),
+            " ".join([plan_text(plan, mode), text, *filter(None, options)]))
 
 
 def check_capacity(k_out, plan):
@@ -303,41 +347,60 @@ def check_capacity(k_out, plan):
         check(int(occ.max()) <= cap, "capacity overflow")
 
 
-def self_kernel_vs_plain(frames, box, what, plan=None, r_max=R_MAX,
-                         n_bins=N_BINS):
-    """The self kernel (triclinic for a box matrix) against its plain
-    version on the (B, N, 3) device frames, on `plan` (by default the
-    planner's)."""
+def planned(n_atoms, box, r_max, n_atoms2=None, exclusion=None, axes=None):
+    """The planner's plan for a sweep, as the analyses make it: over the
+    kept axes of a 2-D grid, with the wider slots' ceiling for an
+    asymmetric self tile."""
 
     from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
 
-    plan = plan or cch.cell_plan_search(frames.shape[1], plan_extents(box),
-                                        r_max)
+    extents = plan_extents(box)
+    if axes is not None:
+        extents = extents[list(axes)]
+    asym = (n_atoms2 is None and exclusion is not None
+            and exclusion[0] != exclusion[1])
+    return cch.cell_plan_search(
+        n_atoms, extents, r_max, n_atoms2=n_atoms2,
+        slot_bytes=cch._ASYM_SLOT_BYTES if asym else cch._SLOT_BYTES)
+
+
+def self_kernel_vs_plain(frames, box, what, plan=None, r_max=R_MAX,
+                         n_bins=N_BINS, plain_runs=2, **options):
+    """The self kernel (triclinic for a box matrix) against its plain
+    version on the (B, N, 3) device frames, on `plan` (by default the
+    planner's), with the sweep `options` of :func:`sweep_calls`."""
+
+    plan = plan or planned(frames.shape[1], box, r_max,
+                           exclusion=options.get("exclusion"),
+                           axes=options.get("axes"))
     kernel, plain, work, text = sweep_calls(frames, None, box, plan, r_max,
-                                            n_bins)
+                                            n_bins, **options)
     out, k_out = kernel_vs_plain(kernel, plain, frames.shape[0],
-                                 f"{what}, {text}", work)
+                                 f"{what}, {text}", work,
+                                 plain_runs=plain_runs)
     check_capacity(k_out, plan)
-    return out
+    return {**out, "plan": plan}
 
 
 def cross_kernel_vs_plain(frames1, frames2, box, what, exclusion=None,
-                          plan=None, r_max=R_MAX, n_bins=N_BINS):
+                          plan=None, r_max=R_MAX, n_bins=N_BINS,
+                          plain_runs=2, **options):
     """The cross kernel (triclinic for a box matrix) against its plain
     version on the given (B, N1, 3) and (B, N2, 3) device frames, on
-    `plan` (by default the planner's)."""
+    `plan` (by default the planner's), with the sweep `options` of
+    :func:`sweep_calls`."""
 
-    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
-
-    plan = plan or cch.cell_plan_search(
-        frames1.shape[1], plan_extents(box), r_max,
-        n_atoms2=frames2.shape[1])
+    plan = plan or planned(frames1.shape[1], box, r_max,
+                           n_atoms2=frames2.shape[1],
+                           axes=options.get("axes"))
     kernel, plain, work, text = sweep_calls(frames1, frames2, box, plan,
-                                            r_max, n_bins, exclusion)
+                                            r_max, n_bins, exclusion,
+                                            **options)
     out, k_out = kernel_vs_plain(kernel, plain, frames1.shape[0],
-                                 f"{what}, {text}", work)
+                                 f"{what}, {text}", work,
+                                 plain_runs=plain_runs)
     check_capacity(k_out, plan)
-    return out
+    return {**out, "plan": plan}
 
 
 def phase_kernels(device, rng):
@@ -712,8 +775,8 @@ def phase_vanhove(device, rng):
 
 
 def reset_launches():
-    """Set every kernel wrapper's launch counts (in all and by sweep
-    mode) to 0."""
+    """Set every kernel wrapper's launch counts (in all, by sweep mode
+    and by option) to 0."""
 
     from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
 
@@ -721,8 +784,9 @@ def reset_launches():
                    cch.triclinic_cell_pair_histogram,
                    cch.triclinic_cross_pair_histogram):
         kernel.launches = 0
-        for mode in kernel.mode_launches:
-            kernel.mode_launches[mode] = 0
+        for counts in (kernel.mode_launches, kernel.option_launches):
+            for key in counts:
+                counts[key] = 0
 
 
 def phase_triclinic_kernels(device, rng):
@@ -1136,7 +1200,7 @@ def kernel_timed(kernel, n_frames, what, work):
     check(bool(torch.isfinite(k_out[0]).all()), f"{what}: counts not finite")
     kernel_ms = [time_ms(kernel, 3) for _ in range(2)]
     out = {"ms": float(np.mean(kernel_ms)) / n_frames, **work}
-    print(f"{what}: {int(k_out[0].sum())} pairs in [0, r_max) over "
+    print(f"{what}: {int(k_out[0].sum())} pairs in range over "
           f"{n_frames} frame(s); per frame kernel {out['ms']:.3f} ms (runs "
           f"{[round(x / n_frames, 3) for x in kernel_ms]}); "
           f"{out['pairs_per_frame']:.0f} slot pairs binned a frame, bound "
@@ -1549,6 +1613,562 @@ def phase_small_box_vanhove(device, rng):
     return out
 
 
+def film_frames(rng, device, n_frames):
+    """`n_frames` uniform float32 frames of N_ATOMS atoms in the film
+    (100 x 100 x 12.5 A, density 0.8), and its lengths."""
+
+    import torch
+
+    pos = (rng.random((n_frames, N_ATOMS, 3)) * np.float32(FILM)).astype(
+        np.float32)
+    return torch.from_numpy(pos).to(device), FILM
+
+
+def phase_mode_kernels(device, rng):
+    """Slice 5's kernel modes against their plain versions, each on the
+    plan its path runs (the planner's): the water path's (3, 3) and
+    (2, 3) tiles and the offset paths' bins from 2 A at 100k atoms in the
+    cube, the tiles and offset bins on the ordered 5,000-atom cube (r 8),
+    the per-block 100k dodecahedron and the tri_pp 5,000-atom
+    dodecahedron (r 6), the film paths' 2-D self and cross sweeps, and
+    fast binning of both kernels on every geometry against the plain
+    fast versions.  Returns each row's timing by name."""
+
+    import torch
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    out = {}
+    cube_frames, cube_box = uniform_frames(rng, device, 1, N_ATOMS,
+                                           cube(N_ATOMS))
+    halves = (cube_frames[:, 0::2].contiguous(),
+              cube_frames[:, 1::2].contiguous())
+    for ex in WATER_TILES:
+        out[f"tiles {ex}"] = self_kernel_vs_plain(
+            cube_frames, cube_box, f"self kernel, {N_ATOMS} atoms, water "
+            "path", r_max=R_MAX, n_bins=N_BINS, exclusion=ex, plain_runs=1)
+    out["offset self"] = self_kernel_vs_plain(
+        cube_frames, cube_box, f"self kernel, {N_ATOMS} atoms, offset path",
+        r_max=R_MAX, n_bins=N_BINS, r_min=OFFSET_RANGE[0], plain_runs=1)
+    out["offset cross"] = cross_kernel_vs_plain(
+        *halves, cube_box, f"cross kernel, {N_ATOMS // 2} x "
+        f"{N_ATOMS // 2}, offset path", r_max=R_MAX, n_bins=N_BINS,
+        r_min=OFFSET_RANGE[0], plain_runs=1)
+    out["fast ortho"] = self_kernel_vs_plain(
+        cube_frames, cube_box, f"self kernel, {N_ATOMS} atoms",
+        r_max=R_MAX, n_bins=N_BINS, precision="fast", plain_runs=1)
+    out["fast ortho cross"] = cross_kernel_vs_plain(
+        *halves, cube_box, f"cross kernel, {N_ATOMS // 2} x {N_ATOMS // 2}",
+        r_max=R_MAX, n_bins=N_BINS, precision="fast", plain_runs=1)
+    del cube_frames, halves
+
+    small, small_box = uniform_frames(rng, device, 1, SMALL_ATOMS,
+                                      cube(SMALL_ATOMS))
+    for ex in WATER_TILES:
+        out[f"ordered tiles {ex}"] = self_kernel_vs_plain(
+            small, small_box, f"ordered self kernel, {SMALL_ATOMS} atoms",
+            r_max=ORDERED_R, n_bins=GEN_BINS, exclusion=ex, plain_runs=1)
+    out["ordered offset"] = self_kernel_vs_plain(
+        small, small_box, f"ordered self kernel, {SMALL_ATOMS} atoms",
+        r_max=ORDERED_R, n_bins=GEN_BINS, r_min=OFFSET_RANGE[0],
+        plain_runs=1)
+
+    dodeca, dodeca_box = uniform_frames(rng, device, 1, N_ATOMS,
+                                        dodecahedron(DODECA_A))
+    for ex in WATER_TILES:
+        out[f"block tiles {ex}"] = self_kernel_vs_plain(
+            dodeca, dodeca_box, f"triclinic self kernel, {N_ATOMS} atoms",
+            r_max=R_MAX, n_bins=N_BINS, exclusion=ex, plain_runs=1)
+    out["block offset"] = self_kernel_vs_plain(
+        dodeca, dodeca_box, f"triclinic self kernel, {N_ATOMS} atoms",
+        r_max=R_MAX, n_bins=N_BINS, r_min=OFFSET_RANGE[0], plain_runs=1)
+    out["fast block"] = self_kernel_vs_plain(
+        dodeca, dodeca_box, f"triclinic self kernel, {N_ATOMS} atoms",
+        r_max=R_MAX, n_bins=N_BINS, precision="fast", plain_runs=1)
+    out["fast block cross"] = cross_kernel_vs_plain(
+        dodeca[:, 0::2].contiguous(), dodeca[:, 1::2].contiguous(),
+        dodeca_box, f"triclinic cross kernel, {N_ATOMS // 2} x "
+        f"{N_ATOMS // 2}", r_max=R_MAX, n_bins=N_BINS, precision="fast",
+        plain_runs=1)
+    del dodeca
+
+    tri_pp, tri_pp_box = uniform_frames(rng, device, 1, SMALL_ATOMS,
+                                        dodecahedron(TRI_PP_A))
+    for ex in WATER_TILES:
+        out[f"tri_pp tiles {ex}"] = self_kernel_vs_plain(
+            tri_pp, tri_pp_box, f"tri_pp self kernel, {SMALL_ATOMS} atoms",
+            r_max=TRI_PP_R, n_bins=GEN_BINS, exclusion=ex, plain_runs=1)
+    out["tri_pp offset"] = self_kernel_vs_plain(
+        tri_pp, tri_pp_box, f"tri_pp self kernel, {SMALL_ATOMS} atoms",
+        r_max=TRI_PP_R, n_bins=GEN_BINS, r_min=OFFSET_RANGE[0],
+        plain_runs=1)
+    out["fast tri_pp"] = self_kernel_vs_plain(
+        tri_pp, tri_pp_box, f"tri_pp self kernel, {SMALL_ATOMS} atoms",
+        r_max=TRI_PP_R, n_bins=GEN_BINS, precision="fast", plain_runs=1)
+    out["fast tri_pp cross"] = cross_kernel_vs_plain(
+        tri_pp[:, 0::2].contiguous(), tri_pp[:, 1::2].contiguous(),
+        tri_pp_box, f"tri_pp cross kernel, {SMALL_ATOMS // 2} x "
+        f"{SMALL_ATOMS // 2}", r_max=TRI_PP_R, n_bins=GEN_BINS,
+        precision="fast", plain_runs=1)
+    del tri_pp
+
+    film, film_box = film_frames(rng, device, 1)
+    axes = (0, 1)
+    out["2d self"] = self_kernel_vs_plain(
+        film, film_box, f"2-D self kernel, {N_ATOMS} atoms, film path",
+        r_max=GEN_R, n_bins=GEN_BINS, axes=axes, plain_runs=1)
+    out["2d cross"] = cross_kernel_vs_plain(
+        film[:, 0::2].contiguous(), film[:, 1::2].contiguous(), film_box,
+        f"2-D cross kernel, {N_ATOMS // 2} x {N_ATOMS // 2}, film path",
+        r_max=GEN_R, n_bins=GEN_BINS, axes=axes, plain_runs=1)
+    out["fast 2d"] = self_kernel_vs_plain(
+        film, film_box, f"2-D self kernel, {N_ATOMS} atoms",
+        r_max=GEN_R, n_bins=GEN_BINS, axes=axes, precision="fast",
+        plain_runs=1)
+    out["fast 2d cross"] = cross_kernel_vs_plain(
+        film[:, 0::2].contiguous(), film[:, 1::2].contiguous(), film_box,
+        f"2-D cross kernel, {N_ATOMS // 2} x {N_ATOMS // 2}", r_max=GEN_R,
+        n_bins=GEN_BINS, axes=axes, precision="fast", plain_runs=1)
+    # The film's reach-1 plans beside the JAX package's 2-D grids (its
+    # 512-lane capacity cap sends it to the generalized space) and the
+    # planner's own best generalized grid, which it does not consider
+    # while a reach-1 plan fits: the kernel timed on each, counts equal.
+    for name, groups, jax_grid in (
+            ("2d self", (film, None), FILM_JAX_GRIDS[0]),
+            ("2d cross", (film[:, 0::2].contiguous(),
+                          film[:, 1::2].contiguous()), FILM_JAX_GRIDS[1])):
+        n2 = groups[1].shape[1] if groups[1] is not None else None
+        floors = np.floor(np.asarray(FILM[:2]) / GEN_R).astype(int)
+        extra = {
+            "JAX package's": cch.grid_plan(groups[0].shape[1], FILM[:2],
+                                           GEN_R, jax_grid, n_atoms2=n2),
+            "generalized": cch._general_plan(
+                groups[0].shape[1], np.asarray(FILM[:2]), GEN_R, floors, n2,
+                4.0, cch._MAX_CAPACITY),
+        }
+        planner = sweep_calls(*groups, film_box, out[name]["plan"], GEN_R,
+                              GEN_BINS, axes=axes)[0]()
+        line = (f"{name}, kernel ms a frame by plan: planner "
+                f"{out[name]['plan']['n_cells_dim']} reach "
+                f"{out[name]['plan']['reach']} {out[name]['ms']:.3f}")
+        for label, plan in extra.items():
+            kernel, _, work, text = sweep_calls(*groups, film_box, plan,
+                                                GEN_R, GEN_BINS, axes=axes)
+            timing, k_out = kernel_timed(kernel, 1, f"{name} kernel, "
+                                         f"{label} grid, {text}", work)
+            check_capacity(k_out, plan)
+            check(torch.equal(k_out[0], planner[0]),
+                  f"{name}: the {label} grid's counts differ from the "
+                  "planner plan's")
+            line += (f"; {label} {plan['n_cells_dim']} reach "
+                     f"{plan['reach']} {timing['ms']:.3f}")
+            out[name][f"{label} ms"] = timing["ms"]
+        print(line + "; counts equal")
+    return out
+
+
+def phase_mode_fixtures(device, rng):
+    """The new conventions on straddle fixtures, kernel == plain ==
+    float64 oracle: bins whose first edge (r_min) or closed last edge
+    (r_max) is the fixture's 1.25, a 2-D grid whose in-plane edge it is
+    (the dropped coordinates redrawn), the tiles, and the same in the
+    small dodecahedron (27-image oracle); then frames whose box shrank
+    below an offset, a 2-D and an asymmetric-tile grid: NaN, kernel and
+    plain alike."""
+
+    import torch
+
+    from mdhelper_tpu_torch.algorithm.topology import triclinic_matrices
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+    from mdhelper_tpu_torch.testing import (
+        edge_straddle_positions,
+        edge_straddle_triclinic_positions,
+        f64_histogram,
+        f64_triclinic_distances,
+    )
+
+    cases = (
+        # (geometry, grid, (r_min, r_max, n_bins), exclusion, cross)
+        ("cube", (3, 3, 3), (1.25, 6.0, 19), None, False),
+        ("cube", (5, 5, 5), (0.5, 1.25, 12), (2, 3), False),
+        ("cube", (1, 2, 6), (1.25, 6.0, 19), (3, 3), False),
+        ("cube", (2, 5, 6), (0.5, 1.25, 12), (2, 3), True),
+        ("slab", (4, 4), (0.0, 4.0, 16), (2, 3), False),
+        ("slab", (2, 9), (1.25, 6.0, 19), None, False),
+        ("slab", (5, 5), (0.5, 1.25, 12), None, True),
+        ("tri", (3, 3, 3), (1.25, 4.0, 11), (2, 3), False),
+        ("tri", (1, 2, 4), (0.5, 1.25, 12), (3, 3), False),
+        ("tri", (3, 3, 3), (1.25, 4.0, 11), None, True),
+        ("tri", (1, 2, 4), (0.5, 1.25, 12), (2, 3), True),
+    )
+    h = triclinic_matrices(dodecahedron(18.0)).astype(np.float32)
+    for geometry, grid, (r_min, r_max, n_bins), ex, cross in cases:
+        if geometry == "tri":
+            pos, box = edge_straddle_triclinic_positions(rng, h), h
+        else:
+            pos = edge_straddle_positions(rng, 16.0)
+            box = np.float32([16.0, 16.0, 4.0 if geometry == "slab"
+                              else 16.0])
+            pos[:, 2] = (rng.random(len(pos)) * box[2]).astype(np.float32)
+        axes = (0, 1) if len(grid) == 2 else None
+        groups = (pos[:300], pos[300:]) if cross else (pos,)
+        extents = plan_extents(box)[:len(grid)]
+        plan = cch.grid_plan(len(groups[0]), extents, r_max, grid,
+                             n_atoms2=len(groups[-1]) if cross else None)
+        frames = [torch.from_numpy(g).to(device)[None] for g in groups]
+        kernel, plain, _, text = sweep_calls(
+            frames[0], frames[1] if cross else None, box, plan, r_max,
+            n_bins, ex, r_min=r_min, axes=axes)
+        k_out, p_out = kernel(), plain()
+        torch.cuda.synchronize()
+        edges = np.linspace(r_min, r_max, n_bins + 1)
+        mask = ex if cross else (1, 1) if ex is None else ex
+        if geometry == "tri":
+            dist = f64_triclinic_distances(groups[0][:, None],
+                                           groups[-1][None], box)
+            if mask is not None:
+                i = np.arange(len(groups[0]))[:, None]
+                j = np.arange(len(groups[-1]))[None, :]
+                dist[i // mask[0] == j // mask[1]] = np.inf
+            oracle = np.histogram(dist, bins=edges)[0]
+        else:
+            oracle = f64_histogram(groups[0], groups[-1], box, edges,
+                                   axes=axes or (0, 1, 2), exclusion=mask)
+        for k, p in zip(k_out, p_out):
+            check(torch.equal(k, p), f"straddle {text}: kernel != plain")
+        check(np.array_equal(k_out[0][0].cpu().numpy().astype(np.int64),
+                             oracle), f"straddle {text}: != float64 oracle")
+        print(f"straddle fixture, {geometry} {text}, bins [{r_min}, "
+              f"{r_max}]: kernel == plain == float64 oracle "
+              f"({int(oracle.sum())} pairs)")
+
+    # Shrunk frames: the second frame's box at 0.7 of the first's.
+    n = 3000
+    for grid, r_p, ex, r_min, axes in (((3, 3, 10), 6.0, (2, 3), 0.0, None),
+                                       ((3, 3, 10), 6.0, None, 2.0, None),
+                                       ((3, 10), 6.0, (3, 3), 1.0, (0, 2))):
+        good = np.float32((40.0,) * 3)
+        boxes = np.stack([good, good * np.float32(0.7)])
+        pos = (rng.random((2, n, 3)) * boxes[:, None]).astype(np.float32)
+        plan = cch.grid_plan(n, good[list(axes or (0, 1, 2))], r_p, grid)
+        frames = torch.from_numpy(pos).to(device)
+        args = dict(box=torch.from_numpy(boxes), r_max=r_p, r_min=r_min,
+                    n_cells_dim=grid, reach=plan["reach"], n_bins=64,
+                    capacity=plan["capacity"], exclusion=ex, axes=axes)
+        k_out = cch.cell_pair_histogram(frames, **args)
+        p_out = cch.cell_pair_histogram_reference(frames, **args)
+        torch.cuda.synchronize()
+        text = f"grid {grid} exclusion {ex} r_min {r_min} axes {axes}"
+        check(bool(torch.isnan(k_out[0][1]).all()
+                   and torch.isnan(p_out[0][1]).all()),
+              f"shrunk frame, {text}: not NaN-poisoned")
+        check(torch.equal(k_out[0][0], p_out[0][0]) and k_out[0][0].sum() > 0,
+              f"shrunk frame, {text}: frame 0 differs")
+        print(f"shrunk frame, {text}: kernel and plain version NaN-poison "
+              "it, equal on the other frame")
+
+
+def run_option_path(analysis, n_frames, kernel, option, per, what):
+    """run_together([analysis]) with the launch counts set to 0 just
+    before and read just after: `kernel` must launch once a chunk (or,
+    with ``per="frame"``, once a frame), each launch with `option`
+    (:data:`cuda_cell_histogram._OPTIONS`).  Returns (launches,
+    frames/s)."""
+
+    n_chunks = -(-n_frames // CHUNK)
+    want = n_frames if per == "frame" else n_chunks
+    reset_launches()
+    fps = run_timed([analysis], n_frames)
+    check(kernel.launches == want == kernel.option_launches[option],
+          f"{what}: {kernel.launches} launches, "
+          f"{kernel.option_launches[option]} with {option}, for {want} "
+          f"{per}s")
+    print(f"{what}: {n_frames} frames in chunks of {CHUNK}, "
+          f"{kernel.launches} launches, all with {option}; {fps:.3f} "
+          "frames/s (information, not a claim)")
+    return kernel.launches, fps
+
+
+def tail_check(g, what, n_bins):
+    check(np.all(np.isfinite(g)) and g.shape[-1] == n_bins, f"{what}: shape")
+    tail = g[..., -20:].mean(axis=-1)
+    check(np.all(np.abs(tail - 1.0) < 0.02), f"{what}: g tail off 1: {tail}")
+    return float(np.mean(tail))
+
+
+def phase_water_paths(device, rng):
+    """The water-like liquid: the 100k-atom cube's self RDF with the
+    (3, 3) tiles of a 3-site water model and an asymmetric (2, 3), 200
+    bins on [0, 6], 8 + 32 frames each; g(r) tails at 1 under the
+    ``n2 - e1`` normalization.  Returns (launches, frames/s, plan) by
+    tile."""
+
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+    )
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    _, u = slice_universe(rng, N_FRAMES)
+    out = {}
+    for ex in WATER_TILES:
+        rdf = RadialDistributionFunction(u.atoms, n_bins=N_BINS,
+                                         range=(0.0, R_MAX), exclusion=ex,
+                                         verbose=False, device=device)
+        rdf._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
+        option = "tiles" if ex[0] == ex[1] else "asym"
+        launches, fps = run_option_path(rdf, N_FRAMES,
+                                        cch.cell_pair_histogram, option,
+                                        "chunk", f"water self RDF {ex}")
+        mean = tail_check(rdf.results.rdf, f"water self RDF {ex}", N_BINS)
+        plan = rdf._searched_cell_plan()
+        print(f"water self RDF {ex}: plan {plan['n_cells_dim']} capacity "
+              f"{plan['capacity']}, g(r) tail mean {mean:.5f}")
+        out[ex] = (launches, fps, plan)
+    return out
+
+
+def phase_offset_paths(device, rng):
+    """Bins from r_min > 0 in the 100k-atom cube: the self RDF and the
+    cross RDF of atoms[0::2] and atoms[1::2] on [2, 6] (200 bins, 8 + 32
+    frames), and VanHoveFunction(n_lags=64, lags="log", range=(1, 6))
+    (8 + 32 frames): g(r) tails at 1, the lag-0 self counts all out of
+    range, the lag-0 distinct counts equal to the self kernel's on
+    [1, 6], the longest lag's self counts equal to float64 numpy on the
+    offset edges.  Returns (launches, frames/s, plan) by path."""
+
+    import torch
+
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+        VanHoveFunction,
+    )
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    traj, u = slice_universe(rng, N_FRAMES)
+    out = {}
+    for path, groups, kernel in (
+        ("self", (u.atoms,), cch.cell_pair_histogram),
+        ("cross", (u.atoms[0::2], u.atoms[1::2]), cch.cross_pair_histogram),
+    ):
+        rdf = RadialDistributionFunction(*groups, n_bins=N_BINS,
+                                         range=OFFSET_RANGE, verbose=False,
+                                         device=device)
+        rdf._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
+        launches, fps = run_option_path(rdf, N_FRAMES, kernel, "offset",
+                                        "chunk", f"offset {path} RDF")
+        mean = tail_check(rdf.results.rdf, f"offset {path} RDF", N_BINS)
+        plan = rdf._searched_cell_plan()
+        print(f"offset {path} RDF on {OFFSET_RANGE}: plan "
+              f"{plan['n_cells_dim']}, g(r) tail mean {mean:.5f}")
+        out[path] = (launches, fps, plan)
+
+    vh = VanHoveFunction(u.atoms, n_bins=N_BINS, range=VH_OFFSET_RANGE,
+                         n_lags=VH_LAGS, lags="log", verbose=False,
+                         device=device)
+    vh._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
+    launches, fps = run_option_path(vh, N_FRAMES, cch.cross_pair_histogram,
+                                    "offset", "frame", "offset Van Hove")
+    lags = np.rint(vh.results.times).astype(int)
+    counts_self = vh.results.counts_self
+    check(counts_self[0].sum() == 0,
+          "offset Van Hove: lag-0 displacements inside [1, 6]")
+    plan = cch.cell_plan_search(N_ATOMS, [BOX] * 3, VH_OFFSET_RANGE[1])
+    box = torch.full((3,), BOX, dtype=torch.float32, device=device)
+    self_counts = torch.zeros(N_BINS, dtype=torch.float64, device=device)
+    for lo in range(0, N_FRAMES, CHUNK):
+        pos = torch.from_numpy(traj[lo:lo + CHUNK]).to(device)
+        pos = pos - box * torch.floor(pos / box)  # the path's wrap
+        counts, _ = cch.cell_pair_histogram(
+            pos, box=box, r_max=VH_OFFSET_RANGE[1],
+            r_min=VH_OFFSET_RANGE[0], n_cells_dim=plan["n_cells_dim"],
+            capacity=plan["capacity"], n_bins=N_BINS)
+        self_counts += counts.sum(dim=0)
+    check(np.array_equal(vh.results.counts_distinct[0],
+                         self_counts.cpu().numpy().astype(np.int64)),
+          "offset Van Hove: lag-0 distinct counts != self kernel counts")
+    lag = int(lags[-1])
+    edges = np.linspace(*VH_OFFSET_RANGE, N_BINS + 1)
+    ref = np.zeros(N_BINS, dtype=np.int64)
+    for t in range(N_FRAMES - lag):
+        d = traj[t + lag].astype(np.float64) - traj[t].astype(np.float64)
+        d -= BOX * np.round(d / BOX)
+        ref += np.histogram(np.sqrt((d**2).sum(-1)), bins=edges)[0]
+    check(np.array_equal(counts_self[-1], ref),
+          f"offset Van Hove: lag-{lag} self counts != float64 numpy")
+    gd = vh.results.gd
+    tail = gd[:, -20:].mean(axis=1)
+    check(np.all(np.isfinite(gd)) and np.all(np.abs(tail - 1) < 0.02),
+          f"offset Van Hove: distinct g(r, t) tail off 1: {tail}")
+    print(f"offset Van Hove on {VH_OFFSET_RANGE}: {len(lags)} lags; lag-0 "
+          "self counts all below r_min; lag-0 distinct == self kernel; "
+          f"lag-{lag} self counts == float64 numpy")
+    out["vanhove"] = (launches, fps, vh._searched_cell_plan())
+    return out
+
+
+def phase_film_paths(device, rng):
+    """The 2-D film: a 100k-atom slab of 100 x 100 x 12.5 A, the in-plane
+    self RDF and cross RDF of its halves with drop_axis="z" at the
+    classes' defaults (201 bins on [0, 15]), 8 + 16 frames: g(r) tails
+    at 1 under the area and ring normalization.  The plan each path runs
+    is printed beside the JAX package's 2-D grid.  Returns (launches,
+    frames/s, plan) by path."""
+
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+    )
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    traj = (rng.random((FILM_FRAMES, N_ATOMS, 3), dtype=np.float32)
+            * np.float32(FILM))
+    u = Universe.from_arrays(traj, np.array([*FILM, 90.0, 90.0, 90.0]),
+                             dt=1.0)
+    out = {}
+    for path, groups, kernel in (
+        ("self", (u.atoms,), cch.cell_pair_histogram),
+        ("cross", (u.atoms[0::2], u.atoms[1::2]), cch.cross_pair_histogram),
+    ):
+        # The classes' defaults: 201 bins on [0, 15].
+        rdf = RadialDistributionFunction(*groups, n_bins=GEN_BINS,
+                                         range=(0.0, GEN_R), drop_axis="z",
+                                         verbose=False, device=device)
+        rdf._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
+        launches, fps = run_option_path(rdf, FILM_FRAMES, kernel, "2d",
+                                        "chunk", f"film {path} RDF")
+        mean = tail_check(rdf.results.rdf, f"film {path} RDF", GEN_BINS)
+        plan = rdf._searched_cell_plan()
+        blocks = plan["n_cells"] * (5 if path == "self" else 9)
+        print(f"film {path} RDF: plan {plan['n_cells_dim']} reach "
+              f"{plan['reach']} capacity {plan['capacity']} ({blocks} "
+              "blocks a frame; the JAX package plans its 512-lane-capped "
+              "generalized 2-D grid); g(r) tail mean "
+              f"{mean:.5f}")
+        out[path] = (launches, fps, plan)
+    return out
+
+
+#: the shapes of the mode checks that no main path runs, each driven by
+#: short self-RDF paths (8 + 8 frames): (name, atoms, box, r_max, bins).
+MODE_SHAPES = (
+    ("ordered", SMALL_ATOMS, "cube", ORDERED_R, GEN_BINS),
+    ("block", N_ATOMS, "dodeca", R_MAX, N_BINS),
+    ("tri_pp", SMALL_ATOMS, "tri_pp", TRI_PP_R, GEN_BINS),
+)
+SHAPE_FRAMES = 8 + 8
+
+
+def shape_universe(rng, name, n_atoms, n_frames):
+    box = {"cube": cube(n_atoms), "dodeca": dodecahedron(DODECA_A),
+           "tri_pp": dodecahedron(TRI_PP_A)}[name]
+    return small_box_universe(rng, n_atoms, box, n_frames)
+
+
+def phase_mode_shape_paths(device, rng):
+    """The self RDF with the (3, 3) and (2, 3) tiles and on [2, r_max] in
+    the ordered 5,000-atom cube, the per-block 100k dodecahedron and the
+    tri_pp 5,000-atom dodecahedron, 8 + 8 frames each: every chunk
+    launches the kernel with the option, and the g(r) tail stays at 1.
+    Returns (launches, frames/s, plan) by (shape, option)."""
+
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+    )
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    out = {}
+    for name, n_atoms, box_name, r_max, n_bins in MODE_SHAPES:
+        _, u, box = shape_universe(rng, box_name, n_atoms, SHAPE_FRAMES)
+        kernel = (cch.triclinic_cell_pair_histogram if np.ndim(box) == 2
+                  else cch.cell_pair_histogram)
+        for option, kwargs in (("tiles", dict(exclusion=(3, 3))),
+                               ("asym", dict(exclusion=(2, 3))),
+                               ("offset", dict(range=(2.0, r_max)))):
+            kwargs.setdefault("range", (0.0, r_max))
+            rdf = RadialDistributionFunction(u.atoms, n_bins=n_bins,
+                                             verbose=False, device=device,
+                                             **kwargs)
+            rdf._chunk_bytes = CHUNK * n_atoms * 3 * 4
+            what = f"{name} self RDF {kwargs}"
+            launches, fps = run_option_path(rdf, SHAPE_FRAMES, kernel,
+                                            option, "chunk", what)
+            tail_check(rdf.results.rdf, what, n_bins)
+            out[name, option] = (launches, fps, rdf._searched_cell_plan())
+    return out
+
+
+def phase_fast_op_path(device, rng):
+    """Fast binning, which no analysis reaches (the JAX package's op
+    default): the public kernel wrappers called with precision="fast"
+    on 8 + 8 frames in chunks -- the self sweep, and the cross sweep of
+    the even and odd atoms, in the 100k cube, the 2-D film and the 100k
+    dodecahedron, and the tri_pp 5,000-atom dodecahedron -- with the
+    launch counts set to 0 just before and read just after; each fast
+    count within 0.1 % of the exact one's total.  Returns (launches,
+    plan) by (geometry, "self" or "cross")."""
+
+    import torch
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    out = {}
+    shapes = (("ortho", N_ATOMS, cube(N_ATOMS), R_MAX, N_BINS, None),
+              ("2d", N_ATOMS, np.array([*FILM, 90.0, 90.0, 90.0]), GEN_R,
+               GEN_BINS, (0, 1)),
+              ("block", N_ATOMS, dodecahedron(DODECA_A), R_MAX, N_BINS,
+               None),
+              ("tri_pp", SMALL_ATOMS, dodecahedron(TRI_PP_A), TRI_PP_R,
+               GEN_BINS, None))
+    n_chunks = -(-SHAPE_FRAMES // CHUNK)
+    for name, n_atoms, dims6, r_max, n_bins, axes in shapes:
+        frames, box = uniform_frames(rng, device, SHAPE_FRAMES, n_atoms,
+                                     dims6)
+        triclinic = np.ndim(box) == 2
+        for sweep in ("self", "cross"):
+            args = dict(box=box, r_max=r_max, n_bins=n_bins)
+            if axes is not None:
+                args["axes"] = axes
+            if sweep == "self":
+                groups = (frames,)
+                plan = planned(n_atoms, box, r_max, axes=axes)
+                kernel = (cch.triclinic_cell_pair_histogram if triclinic
+                          else cch.cell_pair_histogram)
+                args["capacity"] = plan["capacity"]
+            else:
+                groups = (frames[:, 0::2].contiguous(),
+                          frames[:, 1::2].contiguous())
+                plan = planned(groups[0].shape[1], box, r_max,
+                               n_atoms2=groups[1].shape[1], axes=axes)
+                kernel = (cch.triclinic_cross_pair_histogram if triclinic
+                          else cch.cross_pair_histogram)
+                args.update(capacity1=plan["capacity"],
+                            capacity2=plan["capacity2"])
+            args.update(n_cells_dim=plan["n_cells_dim"], reach=plan["reach"])
+            totals = {}
+            for precision in ("exact", "fast"):
+                reset_launches()
+                total = 0.0
+                for lo in range(0, SHAPE_FRAMES, CHUNK):
+                    counts = kernel(*(g[lo:lo + CHUNK] for g in groups),
+                                    precision=precision, **args)[0]
+                    total += float(counts.sum())
+                torch.cuda.synchronize()
+                totals[precision] = total
+            what = f"fast op path, {name} {sweep}"
+            check(kernel.launches == n_chunks
+                  == kernel.option_launches["fast"],
+                  f"{what}: {kernel.launches} launches for {n_chunks} "
+                  "chunks")
+            check(abs(totals["fast"] / totals["exact"] - 1) < 1e-3,
+                  f"{what}: {totals}")
+            print(f"{what}: {n_chunks} launches with fast binning; pairs "
+                  f"in range fast / exact "
+                  f"{totals['fast'] / totals['exact']:.7f}")
+            out[name, sweep] = (kernel.launches, plan)
+        del frames
+    return out
+
+
 def main():
     import torch
 
@@ -1599,6 +2219,15 @@ def main():
     phase_full_size_cross_checks(device, gen_rng)
     small_rdf = phase_small_box_rdf(device, gen_rng)
     small_vh = phase_small_box_vanhove(device, gen_rng)
+    # Slice 5 draws from its own generator.
+    mode_rng = np.random.default_rng(SEED + 4)
+    mode_timing = phase_mode_kernels(device, mode_rng)
+    phase_mode_fixtures(device, mode_rng)
+    water = phase_water_paths(device, mode_rng)
+    offset = phase_offset_paths(device, mode_rng)
+    film = phase_film_paths(device, mode_rng)
+    shape_paths = phase_mode_shape_paths(device, mode_rng)
+    fast_paths = phase_fast_op_path(device, mode_rng)
 
     def path_row(shape, timing_plan, path, plain_from=None, plain_shape=None):
         """(launches, shape, timing) of a slice-4 row, whose kernel was
@@ -1617,8 +2246,24 @@ def main():
                       f"{plain_from[1]['n_cells_dim']}"}
         return path_launches, shape, timing
 
+    def option_row(shape, row, path, option):
+        """(launches, shape, timing) of a slice-5 row: the kernel timed on
+        the plan of the path (launches, frames/s, plan) or fast op path
+        (launches, plan) whose launches it carries."""
+
+        timing = mode_timing[row]
+        path_plan = path[-1]
+        check(all(timing["plan"].get(k) == path_plan.get(k) for k in
+                  ("n_cells_dim", "reach", "capacity", "capacity2")),
+              f"{shape}: timed on {timing['plan']}, but the path ran "
+              f"{path_plan}")
+        return path[0], shape, {**timing, "option": option}
+
     self_src = "mdhelper_tpu_torch/csrc/cell_pair_histogram.cu"
     cross_src = "mdhelper_tpu_torch/csrc/cross_pair_histogram.cu"
+    tri_self_src = "mdhelper_tpu_torch/csrc/triclinic_cell_pair_histogram.cu"
+    tri_cross_src = (
+        "mdhelper_tpu_torch/csrc/triclinic_cross_pair_histogram.cu")
     tpu = "mdhelper_tpu/ops/pallas_cell_histogram.py:{}"
     # Each entry names the TPU kernel that the JAX package runs at its
     # shape: the resident-table kernels at 100k atoms, the streaming
@@ -1639,19 +2284,22 @@ def main():
         ("cross_pair_histogram", cross_src, 1486, rdf_launches + vh_launches,
          f"{STREAM_ATOMS // 2} x {STREAM_ATOMS // 2}",
          stream_timing["cross"]),
-        ("triclinic_cell_pair_histogram", self_src, 1180, tri_self_launches,
+        ("triclinic_cell_pair_histogram", tri_self_src, 1180,
+         tri_self_launches,
          f"{N_ATOMS} atoms, dodecahedron (triclinic self-RDF path)",
          tri_timing["self"]),
-        ("triclinic_cell_pair_histogram", self_src, 1419, tri_self_launches,
+        ("triclinic_cell_pair_histogram", tri_self_src, 1419,
+         tri_self_launches,
          f"{STREAM_ATOMS} atoms, dodecahedron", tri_timing["self_stream"]),
-        ("triclinic_cross_pair_histogram", cross_src, 1262,
+        ("triclinic_cross_pair_histogram", tri_cross_src, 1262,
          tri_cross_launches,
          f"{N_ATOMS // 2} x {N_ATOMS // 2}, dodecahedron (triclinic "
          "cross-RDF path)", tri_timing["rdf"]),
-        ("triclinic_cross_pair_histogram", cross_src, 1262, tri_vh_launches,
+        ("triclinic_cross_pair_histogram", tri_cross_src, 1262,
+         tri_vh_launches,
          f"{N_ATOMS} x {N_ATOMS}, exclusion (1, 1), dodecahedron "
          "(triclinic Van Hove path)", tri_timing["vanhove"]),
-        ("triclinic_cross_pair_histogram", cross_src, 1542,
+        ("triclinic_cross_pair_histogram", tri_cross_src, 1542,
          tri_cross_launches + tri_vh_launches,
          f"{STREAM_ATOMS // 2} x {STREAM_ATOMS // 2}, dodecahedron",
          tri_timing["cross_stream"]),
@@ -1675,24 +2323,88 @@ def main():
             f"{GEN_ATOMS} x {GEN_ATOMS}, exclusion (1, 1), cube, r_max 15 "
             "(small-box Van Hove path)",
             gen_timing["vanhove"], small_vh["general"])),
-        ("triclinic_cell_pair_histogram", self_src, 1070, *path_row(
+        ("triclinic_cell_pair_histogram", tri_self_src, 1070, *path_row(
             f"{GEN_ATOMS} atoms, dodecahedron a = {GEN_DODECA_A} A, "
             "r_max 15 (tri_pp self RDF path)",
             tri_pp_timing["self"], small_rdf["tri_pp_self"],
             tri_pp_timing["self_small"],
             f"{SMALL_ATOMS} atoms, dodecahedron a = {TRI_PP_A} A, r_max 6")),
-        ("triclinic_cross_pair_histogram", cross_src, 1916, *path_row(
+        ("triclinic_cross_pair_histogram", tri_cross_src, 1916,
+         *path_row(
             f"{GEN_ATOMS // 2} x {GEN_ATOMS // 2}, dodecahedron a = "
             f"{GEN_DODECA_A} A, r_max 15 (tri_pp cross RDF path)",
             tri_pp_timing["cross"], small_rdf["tri_pp_cross"],
             tri_pp_timing["cross_small"],
             f"{SMALL_ATOMS // 2} x {SMALL_ATOMS // 2}, dodecahedron a = "
             f"{TRI_PP_A} A, r_max 6")),
-        ("triclinic_cross_pair_histogram", cross_src, 1916, *path_row(
+        ("triclinic_cross_pair_histogram", tri_cross_src, 1916,
+         *path_row(
             f"{SMALL_ATOMS} x {SMALL_ATOMS}, exclusion (1, 1), dodecahedron "
             f"a = {TRI_PP_A} A, r_max 6 (tri_pp Van Hove path)",
             tri_pp_timing["vanhove"], small_vh["tri_pp"])),
     ]
+    # Slice 5: tile exclusions, offset bins, 2-D grids and fast binning,
+    # each timed on the plan of the path whose launches it carries.
+    cube_text = f"{N_ATOMS} atoms, cube {BOX:.1f} A, r_max {R_MAX:g}"
+    small_text = (f"{SMALL_ATOMS} atoms, cube {cube(SMALL_ATOMS)[0]:.2f} A, "
+                  f"r_max {ORDERED_R:g} (ordered)")
+    block_text = (f"{N_ATOMS} atoms, dodecahedron a = {DODECA_A} A, r_max "
+                  f"{R_MAX:g} (per block)")
+    tri_pp_text = (f"{SMALL_ATOMS} atoms, dodecahedron a = {TRI_PP_A} A, "
+                   f"r_max {TRI_PP_R:g} (tri_pp)")
+    film_text = f"film {FILM[0]:g} x {FILM[1]:g} x {FILM[2]:g} A, r_max 15"
+    for ex in WATER_TILES:
+        option = "tiles" if ex[0] == ex[1] else "asym"
+        rows.append(("cell_pair_histogram", self_src, 1070, *option_row(
+            f"{cube_text}, exclusion {ex} (water self-RDF path)",
+            f"tiles {ex}", water[ex], option)))
+    rows += [
+        ("cell_pair_histogram", self_src, 1070, *option_row(
+            f"{cube_text}, range {OFFSET_RANGE} (offset self-RDF path)",
+            "offset self", offset["self"], "offset")),
+        ("cross_pair_histogram", cross_src, 1916, *option_row(
+            f"{N_ATOMS // 2} x {N_ATOMS // 2}, cube, range {OFFSET_RANGE} "
+            "(offset cross-RDF path)", "offset cross", offset["cross"],
+            "offset")),
+        ("cell_pair_histogram", self_src, 1070, *option_row(
+            f"{N_ATOMS} atoms, {film_text}, drop_axis z (film self-RDF "
+            "path)", "2d self", film["self"], "2d")),
+        ("cross_pair_histogram", cross_src, 1916, *option_row(
+            f"{N_ATOMS // 2} x {N_ATOMS // 2}, {film_text}, drop_axis z "
+            "(film cross-RDF path)", "2d cross", film["cross"], "2d")),
+    ]
+    for geometry, text, source, line in (
+            ("ordered", small_text, self_src, 1070),
+            ("block", block_text, tri_self_src, 1180),
+            ("tri_pp", tri_pp_text, tri_self_src, 1070)):
+        kernel = ("cell_pair_histogram" if source == self_src
+                  else "triclinic_cell_pair_histogram")
+        for ex in WATER_TILES:
+            option = "tiles" if ex[0] == ex[1] else "asym"
+            rows.append((kernel, source, line, *option_row(
+                f"{text}, exclusion {ex} ({geometry} self-RDF path)",
+                f"{geometry} tiles {ex}", shape_paths[geometry, option],
+                option)))
+        rows.append((kernel, source, line, *option_row(
+            f"{text}, range (2.0, r_max) ({geometry} self-RDF path)",
+            f"{geometry} offset", shape_paths[geometry, "offset"],
+            "offset")))
+    for geometry, text, triclinic, lines in (
+            ("ortho", cube_text, False, (1070, 1916)),
+            ("2d", f"{N_ATOMS} atoms, {film_text}, axes (0, 1)", False,
+             (1070, 1916)),
+            ("block", block_text, True, (1180, 1262)),
+            ("tri_pp", tri_pp_text, True, (1070, 1916))):
+        prefix, src = (("triclinic_", (tri_self_src, tri_cross_src))
+                       if triclinic else ("", (self_src, cross_src)))
+        rows.append((f"{prefix}cell_pair_histogram", src[0], lines[0],
+                     *option_row(f"{text}, fast binning (fast op path)",
+                                 f"fast {geometry}",
+                                 fast_paths[geometry, "self"], "fast")))
+        rows.append((f"{prefix}cross_pair_histogram", src[1], lines[1],
+                     *option_row(f"{text}, even x odd atoms, fast binning "
+                                 "(fast op path)", f"fast {geometry} cross",
+                                 fast_paths[geometry, "cross"], "fast")))
     print(card)
     print(json.dumps({"kernels": [{
         "name": kernel,
@@ -1711,6 +2423,7 @@ def main():
         "pairs_per_frame": timing["pairs_per_frame"],
         **({"plain_shape": timing["plain_shape"]}
            if "plain_shape" in timing else {}),
+        **({"option": timing["option"]} if "option" in timing else {}),
     } for kernel, source, line, n, shape, timing in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

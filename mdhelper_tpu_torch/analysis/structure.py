@@ -4,9 +4,11 @@ Structural analysis
 
 Ported from :mod:`mdhelper_tpu.analysis.structure`:
 
-* :class:`RadialDistributionFunction` for one group against itself or
-  between two disjoint groups, in an orthorhombic or triclinic 3-D box
-  with bins from 0, through the cell-list pair histograms
+* :class:`RadialDistributionFunction` for one group against itself
+  (with an optional ``(e, e)`` or asymmetric ``(e0, e1)`` tile
+  exclusion) or between two disjoint groups, in an orthorhombic or
+  triclinic 3-D box, or in 2-D (``drop_axis``, orthorhombic), on bins
+  from 0 or from ``range[0] > 0``, through the cell-list pair histograms
   (:mod:`mdhelper_tpu_torch.ops.cuda_cell_histogram`): the hand-written
   CUDA kernels on a GPU, their plain-torch versions on the CPU.  This
   cell route is the port's only RDF route.
@@ -15,7 +17,7 @@ Ported from :mod:`mdhelper_tpu.analysis.structure`:
 * :class:`VanHoveFunction`, the self and distinct parts of
   :math:`G(r, t)` over a ring of past frames: the exact displacement
   histogram for the self part, the cross cell-list kernel for the
-  distinct part.
+  distinct part, on bins from 0 or from ``range[0] > 0``.
 
 The RDF and Van Hove run in any periodic 3-D box.  Boxes at least 3
 cutoffs wide on every axis (perpendicular width, for a triclinic box)
@@ -25,8 +27,9 @@ take reach-1 cell grids; narrower ones take the generalized grids of
 box runs the triclinic kernels: on a reach-1 grid each (cell,
 neighbour) block takes one lattice translation, on a generalized grid
 each pair searches its 27 nearest images (the JAX package's ``tri_pp``
-mode).  Overlapping-group, 2-D and offset-range RDFs, COM groupings,
-and the direct and mesh S(q) methods are not ported yet.
+mode).  Overlapping-group RDFs, COM groupings, the 2-D Van Hove
+function (the JAX package has none) and the direct and mesh S(q)
+methods are not ported yet.
 """
 
 import warnings
@@ -36,6 +39,8 @@ import torch
 
 from ..algorithm.topology import triclinic_matrices
 from ..ops.cuda_cell_histogram import (
+    _ASYM_SLOT_BYTES,
+    _SLOT_BYTES,
     CellCapacityOverflow,
     cell_pair_histogram,
     cell_plan_search,
@@ -73,17 +78,33 @@ def _plan_extents(dimensions, triclinic):
     return np.asarray(triclinic_perpendicular_widths(h32), np.float64)
 
 
-def _frame_boxes(dimensions, triclinic):
+def _frame_boxes(dimensions, triclinic, drop_axis=None):
     """``(kernel box, volume)`` of each frame of a chunk's ``(B, 6)``
     float64 dimensions: the float32 lengths ``(B, 3)`` and their
     product, or the float32 box matrices ``(B, 3, 3)`` and
-    ``h00 * h11 * h22`` of the float64 ones."""
+    ``h00 * h11 * h22`` of the float64 ones.  With `drop_axis` the
+    "volume" is the area of the two kept lengths, formed as the JAX
+    package's XLA route forms it (the dropped length set to the largest,
+    the product divided by it)."""
 
     if triclinic:
         h = triclinic_matrices(dimensions)
         return h.to(torch.float32), h[:, 0, 0] * h[:, 1, 1] * h[:, 2, 2]
     lengths = dimensions[:, :3]
-    return lengths.to(torch.float32), lengths.prod(dim=1)
+    if drop_axis is None:
+        return lengths.to(torch.float32), lengths.prod(dim=1)
+    padded = lengths.clone()
+    padded[:, drop_axis] = lengths.max(dim=1).values
+    return (lengths.to(torch.float32),
+            padded.prod(dim=1) / padded[:, drop_axis])
+
+
+def _check_range(range_):
+    r_min, r_max = (float(r) for r in range_)
+    if not 0.0 <= r_min < r_max:
+        raise ValueError(f"range must satisfy 0 <= range[0] < range[1], not "
+                         f"{tuple(range_)}.")
+    return r_min, r_max
 
 
 class _CellPlanned(SerialAnalysisBase):
@@ -94,16 +115,22 @@ class _CellPlanned(SerialAnalysisBase):
 
     _cell_plan_cache = None
     _plan_atoms = None
+    #: the grid's coordinate columns (None: all three; two for a 2-D
+    #: grid) and the shared-memory bytes of its slots.
+    _axes = None
+    _slot_bytes = _SLOT_BYTES
 
     def _searched_cell_plan(self):
         if self._cell_plan_cache is None:
             n1, n2 = self._plan_atoms
+            extents = _plan_extents(self.universe.dimensions,
+                                    self._triclinic)
+            if self._axes is not None:
+                extents = extents[list(self._axes)]
             self._cell_plan_cache = cell_plan_search(
-                n1,
-                _plan_extents(self.universe.dimensions, self._triclinic),
-                float(self._range[1]),
-                n_atoms2=n2,
+                n1, extents, float(self._range[1]), n_atoms2=n2,
                 capacity_sigmas=self._capacity_sigmas,
+                slot_bytes=self._slot_bytes,
             )
         return self._cell_plan_cache
 
@@ -152,11 +179,14 @@ class _CellPlanned(SerialAnalysisBase):
 
 class RadialDistributionFunction(_CellPlanned):
     r"""Radial distribution function :math:`g(r)` of one group with
-    itself, or between two disjoint groups.
+    itself, or between two disjoint groups, in three dimensions or
+    (``drop_axis``) in the plane of the two other axes.
 
     The box may be orthorhombic or triclinic (then the volume is
     :math:`h_{00} h_{11} h_{22}` of the box matrix), of any size: boxes
-    under 3 cutoffs take generalized cell grids.
+    under 3 cutoffs take generalized cell grids.  A 2-D RDF needs an
+    orthorhombic box; its normalization is the area of the kept axes and
+    the ring areas :math:`\pi \Delta(r^2)`.
 
     Parameters
     ----------
@@ -169,15 +199,21 @@ class RadialDistributionFunction(_CellPlanned):
     n_bins : `int`, default 201
         Number of bins.
     range : `tuple`, default ``(0.0, 15.0)``
-        Histogram range; it must start at 0.
+        Histogram range ``(r_min, r_max)``, ``0 <= r_min < r_max``.
+    drop_axis : `int` or `str`, optional
+        Axis left out of a 2-D analysis (``0``/``"x"``, ``1``/``"y"``,
+        ``2``/``"z"``), e.g. the normal of a film or membrane.
     norm : `str`, default ``"rdf"``
         ``"rdf"``, ``"density"`` or ``None``.
     exclusion : `tuple`, optional
-        Self RDF: ``None`` (identical-atom pairs land in bin 0, as in
-        the reference) or ``(1, 1)`` (they are dropped).  Cross RDF:
-        ``None`` or any ``(e0, e1)`` tile exclusion, which drops pairs
-        with ``i // e0 == j // e1`` on the group-local indices (e.g.
-        cation-anion pairs of one molecule).
+        ``(e0, e1)`` tile exclusion: ordered pairs with ``i // e0 == j //
+        e1`` on the group-local indices are dropped (e.g. ``(3, 3)`` for
+        the intramolecular pairs of a 3-site water model).  Self RDF:
+        ``None`` keeps the identical-atom pairs (bin 0, as in the
+        reference, when the range starts at 0), ``(1, 1)`` drops them,
+        any other tile, symmetric or not, is served by the self kernel.
+        Cross RDF: any ``(e0, e1)`` (e.g. cation-anion pairs of one
+        molecule).
     capacity_sigmas : `float`, default 4.0
         Cell-capacity headroom in Poisson sigmas; :meth:`run` raises it
         by 2 and re-runs after a capacity overflow (twice at most).
@@ -187,39 +223,43 @@ class RadialDistributionFunction(_CellPlanned):
     """
 
     def __init__(self, ag1, ag2=None, n_bins: int = 201,
-                 range: tuple = (0.0, 15.0), *, norm: str = "rdf",
-                 exclusion: tuple = None, capacity_sigmas: float = 4.0,
-                 verbose: bool = True, device=None):
+                 range: tuple = (0.0, 15.0), *, drop_axis=None,
+                 norm: str = "rdf", exclusion: tuple = None,
+                 capacity_sigmas: float = 4.0, verbose: bool = True,
+                 device=None):
         self._cross = ag2 is not None and ag2 != ag1
         self.ag1 = ag1
         self.ag2 = ag2 if self._cross else ag1
         self.universe = ag1.universe
         super().__init__(self.universe.trajectory, verbose, device=device)
         self._require_box("RadialDistributionFunction")
-        if range[0] != 0:
-            raise NotImplementedError(
-                "RDF ranges starting above 0 are not ported yet."
-            )
-        self._range = tuple(range)
+        self._range = _check_range(range)
+        self._drop_axis = (ord(drop_axis) - ord("x")
+                           if isinstance(drop_axis, str) else drop_axis)
+        if self._drop_axis not in {0, 1, 2, None}:
+            raise ValueError("Invalid axis to drop.")
         self._setup_periodic_box()
+        if self._drop_axis is not None:
+            if self._triclinic:
+                raise ValueError("drop_axis (2-D analysis) requires an "
+                                 "orthorhombic box.")
+            self._axes = tuple(a for a in (0, 1, 2) if a != self._drop_axis)
+        self._exclusion = (
+            None if exclusion is None
+            else tuple(int(e) for e in exclusion)
+        )
         if self._cross:
             if np.intersect1d(ag1.ix, ag2.ix).size:
                 raise NotImplementedError(
                     "Cross RDFs of overlapping groups are not ported yet "
                     "(the cross kernel applies no identical-atom mask)."
                 )
-            self._exclusion = (
-                None if exclusion is None
-                else tuple(int(e) for e in exclusion)
-            )
             self._atom_indices = np.concatenate((ag1.ix, ag2.ix))
         else:
-            if exclusion is not None and tuple(exclusion) != (1, 1):
-                raise NotImplementedError(
-                    "Self-RDF tile exclusions other than (1, 1) are not "
-                    "ported yet."
-                )
-            self._exclusion = None if exclusion is None else (1, 1)
+            if (self._exclusion is not None
+                    and self._exclusion[0] != self._exclusion[1]):
+                # The second tile ids widen the self kernel's slots.
+                self._slot_bytes = _ASYM_SLOT_BYTES
             self._atom_indices = np.asarray(ag1.ix)
         self._n_bins = n_bins
         self._norm = norm
@@ -244,31 +284,35 @@ class RadialDistributionFunction(_CellPlanned):
             ),
         }
         plan = self._searched_cell_plan()
-        r_max = float(self._range[1])
+        r_min, r_max = self._range
         n_bins = self._n_bins
         n1 = self._n1
         cross = self._cross
         exclusion = self._exclusion
         triclinic = self._triclinic
+        drop_axis = self._drop_axis
         self_sweep, cross_sweep = (
             (triclinic_cell_pair_histogram, triclinic_cross_pair_histogram)
             if triclinic else (cell_pair_histogram, cross_pair_histogram)
         )
         # exclusion=None (the reference default) of a self RDF: the
         # kernel drops identical-atom pairs, whose distance is exactly
-        # 0, so they are added back into bin 0.
-        self_pairs = n1 if not cross and exclusion is None else 0
+        # 0, so they are added back into bin 0 -- unless the range
+        # starts above 0, which leaves them out.
+        self_pairs = (n1 if not cross and exclusion is None and r_min == 0.0
+                      else 0)
+        grid = dict(r_max=r_max, r_min=r_min, n_cells_dim=plan["n_cells_dim"],
+                    reach=plan["reach"], n_bins=n_bins)
+        if self._axes is not None:
+            grid["axes"] = self._axes
 
         def sweep(positions, box):
             """(counts, occupancy excess over capacity) per frame."""
 
-            grid = dict(box=box, r_max=r_max,
-                        n_cells_dim=plan["n_cells_dim"],
-                        reach=plan["reach"], n_bins=n_bins)
             if cross:
                 # The stream holds group 1's columns, then group 2's.
                 counts, occ1, occ2 = cross_sweep(
-                    positions[:, :n1], positions[:, n1:],
+                    positions[:, :n1], positions[:, n1:], box=box,
                     capacity1=plan["capacity"],
                     capacity2=plan["capacity2"], exclusion=exclusion,
                     **grid,
@@ -277,14 +321,16 @@ class RadialDistributionFunction(_CellPlanned):
                     occ1 - plan["capacity"], occ2 - plan["capacity2"]
                 )
             counts, occ = self_sweep(
-                positions, capacity=plan["capacity"], **grid
+                positions, box=box, capacity=plan["capacity"],
+                exclusion=exclusion, **grid
             )
             if self_pairs:
                 counts[:, 0] += self_pairs
             return counts, occ - plan["capacity"]
 
         def update(carry, positions, dimensions, mask):
-            box, frame_volume = _frame_boxes(dimensions, triclinic)
+            box, frame_volume = _frame_boxes(dimensions, triclinic,
+                                             drop_axis)
             counts, excess = sweep(positions, box)
             valid = mask > 0
             # > 0 is an overflow.
@@ -311,7 +357,11 @@ class RadialDistributionFunction(_CellPlanned):
         self._area_or_volume = float(self._carry["volume"])
         norm = self.n_frames
         if self._norm is not None:
-            norm = norm * (4 * np.pi * np.diff(self.results.edges**3) / 3)
+            edges = self.results.edges
+            if self._drop_axis is None:
+                norm = norm * (4 * np.pi * np.diff(edges**3) / 3)
+            else:
+                norm = norm * np.pi * np.diff(edges**2)
             if self._norm == "rdf":
                 n2 = self._n2
                 if self._exclusion:
@@ -575,7 +625,7 @@ class VanHoveFunction(_CellPlanned):
     n_bins : `int`, default 201
         Number of radial bins.
     range : `tuple`, default ``(0.0, 15.0)``
-        Radii range; it must start at 0.
+        Radii range ``(r_min, r_max)``, ``0 <= r_min < r_max``.
     grouping : `str`, default ``"atoms"``
         Only ``"atoms"`` is ported.
     dt : `float`, optional
@@ -610,12 +660,8 @@ class VanHoveFunction(_CellPlanned):
         if grouping != "atoms":
             raise NotImplementedError("Only grouping='atoms' is ported.")
         self._require_box("VanHoveFunction")
-        if range[0] != 0:
-            raise NotImplementedError(
-                "Van Hove ranges starting above 0 are not ported yet."
-            )
         self._n_bins = int(n_bins)
-        self._range = tuple(range)
+        self._range = _check_range(range)
         self._setup_periodic_box()
         self._self_part = bool(self_part)
         self._distinct_part = bool(distinct_part)
@@ -674,7 +720,7 @@ class VanHoveFunction(_CellPlanned):
                 (), _NO_EXCESS, dtype=torch.int32, device=device
             )
             cell = dict(
-                r_max=float(self._range[1]),
+                r_min=self._range[0], r_max=self._range[1],
                 n_cells_dim=plan["n_cells_dim"], reach=plan["reach"],
                 capacity1=plan["capacity"], capacity2=plan["capacity"],
                 n_bins=self._n_bins, exclusion=(1, 1),

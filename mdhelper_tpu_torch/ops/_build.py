@@ -48,28 +48,37 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
+#: the binning arguments every entry point ends with, before the stream:
+#: the fast flag, the offset flag and the convention's 8 constants.
+_BINS = (_I, _I) + (_F,) * 8
+
+#: the self entry points' tile-exclusion arguments: the tile flag, the
+#: asymmetric flag and the second-id side table.
+_TILES = (_I, _I, _P)
+
 #: C entry points and their argument types.
 _SIGNATURES = {
     "cell_pair_histogram_launch": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *_TILES, *_BINS, _P,
     ),
     "tri_pp_cell_pair_histogram_launch": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, *_TILES, *_BINS, _P,
     ),
     "tri_pp_cross_pair_histogram_launch": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-        _F, _F, _F, _P,
+        *_BINS, _P,
     ),
     "cross_pair_histogram_launch": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-        _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        *_BINS, _P,
     ),
     "triclinic_cell_pair_histogram_launch": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, *_TILES, *_BINS,
+        _P,
     ),
     "triclinic_cross_pair_histogram_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-        _F, _F, _F, _P,
+        *_BINS, _P,
     ),
 }
 

@@ -94,19 +94,23 @@ def _row_times(v, m):
     return torch.stack(cols, dim=-1)
 
 
-def _exact_d2_orthorhombic(p1, p2, box):
+def _exact_d2_orthorhombic(p1, p2, box, n_axes=3):
     """Squared minimum-image distances in double-float.  Assumes
     wrapped inputs (image multiple in {-1, 0, 1}, so ``m * box`` is
     exact).  ``p1``/``p2`` are broadcast-compatible ``(..., 3)`` float32
-    tensors; ``box`` is a float32 ``(3,)`` tensor."""
+    tensors; ``box`` is a float32 ``(3,)`` tensor.  With ``n_axes=2``
+    only the first two components are summed, by one ``df_add`` (the
+    JAX package's 2-D ``_bin_exact``)."""
 
     components = []
-    for k in range(3):
+    for k in range(n_axes):
         s, e = two_diff(p1[..., k], p2[..., k])
         # torch.round rounds half to even, like jnp.round.
         m = torch.round(s / box[k])
         d = df_sub((s, e), (m * box[k], torch.zeros_like(s)))
         components.append(df_square(d))
+    if n_axes == 2:
+        return df_add(*components)
     return df_sum3(*components)
 
 

@@ -17,6 +17,7 @@ __all__ = [
     "edge_straddle_triclinic_positions",
     "f64_pair_histogram",
     "f64_cross_histogram",
+    "f64_histogram",
     "f64_triclinic_distances",
     "f64_triclinic_pair_histogram",
 ]
@@ -123,6 +124,32 @@ def f64_pair_histogram(pos, box, r_max, n_bins):
     dist = np.sqrt((d**2).sum(-1))
     dist[np.arange(len(pos)), np.arange(len(pos))] = np.inf
     return np.histogram(dist, bins=n_bins, range=(0.0, r_max))[0]
+
+
+def f64_histogram(pos1, pos2, lengths, edges, *, axes=(0, 1, 2),
+                  exclusion=None):
+    """float64 histogram (``numpy.histogram`` on the float64 `edges`: bin
+    k is ``[e_k, e_{k+1})``, the last bin closed) of the minimum-image
+    distances of every pair (i of ``pos1``, j of ``pos2``; float32
+    arrays) over the coordinate columns `axes` of an orthorhombic box of
+    `lengths` ``(3,)`` -- two columns for a 2-D histogram.
+    ``exclusion=(e0, e1)`` drops pairs with ``i // e0 == j // e1``
+    (``(1, 1)`` with ``pos2`` equal to ``pos1`` drops the identical
+    pairs; an asymmetric tile keeps those with ``i // e0 != i // e1``, at
+    distance 0)."""
+
+    cols = list(axes)
+    lengths = np.asarray(lengths, np.float64)[cols]
+    d = (pos1.astype(np.float64)[:, None, cols]
+         - pos2.astype(np.float64)[None, :, cols])
+    d -= lengths * np.round(d / lengths)
+    dist = np.sqrt((d**2).sum(-1))
+    if exclusion is not None:
+        e0, e1 = exclusion
+        same = (np.arange(len(pos1))[:, None] // e0
+                == np.arange(len(pos2))[None, :] // e1)
+        dist[same] = np.inf
+    return np.histogram(dist, bins=np.asarray(edges, np.float64))[0]
 
 
 def f64_cross_histogram(pos1, pos2, box, r_max, n_bins, exclusion=None):

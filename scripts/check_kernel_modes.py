@@ -1,0 +1,262 @@
+"""Hold every mode of the cell-list kernels against its plain version.
+
+Usage::
+
+    python scripts/check_kernel_modes.py [--device cpu|cuda] [--seed N]
+
+Every entry point of ``mdhelper_tpu_torch/csrc``, in every binning policy
+(bins from 0 or from r_min, exact or fast), sweep (half shell, ordered,
+2-D, per-block triclinic, tri_pp) and exclusion (none, symmetric and
+asymmetric tiles, cross ids), is compared with its plain-torch version as
+integers on small random inputs and on the bin-edge straddle fixtures;
+one line a case, and a non-zero exit when any differs.
+
+``--device cuda`` runs the kernels on the card (the nvcc build).  The
+default, ``--device cpu``, runs the same CUDA sources on the CPU: they are
+compiled with the host C++ compiler (``g++ -std=c++17 -O2
+-ffp-contract=off``) against a small stand-in for the CUDA runtime
+written out below -- the CUDA keywords vanish, the round-to-nearest
+intrinsics become plain float operations (IEEE single precision, no
+contraction), and a launch runs every block of the grid in turn with one
+thread (``blockDim.x == 1``), so each block's strided loops cover all of
+its work and ``__syncthreads`` has nothing to wait for -- and the
+wrappers of ``ops/cuda_cell_histogram.py`` launch that library on CPU
+tensors.  A rehearsal of the arithmetic without a card: whether nvcc
+accepts the sources, and the card's results, come from a run on the GPU.
+"""
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from mdhelper_tpu_torch.algorithm.topology import (  # noqa: E402
+    triclinic_matrices,
+)
+from mdhelper_tpu_torch.ops import _build  # noqa: E402
+from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch  # noqa: E402
+from mdhelper_tpu_torch.testing import (  # noqa: E402
+    edge_straddle_positions,
+    edge_straddle_triclinic_positions,
+)
+
+#: the stand-in for cuda_runtime.h.
+RUNTIME = r"""
+#pragma once
+#include <algorithm>
+#include <cmath>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(x)
+struct float4 { float x, y, z, w; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct emu_index { unsigned x, y, z; };
+inline emu_index threadIdx{0, 0, 0}, blockIdx{0, 0, 0};
+inline dim3 blockDim{1, 1, 1};
+typedef int cudaError_t;
+const int cudaSuccess = 0;
+typedef void* cudaStream_t;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class T> int cudaFuncSetAttribute(T, cudaFuncAttribute, int) {
+  return 0;
+}
+inline int cudaGetLastError() { return 0; }
+inline void __syncthreads() {}
+template <class T> T atomicAdd(T* p, T v) { T o = *p; *p += v; return o; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+using std::min;
+inline std::vector<unsigned char> emu_shared;
+template <class F> void emu_launch(dim3 grid, size_t smem, F&& body) {
+  emu_shared.assign(smem, 0);
+  for (unsigned y = 0; y < grid.y; ++y)
+    for (unsigned x = 0; x < grid.x; ++x) {
+      blockIdx = {x, y, 0};
+      body();
+    }
+}
+"""
+
+#: a kernel launch ``name<...><<<grid, threads, smem, stream>>>(args);``.
+_LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)\s*<<<\s*([^,]+),[^,]+,\s*"
+                     r"([^,]+),.*?>>>\s*\((.*?)\);", re.S)
+
+
+def _translate(text):
+    """A CUDA source as host C++: the shared array becomes the emulated
+    block's buffer, each launch a call of the kernel for every block."""
+
+    text = text.replace("extern __shared__ unsigned char smem[];",
+                        "unsigned char* smem = emu_shared.data();")
+    return _LAUNCH.sub(
+        lambda m: (f"emu_launch({m.group(2)}, {m.group(3)}, [&]() "
+                   f"{{ {m.group(1)}({m.group(4)}); }});"),
+        text,
+    )
+
+
+def build(out_dir):
+    """Compile and link csrc/*.cu for the host; returns the ctypes
+    library with the entry points' argument types."""
+
+    out_dir = Path(out_dir)
+    (out_dir / "cuda_runtime.h").write_text(RUNTIME)
+    sources = []
+    for path in sorted((ROOT / "mdhelper_tpu_torch" / "csrc").iterdir()):
+        target = out_dir / (path.stem + (".cpp" if path.suffix == ".cu"
+                                         else path.suffix))
+        target.write_text(_translate(path.read_text()))
+        if path.suffix == ".cu":
+            sources.append(str(target))
+    lib_path = out_dir / "libemulated.so"
+    subprocess.run(
+        ["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
+         "-I", str(out_dir), "-o", str(lib_path), *sources],
+        check=True,
+    )
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _build._SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _emulated_launch(lib):
+    def launch(entry, device, *args):
+        del device
+        # `args` keeps the tensors made for the call alive through it.
+        values = [a.data_ptr() if isinstance(a, torch.Tensor)
+                  else float(a) if isinstance(a, np.floating) else a
+                  for a in args]
+        _build.check(getattr(lib, entry)(*values, None), entry)
+    return launch
+
+
+def cases(rng, device):
+    """(name, kernel function, plain function, positional arguments,
+    keyword arguments) of every mode, the positions on `device`."""
+
+    def tensor(array):
+        return torch.from_numpy(array.astype(np.float32)).to(device)
+
+    cube = 16.0
+    pos = tensor(rng.random((2, 400, 3)) * cube)
+    straddle = tensor(edge_straddle_positions(rng, cube))[None]
+    h = triclinic_matrices(np.array([18.0] * 3 + [60.0, 60.0, 90.0]))
+    h32 = h.astype(np.float32)
+    tri = tensor((0.02 + 0.96 * rng.random((2, 400, 3))) @ h)
+    tri_straddle = tensor(edge_straddle_triclinic_positions(rng, h32))[None]
+    slab = tensor(rng.random((2, 500, 3)) * np.float32([20.0, 20.0, 4.0]))
+    out = []
+    for precision in ("exact", "fast"):
+        for r_min in (0.0, 1.25):
+            binning = dict(precision=precision, r_min=r_min, n_bins=19)
+            tag = f"{precision}, r_min {r_min}"
+            for ex in (None, (3, 3), (2, 3)):
+                for grid, p in (((3, 3, 3), pos), ((5, 5, 5), pos),
+                                ((1, 2, 6), pos), ((3, 3, 3), straddle)):
+                    plan = cch.grid_plan(p.shape[1], (cube,) * 3, 5.0, grid)
+                    out.append((f"self {grid} {ex} {tag}", "_self_kernel",
+                                "_self_reference", (p, (cube,) * 3, 5.0,
+                                grid, plan["capacity"]),
+                                dict(triclinic=False, reach=plan["reach"],
+                                     exclusion=ex, **binning)))
+                for grid, p in (((3, 3, 3), tri), ((1, 2, 4), tri),
+                                ((3, 3, 3), tri_straddle)):
+                    plan = cch.grid_plan(p.shape[1],
+                                         cch.triclinic_perpendicular_widths(
+                                             h32), 4.0, grid)
+                    out.append((f"triclinic self {grid} {ex} {tag}",
+                                "_self_kernel", "_self_reference",
+                                (p, h32, 4.0, grid, plan["capacity"]),
+                                dict(triclinic=True, reach=plan["reach"],
+                                     exclusion=ex, **binning)))
+                for grid in ((4, 4), (2, 5)):
+                    plan = cch.grid_plan(500, (20.0, 20.0), 5.0, grid)
+                    out.append((f"2-D self {grid} {ex} {tag}",
+                                "_self_kernel", "_self_reference",
+                                (slab, (20.0, 20.0, 4.0), 5.0, grid,
+                                 plan["capacity"]),
+                                dict(triclinic=False, reach=plan["reach"],
+                                     exclusion=ex, axes=(0, 1),
+                                     **binning)))
+            for ex in (None, (2, 3)):
+                for grid, (a, b), box, r, kw in (
+                    ((3, 3, 3), (pos[:, :200], pos[:, 200:]), (cube,) * 3,
+                     5.0, {}),
+                    ((2, 5, 6), (pos[:, :200], pos[:, 200:]), (cube,) * 3,
+                     5.0, {}),
+                    ((3, 3, 3), (tri[:, :200], tri[:, 200:]), h32, 4.0,
+                     dict(triclinic=True)),
+                    ((1, 2, 4), (tri[:, :200], tri[:, 200:]), h32, 4.0,
+                     dict(triclinic=True)),
+                    ((4, 4), (slab[:, :250], slab[:, 250:]),
+                     (20.0, 20.0, 4.0), 5.0, dict(axes=(0, 1))),
+                ):
+                    extents = (cch.triclinic_perpendicular_widths(h32)
+                               if kw.get("triclinic") else
+                               np.asarray(box, float)[:len(grid)])
+                    plan = cch.grid_plan(a.shape[1], extents, r, grid,
+                                         n_atoms2=b.shape[1])
+                    out.append((f"cross {grid} {ex} {kw} {tag}",
+                                "_cross_kernel", "_cross_reference",
+                                (a.contiguous(), b.contiguous(), box, r,
+                                 grid, plan["capacity"], plan["capacity2"]),
+                                dict(exclusion=ex, reach=plan["reach"],
+                                     triclinic=kw.get("triclinic", False),
+                                     axes=kw.get("axes"), **binning)))
+    return out
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    parser.add_argument("--seed", type=int, default=7)
+    args = parser.parse_args()
+    torch.set_num_threads(1)
+    with tempfile.TemporaryDirectory() as tmp:
+        if args.device == "cpu":
+            cch._launch = _emulated_launch(build(tmp))
+        failed = 0
+        for name, kernel, plain, pos_args, kwargs in cases(
+                np.random.default_rng(args.seed), args.device):
+            n_bins = kwargs.pop("n_bins")
+            if kernel == "_self_kernel":
+                call = pos_args[:5] + (n_bins,)
+            else:
+                call = pos_args[:7] + (n_bins,)
+            k = getattr(cch, kernel)(*call, **kwargs)
+            p = getattr(cch, plain)(*call, **kwargs)
+            same = all(torch.equal(x, y) for x, y in zip(k, p))
+            failed += not same
+            print(f"{'ok  ' if same else 'FAIL'} {name}: "
+                  f"{int(p[0].sum())} pairs")
+    if args.device == "cuda":
+        info = _build.build_info()
+        print(f"nvcc build {info['seconds']:.1f} s: {info['path']}")
+    print(f"{failed} failed")
+    sys.exit(1 if failed else 0)
+
+
+if __name__ == "__main__":
+    main()

@@ -578,3 +578,124 @@ def test_small_box_paths_on_the_card_equal_cpu(cuda_device):
                             cross.results.counts))
         for cpu, card in zip(*results):
             np.testing.assert_array_equal(cpu, card)
+
+
+# -- slice 5: offset bins, 2-D grids, self tiles, fast binning -----------------
+
+#: (geometry, grid, (r_min, r_max, n_bins), exclusion, precision, cross,
+#: the option counter the launch adds to): every new mode on the card.
+MODE_CASES = {
+    "tiles_33_half": ("cube", (3, 3, 3), (0.0, 4.0, 32), (3, 3), "exact",
+                      False, "tiles"),
+    "asym_23_half": ("cube", (3, 3, 3), (0.0, 4.0, 32), (2, 3), "exact",
+                     False, "asym"),
+    "asym_32_ordered": ("cube", (1, 2, 6), (0.0, 6.0, 24), (3, 2), "exact",
+                        False, "asym"),
+    "offset_self": ("cube", (3, 3, 3), (1.25, 4.0, 22), None, "exact",
+                    False, "offset"),
+    "offset_cross": ("cube", (2, 5, 6), (0.5, 1.25, 12), (2, 3), "exact",
+                     True, "offset"),
+    "axes2_self": ("slab", (4, 4), (0.0, 4.0, 16), (3, 3), "exact", False,
+                   "2d"),
+    "axes2_cross": ("slab", (5, 5), (0.5, 1.25, 12), None, "exact", True,
+                    "2d"),
+    "fast_self": ("cube", (5, 5, 5), (1.25, 6.0, 19), None, "fast", False,
+                  "fast"),
+    "tri_block_asym": ("tri", (3, 3, 3), (1.25, 4.0, 11), (2, 3), "exact",
+                       False, "asym"),
+    "tri_block_fast": ("tri", (3, 3, 3), (0.0, 4.0, 16), None, "fast", True,
+                       "fast"),
+    "tri_pp_tiles_fast": ("tri", (1, 2, 4), (0.5, 1.25, 12), (3, 3), "fast",
+                          False, "fast"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(MODE_CASES))
+def test_new_modes_kernel_equals_reference(cuda_device, case):
+    """Each new mode's kernel equals its plain version as integers on the
+    straddle fixtures (a 2-D grid's with redrawn dropped coordinates),
+    and its launch adds one to the option's counter."""
+
+    from mdhelper_tpu_torch.algorithm.topology import triclinic_matrices
+    from mdhelper_tpu_torch.testing import edge_straddle_triclinic_positions
+
+    geometry, grid, (r_min, r_max, n_bins), ex, precision, cross, option = (
+        MODE_CASES[case])
+    rng = np.random.default_rng(99)
+    tri = geometry == "tri"
+    if tri:
+        box = triclinic_matrices(TRICLINIC["dodeca"]).astype(np.float32)
+        pos = edge_straddle_triclinic_positions(rng, box)
+        extents = cch.triclinic_perpendicular_widths(box).astype(float)
+    else:
+        pos = edge_straddle_positions(rng, BOX)
+        box = np.float32([BOX, BOX, 4.0 if geometry == "slab" else BOX])
+        pos[:, 2] = (rng.random(len(pos)) * box[2]).astype(np.float32)
+        extents = box.astype(float)[:len(grid)]
+    groups = (pos[:300], pos[300:]) if cross else (pos,)
+    plan = cch.grid_plan(len(groups[0]), extents, r_max, grid,
+                         n_atoms2=len(groups[-1]) if cross else None)
+    args = dict(box=box, r_max=r_max, r_min=r_min, n_cells_dim=grid,
+                reach=plan["reach"], n_bins=n_bins, exclusion=ex,
+                precision=precision)
+    if len(grid) == 2:
+        args["axes"] = (0, 1)
+    frames = [torch.from_numpy(g).to(cuda_device)[None] for g in groups]
+    if cross:
+        kernel_fn = (cch.triclinic_cross_pair_histogram if tri
+                     else cch.cross_pair_histogram)
+        plain_fn = (cch.triclinic_cross_pair_histogram_reference if tri
+                    else cch.cross_pair_histogram_reference)
+        args.update(capacity1=plan["capacity"], capacity2=plan["capacity2"])
+    else:
+        kernel_fn = (cch.triclinic_cell_pair_histogram if tri
+                     else cch.cell_pair_histogram)
+        plain_fn = (cch.triclinic_cell_pair_histogram_reference if tri
+                    else cch.cell_pair_histogram_reference)
+        args["capacity"] = plan["capacity"]
+    before = kernel_fn.option_launches[option]
+    kernel = kernel_fn(*frames, **args)
+    torch.cuda.synchronize()
+    assert kernel_fn.option_launches[option] == before + 1
+    plain = plain_fn(*frames, **args)
+    for k, p in zip(kernel, plain):
+        torch.testing.assert_close(k, p, rtol=0, atol=0)
+    assert kernel[0].sum() > 0
+
+
+@pytest.mark.cuda
+def test_new_options_on_the_card_equal_cpu(cuda_device):
+    """The RDF with an asymmetric tile, an offset range and a 2-D grid,
+    and the Van Hove function on an offset range, give the same counts
+    on the card as on the CPU (plain versions)."""
+
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+        VanHoveFunction,
+    )
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    rng = np.random.default_rng(13)
+    traj = (rng.random((4, 1200, 3))
+            * np.float32([BOX, BOX, 6.0])).astype(np.float32)
+    u = Universe.from_arrays(traj, np.array([BOX, BOX, 6.0]))
+    results = []
+    for device in ("cpu", cuda_device):
+        kw = dict(n_bins=32, verbose=False, device=device)
+        runs = [
+            RadialDistributionFunction(u.atoms, range=(0.0, 4.0),
+                                       exclusion=(2, 3), **kw),
+            RadialDistributionFunction(u.atoms[0::2], u.atoms[1::2],
+                                       range=(1.0, 4.0), drop_axis="z",
+                                       **kw),
+            RadialDistributionFunction(u.atoms, range=(0.5, 3.0),
+                                       exclusion=(3, 3), **kw),
+        ]
+        counts = [r.run().results.counts for r in runs]
+        vh = VanHoveFunction(u.atoms, range=(1.0, 4.0), lags="log",
+                             **kw).run()
+        results.append(counts + [vh.results.counts_self,
+                                 vh.results.counts_distinct])
+    for cpu, card in zip(*results):
+        np.testing.assert_array_equal(cpu, card)
