@@ -29,13 +29,23 @@ per-block and reach-1 ones at 100k atoms; and seven paths at the
 classes' defaults (self and cross RDF and Van Hove in a 50k-atom cube
 of 39.685 A, the ordered self RDF of 5,000 atoms, and in rhombic
 dodecahedra the tri_pp self and cross RDF of 50k atoms and Van Hove of
-5,000), launch counts read by sweep mode.  Every check raises on failure,
-so any failed phase exits non-zero.  The last lines of standard output
-are the card's name and power limit, a JSON line of per-kernel
-measurements (each beside its bound: the larger of the float32
-operations of the pairs binned over the card's float32 peak and the
-bytes of the slot tables and counts over its memory rate), and
-``{"ok": true, "device": {...}}``.
+5,000), launch counts read by sweep mode.  Then slice 6: the trig-sums
+kernel against its plain version and a float64 oracle at the direct
+path's width (2 frames of 100k atoms x the 24^3 grid's 13,824 float64
+wavevectors, fast and exact, and with 0/1 weights on the tiles' tails),
+the direct S(q) path (run() at 100k atoms, 8 + 32 frames, against the
+factor method), the split of the grid and 4 x 8 surface points under
+method="auto", the partial rows of the even and odd atoms and the fast
+phases (8 + 8 frames each), and the brute-force pair histogram through
+its op at 100k atoms (exclusions (1, 1), None and (4, 4), and the
+straddle fixture) against its plain version and the fast self cell
+kernel.  Every check raises on failure, so any failed phase exits
+non-zero.  The last lines of standard output are the card's name and
+power limit, a JSON line of per-kernel measurements (each beside its
+bound: the larger of the float32 operations of the pairs binned, or of
+the trig terms summed, over the card's float32 peak and the bytes read
+and written once over its memory rate), and ``{"ok": true, "device":
+{...}}``.
 
 Imports neither JAX nor the JAX package.
 """
@@ -2169,6 +2179,350 @@ def phase_fast_op_path(device, rng):
     return out
 
 
+# Slice 6: the direct S(q) method (bench.py's sq class phase with
+# MDTPU_BENCH_SQ=direct: 100k atoms, the 24^3 grid, exact, 8 + 32 frames)
+# through the trig-sums kernel, and the brute-force pair histogram.  The
+# short paths (the split of a grid with 4 x 8 surface points, the partial
+# rows, fast phases) run 8 + 8 frames.
+SQ_SHORT_FRAMES = 8 + 8
+SURFACES, SURFACE_POINTS = 4, 8
+ORACLE_QS = 512
+#: float instructions of sincosf's path for arguments under 105615 in the
+#: SASS of sm_90a (scripts/sincos_sass.py).
+SINCOSF_OPS = 20
+
+
+def trig_ops(precision, lo, weights):
+    """float32 operations of one (wavevector, atom) term of the trig-sums
+    kernel (counted in csrc/trig_sums.cu): exact 94, with 6 more for the
+    low words of float64 wavevectors; fast 9; 2 more with weights; plus
+    sincosf."""
+
+    base = 94 + 6 * int(lo) if precision == "exact" else 9
+    return base + 2 * int(weights) + SINCOSF_OPS
+
+
+def trig_bound(n_frames, n_atoms, n_q, precision, lo, weights):
+    """``bound_ms`` and ``bound_by`` a frame of one trig-sums launch over
+    `n_frames` frames: the terms' operations over the float32 peak against
+    the positions, wavevectors, weights and sums read or written once over
+    the memory rate."""
+
+    terms = n_atoms * n_q
+    ops_ms = terms * trig_ops(precision, lo, weights) / PEAK_F32 * 1e3
+    n_bytes = (12 * n_frames * n_atoms + 12 * n_q * (1 + int(lo))
+               + 4 * n_atoms * int(weights) + 8 * n_frames * n_q)
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3 / n_frames
+    return {
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+        "terms_per_frame": terms,
+    }
+
+
+def phase_trig_kernels(device, rng):
+    """The trig-sums kernel against its plain version at the direct path's
+    width: 2 frames of 100k atoms in one launch, the 24^3 grid as float64
+    wavevectors (split hi + lo), fast and exact; then with 0/1 weights on
+    99,999 atoms and 13,823 wavevectors (the tiles' tails).  Each result,
+    kernel and plain, is held against a float64 oracle on the card on a
+    512-wavevector subset within the tolerances of tests/test_pallas.py
+    (1e-4 of the mean amplitude fast, 1e-6 exact), and the kernel against
+    the plain version on every wavevector within the same; a second launch
+    gives the same bits."""
+
+    import torch
+
+    from mdhelper_tpu_torch.analysis.structure import _wavevector_grid
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    frames, _ = uniform_frames(rng, device, 2, N_ATOMS, cube(N_ATOMS))
+    qs = torch.from_numpy(_wavevector_grid([BOX] * 3, N_QPTS)).to(device)
+    pick = torch.from_numpy(np.sort(np.random.default_rng(SEED).choice(
+        len(qs), ORACLE_QS, replace=False))).to(device)
+    timing = {}
+    cases = [(p, frames, qs, None) for p in ("exact", "fast")]
+    weights = torch.from_numpy(
+        (rng.random(N_ATOMS - 1) < 0.7).astype(np.float32)).to(device)
+    cases += [(p, frames[:, :-1].contiguous(), qs[:-1], weights)
+              for p in ("exact", "fast")]
+    for precision, pos, q, w in cases:
+        what = (f"trig sums {precision}, {pos.shape[0]} x {pos.shape[1]} "
+                f"atoms x {len(q)} float64 wavevectors"
+                + (", 0/1 weights" if w is not None else ""))
+        kernel = lambda: ck.trig_sums(q, pos, w, precision=precision)  # noqa: E731
+        plain = lambda: ck.trig_sums_reference(q, pos, w,  # noqa: E731
+                                               precision=precision)
+        k_out = kernel()
+        again = kernel()
+        p_out, first_plain_ms = timed_call(plain)
+        check(all(torch.equal(a, b) for a, b in zip(k_out, again)),
+              f"{what}: two launches differ")
+        # float64 oracle on the card, on the subset.
+        idx = pick[pick < len(q)]
+        sub = q[idx]
+        w64 = 1.0 if w is None else w.double()
+        oracle = []
+        for f in range(pos.shape[0]):
+            phases = sub @ pos[f].double().T
+            oracle.append(((torch.cos(phases) * w64).sum(-1),
+                           (torch.sin(phases) * w64).sum(-1)))
+            del phases
+        oc = torch.stack([o[0] for o in oracle])
+        osn = torch.stack([o[1] for o in oracle])
+        amp = float(torch.hypot(oc, osn).mean())
+        tol = (1e-6 if precision == "exact" else 1e-4) * amp
+        errs = {}
+        for name, out in (("kernel", k_out), ("plain", p_out)):
+            errs[name] = max(
+                float((out[0][:, idx].double() - oc).abs().max()),
+                float((out[1][:, idx].double() - osn).abs().max()))
+            check(errs[name] <= tol,
+                  f"{what}: {name} off the float64 oracle by "
+                  f"{errs[name]:.3e} > {tol:.3e}")
+        max_abs_err = max(float((k_out[i] - p_out[i]).abs().max())
+                          for i in range(2))
+        check(max_abs_err <= tol,
+              f"{what}: kernel differs from plain by {max_abs_err:.3e}")
+        n_frames = pos.shape[0]
+        kernel_ms = [time_ms(kernel, 3) / n_frames for _ in range(2)]
+        plain_ms = [first_plain_ms / n_frames, time_ms(plain, 1) / n_frames]
+        out = {
+            "mode": precision, "max_abs_err": max_abs_err,
+            "oracle_err": errs, "tolerance": tol,
+            "ms": float(np.mean(kernel_ms)),
+            "plain_ms": float(np.mean(plain_ms)),
+            **trig_bound(pos.shape[0], pos.shape[1], len(q), precision,
+                         lo=precision == "exact", weights=w is not None),
+        }
+        print(f"{what}: max |kernel - float64| {errs['kernel']:.3e}, "
+              f"|plain - float64| {errs['plain']:.3e} (tolerance "
+              f"{tol:.3e}, mean amplitude {amp:.3f}); |kernel - plain| "
+              f"{max_abs_err:.3e}; two launches equal; per frame kernel "
+              f"{out['ms']:.3f} ms (runs {[round(x, 3) for x in kernel_ms]}),"
+              f" plain torch {out['plain_ms']:.3f} ms (runs "
+              f"{[round(x, 3) for x in plain_ms]}); bound "
+              f"{out['bound_ms']:.3f} ms by {out['bound_by']} "
+              f"({100 * out['bound_ms'] / out['ms']:.1f} % of the kernel's "
+              "time)")
+        timing[precision, w is not None] = out
+        del k_out, again, p_out
+
+    # The torch fast formulation (several calls: matmul, cos, sin, sums,
+    # by wavevector tiles as the plain version takes them).
+    q32 = qs.to(torch.float32)
+
+    def torch_fast():
+        for p in frames:
+            for lo in range(0, len(q32), 2048):
+                phases = q32[lo:lo + 2048] @ p.T
+                torch.cos(phases).sum(-1)
+                torch.sin(phases).sum(-1)
+
+    torch_ms = time_ms(torch_fast, 2) / frames.shape[0]
+    print(f"torch fast formulation (several calls: matmul + cos + sin + "
+          f"sum), {N_ATOMS} atoms x {len(qs)} wavevectors: {torch_ms:.3f} "
+          f"ms a frame; the fast kernel {timing['fast', False]['ms']:.3f} "
+          "ms a frame")
+    timing["torch_fast_ms"] = torch_ms
+    return timing
+
+
+def sq_analysis(u, device, **kwargs):
+    """A StructureFactor over `u` with the direct path's settings
+    (overridden by `kwargs`) and CHUNK-frame chunks."""
+
+    from mdhelper_tpu_torch.analysis.structure import StructureFactor
+
+    options = dict(n_points=N_QPTS, sort=False, unique=False,
+                   method="direct", precision="exact", verbose=False,
+                   device=device)
+    options.update(kwargs)
+    groups = options.pop("groups", u.atoms)
+    analysis = StructureFactor(groups, **options)
+    analysis._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
+    return analysis
+
+
+def run_sq_path(analysis, n_frames):
+    """Run one S(q) path with the trig-sums launch count set to 0 just
+    before it; returns (launches, frames/s)."""
+
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    ck.trig_sums.launches = 0
+    fps = run_timed([analysis], n_frames)
+    return ck.trig_sums.launches, fps
+
+
+def check_ssf(ssf, ref, what):
+    """S(q) within the gate (rtol 1e-4, atol 1e-5) of `ref`."""
+
+    check(np.all(np.isfinite(ssf)) and ssf.shape == ref.shape,
+          f"{what}: S(q) shape or values")
+    dev = np.abs(ssf - ref) - 1e-4 * np.abs(ref)
+    check(np.allclose(ssf, ref, rtol=1e-4, atol=1e-5),
+          f"{what}: off the reference by {dev.max():.3e} beyond rtol")
+    return float(np.max(np.abs(ssf - ref) / np.maximum(np.abs(ref), 1e-12)))
+
+
+def phase_direct_sq(device, rng):
+    """The direct S(q) path at 100k atoms: StructureFactor(method="direct",
+    precision="exact") over the 24^3 grid through run() on 8 + 32 frames
+    (one trig-sums launch a chunk), held against method="factor" on the
+    same trajectory; then, on 8 + 8 frames, method="auto" with 4 x 8
+    surface points (split: lattice factorized, extras direct) against the
+    direct method, the partial rows of the even and odd atoms against the
+    total, and the fast phases."""
+
+    traj, u = slice_universe(rng, N_FRAMES)
+    sf = sq_analysis(u, device)
+    launches, fps = run_sq_path(sf, N_FRAMES)
+    n_chunks = -(-N_FRAMES // CHUNK)
+    check(launches == n_chunks,
+          f"{launches} trig-sums launches for {n_chunks} chunks")
+    check(sf._factor is None, "the direct path took the factor route")
+    factor = sq_analysis(u, device, method="factor")
+    factor_launches, factor_fps = run_sq_path(factor, N_FRAMES)
+    check(factor_launches == 0, "the factor method launched the trig sums")
+    rel = check_ssf(sf.results.ssf, factor.results.ssf,
+                    "direct S(q) against method='factor'")
+    print(f"direct S(q): {N_ATOMS} atoms, {N_FRAMES} frames in chunks of "
+          f"{CHUNK}, {len(sf.results.wavenumbers)} wavevectors, "
+          f"{launches} trig-sums launches; max relative deviation from "
+          f"the factor method {rel:.3e} (gate rtol 1e-4, atol 1e-5)")
+    out = {"direct": (launches, fps), "factor_fps": factor_fps}
+
+    _, u = slice_universe(rng, SQ_SHORT_FRAMES)
+    auto = sq_analysis(u, device, method="auto", n_surfaces=SURFACES,
+                       n_surface_points=SURFACE_POINTS)
+    auto_launches, auto_fps = run_sq_path(auto, SQ_SHORT_FRAMES)
+    split = auto._factor_split
+    check(auto._factor is not None and split is not None
+          and len(split["qs_rest"]) == SURFACES * SURFACE_POINTS,
+          "method='auto' did not split the grid and the surface points")
+    check(auto_launches == SQ_SHORT_FRAMES // CHUNK,
+          f"{auto_launches} trig-sums launches on the split path")
+    direct = sq_analysis(u, device, n_surfaces=SURFACES,
+                         n_surface_points=SURFACE_POINTS)
+    direct_launches, direct_fps = run_sq_path(direct, SQ_SHORT_FRAMES)
+    rel_auto = check_ssf(auto.results.ssf, direct.results.ssf,
+                         "split S(q) against the direct method")
+    partial = sq_analysis(u, device, mode="partial",
+                          groups=[u.atoms[0::2], u.atoms[1::2]],
+                          n_surfaces=SURFACES,
+                          n_surface_points=SURFACE_POINTS)
+    partial_launches, partial_fps = run_sq_path(partial, SQ_SHORT_FRAMES)
+    check(partial.results.ssf.shape[0] == 3
+          and partial_launches == 2 * SQ_SHORT_FRAMES // CHUNK,
+          f"partial rows {partial.results.ssf.shape}, {partial_launches} "
+          "launches")
+    rel_partial = check_ssf(partial.results.ssf.sum(axis=0, keepdims=True),
+                            direct.results.ssf,
+                            "partial rows recombined against the total")
+    fast = sq_analysis(u, device, precision="fast", n_surfaces=SURFACES,
+                       n_surface_points=SURFACE_POINTS)
+    fast_launches, fast_fps = run_sq_path(fast, SQ_SHORT_FRAMES)
+    check(fast_launches == SQ_SHORT_FRAMES // CHUNK
+          and np.all(np.isfinite(fast.results.ssf)),
+          f"{fast_launches} launches on the fast path")
+    rel_fast = float(np.max(np.abs(fast.results.ssf - direct.results.ssf)
+                            / direct.results.ssf))
+    n_q = len(direct.results.wavenumbers)
+    print(f"split S(q) (auto, {n_q - SURFACES * SURFACE_POINTS} lattice + "
+          f"{SURFACES * SURFACE_POINTS} surface wavevectors): "
+          f"{auto_launches} launches, max relative deviation from the "
+          f"direct method {rel_auto:.3e}; partial rows of the even and odd "
+          f"atoms: {partial_launches} launches, recombined max relative "
+          f"deviation {rel_partial:.3e}; fast phases: {fast_launches} "
+          f"launches, max relative deviation from exact {rel_fast:.3e} "
+          "(information)")
+    out.update({"auto": (auto_launches, auto_fps),
+                "direct_short": (direct_launches, direct_fps),
+                "partial": (partial_launches, partial_fps),
+                "fast": (fast_launches, fast_fps)})
+    return out
+
+
+def phase_pair_histogram(device, rng):
+    """The brute-force pair histogram through its op at 100k atoms in the
+    50 A cube (r_max 6, 200 bins, 1 frame) with exclusion (1, 1), None and
+    (4, 4), and on the straddle fixture, launch count set to 0 just before
+    and read just after; each result equal to the plain version as
+    integers, (1, 1) also to the self cell kernel's fast counts, and None
+    with exactly N more pairs in bin 0; then kernel and plain timed."""
+
+    import torch
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+    from mdhelper_tpu_torch.testing import edge_straddle_positions
+
+    frames, box = uniform_frames(rng, device, 1, N_ATOMS, cube(N_ATOMS))
+    pos = frames[0]
+    straddle = torch.from_numpy(edge_straddle_positions(rng, 16.0)).to(device)
+    inputs = [(pos, box, R_MAX, N_BINS, ex) for ex in
+              ((1, 1), None, (4, 4))]
+    inputs += [(straddle, (16.0,) * 3, 4.0, 16, ex) for ex in
+               ((1, 1), None, (4, 4))]
+    ck.pair_histogram.launches = 0
+    counts = [ck.pair_histogram(p, b, r, n, exclusion=ex)
+              for p, b, r, n, ex in inputs]
+    torch.cuda.synchronize()
+    launches = ck.pair_histogram.launches
+    check(launches == len(inputs),
+          f"{launches} pair-histogram launches for {len(inputs)} calls")
+    for (p, b, r, n, ex), k in zip(inputs, counts):
+        plain = ck.pair_histogram_reference(p, b, r, n, exclusion=ex)
+        check(torch.equal(k, plain),
+              f"pair histogram {p.shape[0]} atoms, exclusion {ex}: kernel "
+              "!= plain")
+    for lo in (0, 3):
+        p, b, r, n, _ = inputs[lo]
+        plan = cch.cell_plan_search(p.shape[0], [b[0]] * 3, r)
+        cell, _ = cch.cell_pair_histogram(
+            p[None], box=b, r_max=r, n_cells_dim=plan["n_cells_dim"],
+            capacity=plan["capacity"], n_bins=n, precision="fast")
+        check(torch.equal(counts[lo], cell[0].to(torch.int64)),
+              f"pair histogram {p.shape[0]} atoms, (1, 1): != the fast self "
+              "cell kernel")
+        gained = counts[lo + 1] - counts[lo]
+        check(int(gained[0]) == p.shape[0] and int(gained[1:].abs().sum())
+              == 0, "exclusion None: bin 0 did not gain exactly N")
+    print(f"pair histogram: {N_ATOMS} atoms, r_max {R_MAX:g}, {N_BINS} "
+          f"bins, largest bin {int(counts[0].max())}; exclusion (1, 1) == "
+          "plain == the fast self cell kernel as integers; None == plain, "
+          f"bin 0 + {N_ATOMS}; (4, 4) == plain; the same on the straddle "
+          f"fixture; {launches} launches")
+
+    kernel = lambda: ck.pair_histogram(pos, box, R_MAX, N_BINS,  # noqa: E731
+                                       exclusion=(1, 1))
+    plain = lambda: ck.pair_histogram_reference(  # noqa: E731
+        pos, box, R_MAX, N_BINS, exclusion=(1, 1))
+    plain_ms = [timed_call(plain)[1]]
+    kernel_ms = [time_ms(kernel, 3) for _ in range(2)]
+    plain_ms.append(timed_call(plain)[1])
+    pairs = N_ATOMS * (N_ATOMS - 1)
+    ops_ms = pairs * OPS_PER_PAIR["ortho"]["fast"][0] / PEAK_F32 * 1e3
+    bytes_ms = (12 * N_ATOMS + 8 * N_BINS) / PEAK_BYTES * 1e3
+    timing = {
+        "mode": "brute", "max_abs_err": 0.0,
+        "ms": float(np.mean(kernel_ms)), "plain_ms": float(np.mean(plain_ms)),
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None, "pairs_per_frame": pairs,
+    }
+    print(f"pair histogram kernel {timing['ms']:.3f} ms (runs "
+          f"{[round(x, 3) for x in kernel_ms]}), plain torch "
+          f"{timing['plain_ms']:.3f} ms (runs "
+          f"{[round(x, 3) for x in plain_ms]}); {pairs} pairs, bound "
+          f"{timing['bound_ms']:.3f} ms by {timing['bound_by']} "
+          f"({100 * timing['bound_ms'] / timing['ms']:.1f} % of the "
+          "kernel's time)")
+    return launches, timing
+
+
 def main():
     import torch
 
@@ -2228,6 +2582,19 @@ def main():
     film = phase_film_paths(device, mode_rng)
     shape_paths = phase_mode_shape_paths(device, mode_rng)
     fast_paths = phase_fast_op_path(device, mode_rng)
+    # Slice 6 draws from its own generator.
+    sq_rng = np.random.default_rng(SEED + 5)
+    trig_timing = phase_trig_kernels(device, sq_rng)
+    sq = phase_direct_sq(device, sq_rng)
+    for path, what in (("direct", "direct S(q), exact"),
+                       ("auto", "split S(q) (auto, surfaces)"),
+                       ("partial", "partial S(q), direct"),
+                       ("fast", "direct S(q), fast")):
+        print(f"{what}: {sq[path][1]:.3f} frames/s on {card} "
+              "(information, not a claim)")
+    print(f"factor S(q), exact: {sq['factor_fps']:.3f} frames/s on {card} "
+          "(information, not a claim)")
+    hist_launches, hist_timing = phase_pair_histogram(device, sq_rng)
 
     def path_row(shape, timing_plan, path, plain_from=None, plain_shape=None):
         """(launches, shape, timing) of a slice-4 row, whose kernel was
@@ -2405,12 +2772,31 @@ def main():
                      *option_row(f"{text}, even x odd atoms, fast binning "
                                  "(fast op path)", f"fast {geometry} cross",
                                  fast_paths[geometry, "cross"], "fast")))
+    # Slice 6: the two kernels of mdhelper_tpu/ops/pallas_kernels.py.
+    pallas_kernels = "mdhelper_tpu/ops/pallas_kernels.py:{}"
+    trig_src = "mdhelper_tpu_torch/csrc/trig_sums.cu"
+    n_q = N_QPTS**3
+    for precision, path in (("exact", "direct"), ("fast", "fast")):
+        rows.append(("trig_sums", trig_src, pallas_kernels.format(66),
+                     sq[path][0],
+                     f"{N_ATOMS} atoms x {n_q} float64 wavevectors (2 "
+                     "frames a launch), "
+                     f"{precision} (launches: the {precision} direct S(q) "
+                     "path)", trig_timing[precision, False]))
+    rows.append(("pair_histogram",
+                 "mdhelper_tpu_torch/csrc/pair_histogram.cu",
+                 pallas_kernels.format(203), hist_launches,
+                 f"{N_ATOMS} atoms, cube {BOX:.1f} A, r_max {R_MAX:g}, "
+                 f"{N_BINS} bins, exclusion (1, 1) (pair-histogram op path)",
+                 hist_timing))
+    optional = ("pairs_per_frame", "terms_per_frame", "plain_shape",
+                "option", "oracle_err", "tolerance")
     print(card)
     print(json.dumps({"kernels": [{
         "name": kernel,
         "route": "cuda",
         "source": source,
-        "replaces": tpu.format(line),
+        "replaces": line if isinstance(line, str) else tpu.format(line),
         "mode": timing["mode"],
         "shape": shape,
         "launches": n,
@@ -2420,10 +2806,7 @@ def main():
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
-        "pairs_per_frame": timing["pairs_per_frame"],
-        **({"plain_shape": timing["plain_shape"]}
-           if "plain_shape" in timing else {}),
-        **({"option": timing["option"]} if "option" in timing else {}),
+        **{key: timing[key] for key in optional if key in timing},
     } for kernel, source, line, n, shape, timing in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

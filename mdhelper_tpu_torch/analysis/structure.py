@@ -12,8 +12,15 @@ Ported from :mod:`mdhelper_tpu.analysis.structure`:
   (:mod:`mdhelper_tpu_torch.ops.cuda_cell_histogram`): the hand-written
   CUDA kernels on a GPU, their plain-torch versions on the CPU.  This
   cell route is the port's only RDF route.
-* :class:`StructureFactor` over reciprocal-lattice wavevectors through
-  the factorized trig sums (:mod:`mdhelper_tpu_torch.ops.factor_scattering`).
+* :class:`StructureFactor`, total (``mode=None``), ``"pair"`` and
+  ``"partial"``, over the wavevector grid (with optional spherical-surface
+  points), a ``q_max`` subset of it or explicit wavevectors: the direct
+  trig sums (:func:`mdhelper_tpu_torch.ops.cuda_kernels.trig_sums`, the
+  hand-written CUDA kernel on a GPU, its plain-torch version on the CPU),
+  the factorized lattice sums
+  (:mod:`mdhelper_tpu_torch.ops.factor_scattering`), or both for a mixed
+  set (``method="auto"``: the lattice part factorized, the off-grid extras
+  direct).
 * :class:`VanHoveFunction`, the self and distinct parts of
   :math:`G(r, t)` over a ring of past frames: the exact displacement
   histogram for the self part, the cross cell-list kernel for the
@@ -28,16 +35,18 @@ box runs the triclinic kernels: on a reach-1 grid each (cell,
 neighbour) block takes one lattice translation, on a generalized grid
 each pair searches its 27 nearest images (the JAX package's ``tri_pp``
 mode).  Overlapping-group RDFs, COM groupings, the 2-D Van Hove
-function (the JAX package has none) and the direct and mesh S(q)
-methods are not ported yet.
+function (the JAX package has none) and the mesh S(q) method are not
+ported yet.
 """
 
 import warnings
+from itertools import combinations_with_replacement
 
 import numpy as np
 import torch
 
 from ..algorithm.topology import triclinic_matrices
+from ..algorithm.utility import get_closest_factors
 from ..ops.cuda_cell_histogram import (
     _ASYM_SLOT_BYTES,
     _SLOT_BYTES,
@@ -49,6 +58,7 @@ from ..ops.cuda_cell_histogram import (
     triclinic_cross_pair_histogram,
     triclinic_perpendicular_widths,
 )
+from ..ops.cuda_kernels import trig_sums
 from ..ops.factor_scattering import factor_plan, factor_trig_sums
 from ..ops.histogram import _min_image_distance, displacement_histogram_frame
 from .base import SerialAnalysisBase, _check_even_frame_spacing
@@ -372,17 +382,59 @@ class RadialDistributionFunction(_CellPlanned):
         self.results.rdf = self.results.counts / norm
 
 
-def _wavevector_grid(dimensions, n_points: int) -> np.ndarray:
+def _wavevector_grid(dimensions, n_points: int, n_surfaces: int = None,
+                     n_surface_points: int = 8) -> np.ndarray:
     r"""Wavevector grid :math:`2\pi\mathbf{n}/L` in the reference's
-    meshgrid order (spherical-surface extras are not ported)."""
+    meshgrid order, with optional extra spherical-surface points for
+    cubic boxes (the first-octant construction of the JAX package's
+    ``_wavevector_grid``, operation for operation; a non-cubic box warns
+    and ignores `n_surfaces`)."""
 
     dimensions = np.asarray(dimensions, dtype=float)
     if np.allclose(dimensions, dimensions[0]):
         grid = 2 * np.pi * np.arange(n_points) / dimensions[0]
-        axes = (grid, grid, grid)
+        wavevectors = np.stack(
+            np.meshgrid(grid, grid, grid), axis=-1
+        ).reshape(-1, 3)
+        if n_surfaces:
+            n_theta, n_phi = get_closest_factors(
+                n_surface_points, 2, reverse=True
+            )
+            theta = np.linspace(
+                np.pi / (2 * n_theta + 4),
+                np.pi / 2 - np.pi / (2 * n_theta + 4),
+                n_theta,
+            )
+            phi = np.linspace(
+                np.pi / (2 * n_phi + 4),
+                np.pi / 2 - np.pi / (2 * n_phi + 4),
+                n_phi,
+            )
+            directions = np.stack(
+                (
+                    np.sin(theta) * np.cos(phi)[:, None],
+                    np.sin(theta) * np.sin(phi)[:, None],
+                    np.tile(np.cos(theta)[None, :], (n_phi, 1)),
+                ),
+                axis=-1,
+            )
+            surface = np.einsum(
+                "o,tpd->otpd", grid[1:n_surfaces + 1], directions
+            ).reshape(n_surfaces * n_surface_points, 3)
+            wavevectors = np.vstack((wavevectors, surface))
     else:
-        axes = [2 * np.pi * np.arange(n_points) / L for L in dimensions]
-    return np.stack(np.meshgrid(*axes), axis=-1).reshape(-1, 3)
+        if n_surfaces:
+            warnings.warn(
+                "Spherical-surface wavevectors require a cubic box; "
+                "n_surfaces is ignored."
+            )
+        wavevectors = np.stack(
+            np.meshgrid(
+                *[2 * np.pi * np.arange(n_points) / L for L in dimensions]
+            ),
+            axis=-1,
+        ).reshape(-1, 3)
+    return wavevectors
 
 
 def unique_wavenumber_groups(wavenumbers):
@@ -407,7 +459,8 @@ def group_mean_last_axis(values, group, n_unique):
 
 
 class StructureFactor(SerialAnalysisBase):
-    r"""Static structure factor
+    r"""Static structure factor :math:`S(q)` and partial structure
+    factors :math:`S_{\alpha\beta}(q)` from particle positions.
 
     .. math::
 
@@ -415,119 +468,291 @@ class StructureFactor(SerialAnalysisBase):
        \cos(\mathbf{q}\cdot\mathbf{r}_j)\right)^2 + \left(\sum_j
        \sin(\mathbf{q}\cdot\mathbf{r}_j)\right)^2\right\rangle
 
-    over reciprocal-lattice wavevectors, by the factorized trig sums
-    (``method="factor"``, the only method ported).
+    The per-group sums :math:`\sum_j \cos` and :math:`\sum_j \sin` come
+    from the direct trig sums (the CUDA kernel of
+    :func:`mdhelper_tpu_torch.ops.cuda_kernels.trig_sums`, all of a
+    chunk's frames in one launch) or from the factorized lattice sums
+    (:mod:`mdhelper_tpu_torch.ops.factor_scattering`); ``mode="pair"``
+    and ``"partial"`` combine them into the rows :math:`c_j^2 + s_j^2`
+    and :math:`2(c_j c_k + s_j s_k)`.
 
     Parameters
     ----------
     groups : `AtomGroup` or sequence of them
-        Groups that jointly contain every atom of the universe
-        (``mode=None``, the total S(q); partial modes are not ported).
-    n_points : `int`, default 32
-        Wavevector grid points per axis.
+        Group(s) of atoms.  With ``mode=None`` the groups must jointly
+        contain every atom of the universe; with ``mode="pair"`` exactly
+        one or two groups.
+    groupings : `str` or sequence, default ``"atoms"``
+        ``"atoms"``; ``"residues"`` (COM positions) is not ported.
+    mode : `str`, optional
+        ``None`` (total S(q)), ``"pair"`` (the pair of the first and last
+        group) or ``"partial"`` (every pair of groups, with repeats).
+    form : `str`, default ``"exp"``
+        ``"exp"`` or ``"trig"``; both evaluate the same trig sums (as in
+        the JAX package).
     dimensions : array-like, optional
         Box lengths (default: the trajectory's first frame).
+    n_points : `int`, default 32
+        Wavevector grid points per axis.
+    n_surfaces, n_surface_points : `int`
+        Extra spherical-surface wavevectors (cubic boxes): `n_surfaces`
+        shells of `n_surface_points` first-octant directions each.
     q_max : `float`, optional
         Wavenumber cutoff.
     wavevectors : `numpy.ndarray`, optional
-        Explicit lattice wavevectors (overrides the grid).
+        Explicit wavevectors (overrides the grid; any, on the lattice or
+        off it).
     sort, unique : `bool`, default True
         Sort by wavenumber / average equal-magnitude wavevectors.
     precision : `str`, default ``"auto"``
-        ``"exact"`` (double-float phase tables; what ``"auto"`` means
-        for the port's float32 streams) or ``"fast"``.
-    method : `str`, default ``"factor"``
-        Only ``"factor"``.
+        ``"exact"`` (double-float phases; what ``"auto"`` means for the
+        port's float32 streams) or ``"fast"`` (float32 phases).
+    method : `str`, default ``"auto"``
+        ``"direct"``: the trig sums of every wavevector.  ``"factor"``:
+        the factorized sums, which need lattice wavevectors
+        :math:`2\pi\mathbf{n}/L` with non-negative indices.
+        ``"auto"``: the factorized sums when the wavevectors are on the
+        lattice, the direct ones otherwise.  A mixed set (a lattice grid
+        plus off-grid extras such as the surface points) is split under
+        ``"auto"`` and ``"factor"``: at least 64 lattice points go through
+        the factorized sums and the extras through the direct ones.
+        ``"mesh"`` is not ported.
     device : optional
         Device the chunks are folded on (default: the first CUDA
         device, which must exist; ``"cpu"`` for the CPU).
     """
 
     def __init__(self, groups, groupings="atoms", *, mode: str = None,
-                 dimensions=None, n_points: int = 32, q_max=None,
-                 wavevectors=None, sort: bool = True, unique: bool = True,
-                 precision: str = "auto", method: str = "factor",
-                 verbose: bool = True, device=None):
+                 form: str = "exp", dimensions=None, n_points: int = 32,
+                 n_surfaces: int = None, n_surface_points: int = 8,
+                 q_max=None, wavevectors=None, sort: bool = True,
+                 unique: bool = True, precision: str = "auto",
+                 method: str = "auto", verbose: bool = True, device=None):
         self._groups = (
             [groups] if hasattr(groups, "universe") else list(groups)
         )
         self.universe = self._groups[0].universe
         super().__init__(self.universe.trajectory, verbose, device=device)
-        if groupings != "atoms" and set(groupings) != {"atoms"}:
-            raise NotImplementedError("Only groupings='atoms' is ported.")
-        if mode is not None:
-            raise NotImplementedError("Only mode=None is ported.")
-        if method != "factor":
-            raise NotImplementedError("Only method='factor' is ported.")
-        if precision not in {"auto", "fast", "exact"}:
+        self._n_groups = len(self._groups)
+        groupings = (
+            self._n_groups * [groupings] if isinstance(groupings, str)
+            else list(groupings)
+        )
+        if len(groupings) != self._n_groups:
             raise ValueError(
-                "Invalid precision. Valid values: 'auto', 'fast', 'exact'."
+                "The number of grouping values is not equal to the "
+                "number of groups."
             )
-        self._precision = "exact" if precision == "auto" else precision
-        if sum(g.n_atoms for g in self._groups) != (
+        for g in groupings:
+            if g not in {"atoms", "residues"}:
+                raise ValueError(
+                    f"Invalid grouping '{g}'. Valid values: atoms, "
+                    "residues."
+                )
+        if set(groupings) != {"atoms"}:
+            raise NotImplementedError("Only groupings='atoms' is ported.")
+        if form not in {"exp", "trig"}:
+            raise ValueError("Invalid form. Valid values: 'exp', 'trig'.")
+        if method not in {"auto", "direct", "factor", "mesh"}:
+            raise ValueError(
+                "Invalid method. Valid values: 'auto', 'direct', "
+                "'factor', 'mesh'."
+            )
+        if method == "mesh":
+            raise NotImplementedError("method='mesh' is not ported.")
+        self._method = method
+        if mode not in {None, "pair", "partial"}:
+            raise ValueError("Invalid mode.")
+        if mode == "pair" and not 1 <= self._n_groups <= 2:
+            raise ValueError(
+                "There must be exactly one or two groups when "
+                "mode='pair'."
+            )
+        if mode is None and sum(g.n_atoms for g in self._groups) != (
             self.universe.atoms.n_atoms
         ):
             raise ValueError(
                 "The provided atom groups do not contain all atoms in "
                 "the universe."
             )
+        self._mode = mode
+        if precision not in {"auto", "fast", "exact"}:
+            raise ValueError(
+                "Invalid precision. Valid values: 'auto', 'fast', 'exact'."
+            )
+        # The port streams float32, for which the JAX package's "auto"
+        # is the exact double-float path.
+        self._precision = "exact" if precision == "auto" else precision
         if dimensions is not None:
             if len(dimensions) != 3:
                 raise ValueError("'dimensions' must have length 3.")
             self._dimensions = np.asarray(dimensions, dtype=float)
-        else:
-            self._require_box("StructureFactor")
+        elif self.universe.dimensions is not None:
             self._dimensions = np.asarray(
                 self.universe.dimensions[:3], dtype=float
             ).copy()
+        elif wavevectors is None:
+            raise ValueError("No system dimensions found or provided.")
+        else:
+            self._dimensions = None
+        if wavevectors is None and not (self._dimensions > 0).all():
+            raise ValueError(
+                "The wavevector grid needs a periodic box with non-zero "
+                "dimensions (pass explicit wavevectors= for box-less "
+                "systems)."
+            )
         if wavevectors is not None:
             self._wavevectors = np.asarray(wavevectors, dtype=float)
         else:
-            self._wavevectors = _wavevector_grid(self._dimensions, n_points)
+            self._wavevectors = _wavevector_grid(
+                self._dimensions, n_points, n_surfaces, n_surface_points
+            )
         self._wavenumbers = np.linalg.norm(self._wavevectors, axis=1)
         if q_max is not None:
             keep = self._wavenumbers <= q_max
             self._wavevectors = self._wavevectors[keep]
             self._wavenumbers = self._wavenumbers[keep]
         self._atom_indices = np.concatenate([g.ix for g in self._groups])
-        self._N = int(self._atom_indices.size)
+        # Each group's columns in the streamed (group-ordered) columns.
+        self._sels, offset = [], 0
+        for group in self._groups:
+            self._sels.append(np.arange(offset, offset + group.n_atoms))
+            offset += group.n_atoms
+        self._N = int(offset)
         self._sort = sort
         self._unique = unique
 
+    def _factor_setup(self):
+        """The factorized-lattice plan of the wavevector set (or None for
+        the direct sums), as the JAX package's ``_factor_setup``.  A mixed
+        set -- a lattice grid plus off-grid extras -- is split: the
+        lattice part goes through the factorized sums and only the extras
+        through the direct ones (``self._factor_split``)."""
+
+        self._factor_split = None
+        if self._method not in {"auto", "factor"} or self._dimensions is None:
+            if self._method == "factor" and self._dimensions is None:
+                raise ValueError("method='factor' requires box dimensions.")
+            return None
+        try:
+            return factor_plan(self._wavevectors, self._dimensions)
+        except ValueError as exc:
+            full_set_error = exc
+        qs = np.asarray(self._wavevectors, np.float64)
+        dims = np.asarray(self._dimensions, np.float64)
+        n_float = qs * dims / (2 * np.pi)
+        n_int = np.rint(n_float)
+        on_grid = (
+            np.isclose(n_float, n_int, atol=1e-8).all(axis=1)
+            & (n_int >= 0).all(axis=1)
+        )
+        idx_grid = np.nonzero(on_grid)[0]
+        idx_rest = np.nonzero(~on_grid)[0]
+        # Below 64 lattice points the factorized tables cost more than
+        # they save: everything runs direct.
+        if len(idx_grid) < 64 or len(idx_rest) == 0:
+            if self._method == "factor":
+                raise full_set_error
+            return None
+        order = np.concatenate((idx_grid, idx_rest))
+        self._factor_split = {
+            "qs_rest": qs[idx_rest],
+            "inv_perm": np.argsort(order),
+        }
+        return factor_plan(qs[idx_grid], dims)
+
+    def _group_sums_fn(self):
+        """``sums(positions) -> (cos, sin)``: one group's float32
+        ``(B, N_q)`` trig sums of a ``(B, n, 3)`` chunk."""
+
+        device = self._device
+        precision = self._precision
+        plan = self._factor
+        if plan is None:
+            qs = torch.as_tensor(self._wavevectors, device=device)
+            return lambda pos: trig_sums(qs, pos, precision=precision)
+        flat = torch.as_tensor(plan["flat_idx"], device=device)
+        split = self._factor_split
+        if split is not None:
+            qs_rest = torch.as_tensor(split["qs_rest"], device=device)
+            inv_perm = torch.as_tensor(split["inv_perm"], device=device)
+
+        def sums(pos):
+            frames = [
+                factor_trig_sums(p, k=plan["k"], box=plan["box"],
+                                 precision=precision)
+                for p in pos
+            ]
+            c = torch.stack([f[0][flat] for f in frames])
+            s = torch.stack([f[1][flat] for f in frames])
+            if split is None:
+                return c, s
+            # The off-grid extras pay the direct sums (all frames in one
+            # launch); the permutation restores the caller's order.
+            cr, sr = trig_sums(qs_rest, pos, precision=precision)
+            return (torch.cat((c, cr), dim=1)[:, inv_perm],
+                    torch.cat((s, sr), dim=1)[:, inv_perm])
+
+        return sums
+
     def _prepare(self) -> None:
-        self.results.pairs = ((None, None),)
+        self.results.pairs = (
+            tuple(combinations_with_replacement(range(self._n_groups), 2))
+            if self._mode == "partial"
+            else ((0, self._n_groups - 1),)
+            if self._mode == "pair"
+            else ((None, None),)
+        )
         if self._unique:
             self.results.wavenumbers, self._q_group = (
                 unique_wavenumber_groups(self._wavenumbers)
             )
         else:
             self.results.wavenumbers = self._wavenumbers
-        device = self._device
-        plan = factor_plan(self._wavevectors, self._dimensions)
-        flat = torch.as_tensor(plan["flat_idx"], device=device)
+        self._factor = self._factor_setup()
         self._carry = {
             "ssf": torch.zeros(
-                (1, len(self._wavenumbers)), dtype=torch.float64,
-                device=device,
+                (len(self.results.pairs), len(self._wavenumbers)),
+                dtype=torch.float64, device=self._device,
             )
         }
-        # The groups jointly hold every atom, so the total sums run over
-        # all streamed columns at once.
-        precision = self._precision
+        group_sums = self._group_sums_fn()
+        n_cols = self._N
+        sels = [
+            None if np.array_equal(sel, np.arange(n_cols))
+            else torch.as_tensor(sel, device=self._device)
+            for sel in self._sels
+        ]
+        pairs = self.results.pairs
+        mode = self._mode
 
         def update(carry, positions, dimensions, mask):
             del dimensions
-            frames = []
-            for p in positions:
-                c, s = factor_trig_sums(
-                    p, k=plan["k"], box=plan["box"], precision=precision
-                )
-                c, s = c[flat], s[flat]
-                frames.append(c * c + s * s)
-            frame_ssf = torch.stack(frames)[:, None, :].to(torch.float64)
+            sums = [
+                group_sums(positions if sel is None else positions[:, sel])
+                for sel in sels
+            ]
+            cos = torch.stack([c for c, _ in sums], dim=1)  # (B, G, N_q)
+            sin = torch.stack([s for _, s in sums], dim=1)
+            if mode is None:
+                total_c = cos.sum(dim=1)
+                total_s = sin.sum(dim=1)
+                frame_ssf = (total_c**2 + total_s**2)[:, None, :]
+            else:
+                rows = []
+                for j, k in pairs:
+                    if j == k:
+                        rows.append(cos[:, j] ** 2 + sin[:, j] ** 2)
+                    else:
+                        rows.append(
+                            2 * (cos[:, j] * cos[:, k]
+                                 + sin[:, j] * sin[:, k])
+                        )
+                frame_ssf = torch.stack(rows, dim=1)  # (B, P, N_q)
             return {
-                "ssf": carry["ssf"]
-                + (frame_ssf * mask[:, None, None]).sum(dim=0)
+                "ssf": carry["ssf"] + (
+                    frame_ssf.to(torch.float64) * mask[:, None, None]
+                ).sum(dim=0)
             }
 
         self._update = update

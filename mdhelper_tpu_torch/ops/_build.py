@@ -80,6 +80,12 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
         *_BINS, _P,
     ),
+    "trig_sums_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P,
+    ),
+    "pair_histogram_launch": (
+        _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P,
+    ),
 }
 
 _info = {}

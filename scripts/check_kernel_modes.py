@@ -1,4 +1,4 @@
-"""Hold every mode of the cell-list kernels against its plain version.
+"""Hold every mode of the port's kernels against its plain version.
 
 Usage::
 
@@ -9,7 +9,12 @@ Every entry point of ``mdhelper_tpu_torch/csrc``, in every binning policy
 2-D, per-block triclinic, tri_pp) and exclusion (none, symmetric and
 asymmetric tiles, cross ids), is compared with its plain-torch version as
 integers on small random inputs and on the bin-edge straddle fixtures;
-one line a case, and a non-zero exit when any differs.
+so is the brute-force pair histogram (``csrc/pair_histogram.cu``) with
+and without exclusions.  The trig sums (``csrc/trig_sums.cu``), fast and
+exact, with and without weights and low words, are held with their plain
+version against a float64 oracle within the tolerances of
+``tests/test_pallas.py`` (1e-4 and 1e-6 of the mean amplitude).  One line
+a case, and a non-zero exit when any fails.
 
 ``--device cuda`` runs the kernels on the card (the nvcc build).  The
 default, ``--device cpu``, runs the same CUDA sources on the CPU: they are
@@ -44,6 +49,7 @@ from mdhelper_tpu_torch.algorithm.topology import (  # noqa: E402
 )
 from mdhelper_tpu_torch.ops import _build  # noqa: E402
 from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch  # noqa: E402
+from mdhelper_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from mdhelper_tpu_torch.testing import (  # noqa: E402
     edge_straddle_positions,
     edge_straddle_triclinic_positions,
@@ -88,11 +94,12 @@ using std::min;
 inline std::vector<unsigned char> emu_shared;
 template <class F> void emu_launch(dim3 grid, size_t smem, F&& body) {
   emu_shared.assign(smem, 0);
-  for (unsigned y = 0; y < grid.y; ++y)
-    for (unsigned x = 0; x < grid.x; ++x) {
-      blockIdx = {x, y, 0};
-      body();
-    }
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x) {
+        blockIdx = {x, y, z};
+        body();
+      }
 }
 """
 
@@ -228,6 +235,68 @@ def cases(rng, device):
     return out
 
 
+def op_cases(rng, device):
+    """(name, kernel call, plain call, check) of the trig sums and the
+    brute-force pair histogram; `check(kernel_out, plain_out)` returns
+    whether the case passes."""
+
+    def tensor(array, dtype=np.float32):
+        return torch.from_numpy(np.asarray(array, dtype)).to(device)
+
+    def trig_check(pos, qs, w, precision):
+        phases = np.asarray(qs, np.float64) @ pos.astype(np.float64).transpose(
+            0, 2, 1)
+        w64 = 1.0 if w is None else w.astype(np.float64)
+        oc = (np.cos(phases) * w64).sum(-1)
+        osn = (np.sin(phases) * w64).sum(-1)
+        tol = (1e-6 if precision == "exact" else 1e-4) * np.hypot(
+            oc, osn).mean()
+
+        def check(k, p):
+            return all(
+                np.abs(out[i].cpu().numpy() - ref).max() <= tol
+                for out in (k, p) for i, ref in ((0, oc), (1, osn)))
+        return check
+
+    out = []
+    box = 24.0
+    # The float64 wavevectors in a 500 A box: phases of thousands of
+    # radians, where dropping the low words misses the exact tolerance
+    # (and float32 phases miss the fast one by design: exact only).
+    for n, n_q, weighted, wide, length in ((700, 300, False, False, box),
+                                           (333, 77, True, False, box),
+                                           (500, 64, False, True, 500.0)):
+        pos = (rng.random((2, n, 3)) * length).astype(np.float32)
+        qs = rng.random((n_q, 3)) * 4
+        if not wide:
+            qs = qs.astype(np.float32)
+        w = (rng.random(n) < 0.5).astype(np.float32) if weighted else None
+        for precision in ("exact",) if wide else ("fast", "exact"):
+            args = (tensor(qs, qs.dtype), tensor(pos),
+                    None if w is None else tensor(w))
+            out.append((
+                f"trig_sums {n} atoms x {n_q} q weights {weighted} "
+                f"float64 q {wide} {precision}",
+                lambda a=args, pr=precision: ck._trig_sums_kernel(
+                    *a, pr, None),
+                lambda a=args, pr=precision: ck.trig_sums_reference(
+                    *a, precision=pr),
+                trig_check(pos, qs, w, precision)))
+    pos = tensor(rng.random((900, 3)) * box)
+    straddle = tensor(edge_straddle_positions(rng, 16.0))
+    for p, b, r_max, n_bins in ((pos, box, 7.0, 150),
+                                (straddle, 16.0, 4.0, 16)):
+        for ex in (None, (1, 1), (4, 4)):
+            args = (p, (b,) * 3, r_max, n_bins)
+            out.append((
+                f"pair_histogram {p.shape[0]} atoms {ex}",
+                lambda a=args, e=ex: ck._pair_histogram_kernel(*a, e),
+                lambda a=args, e=ex: ck.pair_histogram_reference(
+                    *a, exclusion=e),
+                torch.equal))
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
@@ -236,7 +305,7 @@ def main():
     torch.set_num_threads(1)
     with tempfile.TemporaryDirectory() as tmp:
         if args.device == "cpu":
-            cch._launch = _emulated_launch(build(tmp))
+            cch._launch = ck._launch = _emulated_launch(build(tmp))
         failed = 0
         for name, kernel, plain, pos_args, kwargs in cases(
                 np.random.default_rng(args.seed), args.device):
@@ -251,6 +320,11 @@ def main():
             failed += not same
             print(f"{'ok  ' if same else 'FAIL'} {name}: "
                   f"{int(p[0].sum())} pairs")
+        for name, kernel, plain, check in op_cases(
+                np.random.default_rng(args.seed), args.device):
+            same = bool(check(kernel(), plain()))
+            failed += not same
+            print(f"{'ok  ' if same else 'FAIL'} {name}")
     if args.device == "cuda":
         info = _build.build_info()
         print(f"nvcc build {info['seconds']:.1f} s: {info['path']}")

@@ -699,3 +699,111 @@ def test_new_options_on_the_card_equal_cpu(cuda_device):
                                  vh.results.counts_distinct])
     for cpu, card in zip(*results):
         np.testing.assert_array_equal(cpu, card)
+
+
+def _trig_oracle(qs, pos, w=None):
+    """float64 (B, N_q) sums of frames `pos` and the mean amplitude."""
+
+    phases = np.asarray(qs, np.float64) @ pos.astype(np.float64).transpose(
+        0, 2, 1)
+    w = 1.0 if w is None else w.astype(np.float64)
+    oc = (np.cos(phases) * w).sum(-1)
+    osn = (np.sin(phases) * w).sum(-1)
+    return oc, osn, np.hypot(oc, osn).mean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fast", "exact"])
+@pytest.mark.parametrize("case", ["float32_q", "weights", "float64_q"])
+def test_trig_sums_kernel_equals_reference(cuda_device, precision, case):
+    """The trig-sums kernel and its plain version each within the
+    tolerances of tests/test_pallas.py of a float64 oracle (1e-4 of the
+    mean amplitude fast, 1e-6 exact), on two frames with tails of both
+    tiles; two launches give the same bits."""
+
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    rng = np.random.default_rng(61)
+    n, n_q = 5003, 301
+    pos = (rng.random((2, n, 3)) * 30.0).astype(np.float32)
+    qs = rng.random((n_q, 3)) * 4.0
+    if case != "float64_q":
+        qs = qs.astype(np.float32)
+    w = ((rng.random(n) < 0.7).astype(np.float32) if case == "weights"
+         else None)
+    args = (torch.from_numpy(qs).to(cuda_device),
+            torch.from_numpy(pos).to(cuda_device),
+            None if w is None else torch.from_numpy(w).to(cuda_device))
+    before = ck.trig_sums.launches
+    kernel = ck.trig_sums(*args, precision=precision)
+    again = ck.trig_sums(*args, precision=precision)
+    torch.cuda.synchronize()
+    assert ck.trig_sums.launches == before + 2
+    plain = ck.trig_sums_reference(*args, precision=precision)
+    oc, osn, amp = _trig_oracle(qs, pos, w)
+    tol = (1e-4 if precision == "fast" else 1e-6) * amp
+    for i, ref in ((0, oc), (1, osn)):
+        assert kernel[i].shape == (2, n_q)
+        torch.testing.assert_close(kernel[i], again[i], rtol=0, atol=0)
+        assert np.abs(kernel[i].cpu().numpy() - ref).max() <= tol
+        assert np.abs(plain[i].cpu().numpy() - ref).max() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exclusion", [None, (1, 1), (4, 4)])
+def test_pair_histogram_kernel_equals_reference(cuda_device, exclusion):
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    rng = np.random.default_rng(62)
+    for pos, box, r_max, n_bins in (
+            ((rng.random((3001, 3)) * BOX).astype(np.float32), BOX, 5.0, 77),
+            (edge_straddle_positions(rng, BOX), BOX, 4.0, 16)):
+        p = torch.from_numpy(pos).to(cuda_device)
+        before = ck.pair_histogram.launches
+        kernel = ck.pair_histogram(p, (box,) * 3, r_max, n_bins,
+                                   exclusion=exclusion)
+        torch.cuda.synchronize()
+        assert ck.pair_histogram.launches == before + 1
+        plain = ck.pair_histogram_reference(p, (box,) * 3, r_max, n_bins,
+                                            exclusion=exclusion)
+        torch.testing.assert_close(kernel, plain, rtol=0, atol=0)
+        if exclusion == (1, 1):
+            plan = cch.cell_plan_search(len(pos), [box] * 3, r_max)
+            cell, _ = cch.cell_pair_histogram(
+                p, box=(box,) * 3, r_max=r_max,
+                n_cells_dim=plan["n_cells_dim"], capacity=plan["capacity"],
+                n_bins=n_bins, precision="fast")
+            np.testing.assert_array_equal(
+                kernel.cpu().numpy(), cell[0].cpu().numpy().astype(np.int64))
+
+
+@pytest.mark.cuda
+def test_direct_structure_factor_on_the_card_equals_cpu(cuda_device):
+    """The direct, split and partial S(q) give the same results on the
+    card (the trig-sums kernel) as on the CPU (its plain version), within
+    the S(q) gate."""
+
+    from mdhelper_tpu_torch.analysis.structure import StructureFactor
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    rng = np.random.default_rng(63)
+    n = 2000
+    box = float(n / 0.8) ** (1 / 3)
+    traj = (rng.random((4, n, 3)) * box).astype(np.float32)
+    u = Universe.from_arrays(traj, np.array([box] * 3 + [90.0] * 3))
+    results = []
+    before = ck.trig_sums.launches
+    for device in ("cpu", cuda_device):
+        kw = dict(n_points=6, sort=False, unique=False, verbose=False,
+                  device=device)
+        runs = [
+            StructureFactor(u.atoms, method="direct", **kw),
+            StructureFactor(u.atoms, n_surfaces=2, **kw),
+            StructureFactor([u.atoms[0::2], u.atoms[1::2]], mode="partial",
+                            method="direct", **kw),
+        ]
+        results.append([r.run().results.ssf for r in runs])
+    assert ck.trig_sums.launches >= before + 3
+    for cpu, card in zip(*results):
+        np.testing.assert_allclose(card, cpu, rtol=1e-4, atol=1e-5)
