@@ -102,12 +102,25 @@ FILM_FRAMES = 8 + 16
 #: (pallas_cell_plan_search over the two kept lengths, r_max 15).
 FILM_JAX_GRIDS = ((13, 19), (13, 13))
 
-#: float32 operations of one binned pair (counted in csrc/cell_bin.cuh)
-#: under each displacement policy -- per-pair orthorhombic image (3 or 2
-#: axes), one lattice translation per block, the per-pair 27-candidate
-#: search -- and binning: exact from 0 or from r_min, fast from 0 or from
-#: r_min.
+#: float32 operations of one pair (counted in csrc/cell_bin.cuh) under
+#: each displacement policy -- per-pair orthorhombic image (3 or 2 axes),
+#: one lattice translation per block, the per-pair 27-candidate search:
+#: exact binning screens a pair (``screen``) and forms the double-float
+#: d^2 (``exact``; tri_pp: one kept candidate) of one that passes; fast
+#: binning forms the float32 d^2 (``fast``).  The bin tails
+#: (:data:`TAIL_OPS`) come on top for the pairs binned.
 OPS_PER_PAIR = {
+    "ortho": {"screen": 23, "exact": 133, "fast": 23},
+    "ortho2": {"screen": 16, "exact": 84, "fast": 15},
+    "shift": {"screen": 18, "exact": 121, "fast": 11},
+    "tri27": {"screen": 208, "exact": 36 + 163, "fast": 506},
+}
+#: the tails of the binning policies: exact and fast, from 0 and from
+#: r_min.
+TAIL_OPS = {"exact": (49, 98), "fast": (4, 7)}
+#: the first design's count a pair (no screen, every pair exact), kept
+#: for its bound beside the new one.
+FIRST_DESIGN_OPS = {
     "ortho": {"exact": (254, 317), "fast": (24, 27)},
     "ortho2": {"exact": (191, 254), "fast": (17, 20)},
     "shift": {"exact": (245, 308), "fast": (15, 18)},
@@ -150,33 +163,57 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def ops_per_pair(mode, n_axes=3, r_min=0.0, precision="exact"):
-    """float32 operations of one pair binned in sweep `mode` (on a 2-D
-    grid with ``n_axes=2``) under the binning options."""
+def pair_ops(pairs, counted, mode, n_axes=3, r_min=0.0, precision="exact"):
+    """float32 operations of a sweep in `mode` (on a 2-D grid with
+    ``n_axes=2``) that visits `pairs` slot pairs and bins `counted` of
+    them in range: the least the function needs, each pair in range
+    screened and binned exactly (or its float32 d^2 and tail), the pairs
+    out of range counting nothing (the kernels rule most of them out by
+    the row test and the screen, at a cost left out here); and the first
+    design's count, every visited pair at its full cost."""
 
     policy = "ortho2" if n_axes == 2 else POLICY[mode]
-    return OPS_PER_PAIR[policy][precision][int(r_min > 0.0)]
+    ops = OPS_PER_PAIR[policy]
+    tail = TAIL_OPS[precision][int(r_min > 0.0)]
+    if precision == "fast":
+        new = counted * (ops["fast"] + tail)
+    else:
+        new = counted * (ops["screen"] + ops["exact"] + tail)
+    first = pairs * FIRST_DESIGN_OPS[policy][precision][int(r_min > 0.0)]
+    return new, first
 
 
-def bound(pairs, n_bytes, mode, n_frames, **binning):
+def bound(pairs, n_bytes, mode, n_frames, counted=0, cross=False,
+          **binning):
     """The least time a frame could take on the card for a kernel's
-    work (``bound_ms``, and ``bound_by``, the larger term): `pairs`
-    binned slot pairs times the float32 operations of one pair under the
-    sweep `mode`'s policy and the `binning` options of
-    :func:`ops_per_pair` over the float32 peak, against `n_bytes` (the
-    slot tables read once and the counts written once) over the memory
-    rate, both over `n_frames`.  No single PyTorch call computes a
-    binned cell-list pair histogram, so ``library_ms`` is None."""
+    work (``bound_ms``, and ``bound_by``, the larger term): the float32
+    operations of :func:`pair_ops` for `pairs` visited slot pairs of
+    which `counted` are binned in range, over the float32 peak, against
+    `n_bytes` (the slot tables read once and the counts written once)
+    over the memory rate, both over `n_frames`; ``first_design_bound_ms``
+    is the same with the first design's count.  The peak counts an FMA
+    as two operations; these kernels issue mostly unfused operations
+    (built with --fmad=false), at most half of it.  No single PyTorch call
+    computes a binned cell-list pair histogram, so ``library_ms`` is
+    None.  ``rebound(counted)`` recounts with the pairs a run counted
+    (:func:`counted_pairs`, which halves a half-shell self sweep's counts
+    and never a `cross` sweep's)."""
 
-    ops_ms = (pairs * ops_per_pair(mode, **binning) / PEAK_F32 * 1e3
-              / n_frames)
+    new_ops, first_ops = pair_ops(pairs, counted, mode, **binning)
+    ops_ms = new_ops / PEAK_F32 * 1e3 / n_frames
     bytes_ms = n_bytes / PEAK_BYTES * 1e3 / n_frames
     return {
         "mode": mode,
+        "cross": cross,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "first_design_bound_ms": max(first_ops / PEAK_F32 * 1e3 / n_frames,
+                                     bytes_ms),
         "library_ms": None,
         "pairs_per_frame": pairs / n_frames,
+        "counted_per_frame": counted / n_frames,
+        "rebound": lambda c: bound(pairs, n_bytes, mode, n_frames, c,
+                                   cross, **binning),
     }
 
 
@@ -194,6 +231,28 @@ def timed_call(fn):
     return out, start.elapsed_time(end)
 
 
+def recorded_launch(kernel):
+    """``kernel()`` and a no-argument call that repeats its cell-kernel
+    launch alone (the wrapper's slot tables already built; the counts
+    keep adding up), or None when it launched no cell kernel."""
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    calls = []
+    launch = cch._launch
+
+    def recording(*args):
+        calls.append(args)
+        return launch(*args)
+
+    cch._launch = recording
+    try:
+        out = kernel()
+    finally:
+        cch._launch = launch
+    return out, (lambda: launch(*calls[-1])) if calls else None
+
+
 def kernel_vs_plain(kernel, plain, n_frames, what, work, plain_runs=2):
     """Run a kernel wrapper and its plain version on the same inputs
     (each a no-argument call returning ``(counts, *occupancies)``),
@@ -205,13 +264,15 @@ def kernel_vs_plain(kernel, plain, n_frames, what, work, plain_runs=2):
 
     import torch
 
-    k_out = kernel()
+    k_out, replay = recorded_launch(kernel)
     p_out, first_plain_ms = timed_call(plain)
     check(bool(torch.isfinite(k_out[0]).all()), f"{what}: counts not finite")
     for k, p in zip(k_out, p_out):
         check(torch.equal(k, p), f"{what}: kernel differs from plain")
     max_abs_err = float((k_out[0] - p_out[0]).abs().max())
     del p_out
+    if "rebound" in work:
+        work = work["rebound"](counted_pairs(k_out[0], work))
     plain_ms = [first_plain_ms]
     kernel_ms = [time_ms(kernel, 5) for _ in range(2)]
     plain_ms += [time_ms(plain, 1) for _ in range(plain_runs - 1)]
@@ -221,17 +282,34 @@ def kernel_vs_plain(kernel, plain, n_frames, what, work, plain_runs=2):
         "plain_ms": float(np.mean(plain_ms)) / n_frames,
         **work,
     }
+    if replay is not None:
+        out["launch_ms"] = time_ms(replay, 5) / n_frames
+    launch_text = (f", the launch alone {out['launch_ms']:.3f} ms"
+                   if "launch_ms" in out else "")
     print(f"{what}: {int(k_out[0].sum())} pairs in range over "
           f"{n_frames} frame(s), kernel == plain; per frame kernel "
-          f"{out['ms']:.3f} ms (runs "
+          f"{out['ms']:.3f} ms{launch_text} (runs "
           f"{[round(x / n_frames, 3) for x in kernel_ms]}), plain torch "
           f"{out['plain_ms']:.3f} ms (runs "
           f"{[round(x / n_frames, 3) for x in plain_ms]}); "
           f"{out['pairs_per_frame']:.0f} slot pairs binned a frame, bound "
           f"{out['bound_ms']:.3f} ms by {out['bound_by']} "
           f"({100 * out['bound_ms'] / out['ms']:.1f} % of the kernel's "
-          "time)")
+          f"time; {out['first_design_bound_ms']:.3f} ms by the first "
+          "design's count)")
     return out, k_out
+
+
+def counted_pairs(counts, work):
+    """Slot pairs a sweep of `work` (:func:`bound`) binned in range, from
+    its counts: a half-shell self sweep visits each unordered pair once
+    and doubles it (an asymmetric tile's weights count about as much); a
+    cross sweep and an ordered self sweep count each pair they bin once."""
+
+    total = float(counts[counts.isfinite().all(dim=1)].sum())
+    half_shell = (not work["cross"]
+                  and work["mode"] in ("reach1", "general", "block"))
+    return total / 2 if half_shell else total
 
 
 def cube(n_atoms):
@@ -343,7 +421,7 @@ def sweep_calls(frames1, frames2, box, plan, r_max, n_bins, exclusion=None,
                "fast" if precision == "fast" else "",
                f"axes {axes}" if axes else ""]
     return (lambda: kernel(*groups, **args), lambda: plain(*groups, **args),
-            bound(pairs, n_bytes, mode, n_frames,
+            bound(pairs, n_bytes, mode, n_frames, cross=cross,
                   n_axes=len(plan["n_cells_dim"]), r_min=r_min,
                   precision=precision),
             " ".join([plan_text(plan, mode), text, *filter(None, options)]))
@@ -1208,6 +1286,7 @@ def kernel_timed(kernel, n_frames, what, work):
 
     k_out = kernel()
     check(bool(torch.isfinite(k_out[0]).all()), f"{what}: counts not finite")
+    work = work["rebound"](counted_pairs(k_out[0], work))
     kernel_ms = [time_ms(kernel, 3) for _ in range(2)]
     out = {"ms": float(np.mean(kernel_ms)) / n_frames, **work}
     print(f"{what}: {int(k_out[0].sum())} pairs in range over "
@@ -2448,7 +2527,9 @@ def phase_direct_sq(device, rng):
 def phase_pair_histogram(device, rng):
     """The brute-force pair histogram through its op at 100k atoms in the
     50 A cube (r_max 6, 200 bins, 1 frame) with exclusion (1, 1), None and
-    (4, 4), and on the straddle fixture, launch count set to 0 just before
+    (4, 4), on the straddle fixture, and on 20k of the atoms moved up to
+    two boxes out of [0, L) on each axis (None and (1, 1); the wrapper
+    does not wrap), launch count set to 0 just before
     and read just after; each result equal to the plain version as
     integers, (1, 1) also to the self cell kernel's fast counts, and None
     with exactly N more pairs in bin 0; then kernel and plain timed."""
@@ -2466,6 +2547,10 @@ def phase_pair_histogram(device, rng):
               ((1, 1), None, (4, 4))]
     inputs += [(straddle, (16.0,) * 3, 4.0, 16, ex) for ex in
                ((1, 1), None, (4, 4))]
+    shifts = torch.randint(-2, 3, (20_000, 3), device=device,
+                           generator=torch.Generator(device).manual_seed(SEED))
+    loose = pos[:20_000] + shifts.float() * torch.tensor(box, device=device)
+    inputs += [(loose, box, R_MAX, N_BINS, ex) for ex in ((1, 1), None)]
     ck.pair_histogram.launches = 0
     counts = [ck.pair_histogram(p, b, r, n, exclusion=ex)
               for p, b, r, n, ex in inputs]
@@ -2494,7 +2579,7 @@ def phase_pair_histogram(device, rng):
           f"bins, largest bin {int(counts[0].max())}; exclusion (1, 1) == "
           "plain == the fast self cell kernel as integers; None == plain, "
           f"bin 0 + {N_ATOMS}; (4, 4) == plain; the same on the straddle "
-          f"fixture; {launches} launches")
+          f"fixture; unwrapped positions == plain; {launches} launches")
 
     kernel = lambda: ck.pair_histogram(pos, box, R_MAX, N_BINS,  # noqa: E731
                                        exclusion=(1, 1))
@@ -2504,7 +2589,8 @@ def phase_pair_histogram(device, rng):
     kernel_ms = [time_ms(kernel, 3) for _ in range(2)]
     plain_ms.append(timed_call(plain)[1])
     pairs = N_ATOMS * (N_ATOMS - 1)
-    ops_ms = pairs * OPS_PER_PAIR["ortho"]["fast"][0] / PEAK_F32 * 1e3
+    ops_ms = pairs * (OPS_PER_PAIR["ortho"]["fast"]
+                      + TAIL_OPS["fast"][0]) / PEAK_F32 * 1e3
     bytes_ms = (12 * N_ATOMS + 8 * N_BINS) / PEAK_BYTES * 1e3
     timing = {
         "mode": "brute", "max_abs_err": 0.0,
@@ -2521,6 +2607,55 @@ def phase_pair_histogram(device, rng):
           f"({100 * timing['bound_ms'] / timing['ms']:.1f} % of the "
           "kernel's time)")
     return launches, timing
+
+
+#: slice 7: frames of the cross RDF of overlapping groups, one chunk.
+OVERLAP_FRAMES = CHUNK
+
+
+def phase_overlap(device, rng):
+    """The cross RDF of two overlapping groups at 100k atoms: the cross
+    kernel against its plain version on one frame of the planner's plan
+    (equal as integers; every shared atom in bin 0), then the path
+    through run_together on 8 frames, launch count set to 0 just before
+    and read just after; bin 0 holds at least the shared atoms of every
+    frame and the g(r) tail is near 1."""
+
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+    )
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    # [0, 2N/3) and [N/3, N): a third of the atoms in both groups.
+    end1, start2 = 2 * N_ATOMS // 3, N_ATOMS // 3
+    shared = end1 - start2
+    _, u = slice_universe(rng, OVERLAP_FRAMES)
+    frames, box = uniform_frames(rng, device, 1, N_ATOMS, cube(N_ATOMS))
+    out = cross_kernel_vs_plain(frames[:, :end1].contiguous(),
+                                frames[:, start2:].contiguous(), box,
+                                "overlapping groups, cross kernel",
+                                plain_runs=1)
+    del out
+    rdf = RadialDistributionFunction(
+        u.atoms[:end1], u.atoms[start2:], n_bins=N_BINS, range=(0.0, R_MAX),
+        verbose=False, device=device)
+    rdf._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
+    cch.cross_pair_histogram.launches = 0
+    run_together([rdf])
+    launches = cch.cross_pair_histogram.launches
+    check(launches >= 1, "overlapping groups: the cross kernel never ran")
+    counts, g = rdf.results.counts, rdf.results.rdf
+    check(counts[0] >= shared * OVERLAP_FRAMES,
+          f"overlapping groups: bin 0 holds {counts[0]}, fewer than the "
+          f"{shared} shared atoms a frame")
+    check(np.all(np.isfinite(g)) and np.all(np.abs(g[-20:] - 1.0) < 0.02),
+          f"overlapping groups: g(r) tail off 1: {g[-20:]}")
+    print(f"overlapping groups [0, {end1}) x [{start2}, {N_ATOMS}): kernel "
+          f"== plain; {OVERLAP_FRAMES} frames, {launches} launch(es), bin 0 "
+          f"{int(counts[0])} (>= {shared} a frame), g(r) tail mean "
+          f"{g[-20:].mean():.5f}")
+    return launches
 
 
 def main():
@@ -2595,6 +2730,8 @@ def main():
     print(f"factor S(q), exact: {sq['factor_fps']:.3f} frames/s on {card} "
           "(information, not a claim)")
     hist_launches, hist_timing = phase_pair_histogram(device, sq_rng)
+    # Slice 7 draws from its own generator.
+    phase_overlap(device, np.random.default_rng(SEED + 6))
 
     def path_row(shape, timing_plan, path, plain_from=None, plain_shape=None):
         """(launches, shape, timing) of a slice-4 row, whose kernel was
@@ -2789,7 +2926,8 @@ def main():
                  f"{N_ATOMS} atoms, cube {BOX:.1f} A, r_max {R_MAX:g}, "
                  f"{N_BINS} bins, exclusion (1, 1) (pair-histogram op path)",
                  hist_timing))
-    optional = ("pairs_per_frame", "terms_per_frame", "plain_shape",
+    optional = ("launch_ms", "pairs_per_frame", "counted_per_frame",
+                "terms_per_frame", "plain_shape",
                 "option", "oracle_err", "tolerance")
     print(card)
     print(json.dumps({"kernels": [{

@@ -6,7 +6,7 @@ Ported from :mod:`mdhelper_tpu.analysis.structure`:
 
 * :class:`RadialDistributionFunction` for one group against itself
   (with an optional ``(e, e)`` or asymmetric ``(e0, e1)`` tile
-  exclusion) or between two disjoint groups, in an orthorhombic or
+  exclusion) or between two groups, in an orthorhombic or
   triclinic 3-D box, or in 2-D (``drop_axis``, orthorhombic), on bins
   from 0 or from ``range[0] > 0``, through the cell-list pair histograms
   (:mod:`mdhelper_tpu_torch.ops.cuda_cell_histogram`): the hand-written
@@ -189,7 +189,7 @@ class _CellPlanned(SerialAnalysisBase):
 
 class RadialDistributionFunction(_CellPlanned):
     r"""Radial distribution function :math:`g(r)` of one group with
-    itself, or between two disjoint groups, in three dimensions or
+    itself, or between two groups (which may overlap), in three dimensions or
     (``drop_axis``) in the plane of the two other axes.
 
     The box may be orthorhombic or triclinic (then the volume is
@@ -259,11 +259,9 @@ class RadialDistributionFunction(_CellPlanned):
             else tuple(int(e) for e in exclusion)
         )
         if self._cross:
-            if np.intersect1d(ag1.ix, ag2.ix).size:
-                raise NotImplementedError(
-                    "Cross RDFs of overlapping groups are not ported yet "
-                    "(the cross kernel applies no identical-atom mask)."
-                )
+            # Overlapping groups need no route of their own: the cross
+            # kernel applies no identical-atom mask, so an atom in both
+            # groups lands at distance 0, in bin 0, as in the JAX class.
             self._atom_indices = np.concatenate((ag1.ix, ag2.ix))
         else:
             if (self._exclusion is not None

@@ -32,7 +32,7 @@ extern "C" int cell_pair_histogram_launch(
   const float c[8] = {c0, c1, c2, c3, c4, c5, c6, c7};
   const float* lengths = static_cast<const float*>(boxes);
   if (n_axes == 2) {
-    const cellbin::Ortho2Block geometry{lengths};
+    const cellbin::OrthoBlock<2> geometry{lengths};
     if (ordered) {
       return launch_modes<true>(args, geometry, tiles, asym, side, fast,
                                 offset, c);
@@ -40,7 +40,7 @@ extern "C" int cell_pair_histogram_launch(
     return launch_modes<false>(args, geometry, tiles, asym, side, fast,
                                offset, c);
   }
-  const cellbin::OrthoBlock geometry{lengths};
+  const cellbin::OrthoBlock<3> geometry{lengths};
   if (ordered) {
     return launch_modes<true>(args, geometry, tiles, asym, side, fast, offset,
                               c);

@@ -1,4 +1,4 @@
-// Cell-list pair-distance histogram between two disjoint groups,
+// Cell-list pair-distance histogram between two groups,
 // orthorhombic boxes: the entry point of the _cross_kernel /
 // _cross_kernel_stream modes of mdhelper_tpu/ops/pallas_cell_histogram.py
 // (cross_pair_histogram_pallas) on 3-D and 2-D grids, every binning policy,
@@ -32,8 +32,8 @@ extern "C" int cross_pair_histogram_launch(
   const float c[8] = {c0, c1, c2, c3, c4, c5, c6, c7};
   const float* lengths = static_cast<const float*>(boxes);
   if (n_axes == 2) {
-    return launch_modes(args, cellbin::Ortho2Block{lengths}, fast, offset,
+    return launch_modes(args, cellbin::OrthoBlock<2>{lengths}, fast, offset,
                         c);
   }
-  return launch_modes(args, cellbin::OrthoBlock{lengths}, fast, offset, c);
+  return launch_modes(args, cellbin::OrthoBlock<3>{lengths}, fast, offset, c);
 }

@@ -1,4 +1,4 @@
-// Cell-list pair-distance histogram between two disjoint groups, triclinic
+// Cell-list pair-distance histogram between two groups, triclinic
 // boxes: the entry points of the _cross_kernel_tri /
 // _cross_kernel_tri_stream modes (one lattice translation per block) and of
 // the tri_pp modes of _cross_kernel / _cross_kernel_stream (per-pair

@@ -15,8 +15,9 @@ mode of its two cell-list kernels, in any periodic box:
   package's ``_asym_weights``);
 * the cross-group sweep (:func:`cross_pair_histogram`, kernel
   ``csrc/cross_pair_histogram.cu``): each group-1 home cell against the
-  cells around it in group 2's table, ordered pairs of two disjoint
-  groups, with an optional ``(e0, e1)`` tile exclusion;
+  cells around it in group 2's table, every ordered (group-1, group-2)
+  pair -- an atom in both groups meets itself at distance 0, in bin 0 --
+  with an optional ``(e0, e1)`` tile exclusion;
 * their triclinic twins (:func:`triclinic_cell_pair_histogram`,
   :func:`triclinic_cross_pair_histogram`, the triclinic entry points of
   the same two sources): the atoms are folded into the primary cell and
@@ -126,8 +127,9 @@ _MAX_EXACT_ID = 1 << 24
 _CAP_STEP = 32
 
 #: shared memory one thread block of an H100 may opt in to (232,448
-#: bytes): a kernel's two slot blocks and its uint32 histogram must fit
-#: in it.
+#: bytes): the brute pair histogram's tile and histogram must fit in it,
+#: and the cell kernels' histogram copies beside their ring
+#: (``csrc/cell_sweep.cuh``), or they count in global memory.
 _SMEM_BYTES = 232_448
 
 #: shared-memory bytes a slot takes: xyz and an id (a float4), and for
@@ -135,10 +137,11 @@ _SMEM_BYTES = 232_448
 _SLOT_BYTES = 16
 _ASYM_SLOT_BYTES = 20
 
-#: the planner's capacity ceiling for 16-byte slots: two slot blocks of
-#: 4,096 slots take 128 KB of that, leaving room for a histogram of up to
-#: 25,000 bins, and keep a block's ``capacity1 * capacity2`` pair count
-#: far inside int32 (:func:`_max_capacity` scales it for wider slots).
+#: the planner's capacity ceiling for 16-byte slots, sized when a block
+#: held two whole slot blocks in shared memory (4,096 slots take 128 KB
+#: of it); :func:`_max_capacity` scales it for wider slots.  The cell
+#: kernels now stream the slots and need no ceiling of their own beyond
+#: exact float32 ids.
 _MAX_CAPACITY = 4096
 
 #: thread blocks a frame that fill the card: 132 SMs, each holding about
@@ -1143,16 +1146,28 @@ def _poison(counts, box, dims, reach, r_max, mode):
     return torch.where(ok[:, None], counts.to(torch.float64), torch.nan)
 
 
-def _check_launchable(capacity1, capacity2, n_bins, slot_bytes=_SLOT_BYTES):
-    """Raise for a plan the kernels cannot launch: two slot blocks of
-    `slot_bytes` a slot and the histogram over the shared memory of a
-    block, or a block's pair count over int32."""
+def _check_launchable(capacity1, capacity2, slot_bytes=_SLOT_BYTES):
+    """Raise for capacities outside what the wrappers admit: each at most
+    the planner's ceiling for slots of `slot_bytes` (:func:`_max_capacity`:
+    4,096 slots of 16 bytes, 3,264 of 20), and for an asymmetric tile
+    (20-byte slots) a multiple of 4, since its side ids are copied in
+    16-byte pieces of a capacity row (the planner's capacities are
+    multiples of 32).  Any ``n_bins`` launches: the kernels' shared memory
+    does not grow with the capacity (``csrc/cell_sweep.cuh`` streams the
+    neighbour slots through a fixed ring), and a histogram too wide for
+    one shared copy beside it counts in global memory."""
 
-    smem = slot_bytes * (capacity1 + capacity2) + 4 * n_bins
-    if smem > _SMEM_BYTES or capacity1 * capacity2 >= 1 << 31:
+    ceiling = _max_capacity(slot_bytes)
+    if max(capacity1, capacity2) > ceiling:
         raise ValueError(
-            f"Capacities {capacity1}/{capacity2} with {n_bins} bins need "
-            f"{smem} bytes of shared memory a block (at most {_SMEM_BYTES})."
+            f"Capacities {capacity1}/{capacity2} exceed the ceiling of "
+            f"{ceiling} slots of {slot_bytes} bytes a cell (the planner's, "
+            "sized by two slot blocks in a block's shared memory)."
+        )
+    if slot_bytes == _ASYM_SLOT_BYTES and capacity1 % 4:
+        raise ValueError(
+            f"An asymmetric tile exclusion needs a capacity that is a "
+            f"multiple of 4, not {capacity1}."
         )
 
 
@@ -1233,7 +1248,7 @@ def _self_inputs(positions, box, n_cells_dim, capacity, triclinic,
     _, reach, _ = _grid3(n_cells_dim, reach, axes, triclinic)
     tiles = _self_tiles(exclusion)
     asym = tiles is not None and tiles[0] != tiles[1]
-    _check_launchable(capacity, capacity, n_bins,
+    _check_launchable(capacity, capacity,
                       _ASYM_SLOT_BYTES if asym else _SLOT_BYTES)
     mode = mode or _sweep_mode(dims, reach, triclinic, cross=False)
     if ((mode in _ORDERED_MODES or tiles is not None)
@@ -1590,7 +1605,7 @@ def _cross_inputs(positions1, positions2, box, n_cells_dim, capacity1,
     )
     if len(ex) != 2 or (exclusion is not None and min(ex) < 1):
         raise ValueError("exclusion must be None or (e0, e1), both >= 1.")
-    _check_launchable(capacity1, capacity2, n_bins)
+    _check_launchable(capacity1, capacity2)
     _, reach, _ = _grid3(n_cells_dim, reach, axes, triclinic)
     mode = mode or _sweep_mode(dims, reach, triclinic, cross=True)
     tables1 = _tables(positions1, box, dims, capacity1, ex=ex[0])
@@ -1667,8 +1682,8 @@ def cross_pair_histogram(
     precision="exact",
 ):
     r"""Cross-group pair-distance histogram on ``[r_min, r_max]``
-    through the cell list: every (group-1, group-2) pair of two disjoint
-    groups (the contract of the JAX package's
+    through the cell list: every (group-1, group-2) pair of two groups
+    (the contract of the JAX package's
     ``cross_pair_histogram_pallas``, batched over frames); returns
     ``(counts, max_occ1, max_occ2)``.
 
@@ -1677,7 +1692,9 @@ def cross_pair_histogram(
     positions1, positions2 : `torch.Tensor`
         Coordinates ``(B, N1, 3)`` and ``(B, N2, 3)`` (or one frame
         each), cast to float32, wrapped into the box.  No identical-atom
-        mask is applied: the groups must be disjoint.
+        mask is applied: groups may overlap, and an atom in both meets
+        itself at distance 0, in bin 0 (unless the exclusion drops it),
+        as in the JAX package's brute sweep.
     box : `torch.Tensor` or array-like
         Orthorhombic box lengths, ``(3,)`` or per frame ``(B, 3)``.
     r_max : `float`
@@ -1760,7 +1777,7 @@ def triclinic_cross_pair_histogram(
     precision="exact",
 ):
     r"""Cross-group pair-distance histogram on ``[r_min, r_max]`` in a
-    triclinic box: :func:`cross_pair_histogram`'s contract (disjoint
+    triclinic box: :func:`cross_pair_histogram`'s contract (any two
     groups, optional ``(e0, e1)`` exclusion, counts not doubled, bins
     from ``r_min``, exact or fast) with
     :func:`triclinic_cell_pair_histogram`'s box, fold, grid, routes

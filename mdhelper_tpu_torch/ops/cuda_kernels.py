@@ -58,7 +58,7 @@ _TRIG_STAGE = 256
 _GRID_YZ = 65535
 
 #: the pair-histogram kernel's j tile and its shared memory a j atom
-#: (float4 position and int id).
+#: (float4 position and int id), beside one 4-byte flag and the histogram.
 _HIST_TILE_J, _HIST_SLOT_BYTES = 2048, 20
 #: pairs a tile of the plain pair sweep holds at once (2^25: 128 MiB a
 #: float32 buffer).
@@ -251,7 +251,8 @@ def pair_histogram(positions, box, r_max, n_bins, *, exclusion=None):
     Parameters
     ----------
     positions : `torch.Tensor`
-        Wrapped coordinates ``(N, 3)``, cast to float32.
+        Coordinates ``(N, 3)``, cast to float32; any values (the minimum
+        image is taken per pair, as the JAX kernel takes it).
     box : array-like or `torch.Tensor`
         Orthorhombic box lengths (3 values; an argument of the launch,
         not baked into the kernel).
@@ -294,7 +295,7 @@ def _pair_histogram_kernel(positions, box, r_max, n_bins, exclusion):
     pos, lengths, consts, exclusion = _hist_inputs(
         positions, box, r_max, n_bins, exclusion)
     n_bins = int(n_bins)
-    smem = _HIST_TILE_J * _HIST_SLOT_BYTES + 4 * n_bins
+    smem = _HIST_TILE_J * _HIST_SLOT_BYTES + 4 + 4 * n_bins
     if smem > _SMEM_BYTES:
         raise ValueError(
             f"{n_bins} bins need {smem} bytes of shared memory a block "

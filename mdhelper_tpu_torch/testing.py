@@ -4,7 +4,8 @@ Test inputs and float64 oracles
 
 NumPy helpers shared by the port's tests and ``chip_smoke.py``: the
 bin-edge straddle fixtures and the float64 all-pairs histograms the
-cell-list kernels are held against.
+cell-list kernels are held against, and a float32 model of the tri_pp
+kernels' candidate screen.
 """
 
 import itertools
@@ -20,7 +21,72 @@ __all__ = [
     "f64_histogram",
     "f64_triclinic_distances",
     "f64_triclinic_pair_histogram",
+    "SCREEN_EPS",
+    "fma32",
+    "tri27_screen",
 ]
+
+#: the cell kernels' screen bound factor, 2^-18 (``kScreen`` of
+#: ``csrc/cell_bin.cuh``).
+SCREEN_EPS = np.float32(2.0**-18)
+
+
+def fma32(x, y, z):
+    """float32 ``x * y + z`` rounded once (as ``__fmaf_rn``), through
+    float64: the product of two floats is exact there, and the sum
+    rounds twice only when float64 cannot hold it, which the screens'
+    bound does not mind."""
+
+    f64 = np.float64
+    return (np.asarray(x, f64) * np.asarray(y, f64)
+            + np.asarray(z, f64)).astype(np.float32)
+
+
+def tri27_screen(pos1, pos2, box, inv, cut):
+    """The float32 screen of ``Tri27Image::exact`` (``csrc/cell_bin.cuh``),
+    operation for operation in numpy float32, for pairs of broadcast
+    ``(..., 3)`` float32 positions in the lower-triangular float32 box
+    matrix `box` with its float32 inverse `inv`.  Returns ``(passed,
+    kept, n0)``: whether the pair may lie at or below `cut` (else the
+    kernel skips it), the ``(..., 27)`` candidates whose double-float d^2
+    the kernel evaluates (index ``9 (sx + 1) + 3 (sy + 1) + sz + 1`` of
+    the shift ``n0 + (sx, sy, sz)``), and the base image multiples."""
+
+    f32 = np.float32
+    pos1, pos2 = np.asarray(pos1, f32), np.asarray(pos2, f32)
+    box, inv = np.asarray(box, f32), np.asarray(inv, f32)
+    s = [pos1[..., k] - pos2[..., k] for k in range(3)]
+    n0 = [np.rint((s[0] * inv[0, k] + s[1] * inv[1, k]) + s[2] * inv[2, k])
+          for k in range(3)]
+    reach = [np.abs(n) + f32(1.0) for n in n0]
+    mag, base = [], []
+    for k in range(3):
+        m, b = np.abs(s[k]), s[k]
+        for j in range(k, 3):
+            m = m + reach[j] * np.abs(box[j, k])
+            b = b - n0[j] * box[j, k]
+        mag.append(m)
+        base.append(b)
+    eps = SCREEN_EPS * fma32(mag[2], mag[2],
+                             fma32(mag[1], mag[1], mag[0] * mag[0]))
+    f = [None] * 27
+    for iz in range(3):
+        sz = f32(iz - 1)
+        c2 = base[2] - sz * box[2, 2]
+        sq2 = c2 * c2
+        for iy in range(3):
+            sy = f32(iy - 1)
+            c1 = (base[1] - sy * box[1, 1]) - sz * box[2, 1]
+            sq12 = fma32(c1, c1, sq2)
+            b0 = (base[0] - sy * box[1, 0]) - sz * box[2, 0]
+            for ix in range(3):
+                c0 = b0 - f32(ix - 1) * box[0, 0]
+                f[9 * ix + 3 * iy + iz] = fma32(c0, c0, sq12)
+    f = np.stack(f, axis=-1)
+    fmin = f.min(axis=-1)
+    passed = ~((fmin - eps) > f32(cut))
+    keep = fmin + f32(2.0) * eps
+    return passed, f <= keep[..., None], np.stack(n0, axis=-1)
 
 
 def edge_straddle_positions(rng, box):

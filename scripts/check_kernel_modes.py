@@ -10,7 +10,7 @@ Every entry point of ``mdhelper_tpu_torch/csrc``, in every binning policy
 asymmetric tiles, cross ids), is compared with its plain-torch version as
 integers on small random inputs and on the bin-edge straddle fixtures;
 so is the brute-force pair histogram (``csrc/pair_histogram.cu``) with
-and without exclusions.  The trig sums (``csrc/trig_sums.cu``), fast and
+and without exclusions, also on positions outside the box.  The trig sums (``csrc/trig_sums.cu``), fast and
 exact, with and without weights and low words, are held with their plain
 version against a float64 oracle within the tolerances of
 ``tests/test_pallas.py`` (1e-4 and 1e-6 of the mean amplitude).  One line
@@ -66,7 +66,7 @@ RUNTIME = r"""
 #define __host__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 struct float4 { float x, y, z, w; };
 struct dim3 {
   unsigned x, y, z;
@@ -90,7 +90,11 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 using std::min;
+using std::max;
 inline std::vector<unsigned char> emu_shared;
 template <class F> void emu_launch(dim3 grid, size_t smem, F&& body) {
   emu_shared.assign(smem, 0);
@@ -284,8 +288,11 @@ def op_cases(rng, device):
                 trig_check(pos, qs, w, precision)))
     pos = tensor(rng.random((900, 3)) * box)
     straddle = tensor(edge_straddle_positions(rng, 16.0))
+    # Unwrapped: up to two boxes outside [0, L) on each axis.
+    loose = tensor((rng.random((700, 3)) * 5 - 2) * box)
     for p, b, r_max, n_bins in ((pos, box, 7.0, 150),
-                                (straddle, 16.0, 4.0, 16)):
+                                (straddle, 16.0, 4.0, 16),
+                                (loose, box, 7.0, 150)):
         for ex in (None, (1, 1), (4, 4)):
             args = (p, (b,) * 3, r_max, n_bins)
             out.append((
@@ -294,6 +301,48 @@ def op_cases(rng, device):
                 lambda a=args, e=ex: ck.pair_histogram_reference(
                     *a, exclusion=e),
                 torch.equal))
+    return out
+
+
+#: the template arguments of a cell-sweep kernel, in its mangled name.
+_PARTS = ("OrthoBlockILi3E", "OrthoBlockILi2E", "TriclinicBlock",
+          "Tri27Block", "ZeroExact", "OffsetExact", "ZeroFast", "OffsetFast",
+          "HalfShellPairs", "OrderedPairs", "CrossPairs", "NoTiles", "Tiles")
+
+
+def sweep_resources(log, n_bins=200):
+    """One line a cell-sweep instantiation from ptxas's report in the
+    build log: its registers, stack and spills, and the blocks an H100 SM
+    holds at `n_bins` bins (2,048 threads, 65,536 registers allocated
+    256 a warp, 228 KB of shared memory with 1 KB a block reserved; the
+    block's shared memory from csrc/cell_sweep.cuh: 20,768 bytes and 8
+    histogram copies)."""
+
+    smem = 20_768 + 8 * 4 * n_bins
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1) if "cell_sweep_kernel" in m.group(1) else None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            stack = m.groups()
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs = int(m.group(1))
+            per_warp = -(-regs * 32 // 256) * 256
+            blocks = min(8, 65_536 // (8 * per_warp), 233_472 // (smem + 1024))
+            parts = [p for p in _PARTS if p in name]
+            if "NoTiles" in parts:
+                parts.remove("Tiles")
+            out.append(f"  {' '.join(parts)}: {regs} registers, stack "
+                       f"{stack[0]} B, spills {stack[1]}/{stack[2]} B; "
+                       f"{blocks} blocks ({8 * blocks} warps) an SM at "
+                       f"{n_bins} bins")
+            name = None
     return out
 
 
@@ -328,6 +377,8 @@ def main():
     if args.device == "cuda":
         info = _build.build_info()
         print(f"nvcc build {info['seconds']:.1f} s: {info['path']}")
+        for line in sweep_resources(info["log"]):
+            print(line)
     print(f"{failed} failed")
     sys.exit(1 if failed else 0)
 

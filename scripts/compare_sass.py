@@ -3,6 +3,13 @@
 Usage::
 
     python scripts/compare_sass.py OLD_CSRC [NEW_CSRC] [--out FILE]
+    python scripts/compare_sass.py --loops PATTERN [--loops ...] [--out FILE]
+
+With ``--loops`` only the current tree is compiled, and for every kernel
+whose demangled name contains every PATTERN the script prints each loop of its
+SASS (the instructions from a backward branch's target to the branch),
+innermost first, with its length and its instructions by opcode, and then
+the kernel's whole SASS.
 
 Compiles every ``*.cu`` of both source directories (``NEW_CSRC`` defaults
 to ``mdhelper_tpu_torch/csrc``) with the port's nvcc flags
@@ -114,6 +121,70 @@ def registers(objects):
     return {names[k]: v for k, v in regs.items()}
 
 
+def sass_with_addresses(objects):
+    """``{demangled kernel: [(address, instruction), ...]}``."""
+
+    code = {}
+    for obj in objects:
+        text = subprocess.run([_tool("cuobjdump"), "-sass", str(obj)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        name = None
+        for line in text.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                name = m.group(1)
+                code[name] = []
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m and name:
+                code[name].append((int(m.group(1), 16), m.group(2)))
+    names = _demangle(list(code))
+    return {names[k]: v for k, v in code.items()}
+
+
+def loops(code):
+    """Each loop of a kernel's SASS as (first address, branch address,
+    instructions), smallest first."""
+
+    found = []
+    for addr, ins in code:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < addr:
+            target = int(m.group(1), 16)
+            body = [i for a, i in code if target <= a <= addr]
+            found.append((target, addr, body))
+    return sorted(found, key=lambda x: len(x[2]))
+
+
+def loop_report(patterns, out):
+    """The --loops report (see the module docstring)."""
+
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        objs, secs = compile_tree(ROOT / "mdhelper_tpu_torch" / "csrc", tmp)
+        code = sass_with_addresses(objs)
+    for name, ins in sorted(code.items()):
+        if not all(p in name for p in patterns):
+            continue
+        lines.append(f"== {signature(name)}: {len(ins)} instructions")
+        for first, last, body in loops(ins):
+            ops = {}
+            for i in body:
+                op = re.sub(r"^@!?U?P\w+\s+", "", i).split()[0]
+                ops[op] = ops.get(op, 0) + 1
+            hist = ", ".join(f"{k} {v}" for k, v in
+                             sorted(ops.items(), key=lambda kv: -kv[1]))
+            lines.append(f"  loop {first:#x}-{last:#x}: {len(body)} "
+                         f"instructions: {hist}")
+        lines += [f"    /*{a:04x}*/ {i}" for a, i in ins]
+    text = "\n".join(lines)
+    print("\n".join(l for l in lines if not l.startswith("    /*")))
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(text + "\n")
+
+
 def signature(name):
     """A demangled kernel's name with its template arguments, without
     its parameter list."""
@@ -131,11 +202,19 @@ def signature(name):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("old")
+    parser.add_argument("old", nargs="?")
     parser.add_argument("new", nargs="?",
                         default=str(ROOT / "mdhelper_tpu_torch" / "csrc"))
     parser.add_argument("--out", help="also write the report here")
+    parser.add_argument("--loops", metavar="PATTERN", action="append",
+                        help="report the loops of the kernels whose names "
+                        "hold every such pattern")
     args = parser.parse_args()
+    if args.loops:
+        loop_report(args.loops, args.out)
+        return
+    if args.old is None:
+        parser.error("OLD_CSRC is needed unless --loops is given")
     lines = []
     with tempfile.TemporaryDirectory() as tmp:
         old_dir, new_dir = Path(tmp, "old"), Path(tmp, "new")

@@ -778,6 +778,28 @@ def test_pair_histogram_kernel_equals_reference(cuda_device, exclusion):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("exclusion", [None, (1, 1)])
+def test_pair_histogram_unwrapped_positions_equal_reference(cuda_device,
+                                                            exclusion):
+    """Positions up to two boxes outside [0, L) on each axis (the wrapper
+    does not wrap them): the kernel takes each pair's minimum image as
+    its plain version does, to the same integers."""
+
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    rng = np.random.default_rng(64)
+    pos = (rng.random((2500, 3)) * BOX).astype(np.float32)
+    shifts = rng.integers(-2, 3, size=pos.shape).astype(np.float32)
+    loose = pos + shifts * np.float32(BOX)
+    assert (loose < 0).any() and (loose >= 2 * BOX).any()
+    p = torch.from_numpy(loose).to(cuda_device)
+    kernel = ck.pair_histogram(p, (BOX,) * 3, 5.0, 77, exclusion=exclusion)
+    plain = ck.pair_histogram_reference(p, (BOX,) * 3, 5.0, 77,
+                                        exclusion=exclusion)
+    torch.testing.assert_close(kernel, plain, rtol=0, atol=0)
+    assert int(kernel.sum()) > 0
+
+@pytest.mark.cuda
 def test_direct_structure_factor_on_the_card_equals_cpu(cuda_device):
     """The direct, split and partial S(q) give the same results on the
     card (the trig-sums kernel) as on the CPU (its plain version), within
@@ -807,3 +829,221 @@ def test_direct_structure_factor_on_the_card_equals_cpu(cuda_device):
     assert ck.trig_sums.launches >= before + 3
     for cpu, card in zip(*results):
         np.testing.assert_allclose(card, cpu, rtol=1e-4, atol=1e-5)
+
+
+# -- the second design's edges: work-item and ring-tile boundaries ---------
+
+#: atoms a cell holds, cycled over a grid's cells: empty, one, half a
+#: home tile and one past it, a home tile of 64 slots and one past it, a
+#: ring tile of 256 slots and one past it.
+EDGE_COUNTS = (0, 1, 32, 33, 64, 65, 256, 257, 3)
+
+
+def _edge_frames(grid, h, counts=EDGE_COUNTS, seed=5):
+    """One float32 frame whose cells hold `counts` atoms in turn, at
+    uniform positions inside each cell of the fractional grid `grid` of
+    the box matrix `h` (a diagonal one for an orthorhombic box), and the
+    capacity that holds the fullest cell."""
+
+    rng = np.random.default_rng(seed)
+    dims = np.array(grid, float)
+    frac = []
+    for c, cell in enumerate(np.ndindex(*grid)):
+        k = counts[c % len(counts)]
+        frac.append((np.array(cell) + 0.02 + 0.96 * rng.random((k, len(grid))))
+                    / dims)
+    frac = np.concatenate(frac)
+    if len(grid) == 2:
+        frac = np.concatenate([frac, rng.random((len(frac), 1))], axis=1)
+    pos = (frac @ h).astype(np.float32)
+    return pos[None], 32 * -(-max(counts) // 32)
+
+
+#: (geometry, grid, r_max, exclusion, cross) of each edge case; every
+#: sweep mode and geometry, with the asymmetric tiles' side-id ring.
+EDGE_CASES = {
+    "half": ("cube", (3, 3, 3), 4.0, None, False),
+    "half_asym": ("cube", (3, 3, 3), 4.0, (2, 3), False),
+    "ordered": ("cube", (1, 2, 4), 6.0, None, False),
+    "ordered_asym": ("cube", (1, 2, 4), 6.0, (3, 2), False),
+    "2d": ("slab", (3, 3), 4.0, None, False),
+    "block": ("tri", (3, 3, 3), 4.0, (3, 3), False),
+    "tri_pp": ("tri", (1, 2, 4), 5.0, None, False),
+    "cross": ("cube", (3, 3, 3), 4.0, (2, 3), True),
+    "cross_general": ("cube", (2, 3, 5), 5.0, None, True),
+    "cross_2d": ("slab", (3, 3), 4.0, None, True),
+    "cross_block": ("tri", (3, 3, 3), 4.0, None, True),
+    "cross_tri_pp": ("tri", (1, 2, 4), 5.0, (1, 1), True),
+}
+
+
+def _edge_call(case, cuda_device, n_bins=24, counts=EDGE_COUNTS):
+    """The kernel's and the plain version's outputs of an edge case."""
+
+    from mdhelper_tpu_torch.algorithm.topology import triclinic_matrices
+
+    geometry, grid, r_max, ex, cross = EDGE_CASES[case]
+    if geometry == "tri":
+        h = triclinic_matrices(TRICLINIC["dodeca"]).astype(np.float32)
+        box, extents = h, cch.triclinic_perpendicular_widths(h)
+    else:
+        box = np.float32([BOX, BOX, 4.0 if geometry == "slab" else BOX])
+        h, extents = np.diag(box), box[:len(grid)]
+    pos, capacity = _edge_frames(grid, h.astype(np.float64), counts)
+    plan = cch.grid_plan(pos.shape[1], np.asarray(extents, float), r_max,
+                         grid)
+    args = dict(box=box, r_max=r_max, n_cells_dim=grid, reach=plan["reach"],
+                n_bins=n_bins, exclusion=ex)
+    if len(grid) == 2:
+        args["axes"] = (0, 1)
+    tri = geometry == "tri"
+    frames = torch.from_numpy(pos).to(cuda_device)
+    if cross:
+        groups = (frames[:, 0::2].contiguous(), frames[:, 1::2].contiguous())
+        args.update(capacity1=capacity, capacity2=capacity)
+        kernel_fn = (cch.triclinic_cross_pair_histogram if tri
+                     else cch.cross_pair_histogram)
+        plain_fn = (cch.triclinic_cross_pair_histogram_reference if tri
+                    else cch.cross_pair_histogram_reference)
+    else:
+        groups = (frames,)
+        args["capacity"] = capacity
+        kernel_fn = (cch.triclinic_cell_pair_histogram if tri
+                     else cch.cell_pair_histogram)
+        plain_fn = (cch.triclinic_cell_pair_histogram_reference if tri
+                    else cch.cell_pair_histogram_reference)
+    before = kernel_fn.launches
+    kernel = kernel_fn(*groups, **args)
+    torch.cuda.synchronize()
+    assert kernel_fn.launches == before + 1
+    return kernel, plain_fn(*groups, **args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_sweep_edges_kernel_equals_reference(cuda_device, case):
+    """Cells of 0, 1, 32, 33, 64, 65, 256 and 257 atoms (around the home
+    tile and the ring tile, and one past each) in every geometry and
+    sweep: the kernel equals its plain version as integers."""
+
+    kernel, plain = _edge_call(case, cuda_device)
+    _assert_kernel_equals_plain(kernel, plain)
+    assert kernel[0].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bins", [1, 57_856])
+@pytest.mark.parametrize("case", ["half", "cross", "tri_pp"])
+def test_sweep_bins_extremes_equal_reference(cuda_device, case, n_bins):
+    """One bin, and 57,856 bins at capacity 32 (the widest histogram the
+    first design could launch there: too wide for a shared copy beside
+    the ring, so it counts in global memory)."""
+
+    kernel, plain = _edge_call(case, cuda_device, n_bins=n_bins,
+                               counts=(0, 1, 7, 32, 19))
+    _assert_kernel_equals_plain(kernel, plain)
+    assert kernel[0].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cross", [False, True])
+def test_sweep_capacity_ceiling_equals_reference(cuda_device, cross):
+    """A cell at the planner's 4,096-slot ceiling (one cell, 4,000
+    atoms): 63 home tiles of 64 slots, 16 ring tiles a neighbour."""
+
+    rng = np.random.default_rng(8)
+    pos = torch.from_numpy(
+        (rng.random((1, 4000, 3)) * BOX).astype(np.float32)).to(cuda_device)
+    plan = cch.grid_plan(4000, np.array([BOX] * 3), 3.0, (1, 1, 1))
+    args = dict(box=(BOX,) * 3, r_max=3.0, n_cells_dim=(1, 1, 1),
+                reach=plan["reach"], n_bins=12)
+    if cross:
+        groups = (pos[:, :2000].contiguous(), pos[:, 2000:].contiguous())
+        args.update(capacity1=4096, capacity2=4096, exclusion=(5, 5))
+        kernel = cch.cross_pair_histogram(*groups, **args)
+        plain = cch.cross_pair_histogram_reference(*groups, **args)
+    else:
+        args.update(capacity=4096)
+        kernel = cch.cell_pair_histogram(pos, **args)
+        plain = cch.cell_pair_histogram_reference(pos, **args)
+    torch.cuda.synchronize()
+    _assert_kernel_equals_plain(kernel, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["orthorhombic", "triclinic"])
+def test_overlapping_cross_rdf_on_the_card_equals_cpu(cuda_device, shape):
+    """The cross RDF of groups [0, 800) and [400, 1200) of 1,200 atoms
+    gives the same counts and g(r) on the card as on the CPU (whose
+    counts tests/test_torch_overlap.py holds against the JAX class)."""
+
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+    )
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    dims6 = (np.array([14.0] * 3 + [90.0] * 3) if shape == "orthorhombic"
+             else np.array([18.0] * 3 + [60.0, 60.0, 90.0]))
+    from mdhelper_tpu_torch.algorithm.topology import triclinic_matrices
+
+    rng = np.random.default_rng(1200)
+    traj = (rng.random((2, 1200, 3)) @ triclinic_matrices(dims6)).astype(
+        np.float32)
+    u = Universe.from_arrays(traj, dims6, dt=1.0)
+    results = []
+    for device in ("cpu", cuda_device):
+        for exclusion, range_ in ((None, (0.0, 3.0)), ((2, 2), (0.5, 3.0))):
+            rdf = RadialDistributionFunction(
+                u.atoms[0:800], u.atoms[400:1200], n_bins=30, range=range_,
+                exclusion=exclusion, verbose=False, device=device)
+            results.append(rdf.run().results)
+    for cpu, card in zip(results[:2], results[2:]):
+        np.testing.assert_array_equal(card.counts, cpu.counts)
+        np.testing.assert_array_equal(card.rdf, cpu.rdf)
+    assert results[2].counts[0] >= 800
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["orthorhombic", "triclinic"])
+def test_npt_paths_on_the_card_equal_cpu(cuda_device, shape):
+    """Per-frame boxes growing by 5 %: the self RDF (exclusion None and
+    (1, 1)) and the Van Hove counts on the card equal the CPU's (which
+    tests/test_torch_npt.py holds against the JAX classes); a shrinking
+    box raises on the card too."""
+
+    from mdhelper_tpu_torch.algorithm.topology import triclinic_matrices
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+        VanHoveFunction,
+    )
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    dims6 = (np.array([14.0] * 3 + [90.0] * 3) if shape == "orthorhombic"
+             else np.array([18.0] * 3 + [60.0, 60.0, 90.0]))
+    rng = np.random.default_rng(77)
+
+    def trajectory(growth):
+        frac = np.mod(rng.random((400, 3)) + np.cumsum(
+            rng.normal(0.0, 0.02, (4, 400, 3)), axis=0), 1.0)
+        dims = np.repeat(dims6[None], 4, axis=0)
+        dims[:, :3] *= (1.0 + growth * np.arange(4) / 3)[:, None]
+        traj = np.einsum("fnk,fkj->fnj", frac, triclinic_matrices(dims))
+        return Universe.from_arrays(traj.astype(np.float32), dims, dt=1.0)
+
+    u = trajectory(0.05)
+    results = []
+    for device in ("cpu", cuda_device):
+        kw = dict(n_bins=24, range=(0.0, 3.0), verbose=False, device=device)
+        runs = [RadialDistributionFunction(u.atoms, exclusion=ex, **kw)
+                for ex in (None, (1, 1))]
+        runs.append(VanHoveFunction(u.atoms, **kw))
+        results.append([r.run().results for r in runs])
+    for cpu, card in zip(*results):
+        for key in ("counts", "counts_self", "counts_distinct"):
+            if hasattr(cpu, key):
+                np.testing.assert_array_equal(getattr(card, key),
+                                              getattr(cpu, key))
+    shrunk = trajectory(-0.25)
+    with pytest.raises(RuntimeError, match="shrank"):
+        RadialDistributionFunction(shrunk.atoms, n_bins=24, range=(0.0, 3.0),
+                                   verbose=False, device=cuda_device).run()

@@ -129,7 +129,7 @@ def test_plan_search_small_boxes(cutoffs, n_atoms2, shape):
                     "_cost": plan["_cost"]}
     caps = (plan["capacity"], plan.get("capacity2", plan["capacity"]))
     assert max(caps) <= cch._MAX_CAPACITY
-    cch._check_launchable(*caps, 201)
+    cch._check_launchable(*caps)
     ok = cch._cell_sweep_ok(torch.tensor(extents, dtype=torch.float32)[None],
                             plan["n_cells_dim"], plan["reach"], r_max)
     assert bool(ok.all())

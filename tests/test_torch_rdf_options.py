@@ -296,7 +296,7 @@ def test_two_d_plan_search(extents, reach1, n_atoms2):
                     "_cost": plan["_cost"]}
     caps = (plan["capacity"], plan.get("capacity2", plan["capacity"]))
     assert max(caps) <= cch._MAX_CAPACITY
-    cch._check_launchable(*caps, 201)
+    cch._check_launchable(*caps)
     dims3, reach3, _ = cch._grid3(plan["n_cells_dim"], plan["reach"],
                                   axes=(0, 1))
     ok = cch._cell_sweep_ok(
@@ -352,10 +352,10 @@ def test_bin_boundary_constants_match_jax(r_min, r_max, n_bins):
 
 
 def test_asymmetric_tiles_plan_and_launch_limits():
-    """An asymmetric self tile takes 20 bytes a slot in shared memory:
-    its plans stay under a lower capacity ceiling, and a plan whose slot
-    blocks and histogram overflow 227 KB only with the wider slots
-    raises, on the CPU as on the card."""
+    """An asymmetric self tile takes 20 bytes a slot: its plans stay
+    under a lower capacity ceiling, and a capacity within the 16-byte
+    slots' ceiling but over the 20-byte one raises, on the CPU as on the
+    card."""
 
     assert cch._max_capacity(cch._ASYM_SLOT_BYTES) == 3264
     assert cch._max_capacity() == cch._MAX_CAPACITY
