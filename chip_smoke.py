@@ -37,9 +37,9 @@ the direct S(q) path (run() at 100k atoms, 8 + 32 frames, against the
 factor method), the split of the grid and 4 x 8 surface points under
 method="auto", the partial rows of the even and odd atoms and the fast
 phases (8 + 8 frames each), and the brute-force pair histogram through
-its op at 100k atoms (exclusions (1, 1), None and (4, 4), and the
-straddle fixture) against its plain version and the fast self cell
-kernel.  Every check raises on failure, so any failed phase exits
+its op at 100k atoms (exclusions (1, 1), None, (4, 4) and (2, 3), and
+the straddle fixture) against its plain version and the fast self cell
+kernel; the exact trig sums must equal their plain version bit for bit.  Every check raises on failure, so any failed phase exits
 non-zero.  The last lines of standard output are the card's name and
 power limit, a JSON line of per-kernel measurements (each beside its
 bound: the larger of the float32 operations of the pairs binned, or of
@@ -2267,34 +2267,43 @@ SQ_SHORT_FRAMES = 8 + 8
 SURFACES, SURFACE_POINTS = 4, 8
 ORACLE_QS = 512
 #: float instructions of sincosf's path for arguments under 105615 in the
-#: SASS of sm_90a (scripts/sincos_sass.py).
-SINCOSF_OPS = 20
+#: SASS of sm_90a (scripts/sincos_sass.py), and its operations with each
+#: of its 11 FFMAs counted twice, as the float32 peak counts an FMA.
+SINCOSF_OPS, SINCOSF_FLOPS = 20, 31
 
 
 def trig_ops(precision, lo, weights):
-    """float32 operations of one (wavevector, atom) term of the trig-sums
-    kernel (counted in csrc/trig_sums.cu): exact 94, with 6 more for the
-    low words of float64 wavevectors; fast 9; 2 more with weights; plus
-    sincosf."""
+    """float32 operations that one (wavevector, atom) term of the trig sums
+    needs (counted in csrc/trig_sums.cu, an FMA as two; the turns a
+    multiply and a rint, the exact sum 4 a term): exact 66, with 6 more
+    for the low words of float64 wavevectors; fast 7; 2 more with
+    weights; plus sincosf's 31.  Also the first design's count (an FMA as
+    one, sincosf 20): exact 94 + 6, fast 9, 2 more with weights."""
 
-    base = 94 + 6 * int(lo) if precision == "exact" else 9
-    return base + 2 * int(weights) + SINCOSF_OPS
+    new = 66 + 6 * int(lo) if precision == "exact" else 7
+    first = 94 + 6 * int(lo) if precision == "exact" else 9
+    return (new + 2 * int(weights) + SINCOSF_FLOPS,
+            first + 2 * int(weights) + SINCOSF_OPS)
 
 
 def trig_bound(n_frames, n_atoms, n_q, precision, lo, weights):
     """``bound_ms`` and ``bound_by`` a frame of one trig-sums launch over
     `n_frames` frames: the terms' operations over the float32 peak against
     the positions, wavevectors, weights and sums read or written once over
-    the memory rate."""
+    the memory rate; ``first_design_bound_ms`` with the first design's
+    count."""
 
     terms = n_atoms * n_q
-    ops_ms = terms * trig_ops(precision, lo, weights) / PEAK_F32 * 1e3
+    new, first = trig_ops(precision, lo, weights)
+    ops_ms = terms * new / PEAK_F32 * 1e3
     n_bytes = (12 * n_frames * n_atoms + 12 * n_q * (1 + int(lo))
                + 4 * n_atoms * int(weights) + 8 * n_frames * n_q)
     bytes_ms = n_bytes / PEAK_BYTES * 1e3 / n_frames
     return {
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "first_design_bound_ms": max(terms * first / PEAK_F32 * 1e3,
+                                     bytes_ms),
         "library_ms": None,
         "terms_per_frame": terms,
     }
@@ -2364,6 +2373,9 @@ def phase_trig_kernels(device, rng):
                           for i in range(2))
         check(max_abs_err <= tol,
               f"{what}: kernel differs from plain by {max_abs_err:.3e}")
+        check(precision != "exact" or max_abs_err == 0.0,
+              f"{what}: the exact sums differ from plain by "
+              f"{max_abs_err:.3e}")
         n_frames = pos.shape[0]
         kernel_ms = [time_ms(kernel, 3) / n_frames for _ in range(2)]
         plain_ms = [first_plain_ms / n_frames, time_ms(plain, 1) / n_frames]
@@ -2384,7 +2396,8 @@ def phase_trig_kernels(device, rng):
               f"{[round(x, 3) for x in plain_ms]}); bound "
               f"{out['bound_ms']:.3f} ms by {out['bound_by']} "
               f"({100 * out['bound_ms'] / out['ms']:.1f} % of the kernel's "
-              "time)")
+              f"time; the first design's count "
+              f"{out['first_design_bound_ms']:.3f} ms)")
         timing[precision, w is not None] = out
         del k_out, again, p_out
 
@@ -2526,11 +2539,11 @@ def phase_direct_sq(device, rng):
 
 def phase_pair_histogram(device, rng):
     """The brute-force pair histogram through its op at 100k atoms in the
-    50 A cube (r_max 6, 200 bins, 1 frame) with exclusion (1, 1), None and
-    (4, 4), on the straddle fixture, and on 20k of the atoms moved up to
-    two boxes out of [0, L) on each axis (None and (1, 1); the wrapper
-    does not wrap), launch count set to 0 just before
-    and read just after; each result equal to the plain version as
+    50 A cube (r_max 6, 200 bins, 1 frame) with exclusion (1, 1), None,
+    (4, 4) and the asymmetric (2, 3), on the straddle fixture, and on 20k
+    of the atoms moved up to two boxes out of [0, L) on each axis (None
+    and (1, 1); the wrapper does not wrap), launch count set to 0 just
+    before and read just after; each result equal to the plain version as
     integers, (1, 1) also to the self cell kernel's fast counts, and None
     with exactly N more pairs in bin 0; then kernel and plain timed."""
 
@@ -2544,12 +2557,13 @@ def phase_pair_histogram(device, rng):
     pos = frames[0]
     straddle = torch.from_numpy(edge_straddle_positions(rng, 16.0)).to(device)
     inputs = [(pos, box, R_MAX, N_BINS, ex) for ex in
-              ((1, 1), None, (4, 4))]
+              ((1, 1), None, (4, 4), (2, 3))]
     inputs += [(straddle, (16.0,) * 3, 4.0, 16, ex) for ex in
                ((1, 1), None, (4, 4))]
-    shifts = torch.randint(-2, 3, (20_000, 3), device=device,
+    n_loose = min(20_000, N_ATOMS)
+    shifts = torch.randint(-2, 3, (n_loose, 3), device=device,
                            generator=torch.Generator(device).manual_seed(SEED))
-    loose = pos[:20_000] + shifts.float() * torch.tensor(box, device=device)
+    loose = pos[:n_loose] + shifts.float() * torch.tensor(box, device=device)
     inputs += [(loose, box, R_MAX, N_BINS, ex) for ex in ((1, 1), None)]
     ck.pair_histogram.launches = 0
     counts = [ck.pair_histogram(p, b, r, n, exclusion=ex)
@@ -2563,7 +2577,7 @@ def phase_pair_histogram(device, rng):
         check(torch.equal(k, plain),
               f"pair histogram {p.shape[0]} atoms, exclusion {ex}: kernel "
               "!= plain")
-    for lo in (0, 3):
+    for lo in (0, 4):
         p, b, r, n, _ = inputs[lo]
         plan = cch.cell_plan_search(p.shape[0], [b[0]] * 3, r)
         cell, _ = cch.cell_pair_histogram(
@@ -2578,8 +2592,9 @@ def phase_pair_histogram(device, rng):
     print(f"pair histogram: {N_ATOMS} atoms, r_max {R_MAX:g}, {N_BINS} "
           f"bins, largest bin {int(counts[0].max())}; exclusion (1, 1) == "
           "plain == the fast self cell kernel as integers; None == plain, "
-          f"bin 0 + {N_ATOMS}; (4, 4) == plain; the same on the straddle "
-          f"fixture; unwrapped positions == plain; {launches} launches")
+          f"bin 0 + {N_ATOMS}; (4, 4) == plain; (2, 3) == plain; the same "
+          "on the straddle fixture; unwrapped positions == plain; "
+          f"{launches} launches")
 
     kernel = lambda: ck.pair_histogram(pos, box, R_MAX, N_BINS,  # noqa: E731
                                        exclusion=(1, 1))
@@ -2588,25 +2603,50 @@ def phase_pair_histogram(device, rng):
     plain_ms = [timed_call(plain)[1]]
     kernel_ms = [time_ms(kernel, 3) for _ in range(2)]
     plain_ms.append(timed_call(plain)[1])
-    pairs = N_ATOMS * (N_ATOMS - 1)
-    ops_ms = pairs * (OPS_PER_PAIR["ortho"]["fast"]
-                      + TAIL_OPS["fast"][0]) / PEAK_F32 * 1e3
-    bytes_ms = (12 * N_ATOMS + 8 * N_BINS) / PEAK_BYTES * 1e3
-    timing = {
-        "mode": "brute", "max_abs_err": 0.0,
-        "ms": float(np.mean(kernel_ms)), "plain_ms": float(np.mean(plain_ms)),
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None, "pairs_per_frame": pairs,
-    }
+    timing = {"mode": "brute", "max_abs_err": 0.0,
+              "ms": float(np.mean(kernel_ms)),
+              "plain_ms": float(np.mean(plain_ms)),
+              **brute_bound(N_ATOMS, N_BINS, int(counts[0].sum()))}
     print(f"pair histogram kernel {timing['ms']:.3f} ms (runs "
           f"{[round(x, 3) for x in kernel_ms]}), plain torch "
           f"{timing['plain_ms']:.3f} ms (runs "
-          f"{[round(x, 3) for x in plain_ms]}); {pairs} pairs, bound "
+          f"{[round(x, 3) for x in plain_ms]}); "
+          f"{timing['pairs_per_frame']} unordered pairs, "
+          f"{timing['counted_per_frame']} ordered pairs in range, bound "
           f"{timing['bound_ms']:.3f} ms by {timing['bound_by']} "
           f"({100 * timing['bound_ms'] / timing['ms']:.1f} % of the "
-          "kernel's time)")
+          f"kernel's time; the first design's count "
+          f"{timing['first_design_bound_ms']:.3f} ms)")
     return launches, timing
+
+
+#: float32 operations of the brute pair histogram (counted in
+#: csrc/pair_histogram.cu): every unordered pair its fast d^2 and the
+#: cut's compare, the pairs in range the tail (sqrt, multiply,
+#: conversion); the first design paid the fast d^2 and the ZeroFast tail
+#: on every ordered pair.
+BRUTE_PAIR_OPS, BRUTE_TAIL_OPS = OPS_PER_PAIR["ortho"]["fast"] + 1, 3
+
+
+def brute_bound(n_atoms, n_bins, counted):
+    """``bound_ms`` of the brute pair histogram over `n_atoms` atoms of
+    which `counted` ordered pairs (i != j) lie in range: the least work,
+    each unordered pair's d^2 and cut once and each unordered pair in
+    range its tail, over the float32 peak, against the positions read and
+    the counts written once; ``first_design_bound_ms`` with every ordered
+    pair at the first design's 27."""
+
+    pairs = n_atoms * (n_atoms - 1) // 2
+    ops = pairs * BRUTE_PAIR_OPS + counted // 2 * BRUTE_TAIL_OPS
+    first = n_atoms * (n_atoms - 1) * (OPS_PER_PAIR["ortho"]["fast"]
+                                       + TAIL_OPS["fast"][0])
+    ops_ms = ops / PEAK_F32 * 1e3
+    bytes_ms = (12 * n_atoms + 8 * n_bins) / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "first_design_bound_ms": max(first / PEAK_F32 * 1e3, bytes_ms),
+            "library_ms": None, "pairs_per_frame": pairs,
+            "counted_per_frame": counted}
 
 
 #: slice 7: frames of the cross RDF of overlapping groups, one chunk.

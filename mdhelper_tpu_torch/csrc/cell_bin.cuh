@@ -55,8 +55,8 @@
 //    image multiples and bin constants: magnitudes 2^-40..2^40, far from
 //    2^-126 and 2^127 (and a zero factor gives +0 in both).  Only the
 //    product's error term is fused; df_square's e + 2 x0 x1 stays two
-//    roundings, as the plain version has it.  doublefloat.cuh keeps Dekker's
-//    form for the trig sums, whose staged splits it hoists.
+//    roundings, as the plain version has it.  exact_prod and exact_square
+//    live in doublefloat.cuh, shared with the trig sums.
 // 2. No division for the orthorhombic image multiple.  Wrapped inputs give
 //    |fl(s / L)| <= 1, where rint is 0 for |fl(s / L)| <= 0.5 (0.5 ties to
 //    the even 0) and +-1 above.  fl(x / L) is odd and non-decreasing in x, so
@@ -152,20 +152,10 @@ using dfloat::df;
 // 2^-18, the screen's error bound factor (eps = kScreen * sum_k A_k^2).
 constexpr float kScreen = 3.814697265625e-06f;
 
-// Error-free a * b = p + e by one fused multiply-add (see the note: the
-// same bits as dfloat::two_prod on these magnitudes).
-__device__ __forceinline__ df exact_prod(float a, float b) {
-  const float p = __fmul_rn(a, b);
-  return {p, __fmaf_rn(a, b, -p)};
-}
-
-// dfloat::df_square with exact_prod: e + (2 * x.hi) * x.lo rounded twice,
-// never contracted, then renormalized.
-__device__ __forceinline__ df exact_square(df x) {
-  const df p = exact_prod(x.hi, x.hi);
-  const float e = __fadd_rn(p.lo, __fmul_rn(__fmul_rn(2.0f, x.hi), x.lo));
-  return dfloat::two_sum(p.hi, e);
-}
+// Error-free products by one fused multiply-add (doublefloat.cuh; the note
+// above: the same bits as Dekker's on these magnitudes).
+using dfloat::exact_prod;
+using dfloat::exact_square;
 
 // The largest float T with fl(T / L) <= 0.5 (IEEE division: nvcc's
 // default -prec-div=true, no fast math), from L / 2 (exact) up; fl(x / L)

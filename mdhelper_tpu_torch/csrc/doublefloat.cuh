@@ -2,15 +2,17 @@
 //
 // The CUDA counterpart of mdhelper_tpu_torch/ops/doublefloat.py (and of
 // mdhelper_tpu/ops/doublefloat.py), operation for operation and in the
-// same order.  A value is an unevaluated sum hi + lo of two floats.
+// same order, except the product's error term (exact_prod below).  A value
+// is an unevaluated sum hi + lo of two floats.
 //
 // Precision trap, FMA contraction: nvcc contracts a*b+c into one fused
-// multiply-add by default.  That changes the rounding of two_prod's error
-// term and of df_square's e + 2*x0*x1, and double-float compares are
-// split-sensitive on bin-edge tie pairs.  Every product and sum below is
-// therefore spelled with the round-to-nearest intrinsics (__fmul_rn,
-// __fadd_rn, __fsub_rn), which nvcc never contracts; the library is also
-// built with --fmad=false as a second guard.
+// multiply-add by default.  That changes the rounding of exact_square's
+// e + 2*x0*x1 and of every sum the plain version rounds twice, and
+// double-float compares are split-sensitive on bin-edge tie pairs.  Every
+// product and sum below is therefore spelled with the round-to-nearest
+// intrinsics (__fmul_rn, __fadd_rn, __fsub_rn), which nvcc never contracts,
+// and the one fused operation as __fmaf_rn; the library is also built with
+// --fmad=false as a second guard.
 #pragma once
 
 namespace dfloat {
@@ -36,36 +38,19 @@ __device__ __forceinline__ df two_diff(float a, float b) {
   return {s, e};
 }
 
-// Dekker split with the 2^12 + 1 splitter.
-__device__ __forceinline__ df split(float a) {
-  float c = __fmul_rn(4097.0f, a);
-  float hi = __fsub_rn(c, __fsub_rn(c, a));
-  return {hi, __fsub_rn(a, hi)};
-}
-
-// Error-free a * b = p + e (Dekker):
-// e = ((a_hi*b_hi - p) + a_hi*b_lo + a_lo*b_hi) + a_lo*b_lo, left to right.
-__device__ __forceinline__ df two_prod(float a, float b) {
-  float p = __fmul_rn(a, b);
-  df as = split(a);
-  df bs = split(b);
-  float e = __fsub_rn(__fmul_rn(as.hi, bs.hi), p);
-  e = __fadd_rn(e, __fmul_rn(as.hi, bs.lo));
-  e = __fadd_rn(e, __fmul_rn(as.lo, bs.hi));
-  e = __fadd_rn(e, __fmul_rn(as.lo, bs.lo));
-  return {p, e};
-}
-
-// two_prod of factors split beforehand (as = split(a), bs = split(b)): the
-// same operations after the splits, for a factor that is split once and
-// multiplied many times.
-__device__ __forceinline__ df two_prod_split(float a, df as, float b, df bs) {
-  float p = __fmul_rn(a, b);
-  float e = __fsub_rn(__fmul_rn(as.hi, bs.hi), p);
-  e = __fadd_rn(e, __fmul_rn(as.hi, bs.lo));
-  e = __fadd_rn(e, __fmul_rn(as.lo, bs.hi));
-  e = __fadd_rn(e, __fmul_rn(as.lo, bs.lo));
-  return {p, e};
+// Error-free a * b = p + e by one fused multiply-add: p = fl(a b) and
+// e = fma(a, b, -p), a b - p rounded once.  That difference is a float
+// whenever a b is zero or |a b| >= 2^-101 (|a b - p| <= ulp(p) / 2 then
+// holds at most 24 significant bits at or above 2^-149), so e is exact and
+// equals the error term of Dekker's two_prod with 4097 splits
+// (ops/doublefloat.py), which is exact on the same range while both factors
+// stay below 2^115, where 4097 a would overflow (12-bit halves: every
+// partial product exact).
+// Both give +0 for a zero factor.  The magnitudes each kernel meets, and
+// why they lie in that range, are in its note (cell_bin.cuh, trig_sums.cu).
+__device__ __forceinline__ df exact_prod(float a, float b) {
+  const float p = __fmul_rn(a, b);
+  return {p, __fmaf_rn(a, b, -p)};
 }
 
 // (hi, lo) + (hi, lo) with renormalization.
@@ -83,10 +68,11 @@ __device__ __forceinline__ df df_sum3(df x, df y, df z) {
   return df_add(df_add(x, y), z);
 }
 
-// (hi, lo)^2: e + (2 * x.hi) * x.lo, then renormalize.
-__device__ __forceinline__ df df_square(df x) {
-  df p = two_prod(x.hi, x.hi);
-  float e = __fadd_rn(p.lo, __fmul_rn(__fmul_rn(2.0f, x.hi), x.lo));
+// The plain version's df_square with exact_prod: e + (2 * x.hi) * x.lo
+// rounded twice, never contracted, then renormalized.
+__device__ __forceinline__ df exact_square(df x) {
+  const df p = exact_prod(x.hi, x.hi);
+  const float e = __fadd_rn(p.lo, __fmul_rn(__fmul_rn(2.0f, x.hi), x.lo));
   return two_sum(p.hi, e);
 }
 

@@ -84,7 +84,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P,
     ),
     "pair_histogram_launch": (
-        _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P,
+        _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P,
     ),
 }
 

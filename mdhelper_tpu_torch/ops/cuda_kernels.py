@@ -50,16 +50,22 @@ __all__ = [
 ]
 
 #: atoms a trig-sums block sums (a multiple of the kernel's 256-atom
-#: staging step): 25 slices at 100k atoms, about 5,400 blocks for two
-#: frames of 13,824 wavevectors.
-_TRIG_SLICE_ATOMS = 4096
+#: staging step): 49 slices at 100k atoms, 5,292 blocks of 256
+#: wavevectors for two frames of 13,824 wavevectors.  Slices of 1,536 to
+#: 2,560 atoms ran 3-4 % faster than 4,096 at that shape, 6,144 5 %
+#: slower (scripts/compare_op_designs.py on an NVIDIA H100 80GB HBM3,
+#: 700 W).
+_TRIG_SLICE_ATOMS = 2048
 _TRIG_STAGE = 256
 #: CUDA's limit on the grid's second and third extents (slices, frames).
 _GRID_YZ = 65535
 
-#: the pair-histogram kernel's j tile and its shared memory a j atom
-#: (float4 position and int id), beside one 4-byte flag and the histogram.
-_HIST_TILE_J, _HIST_SLOT_BYTES = 2048, 20
+#: the pair-histogram kernel's tile (the i atoms of a block and the j atoms
+#: it stages) and its shared memory a j atom (float4 position and int2
+#: ids), beside one 4-byte flag and the histogram.
+_HIST_TILE, _HIST_SLOT_BYTES = 512, 24
+#: CUDA's limit on the grid's first extent (the kernel's tile pairs).
+_GRID_X = 2**31 - 1
 #: pairs a tile of the plain pair sweep holds at once (2^25: 128 MiB a
 #: float32 buffer).
 _PAIR_TILE_ELEMENTS = 1 << 25
@@ -295,21 +301,48 @@ def _pair_histogram_kernel(positions, box, r_max, n_bins, exclusion):
     pos, lengths, consts, exclusion = _hist_inputs(
         positions, box, r_max, n_bins, exclusion)
     n_bins = int(n_bins)
-    smem = _HIST_TILE_J * _HIST_SLOT_BYTES + 4 + 4 * n_bins
+    smem = _HIST_TILE * _HIST_SLOT_BYTES + 4 + 4 * n_bins
     if smem > _SMEM_BYTES:
         raise ValueError(
             f"{n_bins} bins need {smem} bytes of shared memory a block "
             f"(at most {_SMEM_BYTES}).")
     n = pos.shape[0]
-    if -(-n // _HIST_TILE_J) > _GRID_YZ:
+    n_tiles = -(-n // _HIST_TILE)
+    if n_tiles * (n_tiles + 1) // 2 > _GRID_X:
         raise ValueError(f"{n} atoms exceed the kernel's grid.")
     counts = torch.zeros(n_bins, dtype=torch.int64, device=pos.device)
     if n:
         e0, e1 = exclusion or (1, 1)
         _launch("pair_histogram_launch", pos.device, pos.contiguous(),
                 counts, n, n_bins, int(exclusion is not None), e0, e1,
-                *lengths, consts[1])
+                *lengths, consts[1], _fast_d2_cut(consts[1], n_bins))
     return counts
+
+
+def _fast_d2_cut(inv_dr, n_bins):
+    """The largest float32 ``d2`` whose fast "zero" bin
+    ``trunc(min(f32(sqrt(d2)) * inv_dr, n_bins))`` is below `n_bins`
+    (the bin is non-decreasing in ``d2``): the kernel bins a pair iff its
+    ``d2`` is at most this.  Walks float bit patterns from
+    ``(n_bins / inv_dr)^2``, IEEE float32 sqrt and product as on the
+    card."""
+
+    inv, top = np.float32(inv_dr), np.float32(n_bins)
+    big = np.finfo(np.float32).max
+
+    def binned(d2):
+        return np.float32(np.sqrt(d2)) * inv < top
+
+    d2 = np.float32(min((float(n_bins) / float(inv)) ** 2, float(big)))
+    for _ in range(64):
+        if binned(d2):
+            up = np.nextafter(d2, np.float32(np.inf))
+            if not binned(up):
+                return d2
+            d2 = up
+        else:
+            d2 = np.nextafter(d2, np.float32(0.0))
+    raise RuntimeError(f"no d2 cut found for {n_bins} bins, inv_dr {inv}.")
 
 
 #: kernel launches made by :func:`pair_histogram` (CUDA tensors only),

@@ -10,11 +10,15 @@ Every entry point of ``mdhelper_tpu_torch/csrc``, in every binning policy
 asymmetric tiles, cross ids), is compared with its plain-torch version as
 integers on small random inputs and on the bin-edge straddle fixtures;
 so is the brute-force pair histogram (``csrc/pair_histogram.cu``) with
-and without exclusions, also on positions outside the box.  The trig sums (``csrc/trig_sums.cu``), fast and
-exact, with and without weights and low words, are held with their plain
-version against a float64 oracle within the tolerances of
-``tests/test_pallas.py`` (1e-4 and 1e-6 of the mean amplitude).  One line
-a case, and a non-zero exit when any fails.
+and without exclusions (asymmetric ones in both orders), also on
+positions outside the box, at the edges of its 512-atom tiles and with
+the widest histogram its shared memory holds.  The trig sums
+(``csrc/trig_sums.cu``), fast and exact, with and without weights and
+low words, are held with their plain version against a float64 oracle
+within the tolerances of ``tests/test_pallas.py`` (1e-4 and 1e-6 of the
+mean amplitude), and on the card the exact sums equal the plain
+version's bit for bit.  One line a case, and a non-zero exit when any
+fails.
 
 ``--device cuda`` runs the kernels on the card (the nvcc build).  The
 default, ``--device cpu``, runs the same CUDA sources on the CPU: they are
@@ -68,6 +72,7 @@ RUNTIME = r"""
 #define __restrict__
 #define __launch_bounds__(...)
 struct float4 { float x, y, z, w; };
+struct int2 { int x, y; };
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -257,7 +262,12 @@ def op_cases(rng, device):
             oc, osn).mean()
 
         def check(k, p):
-            return all(
+            # On the card the exact sums are the plain version's bits; the
+            # CPU stand-in takes the host's sincosf, which rounds otherwise
+            # than torch's cos and sin there.
+            same = (precision != "exact" or device == "cpu"
+                    or all(torch.equal(a, b) for a, b in zip(k, p)))
+            return same and all(
                 np.abs(out[i].cpu().numpy() - ref).max() <= tol
                 for out in (k, p) for i, ref in ((0, oc), (1, osn)))
         return check
@@ -290,13 +300,21 @@ def op_cases(rng, device):
     straddle = tensor(edge_straddle_positions(rng, 16.0))
     # Unwrapped: up to two boxes outside [0, L) on each axis.
     loose = tensor((rng.random((700, 3)) * 5 - 2) * box)
-    for p, b, r_max, n_bins in ((pos, box, 7.0, 150),
-                                (straddle, 16.0, 4.0, 16),
-                                (loose, box, 7.0, 150)):
-        for ex in (None, (1, 1), (4, 4)):
+    # The tile edges (1, a tile less one, one tile, one more, a multiple of
+    # neither, two tiles and one), and the widest histogram beside the tile.
+    edges = [(tensor(rng.random((n, 3)) * 8.0), 8.0, 3.5, 40)
+             for n in (1, 511, 512, 513, 1000, 1025)]
+    widest = (cch._SMEM_BYTES - ck._HIST_TILE * ck._HIST_SLOT_BYTES - 4) // 4
+    for p, b, r_max, n_bins, exclusions in (
+            [(pos, box, 7.0, 150, (None, (1, 1), (4, 4), (2, 3), (3, 2))),
+             (straddle, 16.0, 4.0, 16, (None, (1, 1), (4, 4), (2, 3))),
+             (loose, box, 7.0, 150, (None, (1, 1), (4, 4), (2, 3))),
+             (pos[:600], box, 7.0, widest, (None, (2, 3)))]
+            + [(*e, (None, (2, 3), (3, 2))) for e in edges]):
+        for ex in exclusions:
             args = (p, (b,) * 3, r_max, n_bins)
             out.append((
-                f"pair_histogram {p.shape[0]} atoms {ex}",
+                f"pair_histogram {p.shape[0]} atoms {n_bins} bins {ex}",
                 lambda a=args, e=ex: ck._pair_histogram_kernel(*a, e),
                 lambda a=args, e=ex: ck.pair_histogram_reference(
                     *a, exclusion=e),

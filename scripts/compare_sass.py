@@ -3,9 +3,11 @@
 Usage::
 
     python scripts/compare_sass.py OLD_CSRC [NEW_CSRC] [--out FILE]
-    python scripts/compare_sass.py --loops PATTERN [--loops ...] [--out FILE]
+    python scripts/compare_sass.py --loops PATTERN [--loops ...] [--tree DIR]
+        [--out FILE]
 
-With ``--loops`` only the current tree is compiled, and for every kernel
+With ``--loops`` only one tree is compiled (``--tree``, default the
+current ``mdhelper_tpu_torch/csrc``), and for every kernel
 whose demangled name contains every PATTERN the script prints each loop of its
 SASS (the instructions from a backward branch's target to the branch),
 innermost first, with its length and its instructions by opcode, and then
@@ -157,12 +159,14 @@ def loops(code):
     return sorted(found, key=lambda x: len(x[2]))
 
 
-def loop_report(patterns, out):
-    """The --loops report (see the module docstring)."""
+def loop_report(patterns, out, tree=None):
+    """The --loops report (see the module docstring) of the sources in
+    `tree` (default the package's csrc/); returns its summary lines."""
 
     lines = []
     with tempfile.TemporaryDirectory() as tmp:
-        objs, secs = compile_tree(ROOT / "mdhelper_tpu_torch" / "csrc", tmp)
+        objs, secs = compile_tree(tree or ROOT / "mdhelper_tpu_torch" / "csrc",
+                                  tmp)
         code = sass_with_addresses(objs)
     for name, ins in sorted(code.items()):
         if not all(p in name for p in patterns):
@@ -179,10 +183,12 @@ def loop_report(patterns, out):
                          f"instructions: {hist}")
         lines += [f"    /*{a:04x}*/ {i}" for a, i in ins]
     text = "\n".join(lines)
-    print("\n".join(l for l in lines if not l.startswith("    /*")))
+    summary = [line for line in lines if not line.startswith("    /*")]
+    print("\n".join(summary))
     if out:
         Path(out).parent.mkdir(parents=True, exist_ok=True)
         Path(out).write_text(text + "\n")
+    return summary
 
 
 def signature(name):
@@ -209,9 +215,11 @@ def main():
     parser.add_argument("--loops", metavar="PATTERN", action="append",
                         help="report the loops of the kernels whose names "
                         "hold every such pattern")
+    parser.add_argument("--tree", help="with --loops: the source directory "
+                        "(default mdhelper_tpu_torch/csrc)")
     args = parser.parse_args()
     if args.loops:
-        loop_report(args.loops, args.out)
+        loop_report(args.loops, args.out, args.tree)
         return
     if args.old is None:
         parser.error("OLD_CSRC is needed unless --loops is given")

@@ -18,7 +18,10 @@ terms in float64 against a float64 direct sum:
 
 For each it prints the largest error of the sums, beside the tolerance
 of ``tests/test_pallas.py`` (1e-6 of the mean amplitude), and the
-largest mean error of one term over the atoms.  Needs a CUDA device.
+largest mean error of one term over the atoms.  Then the kernel's own
+exact sums (``ops/cuda_kernels.trig_sums``, cos and sin) against the
+float64 direct sums, and their share of the tolerance.  Needs a CUDA
+device.
 """
 
 import argparse
@@ -33,7 +36,7 @@ sys.path.insert(0, str(ROOT))
 
 from mdhelper_tpu_torch._device import require_cuda  # noqa: E402
 from mdhelper_tpu_torch.analysis.structure import _wavevector_grid  # noqa: E402
-from mdhelper_tpu_torch.ops import scattering  # noqa: E402
+from mdhelper_tpu_torch.ops import cuda_kernels, scattering  # noqa: E402
 
 
 def main():
@@ -56,7 +59,8 @@ def main():
         phases = qs @ pos.double().T
         exact = torch.cos(phases)
         oracle = exact.sum(-1)
-        amp = float(torch.hypot(oracle, torch.sin(phases).sum(-1)).mean())
+        oracle_sin = torch.sin(phases).sum(-1)
+        amp = float(torch.hypot(oracle, oracle_sin).mean())
         hi, lo = scattering._exact_phases(q_hi, pos, q_lo)
         hi64, lo64 = hi.double(), lo.double()
         terms = {
@@ -74,6 +78,12 @@ def main():
                   f"error {float(err.max()):.3e} (tolerance "
                   f"{1e-6 * amp:.3e}), largest mean term error "
                   f"{float(bias):.3e}")
+        k_cos, k_sin = cuda_kernels.trig_sums(qs, pos, precision="exact")
+        err = max(float((k_cos.double() - oracle).abs().max()),
+                  float((k_sin.double() - oracle_sin).abs().max()))
+        print(f"frame {f}, {args.atoms} atoms, the kernel's exact sums: "
+              f"largest error {err:.3e} ({100 * err / (1e-6 * amp):.0f} % "
+              f"of the tolerance {1e-6 * amp:.3e})")
 
 
 if __name__ == "__main__":

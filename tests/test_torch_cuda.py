@@ -719,7 +719,8 @@ def test_trig_sums_kernel_equals_reference(cuda_device, precision, case):
     """The trig-sums kernel and its plain version each within the
     tolerances of tests/test_pallas.py of a float64 oracle (1e-4 of the
     mean amplitude fast, 1e-6 exact), on two frames with tails of both
-    tiles; two launches give the same bits."""
+    tiles; two launches give the same bits, and the exact sums are the
+    plain version's bit for bit."""
 
     from mdhelper_tpu_torch.ops import cuda_kernels as ck
 
@@ -747,10 +748,12 @@ def test_trig_sums_kernel_equals_reference(cuda_device, precision, case):
         torch.testing.assert_close(kernel[i], again[i], rtol=0, atol=0)
         assert np.abs(kernel[i].cpu().numpy() - ref).max() <= tol
         assert np.abs(plain[i].cpu().numpy() - ref).max() <= tol
+        if precision == "exact":
+            torch.testing.assert_close(kernel[i], plain[i], rtol=0, atol=0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("exclusion", [None, (1, 1), (4, 4)])
+@pytest.mark.parametrize("exclusion", [None, (1, 1), (4, 4), (2, 3), (3, 2)])
 def test_pair_histogram_kernel_equals_reference(cuda_device, exclusion):
     from mdhelper_tpu_torch.ops import cuda_kernels as ck
 
@@ -775,6 +778,52 @@ def test_pair_histogram_kernel_equals_reference(cuda_device, exclusion):
                 n_bins=n_bins, precision="fast")
             np.testing.assert_array_equal(
                 kernel.cpu().numpy(), cell[0].cpu().numpy().astype(np.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_atoms", [1, 511, 512, 513, 1000, 1025])
+@pytest.mark.parametrize("exclusion", [None, (2, 3), (3, 2)])
+def test_pair_histogram_tile_edges_equal_reference(cuda_device, n_atoms,
+                                                   exclusion):
+    """Atom counts at the edges of the kernel's 512-atom tiles (one
+    atom, a tile less one, one tile, one more, a count that is a multiple
+    of neither, two tiles and one): integers equal to the plain
+    version's, and under None each atom once in bin 0."""
+
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    rng = np.random.default_rng(65)
+    p = torch.from_numpy((rng.random((n_atoms, 3)) * 8.0).astype(
+        np.float32)).to(cuda_device)
+    kernel = ck.pair_histogram(p, (8.0,) * 3, 3.5, 40, exclusion=exclusion)
+    plain = ck.pair_histogram_reference(p, (8.0,) * 3, 3.5, 40,
+                                        exclusion=exclusion)
+    torch.testing.assert_close(kernel, plain, rtol=0, atol=0)
+    if exclusion is None:
+        dropped = ck.pair_histogram(p, (8.0,) * 3, 3.5, 40, exclusion=(1, 1))
+        assert int(kernel[0] - dropped[0]) == n_atoms
+        torch.testing.assert_close(kernel[1:], dropped[1:], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_pair_histogram_bins_near_shared_memory_limit(cuda_device):
+    """The widest histogram the kernel's shared memory holds beside its
+    staged tile: equal to the plain version; one bin more raises."""
+
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    n_bins = (cch._SMEM_BYTES - ck._HIST_TILE * ck._HIST_SLOT_BYTES - 4) // 4
+    rng = np.random.default_rng(66)
+    p = torch.from_numpy((rng.random((1500, 3)) * BOX).astype(
+        np.float32)).to(cuda_device)
+    for exclusion in (None, (2, 3)):
+        kernel = ck.pair_histogram(p, (BOX,) * 3, 6.0, n_bins,
+                                   exclusion=exclusion)
+        plain = ck.pair_histogram_reference(p, (BOX,) * 3, 6.0, n_bins,
+                                            exclusion=exclusion)
+        torch.testing.assert_close(kernel, plain, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        ck.pair_histogram(p, (BOX,) * 3, 6.0, n_bins + 1)
 
 
 @pytest.mark.cuda

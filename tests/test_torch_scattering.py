@@ -203,9 +203,10 @@ def test_ops_reject_other_devices_and_shapes():
         ck.pair_histogram(torch.zeros((2, 4, 3)), (10.0,) * 3, 3.0, 10)
 
 
-@pytest.mark.parametrize("exclusion", [None, (1, 1), (4, 4)])
+@pytest.mark.parametrize("exclusion", [None, (1, 1), (4, 4), (2, 3)])
 def test_pair_histogram_equals_pallas(exclusion):
-    """900 atoms as in test_pallas.py: equal integer counts."""
+    """900 atoms as in test_pallas.py: equal integer counts (also under
+    the asymmetric (2, 3), whose two orders of a pair count apart)."""
 
     rng = np.random.default_rng(31)
     n, r_max, n_bins = 900, 7.0, 150
