@@ -39,12 +39,24 @@ method="auto", the partial rows of the even and odd atoms and the fast
 phases (8 + 8 frames each), and the brute-force pair histogram through
 its op at 100k atoms (exclusions (1, 1), None, (4, 4) and (2, 3), and
 the straddle fixture) against its plain version and the fast self cell
-kernel; the exact trig sums must equal their plain version bit for bit.  Every check raises on failure, so any failed phase exits
-non-zero.  The last lines of standard output are the card's name and
-power limit, a JSON line of per-kernel measurements (each beside its
-bound: the larger of the float32 operations of the pairs binned, or of
-the trig terms summed, over the card's float32 peak and the bytes read
-and written once over its memory rate), and ``{"ok": true, "device":
+kernel; the exact trig sums must equal their plain version bit for bit.
+Then the cross RDF of two overlapping groups, and slice 10: the fast
+trig sums on 8 and on 64 (the lag launch of a full ring) displacement
+frames in +-L against their plain version and a float64 oracle, and the
+IntermediateScatteringFunction at the JAX package's isf bench width
+(100k atoms, the 24^3 grid, a 64-frame ring, incoherent, exact, 8 + 96
+frames of a random walk): the direct route with its 13 coherent and 104
+lag launches counted, F_s(q, 0) == 1, F(q, 0) against the direct S(q)
+and four lags on 16 wavevectors against a numpy float64 oracle; the
+default factorized route against it; the coherent time FFT against the
+ring; the log grid's rows against the dense rows bit for bit; and the
+sum rule of the dynamic structure factor.  Every check raises on
+failure, so any failed phase exits non-zero.  The last lines of
+standard output are the card's name and power limit, a JSON line of
+per-kernel measurements (each beside its bound: the larger of the
+float32 operations of the pairs binned, or of the trig terms summed,
+over the card's float32 peak and the bytes read and written once over
+its memory rate), and ``{"ok": true, "device":
 {...}}``.
 
 Imports neither JAX nor the JAX package.
@@ -2309,6 +2321,83 @@ def trig_bound(n_frames, n_atoms, n_q, precision, lo, weights):
     }
 
 
+def trig_vs_plain(q, pos, w, precision, what, pick, workspace=None):
+    """The trig-sums kernel against its plain version on frames `pos`:
+    each result, kernel and plain, held against a float64 oracle on the
+    card on the wavevectors `pick` within the tolerances of
+    tests/test_pallas.py (1e-4 of the mean amplitude fast, 1e-6 exact), the
+    kernel against the plain version on every wavevector within the same
+    (exact: bit for bit), two launches the same bits; then both timed, in
+    ms a frame beside :func:`trig_bound`.  The kernel's launches take
+    `workspace` when one is given."""
+
+    import torch
+
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    kernel = lambda: ck.trig_sums(q, pos, w,  # noqa: E731
+                                  precision=precision, workspace=workspace)
+    plain = lambda: ck.trig_sums_reference(q, pos, w,  # noqa: E731
+                                           precision=precision)
+    k_out = kernel()
+    again = kernel()
+    p_out, first_plain_ms = timed_call(plain)
+    check(all(torch.equal(a, b) for a, b in zip(k_out, again)),
+          f"{what}: two launches differ")
+    # float64 oracle on the card, on the subset.
+    idx = pick[pick < len(q)]
+    sub = q[idx].double()
+    w64 = 1.0 if w is None else w.double()
+    oracle = []
+    for f in range(pos.shape[0]):
+        phases = sub @ pos[f].double().T
+        oracle.append(((torch.cos(phases) * w64).sum(-1),
+                       (torch.sin(phases) * w64).sum(-1)))
+        del phases
+    oc = torch.stack([o[0] for o in oracle])
+    osn = torch.stack([o[1] for o in oracle])
+    amp = float(torch.hypot(oc, osn).mean())
+    tol = (1e-6 if precision == "exact" else 1e-4) * amp
+    errs = {}
+    for name, out in (("kernel", k_out), ("plain", p_out)):
+        errs[name] = max(
+            float((out[0][:, idx].double() - oc).abs().max()),
+            float((out[1][:, idx].double() - osn).abs().max()))
+        check(errs[name] <= tol,
+              f"{what}: {name} off the float64 oracle by "
+              f"{errs[name]:.3e} > {tol:.3e}")
+    max_abs_err = max(float((k_out[i] - p_out[i]).abs().max())
+                      for i in range(2))
+    check(max_abs_err <= tol,
+          f"{what}: kernel differs from plain by {max_abs_err:.3e}")
+    check(precision != "exact" or max_abs_err == 0.0,
+          f"{what}: the exact sums differ from plain by {max_abs_err:.3e}")
+    n_frames = pos.shape[0]
+    kernel_ms = [time_ms(kernel, 3) / n_frames for _ in range(2)]
+    plain_ms = [first_plain_ms / n_frames, time_ms(plain, 1) / n_frames]
+    out = {
+        "mode": precision, "max_abs_err": max_abs_err,
+        "oracle_err": errs, "tolerance": tol,
+        "ms": float(np.mean(kernel_ms)),
+        "plain_ms": float(np.mean(plain_ms)),
+        **trig_bound(pos.shape[0], pos.shape[1], len(q), precision,
+                     lo=precision == "exact" and q.dtype == torch.float64,
+                     weights=w is not None),
+    }
+    print(f"{what}: max |kernel - float64| {errs['kernel']:.3e}, "
+          f"|plain - float64| {errs['plain']:.3e} (tolerance "
+          f"{tol:.3e}, mean amplitude {amp:.3f}); |kernel - plain| "
+          f"{max_abs_err:.3e}; two launches equal; per frame kernel "
+          f"{out['ms']:.3f} ms (runs {[round(x, 3) for x in kernel_ms]}),"
+          f" plain torch {out['plain_ms']:.3f} ms (runs "
+          f"{[round(x, 3) for x in plain_ms]}); bound "
+          f"{out['bound_ms']:.3f} ms by {out['bound_by']} "
+          f"({100 * out['bound_ms'] / out['ms']:.1f} % of the kernel's "
+          f"time; the first design's count "
+          f"{out['first_design_bound_ms']:.3f} ms)")
+    return out
+
+
 def phase_trig_kernels(device, rng):
     """The trig-sums kernel against its plain version at the direct path's
     width: 2 frames of 100k atoms in one launch, the 24^3 grid as float64
@@ -2323,7 +2412,6 @@ def phase_trig_kernels(device, rng):
     import torch
 
     from mdhelper_tpu_torch.analysis.structure import _wavevector_grid
-    from mdhelper_tpu_torch.ops import cuda_kernels as ck
 
     frames, _ = uniform_frames(rng, device, 2, N_ATOMS, cube(N_ATOMS))
     qs = torch.from_numpy(_wavevector_grid([BOX] * 3, N_QPTS)).to(device)
@@ -2339,67 +2427,8 @@ def phase_trig_kernels(device, rng):
         what = (f"trig sums {precision}, {pos.shape[0]} x {pos.shape[1]} "
                 f"atoms x {len(q)} float64 wavevectors"
                 + (", 0/1 weights" if w is not None else ""))
-        kernel = lambda: ck.trig_sums(q, pos, w, precision=precision)  # noqa: E731
-        plain = lambda: ck.trig_sums_reference(q, pos, w,  # noqa: E731
-                                               precision=precision)
-        k_out = kernel()
-        again = kernel()
-        p_out, first_plain_ms = timed_call(plain)
-        check(all(torch.equal(a, b) for a, b in zip(k_out, again)),
-              f"{what}: two launches differ")
-        # float64 oracle on the card, on the subset.
-        idx = pick[pick < len(q)]
-        sub = q[idx]
-        w64 = 1.0 if w is None else w.double()
-        oracle = []
-        for f in range(pos.shape[0]):
-            phases = sub @ pos[f].double().T
-            oracle.append(((torch.cos(phases) * w64).sum(-1),
-                           (torch.sin(phases) * w64).sum(-1)))
-            del phases
-        oc = torch.stack([o[0] for o in oracle])
-        osn = torch.stack([o[1] for o in oracle])
-        amp = float(torch.hypot(oc, osn).mean())
-        tol = (1e-6 if precision == "exact" else 1e-4) * amp
-        errs = {}
-        for name, out in (("kernel", k_out), ("plain", p_out)):
-            errs[name] = max(
-                float((out[0][:, idx].double() - oc).abs().max()),
-                float((out[1][:, idx].double() - osn).abs().max()))
-            check(errs[name] <= tol,
-                  f"{what}: {name} off the float64 oracle by "
-                  f"{errs[name]:.3e} > {tol:.3e}")
-        max_abs_err = max(float((k_out[i] - p_out[i]).abs().max())
-                          for i in range(2))
-        check(max_abs_err <= tol,
-              f"{what}: kernel differs from plain by {max_abs_err:.3e}")
-        check(precision != "exact" or max_abs_err == 0.0,
-              f"{what}: the exact sums differ from plain by "
-              f"{max_abs_err:.3e}")
-        n_frames = pos.shape[0]
-        kernel_ms = [time_ms(kernel, 3) / n_frames for _ in range(2)]
-        plain_ms = [first_plain_ms / n_frames, time_ms(plain, 1) / n_frames]
-        out = {
-            "mode": precision, "max_abs_err": max_abs_err,
-            "oracle_err": errs, "tolerance": tol,
-            "ms": float(np.mean(kernel_ms)),
-            "plain_ms": float(np.mean(plain_ms)),
-            **trig_bound(pos.shape[0], pos.shape[1], len(q), precision,
-                         lo=precision == "exact", weights=w is not None),
-        }
-        print(f"{what}: max |kernel - float64| {errs['kernel']:.3e}, "
-              f"|plain - float64| {errs['plain']:.3e} (tolerance "
-              f"{tol:.3e}, mean amplitude {amp:.3f}); |kernel - plain| "
-              f"{max_abs_err:.3e}; two launches equal; per frame kernel "
-              f"{out['ms']:.3f} ms (runs {[round(x, 3) for x in kernel_ms]}),"
-              f" plain torch {out['plain_ms']:.3f} ms (runs "
-              f"{[round(x, 3) for x in plain_ms]}); bound "
-              f"{out['bound_ms']:.3f} ms by {out['bound_by']} "
-              f"({100 * out['bound_ms'] / out['ms']:.1f} % of the kernel's "
-              f"time; the first design's count "
-              f"{out['first_design_bound_ms']:.3f} ms)")
-        timing[precision, w is not None] = out
-        del k_out, again, p_out
+        timing[precision, w is not None] = trig_vs_plain(
+            q, pos, w, precision, what, pick)
 
     # The torch fast formulation (several calls: matmul, cos, sin, sums,
     # by wavevector tiles as the plain version takes them).
@@ -2698,12 +2727,372 @@ def phase_overlap(device, rng):
     return launches
 
 
+# Slice 10: the intermediate scattering function at the width of bench.py's
+# isf phases (100k atoms, the 24^3 grid, a 64-frame ring, incoherent, exact,
+# 8 + 96 frames in chunks of 8) on a random walk of ISF_STEP A a frame and
+# axis (F_s(q, 63 frames) from about 0.9 to 0.14 over the grid), so that the
+# ring correlates frames that are correlated.  The float64 oracle takes 16
+# wavevectors and four lags; the kernel check 8 displacement frames a launch.
+ISF_FRAMES, ISF_LAGS, ISF_STEP = 8 + 96, 64, 0.05
+ISF_ORACLE_QS, ISF_ORACLE_LAGS = 16, (0, 1, 8, 63)
+ISF_KERNEL_FRAMES = 8
+#: frames at the end of a run that run under torch.profiler (the ring full).
+ISF_PROFILED_FRAMES = CHUNK
+
+
+def busy_us(events):
+    """Length of the union of ``[start, end)`` intervals, in us."""
+
+    total, reach = 0.0, -np.inf
+    for start, end in sorted(events):
+        if end <= reach:
+            continue
+        total += end - max(start, reach)
+        reach = end
+    return total
+
+
+def isf_universe(rng, n_frames):
+    """A random walk of N_ATOMS atoms from uniform positions in the cubic
+    box, normal steps of ISF_STEP A a frame and axis, wrapped into the box
+    as float32, as an in-memory universe (1 ps a frame)."""
+
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    steps = rng.normal(0.0, ISF_STEP, (n_frames, N_ATOMS, 3))
+    steps[0] = rng.random((N_ATOMS, 3)) * BOX
+    traj = np.mod(np.cumsum(steps, axis=0), BOX).astype(np.float32)
+    del steps
+    return traj, Universe.from_arrays(
+        traj, np.array([BOX] * 3 + [90.0] * 3), dt=1.0
+    )
+
+
+def isf_analysis(u, device, **kwargs):
+    """An IntermediateScatteringFunction over `u` with the isf phase's
+    settings (overridden by `kwargs`) and CHUNK-frame chunks."""
+
+    from mdhelper_tpu_torch.analysis.structure import (
+        IntermediateScatteringFunction,
+    )
+
+    options = dict(n_points=N_QPTS, sort=False, unique=False,
+                   n_lags=ISF_LAGS, incoherent=True, precision="exact",
+                   method="direct", verbose=False, device=device)
+    options.update(kwargs)
+    analysis = IntermediateScatteringFunction(u.atoms, **options)
+    analysis._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
+    return analysis
+
+
+def run_isf_path(analysis, n_frames, profiled=0):
+    """Run one ISF path through run_together with the trig-sums launch
+    counts set to 0 just before it and read just after, its launches split
+    by precision as the wrapper counts them (exact: the coherent sums,
+    fast: the displacement sums) and checked against the calls that the
+    analysis made by precision.  Frames/s are clocked from the end of
+    the first chunk to the end of the conclusions, or, with `profiled`
+    frames, to the start of the last `profiled` frames, which run under
+    torch.profiler for the device's busy share of their wall time.
+    Returns ``(launches, launches by precision, frames/s, busy share or
+    None, device activities a profiled frame or None)``."""
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdhelper_tpu_torch.analysis import structure
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    calls = {"exact": 0, "fast": 0}
+    wrapped = structure.trig_sums
+
+    def tally(qs, positions, *args, precision="fast", **kwargs):
+        calls[precision] += 1
+        return wrapped(qs, positions, *args, precision=precision, **kwargs)
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    marks, seen = [], [0]
+
+    def on_chunk(batch):
+        seen[0] += batch.n_real
+        if not marks or (profiled and seen[0] == n_frames - profiled):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if len(marks) == 2:
+                # The profiler's start-up stays out of the profiled wall.
+                prof.start()
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+
+    structure.trig_sums = tally
+    ck.trig_sums.launches = 0
+    by_precision = ck.trig_sums.launches_by_precision
+    by_precision.update(exact=0, fast=0)
+    try:
+        run_together([analysis], on_chunk=on_chunk)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    finally:
+        structure.trig_sums = wrapped
+    launches, by_precision = ck.trig_sums.launches, dict(by_precision)
+    check(by_precision == calls
+          and launches == by_precision["exact"] + by_precision["fast"],
+          f"trig-sums launches {launches} ({by_precision} by precision) "
+          f"against the analysis's calls {calls}")
+    if not profiled:
+        return (launches, by_precision, (n_frames - CHUNK) / (end - marks[0]),
+                None, None)
+    prof.stop()
+    on_device = [(e.time_range.start, e.time_range.end)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(on_device, "the profiler saw no device activity")
+    busy = busy_us(on_device) / ((end - marks[2]) * 1e6)
+    fps = (n_frames - profiled - CHUNK) / (marks[1] - marks[0])
+    return launches, by_precision, fps, busy, len(on_device) / profiled
+
+
+def isf_oracle(traj, qs, lags):
+    """float64 F(q, t) and F_s(q, t) of the float32 frames `traj` at the
+    wavevectors `qs` and `lags`, over every window origin, with the sums'
+    mean and largest amplitudes (|rho|, over every frame) and the self
+    sums' mean amplitude a lag (|sum_j cos q . dr_j| over the origins)."""
+
+    n_t, n = traj.shape[:2]
+    cos = np.empty((n_t, n, len(qs)))
+    sin = np.empty_like(cos)
+    for f in range(n_t):
+        phases = traj[f].astype(np.float64) @ qs.T
+        np.cos(phases, out=cos[f])
+        np.sin(phases, out=sin[f])
+    rho = cos.sum(axis=1) + 1j * sin.sum(axis=1)  # (T, K)
+    cisf, iisf, self_amp = [], [], []
+    for lag in lags:
+        m = n_t - lag
+        cisf.append((rho[lag:] * rho[:m].conj()).real.sum(axis=0) / (n * m))
+        # sum_j cos(q . (r_j(t0 + lag) - r_j(t0))), one row an origin.
+        d = np.stack([np.einsum("nk,nk->k", cos[f + lag], cos[f])
+                      + np.einsum("nk,nk->k", sin[f + lag], sin[f])
+                      for f in range(m)])
+        iisf.append(d.sum(axis=0) / (n * m))
+        self_amp.append(np.abs(d).mean())
+    return (np.array(cisf), np.array(iisf), np.abs(rho).mean(),
+            np.abs(rho).max(), np.array(self_amp))
+
+
+def check_isf_oracle(isf, traj, rng):
+    """The ISF's cisf and iisf at ISF_ORACLE_LAGS on ISF_ORACLE_QS random
+    wavevectors (not q = 0) against :func:`isf_oracle`.  Each per-frame sum
+    may be off its float64 value by the trig phase's tolerance (1e-6 of the
+    sums' mean amplitude exact, 1e-4 fast); carried through the products
+    (plus their float32 rounding, 2^-22 of the largest |rho|^2) and the
+    normalization by N."""
+
+    qs_all = isf._wavevectors
+    pick = np.sort(rng.choice(np.arange(1, len(qs_all)), ISF_ORACLE_QS,
+                              replace=False))
+    rows = [int(np.flatnonzero(isf._lag_values == lag)[0])
+            for lag in ISF_ORACLE_LAGS]
+    cisf, iisf, amp, top, self_amp = isf_oracle(traj, qs_all[pick],
+                                                ISF_ORACLE_LAGS)
+    eps = 1e-6 * amp
+    tol_c = (eps * (2 * top + eps) + 2.0**-22 * top**2) / N_ATOMS
+    tol_i = 1e-4 * self_amp[:, None] / N_ATOMS
+    err_c = np.abs(isf.results.cisf[rows, 0][:, pick] - cisf)
+    err_i = np.abs(isf.results.iisf[rows, 0][:, pick] - iisf)
+    check(err_c.max() <= tol_c,
+          f"cisf off the float64 oracle by {err_c.max():.3e} > {tol_c:.3e}")
+    check(np.all(err_i <= tol_i),
+          f"iisf off the float64 oracle by {err_i.max():.3e} (tolerances "
+          f"{tol_i[:, 0]})")
+    print(f"isf vs float64 oracle ({ISF_ORACLE_QS} wavevectors, lags "
+          f"{ISF_ORACLE_LAGS}): max |cisf - oracle| {err_c.max():.3e} "
+          f"(tolerance {tol_c:.3e}; mean |rho| {amp:.1f}, largest "
+          f"{top:.1f}); max |iisf - oracle| by lag "
+          f"{[float(f'{e:.3e}') for e in err_i.max(axis=1)]} (tolerances "
+          f"{[float(f'{t:.3e}') for t in tol_i[:, 0]]}); oracle F_s "
+          f"{[float(f'{v:.4f}') for v in iisf.mean(axis=1)]} (mean over "
+          "the wavevectors)")
+    return float(err_c.max()), float(err_i.max())
+
+
+def phase_isf_kernel(device, rng):
+    """The trig-sums kernel against its plain version at the incoherent
+    ISF's shapes, as :func:`phase_trig_kernels` holds its shapes:
+    ISF_KERNEL_FRAMES and then ISF_LAGS (the lag launch of a full ring, on
+    a workspace of :func:`trig_workspace`) displacement frames of 100k
+    atoms in +-L (differences of uniform frames) x the 24^3 grid, fast.
+    Returns the timings of the two shapes."""
+
+    import torch
+
+    from mdhelper_tpu_torch.analysis.structure import _wavevector_grid
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    a, _ = uniform_frames(rng, device, ISF_LAGS, N_ATOMS, cube(N_ATOMS))
+    b, _ = uniform_frames(rng, device, ISF_LAGS, N_ATOMS, cube(N_ATOMS))
+    delta = a - b
+    del a, b
+    qs = torch.from_numpy(_wavevector_grid([BOX] * 3, N_QPTS)).to(device)
+    pick = torch.from_numpy(np.sort(np.random.default_rng(SEED).choice(
+        len(qs), ORACLE_QS, replace=False))).to(device)
+    what = (f"displacement frames in +-L x {N_ATOMS} atoms x {len(qs)} "
+            "wavevectors")
+    timing = {ISF_KERNEL_FRAMES: trig_vs_plain(
+        qs, delta[:ISF_KERNEL_FRAMES], None, "fast",
+        f"trig sums fast, {ISF_KERNEL_FRAMES} {what}", pick)}
+    workspace = ck.trig_workspace(ISF_LAGS, N_ATOMS, len(qs), device)
+    lag = timing[ISF_LAGS] = trig_vs_plain(
+        qs, delta, None, "fast",
+        f"trig sums fast, {ISF_LAGS} {what} (the lag launch of a full "
+        "ring)", pick, workspace)
+    print(f"lag launch of a full ring, {ISF_LAGS} displacement frames: "
+          f"{ISF_LAGS * lag['ms']:.3f} ms a launch, bound "
+          f"{ISF_LAGS * lag['bound_ms']:.3f} ms by {lag['bound_by']} "
+          f"({100 * lag['bound_ms'] / lag['ms']:.1f} %); workspace "
+          f"{workspace.numel() * 8 / 2**30:.3f} GiB")
+    return timing
+
+
+def phase_isf(device, rng, card):
+    """The ISF paths at 100k atoms on one random walk of ISF_FRAMES frames:
+    the direct route at full width (exact coherent sums, one launch a
+    chunk; fast displacement sums of every resident lag, one launch a
+    frame), its lag-0 F(q, 0) against the direct S(q) and F_s(q, 0) == 1,
+    cisf and iisf against a float64 oracle; the default route (factorized
+    sums in torch, no kernel) against it; the coherent time FFT against
+    the coherent lag ring; the log lag grid's rows against the dense
+    rows, bit for bit; and the sum rule of the dynamic structure factor.
+    The direct and default routes' last ISF_PROFILED_FRAMES frames run
+    under torch.profiler."""
+
+    steps = [("trajectory", time.perf_counter())]
+    traj, u = isf_universe(rng, ISF_FRAMES)
+    n_chunks = -(-ISF_FRAMES // CHUNK)
+    out = {}
+    steps.append(("direct route", time.perf_counter()))
+
+    dense = isf_analysis(u, device)
+    launches, split, fps, busy, activities = run_isf_path(
+        dense, ISF_FRAMES, ISF_PROFILED_FRAMES)
+    check(dense._factor is None, "the direct ISF took the factor route")
+    check(split["exact"] == n_chunks and split["fast"] == ISF_FRAMES
+          and launches == n_chunks + ISF_FRAMES,
+          f"direct ISF: {launches} trig-sums launches, {split} split; "
+          f"expected {n_chunks} exact and {ISF_FRAMES} fast")
+    cisf, iisf = dense.results.cisf, dense.results.iisf
+    n_q = cisf.shape[-1]
+    check(cisf.shape == (ISF_LAGS, 1, n_q) and iisf.shape == cisf.shape
+          and np.all(np.isfinite(cisf)) and np.all(np.isfinite(iisf)),
+          f"direct ISF: shapes {cisf.shape}, {iisf.shape} or values")
+    check(np.all(iisf[0] == 1.0),
+          f"F_s(q, 0) off 1 by {np.abs(iisf[0] - 1).max():.3e}")
+    print(f"isf, direct: {N_ATOMS} atoms, {ISF_FRAMES} frames in chunks of "
+          f"{CHUNK}, {n_q} wavevectors, {ISF_LAGS} lags, incoherent, exact; "
+          f"{split['exact']} coherent (exact) and {split['fast']} lag (fast) "
+          f"trig-sums launches ({launches} counted); F_s(q, 0) == 1; "
+          f"{fps:.3f} frames/s on {card}, device busy {100 * busy:.1f} % of "
+          f"the last {ISF_PROFILED_FRAMES} frames' wall time (profiler on; "
+          f"{activities:.0f} device activities a frame)")
+    out["direct"] = (launches, split, fps, busy)
+
+    steps.append(("S(q)", time.perf_counter()))
+    sf = sq_analysis(u, device)
+    run_sq_path(sf, ISF_FRAMES)
+    rel = check_ssf(cisf[0], sf.results.ssf, "ISF F(q, 0) against the "
+                    "direct S(q)")
+    steps.append(("float64 oracle", time.perf_counter()))
+    err_c, err_i = check_isf_oracle(dense, traj, rng)
+    print(f"isf F(q, 0) vs StructureFactor(method='direct') over the same "
+          f"frames: max relative deviation {rel:.3e} (gate rtol 1e-4, atol "
+          "1e-5)")
+
+    steps.append(("default route", time.perf_counter()))
+    auto = isf_analysis(u, device, method="auto")
+    a_launches, _, a_fps, a_busy, a_activities = run_isf_path(
+        auto, ISF_FRAMES, ISF_PROFILED_FRAMES)
+    check(auto._factor is not None and auto._factor_split is None
+          and a_launches == 0,
+          f"default ISF: factor plan {auto._factor is not None}, "
+          f"{a_launches} trig-sums launches")
+    rel_c = check_ssf(auto.results.cisf, cisf, "default-route cisf against "
+                      "the direct route")
+    rel_i = check_ssf(auto.results.iisf, iisf, "default-route iisf against "
+                      "the direct route")
+    print(f"isf, default route (method='auto': factorized sums in torch, no "
+          f"kernel): {a_fps:.3f} frames/s on {card}, device busy "
+          f"{100 * a_busy:.1f} % of the last {ISF_PROFILED_FRAMES} frames' "
+          f"wall time (profiler on; {a_activities:.0f} device activities a "
+          "frame); max relative deviation from the direct "
+          f"route: cisf {rel_c:.3e}, iisf {rel_i:.3e}")
+    out["auto"] = (a_fps, a_busy)
+    del auto
+
+    steps.append(("time FFT and ring", time.perf_counter()))
+    coh = {}
+    for name, fft in (("isf_coh", None), ("isf_coh_ring", False)):
+        analysis = isf_analysis(u, device, incoherent=False, fft=fft)
+        c_launches, c_split, c_fps, _, _ = run_isf_path(analysis,
+                                                        ISF_FRAMES)
+        check(analysis._time_fft == (fft is None)
+              and c_launches == c_split["exact"] == n_chunks,
+              f"{name}: {c_launches} launches, {c_split}")
+        coh[name] = (analysis.results.cisf, c_fps)
+    rel_coh = check_ssf(coh["isf_coh"][0], coh["isf_coh_ring"][0],
+                        "time-FFT F(q, t) against the lag ring")
+    check(np.array_equal(coh["isf_coh_ring"][0], cisf),
+          "the coherent ring's F(q, t) differs from the incoherent run's")
+    print(f"isf_coh (time FFT) {coh['isf_coh'][1]:.3f} and isf_coh_ring "
+          f"{coh['isf_coh_ring'][1]:.3f} frames/s on {card}; {n_chunks} "
+          f"launches each; max relative deviation {rel_coh:.3e}")
+    out["coh"] = (coh["isf_coh"][1], coh["isf_coh_ring"][1])
+
+    steps.append(("log grid", time.perf_counter()))
+    log = isf_analysis(u, device, lags="log")
+    l_launches, l_split, l_fps, _, _ = run_isf_path(log, ISF_FRAMES)
+    lags = log._lag_values
+    check(l_split["fast"] == ISF_FRAMES and l_split["exact"] == n_chunks,
+          f"isf_log: {l_split}")
+    check(np.array_equal(log.results.cisf, cisf[lags])
+          and np.array_equal(log.results.iisf, iisf[lags]),
+          "isf_log: rows differ from the dense rows at the same lags")
+    print(f"isf_log: {len(lags)} lags {lags.tolist()}, {l_launches} launches, "
+          f"{l_fps:.3f} frames/s on {card}; rows equal the dense rows bit for "
+          "bit")
+    out["log"] = (l_launches, l_fps)
+
+    steps.append(("dynamic structure factor", time.perf_counter()))
+    dense.calculate_dynamic_structure_factor()
+    omega = dense.results.angular_frequencies
+    worst = 0.0
+    for key, ref in (("dsf", cisf), ("idsf", iisf)):
+        s = dense.results[key]
+        period = s[0] + 2 * s[1:(ISF_LAGS + 1) // 2].sum(axis=0)
+        if ISF_LAGS % 2 == 0:
+            period = period + s[ISF_LAGS // 2]
+        dev = np.abs(period * omega[1] - ref[0]) / np.abs(ref[0])
+        check(dev.max() <= 1e-10, f"{key}: sum rule off by {dev.max():.3e}")
+        worst = max(worst, float(dev.max()))
+    print(f"dynamic structure factor: {len(omega)} frequencies; sum over one "
+          f"period of S(q, w) dw against F(q, 0): max relative deviation "
+          f"{worst:.3e} (dsf and idsf; tolerance 1e-10, the trapezoid sum's "
+          "exact discrete identity)")
+    out["oracle"] = (err_c, err_i)
+    steps.append(("", time.perf_counter()))
+    print("isf phase steps: " + ", ".join(
+        f"{name} {t1 - t0:.1f} s"
+        for (name, t0), (_, t1) in zip(steps, steps[1:])))
+    return out
+
+
 def main():
     import torch
 
     from mdhelper_tpu_torch._device import require_cuda
     from mdhelper_tpu_torch.ops import _build
 
+    started = time.perf_counter()
     device = require_cuda()
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -2772,6 +3161,12 @@ def main():
     hist_launches, hist_timing = phase_pair_histogram(device, sq_rng)
     # Slice 7 draws from its own generator.
     phase_overlap(device, np.random.default_rng(SEED + 6))
+    # Slice 10 draws from its own generator.
+    isf_started = time.perf_counter()
+    isf_kernel_timing = phase_isf_kernel(device,
+                                         np.random.default_rng(SEED + 8))
+    isf = phase_isf(device, np.random.default_rng(SEED + 7), card)
+    print(f"the ISF phases took {time.perf_counter() - isf_started:.1f} s")
 
     def path_row(shape, timing_plan, path, plain_from=None, plain_shape=None):
         """(launches, shape, timing) of a slice-4 row, whose kernel was
@@ -2966,9 +3361,20 @@ def main():
                  f"{N_ATOMS} atoms, cube {BOX:.1f} A, r_max {R_MAX:g}, "
                  f"{N_BINS} bins, exclusion (1, 1) (pair-histogram op path)",
                  hist_timing))
+    for frames in (ISF_KERNEL_FRAMES, ISF_LAGS):
+        rows.append(("trig_sums", trig_src, pallas_kernels.format(66),
+                     isf["direct"][1]["fast"],
+                     f"{N_ATOMS} atoms x {n_q} float64 wavevectors, "
+                     f"{frames} displacement frames in +-L a launch, fast "
+                     "(launches: the direct isf path's fast launches, one a "
+                     f"frame over 1 to {ISF_LAGS} displacement frames, the "
+                     "same count in both of its rows)",
+                     isf_kernel_timing[frames]))
     optional = ("launch_ms", "pairs_per_frame", "counted_per_frame",
                 "terms_per_frame", "plain_shape",
                 "option", "oracle_err", "tolerance")
+    print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s "
+          "(kernel build included)")
     print(card)
     print(json.dumps({"kernels": [{
         "name": kernel,

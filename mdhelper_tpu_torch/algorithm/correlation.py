@@ -1,10 +1,10 @@
 r"""
-Mean-squared displacement by FFT
-================================
+Correlations and mean-squared displacements by FFT
+==================================================
 
-Torch counterpart of :func:`mdhelper_tpu.algorithm.correlation.msd_fft`
-(and of the part of ``correlation_fft`` it needs), computed with
-``torch.fft`` in float64.
+Torch counterparts of :func:`mdhelper_tpu.algorithm.correlation.correlation_fft`
+and :func:`~mdhelper_tpu.algorithm.correlation.msd_fft`, computed with
+``torch.fft`` on the input's device (``msd_fft`` in float64).
 
 :math:`\mathrm{MSD}_m = S_m - 2A_m` (Kneller et al.; Calandrini et
 al.): :math:`A_m` is the position autocorrelation from the
@@ -19,25 +19,25 @@ import warnings
 import torch
 from scipy import fft as _scipy_fft
 
-__all__ = ["msd_fft"]
+__all__ = ["correlation_fft", "msd_fft"]
 
 
-def _validate(pos1, pos2, axis):
-    if pos1.numel() == 0:
-        raise ValueError("The position arrays must not be empty.")
-    ndim = pos1.ndim
-    if not 2 <= ndim <= 4:
+def _validate(arr1, arr2, axis, min_ndim=1, name="The arrays"):
+    if arr1.numel() == 0:
+        raise ValueError(f"{name} must not be empty.")
+    ndim = arr1.ndim
+    if not min_ndim <= ndim <= 4:
         raise ValueError(
-            "The position arrays must have between 2 and 4 dimensions."
+            f"{name} must have between {min_ndim} and 4 dimensions."
         )
-    if pos2 is not None and pos1.shape != pos2.shape:
-        raise ValueError("The position arrays must have the same dimensions.")
+    if arr2 is not None and arr1.shape != arr2.shape:
+        raise ValueError(f"{name} must have the same dimensions.")
     if axis is None:
         if ndim == 4:
             axis = 1
         else:
             axis = 0
-            if ndim > 2:
+            if ndim > min_ndim:
                 warnings.warn(
                     "The axis along which to compute the correlation "
                     "was not specified and is ambiguous for a "
@@ -50,6 +50,109 @@ def _validate(pos1, pos2, axis):
             "second axis."
         )
     return axis, ndim
+
+
+def _as_series(arr):
+    """`arr` as a tensor of its own floating or complex type (integers
+    as float64)."""
+
+    arr = torch.as_tensor(arr)
+    if not (arr.is_floating_point() or arr.is_complex()):
+        arr = arr.to(torch.float64)
+    return arr
+
+
+def correlation_fft(arr1, arr2=None, axis: int = None, *,
+                    average: bool = False, double: bool = False,
+                    vector: bool = False):
+    r"""Auto- or cross-correlation of a time series by the Fast
+    Correlation Algorithm (Wiener-Khinchin),
+
+    .. math::
+
+       A(\tau) = \mathrm{FFT}^{-1}\left[\mathrm{FFT}(\mathbf{r})\,
+       \mathrm{FFT}(\mathbf{r})^*\right](\tau) / (N_t - \tau),
+
+    with the transform zero-padded to :math:`2\,\mathrm{nextfastlen}(N_t)`
+    as in the JAX package: float64 (complex128) for float64 inputs,
+    float32 (complex64) for float32 ones, on the input's device.
+
+    Parameters
+    ----------
+    arr1, arr2 : `torch.Tensor` or array-like
+        Time series ``(N_t,)``, ``(N_t, N)``, ``(N_b, N_t)`` or
+        ``(N_b, N_t, N)``, with a trailing axis of vector components when
+        `vector`; real or complex.  With `arr2` the CCF, else the ACF of
+        `arr1`.
+    axis : `int`, optional
+        Time axis (0, or 1 for blocked series); auto-detected when
+        omitted.
+    average : `bool`, keyword-only
+        Average over the entity axis.
+    double : `bool`, keyword-only
+        Double the ACF, or fold the CCF's negative and positive lags
+        (:math:`\langle a(t_0) b(t_0 + \tau)\rangle + \langle b(t_0)
+        a(t_0 + \tau)\rangle`).
+    vector : `bool`, keyword-only
+        Contract the last axis (vector components).
+
+    Returns
+    -------
+    corr : `torch.Tensor`
+        The correlation, lags :math:`0 \ldots N_t - 1` on the time axis;
+        a CCF with ``double=False`` is two-sided, lags
+        :math:`-(N_t - 1) \ldots N_t - 1`.
+    """
+
+    arr1 = _as_series(arr1)
+    if arr2 is not None:
+        arr2 = _as_series(arr2).to(arr1.device)
+    axis, ndim = _validate(arr1, arr2, axis)
+    is_real = not arr1.is_complex() and (arr2 is None
+                                         or not arr2.is_complex())
+    work1 = torch.movedim(arr1, axis, 0)
+    n_t = work1.shape[0]
+    n_fft = 2 * _scipy_fft.next_fast_len(n_t, real=is_real)
+    fft_, ifft_ = ((torch.fft.rfft, torch.fft.irfft) if is_real
+                   else (torch.fft.fft, torch.fft.ifft))
+    f1 = fft_(work1, n=n_fft, dim=0)
+    two_sided = False
+    if arr2 is None:
+        spec = (double + 1) * (f1 * f1.conj())
+    else:
+        f2 = fft_(torch.movedim(arr2, axis, 0), n=n_fft, dim=0)
+        if double:
+            spec = f1.conj() * f2 + f1 * f2.conj()
+        else:
+            spec = f1.conj() * f2
+            two_sided = True
+    # The FFT is linear: contract the vector components and average the
+    # entities on the power spectrum, one inverse transform in all.
+    if vector:
+        spec = spec.sum(dim=-1)
+    if average:
+        axis_avg = ndim - vector - 1
+        if axis != axis_avg:
+            # The entity axis in work coordinates (time moved first).
+            spec = spec.mean(dim=axis_avg if axis_avg > axis
+                             else axis_avg + 1)
+    corr = ifft_(spec, n=n_fft, dim=0)
+    if not two_sided:
+        corr = corr[:n_t]
+
+    # Triangular normalization: lag m averages N_t - |m| window positions.
+    tail = (1,) * (corr.ndim - 1)
+    real_dtype = corr.real.dtype if corr.is_complex() else corr.dtype
+    desc = torch.arange(n_t, 0, -1, dtype=real_dtype,
+                        device=corr.device).reshape(-1, *tail)
+    if two_sided:
+        asc = torch.arange(1, n_t, dtype=real_dtype,
+                           device=corr.device).reshape(-1, *tail)
+        corr = torch.cat((corr[corr.shape[0] + 1 - n_t:] / asc,
+                          corr[:n_t] / desc), dim=0)
+    else:
+        corr = corr / desc
+    return torch.movedim(corr, 0, axis)
 
 
 def _displacement_correlation(pos1, pos2, axis, average):
@@ -100,7 +203,8 @@ def msd_fft(pos1, pos2=None, axis: int = None, *, average: bool = True):
     pos1 = torch.as_tensor(pos1).to(torch.float64)
     if pos2 is not None:
         pos2 = torch.as_tensor(pos2).to(torch.float64)
-    axis, ndim = _validate(pos1, pos2, axis)
+    axis, ndim = _validate(pos1, pos2, axis, min_ndim=2,
+                           name="The position arrays")
     pre_average = ndim - axis == 3 and average
     s2 = _displacement_correlation(pos1, pos2, axis, pre_average)
     r1r2 = (pos1 * (pos1 if pos2 is None else pos2)).sum(dim=-1)

@@ -25,7 +25,7 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["Hash", "SerialAnalysisBase", "carry_from_numpy"]
+__all__ = ["Hash", "SerialAnalysisBase", "carry_from_numpy", "carry_leaves"]
 
 
 class Hash(dict):
@@ -71,30 +71,46 @@ def carry_from_numpy(analysis, tree):
     so a run can start in JAX and continue in the port (see
     ``run_together(..., initial=)``).  Dict carries may lack keys the
     port's carry has (the JAX RDF's XLA route keeps no ``"max_occ"``);
-    those keep their prepared values.
+    those keep their prepared values.  An analysis whose state is more
+    than its carry takes `tree` itself (``_carry_from_numpy``: the ISF's
+    time-FFT store).
     """
 
+    own = getattr(analysis, "_carry_from_numpy", None)
+    if own is not None:
+        return own(tree)
+    return carry_leaves(analysis, tree)
+
+
+def carry_leaves(analysis, tree):
+    """:func:`carry_from_numpy` leaf by leaf: each leaf of `tree` in the
+    dtype and on the device of the matching leaf of ``analysis._carry``,
+    whose shape it must have."""
+
     template = analysis._carry
+    name = type(analysis).__name__
 
     def leaf(value, like):
-        return torch.as_tensor(np.array(value)).to(
-            device=like.device, dtype=like.dtype
-        )
+        value = np.array(value)
+        if value.shape != tuple(like.shape):
+            raise ValueError(
+                f"{name}'s carry holds a {tuple(like.shape)} leaf, not "
+                f"{value.shape}."
+            )
+        return torch.as_tensor(value).to(device=like.device,
+                                         dtype=like.dtype)
 
     if isinstance(template, dict):
         unknown = set(tree) - set(template)
         if unknown:
-            raise ValueError(
-                f"{type(analysis).__name__} carries no {sorted(unknown)}."
-            )
+            raise ValueError(f"{name} carries no {sorted(unknown)}.")
         return {
             key: leaf(tree[key], value) if key in tree else value
             for key, value in template.items()
         }
     if len(tree) != len(template):
         raise ValueError(
-            f"{type(analysis).__name__}'s carry has {len(template)} "
-            f"leaves, not {len(tree)}."
+            f"{name}'s carry has {len(template)} leaves, not {len(tree)}."
         )
     return tuple(leaf(t, like) for t, like in zip(tree, template))
 

@@ -21,6 +21,11 @@ Ported from :mod:`mdhelper_tpu.analysis.structure`:
   (:mod:`mdhelper_tpu_torch.ops.factor_scattering`), or both for a mixed
   set (``method="auto"``: the lattice part factorized, the off-grid extras
   direct).
+* :class:`IntermediateScatteringFunction`, the coherent, partial and
+  incoherent :math:`F(q, t)` by the time FFT or a lag ring on the sums of
+  :class:`StructureFactor` (the direct ones through the same kernel, a
+  chunk's frames or a frame's lags in one launch), and the dynamic
+  structure factor.
 * :class:`VanHoveFunction`, the self and distinct parts of
   :math:`G(r, t)` over a ring of past frames: the exact displacement
   histogram for the self part, the cross cell-list kernel for the
@@ -34,9 +39,9 @@ take reach-1 cell grids; narrower ones take the generalized grids of
 box runs the triclinic kernels: on a reach-1 grid each (cell,
 neighbour) block takes one lattice translation, on a generalized grid
 each pair searches its 27 nearest images (the JAX package's ``tri_pp``
-mode).  Overlapping-group RDFs, COM groupings, the 2-D Van Hove
-function (the JAX package has none) and the mesh S(q) method are not
-ported yet.
+mode).  The cross RDF takes overlapping groups (a shared atom lands in
+bin 0, as in the JAX class).  COM groupings and the mesh S(q) method are
+not ported yet; the JAX package has no 2-D Van Hove function.
 """
 
 import warnings
@@ -58,14 +63,16 @@ from ..ops.cuda_cell_histogram import (
     triclinic_cross_pair_histogram,
     triclinic_perpendicular_widths,
 )
-from ..ops.cuda_kernels import trig_sums
+from ..algorithm.correlation import correlation_fft
+from ..ops.cuda_kernels import trig_sums, trig_workspace
 from ..ops.factor_scattering import factor_plan, factor_trig_sums
 from ..ops.histogram import _min_image_distance, displacement_histogram_frame
-from .base import SerialAnalysisBase, _check_even_frame_spacing
+from .base import SerialAnalysisBase, _check_even_frame_spacing, carry_leaves
 
 __all__ = [
     "RadialDistributionFunction",
     "StructureFactor",
+    "IntermediateScatteringFunction",
     "VanHoveFunction",
     "unique_wavenumber_groups",
     "group_mean_last_axis",
@@ -204,8 +211,8 @@ class RadialDistributionFunction(_CellPlanned):
         The group (group :math:`i`).
     ag2 : `AtomGroup`, optional
         Group :math:`j`; omitted or equal to `ag1` for the self RDF.  A
-        different group must share no atom with `ag1`: overlapping
-        groups are not ported yet.
+        different group may share atoms with `ag1`: each shared atom
+        pairs with itself at distance 0, in bin 0.
     n_bins : `int`, default 201
         Number of bins.
     range : `tuple`, default ``(0.0, 15.0)``
@@ -660,22 +667,32 @@ class StructureFactor(SerialAnalysisBase):
         return factor_plan(qs[idx_grid], dims)
 
     def _group_sums_fn(self):
-        """``sums(positions) -> (cos, sin)``: one group's float32
-        ``(B, N_q)`` trig sums of a ``(B, n, 3)`` chunk."""
+        """``sums(positions, precision=None, workspace=None) -> (cos,
+        sin)``: one group's float32 ``(B, N_q)`` trig sums of any ``(B,
+        n, 3)`` batch (a chunk's frames, or a frame's displacements over
+        its lags), in `precision` (default: the analysis's).  `workspace`
+        (:func:`~mdhelper_tpu_torch.ops.cuda_kernels.trig_workspace`)
+        holds the partial sums of the direct launches."""
 
         device = self._device
-        precision = self._precision
+        default = self._precision
         plan = self._factor
         if plan is None:
             qs = torch.as_tensor(self._wavevectors, device=device)
-            return lambda pos: trig_sums(qs, pos, precision=precision)
+
+            def direct(pos, precision=None, workspace=None):
+                return trig_sums(qs, pos, precision=precision or default,
+                                 workspace=workspace)
+
+            return direct
         flat = torch.as_tensor(plan["flat_idx"], device=device)
         split = self._factor_split
         if split is not None:
             qs_rest = torch.as_tensor(split["qs_rest"], device=device)
             inv_perm = torch.as_tensor(split["inv_perm"], device=device)
 
-        def sums(pos):
+        def sums(pos, precision=None, workspace=None):
+            precision = precision or default
             frames = [
                 factor_trig_sums(p, k=plan["k"], box=plan["box"],
                                  precision=precision)
@@ -687,7 +704,8 @@ class StructureFactor(SerialAnalysisBase):
                 return c, s
             # The off-grid extras pay the direct sums (all frames in one
             # launch); the permutation restores the caller's order.
-            cr, sr = trig_sums(qs_rest, pos, precision=precision)
+            cr, sr = trig_sums(qs_rest, pos, precision=precision,
+                               workspace=workspace)
             return (torch.cat((c, cr), dim=1)[:, inv_perm],
                     torch.cat((s, sr), dim=1)[:, inv_perm])
 
@@ -810,6 +828,403 @@ def _resolve_lag_values(spec, n_lags, n_frames):
                 "only."
             )
     return lag_values, resolved
+
+
+class IntermediateScatteringFunction(StructureFactor):
+    r"""Coherent :math:`F(q, t)`, partial :math:`F_{\alpha\beta}(q, t)` and
+    incoherent (self) :math:`F_\mathrm{s}(q, t)` intermediate scattering
+    functions, and from them the dynamic structure factor
+    :math:`S(q, \omega)`.
+
+    .. math::
+
+       F(q, t) = \frac{1}{N}\left\langle\sum_{j,k}
+       e^{i\mathbf{q}\cdot(\mathbf{r}_j(t_0 + t) - \mathbf{r}_k(t_0))}
+       \right\rangle, \qquad
+       F_\mathrm{s}(q, t) = \frac{1}{N}\left\langle\sum_j
+       e^{i\mathbf{q}\cdot(\mathbf{r}_j(t_0 + t) - \mathbf{r}_j(t_0))}
+       \right\rangle
+
+    averaged over every window origin :math:`t_0` (lag :math:`t` over the
+    :math:`N_t - t` windows that hold it).  Two estimators, as in the JAX
+    package:
+
+    * the time FFT (coherent-only runs, the default there): each frame's
+      per-group sums :math:`\rho(\mathbf{q}, t)` go to a host store, and
+      :meth:`_conclude` correlates them with
+      :func:`~mdhelper_tpu_torch.algorithm.correlation.correlation_fft`;
+    * the lag ring (``fft=False``, and every ``incoherent=True`` run): the
+      last ``n_lags`` frames' sums (and, for the self part, positions) stay
+      on the device, and each frame adds its products with every resident
+      selected lag.  The chunk's sums are taken for all its frames in one
+      call; a frame's self part takes the sums of its displacements from
+      every resident lag, stacked, in one call (one trig-sums launch a frame
+      on the direct route), always with float32 (``"fast"``) phases.
+      Displacements are not unwrapped, as in the JAX package: for lattice
+      wavevectors the phase is box-periodic anyway.
+
+    The sums come from the routes of :class:`StructureFactor`: the
+    factorized lattice sums under ``method="auto"`` for a lattice grid, the
+    direct trig sums (the CUDA kernel of
+    :func:`mdhelper_tpu_torch.ops.cuda_kernels.trig_sums` on a GPU) under
+    ``"direct"``, both for a split set.
+
+    Parameters (beside those of :class:`StructureFactor`)
+    -----------------------------------------------------
+    dt : `float`, optional
+        Time between frames in ps (default: the trajectory's ``dt``).
+    n_lags : `int`, optional
+        Ring length in frames (default and cap: the analyzed frame count).
+    lags : `str` or array-like, optional
+        ``None`` (every lag below ``n_lags``), ``"log"`` (every lag through
+        8, then quarter-octave spacing) or explicit frame offsets below
+        ``n_lags`` (with no ``n_lags``, the ring holds ``max(lags) + 1``
+        frames).
+    incoherent : `bool`, default False
+        Also compute :math:`F_\mathrm{s}(q, t)` (keeps an ``(n_lags, N,
+        3)`` ring of positions on the device).
+    fft : `bool`, optional
+        The time-FFT estimator: ``None`` means it for coherent-only runs;
+        ``True`` with ``incoherent=True`` raises.
+    parallel, shard
+        Not ported (``NotImplementedError``).
+
+    Results: ``pairs``, ``times`` (ps), ``wavenumbers``, ``cisf`` of shape
+    ``(N_lags, N_pairs, N_q)`` and, with ``incoherent=True``, ``iisf`` of
+    shape ``(N_lags, N_groups, N_q)``; ``unique`` and ``sort`` act on the
+    last axis as in :class:`StructureFactor`.
+    """
+
+    def __init__(self, groups, groupings="atoms", *, mode: str = None,
+                 form: str = "exp", dimensions=None, dt=None,
+                 n_points: int = 32, n_surfaces: int = None,
+                 n_surface_points: int = 8, q_max=None, wavevectors=None,
+                 sort: bool = True, unique: bool = True, n_lags: int = None,
+                 lags=None, incoherent: bool = False, fft: bool = None,
+                 parallel: bool = False, shard=None,
+                 precision: str = "auto", method: str = "auto",
+                 verbose: bool = True, device=None):
+        super().__init__(
+            groups, groupings, mode=mode, form=form, dimensions=dimensions,
+            n_points=n_points, n_surfaces=n_surfaces,
+            n_surface_points=n_surface_points, q_max=q_max,
+            wavevectors=wavevectors, sort=sort, unique=unique,
+            precision=precision, method=method, verbose=verbose,
+            device=device,
+        )
+        if parallel or shard is not None:
+            raise NotImplementedError(
+                "parallel= and shard= are not ported (the lag ring is "
+                "sequential, and the port runs on one device)."
+            )
+        self._dt = dt or self._trajectory.dt
+        self._n_lags = n_lags
+        self._lag_spec = lags
+        self._incoherent = incoherent
+        if fft and incoherent:
+            raise ValueError(
+                "fft=True requires incoherent=False: the self part needs "
+                "per-particle phases at every lag (the ring buffer bounds "
+                "that memory; a time FFT would need the full (N_t, N_q, N) "
+                "phase history)."
+            )
+        self._time_fft = not incoherent if fft is None else bool(fft)
+
+    def _prepare(self) -> None:
+        lag_values, n_lags = _resolve_lag_values(
+            self._lag_spec, self._n_lags, self.n_frames
+        )
+        self._lag_values = lag_values
+        step = _check_even_frame_spacing(self.frames)
+        mode = self._mode
+        self.results.pairs = (
+            tuple(combinations_with_replacement(range(self._n_groups), 2))
+            if mode == "partial"
+            else ((0, self._n_groups - 1),)
+            if mode == "pair"
+            else ((None, None),)
+        )
+        self.results.times = step * self._dt * lag_values
+        if self._unique:
+            self.results.wavenumbers, self._q_group = (
+                unique_wavenumber_groups(self._wavenumbers)
+            )
+        else:
+            self.results.wavenumbers = self._wavenumbers
+
+        device = self._device
+        n_q = len(self._wavenumbers)
+        n_groups = 1 if mode is None else self._n_groups
+        self._factor = self._factor_setup()
+        sums = self._group_sums_fn()
+        # Each group's columns of the group-ordered stream; mode=None sums
+        # every atom at once, as the JAX class does.
+        if mode is None:
+            slices = [(0, self._N)]
+        else:
+            slices = [(int(sel[0]), len(sel)) for sel in self._sels]
+
+        def group_sums(pos, precision=None, workspace=None):
+            """``(B, G, N_q)`` float32 cos and sin sums of a ``(B, N, 3)``
+            batch, in one call a group."""
+
+            parts = [sums(pos[:, lo:lo + n], precision, workspace)
+                     for lo, n in slices]
+            return (torch.stack([c for c, _ in parts], dim=1),
+                    torch.stack([s for _, s in parts], dim=1))
+
+        if self._time_fft:
+            # rho(q, t) of every frame goes to a host store; _conclude
+            # correlates it.  The carry holds nothing.
+            self._rho = np.empty((self.n_frames, n_groups, n_q, 2))
+            self._store_offset = 0
+            self._store_chunk = self._store_rho
+            self._carry = {}
+
+            def fft_update(carry, positions, dimensions, mask):
+                del dimensions, mask
+                cos, sin = group_sums(positions)
+                return carry, torch.stack((cos, sin), dim=-1)
+
+            self._update = fft_update
+            return
+
+        self._store_chunk = None
+        pairs = self.results.pairs
+        incoherent = self._incoherent
+        n_sel = len(lag_values)
+
+        def zeros(*shape, dtype=torch.float64):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        # Rings in the stream's float32, accumulators in float64 (the JAX
+        # carry's dtypes on a float32 stream).  The frame counter stays on
+        # the host: it picks the ring slots and the lags each frame can
+        # serve with no device round trip, and a carry taken over from the
+        # JAX package brings its own count.
+        self._carry = {
+            "ring_cos": zeros(n_lags, n_groups, n_q, dtype=torch.float32),
+            "ring_sin": zeros(n_lags, n_groups, n_q, dtype=torch.float32),
+            "cisf": zeros(n_sel, len(pairs), n_q),
+            "frame": torch.zeros((), dtype=torch.int64),
+        }
+        # The ring slot of each selected lag, by the current frame's slot.
+        past_slots = torch.as_tensor(
+            (np.arange(n_lags)[:, None] - lag_values[None, :]) % n_lags,
+            device=device)
+        workspace = None
+        if incoherent:
+            self._carry["ring_pos"] = zeros(n_lags, self._N, 3,
+                                            dtype=torch.float32)
+            self._carry["iisf"] = zeros(n_sel, n_groups, n_q)
+            direct_qs = (n_q if self._factor is None
+                         else 0 if self._factor_split is None
+                         else len(self._factor_split["qs_rest"]))
+            if device.type == "cuda" and direct_qs:
+                # The displacement launches' partial sums, once a run.
+                workspace = trig_workspace(
+                    n_sel, max(n for _, n in slices), direct_qs, device)
+
+        def fold_frame(carry, pos, cos, sin):
+            """Fold one frame (its positions and ``(G, N_q)`` sums) into
+            the carry, in place."""
+
+            fi = int(carry["frame"])
+            slot = fi % n_lags
+            carry["ring_cos"][slot] = cos
+            carry["ring_sin"][slot] = sin
+            if incoherent:
+                carry["ring_pos"][slot] = pos
+            carry["frame"] += 1
+            # lag_ok: lags longer than the frames seen so far have no
+            # partner yet (the JAX class multiplies their rows by 0).  The
+            # lags are ascending, so those that have one are a prefix.
+            n_ok = int(np.searchsorted(lag_values, fi, side="right"))
+            if not n_ok:
+                return
+            past = past_slots[slot, :n_ok]
+            past_cos = carry["ring_cos"][past]  # (L, G, N_q)
+            past_sin = carry["ring_sin"][past]
+            # Products in float32, accumulated in float64, as in JAX.
+            contrib = []
+            for j, k in pairs:
+                if j is None:
+                    j = k = 0
+                row = past_cos[:, j] * cos[k] + past_sin[:, j] * sin[k]
+                if j != k:
+                    row = (row + past_cos[:, k] * cos[j]
+                           + past_sin[:, k] * sin[j])
+                contrib.append(row)
+            carry["cisf"][:n_ok] += torch.stack(contrib, dim=1).to(
+                torch.float64)
+            if incoherent:
+                # Every resident lag's displacements in one call.
+                delta = pos - carry["ring_pos"][past]
+                self_cos, _ = group_sums(delta, "fast", workspace)
+                carry["iisf"][:n_ok] += self_cos.to(torch.float64)
+
+        def update(carry, positions, dimensions, mask):
+            # The port streams no padding frames (every mask entry is 1).
+            del dimensions, mask
+            # The chunk's sums do not depend on the ring: one call.
+            cos, sin = group_sums(positions)
+            for pos, c, s in zip(positions, cos, sin):
+                fold_frame(carry, pos, c, s)
+            return carry
+
+        self._update = update
+
+    def _store_rho(self, rho, batch) -> None:
+        n_real = batch.n_real
+        self._rho[self._store_offset:self._store_offset + n_real] = (
+            rho[:n_real]
+        )
+        self._store_offset += n_real
+
+    def _carry_from_numpy(self, tree):
+        """The carry of a JAX ``IntermediateScatteringFunction`` fetched as
+        numpy (the ring route), or, on the time-FFT route, its rho store
+        as ``{"rho": jax_isf._rho}``: the stored frames go ahead of this
+        run's, and :meth:`_conclude` correlates them all."""
+
+        if not self._time_fft:
+            return carry_leaves(self, tree)
+        if set(tree) != {"rho"}:
+            raise ValueError(
+                "The time-FFT route resumes from {'rho': store}, not "
+                f"{sorted(tree)}."
+            )
+        rho = np.asarray(tree["rho"], dtype=np.float64)
+        if rho.shape[1:] != self._rho.shape[1:]:
+            raise ValueError(
+                f"A rho store of shape {rho.shape[1:]} a frame, not "
+                f"{self._rho.shape[1:]}."
+            )
+        self._rho = np.concatenate((rho, self._rho[self._store_offset:]))
+        self._store_offset += len(rho)
+        return self._carry
+
+    def _conclude_time_fft(self) -> np.ndarray:
+        """Every selected lag's coherent F(q, t) from the rho store, by the
+        Fast Correlation Algorithm: the lag ring's triangular-normalized
+        estimator, one FFT a (group, q)."""
+
+        rho = torch.from_numpy(self._rho[:self._store_offset])
+        z = torch.complex(rho[..., 0], rho[..., 1])  # (T, G, N_q)
+        rows = []
+        for j, k in self.results.pairs:
+            if j is None:
+                j = k = 0
+            if j == k:
+                corr = correlation_fft(z[:, j], axis=0)
+            else:
+                # The folded CCF is the ring's j <-> k product sum.
+                corr = correlation_fft(z[:, j], z[:, k], axis=0, double=True)
+            rows.append(corr.real.numpy()[self._lag_values])
+        return np.stack(rows, axis=1) / self._N
+
+    def _conclude(self) -> None:
+        iisf = None
+        if self._time_fft:
+            cisf = self._conclude_time_fft()
+        else:
+            # Lag l averages the windows that hold it: frames folded (a
+            # resumed run counts the JAX package's too) less l.
+            frames = int(self._carry["frame"])
+            normalization = (
+                self._N * (frames - self._lag_values)[:, None, None]
+            )
+            cisf = self._carry["cisf"].cpu().numpy() / normalization
+            if self._incoherent:
+                iisf = self._carry["iisf"].cpu().numpy() / normalization
+        if self._unique:
+            n_unique = len(self.results.wavenumbers)
+            cisf = group_mean_last_axis(cisf, self._q_group, n_unique)
+            if iisf is not None:
+                iisf = group_mean_last_axis(iisf, self._q_group, n_unique)
+        if self._sort:
+            order = np.argsort(self.results.wavenumbers)
+            self.results.wavenumbers = self.results.wavenumbers[order]
+            cisf = cisf[:, :, order]
+            if iisf is not None:
+                iisf = iisf[:, :, order]
+        self.results.cisf = cisf
+        if iisf is not None:
+            self.results.iisf = iisf
+
+    def calculate_dynamic_structure_factor(self, *, t_max: float = None,
+                                           window: str = None) -> None:
+        r"""Dynamic structure factor, the time Fourier transform of
+        :math:`F(q, t)` with the even extension :math:`F(q, -t) = F(q, t)`:
+
+        .. math::
+
+           S(q, \omega) = \frac{1}{\pi}\int_0^\infty F(q, t)
+           \cos(\omega t)\,dt,
+
+        a trapezoid-weighted real FFT on the ``rfftfreq`` angular grid, so
+        that the two-sided sum :math:`\sum_\omega S(q, \omega)
+        \Delta\omega` over one period equals :math:`F(q, 0)`.  Needs a
+        dense, evenly spaced lag grid (``lags=None``).
+
+        Parameters
+        ----------
+        t_max : `float`, keyword-only, optional
+            Keep :math:`F(q, t)` up to this lag time (ps) only.
+        window : `str`, keyword-only, optional
+            ``None`` (plain trapezoid) or ``"hann"`` (a half-Hann taper on
+            the positive lags).
+
+        Sets ``results.angular_frequencies`` (rad/ps), ``results.dsf`` of
+        shape ``(N_freq, N_pairs, N_q)`` and, after an ``incoherent=True``
+        run, ``results.idsf``.
+        """
+
+        if "cisf" not in self.results:
+            raise RuntimeError(
+                "Call run() before calculate_dynamic_structure_factor()."
+            )
+        times = np.asarray(self.results.times, dtype=np.float64)
+        if len(times) < 2:
+            raise ValueError(
+                "The dynamic structure factor needs at least two time lags."
+            )
+        dt_lag = np.diff(times)
+        if not np.allclose(dt_lag, dt_lag[0]):
+            raise ValueError(
+                "calculate_dynamic_structure_factor() requires a dense, "
+                "evenly spaced lag grid -- rerun with the default "
+                "lags=None (a 'log' or index-subset lag grid cannot be "
+                "Fourier transformed)."
+            )
+        dt_lag = float(dt_lag[0])
+        if window not in {None, "hann"}:
+            raise ValueError(
+                f"Invalid window: {window!r}. Valid values: None, 'hann'."
+            )
+
+        def transform(f):
+            f = np.asarray(f, dtype=np.float64)
+            if t_max is not None:
+                keep = max(2, min(len(f), int(round(t_max / dt_lag)) + 1))
+                f = f[:keep]
+            n_t = f.shape[0]
+            # Trapezoid end-point halving, on the optional half-Hann taper.
+            weights = np.ones(n_t)
+            if window == "hann":
+                weights = 0.5 * (1.0 + np.cos(np.pi * np.arange(n_t)
+                                              / (n_t - 1)))
+            weights[0] *= 0.5
+            weights[-1] *= 0.5
+            spec = np.fft.rfft(weights[:, None, None] * f, axis=0).real
+            return (dt_lag / np.pi) * spec, n_t
+
+        self.results.dsf, n_t = transform(self.results.cisf)
+        self.results.angular_frequencies = (
+            2.0 * np.pi * np.fft.rfftfreq(n_t, dt_lag)
+        )
+        if "iisf" in self.results:
+            self.results.idsf, _ = transform(self.results.iisf)
 
 
 class VanHoveFunction(_CellPlanned):

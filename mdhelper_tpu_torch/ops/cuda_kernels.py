@@ -45,6 +45,7 @@ from .scattering import (
 __all__ = [
     "trig_sums",
     "trig_sums_reference",
+    "trig_workspace",
     "pair_histogram",
     "pair_histogram_reference",
 ]
@@ -101,11 +102,30 @@ def _trig_inputs(qs, positions, weights, precision, qs_lo):
     return frames, one_frame, qs_hi, qs_lo, weights
 
 
+def _trig_slices(n_atoms):
+    """``(atoms a slice, slices)`` of a launch over `n_atoms` atoms."""
+
+    split = min(_TRIG_SLICE_ATOMS, -(-n_atoms // _TRIG_STAGE) * _TRIG_STAGE)
+    return split, -(-n_atoms // split)
+
+
+def trig_workspace(n_frames, n_atoms, n_q, device):
+    """A float64 buffer for the partial sums of a :func:`trig_sums` launch
+    of up to `n_frames` frames of `n_atoms` atoms and `n_q` wavevectors
+    (``(slices, frames, 2, N_q)``: 0.69 GB at 64 frames of 100k atoms and
+    13,824 wavevectors).  A caller that launches many times passes it as
+    ``workspace=`` to every launch."""
+
+    n_slices = _trig_slices(n_atoms)[1] if n_atoms else 0
+    return torch.empty(n_slices * n_frames * 2 * n_q, dtype=torch.float64,
+                       device=device)
+
+
 def trig_sums_reference(qs, positions, weights=None, *, precision="fast",
                         qs_lo=None):
     """Plain-torch version of the kernel (the tiled sweeps of
     :mod:`mdhelper_tpu_torch.ops.scattering`, frame by frame).
-    Arguments and returns as :func:`trig_sums`."""
+    Arguments (apart from `workspace`) and returns as :func:`trig_sums`."""
 
     frames, one_frame, qs_hi, qs_lo, weights = _trig_inputs(
         qs, positions, weights, precision, qs_lo)
@@ -117,7 +137,8 @@ def trig_sums_reference(qs, positions, weights=None, *, precision="fast",
     return (cos[0], sin[0]) if one_frame else (cos, sin)
 
 
-def trig_sums(qs, positions, weights=None, *, precision="fast", qs_lo=None):
+def trig_sums(qs, positions, weights=None, *, precision="fast", qs_lo=None,
+              workspace=None):
     r"""Per-wavevector :math:`(\sum_j w_j\cos\mathbf{q}\cdot\mathbf{r}_j,
     \sum_j w_j\sin\mathbf{q}\cdot\mathbf{r}_j)`; the port of the JAX
     package's Pallas ``trig_sums``, batched over frames.
@@ -155,12 +176,15 @@ def trig_sums(qs, positions, weights=None, *, precision="fast", qs_lo=None):
     if _on_cpu(positions, "trig_sums"):
         return trig_sums_reference(qs, positions, weights,
                                    precision=precision, qs_lo=qs_lo)
-    out = _trig_sums_kernel(qs, positions, weights, precision, qs_lo)
+    out = _trig_sums_kernel(qs, positions, weights, precision, qs_lo,
+                            workspace)
     trig_sums.launches += 1
+    trig_sums.launches_by_precision[precision] += 1
     return out
 
 
-def _trig_sums_kernel(qs, positions, weights, precision, qs_lo):
+def _trig_sums_kernel(qs, positions, weights, precision, qs_lo,
+                      workspace=None):
     frames, one_frame, qs_hi, qs_lo, weights = _trig_inputs(
         qs, positions, weights, precision, qs_lo)
     device = frames.device
@@ -171,14 +195,22 @@ def _trig_sums_kernel(qs, positions, weights, precision, qs_lo):
     cos = torch.zeros((b, n_q), dtype=torch.float32, device=device)
     sin = torch.zeros_like(cos)
     if b and n and n_q:
-        split = min(_TRIG_SLICE_ATOMS,
-                    -(-n // _TRIG_STAGE) * _TRIG_STAGE)
-        n_slices = -(-n // split)
+        split, n_slices = _trig_slices(n)
         if n_slices > _GRID_YZ or b > _GRID_YZ:
             raise ValueError(
                 f"{b} frames of {n} atoms exceed the kernel's grid.")
-        partial = torch.empty((n_slices, b, 2, n_q), dtype=torch.float64,
-                              device=device)
+        shape = (n_slices, b, 2, n_q)
+        if workspace is None:
+            partial = torch.empty(shape, dtype=torch.float64, device=device)
+        else:
+            size = n_slices * b * 2 * n_q
+            if (workspace.dtype != torch.float64
+                    or workspace.device != device
+                    or workspace.numel() < size):
+                raise ValueError(
+                    f"the workspace must hold {size} float64 values on "
+                    f"{device}.")
+            partial = workspace.view(-1)[:size].view(shape)
         _launch("trig_sums_launch", device, frames.contiguous(),
                 qs_hi.contiguous(),
                 None if qs_lo is None else qs_lo.contiguous(),
@@ -190,8 +222,9 @@ def _trig_sums_kernel(qs, positions, weights, precision, qs_lo):
 
 #: kernel launches made by :func:`trig_sums` (CUDA tensors only); a run
 #: sets it to 0 and reads it back to show that its path went through the
-#: kernel.
+#: kernel.  ``launches_by_precision`` splits the same count by precision.
 trig_sums.launches = 0
+trig_sums.launches_by_precision = {"exact": 0, "fast": 0}
 
 
 def _hist_inputs(positions, box, r_max, n_bins, exclusion):

@@ -44,18 +44,6 @@ PASSES = (
 )
 
 
-def busy_us(events):
-    """Length of the union of ``[start, end)`` intervals, in us."""
-
-    total, reach = 0.0, -np.inf
-    for start, end in sorted(events):
-        if end <= reach:
-            continue
-        total += end - max(start, reach)
-        reach = end
-    return total
-
-
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", default="fused",
@@ -115,7 +103,8 @@ def main():
     ]
     print(f"profiled {args.path} pass: wall {wall_us / 1e6:.3f} s with the "
           f"profiler on; {len(on_device)} device activities; device busy "
-          f"{100 * busy_us(on_device) / wall_us:.1f} % of the wall time")
+          f"{100 * chip_smoke.busy_us(on_device) / wall_us:.1f} % of the "
+          "wall time")
     averages = prof.key_averages()
     print(averages.table(sort_by="self_device_time_total", row_limit=15))
     if args.out:

@@ -880,6 +880,82 @@ def test_direct_structure_factor_on_the_card_equals_cpu(cuda_device):
         np.testing.assert_allclose(card, cpu, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.cuda
+def test_trig_sums_workspace_and_displacements_equal_reference(cuda_device):
+    """Displacement frames anywhere in +-L (the incoherent ISF's lag
+    launch): the kernel, with and without a shared workspace, equals
+    itself bit for bit and its plain version within the fast tolerance of
+    a float64 oracle."""
+
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    rng = np.random.default_rng(64)
+    n, n_q, box = 4100, 257, 30.0
+    pos = ((rng.random((5, n, 3)) - rng.random((5, n, 3))) * box).astype(
+        np.float32)
+    qs = rng.random((n_q, 3)) * 4.0
+    args = (torch.from_numpy(qs).to(cuda_device),
+            torch.from_numpy(pos).to(cuda_device))
+    workspace = ck.trig_workspace(8, n, n_q, cuda_device)
+    own = ck.trig_sums(*args, precision="fast")
+    shared = ck.trig_sums(*args, precision="fast", workspace=workspace)
+    plain = ck.trig_sums_reference(*args, precision="fast")
+    oc, osn, amp = _trig_oracle(qs, pos)
+    for i, ref in ((0, oc), (1, osn)):
+        torch.testing.assert_close(own[i], shared[i], rtol=0, atol=0)
+        assert np.abs(own[i].cpu().numpy() - ref).max() <= 1e-4 * amp
+        assert np.abs(plain[i].cpu().numpy() - ref).max() <= 1e-4 * amp
+    with pytest.raises(ValueError, match="workspace"):
+        ck.trig_sums(*args, workspace=workspace[:10])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lags", [None, "log"])
+def test_isf_on_the_card_equals_cpu(cuda_device, lags):
+    """The direct-route ISF (coherent and incoherent lag ring, and the
+    coherent time FFT) gives the same F(q, t) on the card (the trig-sums
+    kernel) as on the CPU (its plain version), within the S(q) gate, with
+    one coherent launch a chunk and one lag launch a frame."""
+
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.analysis.structure import (
+        IntermediateScatteringFunction,
+    )
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    rng = np.random.default_rng(65)
+    n, n_frames, chunk = 2000, 12, 4
+    box = float(n / 0.8) ** (1 / 3)
+    walk = rng.random((n, 3)) * box + np.cumsum(
+        rng.normal(0.0, 0.3, (n_frames, n, 3)), axis=0)
+    traj = np.mod(walk, box).astype(np.float32)
+    u = Universe.from_arrays(traj, np.array([box] * 3 + [90.0] * 3))
+    results = []
+    for device in ("cpu", cuda_device):
+        kw = dict(n_points=6, n_lags=10, lags=lags, sort=False,
+                  unique=False, method="direct", verbose=False,
+                  device=device)
+        ring = IntermediateScatteringFunction(u.atoms, incoherent=True, **kw)
+        fft = IntermediateScatteringFunction(u.atoms, **kw)
+        for a in (ring, fft):
+            a._chunk_bytes = chunk * n * 3 * 4
+        before = ck.trig_sums.launches
+        split = dict(ck.trig_sums.launches_by_precision)
+        run_together([ring])
+        if device != "cpu":
+            # 3 coherent launches (one a chunk), 12 lag launches.
+            assert ck.trig_sums.launches == before + 3 + n_frames
+            assert ck.trig_sums.launches_by_precision == {
+                "exact": split["exact"] + 3, "fast": split["fast"] + n_frames}
+        run_together([fft])
+        results.append([ring.results.cisf, ring.results.iisf,
+                        fft.results.cisf])
+    for cpu, card in zip(*results):
+        np.testing.assert_allclose(card, cpu, rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(results[1][1][0], 1.0)
+
+
 # -- the second design's edges: work-item and ring-tile boundaries ---------
 
 #: atoms a cell holds, cycled over a grid's cells: empty, one, half a
