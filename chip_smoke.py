@@ -50,8 +50,20 @@ lag launches counted, F_s(q, 0) == 1, F(q, 0) against the direct S(q)
 and four lags on 16 wavevectors against a numpy float64 oracle; the
 default factorized route against it; the coherent time FFT against the
 ring; the log grid's rows against the dense rows bit for bit; and the
-sum rule of the dynamic structure factor.  Every check raises on
-failure, so any failed phase exits non-zero.  The last lines of
+sum rule of the dynamic structure factor.  Then slice 11, the grouped
+main path on bench.py's water topology at the fused path's width (33,333
+3-site waters, 99,999 atoms, with O-H bonds): the bonded unwrap_edge of
+the first frame on the host (timed), run_together of the RDF, S(q) and
+Onsager MSD of the residues' centers of mass over 8 + 32 frames (launches
+counted, the last chunk profiled), the centers of a chunk on the card
+against a numpy float32 fixed-order reduction bit for bit, the self cell
+kernel and the exact trig sums on those centers against their plain
+versions, the factor S(q) of the centers against the direct route; the
+mixed cross RDF of centers against atoms (one chunk, the cross kernel
+against its plain version), and the Van Hove function and the ISF of the
+centers (their MSD against a float64 oracle, F_s(q, 0) == 1, F(q, 0)
+against the direct S(q)).  Every check raises on failure, so any failed
+phase exits non-zero.  The last lines of
 standard output are the card's name and power limit, a JSON line of
 per-kernel measurements (each beside its bound: the larger of the
 float32 operations of the pairs binned, or of the trig terms summed,
@@ -2785,32 +2797,20 @@ def isf_analysis(u, device, **kwargs):
     return analysis
 
 
-def run_isf_path(analysis, n_frames, profiled=0):
-    """Run one ISF path through run_together with the trig-sums launch
-    counts set to 0 just before it and read just after, its launches split
-    by precision as the wrapper counts them (exact: the coherent sums,
-    fast: the displacement sums) and checked against the calls that the
-    analysis made by precision.  Frames/s are clocked from the end of
-    the first chunk to the end of the conclusions, or, with `profiled`
-    frames, to the start of the last `profiled` frames, which run under
-    torch.profiler for the device's busy share of their wall time.
-    Returns ``(launches, launches by precision, frames/s, busy share or
-    None, device activities a profiled frame or None)``."""
+def run_profiled(analyses, n_frames, profiled=0):
+    """``run_together(analyses)`` over `n_frames` frames, clocked from the
+    end of the first chunk to the end of the conclusions, or, with
+    `profiled` frames, to the start of the last `profiled` frames, which
+    run under torch.profiler for the device's busy share of their wall
+    time (to the end of the last chunk: the conclusions stay out).
+    Returns ``(frames/s, busy share or None, device activities a profiled
+    frame or None)``."""
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from mdhelper_tpu_torch.analysis import structure
     from mdhelper_tpu_torch.analysis.multi import run_together
-    from mdhelper_tpu_torch.ops import cuda_kernels as ck
-
-    calls = {"exact": 0, "fast": 0}
-    wrapped = structure.trig_sums
-
-    def tally(qs, positions, *args, precision="fast", **kwargs):
-        calls[precision] += 1
-        return wrapped(qs, positions, *args, precision=precision, **kwargs)
 
     prof = profile(activities=[ProfilerActivity.CUDA])
     marks, seen = [], [0]
@@ -2825,15 +2825,49 @@ def run_isf_path(analysis, n_frames, profiled=0):
                 prof.start()
                 torch.cuda.synchronize()
                 marks.append(time.perf_counter())
+        elif profiled and seen[0] == n_frames:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            prof.stop()
+
+    run_together(analyses, on_chunk=on_chunk)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    if not profiled:
+        return (n_frames - CHUNK) / (end - marks[0]), None, None
+    on_device = [(e.time_range.start, e.time_range.end)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(on_device, "the profiler saw no device activity")
+    busy = busy_us(on_device) / ((marks[3] - marks[2]) * 1e6)
+    fps = (n_frames - profiled - CHUNK) / (marks[1] - marks[0])
+    return fps, busy, len(on_device) / profiled
+
+
+def run_isf_path(analysis, n_frames, profiled=0):
+    """Run one ISF path through :func:`run_profiled` with the trig-sums
+    launch counts set to 0 just before it and read just after, its
+    launches split by precision as the wrapper counts them (exact: the
+    coherent sums, fast: the displacement sums) and checked against the
+    calls that the analysis made by precision.  Returns ``(launches,
+    launches by precision, frames/s, busy share or None, device activities
+    a profiled frame or None)``."""
+
+    from mdhelper_tpu_torch.analysis import structure
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    calls = {"exact": 0, "fast": 0}
+    wrapped = structure.trig_sums
+
+    def tally(qs, positions, *args, precision="fast", **kwargs):
+        calls[precision] += 1
+        return wrapped(qs, positions, *args, precision=precision, **kwargs)
 
     structure.trig_sums = tally
     ck.trig_sums.launches = 0
     by_precision = ck.trig_sums.launches_by_precision
     by_precision.update(exact=0, fast=0)
     try:
-        run_together([analysis], on_chunk=on_chunk)
-        torch.cuda.synchronize()
-        end = time.perf_counter()
+        fps, busy, activities = run_profiled([analysis], n_frames, profiled)
     finally:
         structure.trig_sums = wrapped
     launches, by_precision = ck.trig_sums.launches, dict(by_precision)
@@ -2841,16 +2875,7 @@ def run_isf_path(analysis, n_frames, profiled=0):
           and launches == by_precision["exact"] + by_precision["fast"],
           f"trig-sums launches {launches} ({by_precision} by precision) "
           f"against the analysis's calls {calls}")
-    if not profiled:
-        return (launches, by_precision, (n_frames - CHUNK) / (end - marks[0]),
-                None, None)
-    prof.stop()
-    on_device = [(e.time_range.start, e.time_range.end)
-                 for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(on_device, "the profiler saw no device activity")
-    busy = busy_us(on_device) / ((end - marks[2]) * 1e6)
-    fps = (n_frames - profiled - CHUNK) / (marks[1] - marks[0])
-    return launches, by_precision, fps, busy, len(on_device) / profiled
+    return launches, by_precision, fps, busy, activities
 
 
 def isf_oracle(traj, qs, lags):
@@ -3086,6 +3111,276 @@ def phase_isf(device, rng, card):
     return out
 
 
+# Slice 11: the grouped main path -- the RDF, S(q) and Onsager MSD of
+# residue centers of mass, fused -- on bench.py's water topology at the
+# fused path's width: 33,333 3-site waters (99,999 atoms) in the 50 A cube,
+# 8 + 32 frames, each molecule a rigid random walker of WATER_STEP A a frame
+# and axis.  Beside it the mixed cross RDF of centers against atoms on one
+# chunk, the Van Hove function of centers (8 + 24 frames, a 16-frame ring)
+# and the ISF of centers (direct route, 8 + 8 frames, an 8-frame ring).
+WATER_MOL = N_ATOMS // 3
+WATER_STEP = 0.3
+WATER_VH_FRAMES, WATER_VH_LAGS = 8 + 24, 16
+WATER_ISF_FRAMES, WATER_ISF_LAGS = 8 + 8, 8
+
+
+def water_universe(rng, n_frames):
+    """WATER_MOL waters in the cubic box (``testing.water_system``) as an
+    in-memory universe with their masses, residues and O-H bonds."""
+
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.testing import water_system
+
+    frames, topology = water_system(rng, WATER_MOL, BOX, n_frames,
+                                    step=WATER_STEP)
+    return frames, Universe.from_arrays(
+        frames, np.array([BOX] * 3 + [90.0] * 3), dt=1.0, **topology)
+
+
+def numpy_water_coms(frames, masses):
+    """float32 centers of mass of consecutive 3-atom molecules in numpy:
+    each atom's position times its float32 mass, summed in atom order
+    from 0, over the masses summed the same way."""
+
+    m = masses.astype(np.float32)
+    weighted = frames * m[None, :, None]
+    total = np.zeros(weighted[:, 0::3].shape, dtype=np.float32)
+    mass = np.zeros(len(m) // 3, dtype=np.float32)
+    for k in range(3):
+        total = total + weighted[:, k::3]
+        mass = mass + m[k::3]
+    return total / mass[None, :, None]
+
+
+def water_msd_check(msd, lags, what):
+    """A center's mean-squared displacement after `lags` frames is
+    3 WATER_STEP^2 lags (the intramolecular jitter moves a center by about
+    1 % of one step); within 3 %.  Returns the largest relative
+    deviation."""
+
+    dev = np.abs(msd[1:] / (3 * WATER_STEP**2 * lags[1:]) - 1)
+    check(np.all(np.isfinite(msd)) and abs(msd[0]) < 1e-6 * msd.max()
+          and dev.max() < 0.03, f"{what}: MSD off 3 step^2 t by {dev.max()}")
+    return float(dev.max())
+
+
+def phase_groupings(device, rng, card):
+    """The grouped main path on WATER_MOL waters: the bonded unwrap of the
+    first frame on the host (timed; the molecules that straddle the box
+    come out whole); run_together([RDF, S(q), Onsager], groupings=
+    "residues") over 8 + 32 frames with the self cell kernel's launches
+    counted and the last chunk under torch.profiler; the centers of mass
+    of a chunk on the card against a numpy float32 fixed-order reduction,
+    bit for bit; the self cell kernel on those centers against its plain
+    version on the path's plan, and the trig-sums kernel (exact) against
+    its plain version and a float64 oracle; the g(r) tail, the MSD of the
+    centers, and S(q) against the direct route's over the same frames.
+    Then the mixed cross RDF (one chunk, the cross kernel held against its
+    plain version), the Van Hove function and the ISF of the centers."""
+
+    import torch
+
+    from mdhelper_tpu_torch.algorithm.topology import unwrap_edge
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+        StructureFactor,
+        VanHoveFunction,
+        _com_reducer,
+        _wavevector_grid,
+    )
+    from mdhelper_tpu_torch.analysis.transport import Onsager
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    steps = [("trajectory", time.perf_counter())]
+    frames, u = water_universe(rng, N_FRAMES)
+    n_atoms = 3 * WATER_MOL
+    n_chunks = -(-N_FRAMES // CHUNK)
+    box = (BOX,) * 3
+    out = {}
+
+    steps.append(("bonded unwrap", time.perf_counter()))
+    started = time.perf_counter()
+    whole = unwrap_edge(group=u.atoms)
+    out["unwrap_s"] = time.perf_counter() - started
+    first = frames[0].astype(np.float64)
+    arms = [first[k::3] - first[0::3] for k in (1, 2)]
+    straddling = int(np.sum(np.any(np.abs(np.concatenate(arms, axis=1))
+                                   > BOX / 2, axis=1)))
+    longest = max(float(np.linalg.norm(whole[k::3] - whole[0::3],
+                                       axis=1).max()) for k in (1, 2))
+    check(straddling > 0 and longest < 1.2,
+          f"bonded unwrap: {straddling} straddling molecules, longest O-H "
+          f"{longest:.3f} A after the unwrap")
+    print(f"bonded unwrap_edge of {WATER_MOL} waters ({n_atoms} atoms, "
+          f"{straddling} straddling the box in frame 0) on the host: "
+          f"{out['unwrap_s']:.3f} s; longest O-H after it {longest:.3f} A")
+
+    steps.append(("grouped fused path", time.perf_counter()))
+    common = dict(verbose=False, device=device)
+    analyses = [
+        RadialDistributionFunction(u.atoms, n_bins=N_BINS,
+                                   range=(0.0, R_MAX), exclusion=(1, 1),
+                                   groupings="residues", **common),
+        StructureFactor(u.atoms, groupings="residues", n_points=N_QPTS,
+                        sort=False, unique=False, method="factor",
+                        precision="exact", **common),
+        Onsager(u.atoms, groupings="residues", unwrap=True, **common),
+    ]
+    for a in analyses:
+        a._chunk_bytes = CHUNK * n_atoms * 3 * 4
+    reset_launches()
+    fps, busy, activities = run_profiled(analyses, N_FRAMES, CHUNK)
+    launches = cch.cell_pair_histogram.launches
+    check(launches == n_chunks,
+          f"grouped path: {launches} self kernel launches for {n_chunks} "
+          "chunks")
+    rdf, sf, ons = analyses
+    check(rdf._n1 == sf._N == ons._N == WATER_MOL,
+          f"entities {rdf._n1}, {sf._N}, {ons._N}, not {WATER_MOL}")
+    g = rdf.results.rdf
+    check(g.shape == (N_BINS,) and np.all(np.isfinite(g))
+          and np.all(np.abs(g[-20:] - 1.0) < 0.02),
+          f"grouped g(r) tail off 1: {g[-20:]}")
+    msd = 6 * ons.results.msd_self[0, 0]
+    msd_dev = water_msd_check(msd[:N_FRAMES // 2],
+                              np.arange(N_FRAMES // 2), "grouped Onsager")
+    print(f"grouped fused path (RDF + S(q) + MSD of residue centers): "
+          f"{WATER_MOL} waters, {N_FRAMES} frames in chunks of {CHUNK}, "
+          f"{launches} self kernel launches; g(r) tail mean "
+          f"{g[-20:].mean():.5f}; center MSD within {100 * msd_dev:.2f} % "
+          f"of 3 step^2 t; {fps:.3f} frames/s on {card}, device busy "
+          f"{100 * busy:.1f} % of the last {CHUNK} frames' wall time "
+          f"(profiler on; {activities:.0f} device activities a frame)")
+    out.update(launches=launches, fps=fps, busy=busy)
+
+    steps.append(("centers and kernels", time.perf_counter()))
+    reduce, _ = _com_reducer(u.atoms, "residues", device)
+    atoms = torch.from_numpy(frames[:CHUNK]).to(device)
+    coms = reduce(atoms)
+    expected = numpy_water_coms(frames[:CHUNK], u.atoms.masses)
+    check(np.array_equal(coms.cpu().numpy().view(np.int32),
+                         expected.view(np.int32)),
+          "centers of mass on the card differ from the numpy fixed-order "
+          "reduction")
+    check(float(coms.min()) >= 0.0 and float(coms.max()) <= BOX,
+          "a center of mass left [0, L]")
+    print(f"centers of mass of {CHUNK} frames on the card == numpy float32 "
+          "fixed-order reduction, bit for bit")
+    out["self"] = self_kernel_vs_plain(
+        coms, box, f"self kernel, {WATER_MOL} water centers, exclusion "
+        "(1, 1) (grouped fused path)", plan=rdf._searched_cell_plan(),
+        exclusion=(1, 1))
+    qs = torch.from_numpy(_wavevector_grid([BOX] * 3, N_QPTS)).to(device)
+    pick = torch.from_numpy(np.sort(np.random.default_rng(SEED).choice(
+        len(qs), ORACLE_QS, replace=False))).to(device)
+    out["trig"] = trig_vs_plain(
+        qs, coms[:2].contiguous(), None, "exact",
+        f"trig sums exact, 2 x {WATER_MOL} water centers x {len(qs)} "
+        "float64 wavevectors", pick)
+
+    steps.append(("direct S(q)", time.perf_counter()))
+    direct = sq_analysis(u, device, groupings="residues")
+    out["direct_launches"], direct_fps = run_sq_path(direct, N_FRAMES)
+    check(out["direct_launches"] == n_chunks,
+          f"direct S(q) of centers: {out['direct_launches']} launches")
+    rel = check_ssf(sf.results.ssf, direct.results.ssf,
+                    "grouped factor S(q) against the direct route")
+    print(f"grouped S(q), factor route vs the direct route through the "
+          f"trig-sums kernel ({out['direct_launches']} launches, "
+          f"{direct_fps:.3f} frames/s): max relative deviation {rel:.3e} "
+          "(gate rtol 1e-4, atol 1e-5)")
+
+    steps.append(("mixed cross RDF", time.perf_counter()))
+    mixed = RadialDistributionFunction(
+        u.atoms, u.atoms, n_bins=N_BINS, range=(0.0, R_MAX),
+        groupings=("residues", "atoms"), **common)
+    mixed._chunk_bytes = CHUNK * n_atoms * 3 * 4
+    reset_launches()
+    # run(), which re-plans after a capacity overflow: the atoms of
+    # molecules fill cells less evenly than the planner's Poisson model.
+    mixed.run(stop=CHUNK)
+    out["cross_launches"] = cch.cross_pair_histogram.launches
+    retries = getattr(mixed, "_capacity_retries", 0)
+    gm = mixed.results.rdf
+    check(out["cross_launches"] == 1 + retries and np.all(np.isfinite(gm))
+          and np.all(np.abs(gm[-20:] - 1.0) < 0.02),
+          f"mixed RDF: {out['cross_launches']} cross launches, tail "
+          f"{gm[-20:]}")
+    out["cross"] = cross_kernel_vs_plain(
+        coms[:2].contiguous(), atoms[:2].contiguous(), box,
+        f"cross kernel, {WATER_MOL} centers x {n_atoms} atoms "
+        "(mixed-grouping RDF path)", plan=mixed._searched_cell_plan(),
+        plain_runs=1)
+    print(f"mixed RDF (residues x atoms): {CHUNK} frames, "
+          f"{out['cross_launches']} cross launch(es), {retries} re-plan(s) "
+          f"after a capacity overflow (capacity_sigmas "
+          f"{mixed._capacity_sigmas:g}); g(r) tail mean {gm[-20:].mean():.5f}")
+
+    steps.append(("Van Hove", time.perf_counter()))
+    vh_frames, u_vh = water_universe(rng, WATER_VH_FRAMES)
+    vh = VanHoveFunction(u_vh.atoms, n_bins=N_BINS, range=(0.0, R_MAX),
+                         grouping="residues", n_lags=WATER_VH_LAGS,
+                         **common)
+    vh._chunk_bytes = CHUNK * n_atoms * 3 * 4
+    reset_launches()
+    vh_fps, _, _ = run_profiled([vh], WATER_VH_FRAMES)
+    out["vh_launches"] = cch.cross_pair_histogram.launches
+    check(out["vh_launches"] == WATER_VH_FRAMES,
+          f"Van Hove of centers: {out['vh_launches']} launches for "
+          f"{WATER_VH_FRAMES} frames")
+    counts_self = vh.results.counts_self
+    check(counts_self[0, 0] == WATER_MOL * WATER_VH_FRAMES
+          and counts_self[0, 1:].sum() == 0,
+          "Van Hove of centers: lag-0 self counts not all in bin 0")
+    # The centers of molecules that straddle the box jump as their atoms
+    # wrap (the JAX package's centers of wrapped coordinates), so the
+    # MSD is held against a float64 minimum-image MSD of the same centers.
+    centers = numpy_water_coms(vh_frames, u_vh.atoms.masses).astype(
+        np.float64)
+    ref = np.zeros(WATER_VH_LAGS)
+    for lag in range(1, WATER_VH_LAGS):
+        d = centers[lag:] - centers[:-lag]
+        d -= BOX * np.round(d / BOX)
+        ref[lag] = (d**2).sum(-1).mean()
+    vh_dev = float(np.max(np.abs(vh.results.msd[1:] - ref[1:]) / ref[1:]))
+    check(vh.results.msd[0] == 0 and vh_dev < 1e-5,
+          f"Van Hove of centers: MSD off the float64 oracle by {vh_dev:.3e}")
+    gd = vh.results.gd
+    check(np.all(np.isfinite(gd)) and np.all(np.abs(gd[:, -20:] - 1) < 0.02),
+          "Van Hove of centers: distinct g(r, t) tail off 1")
+    print(f"Van Hove of centers: {WATER_VH_FRAMES} frames, "
+          f"{WATER_VH_LAGS} lags, {out['vh_launches']} cross launches; MSD "
+          f"within {vh_dev:.3e} of a float64 numpy MSD of the centers; "
+          f"{vh_fps:.3f} frames/s on {card}")
+
+    steps.append(("ISF", time.perf_counter()))
+    _, u_isf = water_universe(rng, WATER_ISF_FRAMES)
+    isf = isf_analysis(u_isf, device, groupings="residues",
+                       n_lags=WATER_ISF_LAGS)
+    isf_launches, split, isf_fps, _, _ = run_isf_path(isf, WATER_ISF_FRAMES)
+    isf_chunks = WATER_ISF_FRAMES // CHUNK
+    check(split == {"exact": isf_chunks, "fast": WATER_ISF_FRAMES},
+          f"ISF of centers: launches {split}")
+    cisf, iisf = isf.results.cisf, isf.results.iisf
+    check(np.all(np.isfinite(cisf)) and np.all(iisf[0] == 1.0),
+          "ISF of centers: values, or F_s(q, 0) off 1")
+    sf_isf = sq_analysis(u_isf, device, groupings="residues")
+    run_sq_path(sf_isf, WATER_ISF_FRAMES)
+    rel_isf = check_ssf(cisf[0], sf_isf.results.ssf,
+                        "ISF of centers F(q, 0) against the direct S(q)")
+    print(f"ISF of centers (direct route): {WATER_ISF_FRAMES} frames, "
+          f"{WATER_ISF_LAGS} lags, {split['exact']} exact and {split['fast']}"
+          f" fast trig-sums launches; F_s(q, 0) == 1; F(q, 0) vs the direct "
+          f"S(q): max relative deviation {rel_isf:.3e}; {isf_fps:.3f} "
+          f"frames/s on {card}")
+    out["isf_launches"] = isf_launches
+    steps.append(("", time.perf_counter()))
+    print("groupings phase steps: " + ", ".join(
+        f"{name} {t1 - t0:.1f} s"
+        for (name, t0), (_, t1) in zip(steps, steps[1:])))
+    return out
+
+
 def main():
     import torch
 
@@ -3167,6 +3462,14 @@ def main():
                                          np.random.default_rng(SEED + 8))
     isf = phase_isf(device, np.random.default_rng(SEED + 7), card)
     print(f"the ISF phases took {time.perf_counter() - isf_started:.1f} s")
+    # Slice 11 draws from its own generator.
+    grouped_started = time.perf_counter()
+    grouped = phase_groupings(device, np.random.default_rng(SEED + 9), card)
+    print(f"grouped fused path (residue centers of {WATER_MOL} waters): "
+          f"{grouped['fps']:.3f} frames/s on {card}, device busy "
+          f"{100 * grouped['busy']:.1f} % (information, not a claim); the "
+          f"groupings phase took {time.perf_counter() - grouped_started:.1f}"
+          " s")
 
     def path_row(shape, timing_plan, path, plain_from=None, plain_shape=None):
         """(launches, shape, timing) of a slice-4 row, whose kernel was
@@ -3370,6 +3673,22 @@ def main():
                      f"frame over 1 to {ISF_LAGS} displacement frames, the "
                      "same count in both of its rows)",
                      isf_kernel_timing[frames]))
+    # Slice 11: the three kernels on centers of mass, each timed on the
+    # plan or at the width of the path whose launches it carries.
+    rows += [
+        ("cell_pair_histogram", self_src, 1070, grouped["launches"],
+         f"{WATER_MOL} water centers of mass, cube {BOX:.1f} A, r_max "
+         f"{R_MAX:g}, exclusion (1, 1) (grouped fused path)",
+         grouped["self"]),
+        ("cross_pair_histogram", cross_src, 1916, grouped["cross_launches"],
+         f"{WATER_MOL} centers x {3 * WATER_MOL} atoms, cube (mixed-grouping "
+         "RDF path)", grouped["cross"]),
+        ("trig_sums", trig_src, pallas_kernels.format(66),
+         grouped["direct_launches"],
+         f"{WATER_MOL} water centers x {n_q} float64 wavevectors (2 frames "
+         "a launch), exact (launches: the direct S(q) of the centers)",
+         grouped["trig"]),
+    ]
     optional = ("launch_ms", "pairs_per_frame", "counted_per_frame",
                 "terms_per_frame", "plain_shape",
                 "option", "oracle_err", "tolerance")

@@ -3,13 +3,25 @@ Topology helpers
 ================
 
 The part of :mod:`mdhelper_tpu.algorithm.topology` the ported analyses
-call.
+call: box matrices, the minimum-image convention, wrapping, and the
+bonded :func:`unwrap_edge` that makes molecules whole.  NumPy only,
+apart from :func:`triclinic_matrices`, which also takes torch tensors.
 """
+
+import warnings
 
 import numpy as np
 import torch
 
-__all__ = ["triclinic_matrices", "unwrap_edge"]
+from .utility import find_connected_nodes
+
+__all__ = [
+    "minimize_vectors",
+    "triclinic_matrices",
+    "triclinic_vectors",
+    "unwrap_edge",
+    "wrap",
+]
 
 
 def triclinic_matrices(dimensions):
@@ -41,18 +53,210 @@ def triclinic_matrices(dimensions):
     )
 
 
-def unwrap_edge(*, group):
-    r"""Make the molecules of `group` whole at the current frame.
+def triclinic_vectors(dimensions) -> np.ndarray:
+    r"""One box's parameters ``(a, b, c, alpha, beta, gamma)`` to its
+    lower-triangular box matrix (rows are the box vectors), in Python
+    floats as ``mdhelper_tpu.algorithm.topology.triclinic_vectors``."""
 
-    Counterpart of ``mdhelper_tpu.algorithm.topology.unwrap_edge(group=)``
-    for groups with no bonds, where every atom is its own molecule and
-    the result is a float64 copy of the current positions.  Bonded
-    groups (the bond-graph walk) are not ported yet and raise.
+    a, b, c = (float(x) for x in dimensions[:3])
+    alpha, beta, gamma = (np.deg2rad(float(x)) for x in dimensions[3:6])
+    cos_a, cos_b, cos_g = np.cos(alpha), np.cos(beta), np.cos(gamma)
+    sin_g = np.sin(gamma)
+    bx, by = b * cos_g, b * sin_g
+    cx = c * cos_b
+    cy = c * (cos_a - cos_b * cos_g) / sin_g
+    cz = np.sqrt(max(c * c - cx * cx - cy * cy, 0.0))
+    return np.array([[a, 0.0, 0.0], [bx, by, 0.0], [cx, cy, cz]])
+
+
+def _is_orthorhombic(dimensions) -> bool:
+    """Lengths only, right angles, or a zero-length (aperiodic) axis."""
+
+    return (
+        dimensions.shape[-1] == 3
+        or np.allclose(dimensions[3:6], 90.0)
+        or not (dimensions[:3] > 0).all()
+    )
+
+
+def minimize_vectors(vectors, dimensions) -> np.ndarray:
+    r"""Minimum images of displacement vectors ``(3,)`` or ``(n, 3)`` in
+    a box ``(3,)`` or ``(6,)``, operation for operation as the NumPy
+    branch of ``mdhelper_tpu.algorithm.topology.minimize_vectors``.  In an
+    orthorhombic box each axis is folded by a rounded multiple of its
+    length (a zero-length axis is aperiodic); in a triclinic box the
+    fractional rounding is followed by the shortest of the 26 neighbouring
+    images."""
+
+    dimensions = np.asarray(dimensions, dtype=float)
+    single = np.ndim(vectors) == 1
+    vecs = np.atleast_2d(vectors)
+    if _is_orthorhombic(dimensions):
+        box = dimensions[:3]
+        period = np.where(box > 0, box, np.inf)
+        shift = np.round(vecs / period)
+        shift = np.where(box > 0, shift, np.zeros_like(shift))
+        out = vecs - box * shift
+    else:
+        box_mat = triclinic_vectors(dimensions)
+        frac = vecs @ np.linalg.inv(box_mat)
+        frac = frac - np.round(frac)
+        base = frac @ box_mat
+        out = base
+        best = (out**2).sum(axis=-1)
+        for sx in (-1, 0, 1):
+            for sy in (-1, 0, 1):
+                for sz in (-1, 0, 1):
+                    if sx == sy == sz == 0:
+                        continue
+                    cand = base + np.array([sx, sy, sz]) @ box_mat
+                    d2 = (cand**2).sum(axis=-1)
+                    mask = d2 < best
+                    best = np.where(mask, d2, best)
+                    out = np.where(mask[..., None], cand, out)
+    return out[0] if single else out
+
+
+def wrap(positions, dimensions, *, in_place: bool = True):
+    r"""Wrap positions back into the primary cell: only coordinates
+    strictly outside ``[0, L]`` move, by whole box lengths (the NumPy
+    branch of ``mdhelper_tpu.algorithm.topology.wrap``).  With
+    ``in_place=True`` the array is modified and ``None`` returned."""
+
+    positions_arr = np.asarray(positions, dtype=float)
+    dimensions = np.asarray(dimensions, dtype=float)
+    outside = (positions_arr < 0) | (positions_arr > dimensions)
+    shift = np.floor(positions_arr / dimensions) * dimensions
+    if in_place:
+        positions[outside] -= shift[outside]
+        return None
+    out = positions_arr.copy()
+    out[outside] -= shift[outside]
+    return out
+
+
+def _unwrap_molecules(positions, adjacency, molecules, dimensions) -> None:
+    """Make each molecule whole in place, as the JAX package's
+    ``_unwrap_molecule`` walks it: in DFS order, each atom moves to the
+    minimum image of its displacement from its first bonded neighbour (in
+    adjacency order) that the walk placed before it.
+
+    The walk depends only on that placing neighbour, so the atoms are
+    placed a generation at a time (all atoms whose placing neighbour is
+    already final) with one vectorized call each: in an orthorhombic box
+    the minimum image is elementwise, so the rows get the bits of the
+    one-atom calls.  In a triclinic box each row keeps its own call (a
+    matrix product over many rows may round otherwise)."""
+
+    n = len(positions)
+    if not n:
+        return
+    parent = np.full(n, -1, dtype=np.int64)
+    depth = np.zeros(n, dtype=np.int64)
+    for order in molecules:
+        placed = {order[0]}
+        for idx in order[1:]:
+            for neighbor in adjacency[idx]:
+                if neighbor in placed:
+                    parent[idx] = neighbor
+                    depth[idx] = depth[neighbor] + 1
+                    break
+            placed.add(idx)
+    if _is_orthorhombic(dimensions):
+        def step(vectors):
+            return minimize_vectors(vectors, dimensions)
+    else:
+        def step(vectors):
+            return np.array([minimize_vectors(v, dimensions)
+                             for v in vectors]).reshape(-1, 3)
+    by_depth = np.argsort(depth, kind="stable")
+    bounds = np.searchsorted(depth[by_depth], np.arange(1, depth.max() + 2))
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        atoms = by_depth[lo:hi]
+        anchors = positions[parent[atoms]]
+        positions[atoms] = anchors + step(positions[atoms] - anchors)
+
+
+def unwrap_edge(*, group=None, positions=None, bonds=None, dimensions=None,
+                thresholds=None, masses=None) -> np.ndarray:
+    r"""Make molecules split across the box edge whole, as
+    ``mdhelper_tpu.algorithm.topology.unwrap_edge``, bit for bit.
+
+    Each bonded molecule is made whole by walking its bond graph with
+    minimum-image steps (float64).  In the raw-array form the molecules
+    are then shifted so that their centers of mass lie inside the
+    primary cell.
+
+    Parameters
+    ----------
+    group : `AtomGroup`, keyword-only, optional
+        Atoms at the current frame; their bonds with both ends in the
+        group define the molecules (no recentering).
+    positions, bonds, dimensions : `numpy.ndarray`, keyword-only
+        The raw-array form: ``(N, 3)`` positions, ``(M, 2)`` bonds on
+        the row indices, and box lengths ``(3,)`` or parameters
+        ``(6,)``.
+    thresholds : keyword-only, optional
+        Accepted and unused, as in the JAX package.
+    masses : `numpy.ndarray`, keyword-only, optional
+        Raw-array form: per-atom masses, or one array per molecule
+        (default: unit masses, with a warning).
     """
 
-    bonds = getattr(group.universe, "bonds", None)
-    if bonds is not None and len(bonds):
-        raise NotImplementedError(
-            "unwrap_edge of a bonded group is not ported yet."
+    del thresholds
+    if group is not None:
+        positions = np.array(group.positions, dtype=float)
+        dims = np.asarray(group.dimensions, dtype=float)
+        adjacency = {i: [] for i in range(len(positions))}
+        ix_to_local = {ix: i for i, ix in enumerate(group.ix)}
+        for a, b in np.asarray(group.bonds):
+            if a in ix_to_local and b in ix_to_local:
+                adjacency[ix_to_local[a]].append(ix_to_local[b])
+                adjacency[ix_to_local[b]].append(ix_to_local[a])
+        _unwrap_molecules(positions, adjacency,
+                          find_connected_nodes(adjacency), dims)
+        return positions
+
+    if positions is None:
+        raise ValueError("Either 'group' or 'positions' must be specified.")
+    if bonds is None:
+        raise ValueError("Bond information must be specified in 'bonds'.")
+    if dimensions is None:
+        raise ValueError(
+            "System dimensions must be specified in 'dimensions'."
         )
-    return np.array(group.positions, dtype=np.float64)
+    dimensions = np.asarray(dimensions, dtype=float)
+    if len(dimensions) == 3:
+        dimensions = np.concatenate((dimensions, (90.0, 90.0, 90.0)))
+
+    positions = np.array(positions, dtype=float)
+    adjacency = {i: [] for i in range(len(positions))}
+    for a, b in np.asarray(bonds):
+        adjacency[int(a)].append(int(b))
+        adjacency[int(b)].append(int(a))
+    molecules = find_connected_nodes(adjacency)
+    _unwrap_molecules(positions, adjacency, molecules, dimensions)
+
+    if masses is None:
+        warnings.warn(
+            "No masses specified. All atoms are assumed to have a mass "
+            "of 1."
+        )
+        masses = np.ones(len(positions))
+    elif len(masses) == len(molecules):
+        masses = np.concatenate(masses)
+    elif len(masses) != len(positions):
+        raise ValueError(
+            "The number of masses must be equal to the number of atoms or "
+            "the number of molecules."
+        )
+    masses = np.asarray(masses, dtype=float)
+
+    # Recenter each molecule so its center of mass lies inside the box.
+    for molecule in molecules:
+        idx = np.asarray(molecule)
+        m = masses[idx]
+        com = np.einsum("...a,...ad->...d", m, positions[idx]) / m.sum(
+            axis=-1, keepdims=True)
+        positions[idx] += wrap(com, dimensions[:3], in_place=False) - com
+    return positions

@@ -4,14 +4,18 @@ Utility algorithms
 
 The part of :mod:`mdhelper_tpu.algorithm.utility` the ported analyses
 call: :func:`get_closest_factors`, which lays out the spherical-surface
-wavevectors of :class:`~mdhelper_tpu_torch.analysis.structure.StructureFactor`.
-NumPy only; the prime factorization is trial division, so the port needs
-no computer-algebra package.
+wavevectors of :class:`~mdhelper_tpu_torch.analysis.structure.StructureFactor`,
+and the connected components of a bond graph
+(:func:`depth_first_search`, :func:`find_connected_nodes`).  NumPy only;
+the prime factorization is trial division, so the port needs no
+computer-algebra package.
 """
+
+from typing import Any
 
 import numpy as np
 
-__all__ = ["get_closest_factors"]
+__all__ = ["depth_first_search", "find_connected_nodes", "get_closest_factors"]
 
 
 def _prime_factors_desc(value: int) -> list:
@@ -77,3 +81,37 @@ def get_closest_factors(
                     slot += 1
     factors = np.sort(factors)
     return factors[::-1] if reverse else factors
+
+
+def depth_first_search(graph: dict, start: Any, visited: dict,
+                       group: list) -> None:
+    """Iterative depth-first search collecting one connected component,
+    node for node in the JAX package's order: an explicit stack (so deep
+    chain molecules cannot overflow Python's recursion limit) that pushes
+    a node's unvisited neighbours in reverse, so they pop in adjacency
+    order.  `visited` and `group` are updated in place."""
+
+    stack = [start]
+    visited[start] = True
+    while stack:
+        node = stack.pop()
+        group.append(node)
+        for neighbor in reversed(graph[node]):
+            if not visited[neighbor]:
+                visited[neighbor] = True
+                stack.append(neighbor)
+
+
+def find_connected_nodes(graph: dict) -> list:
+    """The connected components of a graph (an adjacency mapping, node ->
+    list of neighbours), each a list of nodes in DFS order, the
+    components in the order of their first node in `graph`."""
+
+    visited = dict.fromkeys(graph, False)
+    results = []
+    for start in graph:
+        if not visited[start]:
+            group = []
+            depth_first_search(graph, start, visited, group)
+            results.append(group)
+    return results

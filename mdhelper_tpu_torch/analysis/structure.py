@@ -40,8 +40,12 @@ box runs the triclinic kernels: on a reach-1 grid each (cell,
 neighbour) block takes one lattice translation, on a generalized grid
 each pair searches its 27 nearest images (the JAX package's ``tri_pp``
 mode).  The cross RDF takes overlapping groups (a shared atom lands in
-bin 0, as in the JAX class).  COM groupings and the mesh S(q) method are
-not ported yet; the JAX package has no 2-D Van Hove function.
+bin 0, as in the JAX class).  Each analysis takes ``groupings=`` (Van
+Hove: ``grouping=``): ``"residues"`` or ``"segments"`` run it on the
+centers of mass of a group's residues or segments, reduced in torch in a
+fixed order (:func:`_com_reducer`) from the streamed atom columns.  The
+mesh S(q) method is not ported yet; the JAX package has no 2-D Van Hove
+function.
 """
 
 import warnings
@@ -122,6 +126,122 @@ def _check_range(range_):
         raise ValueError(f"range must satisfy 0 <= range[0] < range[1], not "
                          f"{tuple(range_)}.")
     return r_min, r_max
+
+
+def _validate_groupings(groupings) -> list:
+    """``groupings=`` as a list of two of ``"atoms"``, ``"residues"`` and
+    ``"segments"`` (one name, or a sequence of one or two)."""
+
+    valid = {"atoms", "residues", "segments"}
+    names = [groupings] if isinstance(groupings, str) else list(groupings)
+    for g in names:
+        if g not in valid:
+            raise ValueError(
+                f"Invalid grouping '{g}'. The options are 'atoms', "
+                "'residues', and 'segments'."
+            )
+    return names * 2 if len(names) == 1 else names
+
+
+def _groupings_per_group(groupings, n_groups: int, valid) -> list:
+    """``groupings=`` of an analysis over `n_groups` groups (one name for
+    all, or one each) as a list, each name in `valid`."""
+
+    groupings = (n_groups * [groupings] if isinstance(groupings, str)
+                 else list(groupings))
+    if len(groupings) != n_groups:
+        raise ValueError(
+            "The number of grouping values is not equal to the number of "
+            "groups."
+        )
+    for g in groupings:
+        if g not in valid:
+            raise ValueError(f"Invalid grouping '{g}'. Valid values: "
+                             f"{', '.join(sorted(valid))}.")
+    return groupings
+
+
+def _group_segment_ids(ag, grouping: str):
+    """``(segment ids, entity count)`` of a group under `grouping`: ``None``
+    and the atom count for ``"atoms"``, else each atom's entity relabeled
+    0..G-1 in ascending order of its residue or segment index."""
+
+    if grouping == "atoms":
+        return None, ag.n_atoms
+    labels = ag.resindices if grouping == "residues" else ag.segindices
+    _, ids = np.unique(labels, return_inverse=True)
+    ids = ids.reshape(-1)
+    return ids.astype(np.int32), int(ids.max()) + 1
+
+
+def _com_reducer(group, grouping: str, device):
+    """``(reduce, n_entities)`` of a group under `grouping`: ``reduce`` maps
+    ``(B, n_atoms, 3)`` float32 columns of the group (in group order) to
+    the ``(B, n_entities, 3)`` centers of mass of its residues or segments
+    (entities in ascending label order), or is ``None`` for ``"atoms"``.
+
+    Each entity's members form a row of a ``(G, K)`` table built here, on
+    the host, in ascending group order and padded with a zero column (``K``
+    is the largest entity).  The weighted positions ``positions * masses``
+    (one float32 product) are summed over the table's ``K`` columns in
+    order, from 0, then divided by the mass sums taken the same way: the
+    order of the JAX package's ``segment_sum`` on the CPU, with no atomics,
+    so the card and the CPU give the same bits.  ``K`` steps of a gather
+    and an add: cheap for molecules, ``K`` launches a chunk for a segment
+    of ``K`` atoms."""
+
+    seg, n = _group_segment_ids(group, grouping)
+    if seg is None:
+        return None, n
+    n_atoms = len(seg)
+    order = np.argsort(seg, kind="stable")
+    sizes = np.bincount(seg, minlength=n)
+    starts = np.concatenate(([0], np.cumsum(sizes)[:-1]))
+    table = np.full((n, int(sizes.max())), n_atoms, dtype=np.int64)
+    table[seg[order], np.arange(n_atoms) - starts[seg[order]]] = order
+    masses = np.append(np.asarray(group.masses, np.float32), np.float32(0))
+    mass_sums = np.zeros(n, dtype=np.float32)
+    for column in table.T:
+        mass_sums = mass_sums + masses[column]
+    masses = torch.as_tensor(masses[:-1], device=device)
+    mass_sums = torch.as_tensor(mass_sums, device=device)
+    columns = torch.as_tensor(table.T.copy(), device=device)
+
+    def reduce(positions):
+        weighted = positions * masses[:, None]
+        weighted = torch.cat(
+            (weighted, weighted.new_zeros(weighted.shape[:-2] + (1, 3))),
+            dim=-2)
+        total = weighted.new_zeros(weighted.shape[:-2] + (n, 3))
+        for column in columns:
+            total = total + weighted[..., column, :]
+        return total / mass_sums[:, None]
+
+    return reduce, n
+
+
+def _entity_positions_fn(groups, groupings, device):
+    """``entities(columns)``: the ``(B, N, 3)`` entity positions of a
+    chunk's group-ordered atom columns (the groups' columns one after
+    another), group after group: the columns themselves, or the centers
+    of mass of each group's residues or segments (:func:`_com_reducer`)."""
+
+    parts, lo = [], 0
+    for group, grouping in zip(groups, groupings):
+        reduce, _ = _com_reducer(group, grouping, device)
+        parts.append((lo, group.n_atoms, reduce))
+        lo += group.n_atoms
+    if all(reduce is None for *_, reduce in parts):
+        return lambda columns: columns
+
+    def entities(columns):
+        return torch.cat([
+            columns[:, lo:lo + n] if reduce is None
+            else reduce(columns[:, lo:lo + n])
+            for lo, n, reduce in parts
+        ], dim=1)
+
+    return entities
 
 
 class _CellPlanned(SerialAnalysisBase):
@@ -210,9 +330,9 @@ class RadialDistributionFunction(_CellPlanned):
     ag1 : `AtomGroup`
         The group (group :math:`i`).
     ag2 : `AtomGroup`, optional
-        Group :math:`j`; omitted or equal to `ag1` for the self RDF.  A
-        different group may share atoms with `ag1`: each shared atom
-        pairs with itself at distance 0, in bin 0.
+        Group :math:`j`; omitted or equal to `ag1` for the self RDF (with
+        equal `groupings`).  A different group may share atoms with
+        `ag1`: each shared atom pairs with itself at distance 0, in bin 0.
     n_bins : `int`, default 201
         Number of bins.
     range : `tuple`, default ``(0.0, 15.0)``
@@ -224,13 +344,21 @@ class RadialDistributionFunction(_CellPlanned):
         ``"rdf"``, ``"density"`` or ``None``.
     exclusion : `tuple`, optional
         ``(e0, e1)`` tile exclusion: ordered pairs with ``i // e0 == j //
-        e1`` on the group-local indices are dropped (e.g. ``(3, 3)`` for
-        the intramolecular pairs of a 3-site water model).  Self RDF:
-        ``None`` keeps the identical-atom pairs (bin 0, as in the
+        e1`` on the group-local entity indices are dropped (e.g. ``(3,
+        3)`` for the intramolecular pairs of a 3-site water model).  Self
+        RDF: ``None`` keeps the identical-entity pairs (bin 0, as in the
         reference, when the range starts at 0), ``(1, 1)`` drops them,
         any other tile, symmetric or not, is served by the self kernel.
         Cross RDF: any ``(e0, e1)`` (e.g. cation-anion pairs of one
         molecule).
+    groupings : `str` or `tuple`, keyword-only, default ``"atoms"``
+        ``"atoms"``, ``"residues"`` or ``"segments"``, for both groups or
+        one for each: the RDF of the residues' or segments' centers of
+        mass (entities in ascending label order).  The sweep is the self
+        sweep only when `ag2` is omitted or equal to `ag1` and both
+        groupings are equal: ``groupings=("residues", "atoms")`` over one
+        group is a cross sweep of centers against atoms.  Counts and the
+        normalization count entities.
     capacity_sigmas : `float`, default 4.0
         Cell-capacity headroom in Poisson sigmas; :meth:`run` raises it
         by 2 and re-runs after a capacity overflow (twice at most).
@@ -242,11 +370,14 @@ class RadialDistributionFunction(_CellPlanned):
     def __init__(self, ag1, ag2=None, n_bins: int = 201,
                  range: tuple = (0.0, 15.0), *, drop_axis=None,
                  norm: str = "rdf", exclusion: tuple = None,
-                 capacity_sigmas: float = 4.0, verbose: bool = True,
-                 device=None):
-        self._cross = ag2 is not None and ag2 != ag1
+                 groupings="atoms", capacity_sigmas: float = 4.0,
+                 verbose: bool = True, device=None):
+        self._groupings = _validate_groupings(groupings)
+        same_atoms = ag2 is None or ag2 == ag1
+        self._cross = (not same_atoms
+                       or self._groupings[0] != self._groupings[1])
         self.ag1 = ag1
-        self.ag2 = ag2 if self._cross else ag1
+        self.ag2 = ag1 if same_atoms else ag2
         self.universe = ag1.universe
         super().__init__(self.universe.trajectory, verbose, device=device)
         self._require_box("RadialDistributionFunction")
@@ -265,22 +396,24 @@ class RadialDistributionFunction(_CellPlanned):
             None if exclusion is None
             else tuple(int(e) for e in exclusion)
         )
-        if self._cross:
-            # Overlapping groups need no route of their own: the cross
-            # kernel applies no identical-atom mask, so an atom in both
-            # groups lands at distance 0, in bin 0, as in the JAX class.
-            self._atom_indices = np.concatenate((ag1.ix, ag2.ix))
-        else:
-            if (self._exclusion is not None
-                    and self._exclusion[0] != self._exclusion[1]):
-                # The second tile ids widen the self kernel's slots.
-                self._slot_bytes = _ASYM_SLOT_BYTES
-            self._atom_indices = np.asarray(ag1.ix)
+        # One copy of the columns when both sides take the same atoms.
+        # Overlapping groups need no route of their own: the cross kernel
+        # applies no identical-atom mask, so an atom in both groups lands
+        # at distance 0, in bin 0, as in the JAX class.
+        self._atom_indices = (
+            np.asarray(ag1.ix) if same_atoms
+            else np.concatenate((ag1.ix, ag2.ix))
+        )
+        if (not self._cross and self._exclusion is not None
+                and self._exclusion[0] != self._exclusion[1]):
+            # The second tile ids widen the self kernel's slots.
+            self._slot_bytes = _ASYM_SLOT_BYTES
         self._n_bins = n_bins
         self._norm = norm
         self._capacity_sigmas = float(capacity_sigmas)
-        self._n1 = self.ag1.n_atoms
-        self._n2 = self.ag2.n_atoms
+        # Entity counts (atoms, residues or segments).
+        _, self._n1 = _group_segment_ids(self.ag1, self._groupings[0])
+        _, self._n2 = _group_segment_ids(self.ag2, self._groupings[1])
         self._plan_atoms = (self._n1, self._n2 if self._cross else None)
 
     def _prepare(self) -> None:
@@ -303,6 +436,10 @@ class RadialDistributionFunction(_CellPlanned):
         n_bins = self._n_bins
         n1 = self._n1
         cross = self._cross
+        # Group 2's columns follow group 1's when the groups differ.
+        split = None if self.ag2 is self.ag1 else self.ag1.n_atoms
+        com1, _ = _com_reducer(self.ag1, self._groupings[0], device)
+        com2, _ = _com_reducer(self.ag2, self._groupings[1], device)
         exclusion = self._exclusion
         triclinic = self._triclinic
         drop_axis = self._drop_axis
@@ -324,10 +461,15 @@ class RadialDistributionFunction(_CellPlanned):
         def sweep(positions, box):
             """(counts, occupancy excess over capacity) per frame."""
 
+            pos1 = positions if split is None else positions[:, :split]
+            if com1 is not None:
+                pos1 = com1(pos1)
             if cross:
-                # The stream holds group 1's columns, then group 2's.
+                pos2 = positions if split is None else positions[:, split:]
+                if com2 is not None:
+                    pos2 = com2(pos2)
                 counts, occ1, occ2 = cross_sweep(
-                    positions[:, :n1], positions[:, n1:], box=box,
+                    pos1, pos2, box=box,
                     capacity1=plan["capacity"],
                     capacity2=plan["capacity2"], exclusion=exclusion,
                     **grid,
@@ -336,7 +478,7 @@ class RadialDistributionFunction(_CellPlanned):
                     occ1 - plan["capacity"], occ2 - plan["capacity2"]
                 )
             counts, occ = self_sweep(
-                positions, box=box, capacity=plan["capacity"],
+                pos1, box=box, capacity=plan["capacity"],
                 exclusion=exclusion, **grid
             )
             if self_pairs:
@@ -488,7 +630,9 @@ class StructureFactor(SerialAnalysisBase):
         contain every atom of the universe; with ``mode="pair"`` exactly
         one or two groups.
     groupings : `str` or sequence, default ``"atoms"``
-        ``"atoms"``; ``"residues"`` (COM positions) is not ported.
+        ``"atoms"`` or ``"residues"`` (the residues' centers of mass, in
+        ascending label order), for every group or one for each.  The
+        normalization counts these entities.
     mode : `str`, optional
         ``None`` (total S(q)), ``"pair"`` (the pair of the first and last
         group) or ``"partial"`` (every pair of groups, with repeats).
@@ -539,23 +683,8 @@ class StructureFactor(SerialAnalysisBase):
         self.universe = self._groups[0].universe
         super().__init__(self.universe.trajectory, verbose, device=device)
         self._n_groups = len(self._groups)
-        groupings = (
-            self._n_groups * [groupings] if isinstance(groupings, str)
-            else list(groupings)
-        )
-        if len(groupings) != self._n_groups:
-            raise ValueError(
-                "The number of grouping values is not equal to the "
-                "number of groups."
-            )
-        for g in groupings:
-            if g not in {"atoms", "residues"}:
-                raise ValueError(
-                    f"Invalid grouping '{g}'. Valid values: atoms, "
-                    "residues."
-                )
-        if set(groupings) != {"atoms"}:
-            raise NotImplementedError("Only groupings='atoms' is ported.")
+        self._groupings = groupings = _groupings_per_group(
+            groupings, self._n_groups, {"atoms", "residues"})
         if form not in {"exp", "trig"}:
             raise ValueError("Invalid form. Valid values: 'exp', 'trig'.")
         if method not in {"auto", "direct", "factor", "mesh"}:
@@ -617,13 +746,16 @@ class StructureFactor(SerialAnalysisBase):
             keep = self._wavenumbers <= q_max
             self._wavevectors = self._wavevectors[keep]
             self._wavenumbers = self._wavenumbers[keep]
+        # The groups' columns are streamed one group after another; each
+        # group scatters as its entities (atoms or residues).
         self._atom_indices = np.concatenate([g.ix for g in self._groups])
-        # Each group's columns in the streamed (group-ordered) columns.
-        self._sels, offset = [], 0
-        for group in self._groups:
-            self._sels.append(np.arange(offset, offset + group.n_atoms))
-            offset += group.n_atoms
-        self._N = int(offset)
+        self._Ns = np.array([_group_segment_ids(g, gr)[1]
+                             for g, gr in zip(self._groups, groupings)])
+        self._N = int(self._Ns.sum())
+        # Each group's entities in the concatenated entity positions.
+        ends = np.cumsum(self._Ns)
+        self._entity_slices = [(int(e - n), int(n))
+                               for e, n in zip(ends, self._Ns)]
         self._sort = sort
         self._unique = unique
 
@@ -733,21 +865,16 @@ class StructureFactor(SerialAnalysisBase):
             )
         }
         group_sums = self._group_sums_fn()
-        n_cols = self._N
-        sels = [
-            None if np.array_equal(sel, np.arange(n_cols))
-            else torch.as_tensor(sel, device=self._device)
-            for sel in self._sels
-        ]
+        entities = _entity_positions_fn(self._groups, self._groupings,
+                                        self._device)
+        slices = self._entity_slices
         pairs = self.results.pairs
         mode = self._mode
 
         def update(carry, positions, dimensions, mask):
             del dimensions
-            sums = [
-                group_sums(positions if sel is None else positions[:, sel])
-                for sel in sels
-            ]
+            positions = entities(positions)
+            sums = [group_sums(positions[:, lo:lo + n]) for lo, n in slices]
             cos = torch.stack([c for c, _ in sums], dim=1)  # (B, G, N_q)
             sin = torch.stack([s for _, s in sums], dim=1)
             if mode is None:
@@ -882,7 +1009,8 @@ class IntermediateScatteringFunction(StructureFactor):
         frames).
     incoherent : `bool`, default False
         Also compute :math:`F_\mathrm{s}(q, t)` (keeps an ``(n_lags, N,
-        3)`` ring of positions on the device).
+        3)`` ring of the entities' positions, centers of mass under
+        ``groupings="residues"``, on the device).
     fft : `bool`, optional
         The time-FFT estimator: ``None`` means it for coherent-only runs;
         ``True`` with ``incoherent=True`` raises.
@@ -957,16 +1085,14 @@ class IntermediateScatteringFunction(StructureFactor):
         n_groups = 1 if mode is None else self._n_groups
         self._factor = self._factor_setup()
         sums = self._group_sums_fn()
-        # Each group's columns of the group-ordered stream; mode=None sums
-        # every atom at once, as the JAX class does.
-        if mode is None:
-            slices = [(0, self._N)]
-        else:
-            slices = [(int(sel[0]), len(sel)) for sel in self._sels]
+        frame_positions = _entity_positions_fn(
+            self._groups, self._groupings, device)
+        # mode=None sums every entity at once, as the JAX class does.
+        slices = [(0, self._N)] if mode is None else self._entity_slices
 
         def group_sums(pos, precision=None, workspace=None):
             """``(B, G, N_q)`` float32 cos and sin sums of a ``(B, N, 3)``
-            batch, in one call a group."""
+            batch of entity positions, in one call a group."""
 
             parts = [sums(pos[:, lo:lo + n], precision, workspace)
                      for lo, n in slices]
@@ -983,7 +1109,7 @@ class IntermediateScatteringFunction(StructureFactor):
 
             def fft_update(carry, positions, dimensions, mask):
                 del dimensions, mask
-                cos, sin = group_sums(positions)
+                cos, sin = group_sums(frame_positions(positions))
                 return carry, torch.stack((cos, sin), dim=-1)
 
             self._update = fft_update
@@ -1066,6 +1192,7 @@ class IntermediateScatteringFunction(StructureFactor):
         def update(carry, positions, dimensions, mask):
             # The port streams no padding frames (every mask entry is 1).
             del dimensions, mask
+            positions = frame_positions(positions)
             # The chunk's sums do not depend on the ring: one call.
             cos, sin = group_sums(positions)
             for pos, c, s in zip(positions, cos, sin):
@@ -1264,8 +1391,11 @@ class VanHoveFunction(_CellPlanned):
         Number of radial bins.
     range : `tuple`, default ``(0.0, 15.0)``
         Radii range ``(r_min, r_max)``, ``0 <= r_min < r_max``.
-    grouping : `str`, default ``"atoms"``
-        Only ``"atoms"`` is ported.
+    grouping : `str`, keyword-only, default ``"atoms"``
+        ``"atoms"``, ``"residues"`` or ``"segments"``: the function of
+        the residues' or segments' centers of mass (entities in ascending
+        label order), taken from the streamed coordinates before they are
+        wrapped.
     dt : `float`, optional
         Time between frames (defaults to the trajectory's ``dt``).
     n_lags : `int`, optional
@@ -1295,8 +1425,7 @@ class VanHoveFunction(_CellPlanned):
             raise ValueError(
                 "At least one of self_part/distinct_part is required."
             )
-        if grouping != "atoms":
-            raise NotImplementedError("Only grouping='atoms' is ported.")
+        self._grouping = _validate_groupings(grouping)[0]
         self._require_box("VanHoveFunction")
         self._n_bins = int(n_bins)
         self._range = _check_range(range)
@@ -1308,7 +1437,7 @@ class VanHoveFunction(_CellPlanned):
         self._dt = dt or self._trajectory.dt
         self._capacity_sigmas = float(capacity_sigmas)
         self._atom_indices = np.asarray(group.ix)
-        self._n = group.n_atoms
+        _, self._n = _group_segment_ids(group, self._grouping)
         # The cross kernel over one group at two times: a joint
         # (equal-count) grid.
         self._plan_atoms = (self._n, self._n)
@@ -1409,10 +1538,14 @@ class VanHoveFunction(_CellPlanned):
                     carry["max_occ"], excess.to(torch.int32)
                 )
 
+        com, _ = _com_reducer(self.group, self._grouping, device)
+
         def update(carry, positions, dimensions, mask):
             # The port streams no padding frames (every mask entry is
             # 1), and the ring makes the frames of a chunk sequential.
             del mask
+            if com is not None:
+                positions = com(positions)
             boxes, volumes = _frame_boxes(dimensions, triclinic)
             for pos, box, volume in zip(positions, boxes, volumes):
                 fold_frame(carry, pos, box, volume)

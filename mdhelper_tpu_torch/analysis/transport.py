@@ -6,8 +6,9 @@ Transport properties
 per-frame unwrap with image flags carried across streamed chunks
 (:func:`mdhelper_tpu_torch.ops.pbc.unwrap_scan`), a host store of the
 per-frame entity positions, and the float64 FFT mean-squared and cross
-displacements at the conclusion.  Only atom groupings without
-centering are ported; the post-hoc coefficient fits come later.
+displacements at the conclusion, of atoms or of the centers of mass of
+residues or segments (taken from the unwrapped positions).  Centering
+and the post-hoc coefficient fits come later.
 """
 
 import itertools
@@ -20,6 +21,11 @@ from ..algorithm.correlation import msd_fft
 from ..algorithm.topology import unwrap_edge
 from ..ops.pbc import unwrap_scan
 from .base import SerialAnalysisBase, _check_even_frame_spacing
+from .structure import (
+    _entity_positions_fn,
+    _group_segment_ids,
+    _groupings_per_group,
+)
 
 __all__ = ["Onsager"]
 
@@ -38,8 +44,11 @@ class Onsager(SerialAnalysisBase):
     ----------
     groups : `AtomGroup` or sequence of them
         Group(s) to analyze.
-    groupings : `str`, default ``"atoms"``
-        Only ``"atoms"`` is ported.
+    groupings : `str` or sequence, default ``"atoms"``
+        ``"atoms"``, ``"residues"`` or ``"segments"``, for every group or
+        one for each: the displacements of the residues' or segments'
+        centers of mass (entities in ascending label order), reduced from
+        the unwrapped positions of the group's own atoms.
     dimensions : array-like, keyword-only, optional
         Box lengths (defaults to the trajectory).
     dt : `float`, keyword-only, optional
@@ -64,11 +73,11 @@ class Onsager(SerialAnalysisBase):
         )
         self.universe = self._groups[0].universe
         super().__init__(self.universe.trajectory, verbose, device=device)
-        if groupings != "atoms" and set(groupings) != {"atoms"}:
-            raise NotImplementedError("Only groupings='atoms' is ported.")
         if not fft:
             raise NotImplementedError("Only fft=True is ported.")
         self._n_groups = len(self._groups)
+        self._groupings = _groupings_per_group(
+            groupings, self._n_groups, {"atoms", "residues", "segments"})
         if dimensions is not None:
             if len(dimensions) != 3:
                 raise ValueError("'dimensions' must have length 3.")
@@ -80,7 +89,8 @@ class Onsager(SerialAnalysisBase):
         else:
             raise ValueError("No system dimensions found or provided.")
         self._dt = dt or self._trajectory.dt
-        self._Ns = [g.n_atoms for g in self._groups]
+        self._Ns = [_group_segment_ids(g, gr)[1]
+                    for g, gr in zip(self._groups, self._groupings)]
         self._N = int(sum(self._Ns))
         self._entity_slices = []
         index = 0
@@ -141,19 +151,21 @@ class Onsager(SerialAnalysisBase):
                 torch.zeros((), device=device),
                 torch.zeros((), device=device),
             )
+        entities = _entity_positions_fn(self._groups, self._groupings,
+                                        device)
 
         def update(carry, positions, dimensions, mask):
             # The port streams no padding frames, so every mask entry is
             # 1 and the unwrap scan runs over the whole chunk.
             del dimensions, mask
             if not unwrap:
-                return carry, positions
+                return carry, entities(positions)
             unwrapped, carry = unwrap_scan(
                 positions, box, initial=carry[0], images=carry[1]
             )
             if columns is not None:
                 unwrapped = unwrapped[:, columns]
-            return carry, unwrapped
+            return carry, entities(unwrapped)
 
         self._update = update
 

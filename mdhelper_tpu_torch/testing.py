@@ -4,8 +4,8 @@ Test inputs and float64 oracles
 
 NumPy helpers shared by the port's tests and ``chip_smoke.py``: the
 bin-edge straddle fixtures and the float64 all-pairs histograms the
-cell-list kernels are held against, and a float32 model of the tri_pp
-kernels' candidate screen.
+cell-list kernels are held against, a float32 model of the tri_pp
+kernels' candidate screen, and a trajectory of 3-site water molecules.
 """
 
 import itertools
@@ -24,6 +24,7 @@ __all__ = [
     "SCREEN_EPS",
     "fma32",
     "tri27_screen",
+    "water_system",
 ]
 
 #: the cell kernels' screen bound factor, 2^-18 (``kScreen`` of
@@ -233,3 +234,40 @@ def f64_cross_histogram(pos1, pos2, box, r_max, n_bins, exclusion=None):
                 == np.arange(len(pos2))[None, :] // e1)
         dist[same] = np.inf
     return np.histogram(dist, bins=n_bins, range=(0.0, r_max))[0]
+
+
+def water_system(rng, n_mol, box, n_frames, step=0.3, jitter=0.02):
+    """``(frames, topology)`` of `n_mol` rigid 3-site waters in the cube of
+    side `box`: float32 frames ``(n_frames, 3 n_mol, 3)`` and the keywords
+    of ``Universe.from_arrays`` (masses O 15.999, H 1.008; one residue a
+    molecule; O-H bonds, listed as ``bench.py`` lists them).
+
+    As ``bench.py``'s ``make_water_frame``: oxygens at uniform centers,
+    each hydrogen 0.96 A from its oxygen in a random direction.  Each
+    molecule then takes a rigid N(0, `step`) A step a frame on every axis,
+    every atom moves by N(0, `jitter`) A about its place in the molecule,
+    and every atom is wrapped into ``[0, box)`` on its own, so molecules
+    straddle the faces."""
+
+    centers = rng.random((n_mol, 3)) * box
+    arms = rng.standard_normal((2, n_mol, 3))
+    arms *= 0.96 / np.linalg.norm(arms, axis=-1, keepdims=True)
+    body = np.stack((np.zeros((n_mol, 3)), arms[0], arms[1]), axis=1)
+    frames = np.empty((n_frames, 3 * n_mol, 3), dtype=np.float32)
+    for t in range(n_frames):
+        if t:
+            centers += rng.normal(0.0, step, (n_mol, 3))
+        pos = (centers[:, None] + body).reshape(-1, 3)
+        pos += rng.normal(0.0, jitter, pos.shape)
+        frames[t] = np.mod(pos, box)
+    oxygen = 3 * np.arange(n_mol)
+    bonds = np.empty((2 * n_mol, 2), dtype=np.int64)
+    bonds[0::2] = np.stack((oxygen, oxygen + 1), axis=1)
+    bonds[1::2] = np.stack((oxygen, oxygen + 2), axis=1)
+    topology = dict(
+        masses=np.tile([15.999, 1.008, 1.008], n_mol),
+        names=np.tile(np.array(["O", "H1", "H2"], dtype=object), n_mol),
+        resindices=np.repeat(np.arange(n_mol), 3),
+        bonds=bonds,
+    )
+    return frames, topology

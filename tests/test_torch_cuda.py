@@ -1172,3 +1172,86 @@ def test_npt_paths_on_the_card_equal_cpu(cuda_device, shape):
     with pytest.raises(RuntimeError, match="shrank"):
         RadialDistributionFunction(shrunk.atoms, n_bins=24, range=(0.0, 3.0),
                                    verbose=False, device=cuda_device).run()
+
+
+def _water_universe(n_mol=1500, box=24.0, n_frames=6, **topology):
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.testing import water_system
+
+    frames, top = water_system(np.random.default_rng(91), n_mol, box,
+                               n_frames)
+    top.update(topology)
+    return Universe.from_arrays(frames, np.array([box] * 3 + [90.0] * 3),
+                                dt=1.0, **top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouping", ["residues", "segments"])
+def test_com_reduction_on_the_card_equals_cpu_bits(cuda_device, grouping):
+    """The fixed-order center-of-mass reduction gives the CPU's bits on
+    the card, whole and on a shuffled partial group (tests of the CPU
+    against the JAX package: tests/test_torch_groupings.py)."""
+
+    from mdhelper_tpu_torch.analysis.structure import _com_reducer
+
+    u = _water_universe(segindices=np.arange(4500) % 3)
+    rng = np.random.default_rng(4)
+    for group in (u.atoms, u.atoms[rng.permutation(4500)[:3000]]):
+        frames = torch.from_numpy(
+            u.trajectory.read_frames(np.arange(6))[0][:, group.ix])
+        cpu, _ = _com_reducer(group, grouping, "cpu")
+        card, _ = _com_reducer(group, grouping, cuda_device)
+        expected = cpu(frames).numpy()
+        got = card(frames.to(cuda_device)).cpu().numpy()
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      expected.view(np.int32))
+
+
+@pytest.mark.cuda
+def test_grouped_analyses_on_the_card_equal_cpu(cuda_device):
+    """The RDF (self and mixed), Van Hove, S(q) and ISF of residue centers
+    and the bonded Onsager MSD on the card against the CPU runs: integer
+    counts equal, S(q) and the ISF within the S(q) gate, the MSD (of the
+    same float32 centers) within rtol 1e-8 of the CPU's float64 FFTs."""
+
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.analysis.structure import (
+        IntermediateScatteringFunction,
+        RadialDistributionFunction,
+        StructureFactor,
+        VanHoveFunction,
+    )
+    from mdhelper_tpu_torch.analysis.transport import Onsager
+
+    u = _water_universe()
+    results = []
+    for device in ("cpu", cuda_device):
+        kw = dict(verbose=False, device=device)
+        runs = [
+            RadialDistributionFunction(u.atoms, n_bins=60, range=(0.0, 6.0),
+                                       exclusion=(1, 1),
+                                       groupings="residues", **kw),
+            RadialDistributionFunction(u.atoms, n_bins=60, range=(0.0, 6.0),
+                                       groupings=("residues", "atoms"), **kw),
+            VanHoveFunction(u.atoms, n_bins=60, range=(0.0, 6.0),
+                            grouping="residues", n_lags=4, **kw),
+            StructureFactor(u.atoms, "residues", n_points=6,
+                            method="direct", **kw),
+            IntermediateScatteringFunction(u.atoms, "residues", n_points=6,
+                                           n_lags=4, incoherent=True,
+                                           method="direct", **kw),
+            Onsager(u.atoms, "residues", unwrap=True, **kw),
+        ]
+        results.append([a.results for a in run_together(runs)])
+    cpu, card = results
+    for i in range(3):
+        for key in ("counts", "counts_self", "counts_distinct"):
+            if key in cpu[i]:
+                np.testing.assert_array_equal(card[i][key], cpu[i][key])
+    np.testing.assert_allclose(card[3].ssf, cpu[3].ssf, rtol=1e-4, atol=1e-5)
+    for key in ("cisf", "iisf"):
+        np.testing.assert_allclose(card[4][key], cpu[4][key], rtol=1e-4,
+                                   atol=1e-5)
+    for key in ("msd_self", "msd_cross"):
+        np.testing.assert_allclose(card[5][key], cpu[5][key], rtol=1e-8,
+                                   atol=1e-9 * np.abs(cpu[5][key]).max())

@@ -248,8 +248,10 @@ def test_structure_factor_argument_errors(universes):
     make = structure.StructureFactor
     with pytest.raises(NotImplementedError):
         make(u.atoms, method="mesh", device="cpu")
-    with pytest.raises(NotImplementedError):
-        make(u.atoms, groupings="residues", device="cpu")
+    # "residues" is ported (tests/test_torch_groupings.py); "segments" is
+    # refused, as the JAX class refuses it.
+    with pytest.raises(ValueError):
+        make(u.atoms, groupings="segments", device="cpu")
     with pytest.raises(ValueError):
         make(u.atoms, groupings="molecules", device="cpu")
     with pytest.raises(ValueError):

@@ -317,7 +317,8 @@ def test_errors_raised_as_jax_raises_them(universes, case):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(groupings="residues"), dict(method="mesh"), dict(shard="frames"),
+    # groupings="residues" is ported (tests/test_torch_groupings.py).
+    dict(shard="q"), dict(method="mesh"), dict(shard="frames"),
     dict(parallel=True)])
 def test_unported_options_raise(universes, kwargs):
     with pytest.raises(NotImplementedError):

@@ -1,0 +1,139 @@
+"""The signatures of the port's public classes and functions against their
+JAX counterparts: every parameter of the JAX signature is in the port's,
+with the same kind and default, or on the explicit list of parameters not
+ported yet below; every parameter the port adds is listed as the port's
+own.  Both lists must stay exact: an entry that the port has since gained,
+or lost, fails the test.
+"""
+
+import importlib
+import inspect
+
+import pytest
+
+pytest.importorskip("jax")
+pytest.importorskip("torch")
+
+#: JAX parameters the port does not take yet, by object, with the slice
+#: that brings them (ROADMAP Queue 1).
+NOT_PORTED = {
+    "analysis.structure.RadialDistributionFunction": {
+        "reduced": "units (item 2)",
+        "n_batches": "units (item 2): accepted and ignored in JAX",
+        "parallel": "parallel/ (item 10)",
+        "shard": "parallel/ (item 10): the atom-sharded ring",
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.structure.StructureFactor": {
+        "parallel": "parallel/ (item 10)",
+        "shard": "parallel/ (item 10): q-sharding",
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.structure.IntermediateScatteringFunction": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.structure.VanHoveFunction": {
+        "reduced": "units (item 2)",
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.transport.Onsager": {
+        "temperature": "units (item 2)",
+        "charges": "units (item 2)",
+        "center": "units (item 2): centering",
+        "center_atom": "units (item 2): centering",
+        "center_wrap": "units (item 2): centering",
+        "reduced": "units (item 2)",
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.multi.run_together": {
+        "parallel": "parallel/ (item 10)",
+        "checkpoint": "checkpoints (item 9)",
+    },
+    "core.universe.Universe.from_arrays": {
+        "times": "files (item 3)",
+        "velocities": "files (item 3)",
+        "forces": "files (item 3)",
+    },
+    "core.trajectory.ArrayReader": {
+        "times": "files (item 3)",
+        "velocities": "files (item 3)",
+        "forces": "files (item 3)",
+    },
+}
+
+#: Parameters of the port's own: the device of an analysis, the JAX
+#: ISF's ``shard`` and ``method`` (which it takes through ``**kwargs``),
+#: and the carry of a run that the JAX package began.
+PORT_ONLY = {
+    "analysis.structure.RadialDistributionFunction": {"device"},
+    "analysis.structure.StructureFactor": {"device"},
+    "analysis.structure.IntermediateScatteringFunction": {
+        "device", "shard", "method"},
+    "analysis.structure.VanHoveFunction": {"device"},
+    "analysis.transport.Onsager": {"device"},
+    "analysis.multi.run_together": {"initial"},
+}
+
+OBJECTS = [
+    "analysis.structure.RadialDistributionFunction",
+    "analysis.structure.StructureFactor",
+    "analysis.structure.IntermediateScatteringFunction",
+    "analysis.structure.IntermediateScatteringFunction."
+    "calculate_dynamic_structure_factor",
+    "analysis.structure.VanHoveFunction",
+    "analysis.transport.Onsager",
+    "analysis.multi.run_together",
+    "core.universe.Topology",
+    "core.universe.Universe",
+    "core.universe.Universe.from_arrays",
+    "core.trajectory.ArrayReader",
+    "algorithm.topology.unwrap_edge",
+    "algorithm.topology.minimize_vectors",
+    "algorithm.topology.wrap",
+    "algorithm.topology.triclinic_vectors",
+    "algorithm.topology.triclinic_matrices",
+    "algorithm.utility.get_closest_factors",
+    "algorithm.utility.depth_first_search",
+    "algorithm.utility.find_connected_nodes",
+    "algorithm.correlation.msd_fft",
+    "algorithm.correlation.correlation_fft",
+    "ops.pbc.unwrap_scan",
+    "ops.pbc.wrap_positions",
+]
+
+
+def _resolve(package, dotted):
+    """The object at `dotted` (module path, then attribute path) in
+    `package`."""
+
+    parts = dotted.split(".")
+    for split in range(len(parts), 0, -1):
+        try:
+            obj = importlib.import_module(
+                ".".join([package, *parts[:split]]))
+        except ModuleNotFoundError:
+            continue
+        for attr in parts[split:]:
+            obj = getattr(obj, attr)
+        return obj
+    raise ImportError(dotted)
+
+
+@pytest.mark.parametrize("dotted", OBJECTS)
+def test_signature_matches_jax(dotted):
+    ref = inspect.signature(_resolve("mdhelper_tpu", dotted)).parameters
+    port = inspect.signature(_resolve("mdhelper_tpu_torch", dotted)).parameters
+    missing = {name for name in ref if name not in port}
+    extra = {name for name in port if name not in ref}
+    assert missing == set(NOT_PORTED.get(dotted, {}))
+    assert extra == PORT_ONLY.get(dotted, set())
+    for name in set(ref) & set(port):
+        assert (port[name].kind, port[name].default) == (
+            ref[name].kind, ref[name].default), name
+
+
+def test_groupings_are_ported_everywhere():
+    listed = set().union(*(set(v) for v in NOT_PORTED.values()))
+    assert not {"groupings", "grouping"} & listed
+    for dotted in NOT_PORTED:
+        assert dotted in OBJECTS

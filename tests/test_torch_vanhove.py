@@ -209,7 +209,9 @@ def test_displacement_histogram_matches_jax(trajectory):
 @pytest.mark.parametrize("kwargs", [
     # Ranges from r_min > 0 are served since the offset bins were ported
     # (tests/test_torch_rdf_options_classes.py); a reversed one is not.
-    dict(grouping="residues"), dict(range=(3.0, 1.0)),
+    # Residue and segment groupings are ported
+    # (tests/test_torch_groupings.py); an unknown one is refused.
+    dict(grouping="molecules"), dict(range=(3.0, 1.0)),
     dict(self_part=False, distinct_part=False),
 ])
 def test_vanhove_rejects_unported(trajectory, kwargs):
