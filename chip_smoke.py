@@ -62,8 +62,18 @@ versions, the factor S(q) of the centers against the direct route; the
 mixed cross RDF of centers against atoms (one chunk, the cross kernel
 against its plain version), and the Van Hove function and the ISF of the
 centers (their MSD against a float64 oracle, F_s(q, 0) == 1, F(q, 0)
-against the direct S(q)).  Every check raises on failure, so any failed
-phase exits non-zero.  The last lines of
+against the direct S(q)).  Then slice 12, the units path on bench.py's
+conductivity system at the fused width (100k ions of charges +1 and -1
+on a random walk of known D): run_together of the cation-anion RDF, the
+partial S(q) and the centered, unwrapped Onsager over 8 + 32 frames
+(cross launches counted, clocked through every post-hoc method of the
+three classes, then profiled), D_i against the walk's, the
+Nernst-Einstein conductivity against the CODATA formula from the run's
+own D_i, kappa == kappa_NE for one ion, the cross kernel on the path's
+plan against its plain version, radial_histogram on the card against a
+float64 histogram, and msd_shift of the stored positions against the FFT
+MSDs.  Every check raises on failure, so any failed phase exits
+non-zero.  The last lines of
 standard output are the card's name and power limit, a JSON line of
 per-kernel measurements (each beside its bound: the larger of the
 float32 operations of the pairs binned, or of the trig terms summed,
@@ -3381,6 +3391,252 @@ def phase_groupings(device, rng, card):
     return out
 
 
+ELECTRO_STEP = 0.3
+#: CODATA 2018: e (C), N_A (1/mol), R (kJ/(mol K)).
+E_CHARGE, AVOGADRO, GAS_R = 1.602176634e-19, 6.02214076e23, 8.314462618e-3
+#: ions of the one frame that radial_histogram sweeps against its oracle.
+HIST_IONS = 2_000
+
+
+def electrolyte_universe(rng, n_frames):
+    """bench.py's conductivity system at the fused width: N_ATOMS ions
+    (charges +1 and -1 alternating, as bench.py tiles them; masses 1) in
+    the cubic box, each an independent random walker of normal steps of
+    ELECTRO_STEP A a frame and axis from uniform positions, wrapped into
+    the box as float32 (1 ps a frame, so D = ELECTRO_STEP^2 / 2 =
+    0.045 A^2/ps)."""
+
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    steps = rng.normal(0.0, ELECTRO_STEP, (n_frames, N_ATOMS, 3))
+    steps[0] = rng.random((N_ATOMS, 3)) * BOX
+    traj = np.mod(np.cumsum(steps, axis=0), BOX).astype(np.float32)
+    del steps
+    return traj, Universe.from_arrays(
+        traj, np.array([BOX] * 3 + [90.0] * 3), dt=1.0,
+        charges=np.tile([1.0, -1.0], N_ATOMS // 2))
+
+
+def electrolyte_path(u, device):
+    """The electrolyte path's analyses: the cation-anion RDF, the partial
+    S(q) of the two species on the 24^3 grid (the factorized route) and
+    the centered, unwrapped Onsager of the two species at 300 K, in
+    CHUNK-frame chunks."""
+
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+        StructureFactor,
+    )
+    from mdhelper_tpu_torch.analysis.transport import Onsager
+
+    common = dict(verbose=False, device=device)
+    cations, anions = u.atoms[0::2], u.atoms[1::2]
+    analyses = [
+        RadialDistributionFunction(cations, anions, n_bins=N_BINS,
+                                   range=(0.0, R_MAX), **common),
+        StructureFactor([cations, anions], mode="partial", n_points=N_QPTS,
+                        **common),
+        Onsager([cations, anions], temperature=300, unwrap=True,
+                center=True, **common),
+    ]
+    for a in analyses:
+        a._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
+    return analyses
+
+
+def electrolyte_posthoc(rdf, sq, ons):
+    """Every post-hoc method of the path; returns the screening length,
+    or the fit's refusal when S_ZZ shows no q^2 suppression."""
+
+    import warnings
+
+    rho = (N_ATOMS // 2) / BOX**3
+    with warnings.catch_warnings():
+        # A flat g(r) has shallow noise minima ("No local minima found"
+        # when none passes the threshold).
+        warnings.simplefilter("ignore")
+        rdf.calculate_coordination_numbers(rho)
+    rdf.calculate_pmf(300)
+    rdf.calculate_structure_factor(rho, 0.5, 0.5)
+    sq.calculate_weighted_sum([1.0, 1.0])
+    sq.calculate_charge_structure_factor()
+    try:
+        screening = sq.calculate_screening_length()
+    except ValueError as exc:
+        # Uncorrelated walkers are not screened: S_ZZ is flat at low q.
+        check("no q^2 suppression" in str(exc), f"screening fit: {exc}")
+        screening = None
+    ons.calculate_transport_coefficients()
+    ons.calculate_conductivity()
+    ons.calculate_nernst_einstein_conductivity()
+    ons.calculate_ionicity()
+    ons.calculate_electrophoretic_mobility()
+    ons.calculate_transference_number()
+    return screening
+
+
+def phase_electrolyte(device, rng, card):
+    """The electrolyte path on a 100k-ion 1:1 electrolyte (bench.py's
+    conductivity system, electrolyte_universe): run_together([cation-anion
+    RDF, partial S(q), Onsager(unwrap, center)]) over 8 + 32 frames with
+    the cross kernel's launches counted, then every post-hoc method of the
+    three classes (units, coordination numbers, PMF, S(q) from g(r),
+    weighted and charge S(q), screening length, transport coefficients,
+    conductivity, Nernst-Einstein, ionicity, mobility, transference),
+    clocked as bench.py's config phases clock it (from the end of the
+    first chunk through the conclusions and the post-hoc methods); the
+    same path again with its last chunk under torch.profiler for the
+    device's busy share.  Checks: the g(r) tail, each D_i within 3 % of
+    the walk's, kappa_NE against the CODATA hand formula from the run's
+    own D_i, kappa == kappa_NE for one ion, the cross kernel on the
+    path's plan against its plain version, radial_histogram on the card
+    against a numpy float64 histogram, and msd_shift of the stored
+    positions against the FFT MSDs."""
+
+    import torch
+
+    from mdhelper_tpu_torch.algorithm.correlation import msd_shift
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.analysis.structure import radial_histogram
+    from mdhelper_tpu_torch.analysis.transport import Onsager
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+    from mdhelper_tpu_torch.testing import f64_cross_histogram
+
+    steps = [("trajectory", time.perf_counter())]
+    traj, u = electrolyte_universe(rng, N_FRAMES)
+    n_chunks = -(-N_FRAMES // CHUNK)
+    box = (BOX,) * 3
+    out = {}
+
+    steps.append(("timed path", time.perf_counter()))
+    analyses = electrolyte_path(u, device)
+    marks = []
+
+    def on_chunk(batch):
+        if not marks:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+    reset_launches()
+    run_together(analyses, on_chunk=on_chunk)
+    out["launches"] = cch.cross_pair_histogram.launches
+    concluded = time.perf_counter()
+    screening = electrolyte_posthoc(*analyses)
+    done = time.perf_counter()
+    out["posthoc_s"] = done - concluded
+    out["fps"] = (N_FRAMES - CHUNK) / (done - marks[0])
+    check(out["launches"] == n_chunks,
+          f"electrolyte path: {out['launches']} cross kernel launches for "
+          f"{n_chunks} chunks")
+    rdf, sq, ons = analyses
+    g = rdf.results.rdf
+    check(g.shape == (N_BINS,) and np.all(np.isfinite(g))
+          and np.all(np.abs(g[-20:] - 1.0) < 0.02),
+          f"cation-anion g(r) tail off 1: {g[-20:]}")
+    walk_d = ELECTRO_STEP**2 / 2
+    D = ons.results.D_i[0]
+    dev = np.abs(D / walk_d - 1)
+    check(np.all(np.isfinite(D)) and dev.max() < 0.03,
+          f"D_i {D} off the walk's {walk_d} by {dev.max():.3%}")
+    kappa_ne = float(ons.results.ne_conductivities[0])
+    hand = (E_CHARGE**2 * AVOGADRO * (N_ATOMS // 2) * D.sum()
+            / (BOX**3 * GAS_R * 300))
+    check(abs(kappa_ne / hand - 1) < 1e-10,
+          f"kappa_NE {kappa_ne} differs from the CODATA hand formula {hand}")
+    szz = sq.results.charge_ssf
+    check(np.all(np.isfinite(szz)) and abs(np.mean(szz[1:]) - 1) < 0.05,
+          f"S_ZZ of uncorrelated ions not about <z^2> = 1: "
+          f"mean {np.mean(szz[1:])}")
+    units = ons.results.units
+    check(str(units["results.conductivities"])
+          == "coulomb ** 2 / kilojoule / angstrom / picosecond"
+          and str(units["results.D_i"]) == "angstrom ** 2 / picosecond",
+          f"Onsager units {units}")
+    kappa = float(ons.results.conductivities[0])
+    screening_text = ("not resolved (no q^2 suppression)" if screening is None
+                      else f"{screening:.4f} A")
+    out.update(D=D, kappa=kappa, kappa_ne=kappa_ne,
+               ionicity=float(ons.results.ionicity[0]))
+    print(f"electrolyte path (cation-anion RDF + partial S(q) + centered "
+          f"Onsager, then every post-hoc method): {N_ATOMS} ions, "
+          f"{N_FRAMES} frames in chunks of {CHUNK}, {out['launches']} cross "
+          f"kernel launches; {out['fps']:.3f} frames/s on {card} from the "
+          f"end of the first chunk through the post-hoc methods, which took "
+          f"{out['posthoc_s']:.3f} s on the host; g(r) tail mean "
+          f"{g[-20:].mean():.5f}; mean S_ZZ {np.mean(szz[1:]):.4f}; "
+          f"screening length {screening_text}")
+    print(f"electrolyte transport (log-log fits, slope 1): D_i {D[0]:.6f} "
+          f"and {D[1]:.6f} A^2/ps (walk {walk_d}), within "
+          f"{100 * dev.max():.2f} %; kappa {kappa:.6e}, kappa_NE "
+          f"{kappa_ne:.6e} C^2/(kJ A ps) (CODATA hand formula {hand:.6e}); "
+          f"ionicity {out['ionicity']:.6f}; transference numbers "
+          f"{ons.results.transference_numbers[0]}")
+    ons.calculate_transport_coefficients(scale="linear")
+    ons.calculate_ionicity()
+    print(f"electrolyte transport (linear fits): kappa "
+          f"{ons.results.conductivities[0]:.6e}, kappa_NE "
+          f"{ons.results.ne_conductivities[0]:.6e}, ionicity "
+          f"{ons.results.ionicity[0]:.6f}")
+
+    steps.append(("profiled path", time.perf_counter()))
+    _, out["busy"], activities = run_profiled(electrolyte_path(u, device),
+                                              N_FRAMES, CHUNK)
+    print(f"electrolyte path: device busy {100 * out['busy']:.1f} % of the "
+          f"last {CHUNK} frames' wall time (profiler on; {activities:.0f} "
+          "device activities a frame)")
+
+    steps.append(("single ion", time.perf_counter()))
+    one = Onsager(u.atoms[:1], unwrap=True, charges=[1.0], verbose=False,
+                  device=device)
+    one._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
+    run_together([one])
+    one.calculate_transport_coefficients(scale="linear")
+    one.calculate_ionicity()
+    gap = abs(one.results.conductivities[0]
+              / one.results.ne_conductivities[0] - 1)
+    check(gap < 1e-10, f"one ion: kappa / kappa_NE - 1 = {gap}")
+    print(f"one ion: kappa {one.results.conductivities[0]:.6e} == kappa_NE "
+          f"{one.results.ne_conductivities[0]:.6e} (relative gap {gap:.1e})")
+
+    steps.append(("cross kernel", time.perf_counter()))
+    frames = torch.from_numpy(traj[:2]).to(device)
+    out["cross"] = cross_kernel_vs_plain(
+        frames[:, 0::2].contiguous(), frames[:, 1::2].contiguous(), box,
+        f"cross kernel, {N_ATOMS // 2} cations x {N_ATOMS // 2} anions "
+        "(electrolyte path)", plan=rdf._searched_cell_plan(), plain_runs=1)
+
+    steps.append(("radial_histogram", time.perf_counter()))
+    pos = traj[N_FRAMES // 2, :HIST_IONS]
+    counts = radial_histogram(pos, pos, N_BINS, (0.0, R_MAX), box,
+                              exclusion=(1, 1), device=device)
+    oracle = f64_cross_histogram(pos, pos, BOX, R_MAX, N_BINS, (1, 1))
+    check(np.array_equal(counts, oracle) and counts.sum() > 0,
+          "radial_histogram on the card differs from the float64 oracle")
+    print(f"radial_histogram of {HIST_IONS} ions, one frame, on the card: "
+          f"{int(counts.sum())} pairs == float64 numpy histogram")
+
+    steps.append(("msd_shift", time.perf_counter()))
+    started = time.perf_counter()
+    worst = 0.0
+    for i in range(2):
+        positions = ons._positions[:, ons._entity_slices[i]][None]
+        shift = msd_shift(positions, axis=1, average=True) / 6
+        ref = ons.results.msd_self[i]
+        worst = max(worst, float(np.max(np.abs(shift - ref))
+                                 / np.abs(ref).max()))
+    out["shift_s"] = time.perf_counter() - started
+    check(worst < 1e-8, f"msd_shift vs the FFT MSDs: {worst}")
+    print(f"msd_shift (direct windows, numpy on the host) of both species' "
+          f"{N_ATOMS // 2} centered ions x {N_FRAMES} frames: "
+          f"{out['shift_s']:.2f} s, within {worst:.1e} of the FFT MSDs' "
+          "largest value")
+    steps.append(("", time.perf_counter()))
+    print("electrolyte phase steps: " + ", ".join(
+        f"{name} {t1 - t0:.1f} s"
+        for (name, t0), (_, t1) in zip(steps, steps[1:])))
+    return out
+
+
 def main():
     import torch
 
@@ -3470,6 +3726,15 @@ def main():
           f"{100 * grouped['busy']:.1f} % (information, not a claim); the "
           f"groupings phase took {time.perf_counter() - grouped_started:.1f}"
           " s")
+    # Slice 12 draws from its own generator.
+    electro_started = time.perf_counter()
+    electro = phase_electrolyte(device, np.random.default_rng(SEED + 10),
+                                card)
+    print(f"electrolyte path ({N_ATOMS} ions): {electro['fps']:.3f} frames/s "
+          f"on {card} through the post-hoc methods ({electro['posthoc_s']:.3f}"
+          f" s of them), device busy {100 * electro['busy']:.1f} % "
+          f"(information, not a claim); the electrolyte phase took "
+          f"{time.perf_counter() - electro_started:.1f} s")
 
     def path_row(shape, timing_plan, path, plain_from=None, plain_shape=None):
         """(launches, shape, timing) of a slice-4 row, whose kernel was
@@ -3689,6 +3954,11 @@ def main():
          "a launch), exact (launches: the direct S(q) of the centers)",
          grouped["trig"]),
     ]
+    # Slice 12: the cross kernel on the electrolyte path's plan.
+    rows.append(("cross_pair_histogram", cross_src, 1916, electro["launches"],
+                 f"{N_ATOMS // 2} cations x {N_ATOMS // 2} anions, cube "
+                 f"{BOX:.1f} A, r_max {R_MAX:g} (electrolyte path)",
+                 electro["cross"]))
     optional = ("launch_ms", "pairs_per_frame", "counted_per_frame",
                 "terms_per_frame", "plain_shape",
                 "option", "oracle_err", "tolerance")

@@ -12,16 +12,29 @@ The port currently covers the fused RDF + S(q) + MSD main path
 (:func:`mdhelper_tpu_torch.analysis.multi.run_together` over
 :class:`~mdhelper_tpu_torch.analysis.structure.RadialDistributionFunction`,
 :class:`~mdhelper_tpu_torch.analysis.structure.StructureFactor` and
-:class:`~mdhelper_tpu_torch.analysis.transport.Onsager`), the cross RDF
-of two disjoint groups, and
-:class:`~mdhelper_tpu_torch.analysis.structure.VanHoveFunction`.
+:class:`~mdhelper_tpu_torch.analysis.transport.Onsager`), the cross RDF,
+:class:`~mdhelper_tpu_torch.analysis.structure.VanHoveFunction` and
+:class:`~mdhelper_tpu_torch.analysis.structure.IntermediateScatteringFunction`,
+the topology and center-of-mass groupings, and the unit registry
+(``ureg``, ``Q_``) with the post-hoc methods of these classes
+(coordination numbers, potentials of mean force, transport coefficients
+and conductivities, charge structure factors).
 """
 
+from importlib.util import find_spec
+
 from ._device import set_precision_policy
+from .units import Quantity, UnitRegistry
 
 set_precision_policy()
 
+#: The quantity type and the global registry, as in the JAX package: the
+#: port's own numpy-only unit engine (:mod:`mdhelper_tpu_torch.units`).
+Q_ = Quantity
+ureg = UnitRegistry(auto_reduce_dimensions=True)
+
 VERSION = "1.0.0"
 __version__ = VERSION
+FOUND_OPENMM = find_spec("openmm") is not None
 
-__all__ = ["VERSION"]
+__all__ = ["FOUND_OPENMM", "VERSION", "Q_", "ureg"]

@@ -4,7 +4,9 @@ Correlations and mean-squared displacements by FFT
 
 Torch counterparts of :func:`mdhelper_tpu.algorithm.correlation.correlation_fft`
 and :func:`~mdhelper_tpu.algorithm.correlation.msd_fft`, computed with
-``torch.fft`` on the input's device (``msd_fft`` in float64).
+``torch.fft`` on the input's device (``msd_fft`` in float64), and copies
+of the direct sliding-window forms :func:`correlation_shift` and
+:func:`msd_shift` (host numpy, :math:`\mathcal{O}(N_t^2)`).
 
 :math:`\mathrm{MSD}_m = S_m - 2A_m` (Kneller et al.; Calandrini et
 al.): :math:`A_m` is the position autocorrelation from the
@@ -16,14 +18,18 @@ norms :math:`D_k`.
 
 import warnings
 
+import numpy as np
 import torch
 from scipy import fft as _scipy_fft
 
-__all__ = ["correlation_fft", "msd_fft"]
+__all__ = ["correlation_fft", "correlation_shift", "msd_fft", "msd_shift"]
 
 
 def _validate(arr1, arr2, axis, min_ndim=1, name="The arrays"):
-    if arr1.numel() == 0:
+    """The time `axis` (resolved) and the number of dimensions of
+    tensors or numpy arrays `arr1` and (optional) `arr2`."""
+
+    if 0 in arr1.shape:
         raise ValueError(f"{name} must not be empty.")
     ndim = arr1.ndim
     if not min_ndim <= ndim <= 4:
@@ -224,3 +230,105 @@ def msd_fft(pos1, pos2=None, axis: int = None, *, average: bool = True):
     counts = torch.arange(n_t, 0, -1, dtype=work.dtype, device=work.device)
     disp = ssum / counts.reshape(-1, *(1,) * (ssum.ndim - 1)) - s2_work
     return torch.movedim(disp, 0, axis)
+
+
+def _host(arr):
+    """`arr` (a tensor on any device, or array-like) as a float64 numpy
+    array."""
+
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().cpu().numpy()
+    return np.asarray(arr, dtype=float)
+
+
+def correlation_shift(arr1, arr2=None, axis: int = None, *,
+                      average: bool = False, double: bool = False,
+                      vector: bool = False) -> np.ndarray:
+    r"""Auto- or cross-correlation evaluated directly with sliding
+    windows, :math:`\mathcal{O}(N_t^2)`, in float64 numpy on the host
+    (for checking :func:`correlation_fft` and for short series).
+
+    The arguments are those of :func:`correlation_fft`; the result is a
+    `numpy.ndarray`.  Cross-correlations hold the lags
+    :math:`-(N_t - 1), \ldots, N_t - 1` unless `double` folds them.
+    """
+
+    arr1 = _host(arr1)
+    arr2 = None if arr2 is None else _host(arr2)
+    axis, ndim = _validate(arr1, arr2, axis)
+    work1 = np.moveaxis(arr1, axis, 0)
+    n_t = work1.shape[0]
+    sum_axes = (0, work1.ndim - 1) if vector and work1.ndim > 1 else 0
+
+    if arr2 is None:
+        corr = np.stack([
+            (work1[m:] * work1[: n_t - m if m else None]).sum(axis=sum_axes)
+            for m in range(n_t)
+        ])
+        if double:
+            corr = 2 * corr
+        two_sided = False
+    else:
+        work2 = np.moveaxis(arr2, axis, 0)
+        # Negative lags first (lag -(N_t - 1) ... -1), then 0 ... N_t - 1.
+        out = []
+        for m in range(1 - n_t, n_t):
+            if m >= 0:
+                prod = work1[: n_t - m if m else None] * work2[m:]
+            else:
+                prod = work1[-m:] * work2[: n_t + m]
+            out.append(prod.sum(axis=sum_axes))
+        corr = np.stack(out)
+        if double:
+            corr = corr[n_t - 1:] + corr[n_t - 1::-1]
+            two_sided = False
+        else:
+            two_sided = True
+
+    # Normalize by window counts.
+    shape_tail = (1,) * (corr.ndim - 1)
+    desc = np.arange(n_t, 0, -1).reshape(-1, *shape_tail)
+    if two_sided:
+        asc = np.arange(1, n_t).reshape(-1, *shape_tail)
+        corr[: n_t - 1] /= asc
+        corr[n_t - 1:] /= desc
+    else:
+        corr = corr / desc
+
+    corr = np.moveaxis(corr, 0, axis)
+    if average:
+        axis_avg = ndim - vector - 1
+        if axis != axis_avg:
+            corr = corr.mean(axis=axis_avg)
+    return corr
+
+
+def msd_shift(pos1, pos2=None, axis: int = None, *,
+              average: bool = True) -> np.ndarray:
+    r"""Mean-squared (or cross) displacement evaluated directly from the
+    Einstein relation, averaged over every window origin,
+    :math:`\mathcal{O}(N_t^2)`, in float64 numpy on the host (for
+    checking :func:`msd_fft`, and ``Onsager(fft=False)``).
+
+    The arguments are those of :func:`msd_fft`; the result is a
+    `numpy.ndarray`.
+    """
+
+    pos1 = _host(pos1)
+    pos2 = None if pos2 is None else _host(pos2)
+    axis, ndim = _validate(pos1, pos2, axis, min_ndim=2,
+                           name="The position arrays")
+    work1 = np.moveaxis(pos1, axis, 0)
+    n_t = work1.shape[0]
+    work2 = work1 if pos2 is None else np.moveaxis(pos2, axis, 0)
+
+    disp = np.stack([
+        ((work1[: n_t - m if m else None] - work1[m:])
+         * (work2[: n_t - m if m else None] - work2[m:])).sum(axis=-1)
+        .mean(axis=0)
+        for m in range(n_t)
+    ])
+    disp = np.moveaxis(disp, 0, axis)
+    if ndim - axis == 3 and average:
+        disp = disp.mean(axis=ndim - 2)
+    return disp

@@ -31,6 +31,17 @@ Ported from :mod:`mdhelper_tpu.analysis.structure`:
   histogram for the self part, the cross cell-list kernel for the
   distinct part, on bins from 0 or from ``range[0] > 0``.
 
+Each class keeps the JAX package's ``results.units`` (the unit of each
+result in the port's registry, :mod:`mdhelper_tpu_torch.units`) and its
+post-hoc methods: the RDF's coordination numbers, potential of mean force
+and S(q) from g(r), the partial S(q)'s weighted and charge recombinations
+and screening length, the ISF's dynamic structure factor.  The module
+functions :func:`radial_histogram` (one frame, exact, on the device),
+:func:`zeroth_order_hankel_transform`, :func:`radial_fourier_transform`,
+:func:`calculate_coordination_numbers` and
+:func:`calculate_structure_factor` (numpy and scipy on the host) are
+those of the JAX package.
+
 The RDF and Van Hove run in any periodic 3-D box.  Boxes at least 3
 cutoffs wide on every axis (perpendicular width, for a triclinic box)
 take reach-1 cell grids; narrower ones take the generalized grids of
@@ -50,11 +61,19 @@ function.
 
 import warnings
 from itertools import combinations_with_replacement
+from numbers import Real
+from typing import Union
 
 import numpy as np
 import torch
+from scipy.integrate import simpson
+from scipy.signal import argrelextrema
+from scipy.special import jv
 
+from .. import Q_, ureg
+from .._device import resolve_device
 from ..algorithm.topology import triclinic_matrices
+from ..algorithm.unit import strip_unit
 from ..algorithm.utility import get_closest_factors
 from ..ops.cuda_cell_histogram import (
     _ASYM_SLOT_BYTES,
@@ -70,10 +89,19 @@ from ..ops.cuda_cell_histogram import (
 from ..algorithm.correlation import correlation_fft
 from ..ops.cuda_kernels import trig_sums, trig_workspace
 from ..ops.factor_scattering import factor_plan, factor_trig_sums
-from ..ops.histogram import _min_image_distance, displacement_histogram_frame
+from ..ops.histogram import (
+    _min_image_distance,
+    displacement_histogram_frame,
+    radial_histogram_frame,
+)
 from .base import SerialAnalysisBase, _check_even_frame_spacing, carry_leaves
 
 __all__ = [
+    "radial_histogram",
+    "zeroth_order_hankel_transform",
+    "radial_fourier_transform",
+    "calculate_coordination_numbers",
+    "calculate_structure_factor",
     "RadialDistributionFunction",
     "StructureFactor",
     "IntermediateScatteringFunction",
@@ -84,6 +112,234 @@ __all__ = [
 
 #: "no overflow" value of the occupancy-excess carry.
 _NO_EXCESS = -(2**30)
+
+
+def radial_histogram(pos1: np.ndarray, pos2: np.ndarray, n_bins: int,
+                     range: tuple, dims: np.ndarray, *,
+                     exclusion: tuple = None, device=None) -> np.ndarray:
+    r"""Radial histogram of one frame's minimum-image pair distances.
+
+    An exact all-pairs sweep
+    (:func:`mdhelper_tpu_torch.ops.histogram.radial_histogram_frame`):
+    the positions are taken as float32 and every pair's squared distance
+    is formed and binned in error-free double-float arithmetic against
+    the uniform float64 edges, so the counts are those of a float64
+    evaluation of the same float32 coordinates.
+
+    Parameters
+    ----------
+    pos1, pos2 : `numpy.ndarray`
+        Positions, shapes ``(N_1, 3)`` / ``(N_2, 3)``.  In an orthorhombic
+        box, coordinates outside ``[0, L)`` are wrapped into it first.
+    n_bins : `int`
+        Number of histogram bins.
+    range : array-like
+        ``(r_min, r_max)``.
+    dims : array-like
+        Box lengths ``(3,)``, or ``(6,)`` lengths and angles (any
+        triclinic cell).
+    exclusion : array-like, keyword-only, optional
+        ``(e0, e1)``: drop pairs with ``i // e0 == j // e1`` (e.g.
+        ``(1, 1)`` removes self-pairs).
+    device : keyword-only, optional
+        Device of the sweep (default: the first CUDA device, which must
+        exist; ``"cpu"`` for the CPU).
+
+    Returns
+    -------
+    histogram : `numpy.ndarray`
+        int64 counts, shape ``(n_bins,)``.
+    """
+
+    device = resolve_device(device)
+    dims = np.asarray(dims, dtype=float)
+    pos1 = np.asarray(pos1, dtype=np.float32)
+    pos2 = np.asarray(pos2, dtype=np.float32)
+    if dims.shape[-1] == 6 and not np.allclose(dims[3:], 90.0):
+        box = torch.as_tensor(triclinic_matrices(dims), dtype=torch.float32)
+    else:
+        lengths = dims[:3].astype(np.float32)
+        # The orthorhombic sweep takes one image shift an axis.
+        pos1, pos2 = (
+            p if ((p >= 0) & (p < lengths)).all()
+            else p - np.floor(p / lengths) * lengths
+            for p in (pos1, pos2)
+        )
+        box = torch.as_tensor(lengths)
+    counts = radial_histogram_frame(
+        torch.as_tensor(pos1, device=device),
+        torch.as_tensor(pos2, device=device),
+        box.to(device),
+        np.linspace(range[0], range[1], n_bins + 1),
+        exclusion=None if exclusion is None else tuple(exclusion),
+    )
+    return counts.cpu().numpy().astype(np.int64)
+
+
+def zeroth_order_hankel_transform(
+    r: np.ndarray, f: np.ndarray, q: np.ndarray
+) -> np.ndarray:
+    r"""Zeroth-order Hankel transform
+    :math:`F_0(q) = 2\pi\int f(r) J_0(qr) r\,dr` of discrete data."""
+
+    q = np.asarray(q, dtype=float)
+    ht = 2 * np.pi * simpson(f * r * jv(0, np.outer(q, r)), x=r)
+    if 0 in q:
+        ht[q == 0] = 2 * np.pi * simpson(f * r, x=r)
+    return ht
+
+
+def radial_fourier_transform(
+    r: np.ndarray, f: np.ndarray, q: np.ndarray
+) -> np.ndarray:
+    r"""Radial Fourier transform
+    :math:`\hat{f}(q) = \frac{4\pi}{q}\int f(r)\,r\sin(qr)\,dr` of
+    discrete data."""
+
+    q = np.asarray(q, dtype=float)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rft = 4 * np.pi * np.divide(
+            simpson(f * r * np.sin(np.outer(q, r)), x=r), q
+        )
+    if 0 in q:
+        rft[q == 0] = 4 * np.pi * simpson(f * r**2, x=r)
+    return rft
+
+
+def calculate_coordination_numbers(
+    bins: np.ndarray,
+    rdf: np.ndarray,
+    rho: float,
+    *,
+    n_coord_nums: int = 2,
+    n_dims: int = 3,
+    threshold: float = 0.1,
+) -> np.ndarray:
+    r"""Coordination numbers from a radial distribution function:
+    :math:`n_k = 4\pi\rho_j \int_{r_{k-1}}^{r_k} r^2 g_{ij}(r)\,dr`
+    (3-D) or :math:`2\pi\rho_j \int r\,g_{ij}(r)\,dr` (2-D), with the
+    shell boundaries at the local minima of :math:`g_{ij}(r)` that are at
+    least `threshold` deep; `nan` where fewer than `n_coord_nums` minima
+    exist."""
+
+    if n_dims not in {2, 3}:
+        raise ValueError("Invalid number of dimensions.")
+
+    def shell_integral(r_slice, g_slice):
+        if n_dims == 3:
+            return 4 * np.pi * rho * simpson(r_slice**2 * g_slice,
+                                             x=r_slice)
+        return 2 * np.pi * rho * simpson(r_slice * g_slice, x=r_slice)
+
+    coord_nums = np.full(n_coord_nums, np.nan)
+    (minima,) = argrelextrema(rdf, np.less)
+    minima = minima[rdf[minima] >= threshold]
+    if not len(minima):
+        warnings.warn("No local minima found.")
+        return coord_nums
+
+    stops = [0, *(int(i) + 1 for i in minima)]
+    for k in range(min(n_coord_nums, len(minima))):
+        lo = 0 if k == 0 else stops[k] - 1
+        hi = stops[k + 1]
+        coord_nums[k] = shell_integral(bins[lo:hi], rdf[lo:hi])
+    return coord_nums
+
+
+def calculate_structure_factor(
+    r: np.ndarray,
+    g: np.ndarray,
+    equal: bool,
+    rho: float,
+    x_i: float = 1,
+    x_j: float = None,
+    q: np.ndarray = None,
+    *,
+    q_lower: float = None,
+    q_upper: float = None,
+    n_q: int = 1_000,
+    n_dims: int = 3,
+    formalism: str = "FZ",
+) -> tuple[np.ndarray, np.ndarray]:
+    r"""(Partial) static structure factor of an isotropic fluid from
+    :math:`g_{ij}(r)`, in the Faber-Ziman (``"FZ"``), Ashcroft-Langreth
+    (``"AL"``) or ``"general"`` formalism.  Returns ``(q, S(q))``."""
+
+    if q is None:
+        if q_lower is None:
+            q_lower = 2 * np.pi / r[-1]
+        if q_upper is None:
+            q_upper = 2 * np.pi / r[0]
+        q = np.linspace(
+            q_lower,
+            q_upper,
+            int((q_upper - q_lower) / q_lower) if n_q is None else n_q,
+        )
+
+    if n_dims == 3:
+        transform = radial_fourier_transform
+    elif n_dims == 2:
+        transform = zeroth_order_hankel_transform
+    else:
+        raise ValueError("Invalid number of dimensions.")
+
+    rho_sft = rho * transform(r, g - 1, q)
+    if equal or formalism == "FZ":
+        return q, 1 + rho_sft
+    if formalism == "AL":
+        return q, (x_i == x_j) + np.sqrt(x_i * x_j) * rho_sft
+    if formalism == "general":
+        return q, 1 + x_i * x_j * rho_sft
+    raise ValueError("Invalid formalism.")
+
+
+def _frame_time_step(dt, trajectory):
+    """`dt` (a number or a `Quantity`), or the trajectory's time step
+    when `dt` is omitted or zero."""
+
+    if isinstance(dt, Q_) or dt:
+        return dt
+    return trajectory.dt
+
+
+def _entity_values(group, grouping: str, values: np.ndarray):
+    """Per-entity (atom, residue or segment) sums of a per-atom array."""
+
+    if grouping == "atoms":
+        return values
+    seg, n = _group_segment_ids(group, grouping)
+    out = np.zeros(n)
+    np.add.at(out, seg, values)
+    return out
+
+
+def _resolve_group_charges(groups, groupings, charges, reduced,
+                           what: str = "charge density profile"):
+    """Explicit per-group charges (unit-stripped), or each group's
+    uniform entity charge from the topology (None, with a warning, when a
+    group's entities differ; `what` names the quantity in it)."""
+
+    if charges is not None:
+        if len(charges) != len(groups):
+            raise ValueError(
+                "The number of group charges is not equal to the "
+                "number of groups."
+            )
+        charges, unit_ = strip_unit(charges, "elementary_charge")
+        if reduced and not isinstance(unit_, (str, type(None))):
+            raise TypeError("'charges' cannot have units when reduced=True.")
+        return np.asarray(charges)
+    out = np.empty(len(groups))
+    for i, (group, grouping) in enumerate(zip(groups, groupings)):
+        entity = _entity_values(group, grouping, group.charges)
+        if not np.allclose(entity[0], entity):
+            warnings.warn(
+                f"Not all {grouping} in group {i} share the same "
+                f"charge. No {what} will be calculated."
+            )
+            return None
+        out[i] = entity[0]
+    return out
 
 
 def _plan_extents(dimensions, triclinic):
@@ -359,18 +615,29 @@ class RadialDistributionFunction(_CellPlanned):
         groupings are equal: ``groupings=("residues", "atoms")`` over one
         group is a cross sweep of centers against atoms.  Counts and the
         normalization count entities.
+    reduced : `bool`, keyword-only, default False
+        Data in reduced (LJ) units: :meth:`calculate_pmf` then takes the
+        energy scale :math:`k_\mathrm{B}T` itself, without units.
+    n_batches : `int`, keyword-only, optional
+        Accepted for compatibility and ignored (with a warning): the cell
+        kernels tile the pair sweep themselves.
     capacity_sigmas : `float`, default 4.0
         Cell-capacity headroom in Poisson sigmas; :meth:`run` raises it
         by 2 and re-runs after a capacity overflow (twice at most).
     device : optional
         Device the chunks are folded on (default: the first CUDA
         device, which must exist; ``"cpu"`` for the CPU).
+
+    The post-hoc methods :meth:`calculate_coordination_numbers`,
+    :meth:`calculate_pmf` and :meth:`calculate_structure_factor` work on
+    the RDF whatever the `norm` of the run.
     """
 
     def __init__(self, ag1, ag2=None, n_bins: int = 201,
                  range: tuple = (0.0, 15.0), *, drop_axis=None,
                  norm: str = "rdf", exclusion: tuple = None,
-                 groupings="atoms", capacity_sigmas: float = 4.0,
+                 groupings="atoms", reduced: bool = False,
+                 n_batches: int = None, capacity_sigmas: float = 4.0,
                  verbose: bool = True, device=None):
         self._groupings = _validate_groupings(groupings)
         same_atoms = ag2 is None or ag2 == ag1
@@ -410,7 +677,14 @@ class RadialDistributionFunction(_CellPlanned):
             self._slot_bytes = _ASYM_SLOT_BYTES
         self._n_bins = n_bins
         self._norm = norm
+        self._reduced = reduced
         self._capacity_sigmas = float(capacity_sigmas)
+        if n_batches is not None:
+            warnings.warn(
+                "n_batches is accepted for API compatibility but has no "
+                "effect: the cell-list kernels tile the pair sweep "
+                "themselves."
+            )
         # Entity counts (atoms, residues or segments).
         _, self._n1 = _group_segment_ids(self.ag1, self._groupings[0])
         _, self._n2 = _group_segment_ids(self.ag2, self._groupings[1])
@@ -421,6 +695,10 @@ class RadialDistributionFunction(_CellPlanned):
         self.results.bins = (
             self.results.edges[:-1] + self.results.edges[1:]
         ) / 2
+        self.results.units = {
+            "results.bins": ureg.angstrom,
+            "results.edges": ureg.angstrom,
+        }
         device = self._device
         self._carry = {
             "counts": torch.zeros(
@@ -527,6 +805,90 @@ class RadialDistributionFunction(_CellPlanned):
                     self._n1 * n2 * self.n_frames / self._area_or_volume
                 )
         self.results.rdf = self.results.counts / norm
+
+    def _get_rdf(self) -> np.ndarray:
+        """The RDF whatever the `norm` the analysis ran with."""
+
+        if self._norm == "rdf":
+            return self.results.rdf
+        n2 = self._n2
+        if self._exclusion:
+            n2 -= self._exclusion[1]
+        if self._drop_axis is None:
+            shell = 4 * np.diff(self.results.edges**3) / 3
+        else:
+            shell = np.diff(self.results.edges**2)
+        return self._area_or_volume * self.results.counts / (
+            np.pi * self.n_frames**2 * self._n1 * n2 * shell
+        )
+
+    def calculate_coordination_numbers(self, rho: float, *,
+                                       n_coord_nums: int = 2,
+                                       threshold: float = 0.1) -> None:
+        """Coordination numbers :math:`n_k` of the computed RDF
+        (:func:`calculate_coordination_numbers` with the number density
+        `rho` of group :math:`j`), as ``results.coordination_numbers``."""
+
+        self.results.coordination_numbers = calculate_coordination_numbers(
+            self.results.bins,
+            self._get_rdf(),
+            rho,
+            n_coord_nums=n_coord_nums,
+            n_dims=2 + (self._drop_axis is None),
+            threshold=threshold,
+        )
+
+    def calculate_pmf(self, temperature: Union[float, Q_]) -> None:
+        r"""Potential of mean force
+        :math:`w_{ij}(r) = -k_\mathrm{B}T\ln g_{ij}(r)` (kJ/mol; `-inf`
+        where :math:`g = 0`), as ``results.pmf``.  With ``reduced=True``,
+        `temperature` is the energy scale itself and takes no units (the
+        JAX package's check, which departs from its reference's inverted
+        one)."""
+
+        self.results.units["results.pmf"] = ureg.kilojoule / ureg.mole
+        temperature, unit_ = strip_unit(temperature, "kelvin")
+        if self._reduced:
+            if not isinstance(unit_, (str, type(None))):
+                raise ValueError(
+                    "'temperature' cannot have units when reduced=True."
+                )
+            kbt = temperature
+        else:
+            kbt = (
+                ureg.avogadro_constant
+                * ureg.boltzmann_constant
+                * temperature
+                * ureg.kelvin
+            ).m_as(self.results.units["results.pmf"])
+        with np.errstate(divide="ignore"):
+            self.results.pmf = -kbt * np.log(self._get_rdf())
+
+    def calculate_structure_factor(self, rho: float, x_i: float = None,
+                                   x_j: float = None, q: np.ndarray = None,
+                                   *, q_lower: float = None,
+                                   q_upper: float = None, n_q: int = 1_000,
+                                   formalism: str = "FZ") -> None:
+        """S(q) of the computed RDF (:func:`calculate_structure_factor`;
+        a self RDF when the two groups are equal), as
+        ``results.wavenumbers`` and ``results.ssf``."""
+
+        self.results.wavenumbers, self.results.ssf = (
+            calculate_structure_factor(
+                self.results.bins,
+                self._get_rdf(),
+                self.ag1 == self.ag2,
+                rho,
+                x_i,
+                x_j,
+                q=q,
+                q_lower=q_lower,
+                q_upper=q_upper,
+                n_q=n_q,
+                n_dims=2 + (self._drop_axis is None),
+                formalism=formalism,
+            )
+        )
 
 
 def _wavevector_grid(dimensions, n_points: int, n_surfaces: int = None,
@@ -639,15 +1001,15 @@ class StructureFactor(SerialAnalysisBase):
     form : `str`, default ``"exp"``
         ``"exp"`` or ``"trig"``; both evaluate the same trig sums (as in
         the JAX package).
-    dimensions : array-like, optional
+    dimensions : array-like or `Quantity`, optional
         Box lengths (default: the trajectory's first frame).
     n_points : `int`, default 32
         Wavevector grid points per axis.
     n_surfaces, n_surface_points : `int`
         Extra spherical-surface wavevectors (cubic boxes): `n_surfaces`
         shells of `n_surface_points` first-octant directions each.
-    q_max : `float`, optional
-        Wavenumber cutoff.
+    q_max : `float` or `Quantity`, optional
+        Wavenumber cutoff (1/A).
     wavevectors : `numpy.ndarray`, optional
         Explicit wavevectors (overrides the grid; any, on the lattice or
         off it).
@@ -720,7 +1082,9 @@ class StructureFactor(SerialAnalysisBase):
         if dimensions is not None:
             if len(dimensions) != 3:
                 raise ValueError("'dimensions' must have length 3.")
-            self._dimensions = np.asarray(dimensions, dtype=float)
+            self._dimensions = np.asarray(
+                strip_unit(dimensions, "angstrom")[0], dtype=float
+            )
         elif self.universe.dimensions is not None:
             self._dimensions = np.asarray(
                 self.universe.dimensions[:3], dtype=float
@@ -743,6 +1107,7 @@ class StructureFactor(SerialAnalysisBase):
             )
         self._wavenumbers = np.linalg.norm(self._wavevectors, axis=1)
         if q_max is not None:
+            q_max = strip_unit(q_max, "angstrom**-1")[0]
             keep = self._wavenumbers <= q_max
             self._wavevectors = self._wavevectors[keep]
             self._wavenumbers = self._wavenumbers[keep]
@@ -857,6 +1222,7 @@ class StructureFactor(SerialAnalysisBase):
             )
         else:
             self.results.wavenumbers = self._wavenumbers
+        self.results.units = {"results.wavenumbers": ureg.angstrom**-1}
         self._factor = self._factor_setup()
         self._carry = {
             "ssf": torch.zeros(
@@ -911,6 +1277,204 @@ class StructureFactor(SerialAnalysisBase):
             self.results.wavenumbers = self.results.wavenumbers[order]
             ssf = ssf[:, order]
         self.results.ssf = ssf
+
+    def calculate_weighted_sum(self, weights, *,
+                               normalization: str = "b2") -> np.ndarray:
+        r"""The partial rows recombined into a scattering-weighted total,
+
+        .. math::
+
+           S_w(q) = \frac{1}{\mathcal{N}} \sum_{\alpha\beta}
+           b_\alpha b_\beta\,\mathrm{Re}\,\langle
+           \rho_\alpha(\mathbf{q})\rho_\beta^*(\mathbf{q})\rangle / N
+
+        (e.g. the neutron-weighted total with coherent scattering
+        lengths).  With unit weights and ``normalization="none"`` it is the
+        row sum of ``results.ssf``.
+
+        Parameters
+        ----------
+        weights : array-like
+            Per-group weights :math:`b_\alpha`, ``(n_groups,)``, or
+            ``(n_groups, n_wavenumbers)`` for q-dependent form factors on
+            ``results.wavenumbers``.
+        normalization : `str`, keyword-only, default ``"b2"``
+            :math:`\mathcal{N}`: ``"b2"`` (:math:`\sum_\alpha x_\alpha
+            b_\alpha^2`, with :math:`x_\alpha` the entity fractions),
+            ``"b_mean_sq"`` (:math:`(\sum_\alpha x_\alpha b_\alpha)^2`)
+            or ``"none"`` (1).
+
+        Returns
+        -------
+        weighted : `numpy.ndarray`
+            The weighted total, also ``results.weighted_ssf``.
+        """
+
+        self.results.weighted_ssf = self._recombine_partials(
+            weights, normalization
+        )
+        return self.results.weighted_ssf
+
+    def _recombine_partials(self, weights, normalization: str) -> np.ndarray:
+        """The weighted recombination of the partial rows, without
+        touching ``results``."""
+
+        if self._mode != "partial":
+            raise ValueError(
+                "Weighted recombination needs mode='partial' (every "
+                "pair row must be available)."
+            )
+        weights = np.asarray(strip_unit(weights, None)[0], dtype=np.float64)
+        n_q = self.results.ssf.shape[1]
+        if weights.shape not in ((self._n_groups,), (self._n_groups, n_q)):
+            raise ValueError(
+                "weights must have shape (n_groups,) or "
+                "(n_groups, n_wavenumbers) -- the latter for "
+                "q-dependent X-ray form factors f(q)."
+            )
+        if weights.ndim == 1:
+            weights = np.broadcast_to(
+                weights[:, None], (self._n_groups, n_q)
+            )
+        rows = np.zeros(n_q)
+        for row, (j, k) in zip(self.results.ssf, self.results.pairs):
+            rows = rows + weights[j] * weights[k] * row
+        # Entity counts: residues scatter as their centers.
+        fractions = self._Ns / self._Ns.sum()
+        if normalization == "b2":
+            norm = (fractions[:, None] * weights**2).sum(axis=0)
+        elif normalization == "b_mean_sq":
+            norm = (fractions[:, None] * weights).sum(axis=0) ** 2
+        elif normalization == "none":
+            norm = 1.0
+        else:
+            raise ValueError(
+                "Invalid normalization. Valid values: 'b2', "
+                "'b_mean_sq', 'none'."
+            )
+        return rows / norm
+
+    def calculate_charge_structure_factor(self, charges=None) -> np.ndarray:
+        r"""Charge-charge structure factor of the partial rows,
+
+        .. math::
+
+           S_{ZZ}(q) = \frac{1}{N} \left\langle \left|
+           \sum_i z_i e^{i\mathbf{q}\cdot\mathbf{r}_i}
+           \right|^2 \right\rangle,
+
+        which perfect screening drives to 0 as :math:`q \to 0`
+        (:meth:`calculate_screening_length`).
+
+        Parameters
+        ----------
+        charges : array-like, optional
+            Per-group entity charges :math:`z_\alpha` (e).  `None` takes
+            each group's uniform entity charge from the topology (atom
+            charges, or residue totals); a group whose entities differ
+            raises.
+
+        Returns
+        -------
+        charge_ssf : `numpy.ndarray`
+            :math:`S_{ZZ}(q)`, also ``results.charge_ssf``.
+        """
+
+        if self._mode != "partial":
+            raise ValueError(
+                "The charge structure factor needs mode='partial' "
+                "(every pair row must be available)."
+            )
+        z = _resolve_group_charges(
+            self._groups, self._groupings, charges, False,
+            what="charge structure factor",
+        )
+        if z is None:
+            raise ValueError(
+                "A group has non-uniform entity charges; pass "
+                "charges=[z_1, ...] explicitly."
+            )
+        self.results.charge_ssf = self._recombine_partials(z, "none")
+        return self.results.charge_ssf
+
+    def calculate_screening_length(self, *, q_max=None,
+                                   charges=None) -> float:
+        r"""Charge screening length from the low-:math:`q` charge
+        structure factor: a least-squares fit of
+
+        .. math::
+
+           S_{ZZ}(q) = \frac{A\,q^2}{q^2 + \kappa^2},
+           \qquad \lambda_\mathrm{s} = 1/\kappa
+
+        (the Debye-Hueckel form) over ``0 < q <= q_max``.
+
+        Parameters
+        ----------
+        q_max : `float` or `Quantity`, keyword-only, optional
+            Upper edge of the fit window (1/A; default: the tenth smallest
+            positive wavenumber).
+        charges : array-like, keyword-only, optional
+            For :meth:`calculate_charge_structure_factor`, when
+            ``results.charge_ssf`` is absent.
+
+        Returns
+        -------
+        screening_length : `float`
+            :math:`\lambda_\mathrm{s}` (A), also
+            ``results.screening_length``, with ``results.charge_ssf_fit``
+            ``(A, kappa)``, ``results.charge_ssf_fit_q`` and
+            ``results.charge_ssf_fit_curve``.
+        """
+
+        from scipy import optimize
+
+        if getattr(self.results, "charge_ssf", None) is None:
+            self.calculate_charge_structure_factor(charges)
+        if q_max is not None and not isinstance(q_max, Real):
+            q_max = strip_unit(q_max, "1/angstrom")[0]
+        q = np.asarray(self.results.wavenumbers, dtype=np.float64)
+        s = np.asarray(self.results.charge_ssf, dtype=np.float64)
+        if q_max is None:
+            positive = np.sort(q[q > 0])
+            if len(positive) == 0:
+                raise ValueError("No positive wavenumbers.")
+            q_max = float(positive[min(9, len(positive) - 1)])
+        window = (q > 0) & (q <= q_max)
+        if window.sum() < 3:
+            raise ValueError(
+                "Fewer than 3 wavenumbers below q_max; increase "
+                "q_max, use a larger box, or a denser wavevector "
+                "grid."
+            )
+        qf, sf = q[window], s[window]
+        a0 = max(float(sf[-1]), 1e-6)
+        (a, kappa), _ = optimize.curve_fit(
+            lambda x, a, k: a * x * x / (x * x + k * k),
+            qf,
+            sf,
+            p0=(a0, max(float(qf[0]), 1e-3)),
+            bounds=(0, np.inf),
+            maxfev=10000,
+        )
+        if kappa <= 1e-3 * float(qf[0]):
+            # An inverse length far below the smallest resolvable
+            # wavenumber is indistinguishable from no suppression.
+            raise ValueError(
+                "The fit resolved no q^2 suppression in the window "
+                "(kappa -> 0): S_ZZ is flat there -- either the "
+                "window sits past the low-q regime (decrease "
+                "q_max) or the system shows no charge screening "
+                "over the accessible wavenumbers."
+            )
+        self.results.charge_ssf_fit = np.array([a, kappa])
+        self.results.charge_ssf_fit_q = qf
+        self.results.charge_ssf_fit_curve = (
+            a * qf * qf / (qf * qf + kappa * kappa)
+        )
+        self.results.screening_length = float(1.0 / kappa)
+        self.results.units["results.screening_length"] = ureg.angstrom
+        return self.results.screening_length
 
 
 def _resolve_lag_values(spec, n_lags, n_frames):
@@ -998,7 +1562,7 @@ class IntermediateScatteringFunction(StructureFactor):
 
     Parameters (beside those of :class:`StructureFactor`)
     -----------------------------------------------------
-    dt : `float`, optional
+    dt : `float` or `Quantity`, optional
         Time between frames in ps (default: the trajectory's ``dt``).
     n_lags : `int`, optional
         Ring length in frames (default and cap: the analyzed frame count).
@@ -1045,7 +1609,8 @@ class IntermediateScatteringFunction(StructureFactor):
                 "parallel= and shard= are not ported (the lag ring is "
                 "sequential, and the port runs on one device)."
             )
-        self._dt = dt or self._trajectory.dt
+        self._dt = strip_unit(_frame_time_step(dt, self._trajectory),
+                              "picosecond")[0]
         self._n_lags = n_lags
         self._lag_spec = lags
         self._incoherent = incoherent
@@ -1079,6 +1644,10 @@ class IntermediateScatteringFunction(StructureFactor):
             )
         else:
             self.results.wavenumbers = self._wavenumbers
+        self.results.units = {
+            "results.times": ureg.picosecond,
+            "results.wavenumbers": ureg.angstrom**-1,
+        }
 
         device = self._device
         n_q = len(self._wavenumbers)
@@ -1279,7 +1848,8 @@ class IntermediateScatteringFunction(StructureFactor):
         if iisf is not None:
             self.results.iisf = iisf
 
-    def calculate_dynamic_structure_factor(self, *, t_max: float = None,
+    def calculate_dynamic_structure_factor(self, *,
+                                           t_max: Union[float, Q_] = None,
                                            window: str = None) -> None:
         r"""Dynamic structure factor, the time Fourier transform of
         :math:`F(q, t)` with the even extension :math:`F(q, -t) = F(q, t)`:
@@ -1296,7 +1866,7 @@ class IntermediateScatteringFunction(StructureFactor):
 
         Parameters
         ----------
-        t_max : `float`, keyword-only, optional
+        t_max : `float` or `Quantity`, keyword-only, optional
             Keep :math:`F(q, t)` up to this lag time (ps) only.
         window : `str`, keyword-only, optional
             ``None`` (plain trapezoid) or ``"hann"`` (a half-Hann taper on
@@ -1333,7 +1903,8 @@ class IntermediateScatteringFunction(StructureFactor):
         def transform(f):
             f = np.asarray(f, dtype=np.float64)
             if t_max is not None:
-                keep = max(2, min(len(f), int(round(t_max / dt_lag)) + 1))
+                keep_t = strip_unit(t_max, "picosecond")[0]
+                keep = max(2, min(len(f), int(round(keep_t / dt_lag)) + 1))
                 f = f[:keep]
             n_t = f.shape[0]
             # Trapezoid end-point halving, on the optional half-Hann taper.
@@ -1350,8 +1921,13 @@ class IntermediateScatteringFunction(StructureFactor):
         self.results.angular_frequencies = (
             2.0 * np.pi * np.fft.rfftfreq(n_t, dt_lag)
         )
+        self.results.units["results.angular_frequencies"] = (
+            ureg.picosecond**-1
+        )
+        self.results.units["results.dsf"] = ureg.picosecond
         if "iisf" in self.results:
             self.results.idsf, _ = transform(self.results.iisf)
+            self.results.units["results.idsf"] = ureg.picosecond
 
 
 class VanHoveFunction(_CellPlanned):
@@ -1396,8 +1972,8 @@ class VanHoveFunction(_CellPlanned):
         the residues' or segments' centers of mass (entities in ascending
         label order), taken from the streamed coordinates before they are
         wrapped.
-    dt : `float`, optional
-        Time between frames (defaults to the trajectory's ``dt``).
+    dt : `float` or `Quantity`, optional
+        Time between frames in ps (defaults to the trajectory's ``dt``).
     n_lags : `int`, optional
         Ring length in frames (defaults to the analyzed frame count).
     lags : `str` or array-like, optional
@@ -1407,6 +1983,9 @@ class VanHoveFunction(_CellPlanned):
     capacity_sigmas : `float`, default 4.0
         Cell-capacity headroom in Poisson sigmas (see
         :class:`RadialDistributionFunction`).
+    reduced : `bool`, keyword-only, default False
+        Data in reduced (LJ) units: ``results.units`` stays empty (the
+        histograms themselves are unitless).
     device : optional
         Device the chunks are folded on (default: the first CUDA
         device, which must exist; ``"cpu"`` for the CPU).
@@ -1416,8 +1995,8 @@ class VanHoveFunction(_CellPlanned):
                  range: tuple = (0.0, 15.0), *, grouping: str = "atoms",
                  dt=None, n_lags: int = None, lags=None,
                  self_part: bool = True, distinct_part: bool = True,
-                 capacity_sigmas: float = 4.0, verbose: bool = True,
-                 device=None):
+                 capacity_sigmas: float = 4.0, reduced: bool = False,
+                 verbose: bool = True, device=None):
         self.group = group
         self.universe = group.universe
         super().__init__(self.universe.trajectory, verbose, device=device)
@@ -1434,7 +2013,9 @@ class VanHoveFunction(_CellPlanned):
         self._distinct_part = bool(distinct_part)
         self._n_lags = n_lags
         self._lag_spec = lags
-        self._dt = dt or self._trajectory.dt
+        self._reduced = reduced
+        self._dt = strip_unit(_frame_time_step(dt, self._trajectory),
+                              "picosecond")[0]
         self._capacity_sigmas = float(capacity_sigmas)
         self._atom_indices = np.asarray(group.ix)
         _, self._n = _group_segment_ids(group, self._grouping)
@@ -1452,6 +2033,14 @@ class VanHoveFunction(_CellPlanned):
             self.results.edges[:-1] + self.results.edges[1:]
         ) / 2
         self.results.times = step * self._dt * lag_values
+        self.results.units = {}
+        if not self._reduced:
+            self.results.units = {
+                "results.bins": ureg.angstrom,
+                "results.edges": ureg.angstrom,
+                "results.times": ureg.picosecond,
+                "results.gs": ureg.angstrom**-3,
+            }
 
         device = self._device
         n_sel = len(lag_values)
@@ -1575,6 +2164,8 @@ class VanHoveFunction(_CellPlanned):
             self.results.msd = m2
             with np.errstate(divide="ignore", invalid="ignore"):
                 self.results.alpha2 = 3 * m4 / (5 * m2**2) - 1
+            if not self._reduced:
+                self.results.units["results.msd"] = ureg.angstrom**2
         if self._distinct_part:
             self.results.counts_distinct = carry["distinct"].astype(
                 np.int64

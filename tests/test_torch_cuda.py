@@ -1255,3 +1255,85 @@ def test_grouped_analyses_on_the_card_equal_cpu(cuda_device):
     for key in ("msd_self", "msd_cross"):
         np.testing.assert_allclose(card[5][key], cpu[5][key], rtol=1e-8,
                                    atol=1e-9 * np.abs(cpu[5][key]).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exclusion", [None, (1, 1), (2, 3)])
+def test_radial_histogram_on_the_card_equals_f64_oracle(cuda_device,
+                                                        exclusion):
+    """The module function ``radial_histogram`` on the card: one frame of
+    2,000 ions against a numpy float64 histogram, as integers."""
+
+    from mdhelper_tpu_torch.analysis.structure import radial_histogram
+    from mdhelper_tpu_torch.testing import f64_cross_histogram
+
+    rng = np.random.default_rng(41)
+    pos = (rng.random((2000, 3)) * BOX).astype(np.float32)
+    counts = radial_histogram(pos, pos, 120, (0.0, 6.0), [BOX] * 3,
+                              exclusion=exclusion, device=cuda_device)
+    np.testing.assert_array_equal(
+        counts, f64_cross_histogram(pos, pos, BOX, 6.0, 120, exclusion))
+
+
+@pytest.mark.cuda
+def test_electrolyte_posthoc_on_the_card_equals_cpu(cuda_device):
+    """The electrolyte path (cation-anion RDF, partial S(q), Onsager with
+    unwrap and centering, by FFT and by the direct windows) on the card
+    against the CPU: counts equal, S(q) and its recombinations within the
+    S(q) gate, the MSDs and every linear-fit post-hoc result within rtol
+    1e-8 (the same float32 streams; float64 centers and FFTs)."""
+
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+        StructureFactor,
+    )
+    from mdhelper_tpu_torch.analysis.transport import Onsager
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    rng = np.random.default_rng(42)
+    n, n_frames = 2000, 17
+    walk = rng.random((n, 3)) * BOX + np.cumsum(
+        rng.normal(0.0, 0.3, (n_frames, n, 3)), axis=0)
+    frames = np.mod(walk, BOX).astype(np.float32)
+    u = Universe.from_arrays(frames, np.array([BOX] * 3 + [90.0] * 3),
+                             charges=np.tile([1.0, -1.0], n // 2))
+    ions = [u.atoms[0::2], u.atoms[1::2]]
+    results = []
+    for device in ("cpu", cuda_device):
+        kw = dict(verbose=False, device=device)
+        rdf, sq, ons, shift = run_together([
+            RadialDistributionFunction(*ions, n_bins=80, range=(0.0, 5.0),
+                                       **kw),
+            StructureFactor(ions, mode="partial", n_points=6, **kw),
+            Onsager(ions, temperature=300, unwrap=True, center=True, **kw),
+            Onsager(ions, unwrap=True, center=True, center_atom=True,
+                    center_wrap=True, fft=False, **kw),
+        ])
+        rdf.calculate_coordination_numbers(n / 2 / BOX**3)
+        rdf.calculate_pmf(300)
+        out = dict(counts=rdf.results.counts, pmf=rdf.results.pmf,
+                   ssf=sq.results.ssf,
+                   charge_ssf=sq.calculate_charge_structure_factor())
+        for name, o in (("fft", ons), ("shift", shift)):
+            o.calculate_transport_coefficients(scale="linear")
+            o.calculate_ionicity()
+            o.calculate_electrophoretic_mobility()
+            o.calculate_transference_number()
+            for key in ("msd_self", "msd_cross", "D_i", "L_ij",
+                        "conductivities", "ne_conductivities",
+                        "electrophoretic_mobilities",
+                        "transference_numbers"):
+                out[f"{name}_{key}"] = np.asarray(o.results[key])
+        results.append(out)
+    cpu, card = results
+    np.testing.assert_array_equal(card["counts"], cpu["counts"])
+    np.testing.assert_array_equal(card["pmf"], cpu["pmf"])
+    for key in ("ssf", "charge_ssf"):
+        np.testing.assert_allclose(card[key], cpu[key], rtol=1e-4, atol=1e-5)
+    for key, value in cpu.items():
+        if key.startswith(("fft_", "shift_")):
+            np.testing.assert_allclose(
+                card[key], value, rtol=1e-8,
+                atol=1e-9 * np.nanmax(np.abs(value), initial=0.0),
+                err_msg=key)

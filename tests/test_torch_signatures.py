@@ -15,11 +15,10 @@ pytest.importorskip("jax")
 pytest.importorskip("torch")
 
 #: JAX parameters the port does not take yet, by object, with the slice
-#: that brings them (ROADMAP Queue 1).
+#: that brings them (ROADMAP Queue 1): files (item 3), checkpoints (item
+#: 9) and parallel/ (item 10) only.
 NOT_PORTED = {
     "analysis.structure.RadialDistributionFunction": {
-        "reduced": "units (item 2)",
-        "n_batches": "units (item 2): accepted and ignored in JAX",
         "parallel": "parallel/ (item 10)",
         "shard": "parallel/ (item 10): the atom-sharded ring",
         "kwargs": "parallel/ (item 10): the runtime's mesh options",
@@ -33,16 +32,9 @@ NOT_PORTED = {
         "kwargs": "parallel/ (item 10): the runtime's mesh options",
     },
     "analysis.structure.VanHoveFunction": {
-        "reduced": "units (item 2)",
         "kwargs": "parallel/ (item 10): the runtime's mesh options",
     },
     "analysis.transport.Onsager": {
-        "temperature": "units (item 2)",
-        "charges": "units (item 2)",
-        "center": "units (item 2): centering",
-        "center_atom": "units (item 2): centering",
-        "center_wrap": "units (item 2): centering",
-        "reduced": "units (item 2)",
         "kwargs": "parallel/ (item 10): the runtime's mesh options",
     },
     "analysis.multi.run_together": {
@@ -61,10 +53,12 @@ NOT_PORTED = {
     },
 }
 
-#: Parameters of the port's own: the device of an analysis, the JAX
-#: ISF's ``shard`` and ``method`` (which it takes through ``**kwargs``),
-#: and the carry of a run that the JAX package began.
+#: Parameters of the port's own: the device of an analysis (and of the
+#: radial histogram), the JAX ISF's ``shard`` and ``method`` (which it
+#: takes through ``**kwargs``), and the carry of a run that the JAX
+#: package began.
 PORT_ONLY = {
+    "analysis.structure.radial_histogram": {"device"},
     "analysis.structure.RadialDistributionFunction": {"device"},
     "analysis.structure.StructureFactor": {"device"},
     "analysis.structure.IntermediateScatteringFunction": {
@@ -83,6 +77,37 @@ OBJECTS = [
     "analysis.structure.VanHoveFunction",
     "analysis.transport.Onsager",
     "analysis.multi.run_together",
+    "analysis.structure.radial_histogram",
+    "analysis.structure.zeroth_order_hankel_transform",
+    "analysis.structure.radial_fourier_transform",
+    "analysis.structure.calculate_coordination_numbers",
+    "analysis.structure.calculate_structure_factor",
+    "analysis.structure.RadialDistributionFunction."
+    "calculate_coordination_numbers",
+    "analysis.structure.RadialDistributionFunction.calculate_pmf",
+    "analysis.structure.RadialDistributionFunction."
+    "calculate_structure_factor",
+    "analysis.structure.StructureFactor.calculate_weighted_sum",
+    "analysis.structure.StructureFactor.calculate_charge_structure_factor",
+    "analysis.structure.StructureFactor.calculate_screening_length",
+    "analysis.transport.msd_fft",
+    "analysis.transport.msd_shift",
+    "analysis.transport.calculate_transport_coefficients",
+    "analysis.transport.calculate_conductivity",
+    "analysis.transport.calculate_nernst_einstein_conductivity",
+    "analysis.transport.calculate_electrophoretic_mobility",
+    "analysis.transport.calculate_transference_number",
+    "analysis.transport.Onsager.calculate_transport_coefficients",
+    "analysis.transport.Onsager.calculate_conductivity",
+    "analysis.transport.Onsager.calculate_nernst_einstein_conductivity",
+    "analysis.transport.Onsager.calculate_ionicity",
+    "analysis.transport.Onsager.calculate_electrophoretic_mobility",
+    "analysis.transport.Onsager.calculate_transference_number",
+    "algorithm.unit.strip_unit",
+    "algorithm.unit.get_scaling_factors",
+    "algorithm.unit.get_lj_scaling_factors",
+    "algorithm.correlation.msd_shift",
+    "algorithm.correlation.correlation_shift",
     "core.universe.Topology",
     "core.universe.Universe",
     "core.universe.Universe.from_arrays",
@@ -137,3 +162,15 @@ def test_groupings_are_ported_everywhere():
     assert not {"groupings", "grouping"} & listed
     for dotted in NOT_PORTED:
         assert dotted in OBJECTS
+
+
+def test_units_centering_and_charges_are_ported():
+    """Only files (item 3), checkpoints (item 9) and parallel/ (item 10)
+    remain: no unit, reduced-unit, centering or charge parameter."""
+
+    listed = set().union(*(set(v) for v in NOT_PORTED.values()))
+    assert not {"reduced", "n_batches", "temperature", "charges", "center",
+                "center_atom", "center_wrap"} & listed
+    for reasons in NOT_PORTED.values():
+        for reason in reasons.values():
+            assert any(f"(item {n})" in reason for n in (3, 9, 10)), reason

@@ -228,3 +228,47 @@ def test_onsager_subset_unwrap_matches_oracle(groups, n_blocks, groupings):
                                        atol=1e-9 * np.abs(ref).max())
     if groups == [(50, 250)] and groupings == "atoms":
         assert abs(ons.results.msd_self[0, 0, 4] - 0.328177) < 1e-6
+
+
+@pytest.mark.parametrize("center_wrap", [False, True])
+def test_onsager_center_atom_matches_oracle(center_wrap):
+    """The port's ``Onsager(atoms[50:250], unwrap=True, center=True,
+    center_atom=True)`` against a numpy float64 oracle: the float32
+    image-flag unwrap of every atom, the system's center of mass of all
+    300 atoms in each frame (their float32 unwrapped positions, wrapped
+    into the box in float32 first with `center_wrap`, averaged in
+    float64 with the float64 masses), subtracted in float64 from the
+    group's atoms, and direct-lag displacements in float64.
+
+    The JAX class is not the reference here.  With ``center_atom=True``
+    (as with ``unwrap=True``) it streams every universe atom but gathers
+    the group at offsets into the concatenated group columns, so it
+    centers and measures the first 200 atoms of the universe instead of
+    ``atoms[50:250]`` (ROADMAP Queue 3, item 7).
+    """
+
+    from mdhelper_tpu_torch.analysis.transport import Onsager
+
+    frames, u = _subset_universe("atoms")
+    ons = Onsager(u.atoms[50:250], unwrap=True, center=True,
+                  center_atom=True, center_wrap=center_wrap, verbose=False,
+                  device="cpu").run()
+    unwrapped = _oracle_unwrap(frames)
+    ref = unwrapped
+    if center_wrap:
+        box = np.float32(SUBSET_BOX)
+        ref = unwrapped - np.floor(unwrapped / box) * box
+    masses = u.atoms.masses
+    com = (masses[:, None] * ref.astype(np.float64)).sum(
+        axis=1, keepdims=True) / masses.sum()
+    group = unwrapped[:, 50:250].astype(np.float64) - com
+    self_ref = _oracle_disp(group, group) / 6
+    cross_ref = _oracle_disp(group.sum(1), group.sum(1)) / 6
+    for got, want in ((ons.results.msd_self[0, 0], self_ref),
+                      (ons.results.msd_cross[0, 0], cross_ref)):
+        np.testing.assert_allclose(got, want, rtol=1e-8,
+                                   atol=1e-9 * np.abs(want).max())
+    # Centering moves the group: the uncentered MSD differs.
+    plain = _oracle_disp(unwrapped[:, 50:250].astype(np.float64),
+                         unwrapped[:, 50:250].astype(np.float64)) / 6
+    assert np.abs(self_ref[1:] / plain[1:] - 1).max() > 1e-4
