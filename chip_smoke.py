@@ -72,8 +72,20 @@ Nernst-Einstein conductivity against the CODATA formula from the run's
 own D_i, kappa == kappa_NE for one ion, the cross kernel on the path's
 plan against its plain version, radial_histogram on the card against a
 float64 histogram, and msd_shift of the stored positions against the FFT
-MSDs.  Every check raises on failure, so any failed phase exits
-non-zero.  The last lines of
+MSDs.  Then slice 13, the main path from files: the fused trajectory
+written with the port's writers as a GRO topology (atoms named A and B)
+with an XTC and a DCD, opened with Universe.from_files; run_together of
+the RDF, S(q) and Onsager on select_atoms("all") (self launches counted)
+and one chunk of the cross RDF of "name A" and "name B" (cross launches
+counted), each against the same analyses over an ArrayReader of the
+reader's own decoded float32 frames (counts equal, S(q) and the MSDs
+within their gates, bit-equality reported); the DCD's frames bit-equal
+to the arrays written, the XTC's within half its precision step, the
+native XTC codec loaded; frames/s from the ArrayReader, the DCD and the
+XTC with the prefetch on and off, the host's decode time a chunk, the
+device's busy share, and both kernels on the paths' plans against their
+plain versions.  Every check raises on failure, so any failed phase
+exits non-zero.  The last lines of
 standard output are the card's name and power limit, a JSON line of
 per-kernel measurements (each beside its bound: the larger of the
 float32 operations of the pairs binned, or of the trig terms summed,
@@ -672,9 +684,10 @@ def slice_universe(rng, n_frames=N_FRAMES):
     )
 
 
-def slice_analyses(u, device, parts=("rdf", "sq", "msd")):
+def slice_analyses(u, device, parts=("rdf", "sq", "msd"), group=None):
     """The main path's analyses (those named in `parts`, in that
-    order), with the benchmark's settings and CHUNK-frame chunks."""
+    order) of `group` (default ``u.atoms``), with the benchmark's
+    settings and CHUNK-frame chunks."""
 
     from mdhelper_tpu_torch.analysis.structure import (
         RadialDistributionFunction,
@@ -682,17 +695,18 @@ def slice_analyses(u, device, parts=("rdf", "sq", "msd")):
     )
     from mdhelper_tpu_torch.analysis.transport import Onsager
 
+    group = u.atoms if group is None else group
     make = {
         "rdf": lambda: RadialDistributionFunction(
-            u.atoms, n_bins=N_BINS, range=(0.0, R_MAX), exclusion=(1, 1),
+            group, n_bins=N_BINS, range=(0.0, R_MAX), exclusion=(1, 1),
             verbose=False, device=device,
         ),
         "sq": lambda: StructureFactor(
-            u.atoms, n_points=N_QPTS, sort=False, unique=False,
+            group, n_points=N_QPTS, sort=False, unique=False,
             method="factor", precision="exact", verbose=False,
             device=device,
         ),
-        "msd": lambda: Onsager(u.atoms, unwrap=True, verbose=False,
+        "msd": lambda: Onsager(group, unwrap=True, verbose=False,
                                device=device),
     }
     analyses = [make[p]() for p in parts]
@@ -3637,6 +3651,300 @@ def phase_electrolyte(device, rng, card):
     return out
 
 
+# Slice 13: the main path from files.  The fused path's trajectory
+# (slice_universe's data, 8 + 32 frames of 100k atoms) written with the
+# port's writers -- a GRO topology of atoms named A and B alternately, an
+# XTC (bench.py's precision, 0.001 nm) and a DCD -- and read back through
+# Universe.from_files and select_atoms.
+XTC_PRECISION = 1000.0
+
+
+def decoded_universe(u):
+    """An in-memory universe over `u`'s reader's own frames, decoded and
+    cast to float32 as the stream casts them, with `u`'s names, times and
+    boxes."""
+
+    from mdhelper_tpu_torch.core.trajectory import ArrayReader
+    from mdhelper_tpu_torch.core.universe import Topology, Universe
+
+    reader = u.trajectory
+    pos, dims = reader.read_frames(np.arange(reader.n_frames))
+    return Universe(
+        Topology(u.atoms.n_atoms, names=u.atoms.names),
+        ArrayReader(pos.astype(np.float32), dims, dt=reader.dt,
+                    times=reader.times),
+    )
+
+
+def files_path(u, device, prefetch, sigmas=4.0):
+    """The main path's analyses of ``u.select_atoms("all")``, the stream
+    prefetched one chunk deep or not, the RDF's cell plan `sigmas` wide."""
+
+    analyses = slice_analyses(u, device, group=u.select_atoms("all"))
+    analyses[0]._capacity_sigmas = sigmas
+    for a in analyses:
+        a._prefetch_batches = prefetch
+    return analyses
+
+
+def replanned(make, run, what, replans, sigmas, data):
+    """``run(make(s))`` with the cell plans ``s = sigmas[data]`` wide (the
+    default 4 for data not seen yet), re-planned 2 sigmas wider after a
+    cell overflows its plan, twice at most, as an analysis's ``run()``
+    re-plans (``run_together`` raises instead: ROADMAP Queue 3, item 1).
+    The width found is kept in `sigmas` for the next run over the same
+    `data`; each re-plan is noted in `replans`.  Returns ``(analyses,
+    run's value)``."""
+
+    from mdhelper_tpu_torch.ops.cuda_cell_histogram import (
+        CellCapacityOverflow,
+    )
+
+    while True:
+        s = sigmas.setdefault(data, 4.0)
+        analyses = make(s)
+        try:
+            return analyses, run(analyses)
+        except CellCapacityOverflow as err:
+            check(s < 8.0, f"{what}: {err}")
+            replans.append(f"{what}: {str(err).split(':')[0]} at {s:g} "
+                           f"sigmas, re-planned at {s + 2:g}")
+            sigmas[data] = s + 2.0
+
+
+def same_fused(run, ref, what):
+    """Check a fused run against another over the same float32 frames:
+    RDF counts equal as integers, S(q) within the S(q) gate, the MSDs
+    within rtol 1e-8; returns whether S(q) and the MSDs are bit-equal."""
+
+    (rdf, sf, ons), (rdf_r, sf_r, ons_r) = run, ref
+    check(rdf.results.counts.sum() > 0 and np.array_equal(
+        rdf.results.counts, rdf_r.results.counts),
+        f"{what}: RDF counts differ")
+    check(np.allclose(sf.results.ssf, sf_r.results.ssf, rtol=1e-4,
+                      atol=1e-5), f"{what}: S(q) outside the gate")
+    bits = np.array_equal(sf.results.ssf, sf_r.results.ssf)
+    for key in ("msd_self", "msd_cross"):
+        a, b = ons.results[key], ons_r.results[key]
+        check(np.allclose(a, b, rtol=1e-8, atol=1e-9 * np.abs(b).max()),
+              f"{what}: {key} outside rtol 1e-8")
+        bits = bits and np.array_equal(a, b)
+    return bits
+
+
+def phase_files(device, rng, card):
+    """The main path from files: the fused trajectory written as GRO +
+    XTC and GRO + DCD, ``Universe.from_files``, run_together([RDF, S(q),
+    Onsager]) on ``select_atoms("all")`` with the self kernel's launches
+    counted (the XTC run, prefetch on), one chunk of the cross RDF of
+    ``name A`` and ``name B`` with the cross kernel's, each against the
+    same analyses over an ArrayReader of the reader's own decoded float32
+    frames; the DCD's frames bit-equal to the float32 arrays written, the
+    XTC's within half its precision step, the native codec loaded; the
+    fused path's frames/s from the ArrayReader, the DCD and the XTC with
+    the prefetch on and off, the host's decode time a chunk, the device's
+    busy share (XTC, prefetch on), and both kernels on the path's plans
+    against their plain versions."""
+
+    import tempfile
+
+    import torch
+
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+    )
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.io import _xtc_native, dcd, structure_writers, xtc
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+
+    started = time.perf_counter()
+    check(_xtc_native.load() is not None,
+          "the native XTC codec did not load (no C++ compiler?)")
+    traj, _ = slice_universe(rng, N_FRAMES)
+    dims = np.array([BOX] * 3 + [90.0] * 3)
+    names = np.where(np.arange(N_ATOMS) % 2 == 0, "A", "B")
+    n_chunks = -(-N_FRAMES // CHUNK)
+    out, fps = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {name: os.path.join(tmp, name)
+                 for name in ("top.gro", "traj.xtc", "traj.dcd")}
+        written = time.perf_counter()
+        structure_writers.write_gro(paths["top.gro"], traj[0], names=names,
+                                    dimensions=dims)
+        xtc.write_xtc(paths["traj.xtc"], traj / np.float32(10.0),
+                      np.tile(np.eye(3) * BOX / 10, (N_FRAMES, 1, 1)),
+                      precision=XTC_PRECISION)
+        dcd.write_dcd(paths["traj.dcd"], traj, np.tile(dims, (N_FRAMES, 1)))
+        written = time.perf_counter() - written
+        sizes = {k: os.path.getsize(v) / 2**20 for k, v in paths.items()}
+        universes = {fmt: Universe.from_files(paths["top.gro"],
+                                              paths[f"traj.{fmt}"])
+                     for fmt in ("xtc", "dcd")}
+
+        # The native codec decodes a frame as the Python codec would.
+        raw = xtc.XTCFile(paths["traj.xtc"])
+        payload = bytes(raw._data[raw._offsets[0] + 56:raw._offsets[1]])
+        native = _xtc_native.native_decompress(payload, N_ATOMS)
+        check(native is not None and np.array_equal(
+            native[0], raw.read_frame(0)[0]),
+            "the native XTC codec did not decode the first frame")
+        raw.close()
+
+        # Host decode, a chunk at a time, as the stream reads it.
+        decode_ms = {}
+        for fmt, u in universes.items():
+            times = []
+            for lo in range(0, N_FRAMES, CHUNK):
+                t0 = time.perf_counter()
+                u.trajectory.read_frames(np.arange(lo, lo + CHUNK))
+                times.append(1e3 * (time.perf_counter() - t0))
+            decode_ms[fmt] = times
+        arrays = {fmt: decoded_universe(u) for fmt, u in universes.items()}
+        pos_dcd = arrays["dcd"].trajectory._positions
+        check(np.array_equal(pos_dcd, traj),
+              "DCD positions differ from the float32 arrays written")
+        pos_xtc = arrays["xtc"].trajectory._positions
+        xtc_err = float(np.abs(pos_xtc.astype(np.float64) - traj).max())
+        half_step = 0.5 * 10.0 / XTC_PRECISION
+        check(xtc_err <= half_step + 4 * float(np.spacing(np.float32(BOX))),
+              f"XTC positions off by {xtc_err} A (half step {half_step})")
+
+        # The path from the XTC with the launches counted, then each route
+        # with the prefetch on and off; each file run against the run over
+        # its reader's own decoded frames.
+        replans, sigmas = [], {}
+
+        def counted(analyses):
+            reset_launches()
+            return run_timed(analyses)
+
+        # The first run (the launches counted) also warms what the timed
+        # runs find made: cuFFT plans, cuBLAS handles, allocator pools.
+        _, warm_fps = replanned(
+            lambda s: files_path(universes["xtc"], device, True, s), counted,
+            "xtc, prefetch on", replans, sigmas, "xtc")
+        out["launches"] = cch.cell_pair_histogram.launches
+        check(out["launches"] == n_chunks,
+              f"files path: {out['launches']} kernel launches for "
+              f"{n_chunks} chunks")
+        # Each route with the prefetch on and off, in turns (ABCDEF then
+        # FEDCBA, so each keeps its mean position in the order).
+        sources = {"xtc": universes["xtc"], "dcd": universes["dcd"],
+                   "array": arrays["xtc"], "dcd array": arrays["dcd"]}
+        order = [(route, prefetch) for route in ("array", "dcd", "xtc")
+                 for prefetch in (True, False)]
+        runs, fps = {}, {key: [] for key in order}
+        for key in order + order[::-1] + [("dcd array", True)]:
+            route, prefetch = key
+            runs[key], value = replanned(
+                lambda s: files_path(sources[route], device, prefetch, s),
+                run_timed, f"{route}, prefetch {'on' if prefetch else 'off'}",
+                replans, sigmas, route.split()[0].replace("array", "xtc"))
+            fps.setdefault(key, []).append(value)
+        bits = {}
+        for fmt, array in (("xtc", "array"), ("dcd", "dcd array")):
+            bits[fmt] = same_fused(runs[fmt, True], runs[array, True],
+                                   f"{fmt} vs its decoded frames")
+            bits[fmt, "off"] = same_fused(runs[fmt, False], runs[fmt, True],
+                                          f"{fmt}, prefetch off vs on")
+        rdf, _, _ = runs["xtc", True]
+        g = rdf.results.rdf
+        check(np.all(np.abs(g[-20:] - 1.0) < 0.02),
+              f"files path g(r) tail off 1: {g[-20:]}")
+
+        # One chunk of the cross RDF of two selections.
+        u = universes["xtc"]
+        cross = {}
+
+        def cross_rdf(uu, sigmas):
+            rdf = RadialDistributionFunction(
+                uu.select_atoms("name A"), uu.select_atoms("name B"),
+                n_bins=N_BINS, range=(0.0, R_MAX),
+                capacity_sigmas=sigmas, verbose=False, device=device)
+            rdf._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
+            return rdf
+
+        def one_chunk(rdf):
+            reset_launches()
+            run_together([rdf], stop=CHUNK)
+            return cch.cross_pair_histogram.launches
+
+        for route, uu in (("xtc", u), ("array", arrays["xtc"])):
+            cross[route], launches = replanned(
+                lambda s: cross_rdf(uu, s), one_chunk,
+                f"{route} cross RDF", replans, sigmas, "cross")
+            if route == "xtc":
+                out["cross_launches"] = launches
+        check(out["cross_launches"] == 1,
+              f"files cross RDF: {out['cross_launches']} launches")
+        check(cross["xtc"].results.counts.sum() > 0 and np.array_equal(
+            cross["xtc"].results.counts, cross["array"].results.counts),
+            "files cross RDF: counts differ from the decoded frames'")
+
+        # The device's busy share, the last chunk under the profiler.
+        _, (_, out["busy"], activities) = replanned(
+            lambda s: files_path(u, device, True, s),
+            lambda a: run_profiled(a, N_FRAMES, CHUNK),
+            "xtc, profiled", replans, sigmas, "xtc")
+
+        # Both kernels on the paths' plans against their plain versions.
+        frames = torch.from_numpy(pos_xtc[:2]).to(device)
+        out["self"] = self_kernel_vs_plain(
+            frames, (BOX,) * 3, f"self kernel, {N_ATOMS} atoms from the XTC "
+            "(files path)", plan=rdf._searched_cell_plan())
+        a_ix = u.select_atoms("name A").ix
+        b_ix = u.select_atoms("name B").ix
+        out["cross"] = cross_kernel_vs_plain(
+            frames[:, a_ix].contiguous(), frames[:, b_ix].contiguous(),
+            (BOX,) * 3, f"cross kernel, name A x name B, {len(a_ix)} x "
+            f"{len(b_ix)} from the XTC (files cross RDF)",
+            plan=cross["xtc"]._searched_cell_plan())
+        del universes, arrays, runs
+
+    out["seconds"] = time.perf_counter() - started
+    print(f"files: wrote {N_ATOMS} atoms x {N_FRAMES} frames with the port's "
+          f"writers in {written:.2f} s (GRO {sizes['top.gro']:.1f} MiB, XTC "
+          f"{sizes['traj.xtc']:.1f} MiB, DCD {sizes['traj.dcd']:.1f} MiB); "
+          f"native XTC codec loaded; DCD frames == the float32 arrays "
+          f"written; XTC frames within {xtc_err:.6f} A of them (half step "
+          f"{half_step:g} A)")
+    print(f"files: host decode a {CHUNK}-frame chunk: XTC "
+          f"{np.mean(decode_ms['xtc']):.2f} ms (runs "
+          f"{[round(x, 2) for x in decode_ms['xtc']]}), DCD "
+          f"{np.mean(decode_ms['dcd']):.2f} ms (runs "
+          f"{[round(x, 2) for x in decode_ms['dcd']]}), on {os.cpu_count()} "
+          "host cores")
+    for fmt in ("xtc", "dcd"):
+        print(f"files: {fmt} fused path vs its reader's decoded float32 "
+              f"frames in an ArrayReader: counts equal; S(q) and the MSDs "
+              f"{'bit-equal' if bits[fmt] else 'within the gates, not bit-equal'}"
+              f"; prefetch off vs on "
+              f"{'bit-equal' if bits[fmt, 'off'] else 'within the gates'}")
+    print(f"files: cross RDF of name A x name B, one chunk: "
+          f"{out['cross_launches']} cross launch(es), counts == the decoded "
+          f"frames'; fused path from the XTC: {out['launches']} self "
+          f"launches, device busy {100 * out['busy']:.1f} % of the last "
+          f"{CHUNK} frames' wall time ({activities:.0f} device activities a "
+          "frame)")
+    print(f"files: first run (XTC, prefetch on, launches counted, warm-up): "
+          f"{warm_fps:.3f} frames/s")
+    for route, text in (("array", "an ArrayReader of the XTC's frames"),
+                        ("dcd", "the DCD"), ("xtc", "the XTC")):
+        on, off = fps[route, True], fps[route, False]
+        print(f"files: fused path from {text}: {np.mean(on):.3f} frames/s "
+              f"with the prefetch (runs {[round(x, 3) for x in on]}), "
+              f"{np.mean(off):.3f} without (runs "
+              f"{[round(x, 3) for x in off]}), in turns, on {card} "
+              "(information, not a claim)")
+    out["fps"] = {f"{route} {'on' if p else 'off'}": float(np.mean(v))
+                  for (route, p), v in fps.items()}
+    print("files: cell plans re-planned after an overflow: "
+          + ("; ".join(replans) if replans else "none"))
+    print(f"the files phase took {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -3735,6 +4043,12 @@ def main():
           f" s of them), device busy {100 * electro['busy']:.1f} % "
           f"(information, not a claim); the electrolyte phase took "
           f"{time.perf_counter() - electro_started:.1f} s")
+
+    # Slice 13 draws from its own generator.
+    files = phase_files(device, np.random.default_rng(SEED + 11), card)
+    print(f"files path (GRO + XTC, {N_ATOMS} atoms): device busy "
+          f"{100 * files['busy']:.1f} % (information, not a claim); the "
+          f"files phase took {files['seconds']:.1f} s")
 
     def path_row(shape, timing_plan, path, plain_from=None, plain_shape=None):
         """(launches, shape, timing) of a slice-4 row, whose kernel was
@@ -3959,6 +4273,14 @@ def main():
                  f"{N_ATOMS // 2} cations x {N_ATOMS // 2} anions, cube "
                  f"{BOX:.1f} A, r_max {R_MAX:g} (electrolyte path)",
                  electro["cross"]))
+    # Slice 13: both kernels on the main path from files.
+    rows += [
+        ("cell_pair_histogram", self_src, 1070, files["launches"],
+         f"{N_ATOMS} atoms from an XTC (files fused path)", files["self"]),
+        ("cross_pair_histogram", cross_src, 1916, files["cross_launches"],
+         f"name A x name B, {N_ATOMS // 2} x {N_ATOMS // 2} from an XTC "
+         "(files cross RDF)", files["cross"]),
+    ]
     optional = ("launch_ms", "pairs_per_frame", "counted_per_frame",
                 "terms_per_frame", "plain_shape",
                 "option", "oracle_err", "tolerance")

@@ -15,10 +15,13 @@ The port currently covers the fused RDF + S(q) + MSD main path
 :class:`~mdhelper_tpu_torch.analysis.transport.Onsager`), the cross RDF,
 :class:`~mdhelper_tpu_torch.analysis.structure.VanHoveFunction` and
 :class:`~mdhelper_tpu_torch.analysis.structure.IntermediateScatteringFunction`,
-the topology and center-of-mass groupings, and the unit registry
+the topology and center-of-mass groupings, the unit registry
 (``ureg``, ``Q_``) with the post-hoc methods of these classes
 (coordination numbers, potentials of mean force, transport coefficients
-and conductivities, charge structure factors).
+and conductivities, charge structure factors), and the file layer
+(:meth:`~mdhelper_tpu_torch.core.universe.Universe.from_files`, the
+selection language, the trajectory readers and writers of
+:mod:`mdhelper_tpu_torch.io`).
 """
 
 from importlib.util import find_spec

@@ -3,8 +3,9 @@ Topology helpers
 ================
 
 The part of :mod:`mdhelper_tpu.algorithm.topology` the ported analyses
-call: box matrices, the minimum-image convention, wrapping, and the
-bonded :func:`unwrap_edge` that makes molecules whole.  NumPy only,
+call: box matrices, the minimum-image convention, wrapping, the bonded
+:func:`unwrap_edge` that makes molecules whole, and bond guessing by
+distance (:func:`guess_bonds`, over :func:`resolve_vdw_radii`).  NumPy only,
 apart from :func:`triclinic_matrices`, which also takes torch tensors.
 """
 
@@ -16,7 +17,10 @@ import torch
 from .utility import find_connected_nodes
 
 __all__ = [
+    "VDW_RADII",
+    "guess_bonds",
     "minimize_vectors",
+    "resolve_vdw_radii",
     "triclinic_matrices",
     "triclinic_vectors",
     "unwrap_edge",
@@ -260,3 +264,170 @@ def unwrap_edge(*, group=None, positions=None, bonds=None, dimensions=None,
             axis=-1, keepdims=True)
         positions[idx] += wrap(com, dimensions[:3], in_place=False) - com
     return positions
+
+
+#: van der Waals radii (Angstrom; Bondi 1964 + common extensions) for
+#: distance-criterion bond guessing — the MDAnalysis convention.
+VDW_RADII = {
+    "H": 1.10, "D": 1.10, "HE": 1.40, "LI": 1.82, "BE": 1.53,
+    "B": 1.92, "C": 1.70, "N": 1.55, "O": 1.52, "F": 1.47,
+    "NE": 1.54, "NA": 2.27, "MG": 1.73, "AL": 1.84, "SI": 2.10,
+    "P": 1.80, "S": 1.80, "CL": 1.75, "AR": 1.88, "K": 2.75,
+    "CA": 2.31, "FE": 2.05, "NI": 1.63, "CU": 1.40, "ZN": 1.39,
+    "BR": 1.85, "RB": 3.03, "I": 1.98, "CS": 3.43,
+}
+
+
+def resolve_vdw_radii(labels, *, vdwradii: dict = None) -> np.ndarray:
+    r"""Resolve per-atom van der Waals radii (Å) from element symbols
+    or atom names against :data:`VDW_RADII`.
+
+    Name resolution follows the package's mass-guessing convention: a
+    user override (matched longest-first) wins outright, then a
+    leading organic element (H/C/N/O/S/P) beats two-letter collisions
+    ("CA" is an alpha-carbon, "HE1" a hydrogen), then the longest
+    table match.  Shared by :func:`guess_bonds` and the
+    solvent-accessible-surface-area analysis.
+
+    Parameters
+    ----------
+    labels : array-like of `str`
+        Element symbols or atom names.
+    vdwradii : `dict`, keyword-only, optional
+        Extra/override radii, keyed by UPPERCASE symbol.
+
+    Returns
+    -------
+    radii : `numpy.ndarray`
+        Per-atom radii (Å), shape ``(len(labels),)``.
+    """
+
+    table = dict(VDW_RADII)
+    user = (
+        {str(k).upper(): float(v) for k, v in vdwradii.items()}
+        if vdwradii
+        else {}
+    )
+    organic = frozenset("HCNOSP")
+
+    def radius_of(index, label):
+        letters = "".join(
+            c for c in str(label).upper() if c.isalpha()
+        )
+        # user overrides win outright (longest match), so explicit
+        # {"CL": 1.75} makes chloride labels chlorine again
+        for length in (2, 1):
+            if letters[:length] in user:
+                return user[letters[:length]]
+        # then leading-organic-first: "CA" is an alpha-carbon and
+        # "HE1" a hydrogen in name-only formats — the same convention
+        # as the mass guesser (io/topology_files._guess_masses)
+        if letters[:1] in organic:
+            return table[letters[:1]]
+        for length in (2, 1):
+            if letters[:length] in table:
+                return table[letters[:length]]
+        raise ValueError(
+            f"No van der Waals radius for atom {index} "
+            f"(label {str(label)!r}); pass vdwradii={{...}}."
+        )
+
+    return np.fromiter(
+        (radius_of(i, e) for i, e in enumerate(labels)),
+        dtype=np.float64,
+        count=len(labels),
+    )
+
+
+def guess_bonds(
+    elements,
+    positions: np.ndarray,
+    dimensions: np.ndarray = None,
+    *,
+    fudge_factor: float = 0.55,
+    lower_bound: float = 0.1,
+    vdwradii: dict = None,
+) -> np.ndarray:
+    r"""Guess bonds from interatomic distances (the MDAnalysis
+    ``guess_bonds`` criterion): atoms :math:`i, j` bond when
+
+    .. math::
+
+       d_\mathrm{lower} < |\mathbf{r}_{ij}| <
+       f\,(R_i^\mathrm{vdW} + R_j^\mathrm{vdW})
+
+    with the 0.55 fudge factor and Bondi van der Waals radii.  Lets
+    formats without connectivity (PDB sans CONECT, GRO, XYZ, LAMMPS
+    dumps) drive the bonded/hydrogen-bond analyses.
+
+    Parameters
+    ----------
+    elements : array-like of `str`
+        Element symbols or atom names.  Name resolution follows the
+        package's mass-guessing convention: a leading organic element
+        (H/C/N/O/S/P) wins over two-letter collisions, so "CA" is an
+        alpha-carbon and "HE1" a hydrogen; pass `vdwradii` overrides
+        (matched longest-first, before the organic rule) for true
+        calcium/chlorine/helium labels, e.g. ``{"CL": 1.75}``.
+    positions : array-like
+        Coordinates, shape ``(N, 3)`` (one frame).
+    dimensions : array-like, optional
+        Box ``(3,)`` lengths or ``(6,)`` parameters for
+        minimum-image distances (orthorhombic).
+    fudge_factor : `float`, keyword-only, default 0.55
+        Scaling of the summed radii.
+    lower_bound : `float`, keyword-only, default 0.1
+        Minimum bond length (filters overlapping duplicates).
+    vdwradii : `dict`, keyword-only, optional
+        Extra/override radii, keyed by UPPERCASE symbol.
+
+    Returns
+    -------
+    bonds : `numpy.ndarray`
+        Bonded index pairs, shape ``(n_bonds, 2)``, ``i < j``.
+    """
+
+    from scipy.spatial import cKDTree
+
+    positions = np.ascontiguousarray(positions, dtype=np.float64)
+    if positions.ndim != 2 or positions.shape[1] != 3:
+        raise ValueError("positions must have shape (N, 3).")
+    radii = resolve_vdw_radii(elements, vdwradii=vdwradii)
+    if len(radii) != len(positions):
+        raise ValueError(
+            "elements and positions lengths do not match."
+        )
+
+    max_cut = fudge_factor * 2 * radii.max()
+    box = None
+    if dimensions is not None:
+        dims = np.asarray(dimensions, dtype=np.float64)
+        if not (dims[:3] > 0).all():
+            dims = None  # zero/absent box (e.g. XYZ): no images
+    else:
+        dims = None
+    if dims is not None:
+        if len(dims) >= 6 and not np.allclose(dims[3:6], 90.0):
+            raise ValueError(
+                "guess_bonds supports orthorhombic cells only."
+            )
+        box = dims[:3]
+        wrapped = positions % box
+        # x % box lands exactly on box for tiny negatives; scipy's
+        # periodic tree needs the half-open [0, box) domain
+        wrapped[wrapped >= box] = 0.0
+        tree = cKDTree(wrapped, boxsize=box)
+        pairs = tree.query_pairs(max_cut, output_type="ndarray")
+        delta = positions[pairs[:, 0]] - positions[pairs[:, 1]]
+        delta -= box * np.round(delta / box)
+    else:
+        tree = cKDTree(positions)
+        pairs = tree.query_pairs(max_cut, output_type="ndarray")
+        delta = positions[pairs[:, 0]] - positions[pairs[:, 1]]
+    dist = np.sqrt((delta**2).sum(axis=1))
+    allowed = fudge_factor * (
+        radii[pairs[:, 0]] + radii[pairs[:, 1]]
+    )
+    keep = (dist > lower_bound) & (dist < allowed)
+    bonds = np.sort(pairs[keep], axis=1)
+    return bonds[np.lexsort((bonds[:, 1], bonds[:, 0]))]

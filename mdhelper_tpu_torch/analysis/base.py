@@ -12,11 +12,14 @@ late so the copy overlaps the next chunk's compute.
 
 On a CUDA device the host side of a chunk goes through a pinned buffer
 and a ``non_blocking`` copy on a side stream, one chunk ahead of the
-compute.  The port runs on one device; there is no frame sharding,
-host pipeline, multi-host mode or checkpointing yet.
+compute; with ``_prefetch_batches`` (the default) a worker thread reads,
+decodes and stages the next chunk while the current one is launched.
+The port runs on one device; there is no frame sharding, host
+pipeline, multi-host mode or checkpointing yet.
 """
 
 import logging
+from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
 from typing import Iterator
 
@@ -52,7 +55,8 @@ class Hash(dict):
 class _Batch:
     """One device-ready chunk of trajectory data."""
 
-    __slots__ = ("positions", "dimensions", "mask", "indices", "n_real")
+    __slots__ = ("positions", "dimensions", "mask", "indices", "n_real",
+                 "host")
 
     def __init__(self, positions, dimensions, mask, indices):
         self.positions = positions
@@ -60,6 +64,7 @@ class _Batch:
         self.mask = mask
         self.indices = indices
         self.n_real = len(indices)
+        self.host = None
 
 
 def carry_from_numpy(analysis, tree):
@@ -152,6 +157,10 @@ class SerialAnalysisBase:
     _chunk_bytes: int = 128 << 20
     #: atom columns to read per frame (None = all atoms).
     _atom_indices = None
+    #: read, cast, pin and start the copy of the next chunk on a worker
+    #: thread while the current chunk is launched (a pipeline one chunk
+    #: deep); false reads each chunk on the calling thread.
+    _prefetch_batches: bool = True
     #: host half of the chunk protocol (see the class docstring).
     _store_chunk = None
     _update = None
@@ -263,7 +272,12 @@ class SerialAnalysisBase:
 
     def _stream_batches(self) -> Iterator[_Batch]:
         """Stream the selected frames in chunks of ``_chunk_bytes`` of
-        float32 coordinates, copied to the device one chunk ahead."""
+        float32 coordinates, each read, cast, pinned and copied to the
+        device one chunk ahead of the compute: on a worker thread while
+        the consumer launches the chunk before it when
+        ``_prefetch_batches`` is set, else on the calling thread before
+        it yields that chunk.  Chunks arrive in frame order either
+        way."""
 
         device = self._device
         atom_indices = self._effective_atom_indices()
@@ -289,17 +303,21 @@ class SerialAnalysisBase:
             dims = torch.from_numpy(
                 np.ascontiguousarray(dimensions, dtype=np.float64)
             )
-            if cuda:
-                pos, dims = pos.pin_memory(), dims.pin_memory()
-                with torch.cuda.stream(copy_stream):
-                    pos = pos.to(device, non_blocking=True)
-                    dims = dims.to(device, non_blocking=True)
-            mask = torch.ones(len(block), dtype=torch.float64, device=device)
-            return _Batch(pos, dims, mask, block)
+            if not cuda:
+                mask = torch.ones(len(block), dtype=torch.float64)
+                return _Batch(pos, dims, mask, block)
+            host = (pos.pin_memory(), dims.pin_memory())
+            with torch.cuda.stream(copy_stream):
+                pos = host[0].to(device, non_blocking=True)
+                dims = host[1].to(device, non_blocking=True)
+                mask = torch.ones(len(block), dtype=torch.float64,
+                                  device=device)
+            batch = _Batch(pos, dims, mask, block)
+            # The pinned sources live as long as the batch.
+            batch.host = host
+            return batch
 
-        staged = stage(blocks[0]) if blocks else None
-        for i in range(len(blocks)):
-            batch = staged
+        def consume(batch):
             if cuda:
                 compute = torch.cuda.current_stream(device)
                 compute.wait_stream(copy_stream)
@@ -307,8 +325,28 @@ class SerialAnalysisBase:
                 # compute stream is done with them.
                 batch.positions.record_stream(compute)
                 batch.dimensions.record_stream(compute)
-            staged = stage(blocks[i + 1]) if i + 1 < len(blocks) else None
-            yield batch
+                batch.mask.record_stream(compute)
+            return batch
+
+        if not blocks:
+            return
+        if not self._prefetch_batches:
+            staged = stage(blocks[0])
+            for i in range(len(blocks)):
+                batch = consume(staged)
+                staged = stage(blocks[i + 1]) if i + 1 < len(blocks) else None
+                yield batch
+            return
+        # One worker, one chunk deep: it reads chunk n + 1 (the XTC
+        # reader's own decode threads run inside it) and starts its copy
+        # while the consumer launches chunk n.
+        with ThreadPoolExecutor(max_workers=1) as worker:
+            future = worker.submit(stage, blocks[0])
+            for i in range(len(blocks)):
+                batch = consume(future.result())
+                if i + 1 < len(blocks):
+                    future = worker.submit(stage, blocks[i + 1])
+                yield batch
 
     def _fused_parts(self):
         """``(device_fn, absorb)`` for fused streaming

@@ -83,14 +83,16 @@ def run_together(
         )
 
     # The stream reads every atom; each analysis gathers its columns.
-    driver = SerialAnalysisBase(trajectory, device=device)
-    driver._setup_frames(
+    shared = SerialAnalysisBase(trajectory, device=device)
+    shared._setup_frames(
         trajectory, start=start, stop=stop, step=step, frames=frames
     )
-    driver._chunk_bytes = min(a._chunk_bytes for a in analyses)
+    shared._chunk_bytes = min(a._chunk_bytes for a in analyses)
+    # The shared stream prefetches unless an analysis turned it off.
+    shared._prefetch_batches = all(a._prefetch_batches for a in analyses)
 
     carries = [a._carry for a in analyses]
-    for batch in driver._stream_batches():
+    for batch in shared._stream_batches():
         for i, ((device_fn, absorb), idx) in enumerate(zip(parts, gathers)):
             pos = batch.positions if idx is None else batch.positions[:, idx]
             carries[i], aux = device_fn(

@@ -808,9 +808,11 @@ def _fast_bin_index(d2, consts, n_bins):
     """Fast-path bin index from a float32 ``d2`` (``_fast_index_from_dist``
     of its square root, either convention); ``n_bins`` or above means
     out of range.  Clamped to ``n_bins`` before the truncating cast,
-    which changes no index below it."""
+    which changes no index below it.  The root is taken in float64 and
+    rounded to float32: correctly rounded, as numpy's, XLA's and CUDA's
+    ``sqrtf`` are (torch's float32 ``sqrt`` on the CPU is not always)."""
 
-    dist = torch.sqrt(d2)
+    dist = torch.sqrt(d2.double()).float()
     if consts[0] == "zero":
         return torch.clamp(dist * consts[1], max=float(n_bins)).to(
             torch.int32)

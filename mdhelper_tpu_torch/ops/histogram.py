@@ -225,12 +225,21 @@ def _exact_bin_indices(p1, p2, box, edges, *, elementwise=False):
     )
 
 
+def _root(d2):
+    """Correctly rounded square root in the dtype of `d2` (taken in
+    float64: torch's float32 ``sqrt`` on the CPU is not always correctly
+    rounded, numpy's, XLA's and CUDA's are)."""
+
+    return torch.sqrt(d2.double()).to(d2.dtype)
+
+
 def _min_image_distance(delta, box):
     """Minimum-image lengths of displacements `delta` ``(..., 3)`` in
     the dtype of `delta`, for orthorhombic lengths `box` ``(3,)`` (non-
     positive lengths are aperiodic axes and do not fold) or a
     ``(3, 3)`` lower-triangular box matrix (fractional fold, then the
-    smallest of the 27 images), as the JAX package's function."""
+    smallest of the 27 images), as the JAX package's function, with a
+    correctly rounded root."""
 
     if box.ndim == 2:
         frac = _row_times(delta, _inv3(box))
@@ -240,11 +249,11 @@ def _min_image_distance(delta, box):
             w = torch.tensor(shift, dtype=delta.dtype, device=delta.device)
             cand = base + _row_times(w, box)
             d2 = torch.minimum(d2, (cand * cand).sum(dim=-1))
-        return torch.sqrt(d2)
+        return _root(d2)
     period = torch.where(box > 0, box, torch.inf)
     shift = torch.where(box > 0, torch.round(delta / period), 0.0)
     delta = delta - box * shift
-    return torch.sqrt((delta * delta).sum(dim=-1))
+    return _root((delta * delta).sum(dim=-1))
 
 
 def radial_histogram_frame(pos1, pos2, box, edges, *, exclusion=None,

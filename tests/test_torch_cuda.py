@@ -1337,3 +1337,103 @@ def test_electrolyte_posthoc_on_the_card_equals_cpu(cuda_device):
                 card[key], value, rtol=1e-8,
                 atol=1e-9 * np.nanmax(np.abs(value), initial=0.0),
                 err_msg=key)
+
+
+def _files_universe(tmp_path, fmt):
+    """A 3,000-atom float32 random walk written with the port's writers
+    (GRO topology with names A and B, and an XTC or a DCD), opened with
+    ``Universe.from_files``."""
+
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.io import dcd, structure_writers, xtc
+
+    rng = np.random.default_rng(43)
+    n, n_frames = 3000, 13
+    box = float(n / 0.8) ** (1 / 3)
+    walk = rng.random((n, 3)) * box + np.cumsum(
+        rng.normal(0.0, 0.4, (n_frames, n, 3)), axis=0)
+    frames = np.mod(walk, box).astype(np.float32)
+    dims = np.array([box] * 3 + [90.0] * 3)
+    gro, traj = str(tmp_path / "top.gro"), str(tmp_path / f"traj.{fmt}")
+    structure_writers.write_gro(
+        gro, frames[0], names=np.where(np.arange(n) % 2, "B", "A"),
+        dimensions=dims)
+    if fmt == "xtc":
+        xtc.write_xtc(traj, frames / 10,
+                      np.tile(np.eye(3) * box / 10, (n_frames, 1, 1)))
+    else:
+        dcd.write_dcd(traj, frames, np.tile(dims, (n_frames, 1)))
+    return Universe.from_files(gro, traj)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["xtc", "dcd"])
+def test_files_slice_on_the_card_equals_cpu(cuda_device, tmp_path, fmt):
+    """The fused RDF + S(q) + MSD slice from files on the card, with the
+    prefetch on and off, against the CPU run: counts equal, S(q) within
+    the S(q) gate, the MSD within rtol 1e-8; the cross RDF of the two
+    name selections likewise."""
+
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+        StructureFactor,
+    )
+    from mdhelper_tpu_torch.analysis.transport import Onsager
+    from mdhelper_tpu_torch.io import _xtc_native
+
+    if fmt == "xtc":
+        assert _xtc_native.load() is not None
+    u = _files_universe(tmp_path, fmt)
+    group = u.select_atoms("all")
+    a, b = u.select_atoms("name A"), u.select_atoms("name B")
+    results = []
+    for device, prefetch in (("cpu", True), (cuda_device, True),
+                             (cuda_device, False)):
+        kw = dict(verbose=False, device=device)
+        runs = [RadialDistributionFunction(group, n_bins=60,
+                                           range=(0.0, 5.0),
+                                           exclusion=(1, 1), **kw),
+                StructureFactor(group, n_points=6, sort=False,
+                                unique=False, method="factor", **kw),
+                Onsager(group, unwrap=True, **kw),
+                RadialDistributionFunction(a, b, n_bins=60,
+                                           range=(0.0, 5.0), **kw)]
+        for run in runs:
+            run._chunk_bytes = 4 * 3000 * 3 * 4
+            run._prefetch_batches = prefetch
+        results.append([r.results for r in run_together(runs)])
+    cpu = results[0]
+    for card in results[1:]:
+        for i in (0, 3):
+            assert cpu[i].counts.sum() > 0
+            np.testing.assert_array_equal(card[i].counts, cpu[i].counts)
+        np.testing.assert_allclose(card[1].ssf, cpu[1].ssf, rtol=1e-4,
+                                   atol=1e-5)
+        for key in ("msd_self", "msd_cross"):
+            np.testing.assert_allclose(card[2][key], cpu[2][key], rtol=1e-8,
+                                       atol=1e-9 * np.abs(cpu[2][key]).max())
+    for key in ("msd_self", "msd_cross"):
+        np.testing.assert_array_equal(results[1][2][key], results[2][2][key])
+
+
+@pytest.mark.cuda
+def test_fast_bin_index_root_on_the_card_equals_ieee(cuda_device):
+    """The plain fast binning's root on the card (float64, rounded) and
+    torch's float32 sqrt there (IEEE) give the same indices as numpy's
+    correctly rounded root, at every bin edge of a 57,856-bin range."""
+
+    consts = cch._bin_boundary_constants(6.0, 57_856)
+    edges = np.arange(1, 57_857) / np.float64(consts[1])
+    centre = (edges * edges).astype(np.float32).view(np.int32)
+    d2 = (centre[:, None] + np.arange(-4, 5, dtype=np.int32)).ravel().view(
+        np.float32)
+    idx = cch._fast_bin_index(
+        torch.from_numpy(d2).to(cuda_device),
+        cch._device_constants(consts, cuda_device), 57_856).cpu().numpy()
+    root = np.sqrt(d2)
+    np.testing.assert_array_equal(
+        torch.sqrt(torch.from_numpy(d2).to(cuda_device)).cpu().numpy(), root)
+    np.testing.assert_array_equal(
+        idx, np.minimum(root * consts[1], np.float32(57_856)).astype(
+            np.int32))

@@ -55,6 +55,22 @@ def test_port_never_imports_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_sources_cover_the_file_layer():
+    """The file layer's modules are among the parsed sources, and the
+    native XTC codec is built from the port's own copy of its source."""
+
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("__init__", "dcd", "xtc", "_xtc_native", "trr",
+                   "netcdf3", "lammps_dump", "topology_files", "tpr",
+                   "structure_writers"):
+        assert f"mdhelper_tpu_torch/io/{module}.py" in names
+    assert "mdhelper_tpu_torch/core/trajectory.py" in names
+    from mdhelper_tpu_torch.io import _xtc_native
+
+    assert _xtc_native._SRC == ROOT / "mdhelper_tpu_torch/io/_xtc_native.cpp"
+    assert _xtc_native._BUILD == ROOT / "mdhelper_tpu_torch/_build"
+
+
 def test_import_rule_catches_both_packages():
     assert _forbidden("jax") and _forbidden("jax.numpy")
     assert _forbidden("mdhelper_tpu") and _forbidden("mdhelper_tpu.ops.x")

@@ -17,7 +17,16 @@ port's plain versions, in numpy and torch only:
   ``_exact_phases`` bit for bit;
 * (e) the exact sums' accumulation (two_sum a staging step, folded into
   float64, slices added in order) matches ``math.fsum`` rounded to
-  float32.
+  float32;
+* (f) the plain fast binning takes correctly rounded roots: torch's
+  float32 ``sqrt`` on the CPU is not always correctly rounded (about
+  0.7 % of inputs on an AVX-512 build come out an ulp off), so
+  ``_fast_bin_index`` and ``_min_image_distance`` take the root in
+  float64 and round it.  On float32 squared distances at bin edges,
+  those where torch's and numpy's roots disagree among them, the index
+  equals the JAX package's ``_fast_index_from_dist(jnp.sqrt(d2))``; and
+  the fast sweeps on pairs built one ulp from the edges count what the
+  JAX RDF class counts.  The (f) tests import JAX.
 """
 
 import math
@@ -69,19 +78,15 @@ def test_d2_cut_equals_plain_bin_index():
         idx = cch._fast_bin_index(t, cch._device_constants(consts, "cpu"),
                                   n_bins).numpy()
         # The plain formula with an IEEE sqrt, as the card's torch.sqrt and
-        # the kernel's __fsqrt_rn take it.  torch's float32 sqrt on some
-        # CPU builds (vectorized, AVX-512) misses the correct rounding by an
-        # ulp on a few inputs, so the plain version itself is compared
-        # where its sqrt is the IEEE one.
+        # the kernel's __fsqrt_rn take it; the plain version's root is
+        # correctly rounded too.
         root = np.sqrt(d2)
         ieee = np.minimum(root * consts[1], F32(n_bins)).astype(np.int32)
         np.testing.assert_array_equal(ieee < n_bins, d2 <= cut,
                                       err_msg=f"{r_max}, {n_bins}")
-        same_root = torch.sqrt(t).numpy() == root
-        assert same_root.mean() > 0.9
-        np.testing.assert_array_equal((idx < n_bins)[same_root],
-                                      (d2 <= cut)[same_root],
+        np.testing.assert_array_equal(idx < n_bins, d2 <= cut,
                                       err_msg=f"{r_max}, {n_bins}")
+        np.testing.assert_array_equal(idx, ieee)
         # the kernel's index behind the cut, without the clamp
         inside = d2 <= cut
         np.testing.assert_array_equal(
@@ -316,3 +321,125 @@ def test_compensated_sums_match_fsum(n_atoms, weighted):
     plain = torch.from_numpy(terms).sum(dim=-1, dtype=torch.float64)
     np.testing.assert_array_equal(_bits(plain.to(torch.float32).numpy()),
                                   _bits(want))
+
+
+# (f) correctly rounded roots in the plain fast binning ------------------------
+
+def _edge_d2(r_max, n_bins, spread=4):
+    """float32 squared distances within `spread` ulps of each bin edge's
+    square, and the binning constants."""
+
+    consts = cch._bin_boundary_constants(r_max, n_bins)
+    edges = np.arange(1, n_bins + 1) / np.float64(consts[1])
+    centre = (edges * edges).astype(F32).view(np.int32)
+    steps = np.arange(-spread, spread + 1, dtype=np.int32)
+    return consts, (centre[:, None] + steps).ravel().view(F32)
+
+
+@pytest.mark.parametrize("r_max, n_bins",
+                         [(6.0, 57_856), (15.0, 20_000), (6.0, 200),
+                          (5.0, 77), (2.0, 3)])
+def test_fast_bin_index_equals_jax_at_edges(r_max, n_bins):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from mdhelper_tpu.ops import pallas_cell_histogram as jax_cells
+
+    consts, d2 = _edge_d2(r_max, n_bins)
+    jax_consts = jax_cells._bin_boundary_constants(r_max, n_bins)
+    assert jax_consts[:2] == consts[:2]
+    ref = np.asarray(jax_cells._fast_index_from_dist(
+        jnp.sqrt(jnp.asarray(d2)), jax_consts, n_bins))
+    got = cch._fast_bin_index(torch.from_numpy(d2),
+                              cch._device_constants(consts, "cpu"),
+                              n_bins).numpy()
+    np.testing.assert_array_equal(got, np.minimum(ref, n_bins))
+    # and, by themselves, the squares on which torch's float32 root and
+    # numpy's disagree
+    disagree = torch.sqrt(torch.from_numpy(d2)).numpy() != np.sqrt(d2)
+    np.testing.assert_array_equal(got[disagree],
+                                  np.minimum(ref, n_bins)[disagree])
+
+
+#: the edge-pair fixture: 4,096 bins on [0, 4] (a float32 inverse width
+#: of 1024, edges at k / 1024 exactly), one pair at each site of a 6^3
+#: lattice 12.5 A apart in a 75 A cube, so only the 216 pairs are in range.
+EDGE_R, EDGE_BINS, EDGE_BOX, EDGE_SITES = 4.0, 4096, 75.0, 6
+
+
+def _edge_pairs(rng, tries=1000, steps=17):
+    """(positions (432, 3) float32, pairs at which torch's float32 root
+    bins otherwise): for each lattice site, a partner whose float32
+    squared distance (as the plain sweeps form it) has a correctly
+    rounded root within one ulp of a bin edge, binned by that root as
+    the float64 distance of the float32 positions bins it; partners at
+    which torch's own float32 root crosses the edge are taken first."""
+
+    spacing = EDGE_BOX / EDGE_SITES
+    grid = np.stack(np.meshgrid(*[np.arange(EDGE_SITES)] * 3,
+                                indexing="ij"), -1).reshape(-1, 3)
+    sites = (spacing / 2 + spacing * grid).astype(F32)
+    u = rng.normal(size=(len(sites), tries, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    length = rng.integers(EDGE_BINS // 4, EDGE_BINS, (len(sites), tries))
+    partner = sites[:, None].astype(np.float64) + u * (length / 1024)[..., None]
+    # walk z across the edge in steps of 2^-19 A
+    partner = (partner[:, :, None] + np.stack(
+        [np.zeros(steps), np.zeros(steps),
+         (np.arange(steps) - steps // 2) * 2.0**-19], -1)).reshape(
+             len(sites), -1, 3).astype(F32)
+    base = np.broadcast_to(sites[:, None], partner.shape)
+    d2 = cch._fast_d2_orthorhombic(
+        torch.from_numpy(np.ascontiguousarray(base)),
+        torch.from_numpy(partner),
+        torch.full((3,), EDGE_BOX, dtype=torch.float32)).numpy()
+    inv = F32(EDGE_BINS / EDGE_R)
+    root = np.sqrt(d2)
+    idx = (root * inv).astype(np.int64)
+    flips = ((np.nextafter(root, F32(np.inf)) * inv).astype(np.int64) != idx) | (
+        (np.nextafter(root, F32(0)) * inv).astype(np.int64) != idx)
+    exact = np.sqrt(((partner.astype(np.float64)
+                      - base.astype(np.float64)) ** 2).sum(-1)) * 1024
+    agree = ((np.floor(exact) == idx) & (exact < EDGE_BINS)
+             & (np.abs(exact - np.round(exact)) > 1e-9))
+    torch_idx = (torch.sqrt(torch.from_numpy(d2)).numpy() * inv).astype(
+        np.int64)
+    score = (flips & agree) * (1 + (torch_idx != idx))
+    pick = score.argmax(axis=1)
+    assert (score[np.arange(len(sites)), pick] > 0).all()
+    chosen = partner[np.arange(len(sites)), pick]
+    bites = int((score[np.arange(len(sites)), pick] == 2).sum())
+    return np.concatenate([sites, chosen]).astype(F32), bites
+
+
+def test_fast_sweeps_on_edge_pairs_equal_jax_rdf():
+    pytest.importorskip("jax")
+    from mdhelper_tpu.analysis import base as jax_base
+    from mdhelper_tpu.analysis.structure import RadialDistributionFunction
+    from mdhelper_tpu.core.universe import Universe
+
+    # (pairs that torch's float32 root bins otherwise: 4 on an AVX-512
+    # build; none where it is correctly rounded)
+    pos, _ = _edge_pairs(np.random.default_rng(61))
+    dims = np.array([EDGE_BOX] * 3 + [90.0] * 3)
+    universe = Universe.from_arrays(pos[None].astype(np.float64), dims)
+    rdf = RadialDistributionFunction(universe.atoms, n_bins=EDGE_BINS,
+                                     range=(0.0, EDGE_R), exclusion=(1, 1),
+                                     verbose=False)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_base.SerialAnalysisBase, "_coord_dtype", np.float32)
+        rdf.run()
+    ref = np.asarray(rdf.results.counts)
+    assert ref.sum() == 2 * len(pos) // 2
+
+    box = torch.full((3,), EDGE_BOX, dtype=torch.float32)
+    plan = cch.cell_plan_search(len(pos), np.full(3, EDGE_BOX), EDGE_R)
+    cells, _ = cch.cell_pair_histogram(
+        torch.from_numpy(pos)[None], box=box, r_max=EDGE_R,
+        n_cells_dim=plan["n_cells_dim"], reach=plan["reach"],
+        capacity=plan["capacity"], n_bins=EDGE_BINS, exclusion=(1, 1),
+        precision="fast")
+    brute = ck.pair_histogram(torch.from_numpy(pos), box, EDGE_R,
+                              EDGE_BINS, exclusion=(1, 1))
+    np.testing.assert_array_equal(cells[0].numpy(), ref)
+    np.testing.assert_array_equal(brute.numpy(), ref)

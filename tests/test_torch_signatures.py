@@ -15,8 +15,8 @@ pytest.importorskip("jax")
 pytest.importorskip("torch")
 
 #: JAX parameters the port does not take yet, by object, with the slice
-#: that brings them (ROADMAP Queue 1): files (item 3), checkpoints (item
-#: 9) and parallel/ (item 10) only.
+#: that brings them (ROADMAP Queue 1): checkpoints (item 9) and parallel/
+#: (item 10) only.
 NOT_PORTED = {
     "analysis.structure.RadialDistributionFunction": {
         "parallel": "parallel/ (item 10)",
@@ -40,16 +40,6 @@ NOT_PORTED = {
     "analysis.multi.run_together": {
         "parallel": "parallel/ (item 10)",
         "checkpoint": "checkpoints (item 9)",
-    },
-    "core.universe.Universe.from_arrays": {
-        "times": "files (item 3)",
-        "velocities": "files (item 3)",
-        "forces": "files (item 3)",
-    },
-    "core.trajectory.ArrayReader": {
-        "times": "files (item 3)",
-        "velocities": "files (item 3)",
-        "forces": "files (item 3)",
     },
 }
 
@@ -124,6 +114,55 @@ OBJECTS = [
     "algorithm.correlation.correlation_fft",
     "ops.pbc.unwrap_scan",
     "ops.pbc.wrap_positions",
+    # files: readers, writers, parsers, the universe's file entry points
+    "core.universe.Universe.from_files",
+    "core.universe.Universe.guess_bonds",
+    "core.universe.Universe.select_atoms",
+    "core.universe.AtomGroup.select_atoms",
+    "core.universe.AtomGroup.write",
+    "core.trajectory.open_trajectory",
+    "core.trajectory.NPZReader",
+    "core.trajectory.NetCDFReader",
+    "core.trajectory.DCDReader",
+    "core.trajectory.XTCReader",
+    "core.trajectory.TRRReader",
+    "core.trajectory.LAMMPSDumpReader",
+    "core.trajectory.XYZReader",
+    "core.trajectory.GROReader",
+    "core.trajectory.PDBReader",
+    "core.trajectory.TrajectoryReader.read_velocity_frames",
+    "core.trajectory.TrajectoryReader.read_frames_with_velocities",
+    "core.trajectory.TrajectoryReader.read_dimension_frames",
+    "core.trajectory.TrajectoryReader.read_force_frames",
+    "io.open_trajectory_writer",
+    "io.dcd.DCDFile",
+    "io.dcd.DCDWriter",
+    "io.dcd.write_dcd",
+    "io.xtc.XTCFile",
+    "io.xtc.XTCWriter",
+    "io.xtc.write_xtc",
+    "io.xtc.compress_coords",
+    "io.xtc.decompress_coords",
+    "io.trr.TRRFile",
+    "io.trr.TRRWriter",
+    "io.trr.write_trr",
+    "io.lammps_dump.LAMMPSDumpFile",
+    "io.lammps_dump.LAMMPSDumpWriter",
+    "io.lammps_dump.write_lammps_dump",
+    "io.netcdf3.Dataset",
+    "io.structure_writers.write_pdb",
+    "io.structure_writers.write_gro",
+    "io.structure_writers.write_xyz",
+    "io.topology_files.read_topology_file",
+    "io.topology_files.read_psf",
+    "io.topology_files.read_pdb",
+    "io.topology_files.read_gro",
+    "io.topology_files.read_lammps_data",
+    "io.topology_files.read_gmx_top",
+    "io.topology_files.read_prmtop",
+    "io.tpr.read_tpr",
+    "algorithm.topology.guess_bonds",
+    "algorithm.topology.resolve_vdw_radii",
 ]
 
 
@@ -165,12 +204,13 @@ def test_groupings_are_ported_everywhere():
 
 
 def test_units_centering_and_charges_are_ported():
-    """Only files (item 3), checkpoints (item 9) and parallel/ (item 10)
-    remain: no unit, reduced-unit, centering or charge parameter."""
+    """Only checkpoints (item 9) and parallel/ (item 10) remain: no unit,
+    reduced-unit, centering, charge or file parameter."""
 
     listed = set().union(*(set(v) for v in NOT_PORTED.values()))
     assert not {"reduced", "n_batches", "temperature", "charges", "center",
-                "center_atom", "center_wrap"} & listed
+                "center_atom", "center_wrap", "times", "velocities",
+                "forces"} & listed
     for reasons in NOT_PORTED.values():
         for reason in reasons.values():
-            assert any(f"(item {n})" in reason for n in (3, 9, 10)), reason
+            assert any(f"(item {n})" in reason for n in (9, 10)), reason
