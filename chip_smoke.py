@@ -84,8 +84,18 @@ to the arrays written, the XTC's within half its precision step, the
 native XTC codec loaded; frames/s from the ArrayReader, the DCD and the
 XTC with the prefetch on and off, the host's decode time a chunk, the
 device's busy share, and both kernels on the paths' plans against their
-plain versions.  Every check raises on failure, so any failed phase
-exits non-zero.  The last lines of
+plain versions.  Then slice 14, density profiles and electrostatics
+(no kernel of the kernels line launches there): bench.py's config-4
+path, the z density profiles of the electrolyte's 50k cations and 50k
+anions (200 bins, 8 + 32 frames, the z column streamed alone) and the
+Poisson potential, against numpy float32 histograms on the JAX
+package's float32 edges, with its busy share and the same path
+streaming all three columns in turns; the dipole-fluctuation
+permittivity and dielectric spectrum of 33,333 SPC/E waters
+(DipoleMoment with unwrap) against a float64 sum; and one chunk each of
+the radial profiles (spherical, cylindrical, about a center of mass)
+and the 192^2 and 64^3 density maps against numpy oracles.  Every check
+raises on failure, so any failed phase exits non-zero.  The last lines of
 standard output are the card's name and power limit, a JSON line of
 per-kernel measurements (each beside its bound: the larger of the
 float32 operations of the pairs binned, or of the trig terms summed,
@@ -2821,14 +2831,15 @@ def isf_analysis(u, device, **kwargs):
     return analysis
 
 
-def run_profiled(analyses, n_frames, profiled=0):
+def run_profiled(analyses, n_frames, profiled=0, runner=None):
     """``run_together(analyses)`` over `n_frames` frames, clocked from the
     end of the first chunk to the end of the conclusions, or, with
     `profiled` frames, to the start of the last `profiled` frames, which
     run under torch.profiler for the device's busy share of their wall
     time (to the end of the last chunk: the conclusions stay out).
-    Returns ``(frames/s, busy share or None, device activities a profiled
-    frame or None)``."""
+    `runner` takes run_together's place (``runner(analyses,
+    on_chunk=...)``).  Returns ``(frames/s, busy share or None, device
+    activities a profiled frame or None)``."""
 
     import torch
     from torch.autograd import DeviceType
@@ -2854,7 +2865,7 @@ def run_profiled(analyses, n_frames, profiled=0):
             marks.append(time.perf_counter())
             prof.stop()
 
-    run_together(analyses, on_chunk=on_chunk)
+    (runner or run_together)(analyses, on_chunk=on_chunk)
     torch.cuda.synchronize()
     end = time.perf_counter()
     if not profiled:
@@ -3945,6 +3956,343 @@ def phase_files(device, rng, card):
     return out
 
 
+# Slice 14: density profiles and electrostatics.  bench.py's config-4
+# phase: the z density profiles of the 100k-ion electrolyte's cations and
+# anions (200 bins) and the Poisson potential across the cell; the
+# dipole-fluctuation permittivity of WATER_MOL SPC/E waters; one chunk
+# each of the radial profiles, a center-of-mass center and the 2-D and
+# 3-D density maps.
+PROFILE_BINS = 200
+PROFILE_TURNS, PROFILE_TURN_FRAMES = 4, 128
+MAP2D_BINS, MAP3D_BINS = 192, 64
+RADIAL_CENTER_ATOMS = 16
+
+
+def kernel_launch_counts():
+    """Every kernel wrapper's launch count, by kernel."""
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+    from mdhelper_tpu_torch.ops import cuda_kernels
+
+    kernels = (cch.cell_pair_histogram, cch.cross_pair_histogram,
+               cch.triclinic_cell_pair_histogram,
+               cch.triclinic_cross_pair_histogram, cuda_kernels.trig_sums,
+               cuda_kernels.pair_histogram)
+    return {k.__name__: k.launches for k in kernels}
+
+
+def numpy_wrap(x, length):
+    """float32 ``x - floor(x / L) * L``, one rounding an operation."""
+
+    length = np.float32(length)
+    return x - np.floor(x / length) * length
+
+
+def f32_group_com(pos, masses):
+    """float32 centers of mass ``(B, 3)`` of ``pos`` ``(B, K, 3)``: the
+    weighted float32 positions summed atom by atom from 0, over the
+    masses summed so (the port's segment reduction)."""
+
+    m = masses.astype(np.float32)
+    total = np.zeros((len(pos), 3), np.float32)
+    mass = np.float32(0)
+    for k in range(pos.shape[1]):
+        total = total + pos[:, k] * m[k]
+        mass = mass + m[k]
+    return total / mass
+
+
+def f64_radial_counts(pos, centers, box, edges, drop_axis=None):
+    """float64 histogram of the minimum-image distances of float32 `pos`
+    ``(B, N, 3)`` from float32 `centers` ``(B, 3)`` in the cube `box`,
+    with `drop_axis` left out (cylindrical)."""
+
+    counts = np.zeros(len(edges) - 1, np.int64)
+    for b in range(len(pos)):
+        d = pos[b].astype(np.float64) - centers[b].astype(np.float64)
+        d -= box * np.round(d / box)
+        if drop_axis is not None:
+            d[:, drop_axis] = 0.0
+        counts += np.histogram(np.sqrt((d * d).sum(-1)), bins=edges)[0]
+    return counts
+
+
+def run_alone(analyses, on_chunk=None, frames=None):
+    """``run()`` of the one analysis in `analyses` (its own stream, which
+    carries only its coordinate columns), calling ``on_chunk(batch)``
+    after each chunk's update as run_together does."""
+
+    (analysis,) = analyses
+    if on_chunk is not None:
+        batched = analysis._batched_update
+
+        def hooked(carry, batch):
+            carry = batched(carry, batch)
+            on_chunk(batch)
+            return carry
+
+        analysis._batched_update = hooked
+    analysis.run(frames=frames)
+    return analyses
+
+
+def profile_analysis(groups, device, columns=True):
+    """bench.py's config-4 DensityProfile (z, PROFILE_BINS bins) in chunks
+    of CHUNK frames; with ``columns=False`` it streams all three
+    coordinates and takes z on the device (``_coord_axes`` off)."""
+
+    from mdhelper_tpu_torch.analysis.profile import DensityProfile
+
+    class AllColumns(DensityProfile):
+        def _prepare(self):
+            super()._prepare()
+            axes, self._coord_axes = self._coord_axes, None
+            update = self._update
+            self._update = lambda carry, positions, dimensions, mask: update(
+                carry, positions[:, :, axes], dimensions, mask)
+
+    cls = DensityProfile if columns else AllColumns
+    a = cls(groups, axes="z", n_bins=PROFILE_BINS, verbose=False,
+            device=device)
+    a._chunk_bytes = CHUNK * N_ATOMS * (1 if columns else 3) * 4
+    return a
+
+
+def phase_profiles(device, rng, card):
+    """Slice 14 on the card.  bench.py's config-4 path: DensityProfile of
+    the cations and anions of the 100k-ion electrolyte (electrolyte_universe,
+    select_atoms by charge) along z, 200 bins, over 8 + 32 frames, then
+    calculate_potential_profile(dielectric=78, axis="z"), clocked from
+    the end of the first chunk through the conclusion and the potential;
+    the device's busy share (run_profiled); the host-to-device bytes a
+    chunk; the path with the z column sliced on the device instead
+    (``_coord_axes`` off) in turns with the default after a warm-up run.
+    Checks: the counts equal numpy histograms of the same float32 wrapped
+    z against the float32 edges, the densities average to N/V, the
+    potential is finite.  The permittivity path: DipoleMoment(unwrap=True)
+    of WATER_MOL SPC/E waters over 8 + 32 frames, the relative
+    permittivity at 300 K and the dielectric spectrum; the dipoles against
+    a float64 numpy sum of the numpy-unwrapped float32 positions.  One
+    chunk each of RadialDensityProfile (spherical about the box center,
+    cylindrical about z through it, spherical about the center of mass of
+    RADIAL_CENTER_ATOMS ions), DensityMap2D (192^2) and DensityMap3D
+    (64^3), each against a numpy oracle on the same edges.  No kernel of
+    the kernels line launches in this phase."""
+
+    import warnings
+
+    import torch
+
+    from mdhelper_tpu_torch.algorithm.topology import unwrap_edge
+    from mdhelper_tpu_torch.analysis.electrostatics import (
+        DipoleMoment,
+        calculate_dielectric_spectrum,
+    )
+    from mdhelper_tpu_torch.analysis.profile import (
+        DensityMap2D,
+        DensityMap3D,
+        RadialDensityProfile,
+    )
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.ops.profiles import linspace_edges_f32
+    from mdhelper_tpu_torch.testing import water_system
+
+    started = time.perf_counter()
+    steps = [("trajectory", time.perf_counter())]
+    traj, u = electrolyte_universe(rng, N_FRAMES)
+    groups = [u.select_atoms("charge > 0"), u.select_atoms("charge < 0")]
+    volume = BOX**3
+    out = {}
+    launches_before = kernel_launch_counts()
+
+    def timed(analysis, posthoc=None, frames=None):
+        """``analysis.run()`` over `frames` (default: all N_FRAMES), clocked
+        from the end of the first chunk through the conclusion and
+        `posthoc`: frames/s."""
+
+        marks = []
+        n_frames = N_FRAMES if frames is None else len(frames)
+
+        def on_chunk(batch):
+            if not marks:
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                marks.append(batch.n_real)
+
+        run_alone([analysis], on_chunk=on_chunk, frames=frames)
+        if posthoc is not None:
+            posthoc(analysis)
+        torch.cuda.synchronize()
+        return (n_frames - marks[1]) / (time.perf_counter() - marks[0])
+
+    def potential(a):
+        # bench.py's call: sigma_q from the plateau of the integrated
+        # charge density (which warns that it does so).
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            a.calculate_potential_profile(dielectric=78.0, axis="z")
+
+    steps.append(("config-4 path", time.perf_counter()))
+    profile = profile_analysis(groups, device)
+    out["fps"] = timed(profile, potential)
+    edges = linspace_edges_f32(BOX, PROFILE_BINS)
+    denom = PROFILE_BINS / volume / N_FRAMES
+    for g, group in enumerate(groups):
+        z = numpy_wrap(traj[:, group.ix, 2], BOX)
+        oracle = np.histogram(z, bins=edges)[0]
+        dens = profile.results.number_densities[0][g]
+        check(np.array_equal(np.round(dens / denom), oracle)
+              and np.array_equal(dens, oracle * denom),
+              f"config-4 profile of group {g}: counts differ from numpy's "
+              "float32 histogram")
+        mean = dens.mean()
+        check(abs(mean / (group.n_atoms / volume) - 1) < 1e-12,
+              f"config-4 profile of group {g} averages to {mean}, not N/V")
+    psi = profile.results.potentials[0]
+    check(psi.shape == (PROFILE_BINS,) and np.all(np.isfinite(psi)),
+          "config-4 potential not finite")
+    rho_q = profile.results.charge_densities[0]
+    print(f"config-4 path (DensityProfile z, {PROFILE_BINS} bins, of "
+          f"{N_ATOMS // 2} cations and {N_ATOMS // 2} anions, then the "
+          f"Poisson potential): {out['fps']:.3f} frames/s on {card} from the "
+          f"end of the first chunk through the potential; counts == numpy "
+          f"float32 histograms; |rho_q| <= {np.abs(rho_q).max():.3e} e/A^3, "
+          f"potential in [{psi.min():.4f}, {psi.max():.4f}] V")
+
+    steps.append(("config-4 profiled", time.perf_counter()))
+    _, out["busy"], activities = run_profiled(
+        [profile_analysis(groups, device)], N_FRAMES, CHUNK, run_alone)
+    print(f"config-4 path: device busy {100 * out['busy']:.1f} % of the last "
+          f"{CHUNK} frames' wall time (profiler on; {activities:.0f} device "
+          "activities a frame)")
+
+    steps.append(("columns in turns", time.perf_counter()))
+    # 8 + 128 frames (the trajectory's frames over again) a run: the runs
+    # of 8 + 32 frames take a few ms, within the host's jitter.
+    frames = np.arange(CHUNK + PROFILE_TURN_FRAMES) % N_FRAMES
+    fps = {True: [], False: []}
+    for columns in (True, False):
+        timed(profile_analysis(groups, device, columns), frames=frames)
+    for turn in range(PROFILE_TURNS):
+        for columns in ((True, False) if turn % 2 == 0 else (False, True)):
+            fps[columns].append(timed(
+                profile_analysis(groups, device, columns), frames=frames))
+    out["fps_columns"] = {k: float(np.mean(v)) for k, v in fps.items()}
+    print(f"config-4 path over 8 + {PROFILE_TURN_FRAMES} frames, "
+          f"{PROFILE_TURNS} turns (order alternating) after a warm-up of "
+          f"each: z column only {out['fps_columns'][True]:.3f} frames/s "
+          f"({CHUNK * N_ATOMS * 4} H2D bytes a chunk), all three columns "
+          f"{out['fps_columns'][False]:.3f} frames/s "
+          f"({CHUNK * N_ATOMS * 12} H2D bytes a chunk); z only / all each "
+          "turn " + ", ".join(f"{a:.1f}/{b:.1f}" for a, b in zip(
+              fps[True], fps[False])))
+
+    steps.append(("permittivity path", time.perf_counter()))
+    frames, topology = water_system(rng, WATER_MOL, BOX, N_FRAMES,
+                                    step=WATER_STEP, charges=True)
+    waters = Universe.from_arrays(
+        frames, np.array([BOX] * 3 + [90.0] * 3), dt=1.0, **topology)
+    dipole = DipoleMoment(waters.atoms, unwrap=True, verbose=False,
+                          device=device)
+    dipole._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
+
+    def permittivity(a):
+        a.calculate_relative_permittivity(300)
+        out["spectrum"] = calculate_dielectric_spectrum(
+            a.results.dipoles[:, 0], 300, a.results.volumes.mean(), 1.0)
+
+    out["dipole_fps"] = timed(dipole, permittivity)
+    waters.trajectory[0]
+    prev = unwrap_edge(group=waters.atoms).astype(np.float32)
+    box32 = np.float32(BOX)
+    images = np.zeros(prev.shape, np.int32)
+    q = np.asarray(topology["charges"], np.float64)
+    oracle = np.empty((N_FRAMES, 3))
+    for t in range(N_FRAMES):
+        delta = frames[t] - prev
+        images -= np.where(np.abs(delta) >= box32 / np.float32(2),
+                           np.sign(delta), 0).astype(np.int32)
+        prev = frames[t]
+        unwrapped = frames[t] + images.astype(np.float32) * box32
+        oracle[t] = (q[:, None] * unwrapped.astype(np.float64)).sum(0)
+    err = np.abs(dipole.results.dipoles[:, 0] - oracle).max()
+    scale = (np.abs(q) * 2 * BOX).sum()
+    check(err <= 1e-12 * scale,
+          f"dipoles differ from the float64 numpy sum by {err}")
+    eps = dipole.results.dielectric
+    spectrum = out["spectrum"]
+    check(np.isfinite(eps) and eps > 1.0
+          and np.all(np.isfinite(spectrum.epsilon)),
+          f"permittivity {eps} or its spectrum not finite")
+    print(f"permittivity path (DipoleMoment unwrap=True of {WATER_MOL} SPC/E "
+          f"waters, then the permittivity and the dielectric spectrum): "
+          f"{out['dipole_fps']:.3f} frames/s on {card} from the end of the "
+          f"first chunk through both; dipoles within {err:.2e} e A of the "
+          f"float64 numpy sum; eps_r {eps:.4f} (uncorrelated walkers: "
+          f"information only), delta_eps {spectrum.delta_epsilon:.4f}")
+
+    steps.append(("radial and maps", time.perf_counter()))
+    chunk = traj[:CHUNK]
+    box = np.float32(BOX).astype(np.float64)
+    middle = np.full(3, BOX / 2)
+    small = u.atoms[:RADIAL_CENTER_ATOMS]
+    radial_cases = (
+        ("spherical about the box center", middle, {}, None),
+        ("cylindrical about z", middle, dict(geometry="cylindrical"), 2),
+        (f"spherical about the center of mass of {RADIAL_CENTER_ATOMS} "
+         "ions", small, {}, None),
+    )
+    for what, center, kwargs, drop in radial_cases:
+        a = RadialDensityProfile(groups, center, verbose=False,
+                                 device=device, **kwargs)
+        a.run(stop=CHUNK)
+        if hasattr(center, "universe"):
+            centers = f32_group_com(chunk[:, center.ix], center.masses)
+        else:
+            centers = np.broadcast_to(center.astype(np.float32), (CHUNK, 3))
+        for g, group in enumerate(groups):
+            oracle = f64_radial_counts(chunk[:, group.ix], centers, box,
+                                       a.results.edges, drop)
+            check(np.array_equal(a.results.counts[g], oracle)
+                  and oracle.sum() > 0,
+                  f"RadialDensityProfile {what}, group {g}: counts differ "
+                  "from the float64 oracle")
+        print(f"RadialDensityProfile {what}, one chunk of {CHUNK} frames: "
+              f"{int(a.results.counts.sum())} counts == float64 oracle")
+
+    with warnings.catch_warnings():
+        # Atoms of both charges: no charge map, which the maps say.
+        warnings.simplefilter("ignore")
+        plane = DensityMap2D(u.atoms, n_bins=MAP2D_BINS, verbose=False,
+                             device=device)
+        voxels = DensityMap3D(u.atoms, n_bins=MAP3D_BINS, verbose=False,
+                              device=device)
+    plane.run(stop=CHUNK)
+    e = np.linspace(0.0, BOX, MAP2D_BINS + 1).astype(np.float32)
+    xy = numpy_wrap(chunk[..., :2], BOX).reshape(-1, 2)
+    oracle = np.histogram2d(xy[:, 0], xy[:, 1], bins=[e, e])[0]
+    check(np.array_equal(plane.results.counts[0], oracle),
+          "DensityMap2D differs from numpy's histogram2d")
+    voxels.run(stop=CHUNK)
+    e = np.linspace(0.0, BOX, MAP3D_BINS + 1).astype(np.float32)
+    xyz = numpy_wrap(chunk, BOX).reshape(-1, 3)
+    oracle = np.histogramdd(xyz, bins=[e, e, e])[0]
+    check(np.array_equal(voxels.results.counts[0], oracle),
+          "DensityMap3D differs from numpy's histogramdd")
+    print(f"DensityMap2D ({MAP2D_BINS}^2) and DensityMap3D ({MAP3D_BINS}^3), "
+          f"one chunk of {CHUNK} frames of {N_ATOMS} atoms: counts == numpy "
+          "histogram2d / histogramdd")
+
+    check(kernel_launch_counts() == launches_before,
+          "a kernel of the kernels line launched in the profile phase")
+    steps.append(("", time.perf_counter()))
+    out["seconds"] = time.perf_counter() - started
+    print("profiles phase steps: " + ", ".join(
+        f"{name} {t1 - t0:.1f} s"
+        for (name, t0), (_, t1) in zip(steps, steps[1:])))
+    return out
+
+
 def main():
     import torch
 
@@ -4049,6 +4397,14 @@ def main():
     print(f"files path (GRO + XTC, {N_ATOMS} atoms): device busy "
           f"{100 * files['busy']:.1f} % (information, not a claim); the "
           f"files phase took {files['seconds']:.1f} s")
+
+    # Slice 14 draws from its own generator.
+    profiles = phase_profiles(device, np.random.default_rng(SEED + 12), card)
+    print(f"config-4 path ({N_ATOMS} ions, z profile + potential): "
+          f"{profiles['fps']:.3f} frames/s on {card}, device busy "
+          f"{100 * profiles['busy']:.1f} %; permittivity path ({WATER_MOL} "
+          f"waters): {profiles['dipole_fps']:.3f} frames/s (information, not "
+          f"a claim); the profiles phase took {profiles['seconds']:.1f} s")
 
     def path_row(shape, timing_plan, path, plain_from=None, plain_shape=None):
         """(launches, shape, timing) of a slice-4 row, whose kernel was

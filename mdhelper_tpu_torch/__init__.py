@@ -18,10 +18,16 @@ The port currently covers the fused RDF + S(q) + MSD main path
 the topology and center-of-mass groupings, the unit registry
 (``ureg``, ``Q_``) with the post-hoc methods of these classes
 (coordination numbers, potentials of mean force, transport coefficients
-and conductivities, charge structure factors), and the file layer
+and conductivities, charge structure factors), the file layer
 (:meth:`~mdhelper_tpu_torch.core.universe.Universe.from_files`, the
 selection language, the trajectory readers and writers of
-:mod:`mdhelper_tpu_torch.io`).
+:mod:`mdhelper_tpu_torch.io`), and the density profiles and
+electrostatics (:mod:`mdhelper_tpu_torch.analysis.profile`:
+:class:`~mdhelper_tpu_torch.analysis.profile.DensityProfile` and the
+Poisson potential, the radial profile and the 2-D and 3-D density maps;
+:mod:`mdhelper_tpu_torch.analysis.electrostatics`: dipole moments, the
+relative permittivity and the dielectric spectrum) on the serial
+:class:`~mdhelper_tpu_torch.analysis.base.DynamicAnalysisBase`.
 """
 
 from importlib.util import find_spec

@@ -1,1 +1,35 @@
-"""Ported analyses and the streaming runtime."""
+"""
+Analysis modules
+================
+
+The ported analyses and the streaming runtime, module for module as in
+:mod:`mdhelper_tpu.analysis`.
+"""
+
+from . import (  # noqa: F401
+    base,
+    electrostatics,
+    multi,
+    profile,
+    structure,
+    transport,
+)
+from .base import (  # noqa: F401
+    DynamicAnalysisBase,
+    Hash,
+    SerialAnalysisBase,
+)
+from .multi import run_together  # noqa: F401
+
+__all__ = [
+    "base",
+    "electrostatics",
+    "multi",
+    "profile",
+    "run_together",
+    "structure",
+    "transport",
+    "DynamicAnalysisBase",
+    "Hash",
+    "SerialAnalysisBase",
+]

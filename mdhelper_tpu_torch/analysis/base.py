@@ -14,8 +14,12 @@ On a CUDA device the host side of a chunk goes through a pinned buffer
 and a ``non_blocking`` copy on a side stream, one chunk ahead of the
 compute; with ``_prefetch_batches`` (the default) a worker thread reads,
 decodes and stages the next chunk while the current one is launched.
+An analysis that reads only some coordinate columns names them in
+``_coord_axes``: the chunk is sliced on the host before the pin and the
+copy, and sized by the columns it carries.
 The port runs on one device; there is no frame sharding, host
-pipeline, multi-host mode or checkpointing yet.
+pipeline, multi-host mode or checkpointing yet
+(:class:`DynamicAnalysisBase` takes ``parallel=False`` only).
 """
 
 import logging
@@ -28,7 +32,8 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["Hash", "SerialAnalysisBase", "carry_from_numpy", "carry_leaves"]
+__all__ = ["DynamicAnalysisBase", "Hash", "SerialAnalysisBase",
+           "carry_from_numpy", "carry_leaves"]
 
 
 class Hash(dict):
@@ -157,6 +162,8 @@ class SerialAnalysisBase:
     _chunk_bytes: int = 128 << 20
     #: atom columns to read per frame (None = all atoms).
     _atom_indices = None
+    #: coordinate columns to stream, in this order (None = x, y and z).
+    _coord_axes = None
     #: read, cast, pin and start the copy of the next chunk on a worker
     #: thread while the current chunk is launched (a pipeline one chunk
     #: deep); false reads each chunk on the calling thread.
@@ -222,8 +229,8 @@ class SerialAnalysisBase:
 
     # -- chunk protocol ----------------------------------------------------
     def _batched_update(self, carry, batch: _Batch):
-        """Fold one chunk into the carry; store extras are queued and
-        absorbed one chunk late."""
+        """Fold one chunk into the carry; store extras (unless None) are
+        queued and absorbed one chunk late."""
 
         out = self._update(
             carry, batch.positions, batch.dimensions, batch.mask
@@ -231,31 +238,46 @@ class SerialAnalysisBase:
         if self._store_chunk is None:
             return out
         carry, extras = out
-        self._queue_store(extras, batch)
+        if extras is not None:
+            self._queue_store(extras, batch)
         return carry
 
     def _queue_store(self, extras, batch: _Batch) -> None:
-        """Start the device-to-host copy of one chunk's extras (a
-        tensor), then absorb the previously queued chunk, whose copy has
-        had a chunk of compute to finish."""
+        """Start the device-to-host copy of one chunk's extras (a tensor,
+        or a tuple or list of tensors), then absorb the previously queued
+        chunk, whose copy has had a chunk of compute to finish."""
 
-        event = None
-        if extras.device.type == "cuda":
-            host = torch.empty(
-                extras.shape, dtype=extras.dtype, pin_memory=True
-            )
-            host.copy_(extras, non_blocking=True)
+        parts = extras if isinstance(extras, (tuple, list)) else (extras,)
+        event = cuda = None
+        host = []
+        for part in parts:
+            if part.device.type == "cuda":
+                cuda = part.device
+                pinned = torch.empty(part.shape, dtype=part.dtype,
+                                     pin_memory=True)
+                pinned.copy_(part, non_blocking=True)
+                part = pinned
+            host.append(part)
+        if cuda is not None:
+            # One event after the last copy covers them all.
             event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(extras.device))
-            extras = host
+            event.record(torch.cuda.current_stream(cuda))
+        if isinstance(extras, (tuple, list)):
+            host = type(extras)(host)
+        else:
+            host = host[0]
         self._drain_stores()
-        self._pending_stores.append((extras, event, batch))
+        self._pending_stores.append((host, event, batch))
 
     def _drain_stores(self) -> None:
         for extras, event, batch in self._pending_stores:
             if event is not None:
                 event.synchronize()
-            self._store_chunk(extras.numpy(), batch)
+            if isinstance(extras, (tuple, list)):
+                extras = type(extras)(part.numpy() for part in extras)
+            else:
+                extras = extras.numpy()
+            self._store_chunk(extras, batch)
         self._pending_stores.clear()
 
     def _effective_atom_indices(self):
@@ -272,7 +294,8 @@ class SerialAnalysisBase:
 
     def _stream_batches(self) -> Iterator[_Batch]:
         """Stream the selected frames in chunks of ``_chunk_bytes`` of
-        float32 coordinates, each read, cast, pinned and copied to the
+        float32 coordinates (the columns of ``_coord_axes``, or all
+        three), each read, sliced, cast, pinned and copied to the
         device one chunk ahead of the compute: on a worker thread while
         the consumer launches the chunk before it when
         ``_prefetch_batches`` is set, else on the calling thread before
@@ -285,7 +308,10 @@ class SerialAnalysisBase:
             len(atom_indices) if atom_indices is not None
             else self._trajectory.n_atoms
         )
-        chunk = max(1, self._chunk_bytes // max(n_atoms * 3 * 4, 1))
+        axes = (None if self._coord_axes is None
+                else np.asarray(self._coord_axes, dtype=np.intp))
+        n_columns = 3 if axes is None else len(axes)
+        chunk = max(1, self._chunk_bytes // max(n_atoms * n_columns * 4, 1))
         blocks = [
             self.frames[lo:lo + chunk]
             for lo in range(0, self.n_frames, chunk)
@@ -295,8 +321,14 @@ class SerialAnalysisBase:
 
         def stage(block):
             positions, dimensions = self._trajectory.read_frames(block)
-            if atom_indices is not None:
+            if atom_indices is not None and axes is not None:
+                # One gather of the wanted atoms' wanted columns.
+                positions = positions[:, np.asarray(atom_indices)[:, None],
+                                      axes]
+            elif atom_indices is not None:
                 positions = positions[:, atom_indices]
+            elif axes is not None:
+                positions = positions[:, :, axes]
             pos = torch.from_numpy(
                 np.ascontiguousarray(positions, dtype=np.float32)
             )
@@ -388,3 +420,20 @@ class SerialAnalysisBase:
                 f"Analysis finished in {datetime.now() - time_start}."
             )
         return self
+
+
+class DynamicAnalysisBase(SerialAnalysisBase):
+    """The base of the analyses that the JAX package can shard over
+    frames (``parallel=True``).  The port runs them serially:
+    ``parallel=False`` is :class:`SerialAnalysisBase`, and
+    ``parallel=True`` raises `NotImplementedError` until the mesh runtime
+    is ported (ROADMAP Queue 1, item 10)."""
+
+    def __init__(self, trajectory, parallel: bool, verbose: bool = False,
+                 *, device=None):
+        if parallel:
+            raise NotImplementedError(
+                "parallel=True is not ported yet (ROADMAP Queue 1, item 10:"
+                " parallel/); run with parallel=False."
+            )
+        super().__init__(trajectory, verbose, device=device)

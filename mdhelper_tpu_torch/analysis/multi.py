@@ -78,11 +78,15 @@ def run_together(
     gathers = []
     for a in analyses:
         idx = a._effective_atom_indices()
-        gathers.append(
-            None if idx is None else torch.as_tensor(idx, device=device)
-        )
+        axes = a._coord_axes
+        gathers.append((
+            None if idx is None else torch.as_tensor(idx, device=device),
+            None if axes is None else list(axes),
+        ))
 
-    # The stream reads every atom; each analysis gathers its columns.
+    # The stream reads every atom and all three coordinates; each
+    # analysis gathers its atoms and, where it streams fewer when run
+    # alone, its coordinate columns.
     shared = SerialAnalysisBase(trajectory, device=device)
     shared._setup_frames(
         trajectory, start=start, stop=stop, step=step, frames=frames
@@ -93,8 +97,11 @@ def run_together(
 
     carries = [a._carry for a in analyses]
     for batch in shared._stream_batches():
-        for i, ((device_fn, absorb), idx) in enumerate(zip(parts, gathers)):
+        for i, ((device_fn, absorb), (idx, axes)) in enumerate(
+                zip(parts, gathers)):
             pos = batch.positions if idx is None else batch.positions[:, idx]
+            if axes is not None:
+                pos = pos[:, :, axes]
             carries[i], aux = device_fn(
                 carries[i], pos, batch.dimensions, batch.mask
             )

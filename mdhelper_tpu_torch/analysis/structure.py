@@ -432,30 +432,41 @@ def _group_segment_ids(ag, grouping: str):
 
 def _com_reducer(group, grouping: str, device):
     """``(reduce, n_entities)`` of a group under `grouping`: ``reduce`` maps
-    ``(B, n_atoms, 3)`` float32 columns of the group (in group order) to
-    the ``(B, n_entities, 3)`` centers of mass of its residues or segments
-    (entities in ascending label order), or is ``None`` for ``"atoms"``.
-
-    Each entity's members form a row of a ``(G, K)`` table built here, on
-    the host, in ascending group order and padded with a zero column (``K``
-    is the largest entity).  The weighted positions ``positions * masses``
-    (one float32 product) are summed over the table's ``K`` columns in
-    order, from 0, then divided by the mass sums taken the same way: the
-    order of the JAX package's ``segment_sum`` on the CPU, with no atomics,
-    so the card and the CPU give the same bits.  ``K`` steps of a gather
-    and an add: cheap for molecules, ``K`` launches a chunk for a segment
-    of ``K`` atoms."""
+    ``(B, n_atoms, C)`` float32 columns of the group (in group order; C
+    coordinate columns, usually 3) to the ``(B, n_entities, C)`` centers
+    of mass of its residues or segments (entities in ascending label
+    order), or is ``None`` for ``"atoms"``
+    (:func:`_segment_com_reducer`)."""
 
     seg, n = _group_segment_ids(group, grouping)
     if seg is None:
         return None, n
+    return _segment_com_reducer(seg, n, group.masses, device), n
+
+
+def _segment_com_reducer(seg, n, masses, device):
+    """``reduce``: ``(B, n_atoms, C)`` float32 columns to the ``(B, n, C)``
+    centers of mass of the segments ``seg`` (ids ``0..n-1``, one an atom)
+    under `masses`.
+
+    Each segment's members form a row of a ``(n, K)`` table built here,
+    on the host, in ascending atom order and padded with a zero column
+    (``K`` is the largest segment).  The weighted positions ``positions *
+    masses`` (one float32 product) are summed over the table's ``K``
+    columns in order, from 0, then divided by the mass sums taken the
+    same way: the order of the JAX package's ``segment_sum`` on the CPU,
+    with no atomics, so the card and the CPU give the same bits.  ``K``
+    steps of a gather and an add: cheap for molecules, ``K`` launches a
+    chunk for a segment of ``K`` atoms."""
+
+    seg = np.asarray(seg)
     n_atoms = len(seg)
     order = np.argsort(seg, kind="stable")
     sizes = np.bincount(seg, minlength=n)
     starts = np.concatenate(([0], np.cumsum(sizes)[:-1]))
     table = np.full((n, int(sizes.max())), n_atoms, dtype=np.int64)
     table[seg[order], np.arange(n_atoms) - starts[seg[order]]] = order
-    masses = np.append(np.asarray(group.masses, np.float32), np.float32(0))
+    masses = np.append(np.asarray(masses, np.float32), np.float32(0))
     mass_sums = np.zeros(n, dtype=np.float32)
     for column in table.T:
         mass_sums = mass_sums + masses[column]
@@ -464,16 +475,18 @@ def _com_reducer(group, grouping: str, device):
     columns = torch.as_tensor(table.T.copy(), device=device)
 
     def reduce(positions):
+        width = positions.shape[-1]
         weighted = positions * masses[:, None]
         weighted = torch.cat(
-            (weighted, weighted.new_zeros(weighted.shape[:-2] + (1, 3))),
+            (weighted,
+             weighted.new_zeros(weighted.shape[:-2] + (1, width))),
             dim=-2)
-        total = weighted.new_zeros(weighted.shape[:-2] + (n, 3))
+        total = weighted.new_zeros(weighted.shape[:-2] + (n, width))
         for column in columns:
             total = total + weighted[..., column, :]
         return total / mass_sums[:, None]
 
-    return reduce, n
+    return reduce
 
 
 def _entity_positions_fn(groups, groupings, device):

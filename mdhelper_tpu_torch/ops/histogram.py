@@ -98,7 +98,8 @@ def _exact_d2_orthorhombic(p1, p2, box, n_axes=3):
     """Squared minimum-image distances in double-float.  Assumes
     wrapped inputs (image multiple in {-1, 0, 1}, so ``m * box`` is
     exact).  ``p1``/``p2`` are broadcast-compatible ``(..., 3)`` float32
-    tensors; ``box`` is a float32 ``(3,)`` tensor.  With ``n_axes=2``
+    tensors; ``box`` is a float32 ``(3,)`` tensor, or lengths ``(..., 1,
+    3)`` that broadcast against them (a box a frame).  With ``n_axes=2``
     only the first two components are summed, by one ``df_add`` (the
     JAX package's 2-D ``_bin_exact``)."""
 
@@ -106,8 +107,8 @@ def _exact_d2_orthorhombic(p1, p2, box, n_axes=3):
     for k in range(n_axes):
         s, e = two_diff(p1[..., k], p2[..., k])
         # torch.round rounds half to even, like jnp.round.
-        m = torch.round(s / box[k])
-        d = df_sub((s, e), (m * box[k], torch.zeros_like(s)))
+        m = torch.round(s / box[..., k])
+        d = df_sub((s, e), (m * box[..., k], torch.zeros_like(s)))
         components.append(df_square(d))
     if n_axes == 2:
         return df_add(*components)
@@ -312,7 +313,8 @@ def displacement_histogram_frame(pos1, pos2, box, edges):
         triclinic search takes any positions).
     box : `torch.Tensor`
         float32 orthorhombic box lengths ``(3,)``, or a ``(3, 3)``
-        lower-triangular box matrix.
+        lower-triangular box matrix; or orthorhombic lengths ``(..., 1,
+        3)``, one box per leading index.
     edges : array-like
         Uniform float64 bin edges ``(n_bins + 1,)``.
 

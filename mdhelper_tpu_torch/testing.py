@@ -5,7 +5,8 @@ Test inputs and float64 oracles
 NumPy helpers shared by the port's tests and ``chip_smoke.py``: the
 bin-edge straddle fixtures and the float64 all-pairs histograms the
 cell-list kernels are held against, a float32 model of the tri_pp
-kernels' candidate screen, and a trajectory of 3-site water molecules.
+kernels' candidate screen, and a trajectory of 3-site water molecules
+(optionally with SPC/E charges).
 """
 
 import itertools
@@ -22,6 +23,7 @@ __all__ = [
     "f64_triclinic_distances",
     "f64_triclinic_pair_histogram",
     "SCREEN_EPS",
+    "SPCE_CHARGES",
     "fma32",
     "tri27_screen",
     "water_system",
@@ -236,11 +238,17 @@ def f64_cross_histogram(pos1, pos2, box, r_max, n_bins, exclusion=None):
     return np.histogram(dist, bins=n_bins, range=(0.0, r_max))[0]
 
 
-def water_system(rng, n_mol, box, n_frames, step=0.3, jitter=0.02):
+#: SPC/E partial charges of a water's O and H atoms (e).
+SPCE_CHARGES = (-0.8476, 0.4238, 0.4238)
+
+
+def water_system(rng, n_mol, box, n_frames, step=0.3, jitter=0.02,
+                 charges=False):
     """``(frames, topology)`` of `n_mol` rigid 3-site waters in the cube of
     side `box`: float32 frames ``(n_frames, 3 n_mol, 3)`` and the keywords
     of ``Universe.from_arrays`` (masses O 15.999, H 1.008; one residue a
-    molecule; O-H bonds, listed as ``bench.py`` lists them).
+    molecule; O-H bonds, listed as ``bench.py`` lists them; with
+    `charges`, the SPC/E charges O -0.8476, H +0.4238).
 
     As ``bench.py``'s ``make_water_frame``: oxygens at uniform centers,
     each hydrogen 0.96 A from its oxygen in a random direction.  Each
@@ -270,4 +278,6 @@ def water_system(rng, n_mol, box, n_frames, step=0.3, jitter=0.02):
         resindices=np.repeat(np.arange(n_mol), 3),
         bonds=bonds,
     )
+    if charges:
+        topology["charges"] = np.tile(SPCE_CHARGES, n_mol)
     return frames, topology

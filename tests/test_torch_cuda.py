@@ -1437,3 +1437,128 @@ def test_fast_bin_index_root_on_the_card_equals_ieee(cuda_device):
     np.testing.assert_array_equal(
         idx, np.minimum(root * consts[1], np.float32(57_856)).astype(
             np.int32))
+
+
+def _profile_system(n_mol=400, n_frames=9):
+    """SPC/E waters of a 10 A cube stretched to a 10 x 12 x 14 A box."""
+
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.testing import water_system
+
+    box = np.array([10.0, 12.0, 14.0])
+    frames, topology = water_system(np.random.default_rng(43), n_mol, 10.0,
+                                    n_frames, step=0.7, charges=True)
+    frames = np.mod(frames * (box / 10.0), box).astype(np.float32)
+    return Universe.from_arrays(frames, np.concatenate([box, [90.0] * 3]),
+                                **topology)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+def test_profile_ops_on_the_card_equal_cpu(cuda_device, weighted):
+    """The 1-, 2- and 3-D histograms on the card: counts equal the CPU's
+    as integers, charge sums within rtol 1e-12 (float64 atomics add in
+    another order)."""
+
+    from mdhelper_tpu_torch.ops import profiles
+
+    rng = np.random.default_rng(44)
+    lengths = (12.0, 36.84, 49.99)
+    coords = (rng.random((4, 5000, 3)) * 1.1 - 0.05) * np.array(lengths)
+    coords = coords.astype(np.float32)
+    coords[0, :5, 0] = np.nan
+    edges = [profiles.linspace_edges_f32(length, n)
+             for length, n in zip(lengths, (20, 192, 201))]
+    mask = np.array([1.0, 1.0, 0.0, 1.0])
+    weights = rng.normal(size=5000) if weighted else None
+
+    def run(device):
+        t = torch.from_numpy(coords).to(device)
+        e = [torch.from_numpy(x).to(device) for x in edges]
+        m = torch.from_numpy(mask).to(device)
+        w = None if weights is None else torch.from_numpy(weights).to(device)
+        return [
+            profiles.axis_histogram_batch(t[..., 0], m, e[0], w),
+            profiles.plane_histogram_batch(t[..., :2], m, e[0], e[1], w),
+            profiles.volume_histogram_batch(t, m, *e, weights=w),
+        ]
+
+    for card, cpu in zip(run(cuda_device), run("cpu")):
+        assert card.is_cuda
+        if weighted:
+            np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(),
+                                       rtol=1e-12, atol=1e-12)
+        else:
+            np.testing.assert_array_equal(card.cpu().numpy(), cpu.numpy())
+
+
+@pytest.mark.cuda
+def test_profiles_on_the_card_equal_cpu(cuda_device):
+    """DensityProfile (atoms, residues, time-resolved, recentered),
+    RadialDensityProfile (a fixed point, a COM center), DensityMap2D and
+    DensityMap3D on the card: counts equal the CPU's; charge densities
+    within rtol 1e-12."""
+
+    from mdhelper_tpu_torch.analysis import profile
+
+    u = _profile_system()
+    cases = [
+        (profile.DensityProfile, ([u.atoms[0::3], u.atoms[1::3]],),
+         dict(n_bins=(20, 21, 22))),
+        (profile.DensityProfile, (u.atoms,),
+         dict(groupings="residues", axes="z", n_bins=40)),
+        (profile.DensityProfile, ([u.atoms[0::3], u.atoms[1::3]],),
+         dict(axes="y", n_bins=24, average=False)),
+        (profile.DensityProfile, ([u.atoms[0::3], u.atoms[1::3]],),
+         dict(axes="xz", n_bins=30, recenter=0)),
+        (profile.RadialDensityProfile, ([u.atoms[0::3]], np.array(
+            [5.0, 6.0, 7.0])), dict(n_bins=50, range=(0.0, 6.0))),
+        (profile.RadialDensityProfile, ([u.atoms[1::3]], u.atoms[:9]),
+         dict(n_bins=50, range=(0.0, 6.0), geometry="cylindrical",
+              groupings="atoms")),
+        (profile.DensityMap2D, (u.atoms,), dict(axes="xy", n_bins=32)),
+        (profile.DensityMap3D, (u.atoms,),
+         dict(n_bins=(8, 9, 10), groupings="residues")),
+    ]
+    for cls, args, kwargs in cases:
+        results = []
+        for device in (cuda_device, "cpu"):
+            a = cls(*args, verbose=False, device=device, **kwargs)
+            a._chunk_bytes = 2 * u.atoms.n_atoms * 3 * 4
+            results.append(a.run().results)
+        card, cpu = results
+        for key in ("counts", "number_densities"):
+            if cpu.get(key) is None:
+                continue
+            # A list per axis (DensityProfile) or one array.
+            pairs = (zip(card[key], cpu[key]) if isinstance(cpu[key], list)
+                     else [(card[key], cpu[key])])
+            for x, y in pairs:
+                np.testing.assert_array_equal(x, y)
+        if cpu.charge_densities is not None:
+            for x, y in zip(card.charge_densities, cpu.charge_densities):
+                np.testing.assert_allclose(x, y, rtol=1e-12, atol=1e-15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("options", [dict(unwrap=True),
+                                     dict(neutralize=True),
+                                     dict(average=True)])
+def test_dipoles_on_the_card_equal_cpu(cuda_device, options):
+    """DipoleMoment on the card: the float64 dipoles within rtol 1e-12 of
+    the CPU's (the same float32 unwrapped positions, float64 sums in
+    another order), the volumes equal."""
+
+    from mdhelper_tpu_torch.analysis.electrostatics import DipoleMoment
+
+    u = _profile_system()
+    results = []
+    for device in (cuda_device, "cpu"):
+        a = DipoleMoment([u.atoms[:600], u.atoms[600:]], verbose=False,
+                         device=device, **options)
+        a._chunk_bytes = 2 * u.atoms.n_atoms * 3 * 4
+        results.append(a.run().results)
+    card, cpu = results
+    np.testing.assert_allclose(card.dipoles, cpu.dipoles, rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_array_equal(card.volumes, cpu.volumes)

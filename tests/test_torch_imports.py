@@ -16,6 +16,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from mdhelper_tpu_torch.analysis.electrostatics import DipoleMoment  # noqa: E402
+from mdhelper_tpu_torch.analysis.profile import (  # noqa: E402
+    DensityMap2D,
+    DensityMap3D,
+    DensityProfile,
+    RadialDensityProfile,
+)
 from mdhelper_tpu_torch.analysis.structure import (  # noqa: E402
     RadialDistributionFunction,
     StructureFactor,
@@ -71,6 +78,17 @@ def test_sources_cover_the_file_layer():
     assert _xtc_native._BUILD == ROOT / "mdhelper_tpu_torch/_build"
 
 
+def test_sources_cover_the_profile_layer():
+    """The density-profile and electrostatics modules are among the parsed
+    sources."""
+
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("analysis/base", "analysis/multi", "analysis/profile",
+                   "analysis/electrostatics", "ops/profiles",
+                   "ops/histogram", "testing"):
+        assert f"mdhelper_tpu_torch/{module}.py" in names
+
+
 def test_import_rule_catches_both_packages():
     assert _forbidden("jax") and _forbidden("jax.numpy")
     assert _forbidden("mdhelper_tpu") and _forbidden("mdhelper_tpu.ops.x")
@@ -93,6 +111,16 @@ def _analyses(u, **device):
         "sq": lambda: StructureFactor(u.atoms, n_points=3, verbose=False,
                                       **device),
         "onsager": lambda: Onsager(u.atoms, verbose=False, **device),
+        "profile": lambda: DensityProfile(u.atoms, axes="z", n_bins=8,
+                                          verbose=False, **device),
+        "radial": lambda: RadialDensityProfile(
+            u.atoms, np.full(3, 4.0), n_bins=8, range=(0.0, 3.0),
+            verbose=False, **device),
+        "map2d": lambda: DensityMap2D(u.atoms, n_bins=4, verbose=False,
+                                      **device),
+        "map3d": lambda: DensityMap3D(u.atoms, n_bins=4, verbose=False,
+                                      **device),
+        "dipole": lambda: DipoleMoment(u.atoms, verbose=False, **device),
     }
 
 
@@ -104,7 +132,8 @@ def universe():
 
 
 @pytest.mark.parametrize("name", ["rdf", "cross_rdf", "vanhove", "sq",
-                                  "onsager"])
+                                  "onsager", "profile", "radial", "map2d",
+                                  "map3d", "dipole"])
 def test_default_device_is_the_card(monkeypatch, universe, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -41,6 +41,39 @@ NOT_PORTED = {
         "parallel": "parallel/ (item 10)",
         "checkpoint": "checkpoints (item 9)",
     },
+    "analysis.base.DynamicAnalysisBase": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.profile.DensityProfile": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.profile.RadialDensityProfile": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.profile.DensityMap2D": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.profile.DensityMap3D": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.electrostatics.DipoleMoment": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+}
+
+#: Parameters the port takes whose other values are not ported yet: the
+#: classes on the serial ``DynamicAnalysisBase`` accept ``parallel=False``
+#: and raise `NotImplementedError` for ``True``, citing parallel/ (item
+#: 10).  Nothing else is on this list.
+NOT_PORTED_VALUES = {
+    dotted: {"parallel": (True, "parallel/ (item 10)")}
+    for dotted in (
+        "analysis.profile.DensityProfile",
+        "analysis.profile.RadialDensityProfile",
+        "analysis.profile.DensityMap2D",
+        "analysis.profile.DensityMap3D",
+        "analysis.electrostatics.DipoleMoment",
+    )
 }
 
 #: Parameters of the port's own: the device of an analysis (and of the
@@ -56,6 +89,12 @@ PORT_ONLY = {
     "analysis.structure.VanHoveFunction": {"device"},
     "analysis.transport.Onsager": {"device"},
     "analysis.multi.run_together": {"initial"},
+    "analysis.base.DynamicAnalysisBase": {"device"},
+    "analysis.profile.DensityProfile": {"device"},
+    "analysis.profile.RadialDensityProfile": {"device"},
+    "analysis.profile.DensityMap2D": {"device"},
+    "analysis.profile.DensityMap3D": {"device"},
+    "analysis.electrostatics.DipoleMoment": {"device"},
 }
 
 OBJECTS = [
@@ -163,6 +202,23 @@ OBJECTS = [
     "io.tpr.read_tpr",
     "algorithm.topology.guess_bonds",
     "algorithm.topology.resolve_vdw_radii",
+    # density profiles and electrostatics
+    "analysis.base.DynamicAnalysisBase",
+    "analysis.profile.calculate_potential_profile",
+    "analysis.profile.DensityProfile",
+    "analysis.profile.DensityProfile.calculate_potential_profile",
+    "analysis.profile.DensityProfile.calculate_pmf",
+    "analysis.profile.RadialDensityProfile",
+    "analysis.profile.RadialDensityProfile.calculate_pmf",
+    "analysis.profile.DensityMap2D",
+    "analysis.profile.DensityMap3D",
+    "analysis.electrostatics.calculate_relative_permittivity",
+    "analysis.electrostatics.calculate_dielectric_spectrum",
+    "analysis.electrostatics.DipoleMoment",
+    "analysis.electrostatics.DipoleMoment.calculate_relative_permittivity",
+    "ops.profiles.axis_histogram_batch",
+    "ops.profiles.plane_histogram_batch",
+    "ops.profiles.volume_histogram_batch",
 ]
 
 
@@ -205,12 +261,43 @@ def test_groupings_are_ported_everywhere():
 
 def test_units_centering_and_charges_are_ported():
     """Only checkpoints (item 9) and parallel/ (item 10) remain: no unit,
-    reduced-unit, centering, charge or file parameter."""
+    reduced-unit, centering, charge or file parameter, and of the profile
+    and electrostatics parameters only ``parallel=True``."""
 
     listed = set().union(*(set(v) for v in NOT_PORTED.values()))
+    partly = set().union(*(set(v) for v in NOT_PORTED_VALUES.values()))
+    assert partly == {"parallel"}
+    assert not {"recenter", "neutralize", "unwrap", "average", "scales",
+                "dimensions", "geometry", "axes", "dt"} & listed
     assert not {"reduced", "n_batches", "temperature", "charges", "center",
                 "center_atom", "center_wrap", "times", "velocities",
                 "forces"} & listed
     for reasons in NOT_PORTED.values():
         for reason in reasons.values():
             assert any(f"(item {n})" in reason for n in (9, 10)), reason
+
+
+def _universe():
+    import numpy as np
+
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    rng = np.random.default_rng(0)
+    frames = (rng.random((2, 12, 3)) * 6.0).astype(np.float32)
+    return Universe.from_arrays(frames, [6.0] * 3 + [90.0] * 3)
+
+
+@pytest.mark.parametrize("dotted", list(NOT_PORTED_VALUES))
+def test_values_not_ported_raise(dotted):
+    """Each listed value raises `NotImplementedError` naming its item; the
+    default runs."""
+
+    cls = _resolve("mdhelper_tpu_torch", dotted)
+    u = _universe()
+    extra = ((u.atoms[:3],) if dotted.endswith("RadialDensityProfile")
+             else ())
+    for name, (value, reason) in NOT_PORTED_VALUES[dotted].items():
+        assert "(item 10)" in reason
+        with pytest.raises(NotImplementedError, match="item 10"):
+            cls(u.atoms, *extra, device="cpu", **{name: value})
+        cls(u.atoms, *extra, device="cpu", verbose=False).run()
