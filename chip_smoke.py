@@ -94,7 +94,17 @@ streaming all three columns in turns; the dipole-fluctuation
 permittivity and dielectric spectrum of 33,333 SPC/E waters
 (DipoleMoment with unwrap) against a float64 sum; and one chunk each of
 the radial profiles (spherical, cylindrical, about a center of mass)
-and the 192^2 and 64^3 density maps against numpy oracles.  Every check
+and the 192^2 and 64^3 density maps against numpy oracles.  Then slice
+15, bench.py's config 5: run_together of Gyradius, EndToEndVector and
+RouseModes(n_modes=8) on 2,000 chains of 50 monomers (100k atoms) over
+8 + 48 frames, with its busy share and float64 oracles; the single-chain
+S(q) of the same chains through the trig-sums kernel (exact, float32
+wavevectors, blocks of chain-frames on one workspace), its launches
+counted, one block against the plain version and a float64 oracle, and
+100 chains against a float64 oracle; PersistenceLength and
+MeanSquareInternalDistance against float64 oracles, in the cube and in
+a triclinic cell; and the thermodynamics functions on seeded series with
+closed-form answers (a LAMMPS log read without pandas).  Every check
 raises on failure, so any failed phase exits non-zero.  The last lines of
 standard output are the card's name and power limit, a JSON line of
 per-kernel measurements (each beside its bound: the larger of the
@@ -2831,15 +2841,26 @@ def isf_analysis(u, device, **kwargs):
     return analysis
 
 
-def run_profiled(analyses, n_frames, profiled=0, runner=None):
+def run_profiled(analyses, n_frames, profiled=0, runner=None, remake=None):
     """``run_together(analyses)`` over `n_frames` frames, clocked from the
-    end of the first chunk to the end of the conclusions, or, with
-    `profiled` frames, to the start of the last `profiled` frames, which
-    run under torch.profiler for the device's busy share of their wall
-    time (to the end of the last chunk: the conclusions stay out).
-    `runner` takes run_together's place (``runner(analyses,
-    on_chunk=...)``).  Returns ``(frames/s, busy share or None, device
-    activities a profiled frame or None)``."""
+    end of the first chunk to the end of the conclusions.  With `profiled`
+    frames the clock stops one chunk plus `profiled` frames before the
+    end instead: that chunk warms the profiler up (``prepare_trace``,
+    which turns CUPTI's activity records on), and the last `profiled`
+    frames run under torch.profiler for the device's busy share of their
+    wall time (to the end of the last chunk: the conclusions stay out).
+    A profiler started cold at the window (``start()``) drops the device
+    records of the window's first kernels in about half of the windows;
+    warmed a chunk ahead it keeps them, but now and then it still drops a
+    whole window's device records while it keeps the host's launch calls
+    (``scripts/profiler_warmup.py``).  With `remake`, a no-argument call
+    that makes the analyses anew, such a run goes again on new analyses
+    (put into the list `analyses`), three runs at most; a trace with no
+    launch call fails at once (the path ran off the card), as does a
+    trace with no device record when no run is left.  The runs taken are
+    in ``run_profiled.runs``.  `runner` takes run_together's place
+    (``runner(analyses, on_chunk=...)``).  Returns ``(frames/s, busy share
+    or None, device activities a profiled frame or None)``."""
 
     import torch
     from torch.autograd import DeviceType
@@ -2847,35 +2868,59 @@ def run_profiled(analyses, n_frames, profiled=0, runner=None):
 
     from mdhelper_tpu_torch.analysis.multi import run_together
 
-    prof = profile(activities=[ProfilerActivity.CUDA])
-    marks, seen = [], [0]
+    warm_at, start_at = n_frames - profiled - CHUNK, n_frames - profiled
+    check(not profiled or warm_at > CHUNK,
+          f"{n_frames} frames leave no timed chunk before the profiler's "
+          f"warm-up chunk and its {profiled} frames")
+    for run in range(1, 4 if remake is not None and profiled else 2):
+        if run > 1:
+            analyses[:] = remake()
+        run_profiled.runs = run
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        marks, seen = {}, [0]
 
-    def on_chunk(batch):
-        seen[0] += batch.n_real
-        if not marks or (profiled and seen[0] == n_frames - profiled):
+        def mark(name):
             torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-            if len(marks) == 2:
+            marks[name] = time.perf_counter()
+
+        def on_chunk(batch):
+            seen[0] += batch.n_real
+            if "first" not in marks:
+                mark("first")
+            elif profiled and seen[0] == warm_at:
+                mark("warm")
+                prof.prepare_trace()
+            elif profiled and seen[0] == start_at:
                 # The profiler's start-up stays out of the profiled wall.
-                prof.start()
                 torch.cuda.synchronize()
-                marks.append(time.perf_counter())
-        elif profiled and seen[0] == n_frames:
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-            prof.stop()
+                prof.start_trace()
+                mark("start")
+            elif profiled and seen[0] == n_frames:
+                mark("end")
+                prof.stop()
 
-    (runner or run_together)(analyses, on_chunk=on_chunk)
-    torch.cuda.synchronize()
-    end = time.perf_counter()
-    if not profiled:
-        return (n_frames - CHUNK) / (end - marks[0]), None, None
-    on_device = [(e.time_range.start, e.time_range.end)
-                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+        (runner or run_together)(analyses, on_chunk=on_chunk)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        if not profiled:
+            return (n_frames - CHUNK) / (end - marks["first"]), None, None
+        events = prof.events()
+        on_device = [(e.time_range.start, e.time_range.end)
+                     for e in events if e.device_type == DeviceType.CUDA]
+        if on_device:
+            break
+        launches = sum("Launch" in e.name for e in events)
+        check(launches, "the profiler saw no kernel launch and no device "
+              "activity: the path ran off the card")
+        print(f"the profiler kept {launches} launch calls but no device "
+              f"record of run {run} of the path's window")
     check(on_device, "the profiler saw no device activity")
-    busy = busy_us(on_device) / ((marks[3] - marks[2]) * 1e6)
-    fps = (n_frames - profiled - CHUNK) / (marks[1] - marks[0])
+    busy = busy_us(on_device) / ((marks["end"] - marks["start"]) * 1e6)
+    fps = (warm_at - CHUNK) / (marks["warm"] - marks["first"])
     return fps, busy, len(on_device) / profiled
+
+
+run_profiled.runs = 0
 
 
 def run_isf_path(analysis, n_frames, profiled=0):
@@ -4161,10 +4206,11 @@ def phase_profiles(device, rng, card):
 
     steps.append(("config-4 profiled", time.perf_counter()))
     _, out["busy"], activities = run_profiled(
-        [profile_analysis(groups, device)], N_FRAMES, CHUNK, run_alone)
+        [profile_analysis(groups, device)], N_FRAMES, CHUNK, run_alone,
+        remake=lambda: [profile_analysis(groups, device)])
     print(f"config-4 path: device busy {100 * out['busy']:.1f} % of the last "
           f"{CHUNK} frames' wall time (profiler on; {activities:.0f} device "
-          "activities a frame)")
+          f"activities a frame; profiled run {run_profiled.runs})")
 
     steps.append(("columns in turns", time.perf_counter()))
     # 8 + 128 frames (the trajectory's frames over again) a run: the runs
@@ -4199,7 +4245,8 @@ def phase_profiles(device, rng, card):
     def permittivity(a):
         a.calculate_relative_permittivity(300)
         out["spectrum"] = calculate_dielectric_spectrum(
-            a.results.dipoles[:, 0], 300, a.results.volumes.mean(), 1.0)
+            a.results.dipoles[:, 0], 300, a.results.volumes.mean(), 1.0,
+            device=device)
 
     out["dipole_fps"] = timed(dipole, permittivity)
     waters.trajectory[0]
@@ -4292,6 +4339,453 @@ def phase_profiles(device, rng, card):
         for (name, t0), (_, t1) in zip(steps, steps[1:])))
     return out
 
+
+# Slice 15: bench.py's config 5, 2,000 chains of 50 monomers (N_ATOMS atoms)
+# in the fused path's cube over 8 + 48 frames, with the classes' counts
+# given as bench.py gives them; the single-chain S(q) on the 24^3 grid, and
+# the chains of its float64 oracle.
+POLYMER_MONOMERS = 50
+POLYMER_CHAINS = N_ATOMS // POLYMER_MONOMERS
+POLYMER_FRAMES = 8 + 48
+POLYMER_MODES = 8
+#: the triclinic cell of the minimum-image classes' second run.
+POLYMER_TRICLINIC = [BOX] * 3 + [80.0, 75.0, 70.0]
+SCSF_ORACLE_CHAINS = 100
+#: frames at which the trio's results are held to float64 oracles.
+POLYMER_CHECK_FRAMES = (0, 27, POLYMER_FRAMES - 1)
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def polymer_universe(rng, n_frames):
+    """Config 5's chains (testing.polymer_chains: bonds of about 1 A,
+    stiffness 0.5, conformations relaxing as 0.95^t, heads drifting N(0,
+    0.5) A a frame and axis from uniform starts) in the BOX cube, wrapped
+    atom by atom: ``(float32 frames, float64 unwrapped, Universe)``, 1 ps a
+    frame, no topology (the classes take the counts)."""
+
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.testing import polymer_chains
+
+    frames, unwrapped = polymer_chains(rng, POLYMER_CHAINS, POLYMER_MONOMERS,
+                                       n_frames, BOX, stiffness=0.5,
+                                       memory=0.95, drift=0.5)
+    return frames, unwrapped, Universe.from_arrays(
+        frames, [BOX] * 3 + [90.0] * 3, dt=1.0)
+
+
+def polymer_triclinic_universe(unwrapped):
+    """The unwrapped chains wrapped atom by atom into the triclinic cell
+    POLYMER_TRICLINIC (float32 frames; the minimum-image bonds are the
+    chains' own, as in the cube)."""
+
+    from mdhelper_tpu_torch.algorithm.topology import triclinic_matrices
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    h = triclinic_matrices(np.array([POLYMER_TRICLINIC], np.float64))[0]
+    frac = unwrapped @ np.linalg.inv(h)
+    frames = ((frac - np.floor(frac)) @ h).astype(np.float32)
+    return Universe.from_arrays(frames, POLYMER_TRICLINIC, dt=1.0)
+
+
+def polymer_analysis(cls, group, device, n_chains=None, **kwargs):
+    """A polymer analysis of `group` (`n_chains` chains, default
+    POLYMER_CHAINS, of POLYMER_MONOMERS; counts given) on `device` in
+    CHUNK-frame chunks."""
+
+    a = cls(group, n_chains=n_chains or POLYMER_CHAINS,
+            n_monomers=POLYMER_MONOMERS,
+            verbose=False, device=device, **kwargs)
+    a._chunk_bytes = CHUNK * group.n_atoms * 3 * 4
+    return a
+
+
+def numpy_unwrap32(frames, seed, box):
+    """The image-count unwrap of float32 `frames` ``(T, N, 3)`` in numpy
+    with the port's float32 operations (a step of half a box or more is a
+    crossing), from the previous positions `seed` and zero counts."""
+
+    box = np.float32(box)
+    half = box / np.float32(2)
+    images = np.zeros(frames.shape[1:], np.int32)
+    prev = seed.astype(np.float32)
+    out = np.empty_like(frames)
+    for t, pos in enumerate(frames):
+        delta = pos - prev
+        images -= np.where(np.abs(delta) >= half,
+                           np.sign(delta).astype(np.int32), 0)
+        out[t] = pos + images.astype(np.float32) * box
+        prev = pos
+    return out
+
+
+def scsf_oracle(frames, qs32, n_chains, device):
+    """float64 single-chain S(q) (before the wavenumber average) of
+    float32 `frames` ``(T, n_chains * POLYMER_MONOMERS, 3)`` on the float32
+    wavevectors `qs32`, on the card, 25 chains at a time."""
+
+    import torch
+
+    q = torch.from_numpy(qs32.astype(np.float64)).to(device)
+    raw = torch.zeros(len(q), dtype=torch.float64, device=device)
+    for frame in frames:
+        pos = torch.from_numpy(frame).to(device).double().reshape(
+            n_chains, POLYMER_MONOMERS, 3)
+        for c0 in range(0, n_chains, 25):
+            phases = torch.einsum("qd,cnd->cqn", q, pos[c0:c0 + 25])
+            raw += (torch.cos(phases).sum(-1) ** 2
+                    + torch.sin(phases).sum(-1) ** 2).sum(0)
+            del phases
+    return (raw / (n_chains * POLYMER_MONOMERS * len(frames))).cpu().numpy()
+
+
+def scsf_kernel_vs_plain(qs, block, workspace, pick):
+    """The trig-sums kernel against its plain version on one launch's
+    block of chain-frames as the single-chain S(q) path gave it (float32
+    wavevectors, exact): two launches the same bits; the kernel within
+    one float32 ulp of POLYMER_MONOMERS (the largest sum) of the plain
+    version (the exact sums of 50 float32 terms, each rounded once from
+    float64 sums taken in other orders); both within 1e-6 of the mean
+    amplitude of a float64 oracle on the wavevectors `pick`.  Times in
+    ms a frame of POLYMER_CHAINS chains (the kernel twice 3 launches, the
+    plain version its checked call), beside trig_bound."""
+
+    import torch
+
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    kernel = lambda: ck.trig_sums(qs, block, precision="exact",  # noqa: E731
+                                  workspace=workspace)
+    plain = lambda: ck.trig_sums_reference(qs, block,  # noqa: E731
+                                           precision="exact")
+    k_out, again = kernel(), kernel()
+    check(all(torch.equal(a, b) for a, b in zip(k_out, again)),
+          "single-chain trig sums: two launches differ")
+    p_out, first_plain_ms = timed_call(plain)
+    tol_plain = float(np.spacing(np.float32(POLYMER_MONOMERS)))
+    max_abs_err = max(float((k - p).abs().max()) for k, p in zip(k_out, p_out))
+    unequal = sum(int((k != p).sum()) for k, p in zip(k_out, p_out))
+    check(max_abs_err <= tol_plain,
+          f"single-chain trig sums: kernel differs from plain by "
+          f"{max_abs_err:.3e} > {tol_plain:.3e}")
+    sub = qs[pick].double()
+    pos = block.double()
+    phases = torch.einsum("qd,cnd->cqn", sub, pos)
+    oc, osn = torch.cos(phases).sum(-1), torch.sin(phases).sum(-1)
+    del phases
+    amp = float(torch.hypot(oc, osn).mean())
+    tol = 1e-6 * amp
+    errs = {name: max(float((out[0][:, pick].double() - oc).abs().max()),
+                      float((out[1][:, pick].double() - osn).abs().max()))
+            for name, out in (("kernel", k_out), ("plain", p_out))}
+    for name, err in errs.items():
+        check(err <= tol, f"single-chain trig sums: {name} off the float64 "
+              f"oracle by {err:.3e} > {tol:.3e}")
+    n = block.shape[0]
+    per_frame = POLYMER_CHAINS / n
+    kernel_ms = [time_ms(kernel, 3) * per_frame for _ in range(2)]
+    # The plain version takes seconds a block: its checked call is its time.
+    plain_ms = [first_plain_ms * per_frame]
+    bound = trig_bound(n, POLYMER_MONOMERS, len(qs), "exact", lo=False,
+                       weights=False)
+    out = {
+        "mode": "exact", "max_abs_err": max_abs_err, "oracle_err": errs,
+        "tolerance": tol,
+        "ms": float(np.mean(kernel_ms)),
+        "plain_ms": float(np.mean(plain_ms)),
+        **bound,
+        "bound_ms": bound["bound_ms"] * POLYMER_CHAINS,
+        "first_design_bound_ms": (bound["first_design_bound_ms"]
+                                  * POLYMER_CHAINS),
+        "terms_per_frame": bound["terms_per_frame"] * POLYMER_CHAINS,
+    }
+    print(f"single-chain trig sums, {n} chain-frames of {POLYMER_MONOMERS} "
+          f"monomers x {len(qs)} float32 wavevectors, exact: |kernel - "
+          f"plain| {max_abs_err:.3e} (tolerance {tol_plain:.3e}; {unequal} "
+          f"of {2 * n * len(qs)} sums not bit-equal), |kernel - float64| "
+          f"{errs['kernel']:.3e}, |plain - float64| {errs['plain']:.3e} "
+          f"(tolerance {tol:.3e}); two launches equal; per frame of "
+          f"{POLYMER_CHAINS} chains kernel {out['ms']:.3f} ms (runs "
+          f"{[round(x, 3) for x in kernel_ms]}), plain torch "
+          f"{out['plain_ms']:.3f} ms (runs {[round(x, 3) for x in plain_ms]});"
+          f" bound {out['bound_ms']:.3f} ms by {out['bound_by']} "
+          f"({100 * out['bound_ms'] / out['ms']:.1f} % of the kernel's time)")
+    return out
+
+
+def phase_polymer(device, rng, card):
+    """Slice 15 on the card: bench.py's config 5 at its width, 2,000 chains
+    of 50 monomers (100,000 atoms) in the 50 A cube over 8 + 48 frames in
+    chunks of 8.  The fused trio run_together([Gyradius, EndToEndVector,
+    RouseModes(n_modes=8)]) with the classes' default unwrap (Rouse modes
+    only) and the counts given: frames/s and, over the last chunk, the
+    device's busy share; no kernel of the kernels line launches; the radii
+    and the end-to-end vectors of three frames and the Rouse amplitudes of
+    three frames against float64 numpy oracles, the end-to-end ACF against
+    a direct float64 correlation.  SingleChainStructureFactor(n_points=24,
+    unwrap=True) on the same chains: its trig-sums launches, all exact,
+    counted from 0 just before and read just after (one a block of
+    chain-frames), its ms a frame; the first launch's block held against
+    the plain version and a float64 oracle and timed beside its bound; the
+    class on 100 of the chains against a float64 oracle of the port's own
+    float32 unwrap on the card.  PersistenceLength and
+    MeanSquareInternalDistance (minimum-image bonds) timed and held to
+    float64 oracles of the unwrapped chains, in the cube and with the
+    chains wrapped into a triclinic cell.  The thermodynamics on seeded
+    series with closed-form answers (FFTs on the card): a LAMMPS log parsed
+    without pandas and its heat capacity, and the Green-Kubo and
+    Einstein-Helfand integrals of an AR(1) flux."""
+
+    import tempfile
+
+    import torch
+    from scipy.signal import lfilter
+
+    from mdhelper_tpu_torch.analysis import polymer, thermodynamics
+    from mdhelper_tpu_torch.analysis.structure import group_mean_last_axis
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    started = time.perf_counter()
+    steps = [("trajectory", time.perf_counter())]
+    frames, unwrapped, u = polymer_universe(rng, POLYMER_FRAMES)
+    out = {}
+    launches_before = kernel_launch_counts()
+
+    steps.append(("fused trio", time.perf_counter()))
+    def make_trio():
+        return [
+            polymer_analysis(polymer.Gyradius, u.atoms, device),
+            polymer_analysis(polymer.EndToEndVector, u.atoms, device),
+            polymer_analysis(polymer.RouseModes, u.atoms, device,
+                             n_modes=POLYMER_MODES),
+        ]
+
+    trio = make_trio()
+    out["fps"], out["busy"], activities = run_profiled(
+        trio, POLYMER_FRAMES, CHUNK, remake=make_trio)
+    out["profiled_runs"] = run_profiled.runs
+    check(kernel_launch_counts() == launches_before,
+          "a kernel of the kernels line launched in the polymer trio")
+    gyr, e2e, rouse = trio
+    r_box = 4 * EPS32 * BOX
+    shape = (POLYMER_CHAINS, POLYMER_MONOMERS, 3)
+    errs = {"rg": 0.0, "rouse": 0.0}
+    p = np.arange(1, POLYMER_MODES + 1)[:, None]
+    mat = np.cos(p * np.pi * (np.arange(POLYMER_MONOMERS) + 0.5)
+                 / POLYMER_MONOMERS) / POLYMER_MONOMERS
+    r_max = float(np.abs(unwrapped).max()) + BOX
+    for t in POLYMER_CHECK_FRAMES:
+        chains = frames[t].astype(np.float64).reshape(shape)
+        com = chains.mean(axis=1, keepdims=True)
+        rg = np.sqrt(((chains - com) ** 2).sum(axis=(1, 2))
+                     / POLYMER_MONOMERS).mean()
+        errs["rg"] = max(errs["rg"], abs(gyr.results.gyradii[0, t] - rg))
+        ends = frames[t].reshape(shape)[:, (0, -1)]
+        check(np.array_equal(e2e._e2e[t], ends[:, 1] - ends[:, 0]),
+              f"end-to-end vectors of frame {t} differ from numpy's float32")
+        amps = np.einsum("pn,mnd->mpd", mat, unwrapped[t].reshape(shape))
+        errs["rouse"] = max(errs["rouse"],
+                            float(np.abs(rouse._amps[0][t] - amps).max()))
+    check(errs["rg"] <= r_box, f"radii of gyration off the float64 oracle "
+          f"by {errs['rg']:.3e} > {r_box:.3e}")
+    check(errs["rouse"] <= 8 * EPS32 * r_max,
+          f"Rouse amplitudes off the float64 oracle by {errs['rouse']:.3e} "
+          f"> {8 * EPS32 * r_max:.3e}")
+    unit = e2e._e2e / np.linalg.norm(e2e._e2e, axis=-1, keepdims=True)
+    direct = np.array([(unit[m:] * unit[:POLYMER_FRAMES - m]).sum(-1).mean()
+                       for m in range(POLYMER_FRAMES)])
+    acf_err = float(np.abs(e2e.results.acf[0, 0] - direct).max())
+    check(acf_err <= 1e-10, f"end-to-end ACF off a direct float64 "
+          f"correlation by {acf_err:.3e}")
+    check(np.all(np.isfinite(rouse.results.acf))
+          and np.allclose(rouse.results.acf[..., 0], 1.0),
+          "Rouse ACFs not finite or not 1 at lag 0")
+    print(f"config-5 trio (Gyradius + EndToEndVector + RouseModes(n_modes="
+          f"{POLYMER_MODES}), {POLYMER_CHAINS} chains x {POLYMER_MONOMERS} "
+          f"monomers, {POLYMER_FRAMES} frames): {out['fps']:.3f} frames/s on "
+          f"{card}; device busy {100 * out['busy']:.1f} % of the last "
+          f"{CHUNK} frames ({activities:.0f} device activities a frame; "
+          f"profiled run {out['profiled_runs']}); R_g off float64 by {errs['rg']:.3e} A, Rouse amplitudes by "
+          f"{errs['rouse']:.3e} A, e2e vectors == numpy float32, ACF off a "
+          f"direct float64 correlation by {acf_err:.3e}")
+
+    steps.append(("single-chain S(q)", time.perf_counter()))
+    scsf = polymer_analysis(polymer.SingleChainStructureFactor, u.atoms,
+                            device, n_points=N_QPTS, unwrap=True)
+    recorded = []
+    wrapped = polymer.trig_sums
+
+    def recording(qs, positions, *args, **kwargs):
+        if not recorded:
+            recorded.append((qs, positions.clone(), kwargs["workspace"]))
+        return wrapped(qs, positions, *args, **kwargs)
+
+    polymer.trig_sums = recording
+    ck.trig_sums.launches = 0
+    ck.trig_sums.launches_by_precision.update(exact=0, fast=0)
+    try:
+        scsf_fps, _, _ = run_profiled([scsf], POLYMER_FRAMES)
+    finally:
+        polymer.trig_sums = wrapped
+    launches = dict(ck.trig_sums.launches_by_precision)
+    qs, block, workspace = recorded[0]
+    n_block = block.shape[0]
+    per_chunk = -(-CHUNK * POLYMER_CHAINS // n_block)
+    expected = per_chunk * (POLYMER_FRAMES // CHUNK)
+    check(launches == {"exact": expected, "fast": 0}
+          and ck.trig_sums.launches == expected,
+          f"single-chain S(q): trig-sums launches {launches}, expected "
+          f"{expected} exact ({per_chunk} a chunk of {CHUNK} frames)")
+    check(qs.dtype == torch.float32 and workspace is not None,
+          "single-chain S(q) launched without float32 wavevectors or its "
+          "workspace")
+    out["scsf_launches"] = expected
+    out["scsf_ms"] = 1e3 / scsf_fps
+    check(np.all(np.isfinite(scsf.results.scsf))
+          and abs(scsf.results.scsf[0] - POLYMER_MONOMERS) < 1e-3,
+          f"single-chain S(q) not finite or S(0) = {scsf.results.scsf[0]} "
+          f"!= {POLYMER_MONOMERS}")
+    print(f"single-chain S(q) ({POLYMER_CHAINS} chains x {POLYMER_MONOMERS} "
+          f"monomers, {len(qs)} float32 wavevectors, unwrap): "
+          f"{scsf_fps:.3f} frames/s ({out['scsf_ms']:.3f} ms a frame) on "
+          f"{card}; {expected} exact trig-sums launches of up to {n_block} "
+          f"chain-frames on one workspace of "
+          f"{scsf._workspace_bytes / 2**20:.0f} MiB; S(0) = N_p")
+    pick = torch.from_numpy(np.sort(np.random.default_rng(SEED).choice(
+        len(qs), ORACLE_QS, replace=False))).to(device)
+    out["trig"] = scsf_kernel_vs_plain(qs, block, workspace, pick)
+    del block, recorded
+
+    steps.append(("S(q) oracle", time.perf_counter()))
+    n_sub = SCSF_ORACLE_CHAINS * POLYMER_MONOMERS
+    sub = polymer_analysis(polymer.SingleChainStructureFactor,
+                           u.atoms[:n_sub], device,
+                           n_chains=SCSF_ORACLE_CHAINS, n_points=N_QPTS,
+                           unwrap=True)
+    sub.run()
+    u.trajectory[0]
+    seed = sub._initial_unwrapped_monomers(0).reshape(-1, 3)
+    positions = numpy_unwrap32(np.ascontiguousarray(frames[:, :n_sub]),
+                               seed, BOX)
+    raw = scsf_oracle(positions, sub._wavevectors.astype(np.float32),
+                      SCSF_ORACLE_CHAINS, device)
+    ref = group_mean_last_axis(raw, sub._q_group, len(sub.results.wavenumbers))
+    scale = float(np.abs(ref).max())
+    sq_err = float(np.abs(sub.results.scsf - ref).max())
+    check(sq_err <= 1e-6 * scale, f"single-chain S(q) of "
+          f"{SCSF_ORACLE_CHAINS} chains off the float64 oracle by "
+          f"{sq_err:.3e} > {1e-6 * scale:.3e}")
+    print(f"single-chain S(q) of {SCSF_ORACLE_CHAINS} chains, all frames: "
+          f"off a float64 oracle of the same float32 unwrap by {sq_err:.3e} "
+          f"(tolerance {1e-6 * scale:.3e})")
+
+    steps.append(("persistence, internal distances", time.perf_counter()))
+    x = torch.from_numpy(unwrapped).to(device).reshape(
+        POLYMER_FRAMES, *shape)
+    bonds = x[:, :, 1:] - x[:, :, :-1]
+    lengths = bonds.norm(dim=-1)
+    ub = bonds / lengths[..., None]
+    n_b = POLYMER_MONOMERS - 1
+    bond_acf = np.array([float((ub[:, :, s:] * ub[:, :, :n_b - s]).sum(-1)
+                               .mean()) for s in range(n_b)])
+    msid = np.array([float(((x[:, :, s:] - x[:, :, :-s]) ** 2).sum(-1)
+                           .mean()) for s in range(1, POLYMER_MONOMERS)])
+    mean_bond = float(lengths.mean())
+    del x, bonds, lengths, ub
+    errors = {}
+    for box, universe in (("", u), ("_tri", polymer_triclinic_universe(
+            unwrapped))):
+        for cls, key in ((polymer.PersistenceLength, "pl_fps"),
+                         (polymer.MeanSquareInternalDistance, "msid_fps")):
+            a = polymer_analysis(cls, universe.atoms, device)
+            out[key + box], _, _ = run_profiled([a], POLYMER_FRAMES)
+            if key == "pl_fps":
+                err = float(np.abs(a.results.bond_acf[0] - bond_acf).max())
+                check(err <= 1e-5 and abs(a.results.bond_lengths[0]
+                                          / mean_bond - 1) <= 1e-6,
+                      f"persistence{box}: bond ACF off float64 by "
+                      f"{err:.3e}, mean bond {a.results.bond_lengths[0]} "
+                      f"vs {mean_bond}")
+                a.calculate_persistence_length()
+                lp = float(a.results.persistence_lengths[0])
+            else:
+                err = float(np.abs(a.results.msid[0] / msid - 1).max())
+                check(err <= 1e-5, f"internal distances{box} off float64 "
+                      f"by {err:.3e} (relative)")
+            errors[key + box] = err
+        del universe
+    check(kernel_launch_counts() == {**launches_before, "trig_sums":
+                                     kernel_launch_counts()["trig_sums"]},
+          "a cell or pair kernel launched in the polymer phase")
+    for box, name in (("", "orthorhombic"), ("_tri", "triclinic")):
+        print(f"PersistenceLength: {out['pl_fps' + box]:.3f} frames/s, "
+              f"MeanSquareInternalDistance: {out['msid_fps' + box]:.3f} "
+              f"frames/s on {card} (minimum-image bonds, {name} box); bond "
+              f"ACF off float64 by {errors['pl_fps' + box]:.3e}, l_p "
+              f"{lp:.3f} A; MSID off float64 by "
+              f"{errors['msid_fps' + box]:.3e} (relative)")
+
+    steps.append(("thermodynamics", time.perf_counter()))
+    # An AR(1) flux of unit variance and correlation a^k: its trapezoid
+    # Green-Kubo integral is dt (1 + a) / (2 (1 - a)); a million samples
+    # hold the estimates within about 2 % (5 % checked).
+    trng = np.random.default_rng(SEED + 13)
+    a, dt, n = 0.8, 0.002, 1_000_000
+    flux = lfilter([np.sqrt(1 - a * a)], [1, -a], trng.normal(size=(n, 3)),
+                   axis=0)
+    integral = dt * (1 + a) / (2 * (1 - a))
+    gk = thermodynamics.calculate_shear_viscosity(
+        flux, 1.0, 1.0, dt, reduced=True, device=device)
+    eh = thermodynamics.calculate_shear_viscosity(
+        flux, 1.0, 1.0, dt, reduced=True, method="einstein",
+        fit_interval=(0.0001, 0.0004), device=device)
+    kappa = thermodynamics.calculate_thermal_conductivity(
+        flux, 2.0, 1.5, dt, reduced=True, device=device)
+    sigma = thermodynamics.calculate_ionic_conductivity(
+        flux, 2.0, 1.5, dt, reduced=True, device=device)
+    window = 60
+    coefficients = {
+        "Green-Kubo viscosity": (gk.running_viscosity[window], integral),
+        "Einstein-Helfand viscosity": (eh.viscosity, integral),
+        "thermal conductivity": (kappa.running_conductivity[window],
+                                 2.0 / 1.5**2 * integral),
+        "ionic conductivity": (sigma.running_conductivity[window],
+                               integral / (2.0 * 1.5)),
+    }
+    for what, (value, expected_value) in coefficients.items():
+        check(abs(value / expected_value - 1) < 0.05,
+              f"{what} {value} against the AR(1) closed form "
+              f"{expected_value}")
+    energies = trng.normal(-1500.0, 4.0, 400)
+    temps = trng.normal(300.0, 3.0, 400)
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "log.lammps")
+        with open(log, "w") as f:
+            f.write("LAMMPS\nrun 400\n   Step   Temp   TotEng   Press\n")
+            for i, (t, e) in enumerate(zip(temps, energies)):
+                f.write(f"{i:8d} {t:12.8g} {e:14.10g} {1.0:8.3f}\n")
+            f.write("Loop time of 1.0 on 1 procs for 400 steps\n")
+        cv = thermodynamics.ConstantVolumeHeatCapacity(log).run()
+    written = np.array([float(f"{e:14.10g}") for e in energies])
+    mean_t = np.array([float(f"{t:12.8g}") for t in temps]).mean()
+    na, kb, kcal = 6.02214076e23, 1.380649e-23, 4184.0
+    expected_cv = written.var() * kcal**2 / (na**2 * kb * mean_t**2) / kcal
+    check(np.array_equal(cv.results.energies, written)
+          and abs(cv.temperature / mean_t - 1) < 1e-12
+          and abs(cv.results.heat_capacity / expected_cv - 1) < 1e-9,
+          f"heat capacity {cv.results.heat_capacity} from the log against "
+          f"{expected_cv}")
+    print("thermodynamics (FFTs on the card): " + ", ".join(
+        f"{what} {value:.6g} vs closed form {ref_value:.6g}"
+        for what, (value, ref_value) in coefficients.items())
+        + f"; a LAMMPS log parsed without pandas, C_V "
+        f"{cv.results.heat_capacity:.6g} vs {expected_cv:.6g} kcal/K")
+
+    steps.append(("", time.perf_counter()))
+    out["seconds"] = time.perf_counter() - started
+    print("polymer phase steps: " + ", ".join(
+        f"{name} {t1 - t0:.1f} s"
+        for (name, t0), (_, t1) in zip(steps, steps[1:])))
+    return out
 
 def main():
     import torch
@@ -4405,6 +4899,18 @@ def main():
           f"{100 * profiles['busy']:.1f} %; permittivity path ({WATER_MOL} "
           f"waters): {profiles['dipole_fps']:.3f} frames/s (information, not "
           f"a claim); the profiles phase took {profiles['seconds']:.1f} s")
+
+    # Slice 15 draws from its own generator.
+    polymer = phase_polymer(device, np.random.default_rng(SEED + 14), card)
+    print(f"config-5 trio ({POLYMER_CHAINS} chains x {POLYMER_MONOMERS}): "
+          f"{polymer['fps']:.3f} frames/s on {card}, device busy "
+          f"{100 * polymer['busy']:.1f} %; single-chain S(q) "
+          f"{polymer['scsf_ms']:.3f} ms a frame; persistence length "
+          f"{polymer['pl_fps']:.3f} and internal distances "
+          f"{polymer['msid_fps']:.3f} frames/s, in a triclinic cell "
+          f"{polymer['pl_fps_tri']:.3f} and {polymer['msid_fps_tri']:.3f} "
+          f"frames/s (information, not a claim); "
+          f"the polymer phase took {polymer['seconds']:.1f} s")
 
     def path_row(shape, timing_plan, path, plain_from=None, plain_shape=None):
         """(launches, shape, timing) of a slice-4 row, whose kernel was
@@ -4637,6 +5143,13 @@ def main():
          f"name A x name B, {N_ATOMS // 2} x {N_ATOMS // 2} from an XTC "
          "(files cross RDF)", files["cross"]),
     ]
+    # Slice 15: the trig sums on the single-chain S(q) path's chain-frames.
+    rows.append(("trig_sums", trig_src, pallas_kernels.format(66),
+                 polymer["scsf_launches"],
+                 f"{POLYMER_CHAINS:,} chains x {POLYMER_MONOMERS} monomers as "
+                 f"chain-frames x {n_q:,} float32 wavevectors, exact "
+                 "(single-chain S(q) path; ms a frame of all chains)",
+                 polymer["trig"]))
     optional = ("launch_ms", "pairs_per_frame", "counted_per_frame",
                 "terms_per_frame", "plain_shape",
                 "option", "oracle_err", "tolerance")

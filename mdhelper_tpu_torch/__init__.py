@@ -27,7 +27,13 @@ electrostatics (:mod:`mdhelper_tpu_torch.analysis.profile`:
 Poisson potential, the radial profile and the 2-D and 3-D density maps;
 :mod:`mdhelper_tpu_torch.analysis.electrostatics`: dipole moments, the
 relative permittivity and the dielectric spectrum) on the serial
-:class:`~mdhelper_tpu_torch.analysis.base.DynamicAnalysisBase`.
+:class:`~mdhelper_tpu_torch.analysis.base.DynamicAnalysisBase`, and the
+polymer analyses and thermodynamics
+(:mod:`mdhelper_tpu_torch.analysis.polymer`: radii of gyration and shape,
+end-to-end vectors, Rouse modes, the single-chain structure factor on the
+trig-sums kernel, persistence lengths, internal distances;
+:mod:`mdhelper_tpu_torch.analysis.thermodynamics`: heat capacities from
+LAMMPS and OpenMM logs, Green-Kubo and Einstein-Helfand coefficients).
 """
 
 from importlib.util import find_spec

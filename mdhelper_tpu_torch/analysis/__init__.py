@@ -10,8 +10,10 @@ from . import (  # noqa: F401
     base,
     electrostatics,
     multi,
+    polymer,
     profile,
     structure,
+    thermodynamics,
     transport,
 )
 from .base import (  # noqa: F401
@@ -25,9 +27,11 @@ __all__ = [
     "base",
     "electrostatics",
     "multi",
+    "polymer",
     "profile",
     "run_together",
     "structure",
+    "thermodynamics",
     "transport",
     "DynamicAnalysisBase",
     "Hash",

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from .. import Q_, ureg
-from ..algorithm.correlation import correlation_fft
+from .._device import resolve_device
+from ..algorithm.correlation import _host, correlation_fft
 from ..algorithm.topology import unwrap_edge
 from ..algorithm.unit import strip_unit
 from ..ops.pbc import unwrap_scan
@@ -353,6 +354,7 @@ def calculate_dielectric_spectrum(
     *,
     t_max: float = None,
     reduced: bool = False,
+    device=None,
 ) -> Hash:
     r"""Frequency-dependent dielectric function :math:`\varepsilon(\nu)`
     from the total dipole series (linear response):
@@ -383,6 +385,10 @@ def calculate_dielectric_spectrum(
         Truncate :math:`\Phi(t)` at this lag (ps) before the transform.
     reduced : `bool`, keyword-only
         Reduced (LJ) units.
+    device : `torch.device` or `str`, keyword-only, optional
+        Where the autocorrelation's FFT runs (default: the first CUDA
+        device; raises `RuntimeError` without one).  Pass ``"cpu"`` for
+        the CPU.
 
     Returns
     -------
@@ -401,7 +407,9 @@ def calculate_dielectric_spectrum(
     dt, _ = strip_unit(dt, "picosecond")
 
     fluct = M - M.mean(axis=0)
-    acf = correlation_fft(fluct, axis=0, vector=True).numpy()
+    acf = _host(correlation_fft(
+        torch.as_tensor(fluct, device=resolve_device(device)), axis=0,
+        vector=True))
     if not acf[0] > 0:
         raise ValueError(
             "The dipole series has zero variance (rigid/frozen system); "

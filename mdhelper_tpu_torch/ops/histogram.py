@@ -236,25 +236,42 @@ def _root(d2):
 
 def _min_image_distance(delta, box):
     """Minimum-image lengths of displacements `delta` ``(..., 3)`` in
-    the dtype of `delta`, for orthorhombic lengths `box` ``(3,)`` (non-
-    positive lengths are aperiodic axes and do not fold) or a
-    ``(3, 3)`` lower-triangular box matrix (fractional fold, then the
-    smallest of the 27 images), as the JAX package's function, with a
-    correctly rounded root."""
+    the dtype of `delta`, for the boxes of :func:`_min_image_vectors`
+    (the smallest of the 27 images of a triclinic box), as the JAX
+    package's function, with a correctly rounded root."""
 
-    if box.ndim == 2:
+    v = _min_image_vectors(delta, box)
+    return _root((v * v).sum(dim=-1))
+
+
+def _min_image_vectors(delta, box):
+    """Minimum-image displacement vectors of `delta` ``(..., 3)`` in its
+    dtype, as the JAX package's ``_min_image_vectors``.  `box` holds
+    orthorhombic lengths ``(..., 3)`` (non-positive lengths are aperiodic
+    axes and do not fold), or lower-triangular box matrices when its last
+    two axes are ``(3, 3)``; its leading axes broadcast against `delta`'s
+    (per-frame boxes of a batch of frames as ``(B, 1, ..., 3)`` or ``(B,
+    1, ..., 3, 3)``).  Lengths fold each component by its length; a
+    matrix gives a base image by the fractional fold, and the first of
+    the 26 neighbouring images shorter than the best so far replaces
+    it."""
+
+    if box.shape[-2:] == (3, 3):
         frac = _row_times(delta, _inv3(box))
         base = _row_times(frac - torch.round(frac), box)
-        d2 = (base * base).sum(dim=-1)
-        for shift in _IMAGE_SHIFTS:
-            w = torch.tensor(shift, dtype=delta.dtype, device=delta.device)
+        best, best_d2 = base, (base * base).sum(dim=-1)
+        shifts = torch.tensor(_IMAGE_SHIFTS, dtype=delta.dtype,
+                              device=delta.device)
+        for w in shifts:
             cand = base + _row_times(w, box)
-            d2 = torch.minimum(d2, (cand * cand).sum(dim=-1))
-        return _root(d2)
+            d2 = (cand * cand).sum(dim=-1)
+            take = d2 < best_d2
+            best = torch.where(take[..., None], cand, best)
+            best_d2 = torch.minimum(best_d2, d2)
+        return best
     period = torch.where(box > 0, box, torch.inf)
     shift = torch.where(box > 0, torch.round(delta / period), 0.0)
-    delta = delta - box * shift
-    return _root((delta * delta).sum(dim=-1))
+    return delta - box * shift
 
 
 def radial_histogram_frame(pos1, pos2, box, edges, *, exclusion=None,

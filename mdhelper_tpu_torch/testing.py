@@ -5,8 +5,8 @@ Test inputs and float64 oracles
 NumPy helpers shared by the port's tests and ``chip_smoke.py``: the
 bin-edge straddle fixtures and the float64 all-pairs histograms the
 cell-list kernels are held against, a float32 model of the tri_pp
-kernels' candidate screen, and a trajectory of 3-site water molecules
-(optionally with SPC/E charges).
+kernels' candidate screen, a trajectory of 3-site water molecules
+(optionally with SPC/E charges), and one of linear polymer chains.
 """
 
 import itertools
@@ -25,6 +25,7 @@ __all__ = [
     "SCREEN_EPS",
     "SPCE_CHARGES",
     "fma32",
+    "polymer_chains",
     "tri27_screen",
     "water_system",
 ]
@@ -281,3 +282,47 @@ def water_system(rng, n_mol, box, n_frames, step=0.3, jitter=0.02,
     if charges:
         topology["charges"] = np.tile(SPCE_CHARGES, n_mol)
     return frames, topology
+
+
+def polymer_chains(rng, n_chains, n_monomers, n_frames, box, *, bond=1.0,
+                   stiffness=0.0, memory=0.95, drift=0.5, start=None):
+    """``(frames, unwrapped)`` of `n_chains` linear chains of `n_monomers`
+    monomers, one after another, in the cube of side `box`: float32
+    ``frames`` ``(n_frames, n_chains * n_monomers, 3)`` wrapped atom by atom
+    into ``[0, box)``, and the float64 ``unwrapped`` positions.
+
+    A chain's conformation (each monomer's place relative to its first)
+    is a Gaussian walk whose bonds are ``stiffness`` times the bond before
+    plus ``sqrt(1 - stiffness^2)`` times a fresh N(0, ``bond / sqrt(3)``)
+    step an axis: bonds of about `bond` A whose correlation falls as
+    ``stiffness^s`` along the contour.  From frame to frame the
+    conformation is ``memory`` times the last one plus ``sqrt(1 -
+    memory^2)`` times a fresh such walk (the same distribution, decorrelating
+    as ``memory^t``), while the first monomer, from a uniform start in the
+    box (or `start`, ``(n_chains, 3)``), takes a N(0, `drift`) step an
+    axis."""
+
+    def walk():
+        steps = rng.normal(0.0, bond / np.sqrt(3.0),
+                           (n_chains, n_monomers - 1, 3))
+        bonds = np.empty_like(steps)
+        carry = np.zeros((n_chains, 3))
+        mix = np.sqrt(1.0 - stiffness**2)
+        for k in range(n_monomers - 1):
+            carry = stiffness * carry + (mix if k else 1.0) * steps[:, k]
+            bonds[:, k] = carry
+        return np.concatenate((np.zeros((n_chains, 1, 3)),
+                               np.cumsum(bonds, axis=1)), axis=1)
+
+    heads = (rng.random((n_chains, 3)) * box if start is None
+             else np.asarray(start, dtype=float))
+    conformation = walk()
+    unwrapped = np.empty((n_frames, n_chains * n_monomers, 3))
+    for t in range(n_frames):
+        if t:
+            heads = heads + rng.normal(0.0, drift, heads.shape)
+            conformation = (memory * conformation
+                            + np.sqrt(1.0 - memory**2) * walk())
+        unwrapped[t] = (heads[:, None] + conformation).reshape(-1, 3)
+    frames = np.mod(unwrapped, box).astype(np.float32)
+    return frames, unwrapped

@@ -1562,3 +1562,140 @@ def test_dipoles_on_the_card_equal_cpu(cuda_device, options):
     np.testing.assert_allclose(card.dipoles, cpu.dipoles, rtol=1e-12,
                                atol=1e-12)
     np.testing.assert_array_equal(card.volumes, cpu.volumes)
+
+
+def _polymer_system(n_chains=40, n_monomers=20, n_frames=12, box=24.0):
+    """Chains of testing.polymer_chains in a cube, with one segment a
+    chain and backbone bonds, and the box and the largest |r| unwrapped."""
+
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.testing import polymer_chains
+
+    frames, unwrapped = polymer_chains(np.random.default_rng(45), n_chains,
+                                       n_monomers, n_frames, box,
+                                       stiffness=0.5, memory=0.8)
+    first = np.arange(n_chains * n_monomers).reshape(n_chains, n_monomers)
+    topology = dict(
+        masses=np.tile(np.linspace(1.0, 2.0, n_monomers), n_chains),
+        segindices=np.repeat(np.arange(n_chains), n_monomers),
+        bonds=np.stack((first[:, :-1].ravel(), first[:, 1:].ravel()), 1))
+    u = Universe.from_arrays(frames, [box] * 3 + [90.0] * 3, **topology)
+    return u, max(box, float(np.abs(unwrapped).max()))
+
+
+def _polymer_runs(make, u):
+    """``make(device)`` run on the card and on the CPU, 4 frames a chunk."""
+
+    out = []
+    for device in ("cuda", "cpu"):
+        a = make(device)
+        a._chunk_bytes = 4 * u.atoms.n_atoms * 3 * 4
+        out.append(a.run())
+    return out
+
+
+@pytest.mark.cuda
+def test_polymer_trio_on_the_card_equals_cpu(cuda_device):
+    """Gyradius (with shape), EndToEndVector and RouseModes on the card,
+    unwrapped: the end-to-end vectors equal the CPU's (the same float32
+    subtractions and unwrap), radii and Rouse amplitudes within 4 eps32
+    max|r| (float32 sums in another order), b and c within 1e-3 A^2."""
+
+    from mdhelper_tpu_torch.analysis import polymer
+
+    u, r_max = _polymer_system()
+    atol = 4 * float(np.finfo(np.float32).eps) * r_max
+    card, cpu = _polymer_runs(lambda d: polymer.Gyradius(
+        u.atoms, shape=True, unwrap=True, verbose=False, device=d), u)
+    np.testing.assert_allclose(card.results.gyradii, cpu.results.gyradii,
+                               rtol=0, atol=atol)
+    for key in ("asphericity", "acylindricity"):
+        np.testing.assert_allclose(card.results[key], cpu.results[key],
+                                   rtol=0, atol=1e-3)
+    card, cpu = _polymer_runs(lambda d: polymer.EndToEndVector(
+        u.atoms, unwrap=True, n_blocks=2, verbose=False, device=d), u)
+    np.testing.assert_array_equal(card._e2e, cpu._e2e)
+    np.testing.assert_allclose(card.results.acf, cpu.results.acf, rtol=0,
+                               atol=1e-12)
+    card, cpu = _polymer_runs(lambda d: polymer.RouseModes(
+        u.atoms, n_modes=8, verbose=False, device=d), u)
+    for x, y in zip(card._amps, cpu._amps):
+        np.testing.assert_allclose(x, y, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workspace_frames", [None, 7])
+def test_single_chain_structure_factor_on_the_card(cuda_device,
+                                                   workspace_frames,
+                                                   monkeypatch):
+    """The single-chain S(q) on the card goes through the trig-sums
+    kernel, exact, one launch a block of chain-frames (7 a launch, or the
+    default workspace's), and equals the CPU's plain sums within 1e-6 of
+    its largest value (the card's and the CPU's float32 cosines)."""
+
+    from mdhelper_tpu_torch.analysis import polymer
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+
+    u, _ = _polymer_system()
+    n_q = 4**3
+    if workspace_frames:
+        monkeypatch.setattr(polymer.SingleChainStructureFactor,
+                            "_workspace_bytes", workspace_frames * 2 * n_q * 8)
+    ck.trig_sums.launches = 0
+    ck.trig_sums.launches_by_precision.update(exact=0, fast=0)
+    card, cpu = _polymer_runs(lambda d: polymer.SingleChainStructureFactor(
+        u.atoms, n_points=4, unwrap=True, verbose=False, device=d), u)
+    chain_frames = [40 * 4] * 3
+    per_launch = workspace_frames or 40 * 4
+    expected = sum(-(-n // per_launch) for n in chain_frames)
+    assert ck.trig_sums.launches_by_precision == {"exact": expected,
+                                                  "fast": 0}
+    scale = np.abs(cpu.results.scsf).max()
+    np.testing.assert_allclose(card.results.scsf, cpu.results.scsf, rtol=0,
+                               atol=1e-6 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("angles", [(90.0, 90.0, 90.0), (80.0, 75.0, 70.0)])
+def test_minimum_image_polymer_classes_on_the_card_equal_cpu(cuda_device,
+                                                              angles):
+    """PersistenceLength and MeanSquareInternalDistance of wrapped chains
+    on the card (orthorhombic and triclinic boxes): within 1e-6 of the
+    CPU's (float64 Gram sums in another order)."""
+
+    from mdhelper_tpu_torch.analysis import polymer
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    u, _ = _polymer_system()
+    frames = u.trajectory.read_frames(np.arange(12))[0]
+    dims = [24.0] * 3 + list(angles)
+    u = Universe.from_arrays(frames, dims,
+                             segindices=np.repeat(np.arange(40), 20))
+    card, cpu = _polymer_runs(lambda d: polymer.PersistenceLength(
+        u.atoms, verbose=False, device=d), u)
+    np.testing.assert_allclose(card.results.bond_acf[0],
+                               cpu.results.bond_acf[0], rtol=0, atol=1e-6)
+    card, cpu = _polymer_runs(lambda d: polymer.MeanSquareInternalDistance(
+        u.atoms, verbose=False, device=d), u)
+    np.testing.assert_allclose(card.results.msid, cpu.results.msid, rtol=0,
+                               atol=1e-6 * cpu.results.msid.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["calculate_shear_viscosity",
+                                  "calculate_thermal_conductivity",
+                                  "calculate_ionic_conductivity",
+                                  "calculate_dielectric_spectrum"])
+def test_transport_functions_on_the_card_equal_cpu(cuda_device, name):
+    """The transport functions' float64 FFTs on the card: the ACF within
+    1e-12 of the CPU's largest value (cuFFT and pocketfft round in
+    another order)."""
+
+    from mdhelper_tpu_torch.analysis import electrostatics, thermodynamics
+
+    fn = getattr(thermodynamics, name, None) or getattr(electrostatics, name)
+    series = np.random.default_rng(5).normal(size=(4096, 3))
+    card = fn(series, 1.0, 1.0, 0.01, reduced=True, device="cuda")
+    cpu = fn(series, 1.0, 1.0, 0.01, reduced=True, device="cpu")
+    np.testing.assert_allclose(card.acf, cpu.acf, rtol=0,
+                               atol=1e-12 * np.abs(cpu.acf).max())

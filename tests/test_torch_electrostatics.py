@@ -194,7 +194,7 @@ def test_dielectric_spectrum_equals_jax(t_max, reduced):
     ref = jax_es.calculate_dielectric_spectrum(*args, t_max=t_max,
                                                reduced=reduced)
     out = electrostatics.calculate_dielectric_spectrum(
-        *args, t_max=t_max, reduced=reduced)
+        *args, t_max=t_max, reduced=reduced, device="cpu")
     for key in ("frequencies", "acf", "epsilon"):
         np.testing.assert_allclose(out[key], ref[key], rtol=1e-10,
                                    atol=1e-12 * np.abs(ref[key]).max())
@@ -203,7 +203,7 @@ def test_dielectric_spectrum_equals_jax(t_max, reduced):
     assert (out.units is None) == reduced
     with pytest.raises(ValueError, match="zero variance"):
         electrostatics.calculate_dielectric_spectrum(np.ones((10, 3)),
-                                                     *args[1:])
+                                                     *args[1:], device="cpu")
 
 
 def test_permittivity_guards(system):

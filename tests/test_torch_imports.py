@@ -1,8 +1,9 @@
 """Two rules of the port, checked without a card.
 
-* The port imports neither JAX nor the JAX package: every module of
-  ``mdhelper_tpu_torch/`` and ``chip_smoke.py`` is parsed and its import
-  statements are read (the machine with the card has no JAX).
+* The port imports neither JAX nor the JAX package, nor pandas: every
+  module of ``mdhelper_tpu_torch/`` and ``chip_smoke.py`` is parsed and its
+  import statements are read (the machine with the card has no JAX and
+  no pandas).
 * The analyses run on the card unless the caller asks for the CPU: with
   no card, constructing one without ``device=`` raises, and
   ``device="cpu"`` runs.
@@ -16,7 +17,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from mdhelper_tpu_torch.analysis.electrostatics import DipoleMoment  # noqa: E402
+from mdhelper_tpu_torch.analysis import thermodynamics  # noqa: E402
+from mdhelper_tpu_torch.analysis.electrostatics import (  # noqa: E402
+    DipoleMoment,
+    calculate_dielectric_spectrum,
+)
+from mdhelper_tpu_torch.analysis.polymer import (  # noqa: E402
+    EndToEndVector,
+    Gyradius,
+    MeanSquareInternalDistance,
+    PersistenceLength,
+    RouseModes,
+    SingleChainStructureFactor,
+)
 from mdhelper_tpu_torch.analysis.profile import (  # noqa: E402
     DensityMap2D,
     DensityMap3D,
@@ -62,6 +75,29 @@ def test_port_never_imports_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def _imports_pandas(name):
+    return name.split(".")[0] == "pandas"
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_port_never_imports_pandas(path):
+    bad = [n for n in _imported_names(path) if _imports_pandas(n)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_sources_cover_the_polymer_layer():
+    """The polymer, thermodynamics and fit modules are among the parsed
+    sources, and the pandas rule catches pandas and its submodules."""
+
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("analysis/polymer", "analysis/thermodynamics",
+                   "fit/__init__", "fit/exponential"):
+        assert f"mdhelper_tpu_torch/{module}.py" in names
+    assert _imports_pandas("pandas") and _imports_pandas("pandas.io.parsers")
+    assert not _imports_pandas("pandas_like")
+
+
 def test_sources_cover_the_file_layer():
     """The file layer's modules are among the parsed sources, and the
     native XTC codec is built from the port's own copy of its source."""
@@ -97,6 +133,7 @@ def test_import_rule_catches_both_packages():
 
 
 def _analyses(u, **device):
+    chains = dict(n_chains=6, n_monomers=10, verbose=False)
     return {
         "rdf": lambda: RadialDistributionFunction(
             u.atoms, n_bins=8, range=(0.0, 2.5), verbose=False, **device
@@ -121,6 +158,15 @@ def _analyses(u, **device):
         "map3d": lambda: DensityMap3D(u.atoms, n_bins=4, verbose=False,
                                       **device),
         "dipole": lambda: DipoleMoment(u.atoms, verbose=False, **device),
+        "gyradius": lambda: Gyradius(u.atoms, **chains, **device),
+        "e2e": lambda: EndToEndVector(u.atoms, **chains, **device),
+        "rouse": lambda: RouseModes(u.atoms, **chains, **device),
+        "scsf": lambda: SingleChainStructureFactor(
+            u.atoms, n_points=3, **chains, **device),
+        "persistence": lambda: PersistenceLength(u.atoms, **chains,
+                                                 **device),
+        "msid": lambda: MeanSquareInternalDistance(u.atoms, **chains,
+                                                   **device),
     }
 
 
@@ -133,7 +179,8 @@ def universe():
 
 @pytest.mark.parametrize("name", ["rdf", "cross_rdf", "vanhove", "sq",
                                   "onsager", "profile", "radial", "map2d",
-                                  "map3d", "dipole"])
+                                  "map3d", "dipole", "gyradius", "e2e",
+                                  "rouse", "scsf", "persistence", "msid"])
 def test_default_device_is_the_card(monkeypatch, universe, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -141,3 +188,21 @@ def test_default_device_is_the_card(monkeypatch, universe, name):
     analysis = _analyses(universe, device="cpu")[name]()
     assert analysis._device == torch.device("cpu")
     analysis.run()
+
+
+@pytest.mark.parametrize("name", ["calculate_shear_viscosity",
+                                  "calculate_thermal_conductivity",
+                                  "calculate_ionic_conductivity",
+                                  "calculate_dielectric_spectrum"])
+def test_transport_functions_default_to_the_card(monkeypatch, name):
+    """The FFTs of the post-hoc transport functions run on the first CUDA
+    device unless ``device=`` says otherwise: without a card the default
+    raises, and ``device="cpu"`` runs."""
+
+    series = np.random.default_rng(1).normal(size=(64, 3))
+    fn = getattr(thermodynamics, name, None) or calculate_dielectric_spectrum
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn(series, 1.0, 1.0, 0.1, reduced=True)
+    out = fn(series, 1.0, 1.0, 0.1, reduced=True, device="cpu")
+    assert np.isfinite(out.acf).all()

@@ -59,12 +59,26 @@ NOT_PORTED = {
     "analysis.electrostatics.DipoleMoment": {
         "kwargs": "parallel/ (item 10): the runtime's mesh options",
     },
+    "analysis.polymer.Gyradius": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.polymer.SingleChainStructureFactor": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.polymer.PersistenceLength": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.polymer.MeanSquareInternalDistance": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
 }
 
 #: Parameters the port takes whose other values are not ported yet: the
 #: classes on the serial ``DynamicAnalysisBase`` accept ``parallel=False``
 #: and raise `NotImplementedError` for ``True``, citing parallel/ (item
-#: 10).  Nothing else is on this list.
+#: 10).  Nothing else is on this list.  (``EndToEndVector`` and
+#: ``RouseModes`` take ``parallel`` through ``**kwargs`` and ignore it, as
+#: the JAX classes do.)
 NOT_PORTED_VALUES = {
     dotted: {"parallel": (True, "parallel/ (item 10)")}
     for dotted in (
@@ -73,13 +87,17 @@ NOT_PORTED_VALUES = {
         "analysis.profile.DensityMap2D",
         "analysis.profile.DensityMap3D",
         "analysis.electrostatics.DipoleMoment",
+        "analysis.polymer.Gyradius",
+        "analysis.polymer.SingleChainStructureFactor",
+        "analysis.polymer.PersistenceLength",
+        "analysis.polymer.MeanSquareInternalDistance",
     )
 }
 
 #: Parameters of the port's own: the device of an analysis (and of the
-#: radial histogram), the JAX ISF's ``shard`` and ``method`` (which it
-#: takes through ``**kwargs``), and the carry of a run that the JAX
-#: package began.
+#: radial histogram and of the FFTs of the transport functions), the JAX
+#: ISF's ``shard`` and ``method`` (which it takes through ``**kwargs``),
+#: and the carry of a run that the JAX package began.
 PORT_ONLY = {
     "analysis.structure.radial_histogram": {"device"},
     "analysis.structure.RadialDistributionFunction": {"device"},
@@ -95,6 +113,16 @@ PORT_ONLY = {
     "analysis.profile.DensityMap2D": {"device"},
     "analysis.profile.DensityMap3D": {"device"},
     "analysis.electrostatics.DipoleMoment": {"device"},
+    "analysis.polymer.Gyradius": {"device"},
+    "analysis.polymer.EndToEndVector": {"device"},
+    "analysis.polymer.SingleChainStructureFactor": {"device"},
+    "analysis.polymer.RouseModes": {"device"},
+    "analysis.polymer.PersistenceLength": {"device"},
+    "analysis.polymer.MeanSquareInternalDistance": {"device"},
+    "analysis.electrostatics.calculate_dielectric_spectrum": {"device"},
+    "analysis.thermodynamics.calculate_shear_viscosity": {"device"},
+    "analysis.thermodynamics.calculate_thermal_conductivity": {"device"},
+    "analysis.thermodynamics.calculate_ionic_conductivity": {"device"},
 }
 
 OBJECTS = [
@@ -219,6 +247,28 @@ OBJECTS = [
     "ops.profiles.axis_histogram_batch",
     "ops.profiles.plane_histogram_batch",
     "ops.profiles.volume_histogram_batch",
+    # polymer analyses and thermodynamics
+    "analysis.polymer.calculate_relaxation_time",
+    "analysis.polymer.Gyradius",
+    "analysis.polymer.EndToEndVector",
+    "analysis.polymer.EndToEndVector.calculate_relaxation_time",
+    "analysis.polymer.SingleChainStructureFactor",
+    "analysis.polymer.SingleChainStructureFactor.calculate_guinier_radius",
+    "analysis.polymer.RouseModes",
+    "analysis.polymer.RouseModes.calculate_relaxation_time",
+    "analysis.polymer.PersistenceLength",
+    "analysis.polymer.PersistenceLength.calculate_persistence_length",
+    "analysis.polymer.MeanSquareInternalDistance",
+    "analysis.thermodynamics.ConstantVolumeHeatCapacity",
+    "analysis.thermodynamics.ConstantVolumeHeatCapacity.run",
+    "analysis.thermodynamics.calculate_shear_viscosity",
+    "analysis.thermodynamics.calculate_thermal_conductivity",
+    "analysis.thermodynamics.calculate_ionic_conductivity",
+    "fit.exponential.exp",
+    "fit.exponential.exp1",
+    "fit.exponential.exp2",
+    "fit.exponential.biexp",
+    "fit.exponential.stretched_exp",
 ]
 
 
