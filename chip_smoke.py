@@ -704,10 +704,11 @@ def slice_universe(rng, n_frames=N_FRAMES):
     )
 
 
-def slice_analyses(u, device, parts=("rdf", "sq", "msd"), group=None):
+def slice_analyses(u, device, parts=("rdf", "sq", "msd"), group=None,
+                   sq_method="factor"):
     """The main path's analyses (those named in `parts`, in that
     order) of `group` (default ``u.atoms``), with the benchmark's
-    settings and CHUNK-frame chunks."""
+    settings (the S(q) by `sq_method`) and CHUNK-frame chunks."""
 
     from mdhelper_tpu_torch.analysis.structure import (
         RadialDistributionFunction,
@@ -723,7 +724,7 @@ def slice_analyses(u, device, parts=("rdf", "sq", "msd"), group=None):
         ),
         "sq": lambda: StructureFactor(
             group, n_points=N_QPTS, sort=False, unique=False,
-            method="factor", precision="exact", verbose=False,
+            method=sq_method, precision="exact", verbose=False,
             device=device,
         ),
         "msd": lambda: Onsager(group, unwrap=True, verbose=False,
@@ -2841,7 +2842,8 @@ def isf_analysis(u, device, **kwargs):
     return analysis
 
 
-def run_profiled(analyses, n_frames, profiled=0, runner=None, remake=None):
+def run_profiled(analyses, n_frames, profiled=0, runner=None, remake=None,
+                 chunk=CHUNK):
     """``run_together(analyses)`` over `n_frames` frames, clocked from the
     end of the first chunk to the end of the conclusions.  With `profiled`
     frames the clock stops one chunk plus `profiled` frames before the
@@ -2859,8 +2861,9 @@ def run_profiled(analyses, n_frames, profiled=0, runner=None, remake=None):
     launch call fails at once (the path ran off the card), as does a
     trace with no device record when no run is left.  The runs taken are
     in ``run_profiled.runs``.  `runner` takes run_together's place
-    (``runner(analyses, on_chunk=...)``).  Returns ``(frames/s, busy share
-    or None, device activities a profiled frame or None)``."""
+    (``runner(analyses, on_chunk=...)``).  `chunk` is the frames of the
+    analyses' chunks.  Returns ``(frames/s, busy share or None, device
+    activities a profiled frame or None)``."""
 
     import torch
     from torch.autograd import DeviceType
@@ -2868,8 +2871,8 @@ def run_profiled(analyses, n_frames, profiled=0, runner=None, remake=None):
 
     from mdhelper_tpu_torch.analysis.multi import run_together
 
-    warm_at, start_at = n_frames - profiled - CHUNK, n_frames - profiled
-    check(not profiled or warm_at > CHUNK,
+    warm_at, start_at = n_frames - profiled - chunk, n_frames - profiled
+    check(not profiled or warm_at > chunk,
           f"{n_frames} frames leave no timed chunk before the profiler's "
           f"warm-up chunk and its {profiled} frames")
     for run in range(1, 4 if remake is not None and profiled else 2):
@@ -2903,7 +2906,7 @@ def run_profiled(analyses, n_frames, profiled=0, runner=None, remake=None):
         torch.cuda.synchronize()
         end = time.perf_counter()
         if not profiled:
-            return (n_frames - CHUNK) / (end - marks["first"]), None, None
+            return (n_frames - chunk) / (end - marks["first"]), None, None
         events = prof.events()
         on_device = [(e.time_range.start, e.time_range.end)
                      for e in events if e.device_type == DeviceType.CUDA]
@@ -2916,7 +2919,7 @@ def run_profiled(analyses, n_frames, profiled=0, runner=None, remake=None):
               f"record of run {run} of the path's window")
     check(on_device, "the profiler saw no device activity")
     busy = busy_us(on_device) / ((marks["end"] - marks["start"]) * 1e6)
-    fps = (warm_at - CHUNK) / (marks["warm"] - marks["first"])
+    fps = (warm_at - chunk) / (marks["warm"] - marks["first"])
     return fps, busy, len(on_device) / profiled
 
 
@@ -4787,6 +4790,364 @@ def phase_polymer(device, rng, card):
         for (name, t0), (_, t1) in zip(steps, steps[1:])))
     return out
 
+# Slice 16: the mesh S(q) route on the fused path, and bench.py's
+# aggregates and order paths on 3,000 rigid 3-site waters (AGG_ATOMS) at
+# 0.0334 molecules/A^3 (agg_box(): 44.78 A), in bench.py's 4-frame
+# chunks.  MESH_FRAMES: 8 + 16 timed frames, the profiler's warm-up chunk
+# and its profiled chunk.
+MESH_FRAMES = 8 + 32
+AGG_ATOMS, AGG_CHUNK = 9_000, 4
+AGG_FRAMES, ORDER_FRAMES = AGG_CHUNK + 32, AGG_CHUNK + 16
+# The JAX package's mesh-vs-direct S(q) gate (tests/test_mesh_scattering.py)
+# and its float64-oracle bounds on the mesh sums, over sqrt(N).
+MESH_RTOL, MESH_ATOL = 5e-4, 1e-5
+MESH_MEDIAN_BOUND, MESH_MAX_BOUND = 1e-5, 1e-4
+# Card against CPU on the aggregates' and order paths' first chunk: the
+# float32 order tensors (sums of 3,000 outer products of unit vectors,
+# divided by their count) within MESH_Q_ATOL, q_l, q_l-bar, Q_l and q_tet
+# within ORDER_ATOL (sums of float32 harmonics over about 20 neighbours in
+# another order, and CUDA's rsqrtf), w_l and w_l-bar within WL_ATOL (the
+# cubic invariant over |q_lm|^3 amplifies that where q_l is small).
+AGG_Q_ATOL, ORDER_ATOL, WL_ATOL = 1e-5, 1e-5, 1e-4
+
+
+def agg_box():
+    """bench.py's water-density box: 0.0334 molecules/A^3."""
+
+    return float((AGG_ATOMS / 3 / 0.0334) ** (1 / 3))
+
+
+def agg_universe(rng, n_frames, waters=True):
+    """bench.py's make_water_frame geometry at AGG_ATOMS: O at uniform
+    centers, two H at 0.96 A in random directions, wrapped into agg_box(),
+    float32, 1 ps a frame; with `waters` the names O/H1/H2, one residue a
+    molecule and the O-H bonds (bench.py's aggregates universe), else one
+    atom type (its order universe)."""
+
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    n_mol = AGG_ATOMS // 3
+    box = agg_box()
+    centers = rng.random((n_frames, n_mol, 3)) * box
+    d1 = rng.standard_normal((n_frames, n_mol, 3))
+    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+    d2 = rng.standard_normal((n_frames, n_mol, 3))
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    traj = np.empty((n_frames, AGG_ATOMS, 3))
+    traj[:, 0::3] = centers
+    traj[:, 1::3] = centers + 0.96 * d1
+    traj[:, 2::3] = centers + 0.96 * d2
+    traj = (traj % box).astype(np.float32)
+    dims = np.array([box] * 3 + [90.0] * 3)
+    if not waters:
+        return traj, Universe.from_arrays(
+            traj, dims, dt=1.0, types=np.array(["A"] * AGG_ATOMS, object))
+    mol = np.arange(n_mol)
+    bonds = np.empty((2 * n_mol, 2), dtype=np.int64)
+    bonds[0::2] = np.stack([3 * mol, 3 * mol + 1], axis=1)
+    bonds[1::2] = np.stack([3 * mol, 3 * mol + 2], axis=1)
+    return traj, Universe.from_arrays(
+        traj, dims, dt=1.0, names=np.array(["O", "H1", "H2"] * n_mol, object),
+        resindices=np.repeat(mol, 3), bonds=bonds)
+
+
+def agg_chunked(analyses):
+    """`analyses` with bench.py's AGG_CHUNK-frame chunks."""
+
+    for a in analyses:
+        a._chunk_bytes = AGG_CHUNK * AGG_ATOMS * 3 * 4
+    return analyses
+
+
+def first_chunk_pair(make, device):
+    """``make(device)`` and ``make("cpu")`` run through run_together over
+    the first AGG_CHUNK frames (the card's run and the port's CPU run)."""
+
+    from mdhelper_tpu_torch.analysis.multi import run_together
+
+    return [run_together(agg_chunked(make(where)), stop=AGG_CHUNK)
+            for where in (device, "cpu")]
+
+
+def phase_mesh(device, rng, card):
+    """Slice 16's mesh route on the card: the fused path run_together([RDF,
+    StructureFactor(method="mesh"), Onsager(unwrap=True)]) at its width
+    (100k atoms, 50 A cube, 24^3 grid, 13,823 wavevectors, mesh 128, width
+    10) over MESH_FRAMES, beside the same path with method="factor" on the
+    same trajectory: both runs' frames/s and busy share, the cell kernel's
+    launches counted from 0 (one a chunk) and no trig-sums launch; the mesh
+    S(q) within the JAX package's mesh gate (rtol 5e-4, atol 1e-5) of the
+    factor S(q); the gridding's ms a frame (CUDA events over a chunk of
+    frames) beside the dense in-order chain's; one frame's mesh sums against
+    the in-order sums and both against a float64 oracle of 512 wavevectors
+    (the JAX test's bounds over sqrt(N))."""
+
+    import torch
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+    from mdhelper_tpu_torch.ops import cuda_kernels as ck
+    from mdhelper_tpu_torch.ops import mesh_scattering as ms
+
+    started = time.perf_counter()
+    traj, u = slice_universe(rng, MESH_FRAMES)
+    n_chunks = -(-MESH_FRAMES // CHUNK)
+    out = {}
+    replans, sigmas = [], {}
+    for method in ("mesh", "factor"):
+        def make(s, method=method):
+            analyses = slice_analyses(u, device, sq_method=method)
+            analyses[0]._capacity_sigmas = s
+            return analyses
+
+        def run(analyses, make=make):
+            cch.cell_pair_histogram.launches = 0
+            ck.trig_sums.launches = 0
+            s = analyses[0]._capacity_sigmas
+            return run_profiled(analyses, MESH_FRAMES, CHUNK,
+                                remake=lambda: make(s))
+
+        # The RDF's 4-sigma cell plan can overflow on these frames, as
+        # in phase_files (ROADMAP Queue 3, item 1): re-planned as run()
+        # re-plans.
+        analyses, (fps, busy, _) = replanned(
+            make, run, f"{method} path", replans, sigmas, "mesh")
+        runs = run_profiled.runs
+        check(cch.cell_pair_histogram.launches == n_chunks * runs,
+              f"{method} path: {cch.cell_pair_histogram.launches} cell "
+              f"kernel launches for {n_chunks} chunks in {runs} runs")
+        check(ck.trig_sums.launches == 0,
+              f"{method} path launched the trig-sums kernel")
+        ssf = analyses[1].results.ssf
+        n_q = len(analyses[1].results.wavenumbers)
+        check(ssf.shape == (1, n_q) and np.all(np.isfinite(ssf)),
+              f"{method} S(q) shape or values")
+        out[method] = {"fps": fps, "busy": busy, "ssf": ssf, "runs": runs}
+    out["routes_s"] = time.perf_counter() - started
+    mesh, factor = out["mesh"]["ssf"], out["factor"]["ssf"]
+    out["dev"] = float(np.abs(mesh - factor).max())
+    beyond = np.abs(mesh - factor) - MESH_RTOL * np.abs(factor)
+    check(np.allclose(mesh, factor, rtol=MESH_RTOL, atol=MESH_ATOL),
+          f"mesh S(q) off the factor S(q) by {beyond.max():.3e} beyond rtol "
+          f"{MESH_RTOL} (atol {MESH_ATOL})")
+
+    plan = ms.mesh_plan(N_QPTS, [BOX] * 3)
+    options = dict(n_points=N_QPTS, mesh=plan["mesh"], width=plan["width"],
+                   beta=plan["beta"], box=plan["box"], deconv=plan["deconv"])
+    pos = torch.from_numpy(traj[:CHUNK]).to(device)
+    out["grid_ms"] = time_ms(lambda: ms.mesh_trig_sums(pos, **options),
+                             3) / CHUNK
+    out["dense_ms"] = time_ms(
+        lambda: ms.mesh_trig_sums_plain(pos[:1], **options), 2)
+    c, s = (x.double().cpu().numpy().reshape(-1)
+            for x in ms.mesh_trig_sums(pos[0], **options))
+    cp, sp = (x.double().cpu().numpy().reshape(-1)
+              for x in ms.mesh_trig_sums_plain(pos[0], **options))
+    root_n = np.sqrt(N_ATOMS)
+    out["vs_plain"] = float(np.hypot(c - cp, s - sp).max())
+    check(out["vs_plain"] <= MESH_MAX_BOUND * root_n,
+          f"mesh sums off the in-order sums by {out['vs_plain']:.3e}")
+    k = np.arange(N_QPTS)
+    grid = np.stack(np.meshgrid(k, k, k, indexing="ij"), -1).reshape(-1, 3)
+    pick = np.concatenate(([0], np.random.default_rng(SEED).choice(
+        np.arange(1, len(grid)), ORACLE_QS - 1, replace=False)))
+    phase = (2 * np.pi * grid[pick] / BOX) @ traj[0].astype(np.float64).T
+    oc, os_ = np.cos(phase).sum(1), np.sin(phase).sum(1)
+    for what, (cc, ss) in (("scatter", (c, s)), ("in-order", (cp, sp))):
+        err = np.hypot(cc[pick] - oc, ss[pick] - os_)[1:] / root_n
+        check(np.median(err) < MESH_MEDIAN_BOUND and err.max()
+              < MESH_MAX_BOUND, f"{what} mesh sums off the float64 oracle: "
+              f"median {np.median(err):.3e}, max {err.max():.3e} (/sqrt N)")
+        check(cc[0] == N_ATOMS and ss[0] == 0.0, f"{what} rho(0)")
+        out[f"oracle_{what}"] = float(err.max())
+    out["seconds"] = time.perf_counter() - started
+    print(f"mesh path: mesh {out['mesh']['fps']:.3f} frames/s, busy "
+          f"{100 * out['mesh']['busy']:.1f} % (profiled run "
+          f"{out['mesh']['runs']}); factor {out['factor']['fps']:.3f} "
+          f"frames/s, busy {100 * out['factor']['busy']:.1f} % (profiled run "
+          f"{out['factor']['runs']}); mesh vs factor S(q) max deviation "
+          f"{out['dev']:.3e} (gate rtol {MESH_RTOL}, atol {MESH_ATOL}); "
+          f"gridding {out['grid_ms']:.3f} ms a frame (scatter, {CHUNK} frames "
+          f"a call), dense chain {out['dense_ms']:.3f} ms; scatter vs "
+          f"in-order sums {out['vs_plain']:.3e}, oracle max/sqrt(N) "
+          f"{out['oracle_scatter']:.3e} / {out['oracle_in-order']:.3e}; "
+          f"{'; '.join(replans) or 'no cell re-plan'}; "
+          f"{out['seconds']:.1f} s ({out['routes_s']:.1f} s of them the "
+          f"trajectory and both routes' runs) on {card}")
+    return out
+
+
+def phase_aggregates(device, rng, card):
+    """bench.py's aggregates path on the card: run_together([
+    ClusterSizeDistribution(u.atoms, 3.5, "residues"),
+    HydrogenBondAnalysis(u, hydrogens_sel="name H*", acceptors_sel="name
+    O*"), NematicOrderParameter(H1, H2)]) on AGG_ATOMS water atoms over
+    AGG_FRAMES frames in AGG_CHUNK-frame chunks: frames/s and the busy share
+    of the last chunk; no kernel of the kernels line launches.  The first
+    chunk on the card against the port's CPU run: cluster counts, largest
+    clusters, the size histogram, H-bond counts and occupancies equal, the
+    order tensors within AGG_Q_ATOL; the full run's first chunk as the
+    first-chunk run's."""
+
+    from mdhelper_tpu_torch.analysis.cluster import ClusterSizeDistribution
+    from mdhelper_tpu_torch.analysis.hbonds import HydrogenBondAnalysis
+    from mdhelper_tpu_torch.analysis.orientation import NematicOrderParameter
+
+    started = time.perf_counter()
+    traj, u = agg_universe(rng, AGG_FRAMES)
+
+    def make(where):
+        return [
+            ClusterSizeDistribution(u.atoms, 3.5, "residues", verbose=False,
+                                    device=where),
+            HydrogenBondAnalysis(u, hydrogens_sel="name H*",
+                                 acceptors_sel="name O*", verbose=False,
+                                 device=where),
+            NematicOrderParameter(u.select_atoms("name H1"),
+                                  u.select_atoms("name H2"), verbose=False,
+                                  device=where),
+        ]
+
+    launches_before = kernel_launch_counts()
+    trio = agg_chunked(make(device))
+    out = {}
+    out["fps"], out["busy"], out["activities"] = run_profiled(
+        trio, AGG_FRAMES, AGG_CHUNK, chunk=AGG_CHUNK,
+        remake=lambda: agg_chunked(make(device)))
+    out["profiled_runs"] = run_profiled.runs
+    check(kernel_launch_counts() == launches_before,
+          "a kernel of the kernels line launched on the aggregates path")
+    cl, hb, nem = trio
+    check(cl.results.size_counts.sum() == cl.results.n_clusters.sum()
+          and (cl.results.largest >= 1).all(), "cluster counts")
+    check(np.all(np.isfinite(nem.results.Q))
+          and np.abs(np.trace(nem.results.Q, axis1=1, axis2=2)).max() < 1e-5
+          and (0 <= nem.results.P2).all() and (nem.results.P2 <= 1).all(),
+          "order tensors: finite, traceless, 0 <= P2 <= 1")
+    check(hb.results.counts.shape == (AGG_FRAMES,)
+          and (hb.results.occupancies <= 1).all(), "H-bond counts")
+
+    cpu_started = time.perf_counter()
+    (c_cl, c_hb, c_nem), (h_cl, h_hb, h_nem) = first_chunk_pair(make, device)
+    out["cpu_s"] = time.perf_counter() - cpu_started
+    for what, a, b in (
+            ("cluster counts", c_cl.results.n_clusters, h_cl.results.n_clusters),
+            ("largest clusters", c_cl.results.largest, h_cl.results.largest),
+            ("cluster size histogram", c_cl.results.size_counts,
+             h_cl.results.size_counts),
+            ("H-bond counts", c_hb.results.counts, h_hb.results.counts),
+            ("H-bond occupancies", c_hb.results.occupancies,
+             h_hb.results.occupancies),
+            ("full run's first-chunk cluster counts",
+             cl.results.n_clusters[:AGG_CHUNK], c_cl.results.n_clusters),
+            ("full run's first-chunk H-bond counts",
+             hb.results.counts[:AGG_CHUNK], c_hb.results.counts)):
+        check(np.array_equal(a, b), f"aggregates, card vs CPU: {what} differ")
+    out["q_err"] = float(np.abs(c_nem.results.Q - h_nem.results.Q).max())
+    check(out["q_err"] <= AGG_Q_ATOL, f"order tensors, card vs CPU: "
+          f"{out['q_err']:.3e} > {AGG_Q_ATOL}")
+    out["seconds"] = time.perf_counter() - started
+    print(f"aggregates path ({AGG_ATOMS} atoms, {AGG_ATOMS // 3} waters, box "
+          f"{agg_box():.2f} A): {out['fps']:.3f} frames/s, busy "
+          f"{100 * out['busy']:.1f} %, {out['activities']:.0f} device "
+          f"activities a frame (profiled run {out['profiled_runs']}); "
+          f"clusters a frame {cl.results.n_clusters.mean():.1f}, largest "
+          f"{cl.results.largest.mean():.1f}; H-bonds a frame "
+          f"{hb.results.mean_count:.1f}; P2 {nem.results.P2.mean():.4f}; "
+          f"first chunk card == CPU (Q within {out['q_err']:.3e}; CPU run "
+          f"{out['cpu_s']:.1f} s); {out['seconds']:.1f} s on {card}")
+    return out
+
+
+def phase_order(device, rng, card):
+    """bench.py's order path on the card: SteinhardtOrderParameter(u.atoms,
+    3.5, (4, 6), averaged=True, wl=True) and TetrahedralOrderParameter(
+    u.atoms) through run_together on AGG_ATOMS atoms over ORDER_FRAMES
+    frames in AGG_CHUNK-frame chunks: frames/s and the busy share of the
+    last chunk; no kernel of the kernels line launches.  The first chunk on
+    the card against the port's CPU run: neighbour counts equal, q_l, the
+    averaged q_l, Q_l and q_tet within ORDER_ATOL, w_l within WL_ATOL."""
+
+    from mdhelper_tpu_torch.analysis.steinhardt import (
+        SteinhardtOrderParameter,
+        TetrahedralOrderParameter,
+    )
+
+    started = time.perf_counter()
+    traj, u = agg_universe(rng, ORDER_FRAMES, waters=False)
+    store_s = [0.0]
+
+    def make(where):
+        return [
+            SteinhardtOrderParameter(u.atoms, 3.5, (4, 6), averaged=True,
+                                     wl=True, verbose=False, device=where),
+            TetrahedralOrderParameter(u.atoms, verbose=False, device=where),
+        ]
+
+    def timed(analyses):
+        """The Steinhardt store (the host's invariants) clocked into
+        store_s."""
+
+        st = analyses[0]
+        store = st._store_chunk
+
+        def clocked(extras, batch):
+            t0 = time.perf_counter()
+            store(extras, batch)
+            store_s[0] += time.perf_counter() - t0
+
+        st._store_chunk = clocked
+        store_s[0] = 0.0
+        return analyses
+
+    launches_before = kernel_launch_counts()
+    pair = timed(agg_chunked(make(device)))
+    out = {}
+    out["fps"], out["busy"], out["activities"] = run_profiled(
+        pair, ORDER_FRAMES, AGG_CHUNK, chunk=AGG_CHUNK,
+        remake=lambda: timed(agg_chunked(make(device))))
+    out["profiled_runs"] = run_profiled.runs
+    out["store_ms"] = 1e3 * store_s[0] / ORDER_FRAMES
+    check(kernel_launch_counts() == launches_before,
+          "a kernel of the kernels line launched on the order path")
+    st, tet = pair
+    for key in ("ql", "wl", "ql_avg", "wl_avg", "Ql"):
+        check(np.all(np.isfinite(st.results[key])), f"Steinhardt {key}")
+    check(np.all(np.isfinite(tet.results.q_tet))
+          and (tet.results.q_tet <= 1 + 1e-6).all(), "q_tet")
+
+    cpu_started = time.perf_counter()
+    (c_st, c_tet), (h_st, h_tet) = first_chunk_pair(make, device)
+    out["cpu_s"] = time.perf_counter() - cpu_started
+    check(np.array_equal(c_st.results.n_neighbors, h_st.results.n_neighbors),
+          "order, card vs CPU: neighbour counts differ")
+    check(np.array_equal(st.results.n_neighbors[:AGG_CHUNK],
+                         c_st.results.n_neighbors),
+          "order: the full run's first-chunk neighbour counts differ")
+    errs = {key: float(np.abs(c_st.results[key] - h_st.results[key]).max())
+            for key in ("ql", "ql_avg", "Ql", "wl", "wl_avg")}
+    errs["q_tet"] = float(np.abs(c_tet.results.q_tet
+                                 - h_tet.results.q_tet).max())
+    for key, err in errs.items():
+        tol = WL_ATOL if key.startswith("wl") else ORDER_ATOL
+        check(err <= tol, f"order, card vs CPU: {key} off by {err:.3e} > "
+              f"{tol}")
+    out["errs"] = errs
+    out["seconds"] = time.perf_counter() - started
+    print(f"order path ({AGG_ATOMS} atoms): {out['fps']:.3f} frames/s, busy "
+          f"{100 * out['busy']:.1f} %, {out['activities']:.0f} device "
+          f"activities a frame (profiled run {out['profiled_runs']}), the "
+          f"host's invariants {out['store_ms']:.3f} ms a frame; "
+          f"neighbours a particle {st.results.n_neighbors.mean():.2f}, "
+          f"<q4> {st.results.ql_mean[:, 0].mean():.4f}, <q6> "
+          f"{st.results.ql_mean[:, 1].mean():.4f}, <q_tet> "
+          f"{tet.results.q_tet_mean.mean():.4f}; first chunk card == CPU "
+          f"(neighbours equal; max deviations "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; CPU run {out['cpu_s']:.1f} s); {out['seconds']:.1f} s on "
+          f"{card}")
+    return out
+
+
 def main():
     import torch
 
@@ -4911,6 +5272,23 @@ def main():
           f"{polymer['pl_fps_tri']:.3f} and {polymer['msid_fps_tri']:.3f} "
           f"frames/s (information, not a claim); "
           f"the polymer phase took {polymer['seconds']:.1f} s")
+
+    # Slice 16 draws from its own generators, one a phase.
+    mesh = phase_mesh(device, np.random.default_rng(SEED + 15), card)
+    print(f"mesh S(q) on the fused path: {mesh['mesh']['fps']:.3f} frames/s "
+          f"against {mesh['factor']['fps']:.3f} with the factor route on "
+          f"{card} (information, not a claim); the mesh phase took "
+          f"{mesh['seconds']:.1f} s")
+    aggregates = phase_aggregates(device, np.random.default_rng(SEED + 16),
+                                  card)
+    print(f"aggregates path ({AGG_ATOMS} atoms): {aggregates['fps']:.3f} "
+          f"frames/s on {card}, device busy "
+          f"{100 * aggregates['busy']:.1f} % (information, not a claim); the "
+          f"aggregates phase took {aggregates['seconds']:.1f} s")
+    order = phase_order(device, np.random.default_rng(SEED + 17), card)
+    print(f"order path ({AGG_ATOMS} atoms): {order['fps']:.3f} frames/s on "
+          f"{card}, device busy {100 * order['busy']:.1f} % (information, not "
+          f"a claim); the order phase took {order['seconds']:.1f} s")
 
     def path_row(shape, timing_plan, path, plain_from=None, plain_shape=None):
         """(launches, shape, timing) of a slice-4 row, whose kernel was

@@ -8,10 +8,14 @@ The ported analyses and the streaming runtime, module for module as in
 
 from . import (  # noqa: F401
     base,
+    cluster,
     electrostatics,
+    hbonds,
     multi,
+    orientation,
     polymer,
     profile,
+    steinhardt,
     structure,
     thermodynamics,
     transport,
@@ -25,11 +29,15 @@ from .multi import run_together  # noqa: F401
 
 __all__ = [
     "base",
+    "cluster",
     "electrostatics",
+    "hbonds",
     "multi",
+    "orientation",
     "polymer",
     "profile",
     "run_together",
+    "steinhardt",
     "structure",
     "thermodynamics",
     "transport",

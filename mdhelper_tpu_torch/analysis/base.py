@@ -33,7 +33,62 @@ import torch
 from .._device import resolve_device
 
 __all__ = ["DynamicAnalysisBase", "Hash", "SerialAnalysisBase",
-           "carry_from_numpy", "carry_leaves"]
+           "carry_from_numpy", "carry_leaves", "existence_lifetimes"]
+
+
+def existence_lifetimes(h, device=None) -> tuple:
+    """Intermittent correlation c(t) and continuous survival S(t)
+    from a boolean existence series ``h`` of shape ``(T, P)`` (P
+    independent bond/membership channels), both normalized to 1 at
+    t = 0 (the JAX package's function).
+
+    c(t) = <h(0)h(t)> / <h> (Luzar & Chandler 1996) -- with 0/1 data
+    and the triangular normalization of
+    :func:`~mdhelper_tpu_torch.algorithm.correlation.correlation_fft`,
+    <h(0)h(0)> = <h>, so c is the channel-summed ACF over its t = 0
+    value, correlated in float64 on `device` (default: the first CUDA
+    device, raising `RuntimeError` without one; ``"cpu"`` for the CPU).
+
+    S(t) counts only channels set at EVERY sample in [0, t]: a
+    maximal run of L consecutive ones contributes ``max(L - t, 0)``
+    origins at lag t, so with cnt[L] runs of each length,
+    ``num(t) = sum_{L > t} cnt[L] (L - t)`` -- two reversed cumulative
+    sums, O(T) after the run-length scan (host numpy).
+    """
+
+    from ..algorithm.correlation import correlation_fft
+
+    device = resolve_device(device)
+    h = np.asarray(h, dtype=bool)
+    T, P = h.shape
+    ever = h.any(axis=0)
+    if not ever.any():
+        empty = np.zeros(T)
+        if T:
+            empty[0] = 1.0
+        return empty, empty.copy()
+    h = h[:, ever]
+    series = torch.as_tensor(h.astype(np.float64), device=device)
+    acf = correlation_fft(series, axis=0).sum(dim=1).cpu().numpy()
+    c = acf / acf[0]
+
+    P = h.shape[1]
+    # column-major flatten with a zero separator so every run closes
+    # inside its own channel's series
+    flat = np.concatenate(
+        [h.T, np.zeros((P, 1), dtype=bool)], axis=1
+    ).ravel()
+    d = np.diff(np.concatenate([[0], flat.astype(np.int8)]))
+    lengths = np.flatnonzero(d == -1) - np.flatnonzero(d == 1)
+    cnt = np.bincount(lengths, minlength=T + 2).astype(np.float64)
+    rev1 = np.append(np.cumsum(cnt[::-1])[::-1], 0.0)
+    rev2 = np.append(
+        np.cumsum((cnt * np.arange(len(cnt)))[::-1])[::-1], 0.0
+    )
+    t = np.arange(T)
+    num = rev2[t + 1] - t * rev1[t + 1]
+    S = num / (T - t)
+    return c, S / S[0]
 
 
 class Hash(dict):
@@ -437,3 +492,19 @@ class DynamicAnalysisBase(SerialAnalysisBase):
                 " parallel/); run with parallel=False."
             )
         super().__init__(trajectory, verbose, device=device)
+
+    def _uniform_lag_dt(self, what: str) -> float:
+        """Lag-grid spacing (ps) for the correlators' conclusions: the
+        trajectory's ``dt`` times the (required-uniform) frame stride.
+        Raises for non-uniform frame selections -- the FFT correlator
+        silently assumes an even grid."""
+
+        steps = np.diff(self.frames)
+        if len(steps) and not np.all(steps == steps[0]):
+            raise ValueError(
+                f"{what} needs uniformly spaced frames (the "
+                "Wiener-Khinchin correlator assumes a constant lag "
+                "grid); got a non-uniform frame selection."
+            )
+        stride = int(steps[0]) if len(steps) else 1
+        return self._trajectory.dt * stride

@@ -55,8 +55,9 @@ bin 0, as in the JAX class).  Each analysis takes ``groupings=`` (Van
 Hove: ``grouping=``): ``"residues"`` or ``"segments"`` run it on the
 centers of mass of a group's residues or segments, reduced in torch in a
 fixed order (:func:`_com_reducer`) from the streamed atom columns.  The
-mesh S(q) method is not ported yet; the JAX package has no 2-D Van Hove
-function.
+S(q) and the ISF also take the mesh route (``method="mesh"``: Kaiser-Bessel
+gridding and a 3-D FFT, :mod:`mdhelper_tpu_torch.ops.mesh_scattering`).
+The JAX package has no 2-D Van Hove function.
 """
 
 import warnings
@@ -94,6 +95,7 @@ from ..ops.histogram import (
     displacement_histogram_frame,
     radial_histogram_frame,
 )
+from ..ops.mesh_scattering import mesh_plan, mesh_trig_sums
 from .base import SerialAnalysisBase, _check_even_frame_spacing, carry_leaves
 
 __all__ = [
@@ -1040,7 +1042,11 @@ class StructureFactor(SerialAnalysisBase):
         plus off-grid extras such as the surface points) is split under
         ``"auto"`` and ``"factor"``: at least 64 lattice points go through
         the factorized sums and the extras through the direct ones.
-        ``"mesh"`` is not ported.
+        ``"mesh"``: Kaiser-Bessel gridding and a 3-D FFT
+        (:func:`~mdhelper_tpu_torch.ops.mesh_scattering.mesh_trig_sums`,
+        about 5e-6 relative) for lattice wavevectors with non-negative
+        indices, in the box given at construction; one group with
+        ``mode=None`` only.
     device : optional
         Device the chunks are folded on (default: the first CUDA
         device, which must exist; ``"cpu"`` for the CPU).
@@ -1067,8 +1073,6 @@ class StructureFactor(SerialAnalysisBase):
                 "Invalid method. Valid values: 'auto', 'direct', "
                 "'factor', 'mesh'."
             )
-        if method == "mesh":
-            raise NotImplementedError("method='mesh' is not ported.")
         self._method = method
         if mode not in {None, "pair", "partial"}:
             raise ValueError("Invalid mode.")
@@ -1176,6 +1180,49 @@ class StructureFactor(SerialAnalysisBase):
         }
         return factor_plan(qs[idx_grid], dims)
 
+    def _mesh_setup(self):
+        """``(plan, flat_idx, n_points)``: every wavevector mapped to its
+        integer grid coordinates n = q L / (2 pi) in the construction
+        box, the index of each in the C-ordered ``(n_points,) * 3`` mesh
+        sums, and the gridding plan (the JAX package's
+        ``_mesh_setup``)."""
+
+        if self._dimensions is None:
+            raise ValueError("method='mesh' requires box dimensions.")
+        dims = np.asarray(self._dimensions, np.float64)
+        n_float = self._wavevectors * dims / (2 * np.pi)
+        n_int = np.rint(n_float).astype(int)
+        if not np.allclose(n_float, n_int, atol=1e-8):
+            raise ValueError(
+                "method='mesh' requires grid wavevectors q = 2*pi*n/L "
+                "(no spherical surfaces or custom wavevectors)."
+            )
+        if n_int.min() < 0:
+            raise ValueError(
+                "method='mesh' requires non-negative grid indices."
+            )
+        n_points = int(n_int.max()) + 1
+        flat_idx = (n_int[:, 0] * n_points * n_points
+                    + n_int[:, 1] * n_points + n_int[:, 2])
+        return mesh_plan(n_points, dims), flat_idx, n_points
+
+    def _mesh_sums_fn(self):
+        """The mesh route of :meth:`_group_sums_fn`: every frame of a batch
+        gridded at once (``precision`` and ``workspace`` do not apply)."""
+
+        plan, flat_idx, n_points = self._mesh_setup()
+        flat = torch.as_tensor(flat_idx, device=self._device)
+        options = {key: plan[key] for key in
+                   ("mesh", "width", "beta", "box", "deconv")}
+
+        def sums(pos, precision=None, workspace=None):
+            del precision, workspace
+            cos, sin = mesh_trig_sums(pos, n_points=n_points, **options)
+            return (cos.reshape(len(pos), -1)[:, flat],
+                    sin.reshape(len(pos), -1)[:, flat])
+
+        return sums
+
     def _group_sums_fn(self):
         """``sums(positions, precision=None, workspace=None) -> (cos,
         sin)``: one group's float32 ``(B, N_q)`` trig sums of any ``(B,
@@ -1184,6 +1231,8 @@ class StructureFactor(SerialAnalysisBase):
         (:func:`~mdhelper_tpu_torch.ops.cuda_kernels.trig_workspace`)
         holds the partial sums of the direct launches."""
 
+        if self._method == "mesh":
+            return self._mesh_sums_fn()
         device = self._device
         default = self._precision
         plan = self._factor
@@ -1237,6 +1286,12 @@ class StructureFactor(SerialAnalysisBase):
             self.results.wavenumbers = self._wavenumbers
         self.results.units = {"results.wavenumbers": ureg.angstrom**-1}
         self._factor = self._factor_setup()
+        if self._method == "mesh" and (self._n_groups != 1
+                                       or self._mode is not None):
+            raise ValueError(
+                "method='mesh' currently supports a single group with "
+                "mode=None."
+            )
         self._carry = {
             "ssf": torch.zeros(
                 (len(self.results.pairs), len(self._wavenumbers)),
@@ -1571,7 +1626,10 @@ class IntermediateScatteringFunction(StructureFactor):
     factorized lattice sums under ``method="auto"`` for a lattice grid, the
     direct trig sums (the CUDA kernel of
     :func:`mdhelper_tpu_torch.ops.cuda_kernels.trig_sums` on a GPU) under
-    ``"direct"``, both for a split set.
+    ``"direct"``, both for a split set, or the mesh sums under ``"mesh"``
+    (each group's sums gridded, all of a batch's frames in one call; the
+    self part grids the displacements, which the fractional wrap keeps
+    box-periodic).
 
     Parameters (beside those of :class:`StructureFactor`)
     -----------------------------------------------------
@@ -1725,7 +1783,8 @@ class IntermediateScatteringFunction(StructureFactor):
             self._carry["ring_pos"] = zeros(n_lags, self._N, 3,
                                             dtype=torch.float32)
             self._carry["iisf"] = zeros(n_sel, n_groups, n_q)
-            direct_qs = (n_q if self._factor is None
+            direct_qs = (0 if self._method == "mesh"
+                         else n_q if self._factor is None
                          else 0 if self._factor_split is None
                          else len(self._factor_split["qs_rest"]))
             if device.type == "cuda" and direct_qs:

@@ -234,6 +234,58 @@ def _root(d2):
     return torch.sqrt(d2.double()).to(d2.dtype)
 
 
+def _image_shift(delta, box):
+    """Integer image multiples for an orthorhombic fold, with
+    non-positive box lengths treated as aperiodic (vacuum systems must
+    not fold: a zero length would otherwise give NaNs), as the JAX
+    package's ``_image_shift``."""
+
+    period = torch.where(box > 0, box, torch.inf)
+    return torch.where(box > 0, torch.round(delta / period), 0.0)
+
+
+def _sweep_elements(device) -> int:
+    """float32 elements of one ``(rows, N, 3)`` intermediate of a dense
+    pair sweep's row block on `device`: 2^27 (512 MiB, a few of which
+    live at once on an 80 GB card) on a GPU, where fewer, larger blocks
+    launch fewer kernels, and 2^21 (8 MiB) on the CPU, where a block
+    stays in cache."""
+
+    return 1 << 27 if torch.device(device).type == "cuda" else 1 << 21
+
+
+def _row_blocks(n_rows: int, n_cols: int, device) -> list:
+    """``(start, stop)`` of the row blocks of a dense pair sweep of
+    `n_rows` rows against `n_cols` columns on `device`: each block's
+    ``(rows, n_cols, 3)`` float32 intermediate holds at most
+    :func:`_sweep_elements` elements (at least one row a block)."""
+
+    rows = max(1, _sweep_elements(device) // (3 * max(n_cols, 1)))
+    return [(lo, min(lo + rows, n_rows)) for lo in range(0, n_rows, rows)]
+
+
+def _contact_map(pts, box, cut2):
+    """``(N, N)`` bool: points `pts` ``(N, 3)`` within the cutoff (squared
+    `cut2`, in the dtype of `pts`) of each other under the minimum image
+    of `box` (:func:`_min_image_vectors`), the diagonal included, built in
+    row blocks (:func:`_row_blocks`)."""
+
+    n = pts.shape[0]
+    return torch.cat([
+        _norm2(_min_image_vectors(pts[lo:hi, None, :] - pts[None, :, :],
+                                  box)) <= cut2
+        for lo, hi in _row_blocks(n, n, pts.device)
+    ])
+
+
+def _norm2(v):
+    """Squared lengths of vectors `v` ``(..., 3)`` in their dtype, summed
+    in the order of the JAX package's reductions: ``(x^2 + y^2) + z^2``."""
+
+    return (v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+            + v[..., 2] * v[..., 2])
+
+
 def _min_image_distance(delta, box):
     """Minimum-image lengths of displacements `delta` ``(..., 3)`` in
     the dtype of `delta`, for the boxes of :func:`_min_image_vectors`
@@ -269,9 +321,7 @@ def _min_image_vectors(delta, box):
             best = torch.where(take[..., None], cand, best)
             best_d2 = torch.minimum(best_d2, d2)
         return best
-    period = torch.where(box > 0, box, torch.inf)
-    shift = torch.where(box > 0, torch.round(delta / period), 0.0)
-    return delta - box * shift
+    return delta - box * _image_shift(delta, box)
 
 
 def radial_histogram_frame(pos1, pos2, box, edges, *, exclusion=None,

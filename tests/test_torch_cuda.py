@@ -1699,3 +1699,122 @@ def test_transport_functions_on_the_card_equal_cpu(cuda_device, name):
     cpu = fn(series, 1.0, 1.0, 0.01, reduced=True, device="cpu")
     np.testing.assert_allclose(card.acf, cpu.acf, rtol=0,
                                atol=1e-12 * np.abs(cpu.acf).max())
+
+
+@pytest.mark.cuda
+def test_existence_lifetimes_on_the_card_equal_cpu(cuda_device):
+    """The lifetime correlation's float64 FFT on the card within 1e-12 of
+    the CPU's; the run-length survival is host numpy and equal."""
+
+    from mdhelper_tpu_torch.analysis.base import existence_lifetimes
+
+    h = np.random.default_rng(6).random((400, 64)) < 0.7
+    card = existence_lifetimes(h)
+    cpu = existence_lifetimes(h, device="cpu")
+    np.testing.assert_allclose(card[0], cpu[0], rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(card[1], cpu[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+def test_mesh_sums_on_the_card(cuda_device, weighted):
+    """The mesh route's scatter-adds on the card against the in-order dense
+    chain on the card and the CPU's sums, within 1e-5 sqrt(N) (float32
+    atomics add in no fixed order); rho(0) the sum of the weights."""
+
+    from mdhelper_tpu_torch.ops import mesh_scattering as ms
+
+    rng = np.random.default_rng(46)
+    n, box = 20_000, 30.0
+    pos = torch.from_numpy((rng.random((3, n, 3)) * box).astype(np.float32))
+    w = (torch.from_numpy(rng.random((3, n)).astype(np.float32))
+         if weighted else None)
+    plan = ms.mesh_plan(12, [box] * 3)
+    kwargs = dict(n_points=12, mesh=plan["mesh"], width=plan["width"],
+                  beta=plan["beta"], box=plan["box"], deconv=plan["deconv"])
+    on_card = [x.cpu() for x in ms.mesh_trig_sums(
+        pos.to(cuda_device), weights=None if w is None else w.to(
+            cuda_device), **kwargs)]
+    plain = [x.cpu() for x in ms.mesh_trig_sums_plain(
+        pos.to(cuda_device), weights=None if w is None else w.to(
+            cuda_device), **kwargs)]
+    cpu = ms.mesh_trig_sums(pos, weights=w, **kwargs)
+    tol = 1e-5 * np.sqrt(n)
+    for a, b, c in zip(on_card, plain, cpu):
+        assert (a - b).abs().max().item() < tol
+        assert (a - c).abs().max().item() < tol
+    total = n if w is None else w.sum(dim=1)
+    torch.testing.assert_close(on_card[0][:, 0, 0, 0],
+                               torch.as_tensor(total, dtype=torch.float32)
+                               .expand(3), rtol=1e-7, atol=0)
+
+
+def _agg_system(n_mol=300, box=21.0, n_frames=6):
+    """testing.water_system waters at liquid density."""
+
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.testing import water_system
+
+    frames, topology = water_system(np.random.default_rng(47), n_mol, box,
+                                    n_frames, step=0.3)
+    return Universe.from_arrays(frames, [box] * 3 + [90.0] * 3, **topology)
+
+
+@pytest.mark.cuda
+def test_aggregates_on_the_card_equal_cpu(cuda_device):
+    """ClusterSizeDistribution, HydrogenBondAnalysis and
+    NematicOrderParameter on the card: cluster counts, sizes, H-bond counts,
+    pair counts and lifetimes equal the CPU's (the same float32 distances
+    and a correctly rounded root); the order tensors within 8 eps32."""
+
+    from mdhelper_tpu_torch.analysis import cluster, hbonds, orientation
+
+    u = _agg_system()
+    card, cpu = _polymer_runs(lambda d: cluster.ClusterSizeDistribution(
+        u.atoms, 2.5, "residues", verbose=False, device=d), u)
+    for key in ("n_clusters", "largest", "size_counts"):
+        np.testing.assert_array_equal(card.results[key], cpu.results[key])
+    card, cpu = _polymer_runs(lambda d: hbonds.HydrogenBondAnalysis(
+        u, pair_counts=True, lifetimes=True, verbose=False, device=d), u)
+    for key in ("counts", "occupancies", "pair_counts"):
+        np.testing.assert_array_equal(card.results[key], cpu.results[key])
+    np.testing.assert_allclose(card.results.lifetime, cpu.results.lifetime,
+                               rtol=0, atol=1e-12)
+    card, cpu = _polymer_runs(lambda d: orientation.NematicOrderParameter(
+        u.select_atoms("name H1"), u.select_atoms("name H2"), acf=True,
+        verbose=False, device=d), u)
+    eps = float(np.finfo(np.float32).eps)
+    np.testing.assert_allclose(card.results.Q, cpu.results.Q, rtol=0,
+                               atol=8 * eps)
+    card, cpu = _polymer_runs(lambda d: orientation.OrientationProfile(
+        u.select_atoms("name O"), u.select_atoms("name H1"), n_bins=20,
+        verbose=False, device=d), u)
+    np.testing.assert_array_equal(card.results.counts, cpu.results.counts)
+    np.testing.assert_allclose(card.results.p2, cpu.results.p2, rtol=0,
+                               atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_order_on_the_card_equals_cpu(cuda_device):
+    """SteinhardtOrderParameter and TetrahedralOrderParameter on the card:
+    neighbor counts equal the CPU's, q_l within 2e-6, w_l within 1e-5,
+    q_tet within 2e-6 (float32 sums in another order, CUDA's rsqrtf)."""
+
+    from mdhelper_tpu_torch.analysis import steinhardt
+
+    u = _agg_system()
+    card, cpu = _polymer_runs(lambda d: steinhardt.SteinhardtOrderParameter(
+        u.atoms, 3.5, (4, 6), averaged=True, wl=True, verbose=False,
+        device=d), u)
+    np.testing.assert_array_equal(card.results.n_neighbors,
+                                  cpu.results.n_neighbors)
+    for key in ("ql", "ql_avg", "Ql"):
+        np.testing.assert_allclose(card.results[key], cpu.results[key],
+                                   rtol=0, atol=2e-6)
+    for key in ("wl", "wl_avg"):
+        np.testing.assert_allclose(card.results[key], cpu.results[key],
+                                   rtol=0, atol=1e-5)
+    card, cpu = _polymer_runs(lambda d: steinhardt.TetrahedralOrderParameter(
+        u.atoms, verbose=False, device=d), u)
+    np.testing.assert_allclose(card.results.q_tet, cpu.results.q_tet,
+                               rtol=0, atol=2e-6)

@@ -246,8 +246,7 @@ def test_get_closest_factors_matches_jax(value, n_factors):
 def test_structure_factor_argument_errors(universes):
     u = universes[1]
     make = structure.StructureFactor
-    with pytest.raises(NotImplementedError):
-        make(u.atoms, method="mesh", device="cpu")
+    # method="mesh" is ported (tests/test_torch_mesh.py).
     # "residues" is ported (tests/test_torch_groupings.py); "segments" is
     # refused, as the JAX class refuses it.
     with pytest.raises(ValueError):

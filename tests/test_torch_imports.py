@@ -18,9 +18,19 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from mdhelper_tpu_torch.analysis import thermodynamics  # noqa: E402
+from mdhelper_tpu_torch.analysis.cluster import (  # noqa: E402
+    ClusterSizeDistribution,
+)
 from mdhelper_tpu_torch.analysis.electrostatics import (  # noqa: E402
     DipoleMoment,
     calculate_dielectric_spectrum,
+)
+from mdhelper_tpu_torch.analysis.hbonds import (  # noqa: E402
+    HydrogenBondAnalysis,
+)
+from mdhelper_tpu_torch.analysis.orientation import (  # noqa: E402
+    NematicOrderParameter,
+    OrientationProfile,
 )
 from mdhelper_tpu_torch.analysis.polymer import (  # noqa: E402
     EndToEndVector,
@@ -36,7 +46,12 @@ from mdhelper_tpu_torch.analysis.profile import (  # noqa: E402
     DensityProfile,
     RadialDensityProfile,
 )
+from mdhelper_tpu_torch.analysis.steinhardt import (  # noqa: E402
+    SteinhardtOrderParameter,
+    TetrahedralOrderParameter,
+)
 from mdhelper_tpu_torch.analysis.structure import (  # noqa: E402
+    IntermediateScatteringFunction,
     RadialDistributionFunction,
     StructureFactor,
     VanHoveFunction,
@@ -125,6 +140,17 @@ def test_sources_cover_the_profile_layer():
         assert f"mdhelper_tpu_torch/{module}.py" in names
 
 
+def test_sources_cover_the_aggregates_and_order_layer():
+    """The mesh route's and the aggregates' and order classes' modules are
+    among the parsed sources."""
+
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("ops/mesh_scattering", "analysis/cluster",
+                   "analysis/hbonds", "analysis/orientation",
+                   "analysis/steinhardt", "algorithm/spherical"):
+        assert f"mdhelper_tpu_torch/{module}.py" in names
+
+
 def test_import_rule_catches_both_packages():
     assert _forbidden("jax") and _forbidden("jax.numpy")
     assert _forbidden("mdhelper_tpu") and _forbidden("mdhelper_tpu.ops.x")
@@ -167,6 +193,27 @@ def _analyses(u, **device):
                                                  **device),
         "msid": lambda: MeanSquareInternalDistance(u.atoms, **chains,
                                                    **device),
+        "mesh_sq": lambda: StructureFactor(u.atoms, n_points=3,
+                                           method="mesh", verbose=False,
+                                           **device),
+        "mesh_isf": lambda: IntermediateScatteringFunction(
+            u.atoms, n_points=3, method="mesh", incoherent=True, n_lags=2,
+            verbose=False, **device),
+        "cluster": lambda: ClusterSizeDistribution(u.atoms, 1.0,
+                                                   verbose=False, **device),
+        "hbonds": lambda: HydrogenBondAnalysis(
+            u, acceptors_sel="all", donor_hydrogen_pairs=[[0, 1], [2, 3]],
+            lifetimes=True, verbose=False, **device),
+        "nematic": lambda: NematicOrderParameter(
+            u.atoms[0::2], u.atoms[1::2], acf=True, verbose=False,
+            **device),
+        "orientation": lambda: OrientationProfile(
+            u.atoms[0::2], u.atoms[1::2], n_bins=4, verbose=False,
+            **device),
+        "steinhardt": lambda: SteinhardtOrderParameter(
+            u.atoms, 2.0, averaged=True, wl=True, verbose=False, **device),
+        "tetrahedral": lambda: TetrahedralOrderParameter(
+            u.atoms, verbose=False, **device),
     }
 
 
@@ -180,7 +227,10 @@ def universe():
 @pytest.mark.parametrize("name", ["rdf", "cross_rdf", "vanhove", "sq",
                                   "onsager", "profile", "radial", "map2d",
                                   "map3d", "dipole", "gyradius", "e2e",
-                                  "rouse", "scsf", "persistence", "msid"])
+                                  "rouse", "scsf", "persistence", "msid",
+                                  "mesh_sq", "mesh_isf", "cluster", "hbonds",
+                                  "nematic", "orientation", "steinhardt",
+                                  "tetrahedral"])
 def test_default_device_is_the_card(monkeypatch, universe, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -206,3 +256,19 @@ def test_transport_functions_default_to_the_card(monkeypatch, name):
         fn(series, 1.0, 1.0, 0.1, reduced=True)
     out = fn(series, 1.0, 1.0, 0.1, reduced=True, device="cpu")
     assert np.isfinite(out.acf).all()
+
+
+def test_existence_lifetimes_default_to_the_card(monkeypatch):
+    """The lifetime correlation's FFT runs on the first CUDA device unless
+    ``device=`` says otherwise: without a card the default raises (also on
+    a series with no channel ever set), and ``device="cpu"`` runs."""
+
+    from mdhelper_tpu_torch.analysis.base import existence_lifetimes
+
+    h = np.random.default_rng(2).random((32, 5)) < 0.5
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for series in (h, np.zeros_like(h)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            existence_lifetimes(series)
+    c, s = existence_lifetimes(h, device="cpu")
+    assert c[0] == 1.0 and s[0] == 1.0

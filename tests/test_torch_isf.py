@@ -317,9 +317,9 @@ def test_errors_raised_as_jax_raises_them(universes, case):
 
 
 @pytest.mark.parametrize("kwargs", [
-    # groupings="residues" is ported (tests/test_torch_groupings.py).
-    dict(shard="q"), dict(method="mesh"), dict(shard="frames"),
-    dict(parallel=True)])
+    # groupings="residues" (tests/test_torch_groupings.py) and
+    # method="mesh" (tests/test_torch_mesh.py) are ported.
+    dict(shard="q"), dict(shard="frames"), dict(parallel=True)])
 def test_unported_options_raise(universes, kwargs):
     with pytest.raises(NotImplementedError):
         structure.IntermediateScatteringFunction(

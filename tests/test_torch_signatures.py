@@ -71,6 +71,24 @@ NOT_PORTED = {
     "analysis.polymer.MeanSquareInternalDistance": {
         "kwargs": "parallel/ (item 10): the runtime's mesh options",
     },
+    "analysis.cluster.ClusterSizeDistribution": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.hbonds.HydrogenBondAnalysis": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.orientation.NematicOrderParameter": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.orientation.OrientationProfile": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.steinhardt.SteinhardtOrderParameter": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.steinhardt.TetrahedralOrderParameter": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
 }
 
 #: Parameters the port takes whose other values are not ported yet: the
@@ -91,13 +109,20 @@ NOT_PORTED_VALUES = {
         "analysis.polymer.SingleChainStructureFactor",
         "analysis.polymer.PersistenceLength",
         "analysis.polymer.MeanSquareInternalDistance",
+        "analysis.cluster.ClusterSizeDistribution",
+        "analysis.hbonds.HydrogenBondAnalysis",
+        "analysis.orientation.NematicOrderParameter",
+        "analysis.orientation.OrientationProfile",
+        "analysis.steinhardt.SteinhardtOrderParameter",
+        "analysis.steinhardt.TetrahedralOrderParameter",
     )
 }
 
 #: Parameters of the port's own: the device of an analysis (and of the
-#: radial histogram and of the FFTs of the transport functions), the JAX
-#: ISF's ``shard`` and ``method`` (which it takes through ``**kwargs``),
-#: and the carry of a run that the JAX package began.
+#: radial histogram, of the FFTs of the transport functions and of the
+#: lifetimes' correlation), the JAX ISF's ``shard`` and ``method`` (which
+#: it takes through ``**kwargs``), and the carry of a run that the JAX
+#: package began.
 PORT_ONLY = {
     "analysis.structure.radial_histogram": {"device"},
     "analysis.structure.RadialDistributionFunction": {"device"},
@@ -119,6 +144,13 @@ PORT_ONLY = {
     "analysis.polymer.RouseModes": {"device"},
     "analysis.polymer.PersistenceLength": {"device"},
     "analysis.polymer.MeanSquareInternalDistance": {"device"},
+    "analysis.cluster.ClusterSizeDistribution": {"device"},
+    "analysis.hbonds.HydrogenBondAnalysis": {"device"},
+    "analysis.orientation.NematicOrderParameter": {"device"},
+    "analysis.orientation.OrientationProfile": {"device"},
+    "analysis.steinhardt.SteinhardtOrderParameter": {"device"},
+    "analysis.steinhardt.TetrahedralOrderParameter": {"device"},
+    "analysis.base.existence_lifetimes": {"device"},
     "analysis.electrostatics.calculate_dielectric_spectrum": {"device"},
     "analysis.thermodynamics.calculate_shear_viscosity": {"device"},
     "analysis.thermodynamics.calculate_thermal_conductivity": {"device"},
@@ -269,6 +301,22 @@ OBJECTS = [
     "fit.exponential.exp2",
     "fit.exponential.biexp",
     "fit.exponential.stretched_exp",
+    # the mesh S(q) route, aggregates and order
+    "ops.mesh_scattering.mesh_plan",
+    "analysis.base.existence_lifetimes",
+    "analysis.base.DynamicAnalysisBase._uniform_lag_dt",
+    "analysis.cluster.ClusterSizeDistribution",
+    "analysis.hbonds.HydrogenBondAnalysis",
+    "analysis.orientation.NematicOrderParameter",
+    "analysis.orientation.OrientationProfile",
+    "analysis.steinhardt.SteinhardtOrderParameter",
+    "analysis.steinhardt.TetrahedralOrderParameter",
+    "algorithm.spherical.sph_harm_columns",
+    "algorithm.spherical.complex_from_real",
+    "algorithm.spherical.invariant_ql",
+    "algorithm.spherical.invariant_wl",
+    "algorithm.spherical.wigner_3j",
+    "algorithm.spherical.wigner_3j_lll",
 ]
 
 
@@ -337,6 +385,22 @@ def _universe():
     return Universe.from_arrays(frames, [6.0] * 3 + [90.0] * 3)
 
 
+def _arguments(dotted, u):
+    """``(args, kwargs)`` that construct the class at `dotted` on `u`."""
+
+    if dotted.endswith("RadialDensityProfile"):
+        return (u.atoms, u.atoms[:3]), {}
+    if dotted.endswith("HydrogenBondAnalysis"):
+        return (u,), dict(acceptors_sel="all",
+                          donor_hydrogen_pairs=[[0, 1], [3, 4]])
+    if dotted.endswith(("NematicOrderParameter", "OrientationProfile")):
+        return (u.atoms[0::2], u.atoms[1::2]), {}
+    if dotted.endswith(("ClusterSizeDistribution",
+                        "SteinhardtOrderParameter")):
+        return (u.atoms, 2.0), {}
+    return (u.atoms,), {}
+
+
 @pytest.mark.parametrize("dotted", list(NOT_PORTED_VALUES))
 def test_values_not_ported_raise(dotted):
     """Each listed value raises `NotImplementedError` naming its item; the
@@ -344,10 +408,9 @@ def test_values_not_ported_raise(dotted):
 
     cls = _resolve("mdhelper_tpu_torch", dotted)
     u = _universe()
-    extra = ((u.atoms[:3],) if dotted.endswith("RadialDensityProfile")
-             else ())
+    args, kwargs = _arguments(dotted, u)
     for name, (value, reason) in NOT_PORTED_VALUES[dotted].items():
         assert "(item 10)" in reason
         with pytest.raises(NotImplementedError, match="item 10"):
-            cls(u.atoms, *extra, device="cpu", **{name: value})
-        cls(u.atoms, *extra, device="cpu", verbose=False).run()
+            cls(*args, device="cpu", **{name: value}, **kwargs)
+        cls(*args, device="cpu", verbose=False, **kwargs).run()
