@@ -104,7 +104,16 @@ counted, one block against the plain version and a float64 oracle, and
 100 chains against a float64 oracle; PersistenceLength and
 MeanSquareInternalDistance against float64 oracles, in the cube and in
 a triclinic cell; and the thermodynamics functions on seeded series with
-closed-form answers (a LAMMPS log read without pandas).  Every check
+closed-form answers (a LAMMPS log read without pandas).  Then slice
+16's mesh S(q), aggregates and order paths, and slice 17: the velocity
+analyses on the electrolyte with AR(1) Maxwell-Boltzmann velocities and
+a Couette profile (VACF against a float64 FFT oracle and 3kT/m, the
+Green-Kubo conductivity against the port's CPU run, FlowProfile's shear
+rate and temperatures, also from a TRR, slab and shell survival and the
+overlap function against the CPU run), and the Willard-Chandler
+interfaces and intrinsic profiles of a 20,000-site water slab (the first
+chunk against the CPU run; the deposit's and smoothing's ms a frame);
+no kernel of the kernels line launches there.  Every check
 raises on failure, so any failed phase exits non-zero.  The last lines of
 standard output are the card's name and power limit, a JSON line of
 per-kernel measurements (each beside its bound: the larger of the
@@ -4030,10 +4039,13 @@ def kernel_launch_counts():
 
 
 def numpy_wrap(x, length):
-    """float32 ``x - floor(x / L) * L``, one rounding an operation."""
+    """float32 ``x - floor(x / L) * L`` with the product and the
+    difference rounded once, as the port's ``wrap_positions``."""
+
+    from mdhelper_tpu_torch.testing import fma32
 
     length = np.float32(length)
-    return x - np.floor(x / length) * length
+    return fma32(-np.floor(x / length), length, x)
 
 
 def f32_group_com(pos, masses):
@@ -5148,6 +5160,510 @@ def phase_order(device, rng, card):
     return out
 
 
+VEL_FRAMES = 8 + 56
+VEL_TEMPERATURE = 300.0
+#: AR(1) coefficient of the thermal velocities a frame; the Couette rate.
+VEL_RHO, SHEAR_RATE = 0.6, 0.1
+#: Boltzmann's constant in u A^2 ps^-2 K^-1; the ions' masses (u).
+K_B_AMU, ION_MASSES = 0.8314462618152, (22.98977, 35.453)
+SHELL_IONS, SHELL_RADIUS, OVERLAP_A = 2_000, 3.5, 1.0
+#: frames of the card's runs that the port's CPU run repeats (two chunks).
+VEL_CHECK_FRAMES = 2 * CHUNK
+#: the overlap ring's lags in the timed runs and in the card-vs-CPU runs:
+#: fewer than the frames of each, so that the ring wraps around.
+OVERLAP_LAGS, OVERLAP_CHECK_LAGS = 48, 12
+FLOW_BINS = 100
+#: the recovered shear rate and bin temperatures, relative to the imposed.
+SHEAR_BOUND, TEMPERATURE_BOUND, VACF0_BOUND = 0.05, 0.03, 0.01
+
+
+def velocity_universe(rng, n_frames):
+    """phase_electrolyte's electrolyte (N_ATOMS ions of charges +1 and -1
+    on a random walk of ELECTRO_STEP A a frame and axis in the BOX cube,
+    wrapped as float32; Na and Cl masses) with velocities: a time-correlated
+    Maxwell-Boltzmann process at VEL_TEMPERATURE (AR(1), coefficient
+    VEL_RHO a frame) plus the Couette profile u_x = SHEAR_RATE (z - L/2)
+    of each frame's wrapped z, float32, 0.5 ps a frame."""
+
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    steps = rng.normal(0.0, ELECTRO_STEP, (n_frames, N_ATOMS, 3))
+    steps[0] = rng.random((N_ATOMS, 3)) * BOX
+    traj = np.mod(np.cumsum(steps, axis=0), BOX).astype(np.float32)
+    del steps
+    masses = np.tile(ION_MASSES, N_ATOMS // 2)
+    sigma = np.sqrt(K_B_AMU * VEL_TEMPERATURE / masses)[:, None]
+    thermal = sigma * rng.standard_normal((N_ATOMS, 3))
+    vel = np.empty((n_frames, N_ATOMS, 3), np.float32)
+    for t in range(n_frames):
+        if t:
+            thermal = (VEL_RHO * thermal + np.sqrt(1 - VEL_RHO**2) * sigma
+                       * rng.standard_normal((N_ATOMS, 3)))
+        vel[t] = thermal
+        vel[t, :, 0] += SHEAR_RATE * (traj[t, :, 2] - BOX / 2)
+    return traj, vel, Universe.from_arrays(
+        traj, np.array([BOX] * 3 + [90.0] * 3), dt=0.5, velocities=vel,
+        masses=masses, charges=np.tile([1.0, -1.0], N_ATOMS // 2))
+
+
+def vacf_oracle(vel):
+    """float64 entity-averaged velocity ACF of float32 `vel` (T, N, 3):
+    numpy's zero-padded FFT, triangular normalization."""
+
+    n_t = len(vel)
+    spec = np.fft.rfft(vel.astype(np.float64), n=2 * n_t, axis=0)
+    power = (spec.real**2 + spec.imag**2).sum(-1).mean(-1)
+    return np.fft.irfft(power, n=2 * n_t)[:n_t] / np.arange(n_t, 0, -1)
+
+
+def f32_flow_counts(traj, edges64):
+    """int64 counts of float32 z coordinates wrapped as the port wraps them
+    (numpy_wrap) against the float64 linspace edges rounded to float32,
+    numpy.histogram's rules."""
+
+    z = numpy_wrap(traj[..., 2], BOX).ravel()
+    edges = edges64.astype(np.float32)
+    n_bins = len(edges) - 1
+    idx = np.searchsorted(edges, z, side="right") - 1
+    idx[z == edges[-1]] = n_bins - 1
+    ok = (z >= edges[0]) & (z <= edges[-1])
+    return np.bincount(np.clip(idx, 0, n_bins - 1)[ok], minlength=n_bins)
+
+
+def phase_velocities(device, rng, card):
+    """Slice 17's velocity stream on the card, on the electrolyte with
+    velocities (velocity_universe), in CHUNK-frame chunks, three fused
+    passes through run_profiled (frames/s, busy share, device activities
+    a frame): VelocityAutocorrelation and ElectricCurrentAutocorrelation
+    (the velocity payload); SurvivalProbability in a slab and in the
+    SHELL_RADIUS shell of SHELL_IONS anions around as many cations, and
+    OverlapFunction with an OVERLAP_LAGS-lag ring (positions); FlowProfile
+    (positions+velocities).  Checks: the VACF against a numpy float64 FFT
+    oracle of the float32 velocities and VACF(0) against 3 kT <1/m> plus
+    the Couette mean square; the conductivity against the port's CPU run;
+    the shear rate and temperatures recovered, counts equal to numpy's on
+    the same float32 edges; FlowProfile from a TRR written by the port's
+    TRRWriter against the ArrayReader route over the reader's arrays
+    (counts equal, velocities and temperatures within 1e-10 of their
+    largest);
+    the survival memberships and the overlap function (an
+    OVERLAP_CHECK_LAGS-lag ring) over the first VEL_CHECK_FRAMES equal to
+    the port's CPU run."""
+
+    import tempfile
+
+    from mdhelper_tpu_torch.analysis import dynamics, flow
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.core.trajectory import TRRReader
+    from mdhelper_tpu_torch.core.universe import Topology, Universe
+    from mdhelper_tpu_torch.io.trr import write_trr
+
+    started = time.perf_counter()
+    traj, vel, u = velocity_universe(rng, VEL_FRAMES)
+    out = {"data_s": time.perf_counter() - started}
+    cations, anions = u.atoms[0::2], u.atoms[1::2]
+
+    def chunked(analyses, width=3):
+        for a in analyses:
+            a._chunk_bytes = CHUNK * N_ATOMS * width * 4
+        return analyses
+
+    passes = {
+        "velocities": lambda d: chunked([
+            dynamics.VelocityAutocorrelation(u.atoms, verbose=False,
+                                             device=d),
+            dynamics.ElectricCurrentAutocorrelation(
+                u.atoms, VEL_TEMPERATURE, verbose=False, device=d)]),
+        "positions": lambda d: chunked([
+            dynamics.SurvivalProbability(u.atoms, ("slab", "z", 10.0, 20.0),
+                                         verbose=False, device=d),
+            dynamics.SurvivalProbability(
+                cations[:SHELL_IONS], ("shell", anions[:SHELL_IONS],
+                                       SHELL_RADIUS), verbose=False, device=d),
+            dynamics.OverlapFunction(u.atoms, OVERLAP_A, n_lags=OVERLAP_LAGS,
+                                     verbose=False, device=d)]),
+        # run_together streams all six payload columns
+        "flow": lambda d: chunked([flow.FlowProfile(
+            u.atoms, n_bins=FLOW_BINS, verbose=False, device=d)], width=6),
+    }
+    launches_before = kernel_launch_counts()
+    runs = {}
+    for name, make in passes.items():
+        analyses = make(device)
+        fps, busy, activities = run_profiled(
+            analyses, VEL_FRAMES, CHUNK, remake=lambda make=make: make(device))
+        runs[name] = analyses
+        out[name] = {"fps": fps, "busy": busy, "activities": activities,
+                     "runs": run_profiled.runs}
+    check(kernel_launch_counts() == launches_before,
+          "a kernel of the kernels line launched on the velocity paths")
+    (vacf, current), (slab, shell, overlap), (prof,) = runs.values()
+
+    oracle = vacf_oracle(vel)
+    out["vacf_err"] = float(np.abs(vacf.results.vacf - oracle).max()
+                            / oracle[0])
+    check(out["vacf_err"] < 1e-10, f"VACF off the float64 FFT oracle by "
+          f"{out['vacf_err']:.3e} of VACF(0)")
+    masses = np.tile(ION_MASSES, N_ATOMS // 2)
+    couette = SHEAR_RATE * (traj[..., 2].astype(np.float64) - BOX / 2)
+    want = (3 * K_B_AMU * VEL_TEMPERATURE * np.mean(1 / masses)
+            + np.mean(couette**2))
+    out["vacf0"] = float(vacf.results.vacf[0] / want - 1)
+    check(abs(out["vacf0"]) < VACF0_BOUND, f"VACF(0) off 3kT<1/m> + <u_x^2> "
+          f"by {out['vacf0']:.3e}")
+    check(np.all(np.isfinite(vacf.results.vdos)), "VDOS finite")
+
+    cpu_started = time.perf_counter()
+    (c_current,) = run_together(chunked([
+        dynamics.ElectricCurrentAutocorrelation(
+            u.atoms, VEL_TEMPERATURE, verbose=False, device="cpu")]))
+    out["sigma_err"] = float(abs(current.results.conductivity
+                                 / c_current.results.conductivity - 1))
+    check(out["sigma_err"] < 1e-10, f"conductivity off the CPU run by "
+          f"{out['sigma_err']:.3e}")
+
+    out["shear"] = prof.calculate_shear_rate("x")
+    check(abs(out["shear"] / SHEAR_RATE - 1) < SHEAR_BOUND,
+          f"shear rate {out['shear']:.5f} against {SHEAR_RATE}")
+    temperature = prof.results.temperature
+    out["t_dev"] = float(np.abs(temperature / VEL_TEMPERATURE - 1).max())
+    check(out["t_dev"] < TEMPERATURE_BOUND, f"bin temperatures off "
+          f"{VEL_TEMPERATURE} K by up to {out['t_dev']:.3e}")
+    check(np.array_equal(prof.results.counts,
+                         f32_flow_counts(traj, prof._edges)),
+          "flow counts differ from numpy's on the float32 edges")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "electrolyte.trr")
+        frames = VEL_CHECK_FRAMES
+        write_trr(path, traj[:frames] / 10.0, np.diag([BOX / 10.0] * 3),
+                  velocities=vel[:frames] / 10.0, dt=0.5)
+        reader = TRRReader(path)
+        p, v, d = reader.read_frames_with_velocities(np.arange(frames))
+        from_trr = Universe(Topology(N_ATOMS, masses=masses), reader)
+        from_arrays = Universe.from_arrays(p, d, dt=0.5, velocities=v,
+                                           masses=masses)
+        a, b = (run_together(chunked([flow.FlowProfile(
+            w.atoms, n_bins=FLOW_BINS, verbose=False, device=device)],
+            width=6))[0] for w in (from_trr, from_arrays))
+        check(np.array_equal(a.results.counts, b.results.counts),
+              "FlowProfile from the TRR: counts differ from the ArrayReader "
+              "route")
+        # float64 bincounts on the card add in no fixed order, and a
+        # bin's mean y or z velocity cancels sums ~1e4 times its size
+        for key in ("velocity", "temperature"):
+            err = np.abs(a.results[key] - b.results[key]).max()
+            check(err <= 1e-10 * np.abs(b.results[key]).max(),
+                  f"FlowProfile from the TRR: {key} off the ArrayReader "
+                  f"route by {err:.3e}")
+
+    def check_frames(where):
+        return run_together(chunked([
+            dynamics.SurvivalProbability(u.atoms, ("slab", "z", 10.0, 20.0),
+                                         verbose=False, device=where),
+            dynamics.SurvivalProbability(
+                cations[:SHELL_IONS], ("shell", anions[:SHELL_IONS],
+                                       SHELL_RADIUS), verbose=False,
+                device=where),
+            dynamics.OverlapFunction(u.atoms, OVERLAP_A,
+                                     n_lags=OVERLAP_CHECK_LAGS,
+                                     verbose=False, device=where)]),
+            stop=VEL_CHECK_FRAMES)
+
+    (k_slab, k_shell, k_overlap), (h_slab, h_shell, h_overlap) = (
+        check_frames(device), check_frames("cpu"))
+    out["cpu_s"] = time.perf_counter() - cpu_started
+    for what, x, y in (
+            ("slab memberships", k_slab._membership, h_slab._membership),
+            ("shell memberships", k_shell._membership, h_shell._membership),
+            ("full run's slab memberships",
+             slab._membership[:VEL_CHECK_FRAMES], h_slab._membership),
+            ("full run's shell memberships",
+             shell._membership[:VEL_CHECK_FRAMES], h_shell._membership),
+            ("overlap Q", k_overlap.results.Q, h_overlap.results.Q),
+            ("overlap chi4", k_overlap.results.chi4, h_overlap.results.chi4)):
+        check(np.array_equal(x, y), f"velocity phase, card vs CPU: {what} "
+              "differ")
+    q = overlap.results.Q
+    check(len(q) == OVERLAP_LAGS and q[0] == 1.0 and q[1] < 1.0
+          and np.all(np.isfinite(q)) and 0 <= q[-1] < 0.1,
+          f"overlap Q: 1 at lag 0, below 0.1 at lag {OVERLAP_LAGS - 1}")
+    check(0 < shell.results.n_in_zone.mean() < SHELL_IONS,
+          "shell memberships")
+    out["seconds"] = time.perf_counter() - started
+    print("velocity phase passes: " + "; ".join(
+        f"{name} {r['fps']:.3f} frames/s, busy {100 * r['busy']:.1f} %, "
+        f"{r['activities']:.0f} device activities a frame (profiled run "
+        f"{r['runs']})" for name, r in out.items()
+        if isinstance(r, dict)))
+    print(f"velocity phase ({N_ATOMS} ions, {VEL_FRAMES} frames): VACF vs "
+          f"float64 FFT oracle {out['vacf_err']:.3e} of VACF(0), VACF(0) "
+          f"{out['vacf0']:+.3e} off 3kT<1/m> + <u_x^2>; conductivity "
+          f"{current.results.conductivity:.6g} S/m, vs CPU "
+          f"{out['sigma_err']:.1e}"
+          f"; shear rate {out['shear']:.5f} /ps (imposed {SHEAR_RATE}), bin "
+          f"temperatures within {100 * out['t_dev']:.2f} % of "
+          f"{VEL_TEMPERATURE:g} K; TRR route's counts == ArrayReader "
+          "route's; survival "
+          f"(slab {slab.results.n_in_zone.mean():.1f}, shell "
+          f"{shell.results.n_in_zone.mean():.1f} a frame) and overlap (Q at "
+          f"lag {OVERLAP_LAGS - 1} {q[-1]:.4f}; the {OVERLAP_CHECK_LAGS}-lag "
+          f"ring) over {VEL_CHECK_FRAMES} frames == CPU (CPU "
+          f"runs {out['cpu_s']:.1f} s); data {out['data_s']:.1f} s; "
+          f"{out['seconds']:.1f} s on {card}")
+    return out
+
+
+IFACE_SITES, IFACE_IONS = 20_000, 300
+IFACE_BOX = (100.0, 100.0, 180.0)
+#: the default grid of that box: spacings at most xi / 2 = 1.2 A
+IFACE_GRID = (128, 128, 256)
+IFACE_FRAMES = 8 + 24
+#: water-oxygen number density (A^-3), the surfaces' capillary amplitude.
+IFACE_DENSITY, IFACE_AMPLITUDE = 0.0334, 0.8
+#: card against the port's CPU run of the first chunk: fields within
+#: IFACE_FIELD_RTOL of their maximum, levels within IFACE_LEVEL_RTOL,
+#: heights within IFACE_HEIGHT_ATOL (A): float64 FFTs and sums on both,
+#: each rounded once to float32, differ only at near-ties.
+IFACE_FIELD_RTOL, IFACE_LEVEL_RTOL, IFACE_HEIGHT_ATOL = 2e-7, 1e-6, 1e-5
+#: the run at the classes' default chunk streams the IFACE_FRAMES frames
+#: IFACE_REPEAT times over (608 frames: a first chunk of 551, which its
+#: grid passes take a few frames at a time); its device memory may grow by
+#: the classes' _grid_bytes and IFACE_CHUNK_COPIES chunks of coordinates.
+IFACE_REPEAT, IFACE_CHUNK_COPIES = 19, 16
+
+
+def interface_universe(rng, n_frames):
+    """A liquid slab of IFACE_SITES water oxygens at IFACE_DENSITY in the
+    IFACE_BOX box (thickness IFACE_SITES / (density L_x L_y), centered in
+    z), each surface corrugated by three capillary modes of amplitude
+    IFACE_AMPLITUDE whose phases drift frame to frame, with IFACE_IONS Na+
+    and Cl- dissolved in it; float32, 1 ps a frame."""
+
+    lx, ly, lz = IFACE_BOX
+    thick = IFACE_SITES / (IFACE_DENSITY * lx * ly)
+    z_lo = lz / 2 - thick / 2
+    modes = [(1, 0), (0, 1), (1, 1)]
+    phases = rng.random((len(modes), 2)) * 2 * np.pi
+    n = IFACE_SITES + IFACE_IONS
+    traj = np.empty((n_frames, n, 3), np.float32)
+    for t in range(n_frames):
+        x = rng.random(n) * lx
+        y = rng.random(n) * ly
+        s = rng.random(n) * thick
+        lower = sum(IFACE_AMPLITUDE * np.sin(2 * np.pi * (kx * x / lx + ky * y
+                                                          / ly) + ph[0] + 0.2
+                                             * t)
+                    for (kx, ky), ph in zip(modes, phases))
+        upper = sum(IFACE_AMPLITUDE * np.sin(2 * np.pi * (kx * x / lx + ky * y
+                                                          / ly) + ph[1] - 0.2
+                                             * t)
+                    for (kx, ky), ph in zip(modes, phases))
+        z = z_lo + lower + s * (thick + upper - lower) / thick
+        traj[t] = np.stack((x, y, z), -1)
+    return traj, slab_universe(traj)
+
+
+def slab_universe(traj):
+    """The Universe of interface_universe's sites over the frames
+    `traj`."""
+
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    ions = np.tile([1.0, -1.0], IFACE_IONS // 2)
+    return Universe.from_arrays(
+        traj, np.array(list(IFACE_BOX) + [90.0] * 3), dt=1.0,
+        names=np.array(["OW"] * IFACE_SITES + ["NA", "CL"] * (IFACE_IONS // 2),
+                       object),
+        masses=np.concatenate([np.full(IFACE_SITES, 15.999),
+                               np.tile(ION_MASSES, IFACE_IONS // 2)]),
+        charges=np.concatenate([np.zeros(IFACE_SITES), ions]))
+
+
+def phase_interface(device, rng, card):
+    """Slice 17's interfaces on the card: run_together of
+    WillardChandlerInterface (the defaults: xi 2.4 A, order 2, a (128, 128,
+    256) grid) and IntrinsicDensityProfile of the oxygens, Na+ and Cl-
+    (both sides, charge densities) on interface_universe over
+    IFACE_FRAMES frames in CHUNK-frame chunks, through run_profiled
+    (frames/s, busy share, device activities a frame); the capillary
+    spectrum and surface tension; the deposit's and the smoothing's ms a
+    frame (CUDA events over a chunk), and the transforms' in float64 (the
+    port's) and in float32;
+    the first chunk on the card against the port's CPU run: fields,
+    levels and heights within IFACE_*_RTOL/ATOL, intrinsic counts equal,
+    and the timed run's first-chunk levels and heights within the same
+    bounds; the slab's mean heights within 2 A of its built edges and its
+    intrinsic plateau within 5 % of IFACE_DENSITY; then both classes at
+    their default _chunk_bytes over the frames IFACE_REPEAT times over,
+    whose chunk holds more frames than a grid pass: the device memory it
+    adds within _grid_bytes and IFACE_CHUNK_COPIES chunks of coordinates,
+    every repeat's levels and heights within the bounds of the timed
+    run's, the intrinsic counts IFACE_REPEAT times the timed run's."""
+
+    import torch
+
+    from mdhelper_tpu_torch.analysis import interface
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.ops import profiles
+
+    started = time.perf_counter()
+    traj, u = interface_universe(rng, IFACE_FRAMES)
+    out = {"data_s": time.perf_counter() - started}
+
+    def make(where, universe=u, chunked=True):
+        ox = universe.select_atoms("name OW")
+        analyses = [
+            interface.WillardChandlerInterface(ox, verbose=False,
+                                               device=where),
+            interface.IntrinsicDensityProfile(
+                ox, [ox, universe.select_atoms("name NA"),
+                     universe.select_atoms("name CL")], verbose=False,
+                device=where),
+        ]
+        # run_together streams every atom of the universe
+        for a in analyses:
+            if chunked:
+                a._chunk_bytes = CHUNK * universe.atoms.n_atoms * 3 * 4
+        return analyses
+
+    launches_before = kernel_launch_counts()
+    pair = make(device)
+    out["fps"], out["busy"], out["activities"] = run_profiled(
+        pair, IFACE_FRAMES, CHUNK, remake=lambda: make(device))
+    out["profiled_runs"] = run_profiled.runs
+    check(kernel_launch_counts() == launches_before,
+          "a kernel of the kernels line launched on the interface path")
+    wc, idp = pair
+    check(wc._n_cells == IFACE_GRID, f"grid {wc._n_cells}")
+    check(np.isfinite(wc.results.heights).all(), "every column resolved")
+    thick = IFACE_SITES / (IFACE_DENSITY * IFACE_BOX[0] * IFACE_BOX[1])
+    edges = (IFACE_BOX[2] / 2 - thick / 2, IFACE_BOX[2] / 2 + thick / 2)
+    mean = wc.results.mean_heights.mean(axis=1)
+    check(np.all(np.abs(mean - np.asarray(edges)) < 2.0),
+          f"mean heights {mean} against the slab's edges {edges}")
+    wc.calculate_spectrum()
+    wc.calculate_surface_tension(300.0)
+    check(np.all(np.isfinite(wc.results.surface_tension)),
+          "surface tension finite")
+    # the oxygens' intrinsic density 10-40 A into the liquid
+    inside = (idp.results.bins > 10.0) & (idp.results.bins < 40.0)
+    plateau = idp.results.number_densities[0][inside].mean()
+    check(abs(plateau / IFACE_DENSITY - 1) < 0.05,
+          f"intrinsic plateau {plateau:.5f} against {IFACE_DENSITY}")
+
+    pts = torch.from_numpy(traj[:CHUNK, :IFACE_SITES]).to(device)
+    box = torch.tensor(IFACE_BOX, device=device)
+    cells = wc._n_cells
+    counts = profiles.grid_deposit_frames(pts, cells, box, 2)
+    profiles.gaussian_smooth_periodic(counts, box, 2.4, 2)
+    out["deposit_ms"] = time_ms(
+        lambda: profiles.grid_deposit_frames(pts, cells, box, 2), 3) / CHUNK
+    out["fft_ms"] = time_ms(
+        lambda: profiles.gaussian_smooth_periodic(counts, box, 2.4, 2),
+        3) / CHUNK
+    # the transform pair alone, in the port's float64 and in float32
+    for name, grid in (("pair64_ms", counts.double()), ("pair32_ms", counts)):
+        def pair(grid=grid):
+            return torch.fft.irfftn(torch.fft.rfftn(grid, dim=(1, 2, 3)),
+                                    s=cells, dim=(1, 2, 3))
+        pair()
+        out[name] = time_ms(pair, 3) / CHUNK
+    del counts, grid
+
+    cpu_started = time.perf_counter()
+    (k_wc, k_idp), (h_wc, h_idp) = (run_together(make(where), stop=CHUNK)
+                                    for where in (device, "cpu"))
+    out["cpu_s"] = time.perf_counter() - cpu_started
+    field = h_wc.results.density_field
+    out["field_err"] = float(np.abs(k_wc.results.density_field - field).max()
+                             / field.max())
+    out["level_err"] = float(np.abs(k_wc.results.levels
+                                    / h_wc.results.levels - 1).max())
+    out["height_err"] = float(np.abs(k_wc.results.heights
+                                     - h_wc.results.heights).max())
+    check(out["field_err"] <= IFACE_FIELD_RTOL, f"fields, card vs CPU: "
+          f"{out['field_err']:.3e} of the maximum")
+    check(out["level_err"] <= IFACE_LEVEL_RTOL, f"levels, card vs CPU: "
+          f"{out['level_err']:.3e}")
+    check(out["height_err"] <= IFACE_HEIGHT_ATOL, f"heights, card vs CPU: "
+          f"{out['height_err']:.3e} A")
+    check(np.array_equal(k_idp.results.counts, h_idp.results.counts),
+          "intrinsic counts, card vs CPU, differ")
+    out["timed_level_err"] = float(np.abs(wc.results.levels[:CHUNK]
+                                          / h_wc.results.levels - 1).max())
+    out["timed_height_err"] = float(np.abs(
+        wc.results.heights[:, :CHUNK] - h_wc.results.heights).max())
+    check(out["timed_level_err"] <= IFACE_LEVEL_RTOL, f"timed run's levels, "
+          f"card vs CPU: {out['timed_level_err']:.3e}")
+    check(out["timed_height_err"] <= IFACE_HEIGHT_ATOL, f"timed run's "
+          f"heights, card vs CPU: {out['timed_height_err']:.3e} A")
+
+    # The default chunk: hundreds of frames, grid passes of a few.
+    long_u = slab_universe(np.tile(traj, (IFACE_REPEAT, 1, 1)))
+    long_pair = make(device, long_u, chunked=False)
+    chunk_frames = long_pair[0]._chunk_bytes // (long_u.atoms.n_atoms * 12)
+    out["pass_frames"] = interface._grid_pass_frames(
+        long_pair[0]._grid_bytes, cells, IFACE_SITES, 2)
+    check(chunk_frames > out["pass_frames"], f"a default chunk of "
+          f"{chunk_frames} frames fits one grid pass")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    long_started = time.perf_counter()
+    l_wc, l_idp = run_together(long_pair)
+    torch.cuda.synchronize()
+    out["long_fps"] = (IFACE_REPEAT * IFACE_FRAMES
+                       / (time.perf_counter() - long_started))
+    out["long_peak"] = torch.cuda.max_memory_allocated(device) - base
+    limit = (l_wc._grid_bytes
+             + IFACE_CHUNK_COPIES * chunk_frames * long_u.atoms.n_atoms * 12)
+    check(out["long_peak"] <= limit, f"the default-chunk run added "
+          f"{out['long_peak'] / 2**30:.2f} GiB of device memory, more than "
+          f"{limit / 2**30:.2f}")
+    heights = l_wc.results.heights.reshape(2, IFACE_REPEAT, IFACE_FRAMES,
+                                           *wc.results.heights.shape[2:])
+    out["long_height_err"] = float(np.abs(
+        heights - wc.results.heights[:, None]).max())
+    out["long_level_err"] = float(np.abs(
+        l_wc.results.levels.reshape(IFACE_REPEAT, IFACE_FRAMES)
+        / wc.results.levels - 1).max())
+    check(out["long_level_err"] <= IFACE_LEVEL_RTOL and out["long_height_err"]
+          <= IFACE_HEIGHT_ATOL, f"default chunk against the timed run: "
+          f"levels {out['long_level_err']:.3e}, heights "
+          f"{out['long_height_err']:.3e} A")
+    check(np.array_equal(l_idp.results.counts,
+                         IFACE_REPEAT * idp.results.counts),
+          "default chunk's intrinsic counts differ from the timed run's")
+    out["seconds"] = time.perf_counter() - started
+    print(f"interface phase ({IFACE_SITES} oxygens + {IFACE_IONS} ions, "
+          f"{IFACE_BOX} A, grid {cells}): {out['fps']:.3f} frames/s, busy "
+          f"{100 * out['busy']:.1f} %, {out['activities']:.0f} device "
+          f"activities a frame (profiled run {out['profiled_runs']}); deposit "
+          f"{out['deposit_ms']:.3f} ms and smoothing (float64 FFTs) "
+          f"{out['fft_ms']:.3f} ms a frame, its transform pair "
+          f"{out['pair64_ms']:.3f} ms (float32: {out['pair32_ms']:.3f}); "
+          f"mean heights {mean[0]:.3f} / "
+          f"{mean[1]:.3f} A (built {edges[0]:.3f} / {edges[1]:.3f}), width "
+          f"{wc.results.interface_width.mean():.3f} A, surface tension "
+          f"{wc.results.surface_tension.mean():.4g} kJ/mol/A^2, plateau "
+          f"{plateau:.5f} /A^3; first chunk card vs CPU: fields "
+          f"{out['field_err']:.2e}, levels {out['level_err']:.2e}, heights "
+          f"{out['height_err']:.2e} A, intrinsic counts equal (CPU run "
+          f"{out['cpu_s']:.1f} s), the timed run's levels "
+          f"{out['timed_level_err']:.2e} and heights "
+          f"{out['timed_height_err']:.2e} A; default chunk "
+          f"({IFACE_REPEAT * IFACE_FRAMES} frames, {chunk_frames} a chunk, "
+          f"{out['pass_frames']} a grid pass): {out['long_fps']:.3f} "
+          "frames/s, "
+          f"{out['long_peak'] / 2**30:.3f} GiB of device memory added, "
+          f"levels {out['long_level_err']:.2e} and heights "
+          f"{out['long_height_err']:.2e} A off the timed run's, counts "
+          f"{IFACE_REPEAT} times its; data {out['data_s']:.1f} s; "
+          f"{out['seconds']:.1f} s on {card}")
+    return out
+
+
 def main():
     import torch
 
@@ -5289,6 +5805,21 @@ def main():
     print(f"order path ({AGG_ATOMS} atoms): {order['fps']:.3f} frames/s on "
           f"{card}, device busy {100 * order['busy']:.1f} % (information, not "
           f"a claim); the order phase took {order['seconds']:.1f} s")
+
+    # Slice 17 draws from its own generators, one a phase.
+    velocities = phase_velocities(device, np.random.default_rng(SEED + 18),
+                                  card)
+    print(f"velocity paths ({N_ATOMS} ions): "
+          + ", ".join(f"{name} {velocities[name]['fps']:.3f}"
+                      for name in ("velocities", "positions", "flow"))
+          + f" frames/s on {card} (information, not a claim); the velocity "
+          f"phase took {velocities['seconds']:.1f} s")
+    interfaces = phase_interface(device, np.random.default_rng(SEED + 19),
+                                 card)
+    print(f"interface path ({IFACE_SITES} oxygens): "
+          f"{interfaces['fps']:.3f} frames/s on {card}, device busy "
+          f"{100 * interfaces['busy']:.1f} % (information, not a claim); the "
+          f"interface phase took {interfaces['seconds']:.1f} s")
 
     def path_row(shape, timing_plan, path, plain_from=None, plain_shape=None):
         """(launches, shape, timing) of a slice-4 row, whose kernel was

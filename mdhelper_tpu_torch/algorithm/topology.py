@@ -3,10 +3,11 @@ Topology helpers
 ================
 
 The part of :mod:`mdhelper_tpu.algorithm.topology` the ported analyses
-call: box matrices, the minimum-image convention, wrapping, the bonded
-:func:`unwrap_edge` that makes molecules whole, and bond guessing by
-distance (:func:`guess_bonds`, over :func:`resolve_vdw_radii`).  NumPy only,
-apart from :func:`triclinic_matrices`, which also takes torch tensors.
+call: box matrices and volumes, the minimum-image convention, wrapping,
+the bonded :func:`unwrap_edge` that makes molecules whole, and bond
+guessing by distance (:func:`guess_bonds`, over
+:func:`resolve_vdw_radii`).  NumPy only, apart from
+:func:`triclinic_matrices`, which also takes torch tensors.
 """
 
 import warnings
@@ -18,6 +19,7 @@ from .utility import find_connected_nodes
 
 __all__ = [
     "VDW_RADII",
+    "box_volume",
     "guess_bonds",
     "minimize_vectors",
     "resolve_vdw_radii",
@@ -26,6 +28,19 @@ __all__ = [
     "unwrap_edge",
     "wrap",
 ]
+
+
+def box_volume(dimensions) -> float:
+    r"""Cell volume from box parameters: ``(3,)`` edge lengths (their
+    product) or ``(6,)`` lengths and angles, where angles other than 90
+    degrees take the determinant of the box matrix, :math:`abc\sqrt{1 -
+    \cos^2\alpha - \cos^2\beta - \cos^2\gamma + 2\cos\alpha\cos\beta
+    \cos\gamma}` (as ``mdhelper_tpu.algorithm.topology.box_volume``)."""
+
+    d = np.asarray(dimensions, dtype=np.float64)
+    if d.shape[-1] >= 6 and not np.allclose(d[3:6], 90.0):
+        return float(abs(np.linalg.det(triclinic_vectors(d[:6]))))
+    return float(d[:3].prod())
 
 
 def triclinic_matrices(dimensions):

@@ -9,8 +9,12 @@ The ported analyses and the streaming runtime, module for module as in
 from . import (  # noqa: F401
     base,
     cluster,
+    dynamics,
     electrostatics,
+    flow,
+    free_energy,
     hbonds,
+    interface,
     multi,
     orientation,
     polymer,
@@ -30,8 +34,12 @@ from .multi import run_together  # noqa: F401
 __all__ = [
     "base",
     "cluster",
+    "dynamics",
     "electrostatics",
+    "flow",
+    "free_energy",
     "hbonds",
+    "interface",
     "multi",
     "orientation",
     "polymer",

@@ -16,7 +16,9 @@ compute; with ``_prefetch_batches`` (the default) a worker thread reads,
 decodes and stages the next chunk while the current one is launched.
 An analysis that reads only some coordinate columns names them in
 ``_coord_axes``: the chunk is sliced on the host before the pin and the
-copy, and sized by the columns it carries.
+copy, and sized by the columns it carries.  ``_payload`` says what the
+columns are: positions (the default), velocities, or both concatenated
+on the last axis (``(B, N, 6)``: 0-2 positions, 3-5 velocities).
 The port runs on one device; there is no frame sharding, host
 pipeline, multi-host mode or checkpointing yet
 (:class:`DynamicAnalysisBase` takes ``parallel=False`` only).
@@ -217,7 +219,15 @@ class SerialAnalysisBase:
     _chunk_bytes: int = 128 << 20
     #: atom columns to read per frame (None = all atoms).
     _atom_indices = None
-    #: coordinate columns to stream, in this order (None = x, y and z).
+    #: what the stream carries: "positions", "velocities" (read through
+    #: ``read_velocity_frames`` and ``read_dimension_frames``, never
+    #: decoding positions) or "positions+velocities" (one
+    #: ``read_frames_with_velocities`` call, concatenated on the last axis
+    #: to ``(B, N, 6)``).
+    _payload: str = "positions"
+    #: columns of the payload to stream, in this order (None = all of
+    #: them; 0-2 are positions, or velocities for a velocity payload, and
+    #: 3-5 the velocities of "positions+velocities").
     _coord_axes = None
     #: read, cast, pin and start the copy of the next chunk on a worker
     #: thread while the current chunk is launched (a pipeline one chunk
@@ -347,10 +357,32 @@ class SerialAnalysisBase:
             return None
         return idx
 
+    def _payload_width(self) -> int:
+        """Columns of the payload before ``_coord_axes`` slices it: 3, or
+        6 for "positions+velocities"."""
+
+        return 6 if self._payload == "positions+velocities" else 3
+
+    def _read_payload(self, block) -> tuple:
+        """``(payload (F, N, width), dimensions (F, 6))`` of one frame
+        block, as ``_payload`` says."""
+
+        trajectory = self._trajectory
+        if self._payload == "velocities":
+            return (trajectory.read_velocity_frames(block),
+                    trajectory.read_dimension_frames(block))
+        if self._payload == "positions+velocities":
+            # One call decodes each frame once (a TRR frame holds both).
+            positions, velocities, dimensions = (
+                trajectory.read_frames_with_velocities(block))
+            return (np.concatenate([positions, velocities], axis=-1),
+                    dimensions)
+        return trajectory.read_frames(block)
+
     def _stream_batches(self) -> Iterator[_Batch]:
         """Stream the selected frames in chunks of ``_chunk_bytes`` of
-        float32 coordinates (the columns of ``_coord_axes``, or all
-        three), each read, sliced, cast, pinned and copied to the
+        float32 payload columns (those of ``_coord_axes``, or all of the
+        payload's), each read, sliced, cast, pinned and copied to the
         device one chunk ahead of the compute: on a worker thread while
         the consumer launches the chunk before it when
         ``_prefetch_batches`` is set, else on the calling thread before
@@ -365,7 +397,7 @@ class SerialAnalysisBase:
         )
         axes = (None if self._coord_axes is None
                 else np.asarray(self._coord_axes, dtype=np.intp))
-        n_columns = 3 if axes is None else len(axes)
+        n_columns = self._payload_width() if axes is None else len(axes)
         chunk = max(1, self._chunk_bytes // max(n_atoms * n_columns * 4, 1))
         blocks = [
             self.frames[lo:lo + chunk]
@@ -375,7 +407,7 @@ class SerialAnalysisBase:
         copy_stream = torch.cuda.Stream(device) if cuda else None
 
         def stage(block):
-            positions, dimensions = self._trajectory.read_frames(block)
+            positions, dimensions = self._read_payload(block)
             if atom_indices is not None and axes is not None:
                 # One gather of the wanted atoms' wanted columns.
                 positions = positions[:, np.asarray(atom_indices)[:, None],
@@ -449,6 +481,25 @@ class SerialAnalysisBase:
             return update(carry, positions, dimensions, mask), None
 
         return device_fn, None
+
+    def save(self, file, archive: bool = True, compress: bool = True,
+             **kwargs) -> None:
+        """Save ``results`` to ``.npz`` (compressed unless `compress` is
+        false) or, without `archive`, one ``.npy`` a key; tensors are
+        saved as numpy arrays."""
+
+        data = {
+            key: value.cpu().numpy() if isinstance(value, torch.Tensor)
+            else value
+            for key, value in self.results.items()
+        }
+        if archive and compress:
+            np.savez_compressed(file, **data, **kwargs)
+        elif archive:
+            np.savez(file, **data, **kwargs)
+        else:
+            for key, value in data.items():
+                np.save(f"{file}_{key}", value, **kwargs)
 
     # -- driver ------------------------------------------------------------
     def run(self, start: int = None, stop: int = None, step: int = None,

@@ -65,6 +65,15 @@ def run_together(
             raise ValueError("All analyses must run on the same device.")
     if initial is not None and len(initial) != len(analyses):
         raise ValueError("initial= needs one entry per analysis.")
+    # One stream, one payload: a velocity-payload analysis fused with
+    # position analyses would be fed the wrong columns.
+    payloads = {a._payload for a in analyses}
+    if len(payloads) > 1:
+        raise ValueError(
+            "All fused analyses must stream the same coordinate "
+            f"payload; got {sorted(payloads)}. Run the velocity-"
+            "payload analyses in their own fused pass."
+        )
 
     for i, a in enumerate(analyses):
         a._setup_frames(
@@ -84,10 +93,11 @@ def run_together(
             None if axes is None else list(axes),
         ))
 
-    # The stream reads every atom and all three coordinates; each
-    # analysis gathers its atoms and, where it streams fewer when run
-    # alone, its coordinate columns.
+    # The stream reads every atom and every column of the payload (3, or
+    # 6 for positions and velocities); each analysis gathers its atoms
+    # and, where it streams fewer when run alone, its columns.
     shared = SerialAnalysisBase(trajectory, device=device)
+    shared._payload = payloads.pop()
     shared._setup_frames(
         trajectory, start=start, stop=stop, step=step, frames=frames
     )

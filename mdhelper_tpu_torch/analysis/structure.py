@@ -491,6 +491,19 @@ def _segment_com_reducer(seg, n, masses, device):
     return reduce
 
 
+def _column_selector(sel, n_cols, device):
+    """``take(columns)``: the ``(B, len(sel), C)`` columns `sel` of a
+    chunk's ``(B, n_cols, C)`` columns on `device`, or the chunk itself
+    when `sel` is every column in order (the JAX package's
+    ``_column_selector``)."""
+
+    sel = np.asarray(sel)
+    if len(sel) == n_cols and np.array_equal(sel, np.arange(n_cols)):
+        return lambda columns: columns
+    index = torch.as_tensor(sel, device=device)
+    return lambda columns: columns[:, index]
+
+
 def _entity_positions_fn(groups, groupings, device):
     """``entities(columns)``: the ``(B, N, 3)`` entity positions of a
     chunk's group-ordered atom columns (the groups' columns one after

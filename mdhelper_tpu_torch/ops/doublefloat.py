@@ -15,6 +15,12 @@ the ones written here.  The device copy of these primitives lives in
 them either.  Python scalars (``2.0``, the Dekker splitter) stay weakly
 typed under torch's promotion rules, so float32 inputs give float32
 results.
+
+XLA's CPU backend, which runs the JAX package in the tests, does contract
+a float32 product and a sum into one fused multiply-add (a wrap ``x -
+floor(x / L) * L``, a squared norm, ``x * s - 0.5``).  :func:`fma32` forms
+those expressions with one rounding, where a port must give the JAX
+package's bits (``ops.pbc.wrap_positions``, ``ops.histogram._norm2``).
 """
 
 import numpy as np
@@ -32,6 +38,7 @@ __all__ = [
     "df_ge",
     "df_lt",
     "df_min",
+    "fma32",
 ]
 
 # 2^12 + 1 Dekker split.
@@ -120,3 +127,21 @@ def df_min(x, y):
 
     take_y = df_lt(y, x)
     return torch.where(take_y, y[0], x[0]), torch.where(take_y, y[1], x[1])
+
+
+def fma32(a, b, c):
+    """``a * b + c`` of float32 tensors (or Python numbers) rounded once to
+    float32, as a fused multiply-add: the product is exact in float64, and
+    the float64 sum is rounded to float32 (a double rounding, which can
+    differ from a true FMA only at a near-tie)."""
+
+    f64 = torch.float64
+    if not (isinstance(a, torch.Tensor) and a.ndim):
+        a, b = b, a
+    # One operand in float64 carries the product and the sum up with it
+    # (type promotion converts the others inside those kernels), unless
+    # neither factor has a dimension.
+    prod = torch.as_tensor(a, dtype=f64) * b
+    if prod.ndim == 0:
+        c = torch.as_tensor(c, dtype=f64)
+    return (prod + c).to(torch.float32)

@@ -35,6 +35,7 @@ from .doublefloat import (
     df_sum3,
     df_square,
     f32_constant,
+    fma32,
     two_diff,
     two_prod,
 )
@@ -279,11 +280,13 @@ def _contact_map(pts, box, cut2):
 
 
 def _norm2(v):
-    """Squared lengths of vectors `v` ``(..., 3)`` in their dtype, summed
-    in the order of the JAX package's reductions: ``(x^2 + y^2) + z^2``."""
+    """Squared lengths of float32 vectors `v` ``(..., 3)`` as XLA's CPU
+    backend forms the JAX package's reductions: ``fma(z, z, fma(y, y, x *
+    x))``, each sum rounded once with its product
+    (:func:`~mdhelper_tpu_torch.ops.doublefloat.fma32`)."""
 
-    return (v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
-            + v[..., 2] * v[..., 2])
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return fma32(z, z, fma32(y, y, x * x))
 
 
 def _min_image_distance(delta, box):

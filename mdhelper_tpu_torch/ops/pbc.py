@@ -9,13 +9,19 @@ order-dependent trajectory unwrap with image-flag tracking (the JAX
 
 import torch
 
+from .doublefloat import fma32
+
 __all__ = ["wrap_positions", "unwrap_scan"]
 
 
 def wrap_positions(positions, box):
-    """Wrap coordinates into [0, box)."""
+    """Wrap coordinates into [0, box), the product and the difference
+    rounded once (``fma(-floor(x / L), L, x)``), as XLA's CPU backend
+    contracts the JAX package's wrap inside its compiled classes: a
+    coordinate outside the box can wrap one float32 ulp away from the
+    separately rounded form."""
 
-    return positions - torch.floor(positions / box) * box
+    return fma32(-torch.floor(positions / box), box, positions)
 
 
 def unwrap_scan(positions, box, initial=None, images=None):

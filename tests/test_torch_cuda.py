@@ -1818,3 +1818,162 @@ def test_order_on_the_card_equals_cpu(cuda_device):
         u.atoms, verbose=False, device=d), u)
     np.testing.assert_allclose(card.results.q_tet, cpu.results.q_tet,
                                rtol=0, atol=2e-6)
+
+
+def _velocity_system(n=600, frames=12, box=14.0, seed=47):
+    """float32 positions on a wrapped random walk and AR(1) velocities,
+    charges +-1, masses 1-20, two-atom residues."""
+
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    rng = np.random.default_rng(seed)
+    steps = rng.normal(0.0, 0.3, (frames, n, 3))
+    steps[0] = rng.random((n, 3)) * box
+    pos = np.mod(np.cumsum(steps, axis=0), box).astype(np.float32)
+    vel = np.empty((frames, n, 3))
+    vel[0] = rng.standard_normal((n, 3))
+    for t in range(1, frames):
+        vel[t] = 0.7 * vel[t - 1] + 0.71 * rng.standard_normal((n, 3))
+    return Universe.from_arrays(
+        pos, [box] * 3 + [90.0] * 3, dt=0.5,
+        velocities=vel.astype(np.float32),
+        masses=rng.uniform(1.0, 20.0, n), charges=np.tile([1.0, -1.0], n // 2),
+        resindices=np.repeat(np.arange(n // 2), 2))
+
+
+@pytest.mark.cuda
+def test_velocity_dynamics_on_the_card_equal_cpu(cuda_device):
+    """VelocityAutocorrelation and ElectricCurrentAutocorrelation (float64
+    on the card, another summation order) within 1e-12 of the CPU's; the
+    survival memberships (slab, sphere, shell) and the overlap function
+    (a ring of 5 lags over more frames) equal the CPU's."""
+
+    from mdhelper_tpu_torch.analysis import dynamics
+
+    u = _velocity_system()
+    card, cpu = _polymer_runs(lambda d: dynamics.VelocityAutocorrelation(
+        u.atoms, n_blocks=2, verbose=False, device=d), u)
+    for key in ("vacf", "vdos"):
+        np.testing.assert_allclose(card.results[key], cpu.results[key],
+                                   rtol=1e-12, atol=1e-12)
+    card, cpu = _polymer_runs(
+        lambda d: dynamics.ElectricCurrentAutocorrelation(
+            u.atoms, 300.0, verbose=False, device=d), u)
+    np.testing.assert_allclose(card.results.current, cpu.results.current,
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(card.results.conductivity,
+                               cpu.results.conductivity, rtol=1e-10)
+    for zone in (("slab", "z", 3.0, 9.0), ("sphere", [7.0, 7.0, 7.0], 4.0),
+                 ("shell", u.atoms[:40], 2.0)):
+        card, cpu = _polymer_runs(lambda d: dynamics.SurvivalProbability(
+            u.atoms[1::2], zone, verbose=False, device=d), u)
+        np.testing.assert_array_equal(card._membership, cpu._membership)
+        np.testing.assert_allclose(card.results.intermittent,
+                                   cpu.results.intermittent, atol=1e-12)
+    # a ring of fewer lags than frames, so that it wraps around
+    for grouping in ("atoms", "residues"):
+        card, cpu = _polymer_runs(lambda d: dynamics.OverlapFunction(
+            u.atoms, 0.4, grouping=grouping, n_lags=5, verbose=False,
+            device=d), u)
+        np.testing.assert_array_equal(card.results.Q, cpu.results.Q)
+        np.testing.assert_array_equal(card.results.chi4, cpu.results.chi4)
+
+
+@pytest.mark.cuda
+def test_flow_on_the_card_equals_cpu(cuda_device):
+    """FlowProfile on the card: counts equal the CPU's; the float64 weighted
+    sums (bincount's atomics, in no fixed order) within 1e-12."""
+
+    from mdhelper_tpu_torch.analysis import flow
+
+    u = _velocity_system()
+    card, cpu = _polymer_runs(lambda d: flow.FlowProfile(
+        u.atoms, n_bins=30, verbose=False, device=d), u)
+    np.testing.assert_array_equal(card.results.counts, cpu.results.counts)
+    for key in ("velocity", "temperature", "mass_density"):
+        np.testing.assert_allclose(card.results[key], cpu.results[key],
+                                   rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_grid_ops_on_the_card_equal_cpu(cuda_device, order):
+    """The deposit on the card: NGP counts equal, CIC/TSC cells (float64
+    atomics rounded once) equal but for near-ties; the float64-transform
+    smoothing within an ulp of its maximum, and equal but for near-ties
+    where the field is not tiny."""
+
+    from mdhelper_tpu_torch.ops import profiles
+
+    rng = np.random.default_rng(48)
+    box = torch.tensor([30.0, 30.0, 50.0])
+    x = torch.from_numpy((rng.random((4, 20_000, 3))
+                          * box.numpy()).astype(np.float32))
+    cells = (64, 64, 128)
+    cpu = profiles.grid_deposit_frames(x, cells, box, order)
+    card = profiles.grid_deposit_frames(x.to(cuda_device), cells,
+                                        box.to(cuda_device), order).cpu()
+    if order == 1:
+        torch.testing.assert_close(card, cpu, rtol=0, atol=0)
+    else:
+        assert (card != cpu).float().mean().item() < 1e-6
+        torch.testing.assert_close(card, cpu, rtol=2e-7, atol=1e-12)
+    smooth_cpu = profiles.gaussian_smooth_periodic(cpu, box, 2.4, order)
+    smooth = profiles.gaussian_smooth_periodic(
+        cpu.to(cuda_device), box.to(cuda_device), 2.4, order).cpu()
+    # float64 transforms differ far below an ulp of the maximum; where the
+    # field is not tiny, the float32 roundings agree but for near-ties
+    top = smooth_cpu.abs().max().item()
+    assert (smooth - smooth_cpu).abs().max().item() <= top * 2.0**-24
+    big = smooth_cpu.abs() > 1e-3 * top
+    assert (smooth[big] != smooth_cpu[big]).float().mean().item() < 1e-6
+
+
+@pytest.mark.cuda
+def test_interfaces_on_the_card_equal_cpu(cuda_device):
+    """WillardChandlerInterface and IntrinsicDensityProfile on the card: the
+    fields within 2e-7 of their maximum of the CPU's, levels within 1e-6,
+    heights within 1e-5 A (a few ulps: float64 sums and transforms
+    rounded once agree but for near-ties), also at the default chunk in
+    grid passes of two frames; the intrinsic counts equal."""
+
+    from mdhelper_tpu_torch.analysis import interface
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    rng = np.random.default_rng(49)
+    box = np.array([20.0, 20.0, 30.0])
+    frames, n = 6, 8000
+    pos = np.empty((frames, n + 100, 3))
+    for t in range(frames):
+        x = rng.uniform(0, box[0], n)
+        y = rng.uniform(0, box[1], n)
+        z = 1.5 * np.sin(2 * np.pi * x / box[0] + t) + rng.uniform(8, 22, n)
+        pos[t, :n] = np.stack((x, y, z), -1)
+        pos[t, n:] = rng.random((100, 3)) * box
+    u = Universe.from_arrays(pos.astype(np.float32), list(box) + [90.0] * 3)
+    card, cpu = _polymer_runs(lambda d: interface.WillardChandlerInterface(
+        u.atoms[:n], xi=1.5, verbose=False, device=d), u)
+    field = cpu.results.density_field
+    np.testing.assert_allclose(card.results.density_field, field, rtol=0,
+                               atol=2e-7 * field.max())
+    np.testing.assert_allclose(card.results.levels, cpu.results.levels,
+                               rtol=1e-6)
+    np.testing.assert_allclose(card.results.heights, cpu.results.heights,
+                               rtol=0, atol=1e-5)
+    # the default chunk (every frame at once) in grid passes of 2 frames
+    whole = interface.WillardChandlerInterface(u.atoms[:n], xi=1.5,
+                                               verbose=False, device="cuda")
+    per_frame = (interface._BYTES_PER_POINT * int(np.prod(whole._n_cells))
+                 + interface._BYTES_PER_CORNER * n * 2**3)
+    whole._grid_bytes = 2 * per_frame
+    assert interface._grid_pass_frames(whole._grid_bytes, whole._n_cells, n,
+                                       2) == 2
+    whole.run()
+    np.testing.assert_allclose(whole.results.levels, cpu.results.levels,
+                               rtol=1e-6)
+    np.testing.assert_allclose(whole.results.heights, cpu.results.heights,
+                               rtol=0, atol=1e-5)
+    card, cpu = _polymer_runs(lambda d: interface.IntrinsicDensityProfile(
+        u.atoms[:n], [u.atoms[:n], u.atoms[n:]], xi=1.5, verbose=False,
+        device=d), u)
+    np.testing.assert_array_equal(card.results.counts, cpu.results.counts)

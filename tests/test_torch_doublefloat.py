@@ -100,3 +100,36 @@ def test_double_float_ops_bit_equal(fn, kind):
     j = getattr(jdf, fn)(*j_args[:n_args])
     t = getattr(tdf, fn)(*t_args[:n_args])
     _assert_bits(j, t)
+
+
+FMA_KINDS = {
+    "tensors": lambda a, b, c: (a, b, c),
+    "broadcast": lambda a, b, c: (a[:, None], b[None, :8], c[:, None]),
+    "number_factor": lambda a, b, c: (a, 3.0, c),
+    "number_first": lambda a, b, c: (-0.5, b, c),
+    "number_addend": lambda a, b, c: (a, b, -0.5),
+    "zero_dim_factor": lambda a, b, c: (np.float32(1.7), b, c),
+    "zero_dim_factors": lambda a, b, c: (np.float32(1.7), np.float32(3.0),
+                                         c),
+}
+
+
+@pytest.mark.parametrize("kind", list(FMA_KINDS))
+def test_fma32_rounds_once_for_every_operand_kind(kind):
+    """``fma32`` equals the float64 product and sum rounded once to
+    float32 (the numpy oracle) whichever operands are tensors, 0-d
+    tensors or Python numbers, and returns float32."""
+
+    from mdhelper_tpu_torch.testing import fma32 as np_fma32
+
+    a, b = _inputs("random", 4)
+    c = _inputs("random", 5)[0]
+    args = FMA_KINDS[kind](a, b, c)
+    want = np_fma32(*args)
+    got = tdf.fma32(*(torch.from_numpy(np.asarray(x))
+                      if isinstance(x, np.ndarray) else
+                      torch.tensor(x) if isinstance(x, np.float32) else x
+                      for x in args))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.asarray(want, np.float32).view(np.uint32))

@@ -151,6 +151,17 @@ def test_sources_cover_the_aggregates_and_order_layer():
         assert f"mdhelper_tpu_torch/{module}.py" in names
 
 
+def test_sources_cover_the_velocity_and_interface_layer():
+    """The velocity, flow, interface and free-energy modules are among the
+    parsed sources."""
+
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("analysis/dynamics", "analysis/flow", "analysis/interface",
+                   "analysis/free_energy", "ops/profiles", "ops/pbc",
+                   "ops/doublefloat", "algorithm/topology"):
+        assert f"mdhelper_tpu_torch/{module}.py" in names
+
+
 def test_import_rule_catches_both_packages():
     assert _forbidden("jax") and _forbidden("jax.numpy")
     assert _forbidden("mdhelper_tpu") and _forbidden("mdhelper_tpu.ops.x")
@@ -272,3 +283,84 @@ def test_existence_lifetimes_default_to_the_card(monkeypatch):
             existence_lifetimes(series)
     c, s = existence_lifetimes(h, device="cpu")
     assert c[0] == 1.0 and s[0] == 1.0
+
+
+@pytest.fixture
+def velocity_universe():
+    rng = np.random.default_rng(3)
+    traj = (rng.random((6, 40, 3)) * 8.0).astype(np.float32)
+    vel = rng.standard_normal((6, 40, 3)).astype(np.float32)
+    return Universe.from_arrays(traj, [8.0] * 3 + [90.0] * 3,
+                                velocities=vel,
+                                charges=np.tile([1.0, -1.0], 20))
+
+
+def _velocity_analyses(u, **device):
+    from mdhelper_tpu_torch.analysis import dynamics, flow, interface
+
+    return {
+        "vacf": lambda: dynamics.VelocityAutocorrelation(
+            u.atoms, verbose=False, **device),
+        "current": lambda: dynamics.ElectricCurrentAutocorrelation(
+            u.atoms, 300.0, verbose=False, **device),
+        "survival": lambda: dynamics.SurvivalProbability(
+            u.atoms, ("shell", u.atoms[:5], 2.0), verbose=False, **device),
+        "overlap": lambda: dynamics.OverlapFunction(
+            u.atoms, 0.5, verbose=False, **device),
+        "flow": lambda: flow.FlowProfile(u.atoms, n_bins=4, verbose=False,
+                                         **device),
+        "wc": lambda: interface.WillardChandlerInterface(
+            u.atoms, n_cells=8, verbose=False, **device),
+        "intrinsic": lambda: interface.IntrinsicDensityProfile(
+            u.atoms, n_cells=8, n_bins=8, verbose=False, **device),
+    }
+
+
+@pytest.mark.parametrize("name", ["vacf", "current", "survival", "overlap",
+                                  "flow", "wc", "intrinsic"])
+def test_velocity_and_interface_classes_default_to_the_card(
+        monkeypatch, velocity_universe, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _velocity_analyses(velocity_universe)[name]()
+    analysis = _velocity_analyses(velocity_universe, device="cpu")[name]()
+    assert analysis._device == torch.device("cpu")
+    analysis.run()
+
+
+def test_conclusions_run_on_the_analysis_device(monkeypatch,
+                                                 velocity_universe):
+    """The velocity autocorrelation's correlation_fft, the current's
+    calculate_ionic_conductivity and the survival's existence_lifetimes
+    are reached with the analysis's device (their tensors on it, or
+    ``device=`` it)."""
+
+    from mdhelper_tpu_torch.algorithm import correlation
+    from mdhelper_tpu_torch.analysis import dynamics
+
+    seen = {}
+
+    def recorder(name, fn, device_of):
+        def call(*args, **kwargs):
+            seen.setdefault(name, []).append(device_of(args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(correlation, "correlation_fft", recorder(
+        "correlation_fft", correlation.correlation_fft,
+        lambda a, k: torch.as_tensor(a[0]).device))
+    monkeypatch.setattr(thermodynamics, "calculate_ionic_conductivity",
+                        recorder("calculate_ionic_conductivity",
+                                 thermodynamics.calculate_ionic_conductivity,
+                                 lambda a, k: torch.device(k["device"])))
+    monkeypatch.setattr(dynamics, "existence_lifetimes", recorder(
+        "existence_lifetimes", dynamics.existence_lifetimes,
+        lambda a, k: torch.device(k["device"])))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    made = _velocity_analyses(velocity_universe, device="cpu")
+    for name in ("vacf", "current", "survival"):
+        made[name]().run()
+    assert set(seen) == {"correlation_fft", "calculate_ionic_conductivity",
+                         "existence_lifetimes"}
+    for devices in seen.values():
+        assert devices and all(d == torch.device("cpu") for d in devices)

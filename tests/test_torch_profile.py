@@ -30,7 +30,7 @@ from mdhelper_tpu.core.universe import Universe as JaxUniverse  # noqa: E402
 from mdhelper_tpu_torch.analysis import profile  # noqa: E402
 from mdhelper_tpu_torch.core.universe import Universe  # noqa: E402
 from mdhelper_tpu_torch.ops.profiles import linspace_edges_f32  # noqa: E402
-from mdhelper_tpu_torch.testing import water_system  # noqa: E402
+from mdhelper_tpu_torch.testing import fma32, water_system  # noqa: E402
 
 BOX = np.array([10.0, 12.0, 14.0])
 N_MOL, N_FRAMES, CHUNK = 120, 7, 2
@@ -178,6 +178,37 @@ def test_calculate_potential_profile_equals_jax(method, reduced):
     np.testing.assert_allclose(out, ref, rtol=1e-10, atol=0)
 
 
+@pytest.mark.parametrize("V0", [0.5, -2.0])
+def test_integral_potential_with_offset_keeps_parity(V0):
+    """method="integral" with V0 != 0 hands V0 to scipy's
+    cumulative_trapezoid as ``initial``, which scipy >= 1.12 accepts only
+    as None or 0: where this scipy rejects it, both packages raise its
+    ValueError; where it takes it, both give the same profile (ROADMAP
+    Queue 3, item 11)."""
+
+    from scipy.integrate import cumulative_trapezoid
+
+    z = np.linspace(0.05, 9.95, 100)
+    rho = 0.01 * np.sin(2 * np.pi * z / 10.0)
+    try:
+        cumulative_trapezoid(rho, z, initial=V0)
+        scipy_rejects = False
+    except ValueError:
+        scipy_rejects = True
+    outcomes = []
+    for module in (jax_profile, profile):
+        try:
+            outcomes.append(module.calculate_potential_profile(
+                z, rho, 10.0, 2.0, method="integral", V0=V0))
+        except ValueError as err:
+            outcomes.append(err)
+    if scipy_rejects:
+        assert all(isinstance(o, ValueError) for o in outcomes)
+        assert str(outcomes[0]) == str(outcomes[1])
+    else:
+        np.testing.assert_allclose(outcomes[1], outcomes[0], rtol=1e-10)
+
+
 def _f32_coms(frames, seg, n, masses):
     """float32 centers of mass as the port reduces them: weighted float32
     positions summed member by member in atom order, from 0."""
@@ -243,7 +274,8 @@ def _oracle_recentered_counts(frames, topology, groups, grouping, rec,
         rec_pos = unwrapped[lo:lo + sizes[rec]].astype(np.float64)
         com = ((masses[:, None] * rec_pos).sum(0) / masses.sum()).astype(f32)
         shifted = unwrapped - (com - target.astype(f32))
-        wrapped = shifted - np.floor(shifted / box) * box
+        # the port's wrap: the product and the difference rounded once
+        wrapped = fma32(-np.floor(shifted / box), box, shifted)
         start = 0
         for g, size in enumerate(sizes):
             for a in range(3):

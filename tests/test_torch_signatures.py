@@ -89,6 +89,27 @@ NOT_PORTED = {
     "analysis.steinhardt.TetrahedralOrderParameter": {
         "kwargs": "parallel/ (item 10): the runtime's mesh options",
     },
+    "analysis.dynamics.VelocityAutocorrelation": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.dynamics.ElectricCurrentAutocorrelation": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.dynamics.SurvivalProbability": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.dynamics.OverlapFunction": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.flow.FlowProfile": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.interface.WillardChandlerInterface": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.interface.IntrinsicDensityProfile": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
 }
 
 #: Parameters the port takes whose other values are not ported yet: the
@@ -115,6 +136,12 @@ NOT_PORTED_VALUES = {
         "analysis.orientation.OrientationProfile",
         "analysis.steinhardt.SteinhardtOrderParameter",
         "analysis.steinhardt.TetrahedralOrderParameter",
+        "analysis.dynamics.VelocityAutocorrelation",
+        "analysis.dynamics.ElectricCurrentAutocorrelation",
+        "analysis.dynamics.SurvivalProbability",
+        "analysis.flow.FlowProfile",
+        "analysis.interface.WillardChandlerInterface",
+        "analysis.interface.IntrinsicDensityProfile",
     )
 }
 
@@ -155,6 +182,13 @@ PORT_ONLY = {
     "analysis.thermodynamics.calculate_shear_viscosity": {"device"},
     "analysis.thermodynamics.calculate_thermal_conductivity": {"device"},
     "analysis.thermodynamics.calculate_ionic_conductivity": {"device"},
+    "analysis.dynamics.VelocityAutocorrelation": {"device"},
+    "analysis.dynamics.ElectricCurrentAutocorrelation": {"device"},
+    "analysis.dynamics.SurvivalProbability": {"device"},
+    "analysis.dynamics.OverlapFunction": {"device"},
+    "analysis.flow.FlowProfile": {"device"},
+    "analysis.interface.WillardChandlerInterface": {"device"},
+    "analysis.interface.IntrinsicDensityProfile": {"device"},
 }
 
 OBJECTS = [
@@ -317,6 +351,32 @@ OBJECTS = [
     "algorithm.spherical.invariant_wl",
     "algorithm.spherical.wigner_3j",
     "algorithm.spherical.wigner_3j_lll",
+    # the velocity stream, survival and overlap, flow, interfaces and
+    # free energy
+    "analysis.dynamics.VelocityAutocorrelation",
+    "analysis.dynamics.ElectricCurrentAutocorrelation",
+    "analysis.dynamics.SurvivalProbability",
+    "analysis.dynamics.OverlapFunction",
+    "analysis.flow.FlowProfile",
+    "analysis.interface.WillardChandlerInterface",
+    "analysis.interface.IntrinsicDensityProfile",
+    "analysis.flow.FlowProfile.calculate_shear_rate",
+    "analysis.interface.coarse_grained_heights",
+    "analysis.interface.interpolate_height_maps",
+    "analysis.interface.slab_interface_heights",
+    "analysis.interface.WillardChandlerInterface.calculate_spectrum",
+    "analysis.interface.WillardChandlerInterface.calculate_surface_tension",
+    "analysis.interface.IntrinsicDensityProfile.calculate_pmf",
+    "analysis.free_energy.harmonic_bin_bias",
+    "analysis.free_energy.fep",
+    "analysis.free_energy.bar",
+    "analysis.free_energy.mbar",
+    "analysis.free_energy.wham",
+    "analysis.free_energy.UmbrellaSampling",
+    "analysis.free_energy.UmbrellaSampling.run",
+    "ops.profiles.grid_deposit_frames",
+    "ops.profiles.gaussian_smooth_periodic",
+    "algorithm.topology.box_volume",
 ]
 
 
@@ -382,7 +442,10 @@ def _universe():
 
     rng = np.random.default_rng(0)
     frames = (rng.random((2, 12, 3)) * 6.0).astype(np.float32)
-    return Universe.from_arrays(frames, [6.0] * 3 + [90.0] * 3)
+    velocities = rng.standard_normal((2, 12, 3)).astype(np.float32)
+    return Universe.from_arrays(frames, [6.0] * 3 + [90.0] * 3,
+                                velocities=velocities,
+                                charges=np.tile([1.0, -1.0], 6))
 
 
 def _arguments(dotted, u):
@@ -398,6 +461,10 @@ def _arguments(dotted, u):
     if dotted.endswith(("ClusterSizeDistribution",
                         "SteinhardtOrderParameter")):
         return (u.atoms, 2.0), {}
+    if dotted.endswith("ElectricCurrentAutocorrelation"):
+        return (u.atoms, 300.0), {}
+    if dotted.endswith("SurvivalProbability"):
+        return (u.atoms, ("slab", "z", 1.0, 4.0)), {}
     return (u.atoms,), {}
 
 
