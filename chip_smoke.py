@@ -113,7 +113,13 @@ rate and temperatures, also from a TRR, slab and shell survival and the
 overlap function against the CPU run), and the Willard-Chandler
 interfaces and intrinsic profiles of a 20,000-site water slab (the first
 chunk against the CPU run; the deposit's and smoothing's ms a frame);
-no kernel of the kernels line launches there.  Every check
+and slice 18: RMSD, RMSF, PCA, TICA and native contacts on a
+4,800-atom protein in 95,000 solvent atoms (rotations against the
+imposed ones, RMSD and RMSF against a float64 Kabsch oracle, the imposed
+collective modes recovered, the rest against the port's CPU run) and
+the bond-length, angle and dihedral distributions of config 5's melt in
+the cube and a triclinic cell (lengths against a float64 oracle as
+integers); no kernel of the kernels line launches there.  Every check
 raises on failure, so any failed phase exits non-zero.  The last lines of
 standard output are the card's name and power limit, a JSON line of
 per-kernel measurements (each beside its bound: the larger of the
@@ -5664,6 +5670,622 @@ def phase_interface(device, rng, card):
     return out
 
 
+# Slice 18: molecules.  A solvated protein at the size users align: a
+# compact chain of SUP_RESIDUES residues of SUP_PER_RESIDUE atoms (9 heavy
+# atoms and 7 hydrogens, residue and atom names, so select_atoms finds the
+# backbone and the heavy atoms) on a jittered lattice of protein density
+# (0.1 atoms/A^3), in SUP_SOLVENT solvent atoms in the SUP_BOX cube; 8 + 56
+# frames.  The protein moves as its reference structure under a random
+# rigid rotation and translation a frame, with two collective modes on top
+# (AR(1) amplitudes of correlation times SUP_MODE_TAUS frames and sample
+# variances SUP_MODE_VARS A^2 over the backbone, free of rigid motion) and
+# SUP_NOISE A rms of isotropic noise an atom.
+SUP_RESIDUES, SUP_PER_RESIDUE = 300, 16
+SUP_ATOMS = SUP_RESIDUES * SUP_PER_RESIDUE
+SUP_SOLVENT, SUP_BOX = 95_000, 100.0
+SUP_FRAMES = 8 + 56
+SUP_NOISE = 0.3
+SUP_MODE_TAUS, SUP_MODE_VARS = (10.0, 2.0), (400.0, 144.0)
+SUP_RESNAMES = ("ALA", "GLY", "SER", "LEU", "VAL", "THR", "ASP", "LYS",
+                "GLU", "PHE")
+SUP_NAMES = ("N", "CA", "C", "O", "CB", "CG", "CD", "CE", "NZ", "H", "HA",
+             "HB1", "HB2", "HG1", "HG2", "HD1")
+SUP_ELEMENT_MASSES = {"N": 14.007, "C": 12.011, "O": 15.999, "H": 1.008}
+#: TICA's lag (frames) and whitening cutoff: C0's noise eigenvalues (about
+#: 2 A^2 at this noise and depth) fall under rcond times the top (400 A^2).
+SUP_LAG, SUP_RCOND = 4, 0.02
+#: the fitted rotations against the inverse of the imposed ones (entrywise:
+#: the noise's share, about 2e-4, and the modes' second-order share of a
+#: few 1e-4, are what separates them) and the RMSD against the float64
+#: oracle (A).
+SUP_ROTATION_BOUND, SUP_RMSD_BOUND = 5e-3, 1e-6
+
+
+def superposition_universe(rng, n_frames):
+    """``(frames float32 (T, N, 3), protein reference (SUP_ATOMS, 3),
+    rotations (T, 3, 3), modes (2, SUP_ATOMS, 3), Universe)``: the protein
+    (atoms 0 .. SUP_ATOMS - 1) and its solvent, 1 ps a frame."""
+
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    # jittered lattice points nearest the center, ordered along a
+    # serpentine path so that residues are compact
+    a = 0.1 ** (-1 / 3)
+    n = 24
+    grid = np.indices((n, n, n)).reshape(3, -1).T
+    centered = (grid - (n - 1) / 2) * a
+    keep = np.argsort(np.linalg.norm(centered, axis=1),
+                      kind="stable")[:SUP_ATOMS]
+    x, y, z = grid[keep].T
+    xs = np.where((y + z) % 2 == 1, -x, x)
+    ys = np.where(z % 2 == 1, -y, y)
+    base = centered[keep][np.lexsort((xs, ys, z))]
+    base = base + rng.normal(0.0, 0.2, base.shape)
+
+    names = np.tile(SUP_NAMES, SUP_RESIDUES)
+    masses = np.array([SUP_ELEMENT_MASSES[name[0]] for name in names])
+    backbone = np.isin(names, ("N", "CA", "C", "O"))
+    # two modes over every protein atom, free of rigid motion in both fits
+    # that see them: the mass-weighted one of all atoms and the unweighted
+    # one of the backbone; each with a unit-norm backbone part
+    constraints = []
+    for weights in (masses, backbone.astype(float)):
+        center = (weights[:, None] * base).sum(0) / weights.sum()
+        for k in range(3):
+            axis = np.eye(3)[k]
+            constraints.append(weights[:, None] * axis)
+            constraints.append(weights[:, None]
+                               * np.cross(axis, base - center))
+    basis = np.linalg.qr(np.stack([c.ravel() for c in constraints], 1))[0]
+    modes = rng.normal(size=(2, base.size))
+    modes -= (modes @ basis) @ basis.T
+    modes = modes.reshape(2, SUP_ATOMS, 3)
+    modes /= np.linalg.norm(modes[:, backbone].reshape(2, -1),
+                            axis=1)[:, None, None]
+    # AR(1) amplitudes, made zero-mean and uncorrelated over the frames,
+    # with the sample variances SUP_MODE_VARS
+    amps = np.empty((n_frames, 2))
+    for k, tau in enumerate(SUP_MODE_TAUS):
+        rho = np.exp(-1.0 / tau)
+        amps[0, k] = rng.standard_normal()
+        for t in range(1, n_frames):
+            amps[t, k] = (rho * amps[t - 1, k]
+                          + np.sqrt(1 - rho**2) * rng.standard_normal())
+    amps = np.linalg.qr(amps - amps.mean(0))[0] * np.sqrt(
+        np.asarray(SUP_MODE_VARS) * n_frames)
+    rotations = np.empty((n_frames, 3, 3))
+    frames = np.empty((n_frames, SUP_ATOMS + SUP_SOLVENT, 3), np.float32)
+    for t in range(n_frames):
+        q = rng.standard_normal(4)
+        qw, qx, qy, qz = q / np.linalg.norm(q)
+        rotations[t] = [
+            [1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qw * qz),
+             2 * (qx * qz + qw * qy)],
+            [2 * (qx * qy + qw * qz), 1 - 2 * (qx * qx + qz * qz),
+             2 * (qy * qz - qw * qx)],
+            [2 * (qx * qz - qw * qy), 2 * (qy * qz + qw * qx),
+             1 - 2 * (qx * qx + qy * qy)]]
+        local = (base + np.einsum("m,mnd->nd", amps[t], modes)
+                 + rng.normal(0.0, SUP_NOISE / np.sqrt(3), base.shape))
+        frames[t, :SUP_ATOMS] = (local @ rotations[t].T + SUP_BOX / 2
+                                 + rng.normal(0.0, 2.0, 3))
+        frames[t, SUP_ATOMS:] = rng.random((SUP_SOLVENT, 3)) * SUP_BOX
+    masses = np.concatenate([masses, np.full(SUP_SOLVENT, 18.015)])
+    u = Universe.from_arrays(
+        frames, [SUP_BOX] * 3 + [90.0] * 3, dt=1.0, masses=masses,
+        names=np.concatenate([names, np.full(SUP_SOLVENT, "OW")]),
+        resnames=np.concatenate([
+            np.repeat(np.resize(SUP_RESNAMES, SUP_RESIDUES), SUP_PER_RESIDUE),
+            np.full(SUP_SOLVENT, "SOL")]),
+        resindices=np.concatenate([
+            np.repeat(np.arange(SUP_RESIDUES), SUP_PER_RESIDUE),
+            SUP_RESIDUES + np.arange(SUP_SOLVENT)]))
+    return frames, base, rotations, modes, u
+
+
+def kabsch64(frames, ref, w):
+    """float64 weighted Kabsch of float32 `frames` ``(T, N, 3)`` onto `ref`
+    (SVD of the 3 x 3 covariance, the sign of the determinant fixed):
+    ``(rmsd (T,), rotations (T, 3, 3), aligned (T, N, 3))``, the RMSD
+    taken from the aligned coordinates."""
+
+    w_total = w.sum()
+    ref_c = ref - (w[:, None] * ref).sum(0) / w_total
+    out = ([], [], [])
+    for p in frames.astype(np.float64):
+        pc = p - (w[:, None] * p).sum(0) / w_total
+        u_, _, vt = np.linalg.svd((pc * w[:, None]).T @ ref_c)
+        d = np.sign(np.linalg.det(u_ @ vt))
+        rot = (u_ @ np.diag([1.0, 1.0, d]) @ vt).T
+        aligned = pc @ rot.T
+        out[0].append(np.sqrt((w * ((aligned - ref_c) ** 2).sum(1)).sum()
+                              / w_total))
+        out[1].append(rot)
+        out[2].append(aligned)
+    return tuple(np.array(x) for x in out)
+
+
+def update_cost(analysis, frames, device):
+    """``(ms, bytes)`` of `analysis` on the first CHUNK frames of `frames`:
+    the device ms a frame of its update (CUDA events over 3 calls after a
+    warm-up call), and the device memory its ``_prepare`` (the carry) and
+    one update add at their peak, beyond the chunk's coordinates."""
+
+    import torch
+
+    idx = analysis._effective_atom_indices()
+    pos = frames[:CHUNK] if idx is None else frames[:CHUNK][:, idx]
+    pos = torch.from_numpy(np.ascontiguousarray(pos)).to(device)
+    dims = torch.tensor([list(analysis.universe.dimensions)] * CHUNK,
+                        dtype=torch.float64, device=device)
+    mask = torch.ones(CHUNK, dtype=torch.float64, device=device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    analysis._setup_frames(analysis._trajectory)
+    analysis._prepare()
+    carry = analysis._carry
+    analysis._update(carry, pos, dims, mask)  # warm-up (cuSOLVER handles)
+    torch.cuda.synchronize()
+    added = torch.cuda.max_memory_allocated(device) - before
+    ms = time_ms(lambda: analysis._update(carry, pos, dims, mask), 3)
+    return ms / CHUNK, added
+
+
+def fit_in(analysis, dtype):
+    """The aligning fit of `analysis` (the steps of its ``_fit_fn``) in
+    `dtype`: a copy kept here to time the float64 fit against the same
+    fit in float32.  Its float64 results are held within 1e-12 of
+    ``_fit_fn``'s in phase_superposition."""
+
+    import torch
+
+    from mdhelper_tpu_torch.analysis.rmsd import (
+        _davenport_k,
+        _rotation_from_quaternion,
+    )
+
+    device = analysis._device
+    w = torch.as_tensor(analysis._weights, device=device, dtype=dtype)
+    ref = torch.as_tensor(analysis._ref_centered, device=device, dtype=dtype)
+    w_total = analysis._w_total
+
+    def fit(positions):
+        x = positions.to(dtype)
+        com = torch.einsum("n,bnd->bd", w, x) / w_total
+        pc = x - com[:, None, :]
+        c = torch.einsum("bnd,ne->bde", pc * w[:, None], ref)
+        _, vecs = torch.linalg.eigh(_davenport_k(c))
+        rot = _rotation_from_quaternion(vecs[..., :, -1])
+        aligned = torch.einsum("bnd,bed->bne", pc, rot)
+        diff = aligned - ref
+        ss = torch.einsum("n,bnd->b", w, diff * diff)
+        return torch.sqrt(ss / w_total), rot, aligned
+
+    return fit
+
+
+def phase_superposition(device, rng, card):
+    """Slice 18's superposition and contacts on the card, on the solvated
+    protein (superposition_universe): one run_together of RMSD with mass
+    weights on the protein's SUP_ATOMS atoms against its reference
+    structure and against frame 0, RMSF, PrincipalComponentAnalysis and
+    TICA (lag SUP_LAG, rcond SUP_RCOND) on the 1,200-atom backbone
+    (select_atoms), and NativeContacts hard / soft / radius on the heavy
+    atoms against themselves, in CHUNK-frame chunks (TICA's ring crosses
+    them), through run_profiled (frames/s, busy share, device activities a
+    frame).  Checks: the rotations equal the inverse of the imposed ones
+    within SUP_ROTATION_BOUND, the RMSD a numpy float64 Kabsch oracle of
+    the same float32 coordinates within SUP_RMSD_BOUND, frame 0 against
+    itself below 1e-6 A; RMSF against the same oracle; the two leading
+    principal components recover the imposed modes (|cos| >= 0.99) and
+    transform() matches the port's CPU run; TICA's slowest component is
+    the 10-frame mode, its eigenvalues and components equal the port's CPU
+    run within rtol 1e-8; q(t) equals the CPU run's bit for bit (hard,
+    radius; soft within 1e-6).  Each class's update ms a frame (CUDA
+    events over a chunk) and the device memory it adds, and the fit's ms,
+    in float64 and in float32."""
+
+    import torch
+
+    from mdhelper_tpu_torch.analysis import contacts, rmsd
+    from mdhelper_tpu_torch.analysis.multi import run_together
+
+    started = time.perf_counter()
+    frames, base, rotations, modes, u = superposition_universe(rng,
+                                                               SUP_FRAMES)
+    out = {"data_s": time.perf_counter() - started}
+    protein = u.select_atoms("not resname SOL")
+    backbone = u.select_atoms("name N CA C O and not resname SOL")
+    heavy = u.select_atoms("not resname SOL and not name H*")
+    check(protein.n_atoms == SUP_ATOMS
+          and backbone.n_atoms == 4 * SUP_RESIDUES,
+          f"selections: {protein.n_atoms} protein, {backbone.n_atoms} "
+          "backbone atoms")
+    bb_ix = backbone.ix
+
+    def make(where):
+        analyses = [
+            rmsd.RMSD(protein, base, weights="mass", verbose=False,
+                      device=where),
+            rmsd.RMSD(protein, weights="mass", verbose=False, device=where),
+            rmsd.RMSF(protein, base, verbose=False, device=where),
+            rmsd.PrincipalComponentAnalysis(backbone, base[bb_ix],
+                                            verbose=False, device=where),
+            rmsd.TICA(backbone, base[bb_ix], lag=SUP_LAG, rcond=SUP_RCOND,
+                      verbose=False, device=where),
+        ] + [contacts.NativeContacts(heavy, method=method, verbose=False,
+                                     device=where)
+             for method in ("hard", "soft", "radius")]
+        # run_together streams every atom of the universe
+        for a in analyses:
+            a._chunk_bytes = CHUNK * u.atoms.n_atoms * 3 * 4
+        return analyses
+
+    launches_before = kernel_launch_counts()
+    analyses = make(device)
+    out["fps"], out["busy"], out["activities"] = run_profiled(
+        analyses, SUP_FRAMES, CHUNK, remake=lambda: make(device))
+    out["profiled_runs"] = run_profiled.runs
+    check(kernel_launch_counts() == launches_before,
+          "a kernel of the kernels line launched on the superposition path")
+    fit_ref, fit_0, rmsf, pca, tica, *native = analyses
+
+    w = protein.masses
+    rmsd_o, rot_o, _ = kabsch64(frames[:, :SUP_ATOMS], base, w)
+    out["rot_err"] = float(np.abs(
+        fit_ref.results.rotations - rotations.transpose(0, 2, 1)).max())
+    check(out["rot_err"] <= SUP_ROTATION_BOUND, f"rotations off the inverse "
+          f"of the imposed ones by {out['rot_err']:.3e}")
+    out["rmsd_err"] = float(np.abs(fit_ref.results.rmsd - rmsd_o).max())
+    check(out["rmsd_err"] <= SUP_RMSD_BOUND, f"RMSD off the float64 Kabsch "
+          f"oracle by {out['rmsd_err']:.3e} A")
+    out["rot_oracle_err"] = float(np.abs(fit_ref.results.rotations
+                                         - rot_o).max())
+    rmsd0_o = kabsch64(frames[:, :SUP_ATOMS],
+                       frames[0, :SUP_ATOMS].astype(np.float64), w)[0]
+    out["rmsd0_err"] = float(np.abs(fit_0.results.rmsd - rmsd0_o).max())
+    out["frame0"] = float(fit_0.results.rmsd[0])
+    check(out["frame0"] < 1e-6 and out["rmsd0_err"] <= SUP_RMSD_BOUND,
+          f"RMSD against frame 0: frame 0 {out['frame0']:.3e} A, off the "
+          f"oracle by {out['rmsd0_err']:.3e} A")
+    aligned = kabsch64(frames[:, :SUP_ATOMS], base, np.ones(SUP_ATOMS))[2]
+    mean = aligned.mean(0)
+    rmsf_o = np.sqrt(((aligned - mean) ** 2).sum(-1).mean(0))
+    out["rmsf_err"] = float(np.abs(rmsf.results.rmsf - rmsf_o).max())
+    check(out["rmsf_err"] <= SUP_RMSD_BOUND, f"RMSF off the float64 oracle "
+          f"by {out['rmsf_err']:.3e} A")
+
+    bb_modes = modes[:, bb_ix].reshape(2, -1)  # unit norm
+    out["pca_cos"] = np.abs(np.sum(
+        bb_modes * pca.results.p_components[:, :2].T, axis=1)).tolist()
+    check(min(out["pca_cos"]) >= 0.99, f"PCA's leading components against "
+          f"the imposed modes: |cos| {out['pca_cos']}")
+
+    cpu_started = time.perf_counter()
+    c_pca, c_tica, *c_native = run_together(make("cpu")[3:])
+    k = 4
+    proj, c_proj = pca.transform(k), c_pca.transform(k)
+    out["transform_err"] = float(np.abs(proj - c_proj).max()
+                                 / np.abs(c_proj).max())
+    check(out["transform_err"] <= 1e-8, f"PCA transform off the CPU run by "
+          f"{out['transform_err']:.3e} of its largest value")
+    lam, c_lam = tica.results.eigenvalues, c_tica.results.eigenvalues
+    check(tica.results.rank == c_tica.results.rank == 2,
+          f"TICA's retained rank {tica.results.rank} (CPU "
+          f"{c_tica.results.rank})")
+    out["tica_lam_err"] = float(np.abs(lam / c_lam - 1).max())
+    comps, c_comps = (tica.results.tica_components,
+                      c_tica.results.tica_components)
+    out["tica_comp_err"] = float(np.abs(comps - c_comps).max()
+                                 / np.abs(c_comps).max())
+    check(out["tica_lam_err"] <= 1e-8 and out["tica_comp_err"] <= 1e-8,
+          f"TICA off the CPU run: eigenvalues {out['tica_lam_err']:.3e}, "
+          f"components {out['tica_comp_err']:.3e}")
+    x = kabsch64(frames[:, bb_ix], base[bb_ix], np.ones(len(bb_ix)))[2]
+    slow = (x.reshape(SUP_FRAMES, -1)
+            - x.reshape(SUP_FRAMES, -1).mean(0)) @ comps[:, 0]
+    amps = np.einsum("tnd,mnd->tm", x - x.mean(0), modes[:, bb_ix])
+    out["tica_corr"] = [abs(float(np.corrcoef(slow, a)[0, 1]))
+                        for a in amps.T]
+    check(out["tica_corr"][0] > 0.9 > out["tica_corr"][1],
+          f"TICA's slowest component against the modes' amplitudes: "
+          f"|corr| {out['tica_corr']}")
+    for a, c in zip(native, c_native):
+        if a._method == "soft":
+            check(np.abs(a.results.q - c.results.q).max() <= 1e-6,
+                  "soft q off the CPU run")
+        else:
+            check(np.array_equal(a.results.q, c.results.q),
+                  f"{a._method} q differs from the CPU run")
+    check(abs(native[0].results.q[0] - 1.0) <= EPS32
+          and native[0].results.q.min() < 1.0,
+          "hard q: 1 at the reference frame, below it later")
+    out["cpu_s"] = time.perf_counter() - cpu_started
+
+    # each class's update alone, and the fit in float64 and float32
+    timed = make(device)
+    names = ("rmsd", "rmsd_frame0", "rmsf", "pca", "tica", "hard", "soft",
+             "radius")
+    out["cost"] = {n: update_cost(a, frames, device)
+                   for n, a in zip(names, timed)}
+    pos = torch.from_numpy(frames[:CHUNK, :SUP_ATOMS]).to(device)
+    fit64, fit32 = fit_in(timed[0], torch.float64), fit_in(timed[0],
+                                                           torch.float32)
+    out["fit_copy_err"] = max(
+        float((a - b).abs().max())
+        for a, b in zip(fit64(pos), timed[0]._fit_fn()(pos)))
+    check(out["fit_copy_err"] <= 1e-12,
+          f"the smoke's copy of the fit is {out['fit_copy_err']:.3e} off "
+          "RMSD's own fit")
+    fit32(pos)  # warm-up
+    out["fit64_ms"] = time_ms(lambda: fit64(pos), 3) / CHUNK
+    out["fit32_ms"] = time_ms(lambda: fit32(pos), 3) / CHUNK
+    out["seconds"] = time.perf_counter() - started
+    print(f"superposition phase ({SUP_ATOMS} protein atoms + {SUP_SOLVENT} "
+          f"solvent, {SUP_FRAMES} frames): {out['fps']:.3f} frames/s, busy "
+          f"{100 * out['busy']:.1f} %, {out['activities']:.0f} device "
+          f"activities a frame (profiled run {out['profiled_runs']}); update "
+          "ms a frame (MB of device memory added): " + ", ".join(
+              f"{n} {ms:.4f} ({added / 1e6:.1f})"
+              for n, (ms, added) in out["cost"].items())
+          + f"; the float64 fit {out['fit64_ms']:.4f} ms a frame (float32 "
+          f"{out['fit32_ms']:.4f}); rotations within {out['rot_err']:.2e} "
+          f"of the imposed inverses ({out['rot_oracle_err']:.2e} of the "
+          f"oracle's), RMSD off the float64 Kabsch oracle "
+          f"{out['rmsd_err']:.2e} A (against frame 0 {out['rmsd0_err']:.2e},"
+          f" frame 0 {out['frame0']:.2e} A), RMSF {out['rmsf_err']:.2e} A; "
+          f"PCA |cos| with the modes {out['pca_cos'][0]:.5f}, "
+          f"{out['pca_cos'][1]:.5f}, transform vs CPU "
+          f"{out['transform_err']:.2e}; TICA eigenvalues {lam[0]:.4f}, "
+          f"{lam[1]:.4f} (timescales {tica.results.timescales[0]:.2f}, "
+          f"{tica.results.timescales[1]:.2f} ps), vs CPU "
+          f"{out['tica_lam_err']:.2e} / {out['tica_comp_err']:.2e}, slowest "
+          f"|corr| with the 10-frame mode {out['tica_corr'][0]:.4f}; "
+          f"{native[0].results.n_native} native contacts, q == CPU (CPU runs "
+          f"{out['cpu_s']:.1f} s); data {out['data_s']:.1f} s; "
+          f"{out['seconds']:.1f} s on {card}")
+    return out
+
+
+#: bench.py's config-5 melt (phase_polymer's fixture) with its bonds, and
+#: the frames that the port's CPU run repeats and the float64 oracles of
+#: angles and dihedrals cover.
+BONDED_FRAMES = POLYMER_FRAMES
+BONDED_CHECK_FRAMES = CHUNK
+#: the moments' tolerance against the CPU run and the float64 oracle
+#: (float32 values summed in float64 in another order).
+BONDED_RTOL = 1e-6
+
+
+def edge_distance(values, edges):
+    """Distance of each value to its nearest edge (sorted `edges`)."""
+
+    i = np.clip(np.searchsorted(edges, values), 1, len(edges) - 1)
+    return np.minimum(np.abs(values - edges[i - 1]),
+                      np.abs(edges[i] - values))
+
+
+def f64_bonded_values(kind, frames, terms, h, *, with_margin=False):
+    """float64 lengths, angles or dihedrals (degrees) of float32 `frames`
+    ``(T, N, 3)`` in the box matrix `h` rounded to float32 (the box the
+    analyses fold by): each displacement folded by rounding its fractional
+    coordinates (the minimum image of vectors far under half the cell's
+    perpendicular widths, as bonds are).  With `with_margin`, also the
+    degrees within which float32 angles or dihedrals may lie from them
+    (``testing.float32_angle_margin``; the fold rounds by ``u`` of the
+    raw vector in the cube, by ``4 kappa u`` of the raw and folded
+    vectors in a triclinic cell)."""
+
+    from mdhelper_tpu_torch.testing import float32_angle_margin
+
+    h = np.asarray(h, np.float32).astype(np.float64)
+    inv = np.linalg.inv(h)
+    p = frames.astype(np.float64)
+    raws, folds = [], []
+
+    def mi(a, b):
+        d = p[:, terms[:, a]] - p[:, terms[:, b]]
+        folded = d - np.round(d @ inv) @ h
+        raws.append(d)
+        folds.append(folded)
+        return folded
+
+    if kind == "length":
+        return np.linalg.norm(mi(0, 1), axis=-1)
+    if kind == "angle":
+        v1, v2 = mi(0, 1), mi(2, 1)
+        cos = (v1 * v2).sum(-1) / np.sqrt((v1 * v1).sum(-1)
+                                          * (v2 * v2).sum(-1))
+        values = np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))
+    else:
+        b1, b2, b3 = mi(1, 0), mi(2, 1), mi(3, 2)
+        n1, n2 = np.cross(b1, b2), np.cross(b2, b3)
+        m1 = np.cross(n1, b2 / np.linalg.norm(b2, axis=-1)[..., None])
+        values = np.degrees(np.arctan2((m1 * n2).sum(-1),
+                                       (n1 * n2).sum(-1)))
+    if not with_margin:
+        return values
+    u = 2.0**-24
+    fold_eps = (u if not np.count_nonzero(h - np.diag(np.diag(h)))
+                else 4.0 * np.linalg.cond(h) * u)
+    return values, float32_angle_margin(
+        kind, np.stack(raws, axis=-2), np.stack(folds, axis=-2), values,
+        fold_eps)
+
+
+def card_bonded_values(analysis, frames, dims):
+    """The float32 angles or dihedrals (degrees) that `analysis` (run on
+    the card) bins for float32 `frames` ``(T, N, 3)`` in the box `dims`,
+    from its own ``_values_fn``, as float64 ``(T, M)``."""
+
+    import torch
+
+    from mdhelper_tpu_torch.analysis.structure import _frame_boxes
+
+    device = analysis._device
+    dims = torch.tensor([list(dims)] * len(frames), dtype=torch.float64,
+                        device=device)
+    box = _frame_boxes(dims, analysis._triclinic)[0][:, None]
+    pos = torch.from_numpy(np.ascontiguousarray(frames)).to(device)
+    cols = torch.as_tensor(analysis._terms, device=device)
+    ends = [pos[:, cols[:, c]] for c in range(cols.shape[1])]
+    return analysis._values_fn()(ends, box)[1].double().cpu().numpy()
+
+
+def phase_bonded(device, rng, card):
+    """Slice 18's bonded distributions on the card, on bench.py's config-5
+    melt (polymer_universe: 2,000 chains of 50 monomers) with its 98,000
+    bonds and the 96,000 angles and 94,000 dihedrals derive_angles and
+    derive_dihedrals find, over BONDED_FRAMES frames: one run_together of
+    BondLengthDistribution, BondAngleDistribution and DihedralDistribution
+    through run_profiled (frames/s, busy share, device activities a frame)
+    in the cube, and again with the chains wrapped into
+    POLYMER_TRICLINIC.  Checks, in each box: bond-length counts equal a
+    float64 oracle's over every frame and the port's CPU run over
+    BONDED_CHECK_FRAMES as integers; angle and dihedral counts within two
+    counts for each value within its float32 margin of an edge
+    (testing.float32_angle_margin) of both, and the card's values within
+    those margins of the oracle's (over BONDED_CHECK_FRAMES); means and
+    standard
+    deviations within BONDED_RTOL of both.  Each class's update ms a
+    frame (CUDA events over a chunk) and the device memory it adds."""
+
+    from mdhelper_tpu_torch.algorithm.topology import triclinic_matrices
+    from mdhelper_tpu_torch.analysis import bonded
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    started = time.perf_counter()
+    frames, unwrapped, _ = polymer_universe(rng, BONDED_FRAMES)
+    chain = np.arange(POLYMER_CHAINS)[:, None] * POLYMER_MONOMERS
+    first = (chain + np.arange(POLYMER_MONOMERS - 1)).ravel()
+    bonds = np.stack([first, first + 1], axis=1)
+    terms = {"length": bonds, "angle": bonded.derive_angles(bonds),
+             "dihedral": bonded.derive_dihedrals(bonds)}
+    out = {"derive_s": time.perf_counter() - started}
+    check([len(t) for t in terms.values()] == [
+        POLYMER_CHAINS * (POLYMER_MONOMERS - k) for k in (1, 2, 3)],
+        f"terms: {[len(t) for t in terms.values()]}")
+    h_tri = triclinic_matrices(np.array([POLYMER_TRICLINIC], np.float64))[0]
+    frac = unwrapped @ np.linalg.inv(h_tri)
+    boxes = {
+        "cube": (frames, [BOX] * 3 + [90.0] * 3, np.diag([BOX] * 3)),
+        "triclinic": (((frac - np.floor(frac)) @ h_tri).astype(np.float32),
+                      POLYMER_TRICLINIC, h_tri),
+    }
+    del unwrapped, frac
+    out["data_s"] = time.perf_counter() - started
+    classes = {"length": (bonded.BondLengthDistribution, "bonds", {}),
+               "angle": (bonded.BondAngleDistribution, "angles", {}),
+               "dihedral": (bonded.DihedralDistribution, "dihedrals", {})}
+
+    for name, (traj, dims, h) in boxes.items():
+        u = Universe.from_arrays(traj, dims, dt=1.0)
+
+        def make(where, u=u):
+            analyses = [cls(u.atoms, verbose=False, device=where,
+                            **{key: terms[kind]})
+                        for kind, (cls, key, _) in classes.items()]
+            for a in analyses:
+                a._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
+            return analyses
+
+        launches_before = kernel_launch_counts()
+        analyses = make(device)
+        fps, busy, activities = run_profiled(
+            analyses, BONDED_FRAMES, CHUNK, remake=lambda make=make: make(
+                device))
+        check(kernel_launch_counts() == launches_before,
+              "a kernel of the kernels line launched on the bonded path")
+        res = {"fps": fps, "busy": busy, "activities": activities,
+               "runs": run_profiled.runs}
+        cpu_started = time.perf_counter()
+        check_card = run_together(make(device), stop=BONDED_CHECK_FRAMES)
+        check_cpu = run_together(make("cpu"), stop=BONDED_CHECK_FRAMES)
+        res["cpu_s"] = time.perf_counter() - cpu_started
+        for kind, full, card_a, cpu_a in zip(classes, analyses, check_card,
+                                             check_cpu):
+            edges = full.results.edges
+            if kind == "length":
+                values = f64_bonded_values(kind, traj, terms[kind], h)
+                oracle = np.histogram(values, bins=edges)[0]
+                check(np.array_equal(full.results.counts, oracle),
+                      f"{name} bond-length counts differ from the float64 "
+                      "oracle's")
+                check(np.array_equal(card_a.results.counts,
+                                     cpu_a.results.counts),
+                      f"{name} bond-length counts differ from the CPU run's")
+                res[f"{kind}_delta"] = (0, 0, 0)
+            else:
+                values, margin = f64_bonded_values(
+                    kind, traj[:BONDED_CHECK_FRAMES], terms[kind], h,
+                    with_margin=True)
+                oracle = np.histogram(values, bins=edges)[0]
+                near = edge_distance(values.ravel(), edges)
+                bound = max(2, 2 * int((near < margin.ravel()).sum()))
+                d_cpu = int(np.abs(card_a.results.counts
+                                   - cpu_a.results.counts).sum())
+                d_f64 = int(np.abs(card_a.results.counts - oracle).sum())
+                check(d_cpu <= bound and d_f64 <= bound,
+                      f"{name} {kind} counts: |delta| {d_cpu} (CPU), "
+                      f"{d_f64} (float64) against the bound {bound}")
+                err = np.abs(card_bonded_values(
+                    card_a, traj[:BONDED_CHECK_FRAMES], dims) - values)
+                if kind == "dihedral":
+                    err = np.minimum(err, 360.0 - err)  # across +-180
+                worst = float((err / margin).max())
+                check(worst <= 1.0,
+                      f"{name} {kind}: a card value {worst:.3f} margins "
+                      "off the float64 oracle")
+                res[f"{kind}_delta"] = (d_cpu, d_f64, bound)
+                res[f"{kind}_margin"] = (float(np.median(margin)),
+                                         float(err.max()), worst)
+            if kind != "dihedral":
+                for key in ("mean", "std"):
+                    ref = values.mean() if key == "mean" else values.std()
+                    err_cpu = abs(card_a.results[key] / cpu_a.results[key]
+                                  - 1)
+                    err_f64 = abs((full if kind == "length" else card_a)
+                                  .results[key] / ref - 1)
+                    check(err_cpu <= BONDED_RTOL and err_f64 <= BONDED_RTOL,
+                          f"{name} {kind} {key}: {err_cpu:.2e} off the CPU "
+                          f"run, {err_f64:.2e} off the float64 oracle")
+            if kind != "length":
+                check(full.results.counts.sum() == BONDED_FRAMES * len(
+                    terms[kind]), f"{name} {kind}: every value in range")
+        res["cost"] = {kind: update_cost(a, traj, device)
+                       for kind, a in zip(classes, make(device))}
+        out[name] = res
+    out["seconds"] = time.perf_counter() - started
+    print("bonded phase passes: " + "; ".join(
+        f"{name} {r['fps']:.3f} frames/s, busy {100 * r['busy']:.1f} %, "
+        f"{r['activities']:.0f} device activities a frame (profiled run "
+        f"{r['runs']}), update ms a frame (MB of device memory added) "
+        + ", ".join(f"{k} {ms:.4f} ({added / 1e6:.1f})"
+                    for k, (ms, added) in r["cost"].items())
+        for name, r in out.items() if isinstance(r, dict)))
+    print(f"bonded phase ({POLYMER_CHAINS} chains x {POLYMER_MONOMERS}, "
+          f"{BONDED_FRAMES} frames; {len(terms['length'])} bonds, "
+          f"{len(terms['angle'])} angles, {len(terms['dihedral'])} "
+          f"dihedrals derived in {out['derive_s']:.1f} s): bond-length "
+          "counts == float64 oracle (every frame) and == CPU (first "
+          f"{BONDED_CHECK_FRAMES} frames) in both boxes; angle / dihedral "
+          "|count deltas| (CPU, float64, bound): " + "; ".join(
+              f"{name} {out[name]['angle_delta']} / "
+              f"{out[name]['dihedral_delta']}" for name in boxes)
+          + "; float32 margins (median deg, the card's largest |error| "
+          "deg, its largest error / margin), angle / dihedral: "
+          + "; ".join(
+              f"{name} " + " / ".join(
+                  "({:.3e}, {:.3e}, {:.4f})".format(*out[name][f"{k}_margin"])
+                  for k in ("angle", "dihedral")) for name in boxes)
+          + f"; CPU runs {out['cube']['cpu_s']:.1f} + "
+          f"{out['triclinic']['cpu_s']:.1f} s; data {out['data_s']:.1f} s; "
+          f"{out['seconds']:.1f} s on {card}")
+    return out
+
+
 def main():
     import torch
 
@@ -5820,6 +6442,18 @@ def main():
           f"{interfaces['fps']:.3f} frames/s on {card}, device busy "
           f"{100 * interfaces['busy']:.1f} % (information, not a claim); the "
           f"interface phase took {interfaces['seconds']:.1f} s")
+
+    # Slice 18 draws from its own generators, one a phase.
+    sup = phase_superposition(device, np.random.default_rng(SEED + 20), card)
+    print(f"superposition path ({SUP_ATOMS} protein atoms): "
+          f"{sup['fps']:.3f} frames/s on {card}, device busy "
+          f"{100 * sup['busy']:.1f} % (information, not a claim); the "
+          f"superposition phase took {sup['seconds']:.1f} s")
+    bonds = phase_bonded(device, np.random.default_rng(SEED + 21), card)
+    print(f"bonded paths ({N_ATOMS} atoms): cube "
+          f"{bonds['cube']['fps']:.3f}, triclinic "
+          f"{bonds['triclinic']['fps']:.3f} frames/s on {card} (information, "
+          f"not a claim); the bonded phase took {bonds['seconds']:.1f} s")
 
     def path_row(shape, timing_plan, path, plain_from=None, plain_shape=None):
         """(launches, shape, timing) of a slice-4 row, whose kernel was

@@ -4,10 +4,11 @@ Topology helpers
 
 The part of :mod:`mdhelper_tpu.algorithm.topology` the ported analyses
 call: box matrices and volumes, the minimum-image convention, wrapping,
-the bonded :func:`unwrap_edge` that makes molecules whole, and bond
-guessing by distance (:func:`guess_bonds`, over
-:func:`resolve_vdw_radii`).  NumPy only, apart from
-:func:`triclinic_matrices`, which also takes torch tensors.
+the image-flag :func:`unwrap` of consecutive frames, the bonded
+:func:`unwrap_edge` that makes molecules whole, and bond guessing by
+distance (:func:`guess_bonds`, over :func:`resolve_vdw_radii`).  NumPy
+only, apart from :func:`triclinic_matrices` and :func:`unwrap`, which
+also take torch tensors.
 """
 
 import warnings
@@ -25,6 +26,7 @@ __all__ = [
     "resolve_vdw_radii",
     "triclinic_matrices",
     "triclinic_vectors",
+    "unwrap",
     "unwrap_edge",
     "wrap",
 ]
@@ -152,6 +154,56 @@ def wrap(positions, dimensions, *, in_place: bool = True):
     out = positions_arr.copy()
     out[outside] -= shift[outside]
     return out
+
+
+def unwrap(positions, positions_old, dimensions, *,
+           thresholds: float = None, images: np.ndarray = None,
+           in_place: bool = True):
+    r"""Unwrap particle positions globally by tracking image flags, as
+    :func:`mdhelper_tpu.algorithm.topology.unwrap`: a particle that moved
+    at least `thresholds` (default half the smallest box length) along an
+    axis since the previous frame `positions_old` crossed that boundary;
+    its image count (`images`, zeros by default) changes by the sign of
+    the move against it, and its position shifts by ``images *
+    dimensions``.
+
+    NumPy arrays with ``in_place=True`` are updated in place (`positions`
+    unwrapped, `positions_old` set to the wrapped `positions`, `images`
+    counted) and ``None`` is returned; otherwise ``(positions,
+    positions_old, images)`` is returned and the inputs are left as they
+    were.  Torch tensors are always unwrapped functionally (as the JAX
+    package treats its immutable arrays): `in_place` is ignored, and the
+    tuple comes back on their device, the image counts int64.
+    """
+
+    if isinstance(positions, torch.Tensor):
+        dims = torch.as_tensor(dimensions, device=positions.device)
+        if thresholds is None:
+            thresholds = dims.min() / 2
+        if images is None:
+            images = torch.zeros(positions.shape, dtype=torch.int64,
+                                 device=positions.device)
+        dpos = positions - positions_old
+        crossings = torch.where(dpos.abs() >= thresholds,
+                                torch.sign(dpos).to(torch.int64), 0)
+        images = images - crossings
+        return positions + images * dims, positions, images
+
+    dimensions = np.asarray(dimensions)
+    if thresholds is None:
+        thresholds = np.min(dimensions) / 2
+    if images is None:
+        images = np.zeros(np.shape(positions), dtype=int)
+    dpos = positions - positions_old
+    mask = np.abs(dpos) >= thresholds
+    if in_place:
+        images[mask] -= np.sign(dpos[mask]).astype(int)
+        positions_old[:] = positions[:]
+        positions += images * dimensions
+        return None
+    images = images.copy()
+    images[mask] -= np.sign(dpos[mask]).astype(int)
+    return positions + images * dimensions, positions.copy(), images
 
 
 def _unwrap_molecules(positions, adjacency, molecules, dimensions) -> None:

@@ -2,12 +2,13 @@
 Utility algorithms
 ==================
 
-The part of :mod:`mdhelper_tpu.algorithm.utility` the ported analyses
-call: :func:`get_closest_factors`, which lays out the spherical-surface
+Torch-free counterpart of :mod:`mdhelper_tpu.algorithm.utility`:
+:func:`get_closest_factors`, which lays out the spherical-surface
 wavevectors of :class:`~mdhelper_tpu_torch.analysis.structure.StructureFactor`,
-and the connected components of a bond graph
-(:func:`depth_first_search`, :func:`find_connected_nodes`).  NumPy only;
-the prime factorization is trial division, so the port needs no
+the connected components of a bond graph (:func:`depth_first_search`,
+:func:`find_connected_nodes`), unit-cell replication (:func:`replicate`)
+and rebinning by averaging (:func:`rebin`).  NumPy only; prime factors
+and divisors come from trial division, so the port needs no
 computer-algebra package.
 """
 
@@ -15,7 +16,13 @@ from typing import Any
 
 import numpy as np
 
-__all__ = ["depth_first_search", "find_connected_nodes", "get_closest_factors"]
+__all__ = [
+    "depth_first_search",
+    "find_connected_nodes",
+    "get_closest_factors",
+    "rebin",
+    "replicate",
+]
 
 
 def _prime_factors_desc(value: int) -> list:
@@ -115,3 +122,41 @@ def find_connected_nodes(graph: dict) -> list:
             depth_first_search(graph, start, visited, group)
             results.append(group)
     return results
+
+
+def replicate(cell_dims: np.ndarray, cell_pos: np.ndarray,
+              n_cells: np.ndarray) -> np.ndarray:
+    r"""Replicate the :math:`N` points of a unit cell `cell_pos` ``(N,
+    3)`` (cell lengths `cell_dims` ``(3,)``) `n_cells` ``(3,)`` times
+    along x, y and z: ``(N n_x n_y n_z, 3)`` points, cell-major with the
+    x replica varying fastest, then y, then z, the atoms of a cell
+    contiguous (as :func:`mdhelper_tpu.algorithm.utility.replicate`)."""
+
+    cell_dims = np.asarray(cell_dims, dtype=float)
+    cell_pos = np.atleast_2d(np.asarray(cell_pos, dtype=float))
+    nx, ny, nz = (int(n) for n in n_cells)
+    shifts = np.stack(
+        (
+            np.tile(np.arange(nx), ny * nz),
+            np.tile(np.repeat(np.arange(ny), nx), nz),
+            np.repeat(np.arange(nz), nx * ny),
+        ),
+        axis=1,
+    ) * cell_dims
+    return (shifts[:, None, :] + cell_pos[None, :, :]).reshape(-1, 3)
+
+
+def rebin(x: np.ndarray, factor: int = None) -> np.ndarray:
+    r"""Rebin data along the last axis by averaging groups of `factor`
+    values.  Without `factor`, the largest divisor of the last axis's
+    length from 2 to 9 is taken (the JAX package asks sympy for the
+    divisors; the same ones are found by trial division); `ValueError`
+    when there is none."""
+
+    x = np.asarray(x)
+    if factor is None:
+        divisors = [d for d in range(2, 10) if x.shape[-1] % d == 0]
+        if not divisors:
+            raise ValueError("No factor provided for rebinning.")
+        factor = divisors[-1]
+    return x.reshape(*x.shape[:-1], -1, factor).mean(axis=-1)

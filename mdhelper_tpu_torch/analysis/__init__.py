@@ -8,7 +8,9 @@ The ported analyses and the streaming runtime, module for module as in
 
 from . import (  # noqa: F401
     base,
+    bonded,
     cluster,
+    contacts,
     dynamics,
     electrostatics,
     flow,
@@ -19,6 +21,7 @@ from . import (  # noqa: F401
     orientation,
     polymer,
     profile,
+    rmsd,
     steinhardt,
     structure,
     thermodynamics,
@@ -33,7 +36,9 @@ from .multi import run_together  # noqa: F401
 
 __all__ = [
     "base",
+    "bonded",
     "cluster",
+    "contacts",
     "dynamics",
     "electrostatics",
     "flow",
@@ -44,6 +49,7 @@ __all__ = [
     "orientation",
     "polymer",
     "profile",
+    "rmsd",
     "run_together",
     "steinhardt",
     "structure",

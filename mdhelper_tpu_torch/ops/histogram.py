@@ -124,10 +124,11 @@ def _exact_d2_triclinic(p1, p2, box, inv=None):
     package's ``_exact_d2_triclinic``, with ``n0`` formed elementwise
     instead of by a matrix product; the window absorbs a +-1 difference
     in ``n0``).  ``box`` is the float32 ``(3, 3)`` lower-triangular
-    matrix; its zeros above the diagonal are skipped.  ``inv`` is its
-    float32 inverse, :func:`_inv3` of ``box`` unless given (the tri_pp
-    kernels take one computed once a frame, and so does their plain
-    version)."""
+    matrix, or ``(..., 1, 3, 3)`` matrices that broadcast against the
+    points (a box a frame); its zeros above the diagonal are skipped.
+    ``inv`` is its float32 inverse, :func:`_inv3` of ``box`` unless given
+    (the tri_pp kernels take one computed once a frame, and so does their
+    plain version)."""
 
     if inv is None:
         inv = _inv3(box)
@@ -144,9 +145,9 @@ def _exact_d2_triclinic(p1, p2, box, inv=None):
         components = []
         for k in range(3):
             # t = sum_{j >= k} m_j * box[j, k] (lower-triangular).
-            t = two_prod(m[k], box[k, k])
+            t = two_prod(m[k], box[..., k, k])
             for j in range(k + 1, 3):
-                t = df_add(t, two_prod(m[j], box[j, k]))
+                t = df_add(t, two_prod(m[j], box[..., j, k]))
             d = df_sub((s_hi[k], s_lo[k]), t)
             components.append(df_square(d))
         d2 = df_sum3(*components)
@@ -155,10 +156,11 @@ def _exact_d2_triclinic(p1, p2, box, inv=None):
 
 
 def _exact_d2(p1, p2, box):
-    """Exact squared minimum-image distances for an orthorhombic
-    ``(3,)`` or a triclinic ``(3, 3)`` float32 box."""
+    """Exact squared minimum-image distances for orthorhombic float32
+    lengths (``(3,)``, or ``(..., 1, 3)`` a frame) or triclinic float32
+    box matrices (``(3, 3)``, or ``(..., 1, 3, 3)`` a frame)."""
 
-    if box.ndim == 2:
+    if box.shape[-2:] == (3, 3):
         return _exact_d2_triclinic(p1, p2, box)
     return _exact_d2_orthorhombic(p1, p2, box)
 
@@ -187,13 +189,16 @@ def _uniform_edge_constants(edges, device):
     )
 
 
-def _exact_bin_indices(p1, p2, box, edges, *, elementwise=False):
+def _exact_bin_indices(p1, p2, box, edges, *, elementwise=False,
+                       with_d2=False):
     """Exact bin index of every pair of the ``(N1, N2)`` block (spill
     index ``n_bins`` for out-of-range pairs), replicating
     ``mdhelper_tpu.ops.histogram._exact_bin_indices`` operation for
     operation.  With ``elementwise=True``, `p1` and `p2` pair row for
     row instead (broadcast-compatible ``(..., 3)`` -> ``(...)``
-    displacement indices)."""
+    displacement indices).  With ``with_d2=True`` it returns ``(idx,
+    d2)``: the indices and the double-float squared minimum-image
+    distances ``(hi, lo)`` they were binned from."""
 
     n_bins = len(edges) - 1
     device = p1.device
@@ -222,9 +227,8 @@ def _exact_bin_indices(p1, p2, box, edges, *, elementwise=False):
     b_first = boundary(torch.zeros_like(idx))
     at_last = (d2[0] == b_last[0]) & (d2[1] == b_last[1])
     in_range = df_ge(d2, b_first) & (df_lt(d2, b_last) | at_last)
-    return torch.where(
-        in_range, torch.clamp(idx, max=n_bins - 1), n_bins
-    )
+    idx = torch.where(in_range, torch.clamp(idx, max=n_bins - 1), n_bins)
+    return (idx, d2) if with_d2 else idx
 
 
 def _root(d2):
@@ -285,8 +289,15 @@ def _norm2(v):
     x))``, each sum rounded once with its product
     (:func:`~mdhelper_tpu_torch.ops.doublefloat.fma32`)."""
 
-    x, y, z = v[..., 0], v[..., 1], v[..., 2]
-    return fma32(z, z, fma32(y, y, x * x))
+    return _dot3(v, v)
+
+
+def _dot3(a, b):
+    """Dot products of float32 vectors `a` and `b` ``(..., 3)`` in the
+    fused form of :func:`_norm2`: ``fma(az, bz, fma(ay, by, ax * bx))``."""
+
+    return fma32(a[..., 2], b[..., 2],
+                 fma32(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
 
 
 def _min_image_distance(delta, box):
@@ -383,8 +394,8 @@ def displacement_histogram_frame(pos1, pos2, box, edges):
         triclinic search takes any positions).
     box : `torch.Tensor`
         float32 orthorhombic box lengths ``(3,)``, or a ``(3, 3)``
-        lower-triangular box matrix; or orthorhombic lengths ``(..., 1,
-        3)``, one box per leading index.
+        lower-triangular box matrix; or one box per leading index, as
+        lengths ``(..., 1, 3)`` or matrices ``(..., 1, 3, 3)``.
     edges : array-like
         Uniform float64 bin edges ``(n_bins + 1,)``.
 

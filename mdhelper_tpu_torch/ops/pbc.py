@@ -2,16 +2,31 @@
 Periodic-boundary transforms
 ============================
 
-Torch counterpart of :mod:`mdhelper_tpu.ops.pbc`: wrapping, and the
-order-dependent trajectory unwrap with image-flag tracking (the JAX
-``lax.scan`` becomes a loop over the frames of a chunk).
+Torch counterpart of :mod:`mdhelper_tpu.ops.pbc`: the orthorhombic
+minimum image, wrapping, the order-dependent trajectory unwrap with
+image-flag tracking (the JAX ``lax.scan`` becomes a loop over the frames
+of a chunk), and the removal of the center-of-mass drift.
 """
 
 import torch
 
 from .doublefloat import fma32
 
-__all__ = ["wrap_positions", "unwrap_scan"]
+__all__ = [
+    "min_image_displacement",
+    "wrap_positions",
+    "unwrap_scan",
+    "com_shift_scan",
+]
+
+
+def min_image_displacement(delta, box):
+    """Orthorhombic minimum images of displacement vectors `delta`;
+    `box` broadcasts against the trailing axis of `delta` (``delta - box
+    * round(delta / box)``, each operation rounded once, as the JAX
+    package's function evaluates it outside a compiled class)."""
+
+    return delta - box * torch.round(delta / box)
 
 
 def wrap_positions(positions, box):
@@ -71,3 +86,17 @@ def unwrap_scan(positions, box, initial=None, images=None):
         out[t] = pos + images * frame_box
         prev = pos
     return out, (prev, images)
+
+
+def com_shift_scan(unwrapped, masses):
+    """Remove the system's center-of-mass drift from an unwrapped chunk
+    ``(T, N, 3)``: each frame's mass-weighted mean position (`masses`
+    ``(N,)``, a tensor or an array) is subtracted from its atoms.  The
+    product and the sum run in the promoted dtype of the two inputs."""
+
+    masses = torch.as_tensor(masses)
+    dtype = torch.promote_types(unwrapped.dtype, masses.dtype)
+    masses = masses.to(device=unwrapped.device, dtype=dtype)
+    unwrapped = unwrapped.to(dtype)
+    com = torch.einsum("a,tad->td", masses, unwrapped) / masses.sum()
+    return unwrapped - com[:, None, :]

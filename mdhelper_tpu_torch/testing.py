@@ -6,7 +6,8 @@ NumPy helpers shared by the port's tests and ``chip_smoke.py``: the
 bin-edge straddle fixtures and the float64 all-pairs histograms the
 cell-list kernels are held against, a float32 model of the tri_pp
 kernels' candidate screen, a trajectory of 3-site water molecules
-(optionally with SPC/E charges), and one of linear polymer chains.
+(optionally with SPC/E charges), one of linear polymer chains, and the
+float32 error margin of bond angles and dihedrals.
 """
 
 import itertools
@@ -22,6 +23,7 @@ __all__ = [
     "f64_histogram",
     "f64_triclinic_distances",
     "f64_triclinic_pair_histogram",
+    "float32_angle_margin",
     "SCREEN_EPS",
     "SPCE_CHARGES",
     "fma32",
@@ -326,3 +328,59 @@ def polymer_chains(rng, n_chains, n_monomers, n_frames, box, *, bond=1.0,
         unwrapped[t] = (heads[:, None] + conformation).reshape(-1, 3)
     frames = np.mod(unwrapped, box).astype(np.float32)
     return frames, unwrapped
+
+
+def float32_angle_margin(kind, raw, folded, values, fold_eps):
+    r"""Degrees within which float32 evaluations of bond angles (`kind`
+    ``"angle"``) or dihedrals (``"dihedral"``) may lie from their float64
+    `values` ``(...)``: a first-order bound on the rounding, with its
+    constants rounded up.
+
+    `raw` and `folded` ``(..., k, 3)`` are the float64 displacement vectors
+    of each term before and after the minimum-image fold (``v1 = i - j``,
+    ``v2 = k - j`` for an angle; ``b1, b2, b3`` for a dihedral).
+    `fold_eps` times ``(|raw| + |folded|)`` bounds the absolute float32
+    error of a folded vector: ``u = 2^-24`` where the fold subtracts exact
+    multiples of float32 box lengths (only the coordinate difference
+    rounds), ``4 kappa u`` through a triclinic box's float32 fractional
+    fold (``kappa`` the box matrix's condition number: the fractional
+    coordinates, three-term products with the float32 inverse, round
+    within ``4u`` of ``|raw|``, and the folded vector, three-term
+    products with the box, within ``2u`` of ``|folded|``, each magnified
+    by at most ``kappa``).
+
+    * An angle turns by at most each vector's relative error ``e_i``, and
+      its cosine (fused dot product, squared norms, root and quotient)
+      rounds by at most ``8u``, which ``arccos`` multiplies by
+      ``1 / sin(theta)`` (taken no smaller than ``4 sqrt(u)``, where the
+      arccos error is of order the square root of the cosine's):
+      ``e_1 + e_2 + 8u / sin(theta)``.
+    * A dihedral is the signed angle between the normals ``n1 = b1 x b2``
+      and ``n2 = b2 x b3``, each of which turns by at most ``(2u + e_i +
+      e_j) / sin`` of the bond angle between its factors (taken no smaller
+      than ``sqrt(u)``); ``m1``, the two dot products and ``atan2``'s
+      argument add ``8u``.
+    * ``arccos`` and ``atan2`` round their result within a few ulps, and
+      so does the conversion to degrees: 8 float32 ulps of the value.
+    """
+
+    u = 2.0**-24
+    length = np.linalg.norm(folded, axis=-1)
+    eps = fold_eps * (np.linalg.norm(raw, axis=-1) + length) / length
+
+    def sine(a, b):
+        return (np.linalg.norm(np.cross(a, b), axis=-1)
+                / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1)))
+
+    if kind == "angle":
+        s = np.maximum(sine(folded[..., 0, :], folded[..., 1, :]),
+                       4.0 * np.sqrt(u))
+        rad = eps[..., 0] + eps[..., 1] + 8.0 * u / s
+    else:
+        b1, b2, b3 = (folded[..., i, :] for i in range(3))
+        s1 = np.maximum(sine(b1, b2), np.sqrt(u))
+        s2 = np.maximum(sine(b2, b3), np.sqrt(u))
+        rad = ((2.0 * u + eps[..., 0] + eps[..., 1]) / s1
+               + (2.0 * u + eps[..., 1] + eps[..., 2]) / s2 + 8.0 * u)
+    ulps = np.spacing(np.abs(np.asarray(values, np.float32)))
+    return np.degrees(rad) + 8.0 * ulps.astype(np.float64)

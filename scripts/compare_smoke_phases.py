@@ -31,6 +31,8 @@ SEED_OFFSETS = {
     "phase_order": 17,
     "phase_velocities": 18,
     "phase_interface": 19,
+    "phase_superposition": 20,
+    "phase_bonded": 21,
 }
 
 CHILD = """

@@ -1977,3 +1977,130 @@ def test_interfaces_on_the_card_equal_cpu(cuda_device):
         u.atoms[:n], [u.atoms[:n], u.atoms[n:]], xi=1.5, verbose=False,
         device=d), u)
     np.testing.assert_array_equal(card.results.counts, cpu.results.counts)
+
+
+def _molecule_system():
+    """Six chains of 10 monomers (testing.polymer_chains) wrapped into a
+    triclinic cell, 8 float32 frames, with bonds and masses."""
+
+    from mdhelper_tpu_torch.algorithm.topology import triclinic_matrices
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.testing import polymer_chains
+
+    dims = np.array([12.0, 12.0, 12.0, 80.0, 75.0, 70.0])
+    _, unwrapped = polymer_chains(np.random.default_rng(52), 6, 10, 8, 12.0,
+                                  stiffness=0.5)
+    h = triclinic_matrices(dims[None])[0]
+    frac = unwrapped @ np.linalg.inv(h)
+    frames = ((frac - np.floor(frac)) @ h).astype(np.float32)
+    bonds = np.array([(c * 10 + i, c * 10 + i + 1)
+                      for c in range(6) for i in range(9)])
+    masses = np.tile([12.011, 14.007], 30)
+    return (Universe.from_arrays(frames, dims, bonds=bonds, masses=masses),
+            Universe.from_arrays(unwrapped.astype(np.float32),
+                                 [50.0] * 3 + [90.0] * 3, masses=masses))
+
+
+@pytest.mark.cuda
+def test_superposition_on_the_card_equals_cpu(cuda_device):
+    """RMSD, RMSF, PCA and TICA on the card: the float64 fit (cuSOLVER's
+    batched 4 x 4 eigh) within 1e-10 of the CPU's; PCA variances and the
+    two leading components, and TICA's eigenvalues, within 1e-8."""
+
+    from mdhelper_tpu_torch.analysis import rmsd
+
+    _, u = _molecule_system()
+    group = u.atoms[10:40]
+    card, cpu = _polymer_runs(lambda d: rmsd.RMSD(
+        group, weights="mass", verbose=False, device=d), u)
+    np.testing.assert_allclose(card.results.rmsd, cpu.results.rmsd, rtol=0,
+                               atol=1e-10)
+    np.testing.assert_allclose(card.results.rotations, cpu.results.rotations,
+                               rtol=0, atol=1e-10)
+    assert card.results.rmsd[0] < 1e-6
+    card, cpu = _polymer_runs(lambda d: rmsd.RMSF(
+        group, verbose=False, device=d), u)
+    np.testing.assert_allclose(card.results.rmsf, cpu.results.rmsf, rtol=0,
+                               atol=1e-10)
+    card, cpu = _polymer_runs(lambda d: rmsd.PrincipalComponentAnalysis(
+        group, verbose=False, device=d), u)
+    scale = cpu.results.variance[0]
+    np.testing.assert_allclose(card.results.variance, cpu.results.variance,
+                               rtol=0, atol=1e-8 * scale)
+    np.testing.assert_allclose(card.transform(2), cpu.transform(2), rtol=0,
+                               atol=1e-8 * np.sqrt(scale))
+    card, cpu = _polymer_runs(lambda d: rmsd.TICA(
+        group, lag=2, verbose=False, device=d), u)
+    np.testing.assert_allclose(card.results.eigenvalues,
+                               cpu.results.eigenvalues, rtol=0, atol=1e-8)
+    for key in ("sum", "m2", "sum_a", "sum_b", "mab"):
+        np.testing.assert_allclose(card._carry[key].cpu().numpy(),
+                                   cpu._carry[key].numpy(), rtol=1e-12,
+                                   atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_bonded_on_the_card_equals_cpu(cuda_device):
+    """Bond lengths bin exactly on the card (counts equal the CPU's);
+    angles and dihedrals (float32 arccos and arctan2 of CUDA's libdevice)
+    within two counts of each value near an edge; moments within 1e-6."""
+
+    from mdhelper_tpu_torch.analysis import bonded
+
+    u, _ = _molecule_system()
+    for cls in ("BondLengthDistribution", "BondAngleDistribution",
+                "DihedralDistribution"):
+        card, cpu = _polymer_runs(lambda d: getattr(bonded, cls)(
+            u.atoms, verbose=False, device=d), u)
+        diff = np.abs(card.results.counts - cpu.results.counts).sum()
+        assert diff == 0 if cls == "BondLengthDistribution" else diff <= 4
+        if "mean" in cpu.results:
+            np.testing.assert_allclose(card.results.mean, cpu.results.mean,
+                                       rtol=1e-6)
+            np.testing.assert_allclose(card.results.std, cpu.results.std,
+                                       rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_native_contacts_on_the_card_equal_cpu(cuda_device):
+    """hard and radius q equal the CPU's bit for bit, soft within 1e-6, in
+    the triclinic cell."""
+
+    from mdhelper_tpu_torch.analysis import contacts
+
+    u, _ = _molecule_system()
+    for method in ("hard", "radius", "soft"):
+        card, cpu = _polymer_runs(lambda d: contacts.NativeContacts(
+            u.atoms[:30], u.atoms[20:], 3.0, method=method, verbose=False,
+            device=d), u)
+        np.testing.assert_array_equal(card.results.pairs, cpu.results.pairs)
+        if method == "soft":
+            np.testing.assert_allclose(card.results.q, cpu.results.q,
+                                       rtol=0, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(card.results.q, cpu.results.q)
+
+
+@pytest.mark.cuda
+def test_accelerated_numpy_inputs_run_on_the_card(cuda_device):
+    """NumPy inputs to ``algorithm.accelerated`` go to the first CUDA device
+    and come back as NumPy, equal to the CPU tensors' results within 1e-12
+    of the largest value (float64)."""
+
+    from mdhelper_tpu_torch.algorithm import accelerated
+
+    rng = np.random.default_rng(11)
+    qs, rs = rng.normal(size=(7, 3)), rng.normal(size=(50, 3)) * 4
+    xs = rng.normal(size=(6, 30)) * 3
+    for name, args in (("delta_fourier_transform_sum_2d_2d", (qs, rs)),
+                       ("inner_2d_2d", (qs, rs)), ("cosine_sum_2d", (xs,)),
+                       ("sine_sum_2d", (xs,))):
+        fn = getattr(accelerated, name)
+        card = fn(*args)
+        assert isinstance(card, np.ndarray)
+        cpu = fn(*[torch.as_tensor(a) for a in args]).numpy()
+        np.testing.assert_allclose(card, cpu, rtol=0,
+                                   atol=1e-12 * np.abs(cpu).max())
+    out = np.zeros(len(xs))
+    accelerated.cosine_sum_inplace_2d(xs, out)
+    np.testing.assert_allclose(out, np.cos(xs).sum(axis=1), rtol=1e-12)

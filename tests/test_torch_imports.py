@@ -1,9 +1,9 @@
 """Two rules of the port, checked without a card.
 
-* The port imports neither JAX nor the JAX package, nor pandas: every
-  module of ``mdhelper_tpu_torch/`` and ``chip_smoke.py`` is parsed and its
-  import statements are read (the machine with the card has no JAX and
-  no pandas).
+* The port imports neither JAX nor the JAX package, nor pandas or sympy:
+  every module of ``mdhelper_tpu_torch/`` and ``chip_smoke.py`` is parsed
+  and its import statements are read (the machine with the card has no
+  JAX, no pandas and no sympy).
 * The analyses run on the card unless the caller asks for the CPU: with
   no card, constructing one without ``device=`` raises, and
   ``device="cpu"`` runs.
@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from mdhelper_tpu_torch.analysis import bonded, contacts, rmsd  # noqa: E402
 from mdhelper_tpu_torch.analysis import thermodynamics  # noqa: E402
 from mdhelper_tpu_torch.analysis.cluster import (  # noqa: E402
     ClusterSizeDistribution,
@@ -99,6 +100,32 @@ def _imports_pandas(name):
 def test_port_never_imports_pandas(path):
     bad = [n for n in _imported_names(path) if _imports_pandas(n)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _imports_sympy(name):
+    return name.split(".")[0] == "sympy"
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_port_never_imports_sympy(path):
+    bad = [n for n in _imported_names(path) if _imports_sympy(n)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_sources_cover_the_molecule_layer():
+    """The superposition, bonded, contacts, molecule, accelerated and
+    utility modules are among the parsed sources, and the sympy rule
+    catches sympy and its submodules."""
+
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("analysis/rmsd", "analysis/bonded", "analysis/contacts",
+                   "analysis/cluster", "algorithm/molecule",
+                   "algorithm/accelerated", "algorithm/utility",
+                   "algorithm/topology", "ops/pbc", "algorithm/__init__"):
+        assert f"mdhelper_tpu_torch/{module}.py" in names
+    assert _imports_sympy("sympy") and _imports_sympy("sympy.ntheory")
+    assert not _imports_sympy("sympy_like")
 
 
 def test_sources_cover_the_polymer_layer():
@@ -225,6 +252,19 @@ def _analyses(u, **device):
             u.atoms, 2.0, averaged=True, wl=True, verbose=False, **device),
         "tetrahedral": lambda: TetrahedralOrderParameter(
             u.atoms, verbose=False, **device),
+        "rmsd": lambda: rmsd.RMSD(u.atoms, verbose=False, **device),
+        "rmsf": lambda: rmsd.RMSF(u.atoms, verbose=False, **device),
+        "pca": lambda: rmsd.PrincipalComponentAnalysis(
+            u.atoms[:20], verbose=False, **device),
+        "tica": lambda: rmsd.TICA(u.atoms[:20], verbose=False, **device),
+        "bond_lengths": lambda: bonded.BondLengthDistribution(
+            u.atoms, bonds=[[0, 1], [2, 3]], verbose=False, **device),
+        "bond_angles": lambda: bonded.BondAngleDistribution(
+            u.atoms, angles=[[0, 1, 2]], verbose=False, **device),
+        "dihedrals": lambda: bonded.DihedralDistribution(
+            u.atoms, dihedrals=[[0, 1, 2, 3]], verbose=False, **device),
+        "contacts": lambda: contacts.NativeContacts(
+            u.atoms[:30], u.atoms[30:], verbose=False, **device),
     }
 
 
@@ -241,7 +281,9 @@ def universe():
                                   "rouse", "scsf", "persistence", "msid",
                                   "mesh_sq", "mesh_isf", "cluster", "hbonds",
                                   "nematic", "orientation", "steinhardt",
-                                  "tetrahedral"])
+                                  "tetrahedral", "rmsd", "rmsf", "pca",
+                                  "tica", "bond_lengths", "bond_angles",
+                                  "dihedrals", "contacts"])
 def test_default_device_is_the_card(monkeypatch, universe, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -283,6 +325,25 @@ def test_existence_lifetimes_default_to_the_card(monkeypatch):
             existence_lifetimes(series)
     c, s = existence_lifetimes(h, device="cpu")
     assert c[0] == 1.0 and s[0] == 1.0
+
+
+def test_accelerated_defaults_to_the_card(monkeypatch):
+    """``algorithm.accelerated`` computes NumPy inputs on the first CUDA
+    device: without a card they raise, and CPU tensors run on the CPU."""
+
+    from mdhelper_tpu_torch.algorithm import accelerated
+
+    xs = np.random.default_rng(4).normal(size=(3, 8))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("cosine_sum_2d", "inner_2d_2d"):
+        fn = getattr(accelerated, name)
+        args = (xs,) if name == "cosine_sum_2d" else (xs[:, :3], xs[:, :3])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(*args)
+        out = fn(*[torch.as_tensor(a) for a in args])
+        assert out.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        accelerated.sine_sum_inplace_2d(xs, np.zeros(3))
 
 
 @pytest.fixture

@@ -110,6 +110,27 @@ NOT_PORTED = {
     "analysis.interface.IntrinsicDensityProfile": {
         "kwargs": "parallel/ (item 10): the runtime's mesh options",
     },
+    "analysis.rmsd.RMSD": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.rmsd.RMSF": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.rmsd.PrincipalComponentAnalysis": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.bonded.BondLengthDistribution": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.bonded.BondAngleDistribution": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.bonded.DihedralDistribution": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.contacts.NativeContacts": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
 }
 
 #: Parameters the port takes whose other values are not ported yet: the
@@ -117,7 +138,7 @@ NOT_PORTED = {
 #: and raise `NotImplementedError` for ``True``, citing parallel/ (item
 #: 10).  Nothing else is on this list.  (``EndToEndVector`` and
 #: ``RouseModes`` take ``parallel`` through ``**kwargs`` and ignore it, as
-#: the JAX classes do.)
+#: the JAX classes do; ``TICA`` takes it through ``**kwargs`` and raises.)
 NOT_PORTED_VALUES = {
     dotted: {"parallel": (True, "parallel/ (item 10)")}
     for dotted in (
@@ -142,6 +163,14 @@ NOT_PORTED_VALUES = {
         "analysis.flow.FlowProfile",
         "analysis.interface.WillardChandlerInterface",
         "analysis.interface.IntrinsicDensityProfile",
+        "analysis.rmsd.RMSD",
+        "analysis.rmsd.RMSF",
+        "analysis.rmsd.PrincipalComponentAnalysis",
+        "analysis.rmsd.TICA",
+        "analysis.bonded.BondLengthDistribution",
+        "analysis.bonded.BondAngleDistribution",
+        "analysis.bonded.DihedralDistribution",
+        "analysis.contacts.NativeContacts",
     )
 }
 
@@ -189,6 +218,13 @@ PORT_ONLY = {
     "analysis.flow.FlowProfile": {"device"},
     "analysis.interface.WillardChandlerInterface": {"device"},
     "analysis.interface.IntrinsicDensityProfile": {"device"},
+    "analysis.rmsd.RMSD": {"device"},
+    "analysis.rmsd.RMSF": {"device"},
+    "analysis.rmsd.PrincipalComponentAnalysis": {"device"},
+    "analysis.bonded.BondLengthDistribution": {"device"},
+    "analysis.bonded.BondAngleDistribution": {"device"},
+    "analysis.bonded.DihedralDistribution": {"device"},
+    "analysis.contacts.NativeContacts": {"device"},
 }
 
 OBJECTS = [
@@ -377,6 +413,45 @@ OBJECTS = [
     "ops.profiles.grid_deposit_frames",
     "ops.profiles.gaussian_smooth_periodic",
     "algorithm.topology.box_volume",
+    # molecules: superposition, bonded distributions, native contacts, and
+    # the molecule, accelerated, unwrap, pbc and utility functions
+    "analysis.rmsd.RMSD",
+    "analysis.rmsd.RMSF",
+    "analysis.rmsd.PrincipalComponentAnalysis",
+    "analysis.rmsd.PrincipalComponentAnalysis.transform",
+    "analysis.rmsd.TICA",
+    "analysis.rmsd.TICA.transform",
+    "analysis.bonded.derive_angles",
+    "analysis.bonded.derive_dihedrals",
+    "analysis.bonded.BondLengthDistribution",
+    "analysis.bonded.BondAngleDistribution",
+    "analysis.bonded.DihedralDistribution",
+    "analysis.contacts.NativeContacts",
+    "algorithm.molecule.center_of_mass",
+    "algorithm.molecule.radius_of_gyration",
+    "algorithm.topology.unwrap",
+    "algorithm.utility.replicate",
+    "algorithm.utility.rebin",
+    "ops.pbc.min_image_displacement",
+    "ops.pbc.com_shift_scan",
+    "algorithm.accelerated.dot_1d_1d",
+    "algorithm.accelerated.delta_fourier_transform_1d_1d",
+    "algorithm.accelerated.delta_fourier_transform_sum_2d_2d",
+    "algorithm.accelerated.delta_fourier_transform_sum_parallel_2d_2d",
+    "algorithm.accelerated.inner_2d_2d",
+    "algorithm.accelerated.inner_parallel_2d_2d",
+    "algorithm.accelerated.pythagorean_trigonometric_identity_1d",
+    "algorithm.accelerated.pythagorean_trigonometric_identity_1d_1d",
+    "algorithm.accelerated.cosine_sum_1d",
+    "algorithm.accelerated.cosine_sum_2d",
+    "algorithm.accelerated.cosine_sum_parallel_2d",
+    "algorithm.accelerated.cosine_sum_inplace_2d",
+    "algorithm.accelerated.cosine_sum_inplace_parallel_2d",
+    "algorithm.accelerated.sine_sum_1d",
+    "algorithm.accelerated.sine_sum_2d",
+    "algorithm.accelerated.sine_sum_parallel_2d",
+    "algorithm.accelerated.sine_sum_inplace_2d",
+    "algorithm.accelerated.sine_sum_inplace_parallel_2d",
 ]
 
 
@@ -465,6 +540,14 @@ def _arguments(dotted, u):
         return (u.atoms, 300.0), {}
     if dotted.endswith("SurvivalProbability"):
         return (u.atoms, ("slab", "z", 1.0, 4.0)), {}
+    if dotted.endswith("BondLengthDistribution"):
+        return (u.atoms,), dict(bonds=[[0, 1], [1, 2]])
+    if dotted.endswith("BondAngleDistribution"):
+        return (u.atoms,), dict(angles=[[0, 1, 2]])
+    if dotted.endswith("DihedralDistribution"):
+        return (u.atoms,), dict(dihedrals=[[0, 1, 2, 3]])
+    if dotted.endswith("TICA"):
+        return (u.atoms,), dict(lag=1)
     return (u.atoms,), {}
 
 
