@@ -119,7 +119,14 @@ imposed ones, RMSD and RMSF against a float64 Kabsch oracle, the imposed
 collective modes recovered, the rest against the port's CPU run) and
 the bond-length, angle and dihedral distributions of config 5's melt in
 the cube and a triclinic cell (lengths against a float64 oracle as
-integers); no kernel of the kernels line launches there.  Every check
+integers); and slice 19: the fused main path and an ion-pairing run
+killed at their third chunk with ``checkpoint=`` and resumed with other
+chunks (against uninterrupted runs; each save's cost), IonPairAnalysis
+on an 18,000-atom ionic liquid (residue centers with lifetimes, like
+ions, a triclinic cell; against the port's CPU run) and the
+Shrake-Rupley SASA of slice 18's protein (heavy atoms and all; against
+the CPU run and a float64 oracle); no kernel of the kernels line
+launches there.  Every check
 raises on failure, so any failed phase exits non-zero.  The last lines of
 standard output are the card's name and power limit, a JSON line of
 per-kernel measurements (each beside its bound: the larger of the
@@ -6286,6 +6293,618 @@ def phase_bonded(device, rng, card):
     return out
 
 
+
+# Slice 19: checkpoints, ion pairing and SASA (no kernel of the kernels
+# line launches on these paths).
+CKPT_FRAMES = 8 + 32
+#: frames of a resumed run's chunks (the killed run's are CHUNK)
+CKPT_RESUME_CHUNK = 5
+PAIR_IONS = 2_000
+PAIR_FRAMES = 8 + 56
+PAIR_CHECK_FRAMES = 16
+#: the like-ion run's site (one a cation: its ring's first nitrogen) and
+#: cutoff, A
+PAIR_SITE, PAIR_SITE_CUT = "N1", 6.0
+PAIR_TRICLINIC_ANGLES = (80.0, 75.0, 70.0)
+SASA_FRAMES = 8 + 16
+#: frames of a SASA chunk (a frame is tens of ms of device work; 4-frame
+#: chunks leave run_profiled a timed chunk before its warm-up chunk)
+SASA_CHUNK = 4
+SASA_POINTS = 960
+SASA_CHECK_FRAMES = 2
+SASA_TOTAL_RTOL = 1e-4
+
+
+class Killed(Exception):
+    """Raised by phase_checkpoint's hook to kill a run at a chunk."""
+
+
+def killing_hook(k, marks=None):
+    """An ``on_chunk`` that raises :class:`Killed` at the `k`-th chunk
+    (before its checkpoint is saved); it appends ``time.perf_counter()``
+    to `marks` at every chunk it lets through."""
+
+    seen = [0]
+
+    def on_chunk(batch):
+        seen[0] += 1
+        if seen[0] == k:
+            raise Killed
+        if marks is not None:
+            marks.append(time.perf_counter())
+
+    return on_chunk
+
+
+def timed_saves(records):
+    """Patch ``core.checkpoint.save_carry`` to append ``(ms, bytes)`` of
+    each save to `records`, the device synchronised first so that a save's
+    time is its own (the carry's and stores' copies to the host and the
+    write); returns the original to restore."""
+
+    import torch
+
+    from mdhelper_tpu_torch.core import checkpoint
+
+    original = checkpoint.save_carry
+
+    def save(path, *args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        original(path, *args, **kwargs)
+        records.append(((time.perf_counter() - start) * 1e3,
+                        os.path.getsize(path)))
+
+    checkpoint.save_carry = save
+    return original
+
+
+def checkpoint_three_ways(make, n_frames, directory, name):
+    """``(uninterrupted, resumed, cost)``: `make()`'s analyses through
+    run_together over `n_frames` frames uninterrupted, then killed at the
+    third CHUNK-frame chunk with ``checkpoint=`` a path without ``.npz``
+    and resumed with CKPT_RESUME_CHUNK-frame chunks.  `cost` holds each
+    save's ms and bytes, its share of the chunk (the time from one chunk's
+    hook to the next: its save and the next chunk's fold), and the
+    uninterrupted and resumed frames/s."""
+
+    import torch
+
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.core import checkpoint
+
+    def timed(analyses, on_chunk=None, **kwargs):
+        """Seconds from the end of the run's first chunk to its end, and
+        the frames after that chunk."""
+
+        first = []
+
+        def hook(batch):
+            if not first:
+                torch.cuda.synchronize()
+                first.append((time.perf_counter(), batch.n_real))
+            if on_chunk is not None:
+                on_chunk(batch)
+
+        run_together(analyses, on_chunk=hook, **kwargs)
+        torch.cuda.synchronize()
+        return time.perf_counter() - first[0][0], first[0][1]
+
+    ref = make()
+    ref_s, ref_first = timed(ref)
+    path = os.path.join(directory, name)
+    records, marks = [], []
+    original = timed_saves(records)
+    try:
+        killed = make()
+        try:
+            run_together(killed, checkpoint=path,
+                         on_chunk=killing_hook(3, marks))
+        except Killed:
+            pass
+        else:
+            check(False, f"{name}: the killed run ran to its end")
+        check(os.path.exists(path) and not os.path.exists(path + ".npz"),
+              f"{name}: the checkpoint is not at the exact path")
+        with np.load(path) as archive:
+            done = int(archive["__frames_done__"])
+        check(done == 2 * CHUNK, f"{name}: {done} frames saved, not "
+              f"{2 * CHUNK}")
+        resumed = make()
+        for a in resumed:
+            a._chunk_bytes = a._chunk_bytes // CHUNK * CKPT_RESUME_CHUNK
+        seen = []
+        resume_s, resume_first = timed(
+            resumed, checkpoint=path, on_chunk=lambda b: (
+                seen.append(int(b.indices[0])),
+                marks.append(time.perf_counter())))
+    finally:
+        checkpoint.save_carry = original
+    check(seen[0] == done and len(seen) == -(-(n_frames - done)
+                                             // CKPT_RESUME_CHUNK),
+          f"{name}: the resumed run streamed from frame {seen[0]}")
+    # marks: the killed run's two chunks, then the resumed run's chunks
+    # (a save follows each mark); a chunk's time is mark to mark
+    steps = list(np.diff(marks[:2])) + list(np.diff(marks[2:]))
+    saves = records[:1] + records[2:-1]
+    cost = {"saves": records, "shares": [
+        ms / (1e3 * step) for (ms, _), step in zip(saves, steps)],
+        "fps": ((n_frames - ref_first) / ref_s,
+                (n_frames - done - resume_first) / resume_s),
+        "done": done}
+    return ref, resumed, cost
+
+
+def print_saves(what, cost):
+    ms = [m for m, _ in cost["saves"]]
+    mb = [b / 1e6 for _, b in cost["saves"]]
+    print(f"{what}: {len(ms)} checkpoint saves, ms "
+          + ", ".join(f"{m:.1f}" for m in ms) + "; MB written "
+          + ", ".join(f"{b:.1f}" for b in mb) + f" ({sum(mb):.1f} in all); "
+          "share of the chunk "
+          + ", ".join(f"{100 * s:.1f} %" for s in cost["shares"])
+          + f"; uninterrupted {cost['fps'][0]:.3f} frames/s, resumed "
+          f"{cost['fps'][1]:.3f} (with a save a chunk, from frame "
+          f"{cost['done']}; each clocked from the end of its first chunk)")
+
+
+def pairing_universe(rng, n_frames):
+    """``(frames, topology, box, Universe)``: testing.ionic_liquid's
+    PAIR_IONS cations and anions (about 18,000 atoms at liquid density),
+    1 ps a frame."""
+
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.testing import ionic_liquid
+
+    frames, topology, box = ionic_liquid(rng, PAIR_IONS, n_frames)
+    u = Universe.from_arrays(frames, [box] * 3 + [90.0] * 3, dt=1.0,
+                             **topology)
+    return frames, topology, box, u
+
+
+def ion_centers(frame, topology, lo, hi):
+    """float64 centers of mass of the residues of atoms lo .. hi - 1."""
+
+    res = topology["resindices"][lo:hi]
+    m = topology["masses"][lo:hi]
+    _, inv = np.unique(res, return_inverse=True)
+    total = np.zeros((inv.max() + 1, 3))
+    np.add.at(total, inv, m[:, None] * frame[lo:hi].astype(np.float64))
+    return total / np.bincount(inv, weights=m)[:, None]
+
+
+def first_minimum(frame, topology, box, n_cat):
+    """The first minimum (A) of the cation-anion center RDF of `frame`:
+    the lowest bin, within 3.5 A past the first peak, of g(r) from a 0.2 A
+    histogram of the float64 minimum-image center distances (smoothed over
+    three bins)."""
+
+    c1 = ion_centers(frame, topology, 0, n_cat)
+    c2 = ion_centers(frame, topology, n_cat, len(frame))
+    edges = np.arange(0.0, box / 2, 0.2)
+    counts = np.zeros(len(edges) - 1)
+    for lo in range(0, len(c1), 256):
+        d = c2[None] - c1[lo:lo + 256, None]
+        d -= box * np.round(d / box)
+        counts += np.histogram(np.sqrt((d**2).sum(-1)), bins=edges)[0]
+    g = np.convolve(counts / np.diff(edges**3), np.ones(3) / 3, "same")
+    peak = int(np.argmax(g))
+    window = g[peak:peak + int(3.5 / 0.2)]
+    return float(edges[peak + int(np.argmin(window))] + 0.1)
+
+
+def pairing_runs(u, n_cat, cutoff, device):
+    """The pairing phase's three analyses: cation-anion centers (pair
+    counts, lifetimes), cation-cation like ions on their PAIR_SITE atoms
+    and, on a triclinic universe, the cation-anion centers again."""
+
+    from mdhelper_tpu_torch.analysis.pairing import IonPairAnalysis
+
+    cat, an = u.atoms[:n_cat], u.atoms[n_cat:]
+    site = cat.select_atoms(f"name {PAIR_SITE}")
+    out = {
+        "residues": IonPairAnalysis(cat, an, cutoff, "residues",
+                                    pair_counts=True, lifetimes=True,
+                                    verbose=False, device=device),
+        "like_ions": IonPairAnalysis(site, site, PAIR_SITE_CUT,
+                                     pair_counts=True, lifetimes=True,
+                                     verbose=False, device=device),
+    }
+    for a in out.values():
+        a._chunk_bytes = CHUNK * len(a._atom_indices) * 3 * 4
+    return out
+
+
+def triclinic_ions(frames, topology, box, n_cat):
+    """The ionic liquid moved into the triclinic cell of edges `box` and
+    angles PAIR_TRICLINIC_ANGLES, ions whole: each ion shifted by the
+    lattice vector that wraps its float64 center into the cell."""
+
+    from mdhelper_tpu_torch.algorithm.topology import triclinic_matrices
+
+    dims = np.array([box] * 3 + list(PAIR_TRICLINIC_ANGLES))
+    h = triclinic_matrices(dims[None])[0]
+    res = topology["resindices"]
+    out = np.empty_like(frames)
+    for t, frame in enumerate(frames):
+        centers = np.concatenate([ion_centers(frame, topology, 0, n_cat),
+                                  ion_centers(frame, topology, n_cat,
+                                              len(frame))])
+        frac = centers @ np.linalg.inv(h)
+        shift = -np.floor(frac) @ h
+        out[t] = (frame.astype(np.float64) + shift[res]).astype(np.float32)
+    return out, dims
+
+
+def same_pairing(card, cpu, what):
+    """Counts, partners, free fractions and pair counts equal as integers;
+    the lifetime functions within 1e-12."""
+
+    n = card.n_frames
+    check(np.array_equal(card.results.counts, cpu.results.counts),
+          f"{what}: counts differ from the CPU run's")
+    for c, r in zip(card.results.coordination, cpu.results.coordination):
+        check(np.array_equal(np.rint(c * n), np.rint(r * n)),
+              f"{what}: partners differ from the CPU run's")
+    check(np.array_equal(card.results.free_fractions,
+                         cpu.results.free_fractions),
+          f"{what}: free fractions differ from the CPU run's")
+    check(np.array_equal(card.results.pair_counts, cpu.results.pair_counts),
+          f"{what}: pair counts differ from the CPU run's")
+    for key in ("lifetime", "survival"):
+        err = float(np.abs(card.results[key] - cpu.results[key]).max())
+        check(err <= 1e-12, f"{what}: {key} {err:.2e} off the CPU run")
+
+
+def phase_checkpoint(device, rng, card):
+    """Slice 19's checkpoints on the card: the fused main path
+    (run_together of the RDF, S(q) and Onsager MSD at 100k atoms, the
+    phase_slice fixture) over CKPT_FRAMES frames uninterrupted, killed by
+    an exception at its third chunk with ``checkpoint=`` a path without
+    ``.npz``, and resumed with CKPT_RESUME_CHUNK-frame chunks: RDF counts
+    equal as integers, S(q) and the MSDs within the smoke's gates (bit
+    equality reported); then the same for IonPairAnalysis with lifetimes
+    on the pairing fixture.  Each save's ms, share of its chunk and bytes
+    written."""
+
+    import tempfile
+
+    started = time.perf_counter()
+    _, u = slice_universe(rng, CKPT_FRAMES)
+    out = {}
+    with tempfile.TemporaryDirectory() as directory:
+        ref, res, cost = checkpoint_three_ways(
+            lambda: slice_analyses(u, device), CKPT_FRAMES, directory,
+            "fused_state")
+        (rdf0, sq0, ons0), (rdf1, sq1, ons1) = ref, res
+        check(np.array_equal(rdf1.results.counts, rdf0.results.counts),
+              "resumed RDF counts differ from the uninterrupted run's")
+        check(np.allclose(sq1.results.ssf, sq0.results.ssf, rtol=1e-4,
+                          atol=1e-5), "resumed S(q) off the uninterrupted")
+        bits = {"ssf": np.array_equal(sq1.results.ssf, sq0.results.ssf)}
+        for key in ("msd_self", "msd_cross"):
+            a, b = ons1.results[key], ons0.results[key]
+            check(np.allclose(a, b, rtol=1e-8, atol=1e-8 * np.abs(b).max()),
+                  f"resumed {key} off the uninterrupted run's")
+            bits[key] = np.array_equal(a, b)
+        out["fused"] = cost
+        print_saves(f"checkpoint, fused path ({N_ATOMS} atoms, "
+                    f"{CKPT_FRAMES} frames) on {card}", cost)
+        print(f"checkpoint, fused path: RDF counts equal; bit-equal to the "
+              f"uninterrupted run: " + ", ".join(
+                  f"{k} {v}" for k, v in bits.items()))
+        del ref, res, u
+
+        frames, topology, box, u = pairing_universe(rng, CKPT_FRAMES)
+        n_cat = 5 * PAIR_IONS
+        cutoff = first_minimum(frames[0], topology, box, n_cat)
+        ref, res, cost = checkpoint_three_ways(
+            lambda: [pairing_runs(u, n_cat, cutoff, device)["residues"]],
+            CKPT_FRAMES, directory, "pairing_state")
+        same_pairing(res[0], ref[0], "resumed ion pairs")
+        out["pairing"] = cost
+        print_saves(f"checkpoint, ion pairing ({PAIR_IONS} + {PAIR_IONS} "
+                    f"ions, lifetimes) on {card}", cost)
+    out["seconds"] = time.perf_counter() - started
+    return out
+
+
+def phase_pairing(device, rng, card):
+    """Slice 19's IonPairAnalysis on the card, on testing.ionic_liquid's
+    PAIR_IONS cations (5 sites) and anions (4 sites), about 18,000 atoms
+    at liquid density on a 0.3 A walk over PAIR_FRAMES frames: cation-anion
+    centers of mass with pair counts and lifetimes (the cutoff at the
+    first minimum of the fixture's center RDF), cation-cation like ions on
+    their PAIR_SITE atoms, and the centers again in a triclinic cell, each
+    through run_profiled (frames/s, busy share, device activities a
+    frame).  Each run's first PAIR_CHECK_FRAMES frames on the card equal
+    the port's CPU run: counts, partners, free fractions and pair counts
+    as integers, c(t) and S(t) within 1e-12.  Each class's update ms a
+    frame and device memory added."""
+
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    started = time.perf_counter()
+    frames, topology, box, u = pairing_universe(rng, PAIR_FRAMES)
+    n_cat = 5 * PAIR_IONS
+    cutoff = first_minimum(frames[0], topology, box, n_cat)
+    tri_frames, tri_dims = triclinic_ions(frames, topology, box, n_cat)
+    tri_u = Universe.from_arrays(tri_frames, tri_dims, dt=1.0, **topology)
+    cases = {
+        "residues": (u, frames, "residues"),
+        "like_ions": (u, frames, "like_ions"),
+        "triclinic": (tri_u, tri_frames, "residues"),
+    }
+    out = {"cutoff": cutoff, "data_s": time.perf_counter() - started}
+    for name, (universe, traj, kind) in cases.items():
+        def make(where, universe=universe, kind=kind):
+            return [pairing_runs(universe, n_cat, cutoff, where)[kind]]
+
+        launches_before = kernel_launch_counts()
+        analyses = make(device)
+        fps, busy, activities = run_profiled(
+            analyses, PAIR_FRAMES, CHUNK, remake=lambda make=make: make(
+                device))
+        check(kernel_launch_counts() == launches_before,
+              "a kernel of the kernels line launched on the pairing path")
+        a = analyses[0]
+        check(a.results.counts.min() > 0, f"{name}: a frame without pairs")
+        cpu_started = time.perf_counter()
+        card_a = run_together(make(device), stop=PAIR_CHECK_FRAMES)[0]
+        cpu_a = run_together(make("cpu"), stop=PAIR_CHECK_FRAMES)[0]
+        same_pairing(card_a, cpu_a, f"{name} ion pairs")
+        if kind == "like_ions":
+            pc = a.results.pair_counts
+            check(np.array_equal(pc, pc.T), "like-ion pair counts are not "
+                  "symmetric")
+        ms, added = update_cost(make(device)[0], traj, device)
+        out[name] = {"fps": fps, "busy": busy, "activities": activities,
+                     "runs": run_profiled.runs, "ms": ms, "added": added,
+                     "cpu_s": time.perf_counter() - cpu_started,
+                     "pairs": float(a.results.mean_count),
+                     "free": a.results.free_fractions.mean(0)}
+    out["seconds"] = time.perf_counter() - started
+    print(f"pairing phase ({PAIR_IONS} cations x {PAIR_IONS} anions, "
+          f"{frames.shape[1]} atoms, box {box:.2f} A, {PAIR_FRAMES} frames; "
+          f"center cutoff {cutoff:.2f} A at the RDF's first minimum, like "
+          f"ions {PAIR_SITE} x {PAIR_SITE} at {PAIR_SITE_CUT:g} A) on {card}: "
+          + "; ".join(
+              f"{name} {r['fps']:.3f} frames/s, busy {100 * r['busy']:.1f} "
+              f"%, {r['activities']:.0f} device activities a frame "
+              f"(profiled run {r['runs']}), update {r['ms']:.4f} ms a frame "
+              f"({r['added'] / 1e6:.1f} MB added), {r['pairs']:.1f} pairs a "
+              f"frame, free fractions {r['free'][0]:.3f} / "
+              f"{r['free'][1]:.3f}, card and CPU checks {r['cpu_s']:.1f} s"
+              for name, r in out.items() if isinstance(r, dict))
+          + f"; fixture {out['data_s']:.1f} s"
+          + f"; first {PAIR_CHECK_FRAMES} frames == CPU run (counts, "
+          "partners, free fractions, pair counts; lifetimes within 1e-12)")
+    return out
+
+
+def sasa_oracle(pos, radii, probe, n_points, box, margin_of=()):
+    """float64 per-atom free-point counts of one frame and candidate counts
+    (numpy: scipy's periodic KD-tree for the pairs within 2 max R, kept
+    where ``|r_ij| < R_i + R_j``).  A point ``R_i s`` lies inside
+    candidate j's sphere, ``|R_i s - r_ij|^2 < R_j^2``, iff ``s . r_ij >
+    t_ij = (R_i^2 + |r_ij|^2 - R_j^2) / (2 R_i)``: one float64 matrix
+    product of the points and a block of pair vectors, then an any over
+    each atom's pairs.  For the atoms of `margin_of`, the count of points
+    within 16 eps32 (R_i + |r_ij|)^2 of a candidate's sphere (float32 may
+    decide those otherwise)."""
+
+    from scipy.spatial import cKDTree
+
+    from mdhelper_tpu_torch.analysis.sasa import sphere_points
+
+    sphere = sphere_points(n_points)
+    inflated = np.asarray(radii, np.float64) + probe
+    pos = np.mod(pos.astype(np.float64), box)
+    n = len(pos)
+    pairs = cKDTree(pos, boxsize=box).query_pairs(
+        2 * inflated.max(), output_type="ndarray")
+    src = np.concatenate([pairs[:, 0], pairs[:, 1]])
+    dst = np.concatenate([pairs[:, 1], pairs[:, 0]])
+    order = np.argsort(src, kind="stable")
+    src, dst = src[order], dst[order]
+    delta = pos[dst] - pos[src]
+    delta -= box * np.round(delta / box)
+    r2 = (delta**2).sum(-1)
+    keep = r2 < (inflated[src] + inflated[dst]) ** 2
+    src, dst, delta, r2 = src[keep], dst[keep], delta[keep], r2[keep]
+    cnt = np.bincount(src, minlength=n)
+    ri = inflated[src]
+    thresh = (ri**2 + r2 - inflated[dst] ** 2) / (2 * ri)
+    occluded = np.zeros((n, n_points), dtype=bool)
+    step = 16_384
+    for lo in range(0, len(src), step):
+        hi = min(lo + step, len(src))
+        inside = (sphere @ delta[lo:hi].T) > thresh[lo:hi]   # (M, pairs)
+        # or-reduce each atom's run of pairs in this block
+        atoms, starts = np.unique(src[lo:hi], return_index=True)
+        occluded[atoms] |= np.logical_or.reduceat(inside, starts, axis=1).T
+    free = n_points - occluded.sum(1)
+    near = {}
+    eps = float(np.finfo(np.float32).eps)
+    offsets = np.concatenate([[0], np.cumsum(cnt)])
+    for i in margin_of:
+        part = slice(offsets[i], offsets[i + 1])
+        gap = 2 * inflated[i] * np.abs(sphere @ delta[part].T - thresh[part])
+        scale = (inflated[i] + np.sqrt(r2[part])) ** 2
+        near[int(i)] = int((gap <= 16 * eps * scale).any(1).sum())
+    return free, cnt, near
+
+
+def plain_point_distances2(r_i, sphere, rel):
+    """``sasa._point_distances2`` in plain float32 (a product, a
+    difference, three squares and two sums, each rounded): the form the
+    JAX class's point test would take without XLA's fused multiply-adds,
+    timed against the fused one."""
+
+    dd = r_i[:, None, None, None] * sphere[None, :, None, :] - rel[:, None]
+    x, y, z = dd.unbind(dim=-1)
+    return x * x + y * y + z * z
+
+
+def sasa_free_points(a):
+    """Per-atom free-point counts of `a`'s float32 areas (w f)(R R)."""
+
+    r = a._inflated.astype(np.float32)
+    w = np.float32(4 * np.pi / a._n_points)
+    return np.rint(a.results.areas.astype(np.float32) / w / (r * r)).astype(
+        np.int64)
+
+
+def phase_sasa(device, rng, card):
+    """Slice 19's SolventAccessibleSurfaceArea on the card, on slice 18's
+    protein (superposition_universe: 4,800 element-named atoms, 2,700 of
+    them heavy, in the 100 A cube) with SASA_POINTS points an atom over
+    SASA_FRAMES frames, once on the heavy atoms and once on all: a run()
+    with the default budget K = 128 (whether it overflowed and escalated,
+    and the final budget, printed), then a run_together at the final
+    budget through run_profiled (frames/s, busy share, device activities a
+    frame).  The first SASA_CHECK_FRAMES frames' free-point counts equal
+    the port's CPU run's but for points within a float32 margin of an
+    occluder's sphere; those frames' total areas within SASA_TOTAL_RTOL
+    of a float64 numpy oracle (sasa_oracle), whose free counts the card's
+    equal but for the same margin; an isolated atom's area is 4 pi R^2
+    (every point free).  Each run's update ms a frame and device memory
+    added, beside the same update with the plain float32 point test."""
+
+    import warnings
+
+    from mdhelper_tpu_torch.analysis import sasa
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    started = time.perf_counter()
+    frames, _, _, _, u = superposition_universe(rng, SASA_FRAMES)
+    protein = u.atoms[:SUP_ATOMS]
+    heavy = protein[np.array([not str(n).startswith("H")
+                              for n in protein.names])]
+    check(heavy.n_atoms == 9 * SUP_RESIDUES, f"{heavy.n_atoms} heavy atoms")
+    out = {}
+    for name, group in (("heavy", heavy), ("all", protein)):
+        def make(where, group=group, **kwargs):
+            a = sasa.SolventAccessibleSurfaceArea(
+                group, n_points=SASA_POINTS, verbose=False, device=where,
+                **kwargs)
+            a._chunk_bytes = SASA_CHUNK * group.n_atoms * 3 * 4
+            return a
+
+        launches_before = kernel_launch_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            first = make(device).run()
+        escalations = [str(w.message) for w in caught
+                       if "max_occluders" in str(w.message)]
+        budget = dict(max_occluders=first._active_budget)
+        analyses = [make(device, **budget)]
+        fps, busy, activities = run_profiled(
+            analyses, SASA_FRAMES, SASA_CHUNK,
+            remake=lambda make=make: [make(device, **budget)],
+            chunk=SASA_CHUNK)
+        check(kernel_launch_counts() == launches_before,
+              "a kernel of the kernels line launched on the SASA path")
+        a = analyses[0]
+        check(a.results.areas.shape == (SASA_FRAMES, group.n_atoms)
+              and np.isfinite(a.results.areas).all(), f"{name}: SASA shape")
+        check(np.array_equal(a.results.areas, first.results.areas),
+              f"{name}: the profiled run's areas differ from run()'s")
+        res = {"fps": fps, "busy": busy, "activities": activities,
+               "runs": run_profiled.runs, "escalations": len(escalations),
+               "budget": first._active_budget,
+               "max_candidates": int(a.results.n_neighbors.max()),
+               "total": float(a.results.total_areas.mean())}
+        # the CPU run at the budget its frames need (the same kept set)
+        cpu_started = time.perf_counter()
+        k_check = int(a.results.n_neighbors[:SASA_CHECK_FRAMES].max())
+        cpu_a = make("cpu", max_occluders=k_check).run(
+            stop=SASA_CHECK_FRAMES)
+        res["cpu_s"] = time.perf_counter() - cpu_started
+        free_card = sasa_free_points(a)[:SASA_CHECK_FRAMES]
+        d_cpu = np.abs(free_card - sasa_free_points(cpu_a))
+        check(np.array_equal(a.results.n_neighbors[:SASA_CHECK_FRAMES],
+                             cpu_a.results.n_neighbors),
+              f"{name}: candidate counts differ from the CPU run's")
+        oracle_started = time.perf_counter()
+        res["d_cpu"] = (int(d_cpu.sum()), int((d_cpu > 0).sum()))
+        res["d_f64"], res["near"], res["total_err"] = [0, 0], 0, 0.0
+        vdw = a._inflated - a._probe
+        for f in range(SASA_CHECK_FRAMES):
+            free64, cnt64, _ = sasa_oracle(frames[f][group.ix], vdw,
+                                           a._probe, SASA_POINTS, SUP_BOX)
+            check(np.array_equal(cnt64, a.results.n_neighbors[f]),
+                  f"{name}: candidate counts differ from the float64 "
+                  "oracle's")
+            d64 = np.abs(free_card[f] - free64)
+            differ = np.flatnonzero((d64 > 0) | (d_cpu[f] > 0))
+            near = {} if not len(differ) else sasa_oracle(
+                frames[f][group.ix], vdw, a._probe, SASA_POINTS, SUP_BOX,
+                margin_of=differ)[2]
+            for i in differ:
+                check(d64[i] <= near[int(i)] and d_cpu[f, i] <= near[int(i)],
+                      f"{name}: atom {i}'s free points {d64[i]} off the "
+                      f"float64 oracle and {d_cpu[f, i]} off the CPU run, "
+                      f"with {near[int(i)]} points in the float32 margin")
+            res["d_f64"][0] += int(d64.sum())
+            res["d_f64"][1] += int((d64 > 0).sum())
+            res["near"] += sum(near.values())
+            total64 = float((4 * np.pi / SASA_POINTS * free64
+                             * a._inflated**2).sum())
+            err = abs(a.results.total_areas[f] / total64 - 1)
+            check(err <= SASA_TOTAL_RTOL, f"{name}: frame {f}'s total area "
+                  f"{err:.2e} off the float64 oracle")
+            res["total_err"] = max(res["total_err"], err)
+        res["oracle_s"] = time.perf_counter() - oracle_started
+        res["ms"], res["added"] = update_cost(make(device, **budget),
+                                              frames, device)
+        fused = sasa._point_distances2
+        try:
+            sasa._point_distances2 = plain_point_distances2
+            res["plain_ms"], _ = update_cost(make(device, **budget), frames,
+                                             device)
+        finally:
+            sasa._point_distances2 = fused
+        out[name] = res
+
+    lone = Universe.from_arrays(np.full((1, 1, 3), 50.0, np.float32),
+                                [SUP_BOX] * 3 + [90.0] * 3,
+                                names=np.array(["C"], dtype=object))
+    iso = sasa.SolventAccessibleSurfaceArea(
+        lone.atoms, n_points=SASA_POINTS, verbose=False,
+        device=device).run()
+    r = np.float32(1.70 + 1.4)
+    w = np.float32(4 * np.pi / SASA_POINTS)
+    check(iso.results.areas[0, 0] == (w * np.float32(SASA_POINTS)) * (r * r),
+          "an isolated atom has occluded points")
+    iso_err = abs(iso.results.areas[0, 0] / (4 * np.pi * 3.1**2) - 1)
+    check(iso_err <= 4 * np.finfo(np.float32).eps,
+          f"an isolated atom's area is {iso_err:.2e} off 4 pi R^2")
+    out["seconds"] = time.perf_counter() - started
+    print(f"SASA phase ({SUP_ATOMS} protein atoms, {heavy.n_atoms} heavy, "
+          f"{SASA_POINTS} points, {SASA_FRAMES} frames) on {card}: "
+          + "; ".join(
+              f"{name} {r['fps']:.3f} frames/s, busy {100 * r['busy']:.1f} "
+              f"%, {r['activities']:.0f} device activities a frame "
+              f"(profiled run {r['runs']}); K = 128 "
+              + (f"overflowed, {r['escalations']} escalation(s)"
+                 if r["escalations"] else "held")
+              + f", final budget {r['budget']} (most candidates "
+              f"{r['max_candidates']}); update {r['ms']:.3f} ms a frame "
+              f"({r['added'] / 1e6:.1f} MB added), with the plain float32 "
+              f"point test {r['plain_ms']:.3f}; first {SASA_CHECK_FRAMES} "
+              f"frames: |free - CPU| {r['d_cpu'][0]} points at "
+              f"{r['d_cpu'][1]} atoms, |free - float64| {r['d_f64'][0]} at "
+              f"{r['d_f64'][1]} ({r['near']} points of those atoms in the "
+              f"float32 margin), total areas within {r['total_err']:.2e} of "
+              f"the float64 oracle (mean total {r['total']:.1f} A^2); CPU "
+              f"run {r['cpu_s']:.1f} s, oracle {r['oracle_s']:.1f} s"
+              for name, r in out.items() if isinstance(r, dict))
+          + f"; isolated atom 4 pi R^2 within {iso_err:.1e}")
+    return out
+
+
 def main():
     import torch
 
@@ -6454,6 +7073,26 @@ def main():
           f"{bonds['cube']['fps']:.3f}, triclinic "
           f"{bonds['triclinic']['fps']:.3f} frames/s on {card} (information, "
           f"not a claim); the bonded phase took {bonds['seconds']:.1f} s")
+
+    # Slice 19 draws from its own generators, one a phase.
+    ckpt = phase_checkpoint(device, np.random.default_rng(SEED + 22), card)
+    print(f"checkpoint phase: a save costs "
+          + ", ".join(f"{name} {np.median([m for m, _ in r['saves']]):.1f} ms"
+                      f" ({np.median(r['shares']) * 100:.1f} % of a chunk)"
+                      for name, r in ckpt.items() if isinstance(r, dict))
+          + f" at the median on {card} (information, not a claim); the "
+          f"checkpoint phase took {ckpt['seconds']:.1f} s")
+    pairs = phase_pairing(device, np.random.default_rng(SEED + 23), card)
+    print(f"pairing paths ({PAIR_IONS} + {PAIR_IONS} ions): " + ", ".join(
+        f"{name} {pairs[name]['fps']:.3f}"
+        for name in ("residues", "like_ions", "triclinic"))
+        + f" frames/s on {card} (information, not a claim); the pairing "
+        f"phase took {pairs['seconds']:.1f} s")
+    areas = phase_sasa(device, np.random.default_rng(SEED + 24), card)
+    print(f"SASA paths ({SUP_ATOMS} protein atoms): heavy "
+          f"{areas['heavy']['fps']:.3f}, all {areas['all']['fps']:.3f} "
+          f"frames/s on {card} (information, not a claim); the SASA phase "
+          f"took {areas['seconds']:.1f} s")
 
     def path_row(shape, timing_plan, path, plain_from=None, plain_shape=None):
         """(launches, shape, timing) of a slice-4 row, whose kernel was

@@ -19,9 +19,11 @@ from . import (  # noqa: F401
     interface,
     multi,
     orientation,
+    pairing,
     polymer,
     profile,
     rmsd,
+    sasa,
     steinhardt,
     structure,
     thermodynamics,
@@ -47,10 +49,12 @@ __all__ = [
     "interface",
     "multi",
     "orientation",
+    "pairing",
     "polymer",
     "profile",
     "rmsd",
     "run_together",
+    "sasa",
     "steinhardt",
     "structure",
     "thermodynamics",

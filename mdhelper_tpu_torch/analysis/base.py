@@ -19,12 +19,16 @@ An analysis that reads only some coordinate columns names them in
 copy, and sized by the columns it carries.  ``_payload`` says what the
 columns are: positions (the default), velocities, or both concatenated
 on the last axis (``(B, N, 6)``: 0-2 positions, 3-5 velocities).
+With ``run(checkpoint=path)`` the carry and the registered store
+buffers are written to `path` after every chunk, and a later run with
+the same path resumes at the first frame not yet folded.
 The port runs on one device; there is no frame sharding, host
-pipeline, multi-host mode or checkpointing yet
-(:class:`DynamicAnalysisBase` takes ``parallel=False`` only).
+pipeline or multi-host mode yet (:class:`DynamicAnalysisBase` takes
+``parallel=False`` only).
 """
 
 import logging
+import os
 from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
 from typing import Iterator
@@ -233,6 +237,9 @@ class SerialAnalysisBase:
     #: thread while the current chunk is launched (a pipeline one chunk
     #: deep); false reads each chunk on the calling thread.
     _prefetch_batches: bool = True
+    #: index in the frame selection where the stream starts (a resumed
+    #: run's first frame not yet folded).
+    _stream_from: int = 0
     #: host half of the chunk protocol (see the class docstring).
     _store_chunk = None
     _update = None
@@ -380,7 +387,8 @@ class SerialAnalysisBase:
         return trajectory.read_frames(block)
 
     def _stream_batches(self) -> Iterator[_Batch]:
-        """Stream the selected frames in chunks of ``_chunk_bytes`` of
+        """Stream the selected frames from index ``_stream_from`` of the
+        selection on, in chunks of ``_chunk_bytes`` of
         float32 payload columns (those of ``_coord_axes``, or all of the
         payload's), each read, sliced, cast, pinned and copied to the
         device one chunk ahead of the compute: on a worker thread while
@@ -401,7 +409,7 @@ class SerialAnalysisBase:
         chunk = max(1, self._chunk_bytes // max(n_atoms * n_columns * 4, 1))
         blocks = [
             self.frames[lo:lo + chunk]
-            for lo in range(0, self.n_frames, chunk)
+            for lo in range(self._stream_from, self.n_frames, chunk)
         ]
         cuda = device.type == "cuda"
         copy_stream = torch.cuda.Stream(device) if cuda else None
@@ -482,6 +490,96 @@ class SerialAnalysisBase:
 
         return device_fn, None
 
+    # -- checkpoints -------------------------------------------------------
+    #: Analyses whose state beyond the carry is fully captured by
+    #: :meth:`_store_state` (every per-frame buffer is either a
+    #: frame-leading numeric array in ``results`` or named by
+    #: :meth:`_checkpoint_attrs`) opt in by setting this true; their store
+    #: state is saved with the carry.  ``run(checkpoint=...)`` refuses a
+    #: store-type analysis that has not, rather than checkpoint half its
+    #: state.
+    _checkpointable_stores: bool = False
+
+    def _checkpoint_attrs(self) -> tuple:
+        """Names of the private frame-leading buffers (numpy arrays, or
+        tensors on the analysis's device) that a run fills beyond the
+        ``results`` arrays, persisted by checkpoints.  Subclasses with
+        such buffers override."""
+
+        return ()
+
+    def _check_checkpointable(self) -> None:
+        """Raise `ValueError` before streaming if this analysis cannot be
+        checkpointed (a store-type analysis whose buffers are not
+        registered)."""
+
+        if self._store_chunk is not None and not self._checkpointable_stores:
+            raise ValueError(
+                "Checkpointing is not supported for this "
+                "analysis: its per-frame host buffers are "
+                "not registered for checkpointing (see "
+                "SerialAnalysisBase._checkpointable_"
+                "stores)."
+            )
+
+    def _store_state(self) -> dict:
+        """Store state for :func:`~mdhelper_tpu_torch.core.checkpoint.
+        save_carry`: the store offset, every numeric array in ``results``
+        (per-frame buffers restore their filled prefix; static arrays
+        round-trip unchanged), and the filled prefix of each buffer named
+        by :meth:`_checkpoint_attrs`."""
+
+        offset = int(getattr(self, "_store_offset", 0))
+        state = {"__store_offset__": np.int64(offset)}
+        for key, value in self.results.items():
+            if isinstance(value, np.ndarray) and value.dtype != object:
+                state[f"results::{key}"] = value
+        for attr in self._checkpoint_attrs():
+            value = getattr(self, attr, None)
+            if value is not None:
+                # Frame-leading by construction: a chunk's checkpoint
+                # costs O(frames done), not O(n_frames).
+                value = value[:offset]
+                if isinstance(value, torch.Tensor):
+                    value = value.cpu().numpy()
+                state[f"attr::{attr}"] = value
+        return state
+
+    def _restore_store_state(self, stores: dict) -> None:
+        """Restore :meth:`_store_state` into this run's freshly prepared
+        buffers.  Arrays restore into the leading prefix, so a partial
+        run's checkpoint resumes into a longer frame selection."""
+
+        stores = dict(stores)
+        offset = stores.pop("__store_offset__", None)
+        if offset is not None:
+            self._store_offset = int(offset)
+
+        def restore(dst, src, name):
+            if (
+                not isinstance(dst, (np.ndarray, torch.Tensor))
+                or tuple(dst.shape[1:]) != src.shape[1:]
+                or dst.shape[0] < src.shape[0]
+            ):
+                raise ValueError(
+                    f"Checkpointed store {name!r} (shape {src.shape}) "
+                    "is incompatible with this run's frame selection "
+                    f"(buffer shape {getattr(dst, 'shape', None)}); "
+                    "resume with the same analysis configuration and "
+                    "a frame selection extending the original."
+                )
+            if isinstance(dst, torch.Tensor):
+                src = torch.as_tensor(src).to(device=dst.device,
+                                              dtype=dst.dtype)
+            dst[:len(src)] = src
+
+        for key, value in stores.items():
+            kind, _, name = key.partition("::")
+            if kind == "results":
+                restore(self.results.get(name), value, name)
+            else:
+                restore(getattr(self, name, None), value, name)
+
     def save(self, file, archive: bool = True, compress: bool = True,
              **kwargs) -> None:
         """Save ``results`` to ``.npz`` (compressed unless `compress` is
@@ -503,8 +601,18 @@ class SerialAnalysisBase:
 
     # -- driver ------------------------------------------------------------
     def run(self, start: int = None, stop: int = None, step: int = None,
-            frames=None, verbose: bool = None):
-        """Run the analysis over the selected frames."""
+            frames=None, verbose: bool = None, checkpoint: str = None):
+        """Run the analysis over the selected frames.
+
+        With `checkpoint` set (a file path, used as given: no ``.npz`` is
+        added), the carry and the registered store buffers are written
+        there after every streamed chunk, and a run whose checkpoint
+        exists resumes at the first frame it has not folded.  A
+        store-type analysis whose buffers are not registered raises
+        `ValueError` before streaming.
+        """
+
+        from ..core.checkpoint import load_carry, save_carry
 
         verbose = self._verbose if verbose is None else verbose
         if verbose:
@@ -516,8 +624,28 @@ class SerialAnalysisBase:
         )
         self._prepare()
         carry = self._carry
+        done = 0
+        if checkpoint is not None:
+            self._check_checkpointable()
+            if os.path.exists(checkpoint):
+                carry, done, stores = load_carry(checkpoint, carry,
+                                                 with_stores=True)
+                if stores:
+                    self._restore_store_state(stores)
+                logging.info(f"Resuming from {checkpoint} at frame {done}.")
+        # A resumed run streams from the checkpoint's frame on: no chunk
+        # straddles it, so no update sees a frame twice.
+        self._stream_from = done
         for batch in self._stream_batches():
             carry = self._batched_update(carry, batch)
+            if checkpoint is not None:
+                # The store queue is one chunk late: absorb this chunk's
+                # extras before the buffers are saved with it.
+                self._drain_stores()
+                done += batch.n_real
+                save_carry(checkpoint, carry, done, stores=(
+                    self._store_state() if self._checkpointable_stores
+                    else None))
         self._carry = carry
         self._drain_stores()
         self._conclude()

@@ -190,6 +190,8 @@ class ClusterSizeDistribution(DynamicAnalysisBase):
         Frame times (ps).
     """
 
+    _checkpointable_stores = True
+
     def __init__(
         self,
         group,

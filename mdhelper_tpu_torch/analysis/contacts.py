@@ -91,6 +91,8 @@ class NativeContacts(DynamicAnalysisBase):
         Frame times (ps).
     """
 
+    _checkpointable_stores = True
+
     def __init__(self, group_a, group_b=None, radius=4.5, *, reference=None,
                  method: str = "hard", lambda_: float = 1.8,
                  beta: float = 5.0, reduced: bool = False,

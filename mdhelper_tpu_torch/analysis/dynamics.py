@@ -113,6 +113,11 @@ class VelocityAutocorrelation(DynamicAnalysisBase):
 
     _payload = "velocities"
 
+    _checkpointable_stores = True
+
+    def _checkpoint_attrs(self) -> tuple:
+        return ("_store",)
+
     def __init__(
         self,
         group,
@@ -255,6 +260,11 @@ class ElectricCurrentAutocorrelation(DynamicAnalysisBase):
     """
 
     _payload = "velocities"
+
+    _checkpointable_stores = True
+
+    def _checkpoint_attrs(self) -> tuple:
+        return ("_current",)
 
     def __init__(
         self,
@@ -410,6 +420,11 @@ class SurvivalProbability(DynamicAnalysisBase):
     ``results.n_in_zone``
         Per-frame member count, shape ``(n_frames,)``.
     """
+
+    _checkpointable_stores = True
+
+    def _checkpoint_attrs(self) -> tuple:
+        return ("_membership",)
 
     def __init__(
         self,

@@ -131,6 +131,8 @@ class DipoleMoment(DynamicAnalysisBase):
         Where the chunks are reduced (default: the first CUDA device).
     """
 
+    _checkpointable_stores = True
+
     def __init__(
         self,
         groups,

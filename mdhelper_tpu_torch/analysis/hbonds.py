@@ -106,6 +106,11 @@ class HydrogenBondAnalysis(DynamicAnalysisBase):
         Frame times (ps).
     """
 
+    _checkpointable_stores = True
+
+    def _checkpoint_attrs(self) -> tuple:
+        return ("_existence",) if self._lifetimes else ()
+
     def __init__(
         self,
         universe,

@@ -377,6 +377,11 @@ class WillardChandlerInterface(DynamicAnalysisBase):
     #: time (:func:`_grid_pass_frames`).
     _grid_bytes: int = 1 << 30
 
+    _checkpointable_stores = True
+
+    def _checkpoint_attrs(self) -> tuple:
+        return ("_heights",)
+
     def __init__(
         self,
         group,

@@ -5,9 +5,11 @@ Fused multi-analysis streaming
 :func:`run_together` reads the trajectory ONCE and folds every chunk
 into several analyses' carries, so host reading and host-to-device
 copies are paid once instead of once per analysis.  Ported from
-:mod:`mdhelper_tpu.analysis.multi` (serial, without checkpointing).
+:mod:`mdhelper_tpu.analysis.multi` (serial).
 """
 
+import logging
+import os
 from typing import Sequence
 
 import torch
@@ -24,6 +26,7 @@ def run_together(
     step: int = None,
     frames=None,
     on_chunk=None,
+    checkpoint: str = None,
     initial=None,
 ):
     """Run several analyses over one shared trajectory stream.
@@ -38,6 +41,13 @@ def run_together(
     on_chunk : callable, optional
         Called with each streamed batch after every analysis has folded
         it.
+    checkpoint : str, optional
+        A file path, used as given: every analysis's carry, the
+        registered store buffers (keys prefixed ``{i}::``) and the
+        stream position are written there after each chunk, and a pass
+        whose checkpoint exists resumes at the first frame it has not
+        folded (the contract of ``run(checkpoint=...)``; every store-type
+        analysis must be registered).
     initial : sequence, optional
         Per analysis, ``None`` or a carry of the JAX package's
         counterpart fetched as numpy, to continue a run that the JAX
@@ -65,6 +75,11 @@ def run_together(
             raise ValueError("All analyses must run on the same device.")
     if initial is not None and len(initial) != len(analyses):
         raise ValueError("initial= needs one entry per analysis.")
+    if initial is not None and checkpoint is not None:
+        raise ValueError(
+            "initial= and checkpoint= both set the starting carries; pass "
+            "one of them."
+        )
     # One stream, one payload: a velocity-payload analysis fused with
     # position analyses would be fed the wrong columns.
     payloads = {a._payload for a in analyses}
@@ -106,6 +121,25 @@ def run_together(
     shared._prefetch_batches = all(a._prefetch_batches for a in analyses)
 
     carries = [a._carry for a in analyses]
+    done = 0
+    if checkpoint is not None:
+        from ..core.checkpoint import load_carry, save_carry
+
+        for a in analyses:
+            a._check_checkpointable()
+        if os.path.exists(checkpoint):
+            loaded, done, stores = load_carry(checkpoint, tuple(carries),
+                                              with_stores=True)
+            carries = list(loaded)
+            for i, a in enumerate(analyses):
+                prefix = f"{i}::"
+                sub = {key[len(prefix):]: value
+                       for key, value in stores.items()
+                       if key.startswith(prefix)}
+                if sub:
+                    a._restore_store_state(sub)
+            logging.info(f"Resuming from {checkpoint} at frame {done}.")
+    shared._stream_from = done
     for batch in shared._stream_batches():
         for i, ((device_fn, absorb), (idx, axes)) in enumerate(
                 zip(parts, gathers)):
@@ -119,6 +153,17 @@ def run_together(
                 absorb(aux, batch)
         if on_chunk is not None:
             on_chunk(batch)
+        if checkpoint is not None:
+            merged = {}
+            for i, a in enumerate(analyses):
+                # absorb this chunk's extras before the buffers are saved
+                a._drain_stores()
+                if a._checkpointable_stores:
+                    for key, value in a._store_state().items():
+                        merged[f"{i}::{key}"] = value
+            done += batch.n_real
+            save_carry(checkpoint, tuple(carries), done,
+                       stores=merged or None)
 
     for a, carry in zip(analyses, carries):
         a._carry = carry

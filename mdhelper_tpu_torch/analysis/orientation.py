@@ -109,6 +109,11 @@ class NematicOrderParameter(DynamicAnalysisBase):
         Frame times (ps).
     """
 
+    _checkpointable_stores = True
+
+    def _checkpoint_attrs(self) -> tuple:
+        return ("_axes",) if self._acf else ()
+
     def __init__(
         self,
         begins,

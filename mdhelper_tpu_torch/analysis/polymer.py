@@ -341,6 +341,8 @@ class Gyradius(_PolymerAnalysisBase):
     from the closed-form eigenvalues of symmetric 3x3 tensors.
     """
 
+    _checkpointable_stores = True
+
     def __init__(
         self,
         groups,
@@ -455,6 +457,11 @@ class EndToEndVector(_PolymerAnalysisBase):
     (blocks, frames, chains).  ``parallel`` is accepted and ignored: the
     stored vectors are one serial pass, as in the JAX package.
     """
+
+    _checkpointable_stores = True
+
+    def _checkpoint_attrs(self) -> tuple:
+        return ("_e2e",)
 
     def __init__(
         self,

@@ -256,6 +256,8 @@ class RMSD(_SuperpositionBase):
         Frame times (ps).
     """
 
+    _checkpointable_stores = True
+
     def _prepare(self) -> None:
         self._resolve_reference()
         self.results.rmsd = np.empty(self.n_frames)

@@ -110,6 +110,8 @@ class SteinhardtOrderParameter(DynamicAnalysisBase):
         Frame times (ps).
     """
 
+    _checkpointable_stores = True
+
     def __init__(
         self,
         group,
@@ -291,6 +293,8 @@ class TetrahedralOrderParameter(DynamicAnalysisBase):
     ``results.times``
         Frame times (ps).
     """
+
+    _checkpointable_stores = True
 
     def __init__(
         self,

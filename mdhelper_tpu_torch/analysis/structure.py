@@ -1758,6 +1758,8 @@ class IntermediateScatteringFunction(StructureFactor):
             self._rho = np.empty((self.n_frames, n_groups, n_q, 2))
             self._store_offset = 0
             self._store_chunk = self._store_rho
+            self._checkpointable_stores = True
+            self._checkpoint_attrs = lambda: ("_rho",)
             self._carry = {}
 
             def fft_update(carry, positions, dimensions, mask):

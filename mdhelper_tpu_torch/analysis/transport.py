@@ -350,6 +350,11 @@ class Onsager(SerialAnalysisBase):
         device, which must exist; ``"cpu"`` for the CPU).
     """
 
+    _checkpointable_stores = True
+
+    def _checkpoint_attrs(self) -> tuple:
+        return ("_positions",)
+
     def __init__(self, groups, groupings: Union[str, tuple] = "atoms",
                  temperature: Union[float, Q_] = 300, *, charges=None,
                  dimensions=None, dt=None, n_blocks: int = 1,

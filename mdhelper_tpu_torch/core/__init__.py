@@ -1,5 +1,7 @@
-"""Host-side data layer: trajectory readers and the universe."""
+"""Host-side data layer: trajectory readers, the universe and the
+accumulator checkpoints."""
 
+from .checkpoint import load_carry, save_carry
 from .trajectory import (
     ArrayReader,
     Frame,
@@ -11,4 +13,5 @@ from .trajectory import (
 from .universe import AtomGroup, Topology, Universe
 
 __all__ = ["ArrayReader", "AtomGroup", "Frame", "NPZReader", "NetCDFReader",
-           "Topology", "TrajectoryReader", "Universe", "open_trajectory"]
+           "Topology", "TrajectoryReader", "Universe", "load_carry",
+           "open_trajectory", "save_carry"]

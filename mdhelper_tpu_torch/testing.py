@@ -6,8 +6,9 @@ NumPy helpers shared by the port's tests and ``chip_smoke.py``: the
 bin-edge straddle fixtures and the float64 all-pairs histograms the
 cell-list kernels are held against, a float32 model of the tri_pp
 kernels' candidate screen, a trajectory of 3-site water molecules
-(optionally with SPC/E charges), one of linear polymer chains, and the
-float32 error margin of bond angles and dihedrals.
+(optionally with SPC/E charges), one of linear polymer chains, one of a
+molecular ionic liquid, and the float32 error margin of bond angles and
+dihedrals.
 """
 
 import itertools
@@ -27,6 +28,7 @@ __all__ = [
     "SCREEN_EPS",
     "SPCE_CHARGES",
     "fma32",
+    "ionic_liquid",
     "polymer_chains",
     "tri27_screen",
     "water_system",
@@ -284,6 +286,80 @@ def water_system(rng, n_mol, box, n_frames, step=0.3, jitter=0.02,
     if charges:
         topology["charges"] = np.tile(SPCE_CHARGES, n_mol)
     return frames, topology
+
+
+def ionic_liquid(rng, n_pairs, n_frames, *, density=3.2e-3, step=0.3,
+                 disorder=0.5, jitter=0.02):
+    """``(frames, topology, box)`` of `n_pairs` 5-site cations and
+    `n_pairs` 4-site anions in a cube at `density` ion pairs a cubic
+    Angstrom (3.2e-3: a liquid such as [BMIM][BF4], about 190 cm^3 a mole
+    of ion pairs), cations first, one residue an ion.
+
+    The ions' centers start on the two sublattices of a rock-salt lattice
+    (the first `n_pairs` sites of each, the lattice as fine as holds
+    them all), displaced by N(0, `disorder`) A an axis, so the
+    cation-anion center RDF has a first shell and a first minimum.  A
+    cation is a planar ring of radius 1.1 A (C, N, C, N, C; charge +1/5 a
+    site), an anion a tetrahedron of F at 1.4 A from its center (charge
+    -1/4 a site), each rigid in a random orientation.  Each center then
+    takes a N(0, `step`) A step a frame on every axis, every atom moves by
+    N(0, `jitter`) A about its place in the ion, and every ion is wrapped
+    into the box by its center, so that ions stay whole (their centers of
+    mass are the ions')."""
+
+    box = float((n_pairs / density) ** (1.0 / 3.0))
+    n_side = int(np.ceil((2 * n_pairs) ** (1.0 / 3.0)))
+    n_side += n_side % 2
+    grid = np.stack(np.meshgrid(*[np.arange(n_side)] * 3, indexing="ij"),
+                    axis=-1).reshape(-1, 3)
+    odd = grid.sum(axis=1) % 2 == 1
+    centers = np.concatenate((grid[~odd][:n_pairs], grid[odd][:n_pairs]))
+    centers = centers * (box / n_side) + rng.normal(0.0, disorder,
+                                                     (2 * n_pairs, 3))
+
+    def rotations(n):
+        q = rng.standard_normal((n, 4))
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        w, x, y, z = q.T
+        return np.stack((
+            np.stack((1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                      2 * (x * z + y * w)), -1),
+            np.stack((2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                      2 * (y * z - x * w)), -1),
+            np.stack((2 * (x * z - y * w), 2 * (y * z + x * w),
+                      1 - 2 * (x * x + y * y)), -1),
+        ), axis=1)
+
+    angle = 2 * np.pi * np.arange(5) / 5
+    ring = 1.1 * np.stack((np.cos(angle), np.sin(angle), np.zeros(5)), -1)
+    tetra = 1.4 / np.sqrt(3.0) * np.array(
+        [[1, 1, 1], [1, -1, -1], [-1, 1, -1], [-1, -1, 1]], dtype=float)
+    cations = np.einsum("kj,nij->nki", ring, rotations(n_pairs))
+    anions = np.einsum("kj,nij->nki", tetra, rotations(n_pairs))
+    frames = np.empty((n_frames, 9 * n_pairs, 3), dtype=np.float32)
+    for t in range(n_frames):
+        if t:
+            centers += rng.normal(0.0, step, centers.shape)
+        wrapped = np.mod(centers, box)
+        pos = np.concatenate((
+            (wrapped[:n_pairs, None] + cations).reshape(-1, 3),
+            (wrapped[n_pairs:, None] + anions).reshape(-1, 3)))
+        frames[t] = pos + rng.normal(0.0, jitter, pos.shape)
+    topology = dict(
+        masses=np.concatenate((
+            np.tile([12.011, 14.007, 12.011, 14.007, 12.011], n_pairs),
+            np.full(4 * n_pairs, 18.998))),
+        names=np.concatenate((
+            np.tile(np.array(["C1", "N1", "C2", "N2", "C3"], dtype=object),
+                    n_pairs),
+            np.full(4 * n_pairs, "F", dtype=object))),
+        charges=np.concatenate((np.full(5 * n_pairs, 0.2),
+                                np.full(4 * n_pairs, -0.25))),
+        resindices=np.concatenate((np.repeat(np.arange(n_pairs), 5),
+                                   n_pairs + np.repeat(np.arange(n_pairs),
+                                                       4))),
+    )
+    return frames, topology, box
 
 
 def polymer_chains(rng, n_chains, n_monomers, n_frames, box, *, bond=1.0,

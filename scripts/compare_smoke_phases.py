@@ -33,6 +33,9 @@ SEED_OFFSETS = {
     "phase_interface": 19,
     "phase_superposition": 20,
     "phase_bonded": 21,
+    "phase_checkpoint": 22,
+    "phase_pairing": 23,
+    "phase_sasa": 24,
 }
 
 CHILD = """

@@ -2104,3 +2104,143 @@ def test_accelerated_numpy_inputs_run_on_the_card(cuda_device):
     out = np.zeros(len(xs))
     accelerated.cosine_sum_inplace_2d(xs, out)
     np.testing.assert_allclose(out, np.cos(xs).sum(axis=1), rtol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouping", ["atoms", "residues"])
+def test_ion_pairs_on_the_card_equal_cpu(cuda_device, grouping):
+    """Counts, partners, free fractions and pair counts equal the CPU's as
+    integers, the lifetimes within 1e-12, in the cube and a triclinic
+    cell; like ions give a symmetric pair-count matrix."""
+
+    from mdhelper_tpu_torch.analysis import pairing
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.testing import ionic_liquid
+
+    frames, topology, box = ionic_liquid(np.random.default_rng(41), 64, 10)
+    n_cat = 5 * 64
+    for dims in ([box] * 3 + [90.0] * 3, [box] * 3 + [80.0, 75.0, 70.0]):
+        u = Universe.from_arrays(frames, dims, **topology)
+        for g1, g2 in ((u.atoms[:n_cat], u.atoms[n_cat:]),
+                       (u.atoms[:n_cat], u.atoms[:n_cat])):
+            card, cpu = _polymer_runs(lambda d: pairing.IonPairAnalysis(
+                g1, g2, 7.0 if grouping == "residues" else 4.0, grouping,
+                pair_counts=True, lifetimes=True, verbose=False,
+                device=d), u)
+            np.testing.assert_array_equal(card.results.counts,
+                                          cpu.results.counts)
+            np.testing.assert_array_equal(card.results.free_fractions,
+                                          cpu.results.free_fractions)
+            np.testing.assert_array_equal(card.results.pair_counts,
+                                          cpu.results.pair_counts)
+            for c, r in zip(card.results.coordination,
+                            cpu.results.coordination):
+                np.testing.assert_array_equal(c, r)
+            for key in ("lifetime", "survival"):
+                np.testing.assert_allclose(card.results[key],
+                                           cpu.results[key], rtol=0,
+                                           atol=1e-12)
+            if g1 is g2:
+                pc = card.results.pair_counts
+                np.testing.assert_array_equal(pc, pc.T)
+
+
+@pytest.mark.cuda
+def test_sasa_on_the_card_equals_cpu(cuda_device):
+    """Candidate counts and free-point counts (areas bit for bit) equal the
+    CPU's, in the cube, a triclinic cell and without a box; the fused point
+    test equals the CPU's and the fma32/_norm2 form bit for bit; an
+    overflowing budget escalates on the card as on the CPU."""
+
+    from mdhelper_tpu_torch.analysis import sasa
+    from mdhelper_tpu_torch.core.universe import Universe
+
+    rng = np.random.default_rng(43)
+    frames = (rng.random((4, 150, 3)) * 15.0).astype(np.float32)
+    radii = rng.uniform(1.0, 2.0, 150)
+    for dims in ([15.0] * 3 + [90.0] * 3, [15.0] * 3 + [80.0, 95.0, 100.0],
+                 None):
+        u = Universe.from_arrays(frames, dims)
+        card, cpu = _polymer_runs(lambda d: sasa.SolventAccessibleSurfaceArea(
+            u.atoms, n_points=240, radii=radii, verbose=False, device=d), u)
+        np.testing.assert_array_equal(card.results.n_neighbors,
+                                      cpu.results.n_neighbors)
+        np.testing.assert_array_equal(card.results.areas, cpu.results.areas)
+    from mdhelper_tpu_torch.ops.doublefloat import fma32
+    from mdhelper_tpu_torch.ops.histogram import _norm2
+
+    r_i = torch.as_tensor(rng.uniform(2.0, 4.0, 30), dtype=torch.float32)
+    sphere = torch.as_tensor(sasa.sphere_points(97), dtype=torch.float32)
+    rel = torch.as_tensor(rng.normal(0.0, 3.0, (30, 11, 3)),
+                          dtype=torch.float32)
+    cpu_d2 = sasa._point_distances2(r_i, sphere, rel)
+    card_d2 = sasa._point_distances2(r_i.to(cuda_device),
+                                     sphere.to(cuda_device),
+                                     rel.to(cuda_device))
+    assert torch.equal(card_d2.cpu(), cpu_d2)
+    assert torch.equal(card_d2, _norm2(fma32(
+        r_i.to(cuda_device)[:, None, None, None],
+        sphere.to(cuda_device)[None, :, None, :],
+        -rel.to(cuda_device)[:, None, :, :])))
+    u = Universe.from_arrays(frames, [15.0] * 3 + [90.0] * 3)
+    ref = sasa.SolventAccessibleSurfaceArea(
+        u.atoms, n_points=64, radii=radii, verbose=False, device="cpu").run()
+    most = int(ref.results.n_neighbors.max())
+    with pytest.warns(UserWarning, match="max_occluders"):
+        card = sasa.SolventAccessibleSurfaceArea(
+            u.atoms, n_points=64, radii=radii, max_occluders=most // 3,
+            verbose=False, device=cuda_device).run()
+    assert card._active_budget == 4 * (most // 3) >= most
+    np.testing.assert_array_equal(card.results.areas, ref.results.areas)
+
+
+@pytest.mark.cuda
+def test_checkpoint_resume_on_the_card(cuda_device, tmp_path):
+    """A run killed at its third chunk on the card resumes from the exact
+    path with other chunks to the uninterrupted run's results: pair counts
+    and existence series of IonPairAnalysis, and RDF counts."""
+
+    from mdhelper_tpu_torch.analysis import pairing, structure
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.testing import ionic_liquid
+
+    frames, topology, box = ionic_liquid(np.random.default_rng(47), 64, 12)
+    u = Universe.from_arrays(frames, [box] * 3 + [90.0] * 3, **topology)
+
+    def make():
+        analyses = [
+            pairing.IonPairAnalysis(u.atoms[:320], u.atoms[320:], 7.0,
+                                    "residues", pair_counts=True,
+                                    lifetimes=True, verbose=False,
+                                    device=cuda_device),
+            structure.RadialDistributionFunction(
+                u.atoms, n_bins=40, range=(0.0, 8.0), verbose=False,
+                device=cuda_device)]
+        for a in analyses:
+            a._chunk_bytes = 2 * u.atoms.n_atoms * 3 * 4
+        return analyses
+
+    class Killed(Exception):
+        pass
+
+    ref = run_together(make())
+    path = str(tmp_path / "state")
+    seen = [0]
+
+    def kill(batch):
+        seen[0] += 1
+        if seen[0] == 3:
+            raise Killed
+
+    with pytest.raises(Killed):
+        run_together(make(), checkpoint=path, on_chunk=kill)
+    resumed = make()
+    for a in resumed:
+        a._chunk_bytes = a._chunk_bytes // 2 * 3
+    run_together(resumed, checkpoint=path)
+    np.testing.assert_array_equal(resumed[0].results.pair_counts,
+                                  ref[0].results.pair_counts)
+    np.testing.assert_array_equal(resumed[0]._existence, ref[0]._existence)
+    np.testing.assert_array_equal(resumed[1].results.counts,
+                                  ref[1].results.counts)

@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from mdhelper_tpu_torch.analysis import bonded, contacts, rmsd  # noqa: E402
+from mdhelper_tpu_torch.analysis import pairing, sasa  # noqa: E402
 from mdhelper_tpu_torch.analysis import thermodynamics  # noqa: E402
 from mdhelper_tpu_torch.analysis.cluster import (  # noqa: E402
     ClusterSizeDistribution,
@@ -189,6 +190,21 @@ def test_sources_cover_the_velocity_and_interface_layer():
         assert f"mdhelper_tpu_torch/{module}.py" in names
 
 
+def test_sources_cover_the_checkpoint_pairing_and_sasa_layer():
+    """The checkpoint, ion-pairing and SASA modules are among the parsed
+    sources, so the jax, JAX-package, pandas and sympy rules hold for
+    them."""
+
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("core/checkpoint", "core/__init__", "analysis/pairing",
+                   "analysis/sasa", "analysis/base", "analysis/multi"):
+        assert f"mdhelper_tpu_torch/{module}.py" in names
+        imported = _imported_names(ROOT / f"mdhelper_tpu_torch/{module}.py")
+        assert not [n for n in imported
+                    if _forbidden(n) or _imports_pandas(n)
+                    or _imports_sympy(n)]
+
+
 def test_import_rule_catches_both_packages():
     assert _forbidden("jax") and _forbidden("jax.numpy")
     assert _forbidden("mdhelper_tpu") and _forbidden("mdhelper_tpu.ops.x")
@@ -265,6 +281,11 @@ def _analyses(u, **device):
             u.atoms, dihedrals=[[0, 1, 2, 3]], verbose=False, **device),
         "contacts": lambda: contacts.NativeContacts(
             u.atoms[:30], u.atoms[30:], verbose=False, **device),
+        "pairing": lambda: pairing.IonPairAnalysis(
+            u.atoms[:30], u.atoms[30:], 2.0, verbose=False, **device),
+        "sasa": lambda: sasa.SolventAccessibleSurfaceArea(
+            u.atoms, radii=np.full(60, 1.0), n_points=16, verbose=False,
+            **device),
     }
 
 
@@ -283,7 +304,8 @@ def universe():
                                   "nematic", "orientation", "steinhardt",
                                   "tetrahedral", "rmsd", "rmsf", "pca",
                                   "tica", "bond_lengths", "bond_angles",
-                                  "dihedrals", "contacts"])
+                                  "dihedrals", "contacts", "pairing",
+                                  "sasa"])
 def test_default_device_is_the_card(monkeypatch, universe, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

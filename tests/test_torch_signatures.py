@@ -15,8 +15,7 @@ pytest.importorskip("jax")
 pytest.importorskip("torch")
 
 #: JAX parameters the port does not take yet, by object, with the slice
-#: that brings them (ROADMAP Queue 1): checkpoints (item 9) and parallel/
-#: (item 10) only.
+#: that brings them (ROADMAP Queue 1): parallel/ (item 10) only.
 NOT_PORTED = {
     "analysis.structure.RadialDistributionFunction": {
         "parallel": "parallel/ (item 10)",
@@ -39,7 +38,15 @@ NOT_PORTED = {
     },
     "analysis.multi.run_together": {
         "parallel": "parallel/ (item 10)",
-        "checkpoint": "checkpoints (item 9)",
+    },
+    "analysis.base.SerialAnalysisBase.run": {
+        "kwargs": "parallel/ (item 10): the parallel runner's options",
+    },
+    "analysis.pairing.IonPairAnalysis": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.sasa.SolventAccessibleSurfaceArea": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
     },
     "analysis.base.DynamicAnalysisBase": {
         "kwargs": "parallel/ (item 10): the runtime's mesh options",
@@ -171,6 +178,8 @@ NOT_PORTED_VALUES = {
         "analysis.bonded.BondAngleDistribution",
         "analysis.bonded.DihedralDistribution",
         "analysis.contacts.NativeContacts",
+        "analysis.pairing.IonPairAnalysis",
+        "analysis.sasa.SolventAccessibleSurfaceArea",
     )
 }
 
@@ -225,6 +234,8 @@ PORT_ONLY = {
     "analysis.bonded.BondAngleDistribution": {"device"},
     "analysis.bonded.DihedralDistribution": {"device"},
     "analysis.contacts.NativeContacts": {"device"},
+    "analysis.pairing.IonPairAnalysis": {"device"},
+    "analysis.sasa.SolventAccessibleSurfaceArea": {"device"},
 }
 
 OBJECTS = [
@@ -452,6 +463,14 @@ OBJECTS = [
     "algorithm.accelerated.sine_sum_parallel_2d",
     "algorithm.accelerated.sine_sum_inplace_2d",
     "algorithm.accelerated.sine_sum_inplace_parallel_2d",
+    # checkpoints, ion pairing and SASA
+    "core.checkpoint.save_carry",
+    "core.checkpoint.load_carry",
+    "analysis.base.SerialAnalysisBase.run",
+    "analysis.pairing.IonPairAnalysis",
+    "analysis.sasa.sphere_points",
+    "analysis.sasa.SolventAccessibleSurfaceArea",
+    "analysis.sasa.SolventAccessibleSurfaceArea.run",
 ]
 
 
@@ -493,9 +512,9 @@ def test_groupings_are_ported_everywhere():
 
 
 def test_units_centering_and_charges_are_ported():
-    """Only checkpoints (item 9) and parallel/ (item 10) remain: no unit,
-    reduced-unit, centering, charge or file parameter, and of the profile
-    and electrostatics parameters only ``parallel=True``."""
+    """Only parallel/ (item 10) remains: no checkpoint, unit, reduced-unit,
+    centering, charge or file parameter, and of the profile and
+    electrostatics parameters only ``parallel=True``."""
 
     listed = set().union(*(set(v) for v in NOT_PORTED.values()))
     partly = set().union(*(set(v) for v in NOT_PORTED_VALUES.values()))
@@ -505,9 +524,10 @@ def test_units_centering_and_charges_are_ported():
     assert not {"reduced", "n_batches", "temperature", "charges", "center",
                 "center_atom", "center_wrap", "times", "velocities",
                 "forces"} & listed
+    assert "checkpoint" not in listed
     for reasons in NOT_PORTED.values():
         for reason in reasons.values():
-            assert any(f"(item {n})" in reason for n in (9, 10)), reason
+            assert "(item 10)" in reason, reason
 
 
 def _universe():
@@ -548,6 +568,10 @@ def _arguments(dotted, u):
         return (u.atoms,), dict(dihedrals=[[0, 1, 2, 3]])
     if dotted.endswith("TICA"):
         return (u.atoms,), dict(lag=1)
+    if dotted.endswith("IonPairAnalysis"):
+        return (u.atoms[0::2], u.atoms[1::2], 2.0), {}
+    if dotted.endswith("SolventAccessibleSurfaceArea"):
+        return (u.atoms,), dict(radii=[1.0] * 12, n_points=16)
     return (u.atoms,), {}
 
 
