@@ -126,7 +126,15 @@ on an 18,000-atom ionic liquid (residue centers with lifetimes, like
 ions, a triclinic cell; against the port's CPU run) and the
 Shrake-Rupley SASA of slice 18's protein (heavy atoms and all; against
 the CPU run and a float64 oracle); no kernel of the kernels line
-launches there.  Every check
+launches there; and last, slice 20, parallel/ on torch.distributed: the
+ring step (the cross kernel with global exclusion ids) against the plain
+dense block at 5,000 atoms on the straddle fixture with exclusions (1, 1)
+and (2, 3), then a job of one NCCL rank and one of two gloo ranks sharing
+the card, each rank a spawned process (:func:`parallel_child`) running
+run_together([RDF, S(q)], parallel=True), the atom ring and the q-sharded
+direct S(q) (and over two ranks the cross ring) on the fused path's
+trajectory, held against serial runs on the card and rank against rank,
+their launches added to the kernels line.  Every check
 raises on failure, so any failed phase exits non-zero.  The last lines of
 standard output are the card's name and power limit, a JSON line of
 per-kernel measurements (each beside its bound: the larger of the
@@ -6905,6 +6913,427 @@ def phase_sasa(device, rng, card):
     return out
 
 
+#: phase_parallel: the jobs of ranks, (world size, backend), each over
+#: the fused path's trajectory (N_ATOMS atoms, N_FRAMES frames); a child
+#: job's time limit and its collectives'; the ring step's check at
+#: RING_STEP_ATOMS atoms (two blocks) in a RING_STEP_BOX A cube, on bins
+#: of 5/16 A (the straddle fixture's edge 1.25 is the fourth).
+PARALLEL_JOBS = ((1, "nccl"), (2, "gloo"))
+PARALLEL_TIMEOUT, PARALLEL_COLLECTIVE_TIMEOUT = 300, 180
+RING_STEP_ATOMS, RING_STEP_BOX = 5_000, 20.0
+RING_STEP_R, RING_STEP_BINS = 5.0, 16
+
+
+def zero_launches():
+    """Every kernel wrapper's launch counts set to 0."""
+
+    from mdhelper_tpu_torch.ops import cuda_kernels
+
+    reset_launches()
+    cuda_kernels.trig_sums.launches = 0
+    cuda_kernels.pair_histogram.launches = 0
+
+
+def profiled_call(fn):
+    """``fn()`` under torch.profiler (its CUPTI records turned on before
+    the clock starts): ``(result, wall seconds, device busy share or None
+    when the trace kept no device record)``."""
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.prepare_trace()
+    torch.cuda.synchronize()
+    prof.start_trace()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    prof.stop()
+    on_device = [(e.time_range.start, e.time_range.end)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = busy_us(on_device) / (wall * 1e6) if on_device else None
+    return out, wall, busy
+
+
+def last_chunk_profiled(runner, frames, chunk):
+    """``runner(on_chunk)`` (a run_together pass streaming `frames` frames
+    on this rank in chunks of `chunk`) with torch.profiler over its last
+    chunk, warmed a chunk ahead: ``(result, frames/s from the end of its
+    first chunk to the start of the profiler's warm-up chunk, busy share
+    of the last chunk's wall time or None when the trace kept no device
+    record)``.  Unlike :func:`run_profiled` it never re-runs the pass,
+    which over ranks would leave the other ranks waiting."""
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    marks, seen = {}, [0]
+
+    def on_chunk(batch):
+        seen[0] += batch.n_real
+        if "first" not in marks:
+            torch.cuda.synchronize()
+            marks["first"] = time.perf_counter()
+        if seen[0] == frames - 2 * chunk:
+            torch.cuda.synchronize()
+            marks["warm"] = time.perf_counter()
+            prof.prepare_trace()
+        elif seen[0] == frames - chunk:
+            torch.cuda.synchronize()
+            prof.start_trace()
+            marks["start"] = time.perf_counter()
+        elif seen[0] == frames:
+            torch.cuda.synchronize()
+            marks["end"] = time.perf_counter()
+            prof.stop()
+
+    out = runner(on_chunk)
+    fps = (frames - 3 * chunk) / (marks["warm"] - marks["first"])
+    on_device = [(e.time_range.start, e.time_range.end)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = (busy_us(on_device) / ((marks["end"] - marks["start"]) * 1e6)
+            if on_device else None)
+    return out, fps, busy
+
+
+def process_seconds():
+    """Seconds since this process started (``/proc``)."""
+
+    with open("/proc/self/stat") as f:
+        start = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        up = float(f.read().split()[0])
+    return up - start / os.sysconf("SC_CLK_TCK")
+
+
+def parallel_references(workdir):
+    """The serial runs on the card that phase_parallel's ranks must equal,
+    saved to ``references.npz`` in `workdir`: the fused RDF's counts (the
+    atom ring's settings too) and factor S(q), the direct S(q) and the
+    cross RDF's counts of the even and odd atoms, on the trajectory every
+    rank makes (:func:`slice_universe` from ``SEED + 25``)."""
+
+    import torch
+
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+        StructureFactor,
+    )
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    _, u = slice_universe(np.random.default_rng(SEED + 25))
+    rdf, sq = run_together(slice_analyses(u, device, ("rdf", "sq")))
+    direct = StructureFactor(u.atoms, n_points=N_QPTS, sort=False,
+                             unique=False, precision="exact",
+                             method="direct", verbose=False, device=device)
+    cross = RadialDistributionFunction(u.atoms[0::2], u.atoms[1::2],
+                                       n_bins=N_BINS, range=(0.0, R_MAX),
+                                       verbose=False, device=device)
+    for a in (direct, cross):
+        a._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
+        a.run()
+    np.savez(os.path.join(workdir, "references.npz"),
+             rdf=rdf.results.counts, sq=sq.results.ssf,
+             direct=direct.results.ssf, cross=cross.results.counts)
+
+
+def parallel_child(workdir, device=None):
+    """One rank of a phase_parallel job (``testing.spawn_ranks``, whose
+    prelude joined the process group): on the fused path's trajectory, run
+    each sharded path with the launch counts set to 0 just before it and
+    read just after -- run_together([RDF, S(q)], parallel=True), the
+    RDF's atom ring and the q-sharded direct S(q), and over more than one
+    rank the cross ring of the even and odd atoms -- each held against the
+    serial runs of :func:`parallel_references`, after an untimed and a
+    wall-clock run of each (counts as integers; S(q) bit for bit in a world of one, within
+    rtol 1e-12 over more ranks, where only the order of the frame sums
+    differs).  Saves its results
+    to ``rank{r}.npz`` in `workdir` and prints one ``PARALLEL {json}``
+    line: the rank, world, backend, the seconds since the process started
+    at which it entered here (imports and the process group behind it) and
+    left, and for each run its launches by kernel, this rank's frames/s
+    and ms a frame over its own window, its busy share, and the wall-clock
+    times (``time.time()``) at which the rank entered and left its
+    unprofiled run, from which the parent takes the job's frames/s.  `device` defaults to
+    the rank's card."""
+
+    entered = process_seconds()
+
+    import torch
+    import torch.distributed as dist
+
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+        StructureFactor,
+    )
+    from mdhelper_tpu_torch.ops import _build
+
+    _build.load_library()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    _, u = slice_universe(np.random.default_rng(SEED + 25))
+    refs = np.load(os.path.join(workdir, "references.npz"))
+
+    def chunked(analysis):
+        analysis._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
+        return analysis
+
+    def ring(cross=False):
+        groups = (u.atoms[0::2], u.atoms[1::2]) if cross else (u.atoms,)
+        return [chunked(RadialDistributionFunction(
+            *groups, n_bins=N_BINS, range=(0.0, R_MAX),
+            exclusion=None if cross else (1, 1), shard="atoms",
+            verbose=False, device=device)).run()]
+
+    def q_tiles():
+        return [chunked(StructureFactor(
+            u.atoms, n_points=N_QPTS, sort=False, unique=False,
+            precision="exact", method="direct", shard="q", verbose=False,
+            device=device)).run()]
+
+    def fused(on_chunk=None):
+        # Each rank streams its blocks of CHUNK / world frames.
+        return run_together(slice_analyses(u, device, ("rdf", "sq")),
+                            parallel=True, on_chunk=on_chunk)
+
+    # (name, run, the references of its results' counts or ssf in order)
+    runs = [("fused", fused, ("rdf", "sq")), ("ring", ring, ("rdf",)),
+            ("q", q_tiles, ("direct",))]
+    if world > 1:
+        runs.append(("cross_ring", lambda: ring(True), ("cross",)))
+    # Each run three times: untimed, so that the card's context, the
+    # process group's first collectives and each path's first launches
+    # stay out of the timed runs; on the wall clock alone, from a barrier
+    # (the job's span is the earliest start to the latest end over the
+    # ranks); and under the profiler, whose launches, results, busy share
+    # and rate of this rank's own are read.
+    for _, run, _ in runs:
+        run()
+    report, saved = {}, {}
+    for name, run, references in runs:
+        dist.barrier()
+        began = time.time()
+        run()
+        ended = time.time()
+        zero_launches()
+        if name == "fused":
+            out, rank_fps, busy = last_chunk_profiled(
+                fused, N_FRAMES // world, CHUNK // world)
+        else:
+            out, wall, busy = profiled_call(run)
+            rank_fps = N_FRAMES / wall
+        launches = {k: n for k, n in kernel_launch_counts().items() if n}
+        for i, (got, ref) in enumerate(zip(out, references)):
+            key = "ssf" if "ssf" in got.results else "counts"
+            a, b = got.results[key], refs[ref]
+            if key == "counts" or world == 1:
+                check(np.array_equal(a, b), f"rank {rank}: {name} {key} "
+                      "differs from the serial run")
+            else:
+                check(np.allclose(a, b, rtol=1e-12, atol=0.0),
+                      f"rank {rank}: {name} {key} beyond rtol 1e-12 of the "
+                      "serial run")
+            saved[f"{name}:{i}:{key}"] = a
+        report[name] = {"launches": launches, "rank_fps": rank_fps,
+                        "rank_ms_per_frame": 1e3 / rank_fps, "busy": busy,
+                        "began": began, "ended": ended}
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"), **saved)
+    print("PARALLEL " + json.dumps({
+        "rank": rank, "world": world, "backend": dist.get_backend(),
+        "entered_s": entered, "left_s": process_seconds(),
+        "runs": report}), flush=True)
+
+
+def ring_step_vs_plain(device, rng):
+    """The ring's step, the cross kernel with global exclusion ids, against
+    the plain dense block (``parallel/ring.py``) on the card: two blocks
+    of RING_STEP_ATOMS / 2 atoms, the second holding the straddle
+    fixture's 90 partners of bin edge 1.25 (at it and one float32 ulp
+    either side) and the first their anchors, as a self ring's diagonal
+    block (offsets 0, 0), the off-diagonal one (0, n / 2) and its mirror
+    (n / 2, 0), with exclusions (1, 1) and (2, 3); counts equal as
+    integers.  Returns the off-diagonal (1, 1) block's timing, with the
+    launches of this check's own kernel calls."""
+
+    import torch
+
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+    from mdhelper_tpu_torch.parallel.ring import _plain_block_counts
+    from mdhelper_tpu_torch.testing import edge_straddle_positions
+
+    half = RING_STEP_ATOMS // 2
+    box = (RING_STEP_BOX,) * 3
+    fixture = edge_straddle_positions(rng, RING_STEP_BOX)
+    uniform = (rng.random((RING_STEP_ATOMS - len(fixture), 3))
+               * RING_STEP_BOX).astype(np.float32)
+    first = np.concatenate((fixture[:300], uniform[:half - 300]))
+    second = np.concatenate((fixture[300:], uniform[half - 300:]))
+    blocks = [torch.from_numpy(b)[None].to(device) for b in (first, second)]
+    box32 = torch.tensor([box], dtype=torch.float32, device=device)
+    plan = planned(half, box, RING_STEP_R, n_atoms2=half)
+    timing = None
+    zero_launches()
+    for exclusion in ((1, 1), (2, 3)):
+        for (i, j), offsets in (((0, 0), (0, 0)), ((0, 1), (0, half)),
+                                ((1, 0), (half, 0))):
+            args = (blocks[i], blocks[j])
+
+            def kernel():
+                counts, occ1, occ2 = cch.cross_pair_histogram(
+                    *args, box=box, r_max=RING_STEP_R,
+                    n_cells_dim=plan["n_cells_dim"], reach=plan["reach"],
+                    capacity1=plan["capacity"], capacity2=plan["capacity2"],
+                    n_bins=RING_STEP_BINS, exclusion=exclusion,
+                    id_offsets=offsets)
+                return (counts,)
+
+            def plain():
+                return (_plain_block_counts(
+                    *args, box32, r_min=0.0, r_max=RING_STEP_R,
+                    n_bins=RING_STEP_BINS, exclusion=exclusion,
+                    offsets=offsets, precision="exact").to(torch.float64),)
+
+            _, _, work, text = sweep_calls(*args, box, plan, RING_STEP_R,
+                                           RING_STEP_BINS, exclusion)
+            out, _ = kernel_vs_plain(
+                kernel, plain, 1, f"ring step, blocks {i} x {j}, ids from "
+                f"{offsets}, {text}", work)
+            if exclusion == (1, 1) and offsets == (0, half):
+                timing = {**out, "plan": plan}
+    return {**timing, "launches": cch.cross_pair_histogram.launches}
+
+
+def cross_ring_block_vs_plain(device, rng):
+    """The cross kernel against its plain version at the block shape of
+    the two-rank cross ring of phase_parallel: N_ATOMS / 4 x N_ATOMS / 4
+    atoms, uniform in the fused path's cube (each rank's quarter of the
+    even atoms against a quarter of the odd ones), two frames."""
+
+    import torch
+
+    quarter = N_ATOMS // 4
+    frames = torch.from_numpy((rng.random((2, 2 * quarter, 3)) * BOX)
+                              .astype(np.float32)).to(device)
+    return cross_kernel_vs_plain(
+        frames[:, :quarter].contiguous(), frames[:, quarter:].contiguous(),
+        (BOX,) * 3, f"cross kernel, two-rank cross ring block {quarter} x "
+        f"{quarter}")
+
+
+def phase_parallel(device, rng, card):
+    """parallel/ on torch.distributed (run last, so its process groups never
+    touch the phases before it): the ring step's kernel against its plain
+    version in this process (:func:`ring_step_vs_plain`), then one job of
+    one NCCL rank on the card and one of two gloo ranks sharing it, each
+    rank a spawned process (:func:`parallel_child`); any rank that fails
+    fails the smoke.  Every rank of a job must hold the same results.
+    Returns each job's launches by run and kernel, its ranks' reports and
+    its frames/s by run, the ring step's and the cross ring block's
+    timings and the phase's seconds."""
+
+    import tempfile
+
+    import torch
+
+    from mdhelper_tpu_torch.testing import spawn_ranks
+
+    started = time.perf_counter()
+    ring_step = ring_step_vs_plain(device, rng)
+    cross_block = cross_ring_block_vs_plain(device, rng)
+    jobs = {}
+    with tempfile.TemporaryDirectory(prefix="phase_parallel_") as refs:
+        parallel_references(refs)
+        torch.cuda.empty_cache()
+        references = os.path.join(refs, "references.npz")
+        for world, backend in PARALLEL_JOBS:
+            jobs[world] = parallel_job(world, backend, references, card)
+    return {"jobs": jobs, "ring_step": ring_step,
+            "cross_block": cross_block,
+            "seconds": time.perf_counter() - started}
+
+
+def parallel_job(world, backend, references, card):
+    """One job of phase_parallel: `world` ranks on `backend`, each a
+    spawned :func:`parallel_child`, against the serial runs saved at
+    `references`; every rank must hold the same results.  Returns the
+    job's launches by kernel, its ranks' reports and its seconds."""
+
+    import shutil
+    import tempfile
+
+    from mdhelper_tpu_torch.testing import spawn_ranks
+
+    with tempfile.TemporaryDirectory(prefix="phase_parallel_") as work:
+        shutil.copy(references, work)
+        job_started = time.perf_counter()
+        outs = spawn_ranks(
+            "import chip_smoke\nchip_smoke.parallel_child(WORKDIR)\n",
+            world, work, backend=backend, timeout=PARALLEL_TIMEOUT,
+            collective_timeout=PARALLEL_COLLECTIVE_TIMEOUT)
+        job_s = time.perf_counter() - job_started
+        reports = [json.loads(line.split(" ", 1)[1]) for out in outs
+                   for line in out.splitlines()
+                   if line.startswith("PARALLEL ")]
+        check(len(reports) == world,
+              f"{backend} job: {len(reports)} of {world} ranks reported")
+        arrays = [np.load(os.path.join(work, f"rank{r}.npz"))
+                  for r in range(world)]
+        for other in arrays[1:]:
+            for key in arrays[0].files:
+                check(np.array_equal(other[key], arrays[0][key]),
+                      f"{backend} job: ranks differ in {key}")
+    launches, runs = {}, {}
+    for rep in reports:
+        check(rep["world"] == world and rep["backend"] == backend,
+              f"rank {rep['rank']} ran in a world of {rep['world']} on "
+              f"{rep['backend']}")
+        print(f"parallel rank {rep['rank']} of {world}: entered its work "
+              f"{rep['entered_s']:.1f} s after it started, left at "
+              f"{rep['left_s']:.1f} s")
+        for name, run in rep["runs"].items():
+            by_run = launches.setdefault(name, {})
+            for kernel, n in run["launches"].items():
+                by_run[kernel] = by_run.get(kernel, 0) + n
+            span = runs.setdefault(name, [run["began"], run["ended"]])
+            span[:] = min(span[0], run["began"]), max(span[1], run["ended"])
+            busy = ("not measured" if run["busy"] is None
+                    else f"{100 * run['busy']:.1f} %")
+            print(f"parallel {name}: world {world} ({backend}), rank "
+                  f"{rep['rank']}: {run['rank_fps']:.3f} frames/s over its "
+                  f"own window ({run['rank_ms_per_frame']:.3f} ms a frame), "
+                  f"{run['launches']} launches, busy {busy} on {card} "
+                  "(information, not a claim)")
+    job_fps = {}
+    for name, (began, ended) in runs.items():
+        job_fps[name] = N_FRAMES / (ended - began)
+        print(f"parallel {name}: world {world} ({backend}): "
+              f"{job_fps[name]:.3f} frames/s of the job ({N_FRAMES} frames "
+              f"over {ended - began:.3f} s from the first rank's start to "
+              "the last rank's end, after a barrier, unprofiled, the "
+              f"reductions and gathers included) on {card} (information, "
+              "not a claim)")
+    totals = {}
+    for by_run in launches.values():
+        for kernel, n in by_run.items():
+            totals[kernel] = totals.get(kernel, 0) + n
+    for kernel in ("cell_pair_histogram", "cross_pair_histogram",
+                   "trig_sums"):
+        check(totals.get(kernel, 0) > 0,
+              f"{backend} job: {kernel} was never launched by its ranks")
+    print(f"parallel job of {world} {backend} rank(s): launches by run "
+          f"{launches}; {job_s:.1f} s with start-up")
+    return {"launches": launches, "reports": reports, "job_fps": job_fps,
+            "seconds": job_s}
+
+
 def main():
     import torch
 
@@ -7093,6 +7522,13 @@ def main():
           f"{areas['heavy']['fps']:.3f}, all {areas['all']['fps']:.3f} "
           f"frames/s on {card} (information, not a claim); the SASA phase "
           f"took {areas['seconds']:.1f} s")
+
+    # Slice 20 draws from its own generator, and runs last: its ranks'
+    # process groups live in child processes, after every other phase.
+    ranks = phase_parallel(device, np.random.default_rng(SEED + 25), card)
+    print(f"the parallel phase took {ranks['seconds']:.1f} s (its jobs "
+          + ", ".join(f"{w} rank(s) {j['seconds']:.1f} s"
+                      for w, j in ranks["jobs"].items()) + ")")
 
     def path_row(shape, timing_plan, path, plain_from=None, plain_shape=None):
         """(launches, shape, timing) of a slice-4 row, whose kernel was
@@ -7332,6 +7768,58 @@ def main():
                  f"chain-frames x {n_q:,} float32 wavevectors, exact "
                  "(single-chain S(q) path; ms a frame of all chains)",
                  polymer["trig"]))
+    # Slice 20: the three kernels the ranks of phase_parallel launch, each
+    # launch in the one row of the run and shape it ran, timed on that
+    # shape in this process; the ring step's row carries its own check's
+    # launches.
+    one, two = (ranks["jobs"][w]["launches"] for w in (1, 2))
+
+    def ran(kernel, *runs):
+        return sum(job.get(run, {}).get(kernel, 0) for job, run in runs)
+
+    rows += [
+        ("cell_pair_histogram", self_src, 1070,
+         ran("cell_pair_histogram", (one, "fused"), (two, "fused")),
+         f"{N_ATOMS} atoms, frame-sharded fused path over 1 NCCL rank and 2 "
+         "gloo ranks (launches: both jobs' fused runs)", self_timing),
+        ("cross_pair_histogram", cross_src, 1916,
+         ran("cross_pair_histogram", (one, "ring")),
+         f"{N_ATOMS} x {N_ATOMS}, exclusion (1, 1): the atom ring's one "
+         "block of one NCCL rank (timed on the Van Hove path's shape)",
+         cross_timing["vanhove"]),
+        ("cross_pair_histogram", cross_src, 1916,
+         ran("cross_pair_histogram", (two, "ring")),
+         f"{N_ATOMS // 2} x {N_ATOMS // 2} blocks, exclusion (1, 1), of the "
+         "atom ring of 2 gloo ranks on one card (timed on the cross-RDF "
+         "path's shape)", cross_timing["rdf"]),
+        ("cross_pair_histogram", cross_src, 1916,
+         ran("cross_pair_histogram", (two, "cross_ring")),
+         f"{N_ATOMS // 4} x {N_ATOMS // 4} blocks of the cross ring of the "
+         "even and odd atoms over 2 gloo ranks on one card",
+         ranks["cross_block"]),
+        ("cross_pair_histogram", cross_src, 1916,
+         ranks["ring_step"]["launches"],
+         f"{RING_STEP_ATOMS // 2} x {RING_STEP_ATOMS // 2} ring step with "
+         "global exclusion ids (0, 2500), exclusion (1, 1), straddle "
+         "fixture (launches: the ring step check's own kernel calls, not a "
+         "run of the main path)", ranks["ring_step"]),
+        ("trig_sums", trig_src, pallas_kernels.format(66),
+         ran("trig_sums", (one, "q"), (two, "q")),
+         f"{N_ATOMS} atoms x q tiles of the {n_q} float64 wavevectors over 1 "
+         "NCCL and 2 gloo ranks, exact (timed on the whole set, 2 frames a "
+         "launch)", trig_timing["exact", False]),
+    ]
+    # Every launch of the jobs' ranks stands in exactly one row above.
+    for job in (one, two):
+        for run, by_kernel in job.items():
+            for kernel, n in by_kernel.items():
+                check((run, kernel) in {
+                    ("fused", "cell_pair_histogram"),
+                    ("ring", "cross_pair_histogram"),
+                    ("cross_ring", "cross_pair_histogram"),
+                    ("q", "trig_sums")},
+                    f"phase_parallel: {n} launches of {kernel} in the "
+                    f"{run} run have no row of the kernels line")
     optional = ("launch_ms", "pairs_per_frame", "counted_per_frame",
                 "terms_per_frame", "plain_shape",
                 "option", "oracle_err", "tolerance")

@@ -34,6 +34,9 @@ end-to-end vectors, Rouse modes, the single-chain structure factor on the
 trig-sums kernel, persistence lengths, internal distances;
 :mod:`mdhelper_tpu_torch.analysis.thermodynamics`: heat capacities from
 LAMMPS and OpenMM logs, Green-Kubo and Einstein-Helfand coefficients).
+:mod:`mdhelper_tpu_torch.parallel` runs analyses over the ranks of
+:mod:`torch.distributed`, one a device: frame-sharded runs, the
+atom-sharded RDF ring and the q-sharded S(q).
 """
 
 from importlib.util import find_spec

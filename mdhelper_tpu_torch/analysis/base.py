@@ -22,9 +22,22 @@ on the last axis (``(B, N, 6)``: 0-2 positions, 3-5 velocities).
 With ``run(checkpoint=path)`` the carry and the registered store
 buffers are written to `path` after every chunk, and a later run with
 the same path resumes at the first frame not yet folded.
-The port runs on one device; there is no frame sharding, host
-pipeline or multi-host mode yet (:class:`DynamicAnalysisBase` takes
-``parallel=False`` only).
+
+:class:`ParallelAnalysisBase` (and ``parallel=True`` where an analysis
+takes it) shards the frames over the ranks of :mod:`torch.distributed`,
+one rank a device (:mod:`mdhelper_tpu_torch.parallel.mesh`): each chunk
+holds a multiple of the shard count, rank *r* reads only its contiguous
+block of it (a tail padded with the last frame under mask 0), on its
+prefetch thread, and folds it into a carry of its own.  After the stream
+every carry leaf is summed over the ranks (``_carry_reductions`` names the
+leaves reduced otherwise), per-frame stores are gathered in frame order,
+and every rank concludes to the same results.  An analysis may shard
+another axis instead (``_shard_axis``: the RDF's atoms, the S(q)'s
+wavevectors), reading every frame on every rank.  Without a process group
+``parallel=True`` runs as a world of one on the analysis's device.
+Order-dependent analyses (``_sequential``), analyses that do not declare
+that their carry and stores reduce over the ranks (``_rank_sharded``) and
+checkpoints refuse more than one rank.  There is no host pipeline.
 """
 
 import logging
@@ -38,8 +51,9 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["DynamicAnalysisBase", "Hash", "SerialAnalysisBase",
-           "carry_from_numpy", "carry_leaves", "existence_lifetimes"]
+__all__ = ["DynamicAnalysisBase", "Hash", "ParallelAnalysisBase",
+           "SerialAnalysisBase", "carry_from_numpy", "carry_leaves",
+           "existence_lifetimes"]
 
 
 def existence_lifetimes(h, device=None) -> tuple:
@@ -129,6 +143,7 @@ class _Batch:
         self.dimensions = dimensions
         self.mask = mask
         self.indices = indices
+        # frames past n_real (a rank's padded tail) have mask 0
         self.n_real = len(indices)
         self.host = None
 
@@ -243,6 +258,28 @@ class SerialAnalysisBase:
     #: host half of the chunk protocol (see the class docstring).
     _store_chunk = None
     _update = None
+    #: order-dependent physics (a lag ring, an unwrap scan): the frames
+    #: cannot be sharded, so a run over more than one rank raises.
+    _sequential = False
+    #: the carry reduces over the ranks (a sum, or ``_carry_reductions``)
+    #: and the per-frame stores are the buffers of ``_checkpoint_attrs``:
+    #: without it a run, fused or not, over more than one rank raises.
+    _rank_sharded = False
+    #: shard the frames over the ranks (``parallel=True``).
+    _parallel = False
+    #: the shard count asked for (``run(n_jobs=...)``; None: every rank).
+    _n_jobs = None
+    #: the axis sharded over the ranks: ``"frames"``, or ``"atoms"`` or
+    #: ``"replicated"`` when the analysis shards something else itself
+    #: (then every rank reads every frame).
+    _shard_axis = "frames"
+    #: carry keys not summed over the ranks: ``"max"``, or
+    #: ``"replicated"`` for a leaf every rank already holds whole.
+    _carry_reductions = {}
+    #: the ranks of the current run (None: a serial run), and the
+    #: positions in the frame selection of the frames this rank streamed.
+    _mesh = None
+    _rank_rows = ()
 
     def __init__(self, trajectory, verbose: bool = False, *, device=None):
         self._trajectory = trajectory
@@ -298,6 +335,109 @@ class SerialAnalysisBase:
             and (np.asarray(dims[:3]) > 0).all()
             and not np.allclose(dims[3:6], 90.0)
         )
+
+    # -- ranks -------------------------------------------------------------
+    def _n_shards(self) -> int:
+        """Shards of the run: with ``parallel``, ``min(n_jobs or world,
+        world, n_frames)`` (the JAX package's rule), else 1."""
+
+        if not self._parallel:
+            return 1
+        from ..parallel.mesh import get_mesh
+
+        world = get_mesh().world
+        return max(1, min(self._n_jobs or world, world, self.n_frames or 1))
+
+    def _run_mesh(self):
+        """The ranks of a run (:class:`~mdhelper_tpu_torch.parallel.mesh.
+        Mesh`), or None for a serial one."""
+
+        if not self._parallel and self._shard_axis == "frames":
+            return None
+        from ..parallel.mesh import get_mesh
+
+        return get_mesh(self._n_shards())
+
+    def _check_ranks(self, checkpoint=None) -> None:
+        """Refuse what does not run over more than one rank: an
+        order-dependent analysis (the JAX package's multi-host refusal) and
+        a checkpoint."""
+
+        mesh = self._mesh
+        if mesh is None or mesh.world == 1:
+            return
+        if self._sequential:
+            raise NotImplementedError(
+                "Order-dependent analyses (ISF ring buffers, unwrap scans) "
+                f"stream on a single host: {type(self).__name__} cannot "
+                f"shard frames over {mesh.world} ranks; run it with "
+                "parallel=False."
+            )
+        _refuse_unsharded(self, mesh.world)
+        if checkpoint is not None:
+            raise NotImplementedError(
+                "checkpoint= over more than one rank is not ported yet "
+                "(ROADMAP Queue 1, item 10b)."
+            )
+
+    def _reduce_rank_carry(self, carry):
+        """The carry reduced over the ranks: each tensor leaf summed,
+        unless ``_carry_reductions`` names another reduction for its key."""
+
+        from ..parallel.mesh import all_reduce
+
+        def leaf(key, value):
+            op = self._carry_reductions.get(key, "sum")
+            if op == "replicated" or not isinstance(value, torch.Tensor):
+                return value
+            return all_reduce(value, op)
+
+        if isinstance(carry, dict):
+            return {key: leaf(key, value) for key, value in carry.items()}
+        if isinstance(carry, (tuple, list)):
+            return type(carry)(leaf(None, value) for value in carry)
+        return leaf(None, carry)
+
+    def _finish_ranks(self, carry, rows) -> None:
+        """End of a stream: keep `carry` (reduced over the ranks in a
+        grouped run), absorb the queued stores, and in a grouped
+        frame-sharded run gather them (`rows` as
+        :meth:`_gather_rank_stores` takes them)."""
+
+        mesh = self._mesh
+        grouped = mesh is not None and mesh.grouped
+        self._carry = self._reduce_rank_carry(carry) if grouped else carry
+        self._drain_stores()
+        if grouped and self._shard_axis == "frames":
+            self._gather_rank_stores(rows)
+
+    def _gather_rank_stores(self, rows) -> None:
+        """Reassemble the per-frame buffers this rank filled (those named
+        by :meth:`_checkpoint_attrs`, rows ``[0, _store_offset)``) into
+        every frame's, in frame order, on every rank: `rows` holds the
+        positions in the frame selection of this rank's frames, in the
+        order it stored them."""
+
+        from ..parallel.mesh import all_gather_tiles
+
+        attrs = self._checkpoint_attrs()
+        if not attrs:
+            return
+        local = np.concatenate(rows) if rows else np.zeros(0, np.int64)
+        order = all_gather_tiles(torch.as_tensor(local, dtype=torch.int64))
+        order = order.numpy()
+        offset = int(getattr(self, "_store_offset", 0))
+        for attr in attrs:
+            buffer = getattr(self, attr)
+            tiles = all_gather_tiles(torch.as_tensor(buffer[:offset]))
+            if isinstance(buffer, torch.Tensor):
+                full = torch.empty_like(buffer)
+                full[torch.as_tensor(order, device=full.device)] = tiles
+            else:
+                full = np.empty_like(buffer)
+                full[order] = tiles.numpy()
+            setattr(self, attr, full)
+        self._store_offset = len(order)
 
     # -- chunk protocol ----------------------------------------------------
     def _batched_update(self, carry, batch: _Batch):
@@ -395,7 +535,15 @@ class SerialAnalysisBase:
         the consumer launches the chunk before it when
         ``_prefetch_batches`` is set, else on the calling thread before
         it yields that chunk.  Chunks arrive in frame order either
-        way."""
+        way.
+
+        Under a frame-sharded run (``_mesh`` with ``_shard_axis ==
+        "frames"``) a chunk holds a multiple of the shard count, and this
+        rank reads and yields only its block of each chunk
+        (:func:`~mdhelper_tpu_torch.parallel.mesh.process_frame_block` of
+        the chunk padded to that multiple), padded with its last frame
+        under mask 0 to the block's length; ``_rank_rows`` collects the
+        positions of its frames in the selection."""
 
         device = self._device
         atom_indices = self._effective_atom_indices()
@@ -407,14 +555,30 @@ class SerialAnalysisBase:
                 else np.asarray(self._coord_axes, dtype=np.intp))
         n_columns = self._payload_width() if axes is None else len(axes)
         chunk = max(1, self._chunk_bytes // max(n_atoms * n_columns * 4, 1))
-        blocks = [
-            self.frames[lo:lo + chunk]
-            for lo in range(self._stream_from, self.n_frames, chunk)
-        ]
+        mesh = self._mesh if self._shard_axis == "frames" else None
+        if mesh is not None:
+            chunk = max(mesh.size, chunk - chunk % mesh.size)
+        self._rank_rows = []
+        blocks = []
+        for lo in range(self._stream_from, self.n_frames, chunk):
+            block = self.frames[lo:lo + chunk]
+            if mesh is None:
+                blocks.append((block, 0))
+                continue
+            from ..parallel.mesh import process_frame_block
+
+            first, last = process_frame_block(
+                len(block) + (-len(block)) % mesh.size, mesh)
+            local = block[first:min(last, len(block))]
+            if len(local):
+                blocks.append((local, last - first - len(local)))
+                self._rank_rows.append(
+                    np.arange(lo + first, lo + first + len(local)))
         cuda = device.type == "cuda"
         copy_stream = torch.cuda.Stream(device) if cuda else None
 
-        def stage(block):
+        def stage(block_and_pad):
+            block, pad = block_and_pad
             positions, dimensions = self._read_payload(block)
             if atom_indices is not None and axes is not None:
                 # One gather of the wanted atoms' wanted columns.
@@ -430,15 +594,18 @@ class SerialAnalysisBase:
             dims = torch.from_numpy(
                 np.ascontiguousarray(dimensions, dtype=np.float64)
             )
+            mask = torch.ones(len(block) + pad, dtype=torch.float64)
+            if pad:
+                # A rank's padded tail: its last frame again, masked out.
+                pos = torch.cat((pos, pos[-1:].expand(pad, -1, -1)))
+                dims = torch.cat((dims, dims[-1:].expand(pad, -1)))
+                mask[len(block):] = 0.0
             if not cuda:
-                mask = torch.ones(len(block), dtype=torch.float64)
                 return _Batch(pos, dims, mask, block)
-            host = (pos.pin_memory(), dims.pin_memory())
+            host = (pos.pin_memory(), dims.pin_memory(), mask.pin_memory())
             with torch.cuda.stream(copy_stream):
-                pos = host[0].to(device, non_blocking=True)
-                dims = host[1].to(device, non_blocking=True)
-                mask = torch.ones(len(block), dtype=torch.float64,
-                                  device=device)
+                pos, dims, mask = (part.to(device, non_blocking=True)
+                                   for part in host)
             batch = _Batch(pos, dims, mask, block)
             # The pinned sources live as long as the batch.
             batch.host = host
@@ -609,7 +776,12 @@ class SerialAnalysisBase:
         there after every streamed chunk, and a run whose checkpoint
         exists resumes at the first frame it has not folded.  A
         store-type analysis whose buffers are not registered raises
-        `ValueError` before streaming.
+        `ValueError` before streaming; a checkpoint over more than one
+        rank raises `NotImplementedError` (not ported yet).
+
+        A rank-sharded run (see the module docstring) reduces the carry
+        and gathers the stores over the ranks before the conclusion, so
+        every rank concludes to the same results.
         """
 
         from ..core.checkpoint import load_carry, save_carry
@@ -622,6 +794,8 @@ class SerialAnalysisBase:
             self._trajectory, start=start, stop=stop, step=step,
             frames=frames,
         )
+        self._mesh = self._run_mesh()
+        self._check_ranks(checkpoint)
         self._prepare()
         carry = self._carry
         done = 0
@@ -646,8 +820,7 @@ class SerialAnalysisBase:
                 save_carry(checkpoint, carry, done, stores=(
                     self._store_state() if self._checkpointable_stores
                     else None))
-        self._carry = carry
-        self._drain_stores()
+        self._finish_ranks(carry, self._rank_rows)
         self._conclude()
         if verbose:
             logging.info(
@@ -656,21 +829,94 @@ class SerialAnalysisBase:
         return self
 
 
-class DynamicAnalysisBase(SerialAnalysisBase):
-    """The base of the analyses that the JAX package can shard over
-    frames (``parallel=True``).  The port runs them serially:
-    ``parallel=False`` is :class:`SerialAnalysisBase`, and
-    ``parallel=True`` raises `NotImplementedError` until the mesh runtime
-    is ported (ROADMAP Queue 1, item 10)."""
+def _refuse_unsharded(analysis, world: int) -> None:
+    """Raise unless `analysis` declares ``_rank_sharded``: its carry and
+    stores would not be reduced right over `world` ranks."""
+
+    if not analysis._rank_sharded:
+        raise NotImplementedError(
+            f"{type(analysis).__name__} does not reduce its carry and "
+            f"stores over {world} ranks yet (ROADMAP Queue 1, item 10b: "
+            "parallel/ for the remaining classes); run it on one rank."
+        )
+
+
+class ParallelAnalysisBase(SerialAnalysisBase):
+    """Frame-parallel analysis over the ranks of :mod:`torch.distributed`
+    (the JAX package's class, which shards over a device mesh): each
+    chunk's frames are split into contiguous blocks, one a rank, each rank
+    folds its block into its own carry, and the carries are reduced over
+    the ranks at the end (see the module docstring).  Without a process
+    group it runs as a world of one.
+
+    ``run(n_jobs=...)`` caps the shard count; ``module=`` is checked as
+    the JAX package checks it and otherwise ignored (the ranks are the
+    workers).  The JAX run's ``block=`` and ``method=`` (its worker
+    pool's options) are not taken.
+
+    A subclass runs over more than one rank once it sets
+    ``_rank_sharded = True``: its carry sums over frames (or names its
+    other reductions in ``_carry_reductions``) and its per-frame stores are
+    the buffers of ``_checkpoint_attrs``.
+    """
+
+    def __init__(self, trajectory, verbose: bool = False, *, device=None):
+        super().__init__(trajectory, verbose, device=device)
+        self._parallel = True
+        self._n_jobs = None
+
+    def run(self, start: int = None, stop: int = None, step: int = None,
+            frames=None, verbose: bool = None, n_jobs: int = None,
+            module: str = None, **kwargs):
+        """Run over the selected frames, sharded over at most `n_jobs`
+        ranks (default: every rank); `kwargs` go to
+        :meth:`SerialAnalysisBase.run` (``checkpoint=``)."""
+
+        if module not in (None, "multiprocessing", "joblib", "dask"):
+            raise ValueError(f"Invalid parallelization module: {module}.")
+        if module is not None:
+            logging.debug(
+                f"module={module!r} is accepted for API compatibility; the "
+                "frames are sharded over the torch.distributed ranks."
+            )
+        self._n_jobs = n_jobs
+        return SerialAnalysisBase.run(
+            self, start=start, stop=stop, step=step, frames=frames,
+            verbose=verbose, **kwargs,
+        )
+
+
+class DynamicAnalysisBase(ParallelAnalysisBase):
+    """Serial or frame-parallel (``parallel=True``) analysis: the JAX
+    package's switchable base.  ``parallel=False`` runs as
+    :class:`SerialAnalysisBase`, ``parallel=True`` as
+    :class:`ParallelAnalysisBase`.
+
+    A subclass takes ``parallel=True`` once it sets ``_rank_sharded =
+    True`` (see :class:`ParallelAnalysisBase`).  The port's analysis
+    classes on this base do not yet, and raise `NotImplementedError` for
+    ``parallel=True`` (ROADMAP Queue 1, item 10b)."""
 
     def __init__(self, trajectory, parallel: bool, verbose: bool = False,
                  *, device=None):
-        if parallel:
+        if parallel and not self._rank_sharded:
             raise NotImplementedError(
-                "parallel=True is not ported yet (ROADMAP Queue 1, item 10:"
-                " parallel/); run with parallel=False."
+                f"parallel=True is not ported for {type(self).__name__} yet "
+                "(ROADMAP Queue 1, item 10b: parallel/ for the remaining "
+                "classes); run with parallel=False."
             )
         super().__init__(trajectory, verbose, device=device)
+        self._parallel = bool(parallel)
+
+    def run(self, start: int = None, stop: int = None, step: int = None,
+            frames=None, verbose: bool = None, **kwargs):
+        """:meth:`ParallelAnalysisBase.run` with ``parallel=True`` (which
+        takes ``n_jobs=`` and the rest), else
+        :meth:`SerialAnalysisBase.run`."""
+
+        base = ParallelAnalysisBase if self._parallel else SerialAnalysisBase
+        return base.run(self, start=start, stop=stop, step=step,
+                        frames=frames, verbose=verbose, **kwargs)
 
     def _uniform_lag_dt(self, what: str) -> float:
         """Lag-grid spacing (ps) for the correlators' conclusions: the

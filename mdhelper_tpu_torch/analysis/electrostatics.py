@@ -223,6 +223,7 @@ class DipoleMoment(DynamicAnalysisBase):
         self._reduced = reduced
         self._neutralize = neutralize
         self._unwrap = unwrap
+        self._sequential = unwrap
         self._atom_indices = np.concatenate([g.ix for g in self._groups])
 
     def _effective_charges(self) -> list:

@@ -5,7 +5,9 @@ Fused multi-analysis streaming
 :func:`run_together` reads the trajectory ONCE and folds every chunk
 into several analyses' carries, so host reading and host-to-device
 copies are paid once instead of once per analysis.  Ported from
-:mod:`mdhelper_tpu.analysis.multi` (serial).
+:mod:`mdhelper_tpu.analysis.multi`; ``parallel=True`` shards the fused
+stream's frames over the :mod:`torch.distributed` ranks, as
+:class:`~mdhelper_tpu_torch.analysis.base.ParallelAnalysisBase` does.
 """
 
 import logging
@@ -14,7 +16,12 @@ from typing import Sequence
 
 import torch
 
-from .base import SerialAnalysisBase, carry_from_numpy
+from .base import (
+    ParallelAnalysisBase,
+    SerialAnalysisBase,
+    _refuse_unsharded,
+    carry_from_numpy,
+)
 
 __all__ = ["run_together"]
 
@@ -26,6 +33,7 @@ def run_together(
     step: int = None,
     frames=None,
     on_chunk=None,
+    parallel: bool = False,
     checkpoint: str = None,
     initial=None,
 ):
@@ -40,7 +48,20 @@ def run_together(
         Frame selection, as in ``run()``.
     on_chunk : callable, optional
         Called with each streamed batch after every analysis has folded
-        it.
+        it (under ranks: each rank's own blocks).
+    parallel : bool, optional
+        Shard the fused stream's frames over the ranks of the default
+        process group (a world of one without one): each rank reads and
+        folds its block of each chunk, and the carries and stores are
+        reduced and gathered before the conclusions, as
+        :class:`~mdhelper_tpu_torch.analysis.base.ParallelAnalysisBase`
+        does.  An order-dependent analysis (``_sequential``: the Van Hove
+        ring, Onsager, the ISF's lag ring, an unwrap scan) raises over
+        more than one rank, as does one whose carry and stores do not yet
+        reduce over the ranks (not ``_rank_sharded``: every class but the
+        RDF, `StructureFactor` and the ISF's time-FFT estimator), and so
+        do `checkpoint` and `initial`.  Per-analysis sharding knobs
+        (``shard=``) are not supported in fused mode.
     checkpoint : str, optional
         A file path, used as given: every analysis's carry, the
         registered store buffers (keys prefixed ``{i}::``) and the
@@ -73,6 +94,10 @@ def run_together(
             )
         if a._device != device:
             raise ValueError("All analyses must run on the same device.")
+        if getattr(a, "_shard", None) not in (None, False):
+            raise ValueError(
+                "Sharding knobs are not supported in fused mode."
+            )
     if initial is not None and len(initial) != len(analyses):
         raise ValueError("initial= needs one entry per analysis.")
     if initial is not None and checkpoint is not None:
@@ -90,10 +115,38 @@ def run_together(
             "payload analyses in their own fused pass."
         )
 
+    # The stream reads every atom and every column of the payload (3, or
+    # 6 for positions and velocities); each analysis gathers its atoms
+    # and, where it streams fewer when run alone, its columns.  Under
+    # parallel=True it is a ParallelAnalysisBase's, over the ranks.
+    shared = (ParallelAnalysisBase if parallel else SerialAnalysisBase)(
+        trajectory, device=device)
+    shared._setup_frames(
+        trajectory, start=start, stop=stop, step=step, frames=frames
+    )
+    shared._mesh = shared._run_mesh()
+    mesh = shared._mesh
+    if mesh is not None and mesh.world > 1:
+        for a in analyses:
+            if a._sequential:
+                raise ValueError(
+                    f"{type(a).__name__} streams order-dependent physics "
+                    "(a sequential carry) and cannot shard frames; run the "
+                    "fused pass serially or move this analysis out of it."
+                )
+        for a in analyses:
+            _refuse_unsharded(a, mesh.world)
+        if checkpoint is not None or initial is not None:
+            raise NotImplementedError(
+                "checkpoint= and initial= over more than one rank are not "
+                "ported yet (ROADMAP Queue 1, item 10b)."
+            )
+
     for i, a in enumerate(analyses):
         a._setup_frames(
             a._trajectory, start=start, stop=stop, step=step, frames=frames
         )
+        a._mesh = None
         a._prepare()
         if initial is not None and initial[i] is not None:
             a._carry = carry_from_numpy(a, initial[i])
@@ -108,14 +161,7 @@ def run_together(
             None if axes is None else list(axes),
         ))
 
-    # The stream reads every atom and every column of the payload (3, or
-    # 6 for positions and velocities); each analysis gathers its atoms
-    # and, where it streams fewer when run alone, its columns.
-    shared = SerialAnalysisBase(trajectory, device=device)
     shared._payload = payloads.pop()
-    shared._setup_frames(
-        trajectory, start=start, stop=stop, step=step, frames=frames
-    )
     shared._chunk_bytes = min(a._chunk_bytes for a in analyses)
     # The shared stream prefetches unless an analysis turned it off.
     shared._prefetch_batches = all(a._prefetch_batches for a in analyses)
@@ -166,7 +212,8 @@ def run_together(
                        stores=merged or None)
 
     for a, carry in zip(analyses, carries):
-        a._carry = carry
-        a._drain_stores()
+        # Each analysis's carry and stores reduce as its own run()'s do.
+        a._mesh = mesh
+        a._finish_ranks(carry, shared._rank_rows)
         a._conclude()
     return analyses

@@ -208,6 +208,7 @@ class _PolymerAnalysisBase(DynamicAnalysisBase):
                 )
 
         self._unwrap = unwrap
+        self._sequential = unwrap
         # Each group's columns of the streamed chunk, and its residue ids.
         self._atom_indices = np.concatenate([g.ix for g in self._groups])
         self._slices, self._segs = [], []

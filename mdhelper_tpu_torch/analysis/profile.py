@@ -461,6 +461,8 @@ class DensityProfile(DynamicAnalysisBase):
             elif not 0 <= recenter_group < self._n_groups:
                 raise ValueError("Invalid group index passed to 'recenter'.")
             self._recenter = (int(recenter_group), recenter_position)
+            # The recentering unwrap folds frames in order.
+            self._sequential = not parallel
 
         self._atom_indices = np.concatenate([g.ix for g in self._groups])
         self._Ns = [

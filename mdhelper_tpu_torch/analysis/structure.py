@@ -96,6 +96,7 @@ from ..ops.histogram import (
     radial_histogram_frame,
 )
 from ..ops.mesh_scattering import mesh_plan, mesh_trig_sums
+from ..parallel.mesh import fetch_global
 from .base import SerialAnalysisBase, _check_even_frame_spacing, carry_leaves
 
 __all__ = [
@@ -649,11 +650,24 @@ class RadialDistributionFunction(_CellPlanned):
     n_batches : `int`, keyword-only, optional
         Accepted for compatibility and ignored (with a warning): the cell
         kernels tile the pair sweep themselves.
+    parallel : `bool`, keyword-only, default False
+        Shard the frames over the ranks of :mod:`torch.distributed` (see
+        :mod:`mdhelper_tpu_torch.analysis.base`; a world of one without a
+        process group).
+    shard : `str`, keyword-only, optional
+        ``None``, ``"frames"`` (``parallel=True``) or ``"atoms"``: the
+        atom-sharded ring (:mod:`mdhelper_tpu_torch.parallel.ring`), every
+        rank reading every frame and counting its block of group 1 against
+        each rotating block of group 2 (of the group itself for a self
+        RDF), on the cross cell-list kernel with global exclusion ids.  It
+        needs ``groupings="atoms"`` and an orthorhombic box.
     capacity_sigmas : `float`, default 4.0
         Cell-capacity headroom in Poisson sigmas; :meth:`run` raises it
-        by 2 and re-runs after a capacity overflow (twice at most).
+        by 2 and re-runs after a capacity overflow (twice at most; over
+        ranks the overflow is the maximum over them, so every rank
+        re-runs together).
     device : optional
-        Device the chunks are folded on (default: the first CUDA
+        Device the chunks are folded on (default: the current CUDA
         device, which must exist; ``"cpu"`` for the CPU).
 
     The post-hoc methods :meth:`calculate_coordination_numbers`,
@@ -661,12 +675,26 @@ class RadialDistributionFunction(_CellPlanned):
     the RDF whatever the `norm` of the run.
     """
 
+    _rank_sharded = True
+
     def __init__(self, ag1, ag2=None, n_bins: int = 201,
                  range: tuple = (0.0, 15.0), *, drop_axis=None,
                  norm: str = "rdf", exclusion: tuple = None,
                  groupings="atoms", reduced: bool = False,
-                 n_batches: int = None, capacity_sigmas: float = 4.0,
+                 n_batches: int = None, parallel: bool = False,
+                 shard: str = None, capacity_sigmas: float = 4.0,
                  verbose: bool = True, device=None):
+        if shard not in {None, "frames", "atoms"}:
+            raise ValueError(
+                "Invalid shard. Valid values: None, 'frames', 'atoms'."
+            )
+        if shard == "atoms" and any(
+                g != "atoms" for g in
+                ([groupings] if isinstance(groupings, str) else groupings)):
+            raise ValueError(
+                "shard='atoms' requires groupings='atoms' (center-"
+                "of-mass reduction would cross atom shards)."
+            )
         self._groupings = _validate_groupings(groupings)
         same_atoms = ag2 is None or ag2 == ag1
         self._cross = (not same_atoms
@@ -675,6 +703,11 @@ class RadialDistributionFunction(_CellPlanned):
         self.ag2 = ag1 if same_atoms else ag2
         self.universe = ag1.universe
         super().__init__(self.universe.trajectory, verbose, device=device)
+        self._shard = shard
+        self._parallel = bool(parallel) or shard == "frames"
+        if shard == "atoms":
+            # Every rank reads every frame; the ring shards the atoms.
+            self._shard_axis = "replicated"
         self._require_box("RadialDistributionFunction")
         self._range = _check_range(range)
         self._drop_axis = (ord(drop_axis) - ord("x")
@@ -682,6 +715,10 @@ class RadialDistributionFunction(_CellPlanned):
         if self._drop_axis not in {0, 1, 2, None}:
             raise ValueError("Invalid axis to drop.")
         self._setup_periodic_box()
+        if self._triclinic and shard == "atoms":
+            raise ValueError(
+                "shard='atoms' currently supports orthorhombic boxes only."
+            )
         if self._drop_axis is not None:
             if self._triclinic:
                 raise ValueError("drop_axis (2-D analysis) requires an "
@@ -718,6 +755,13 @@ class RadialDistributionFunction(_CellPlanned):
         _, self._n2 = _group_segment_ids(self.ag2, self._groupings[1])
         self._plan_atoms = (self._n1, self._n2 if self._cross else None)
 
+    def _n_shards(self) -> int:
+        if self._shard == "atoms":
+            from ..parallel.mesh import get_mesh
+
+            return max(1, min(get_mesh().world, self.ag1.n_atoms))
+        return super()._n_shards()
+
     def _prepare(self) -> None:
         self.results.edges = np.linspace(*self._range, self._n_bins + 1)
         self.results.bins = (
@@ -737,6 +781,12 @@ class RadialDistributionFunction(_CellPlanned):
                 (), _NO_EXCESS, dtype=torch.int32, device=device
             ),
         }
+        # Over ranks the occupancy excess reduces by its maximum, so an
+        # overflow on one rank re-plans every rank (run()).
+        self._carry_reductions = {"max_occ": "max"}
+        if self._shard == "atoms":
+            self._prepare_ring()
+            return
         plan = self._searched_cell_plan()
         r_min, r_max = self._range
         n_bins = self._n_bins
@@ -809,6 +859,64 @@ class RadialDistributionFunction(_CellPlanned):
                 "volume": carry["volume"] + volume,
                 "max_occ": torch.maximum(carry["max_occ"], excess),
             }
+
+        self._update = update
+
+    def _prepare_ring(self) -> None:
+        """The atom-sharded update (JAX ``_prepare_ring``): every rank
+        streams every frame's ``[group 1 | group 2]`` columns (one copy
+        for a self RDF), and the rank of shard ``k`` counts group-1 atoms
+        ``[k s_1, (k + 1) s_1)`` against each block of group 2 the ring
+        passes it (:func:`mdhelper_tpu_torch.parallel.ring._ring_counts`:
+        the cross kernel with global exclusion ids on the card, the plain
+        dense block on the CPU), all of a chunk's frames at once.  Every
+        rank sums the volumes of all frames itself, so that leaf is not
+        summed over the ranks."""
+
+        from ..parallel.ring import (
+            _RingStep, _pad_rows, _ring_counts, _shard_blocks,
+        )
+
+        mesh = self._mesh
+        cross = self.ag2 is not self.ag1
+        n1 = self.ag1.n_atoms
+        n2 = self.ag2.n_atoms if cross else n1
+        shard_i, _ = _shard_blocks(n1, mesh.size)
+        shard_j, padded_j = _shard_blocks(n2, mesh.size)
+        r_min, r_max = self._range
+        step = _RingStep(
+            r_min=r_min, r_max=r_max, n_bins=self._n_bins,
+            exclusion=self._exclusion, precision="exact",
+            shards=(shard_i, shard_j),
+            extents=_plan_extents(self.universe.dimensions, False),
+            axes=self._axes, capacity_sigmas=self._capacity_sigmas,
+        )
+        self._carry_reductions = {"max_occ": "max", "volume": "replicated"}
+        drop_axis = self._drop_axis
+        index = mesh.index
+
+        def update(carry, positions, dimensions, mask):
+            box, frame_volume = _frame_boxes(dimensions, False, drop_axis)
+            carry = dict(carry, volume=carry["volume"]
+                         + (frame_volume * mask).sum())
+            if index is None:
+                return carry
+            lo = index * shard_i
+            pos_i = positions[:, lo:min(lo + shard_i, n1)]
+            pos_j = positions[:, n1:] if cross else positions
+            block = _pad_rows(pos_j, padded_j)[
+                :, index * shard_j:(index + 1) * shard_j]
+            counts, excess = _ring_counts(
+                pos_i, block, box, mesh, step, i_offset=lo,
+                shard_j=shard_j, n_real_j=n2)
+            valid = mask > 0
+            # where, not a product: a NaN-poisoned frame times 0 is NaN.
+            counts = torch.where(valid[:, None], counts, 0.0)
+            excess = torch.where(valid, excess, _NO_EXCESS).max()
+            return dict(
+                carry, counts=carry["counts"] + counts.sum(dim=0),
+                max_occ=torch.maximum(carry["max_occ"],
+                                      excess.to(torch.int32)))
 
         self._update = update
 
@@ -1043,6 +1151,18 @@ class StructureFactor(SerialAnalysisBase):
         off it).
     sort, unique : `bool`, default True
         Sort by wavenumber / average equal-magnitude wavevectors.
+    parallel : `bool`, default False
+        Shard the frames over the ranks of :mod:`torch.distributed` (see
+        :mod:`mdhelper_tpu_torch.analysis.base`; a world of one without a
+        process group).
+    shard : `str`, optional
+        ``None``, ``"frames"`` (``parallel=True``) or ``"q"``: every rank
+        reads every frame and sums the direct trig sums of its own
+        contiguous tile of the wavevectors (the tiles may differ by one in
+        length), and the tiles are gathered in order at the end
+        (:func:`~mdhelper_tpu_torch.parallel.mesh.all_gather_tiles`).
+        ``"q"`` takes the direct sums: ``method="factor"`` and ``"mesh"``
+        raise.
     precision : `str`, default ``"auto"``
         ``"exact"`` (double-float phases; what ``"auto"`` means for the
         port's float32 streams) or ``"fast"`` (float32 phases).
@@ -1061,21 +1181,38 @@ class StructureFactor(SerialAnalysisBase):
         indices, in the box given at construction; one group with
         ``mode=None`` only.
     device : optional
-        Device the chunks are folded on (default: the first CUDA
+        Device the chunks are folded on (default: the current CUDA
         device, which must exist; ``"cpu"`` for the CPU).
     """
+
+    _rank_sharded = True
 
     def __init__(self, groups, groupings="atoms", *, mode: str = None,
                  form: str = "exp", dimensions=None, n_points: int = 32,
                  n_surfaces: int = None, n_surface_points: int = 8,
                  q_max=None, wavevectors=None, sort: bool = True,
-                 unique: bool = True, precision: str = "auto",
+                 unique: bool = True, parallel: bool = False,
+                 shard: str = None, precision: str = "auto",
                  method: str = "auto", verbose: bool = True, device=None):
         self._groups = (
             [groups] if hasattr(groups, "universe") else list(groups)
         )
         self.universe = self._groups[0].universe
+        if shard not in {None, "frames", "q"}:
+            raise ValueError(
+                "Invalid shard. Valid values: None, 'frames', 'q'."
+            )
+        if shard == "q" and method in {"mesh", "factor"}:
+            raise ValueError(
+                "shard='q' applies to the direct wavevector sweep; "
+                f"method='{method}' distributes over frames instead."
+            )
         super().__init__(self.universe.trajectory, verbose, device=device)
+        self._shard = shard
+        self._parallel = bool(parallel) or shard == "frames"
+        if shard == "q":
+            # Every rank reads every frame; the wavevectors are sharded.
+            self._shard_axis = "replicated"
         self._n_groups = len(self._groups)
         self._groupings = groupings = _groupings_per_group(
             groupings, self._n_groups, {"atoms", "residues"})
@@ -1162,7 +1299,8 @@ class StructureFactor(SerialAnalysisBase):
         through the direct ones (``self._factor_split``)."""
 
         self._factor_split = None
-        if self._method not in {"auto", "factor"} or self._dimensions is None:
+        if (self._method not in {"auto", "factor"} or self._shard == "q"
+                or self._dimensions is None):
             if self._method == "factor" and self._dimensions is None:
                 raise ValueError("method='factor' requires box dimensions.")
             return None
@@ -1236,13 +1374,14 @@ class StructureFactor(SerialAnalysisBase):
 
         return sums
 
-    def _group_sums_fn(self):
+    def _group_sums_fn(self, wavevectors=None):
         """``sums(positions, precision=None, workspace=None) -> (cos,
         sin)``: one group's float32 ``(B, N_q)`` trig sums of any ``(B,
         n, 3)`` batch (a chunk's frames, or a frame's displacements over
         its lags), in `precision` (default: the analysis's).  `workspace`
         (:func:`~mdhelper_tpu_torch.ops.cuda_kernels.trig_workspace`)
-        holds the partial sums of the direct launches."""
+        holds the partial sums of the direct launches.  `wavevectors`
+        (direct sums only: a rank's q tile) replaces the analysis's."""
 
         if self._method == "mesh":
             return self._mesh_sums_fn()
@@ -1250,7 +1389,9 @@ class StructureFactor(SerialAnalysisBase):
         default = self._precision
         plan = self._factor
         if plan is None:
-            qs = torch.as_tensor(self._wavevectors, device=device)
+            qs = torch.as_tensor(
+                self._wavevectors if wavevectors is None else wavevectors,
+                device=device)
 
             def direct(pos, precision=None, workspace=None):
                 return trig_sums(qs, pos, precision=precision or default,
@@ -1305,13 +1446,23 @@ class StructureFactor(SerialAnalysisBase):
                 "method='mesh' currently supports a single group with "
                 "mode=None."
             )
+        wavevectors = self._wavevectors
+        if self._shard == "q":
+            # This rank's contiguous tile of the wavevectors (none for a
+            # rank without a shard); _reduce_rank_carry gathers them.
+            mesh = self._mesh
+            tiles = np.array_split(np.arange(len(wavevectors)), mesh.size)
+            tile = (tiles[mesh.index] if mesh.index is not None
+                    else np.arange(0))
+            wavevectors = wavevectors[tile]
         self._carry = {
             "ssf": torch.zeros(
-                (len(self.results.pairs), len(self._wavenumbers)),
+                (len(self.results.pairs), len(wavevectors)),
                 dtype=torch.float64, device=self._device,
             )
         }
-        group_sums = self._group_sums_fn()
+        group_sums = self._group_sums_fn(wavevectors)
+        n_q = len(wavevectors)
         entities = _entity_positions_fn(self._groups, self._groupings,
                                         self._device)
         slices = self._entity_slices
@@ -1320,6 +1471,8 @@ class StructureFactor(SerialAnalysisBase):
 
         def update(carry, positions, dimensions, mask):
             del dimensions
+            if not n_q:
+                return carry
             positions = entities(positions)
             sums = [group_sums(positions[:, lo:lo + n]) for lo, n in slices]
             cos = torch.stack([c for c, _ in sums], dim=1)  # (B, G, N_q)
@@ -1347,8 +1500,27 @@ class StructureFactor(SerialAnalysisBase):
 
         self._update = update
 
+    def _n_shards(self) -> int:
+        if self._shard == "q":
+            from ..parallel.mesh import get_mesh
+
+            return max(1, min(get_mesh().world, len(self._wavevectors)))
+        return super()._n_shards()
+
+    def _reduce_rank_carry(self, carry):
+        """Over ranks: a q-sharded run's carry stays this rank's q tile
+        (every rank summed every frame itself; :meth:`_conclude` gathers
+        the tiles), else the frame sums are summed (the base's)."""
+
+        if self._shard == "q":
+            return carry
+        return super()._reduce_rank_carry(carry)
+
     def _conclude(self) -> None:
-        ssf = self._carry["ssf"].cpu().numpy() / (self.n_frames * self._N)
+        # The JAX package's fetch_global: a q-sharded run's tiles in order.
+        ssf = fetch_global(self._carry["ssf"],
+                           self._mesh if self._shard == "q" else None,
+                           axis=1) / (self.n_frames * self._N)
         if self._unique:
             ssf = group_mean_last_axis(
                 ssf, self._q_group, len(self.results.wavenumbers)
@@ -1662,8 +1834,15 @@ class IntermediateScatteringFunction(StructureFactor):
     fft : `bool`, optional
         The time-FFT estimator: ``None`` means it for coherent-only runs;
         ``True`` with ``incoherent=True`` raises.
-    parallel, shard
-        Not ported (``NotImplementedError``).
+    parallel : `bool`, default False
+        Shard the frames over the ranks (the time-FFT estimator: each rank
+        stores rho(q, t) of its frames, and the stores are gathered in
+        frame order before the conclusion).  The lag ring is
+        order-dependent (``_sequential``) and raises over more than one
+        rank; over one it runs.
+    shard : optional
+        ``None`` only: any other value raises `ValueError`, as in the JAX
+        package (the JAX class takes it through ``**kwargs``).
 
     Results: ``pairs``, ``times`` (ps), ``wavenumbers``, ``cisf`` of shape
     ``(N_lags, N_pairs, N_q)`` and, with ``incoherent=True``, ``iisf`` of
@@ -1685,13 +1864,14 @@ class IntermediateScatteringFunction(StructureFactor):
             n_points=n_points, n_surfaces=n_surfaces,
             n_surface_points=n_surface_points, q_max=q_max,
             wavevectors=wavevectors, sort=sort, unique=unique,
-            precision=precision, method=method, verbose=verbose,
-            device=device,
+            parallel=parallel, shard=shard, precision=precision,
+            method=method, verbose=verbose, device=device,
         )
-        if parallel or shard is not None:
-            raise NotImplementedError(
-                "parallel= and shard= are not ported (the lag ring is "
-                "sequential, and the port runs on one device)."
+        if shard is not None:
+            # The JAX message: neither frame- nor q-sharding applies.
+            raise ValueError(
+                "IntermediateScatteringFunction does not support "
+                "shard= (the lag ring buffer is sequential)."
             )
         self._dt = strip_unit(_frame_time_step(dt, self._trajectory),
                               "picosecond")[0]
@@ -1706,6 +1886,9 @@ class IntermediateScatteringFunction(StructureFactor):
                 "phase history)."
             )
         self._time_fft = not incoherent if fft is None else bool(fft)
+        # The lag ring folds frames in order; the time FFT stores them.
+        self._sequential = not self._time_fft
+        self._rank_sharded = self._time_fft
 
     def _prepare(self) -> None:
         lag_values, n_lags = _resolve_lag_values(
@@ -2077,6 +2260,9 @@ class VanHoveFunction(_CellPlanned):
         Device the chunks are folded on (default: the first CUDA
         device, which must exist; ``"cpu"`` for the CPU).
     """
+
+    #: the ring of past frames folds them in order.
+    _sequential = True
 
     def __init__(self, group, n_bins: int = 201,
                  range: tuple = (0.0, 15.0), *, grouping: str = "atoms",

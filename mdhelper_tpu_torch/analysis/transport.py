@@ -355,6 +355,9 @@ class Onsager(SerialAnalysisBase):
     def _checkpoint_attrs(self) -> tuple:
         return ("_positions",)
 
+    #: the unwrap and the stored positions follow the frames in order.
+    _sequential = True
+
     def __init__(self, groups, groupings: Union[str, tuple] = "atoms",
                  temperature: Union[float, Q_] = 300, *, charges=None,
                  dimensions=None, dt=None, n_blocks: int = 1,

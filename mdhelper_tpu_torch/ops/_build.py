@@ -7,15 +7,19 @@ process per source, all started together -- and the objects are linked
 into one shared library with a plain C interface under
 ``mdhelper_tpu_torch/_build/`` (ignored by git), named by a hash of the
 sources and flags so an edited source rebuilds, and loaded with
-:mod:`ctypes`.  Pointers and the CUDA stream pass as ``c_void_p``; each C
-entry point returns ``cudaGetLastError()`` and :func:`check` raises on a
-non-zero value.
+:mod:`ctypes`.  The build holds an exclusive ``fcntl.flock`` on the
+build directory, so processes that start together (the ranks of one
+job) build the library once and all load the same file.  Pointers and
+the CUDA stream pass as ``c_void_p``; each C entry point returns
+``cudaGetLastError()`` and :func:`check` raises on a non-zero value.
 
 Only the machine with the card builds: there is no fallback, and a
 missing ``nvcc`` raises.
 """
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -118,8 +122,8 @@ def load_library() -> ctypes.CDLL:
     lib_path = _BUILD / f"libmdhelper_kernels-{digest.hexdigest()[:16]}.so"
     log_path = lib_path.with_suffix(".log")
     start = time.perf_counter()
-    if not lib_path.exists():
-        _compile_and_link(sources, lib_path, log_path)
+    _build_once(lib_path, lambda: _compile_and_link(sources, lib_path,
+                                                    log_path))
     _info["seconds"] = time.perf_counter() - start
     _info["path"] = str(lib_path)
     _info["log"] = log_path.read_text() if log_path.exists() else ""
@@ -129,6 +133,30 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+@contextlib.contextmanager
+def _locked(directory):
+    """Hold an exclusive ``flock`` on `directory` (waiting for it)."""
+
+    fd = os.open(directory, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)  # closing the descriptor releases the lock
+
+
+def _build_once(lib_path, build) -> None:
+    """Call ``build()`` unless `lib_path` exists, under the lock of its
+    directory: of processes that arrive together, the first builds and
+    the others wait, then find the file."""
+
+    if lib_path.exists():
+        return
+    with _locked(lib_path.parent):
+        if not lib_path.exists():
+            build()
 
 
 def _compile_and_link(sources, lib_path, log_path) -> None:

@@ -677,7 +677,7 @@ def _triclinic_wrap_cells(positions, box, n_cells_dim):
 
 
 def _slot_table(positions, n_cells_dim, capacity, cell_size, ex=None,
-                cell_xyz=None, ex_j=None):
+                cell_xyz=None, ex_j=None, id_offset=0):
     """Batched cell build: cell ids, a stable ``argsort``,
     ``searchsorted`` cell starts and a padded gather.
 
@@ -690,7 +690,9 @@ def _slot_table(positions, n_cells_dim, capacity, cell_size, ex=None,
     the ``(B, n_cells)`` int32 occupancy and the ``(B,)`` maximum
     occupancy.  With ``ex_j`` the table has a fifth column, the second
     tile id ``index // ex_j`` of an asymmetric exclusion (the kernel
-    takes it as a side table of its own)."""
+    takes it as a side table of its own).  With `id_offset` the ids are
+    those of ``index + id_offset``: a block of a larger group (a shard of
+    the atom-sharded ring) keeps the group's exclusion tiles."""
 
     nx, ny, nz = n_cells_dim
     n_cells = nx * ny * nz
@@ -710,7 +712,7 @@ def _slot_table(positions, n_cells_dim, capacity, cell_size, ex=None,
     ends = torch.searchsorted(sorted_cid, cells, side="right")
     occupancy = (ends - starts).to(torch.int32)
 
-    atom = torch.arange(n, device=device)
+    atom = torch.arange(id_offset, id_offset + n, device=device)
     columns = [positions]
     for e in (ex, ex_j) if ex_j is not None else (ex,):
         ids = atom if e is None else atom // int(e)
@@ -725,22 +727,25 @@ def _slot_table(positions, n_cells_dim, capacity, cell_size, ex=None,
     return table.contiguous(), occupancy, occupancy.amax(dim=1)
 
 
-def _tables(positions, box, dims, capacity, ex=None, ex_j=None):
+def _tables(positions, box, dims, capacity, ex=None, ex_j=None,
+            id_offset=0):
     """Slot table, occupancy and maximum occupancy of one group: cells
     of ``box / dims`` for orthorhombic ``(B, 3)`` boxes, the fractional
     fold and grid of :func:`_triclinic_wrap_cells` for ``(B, 3, 3)``
     box matrices.  A kernel and its plain version both take their slot
     tables from here, so they bin the same float32 coordinates and agree
-    as integers whatever the cell assignment."""
+    as integers whatever the cell assignment.  `id_offset` as
+    :func:`_slot_table`'s."""
 
     if box.ndim == 3:
         wrapped, cell_xyz = _triclinic_wrap_cells(positions, box, dims)
         return _slot_table(wrapped, dims, capacity, None, ex=ex,
-                           cell_xyz=cell_xyz, ex_j=ex_j)
+                           cell_xyz=cell_xyz, ex_j=ex_j,
+                           id_offset=id_offset)
     cell_size = box / torch.tensor(dims, dtype=torch.float32,
                                    device=box.device)
     return _slot_table(positions, dims, capacity, cell_size, ex=ex,
-                       ex_j=ex_j)
+                       ex_j=ex_j, id_offset=id_offset)
 
 
 def _bin_index(d2, consts, n_bins):
@@ -1580,12 +1585,12 @@ _new_counts(triclinic_cell_pair_histogram, ("block", "tri_pp"), _OPTIONS)
 
 def _cross_inputs(positions1, positions2, box, n_cells_dim, capacity1,
                   capacity2, exclusion, triclinic, reach=None, n_bins=0,
-                  mode=None, *, axes=None):
+                  mode=None, *, axes=None, id_offsets=(0, 0)):
     """What the cross kernel and its plain version share: the checked box
     and 3-D grid, the reach and the sweep mode, both groups' slot tables
-    (exclusion ids in column 4) with their occupancies and maxima, and
-    the mode's full table (int64).  ``mode`` as in
-    :func:`_self_inputs`."""
+    (exclusion ids in column 4, of each group's indices plus its entry of
+    `id_offsets`) with their occupancies and maxima, and the mode's full
+    table (int64).  ``mode`` as in :func:`_self_inputs`."""
 
     raw_box = box
     positions1, box, dims = _check_inputs(positions1, box, n_cells_dim,
@@ -1597,10 +1602,12 @@ def _cross_inputs(positions1, positions2, box, n_cells_dim, capacity1,
                                      triclinic, axes)
     if positions2.shape[0] != positions1.shape[0]:
         raise ValueError("Both groups need the same number of frames.")
-    if max(positions1.shape[1], positions2.shape[1]) >= _MAX_EXACT_ID:
+    o1, o2 = (int(o) for o in id_offsets)
+    if min(o1, o2) < 0 or max(o1 + positions1.shape[1],
+                              o2 + positions2.shape[1]) > _MAX_EXACT_ID:
         raise ValueError(
             "The cross sweep stores atom ids as float32, exact only for "
-            f"groups under {_MAX_EXACT_ID} atoms."
+            f"ids from 0 to {_MAX_EXACT_ID - 1}."
         )
     ex = (None, None) if exclusion is None else tuple(
         int(e) for e in exclusion
@@ -1610,8 +1617,10 @@ def _cross_inputs(positions1, positions2, box, n_cells_dim, capacity1,
     _check_launchable(capacity1, capacity2)
     _, reach, _ = _grid3(n_cells_dim, reach, axes, triclinic)
     mode = mode or _sweep_mode(dims, reach, triclinic, cross=True)
-    tables1 = _tables(positions1, box, dims, capacity1, ex=ex[0])
-    tables2 = _tables(positions2, box, dims, capacity2, ex=ex[1])
+    tables1 = _tables(positions1, box, dims, capacity1, ex=ex[0],
+                      id_offset=o1)
+    tables2 = _tables(positions2, box, dims, capacity2, ex=ex[1],
+                      id_offset=o2)
     nbr = _neighbors(dims, reach, mode, True, box.device)
     return box, dims, reach, mode, tables1, tables2, nbr
 
@@ -1619,12 +1628,13 @@ def _cross_inputs(positions1, positions2, box, n_cells_dim, capacity1,
 def _cross_reference(positions1, positions2, box, r_max, n_cells_dim,
                      capacity1, capacity2, n_bins, exclusion, triclinic,
                      reach=None, mode=None, *, axes=None, r_min=0.0,
-                     precision="exact"):
+                     precision="exact", id_offsets=(0, 0)):
     _check_binning(r_max, r_min, precision)
     (box, dims, reach, mode, (t1, occ1, max1), (t2, occ2, max2),
      nbr) = _cross_inputs(
         positions1, positions2, box, n_cells_dim, capacity1, capacity2,
         exclusion, triclinic, reach, n_bins, mode, axes=axes,
+        id_offsets=id_offsets,
     )
     counts = _sweep_reference(
         t1, occ1, capacity1, t2, occ2, capacity2, nbr, r_max=r_max,
@@ -1638,12 +1648,13 @@ def _cross_reference(positions1, positions2, box, r_max, n_cells_dim,
 def _cross_kernel(positions1, positions2, box, r_max, n_cells_dim,
                   capacity1, capacity2, n_bins, exclusion, triclinic,
                   reach=None, mode=None, *, axes=None, r_min=0.0,
-                  precision="exact"):
+                  precision="exact", id_offsets=(0, 0)):
     _check_binning(r_max, r_min, precision)
     (box, dims, reach, mode, (t1, occ1, max1), (t2, occ2, max2),
      nbr) = _cross_inputs(
         positions1, positions2, box, n_cells_dim, capacity1, capacity2,
         exclusion, triclinic, reach, n_bins, mode, axes=axes,
+        id_offsets=id_offsets,
     )
     device = box.device
     b = box.shape[0]
@@ -1665,7 +1676,7 @@ def _cross_kernel(positions1, positions2, box, r_max, n_cells_dim,
 def cross_pair_histogram_reference(
     positions1, positions2, *, box, r_max, n_cells_dim, capacity1,
     capacity2, n_bins, exclusion=None, reach=None, r_min=0.0, axes=None,
-    precision="exact",
+    precision="exact", id_offsets=(0, 0),
 ):
     """Plain-torch version of the cross kernel: the same two slot
     tables, the same sweep and masks, the same binning; integer counts
@@ -1675,13 +1686,14 @@ def cross_pair_histogram_reference(
     return _cross_reference(positions1, positions2, box, r_max,
                             n_cells_dim, capacity1, capacity2, n_bins,
                             exclusion, triclinic=False, reach=reach,
-                            axes=axes, r_min=r_min, precision=precision)
+                            axes=axes, r_min=r_min, precision=precision,
+                            id_offsets=id_offsets)
 
 
 def cross_pair_histogram(
     positions1, positions2, *, box, r_max, n_cells_dim, capacity1,
     capacity2, n_bins, exclusion=None, reach=None, r_min=0.0, axes=None,
-    precision="exact",
+    precision="exact", id_offsets=(0, 0),
 ):
     r"""Cross-group pair-distance histogram on ``[r_min, r_max]``
     through the cell list: every (group-1, group-2) pair of two groups
@@ -1716,6 +1728,11 @@ def cross_pair_histogram(
         ``i == j``, as the Van Hove distinct part needs).
     r_min, axes, precision
         As :func:`cell_pair_histogram`.
+    id_offsets : `tuple`, optional
+        ``(o1, o2)``: the exclusion takes atom ``i`` of group 1 as index
+        ``o1 + i`` and atom ``j`` of group 2 as ``o2 + j`` (blocks of
+        larger groups, as the atom-sharded ring passes them; the ids
+        stay under 2^24).
 
     Returns
     -------
@@ -1736,7 +1753,8 @@ def cross_pair_histogram(
     """
 
     positions1 = torch.as_tensor(positions1)
-    options = dict(reach=reach, r_min=r_min, axes=axes, precision=precision)
+    options = dict(reach=reach, r_min=r_min, axes=axes, precision=precision,
+                   id_offsets=id_offsets)
     if _on_cpu(positions1, "cross_pair_histogram"):
         return cross_pair_histogram_reference(
             positions1, positions2, box=box, r_max=r_max,

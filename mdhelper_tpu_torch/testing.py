@@ -8,10 +8,16 @@ cell-list kernels are held against, a float32 model of the tri_pp
 kernels' candidate screen, a trajectory of 3-site water molecules
 (optionally with SPC/E charges), one of linear polymer chains, one of a
 molecular ionic liquid, and the float32 error margin of bond angles and
-dihedrals.
+dihedrals; and :func:`spawn_ranks`, which runs a script as the ranks of
+a :mod:`torch.distributed` job.
 """
 
 import itertools
+import os
+import subprocess
+import sys
+import textwrap
+import time
 
 import numpy as np
 
@@ -30,6 +36,7 @@ __all__ = [
     "fma32",
     "ionic_liquid",
     "polymer_chains",
+    "spawn_ranks",
     "tri27_screen",
     "water_system",
 ]
@@ -460,3 +467,77 @@ def float32_angle_margin(kind, raw, folded, values, fold_eps):
                + (2.0 * u + eps[..., 1] + eps[..., 2]) / s2 + 8.0 * u)
     ulps = np.spacing(np.abs(np.asarray(values, np.float32)))
     return np.degrees(rad) + 8.0 * ulps.astype(np.float64)
+
+
+#: what every rank of :func:`spawn_ranks` runs before the caller's code.
+_RANK_PRELUDE = """
+import os
+import sys
+
+import torch
+
+torch.set_num_threads(1)
+sys.path.insert(0, {root!r})
+from mdhelper_tpu_torch.parallel.mesh import initialize_distributed
+
+RANK, WORLD, WORKDIR = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+initialize_distributed("file://" + os.path.join(WORKDIR, "rendezvous"),
+                       WORLD, RANK, backend={backend!r},
+                       timeout={collective_timeout})
+"""
+
+_RANK_EPILOGUE = """
+torch.distributed.destroy_process_group()
+"""
+
+
+def spawn_ranks(code, world, workdir, *, backend="gloo", timeout=120,
+                collective_timeout=60):
+    """Run `code` (Python source) as the `world` ranks of one
+    :mod:`torch.distributed` job, each a new process of this interpreter
+    (spawned, never forked) with one CPU thread, joined through a
+    ``file://`` rendezvous in `workdir` (which must exist; the rendezvous
+    file must not) on `backend`, with `collective_timeout` seconds for a
+    collective.  `code` sees ``RANK``, ``WORLD`` and ``WORKDIR``.
+
+    Returns each rank's standard output (rank order).  Raises
+    `RuntimeError` with every rank's output when a rank exits non-zero
+    or the job outlives `timeout` seconds (every rank is then killed)."""
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(workdir, f"ranks_{os.getpid()}_{id(code)}.py")
+    with open(script, "w") as f:
+        f.write(_RANK_PRELUDE.format(root=root, backend=backend,
+                                     collective_timeout=collective_timeout))
+        f.write(textwrap.dedent(code))
+        f.write(_RANK_EPILOGUE)
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    procs = [
+        subprocess.Popen(
+            [sys.executable, script, str(rank), str(world), str(workdir)],
+            env=env, cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+        )
+        for rank in range(world)
+    ]
+    outputs, failed = [], False
+    deadline = time.monotonic() + timeout
+    try:
+        for proc in procs:
+            outputs.append(proc.communicate(
+                timeout=max(deadline - time.monotonic(), 0.1))[0])
+            failed = failed or proc.returncode != 0
+    except subprocess.TimeoutExpired:
+        failed = True
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+        for proc in procs[len(outputs):]:
+            outputs.append(proc.communicate()[0])
+    if failed:
+        report = "\n".join(
+            f"--- rank {rank} (exit {proc.returncode}):\n{out}"
+            for rank, (proc, out) in enumerate(zip(procs, outputs)))
+        raise RuntimeError(f"a rank failed or timed out:\n{report}")
+    return outputs

@@ -218,7 +218,7 @@ CHUNK_ROUNDED = {
 }
 
 #: The abstract bases the analyses derive from.
-BASES = {"SerialAnalysisBase", "DynamicAnalysisBase"}
+BASES = {"SerialAnalysisBase", "ParallelAnalysisBase", "DynamicAnalysisBase"}
 
 
 def _public_classes():

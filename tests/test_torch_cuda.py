@@ -2244,3 +2244,63 @@ def test_checkpoint_resume_on_the_card(cuda_device, tmp_path):
     np.testing.assert_array_equal(resumed[0]._existence, ref[0]._existence)
     np.testing.assert_array_equal(resumed[1].results.counts,
                                   ref[1].results.counts)
+
+
+#: One NCCL rank on the card: a sharded run and its serial twin.
+NCCL_ONE_RANK = """
+import numpy as np
+
+from mdhelper_tpu_torch.analysis.multi import run_together
+from mdhelper_tpu_torch.analysis.structure import (
+    RadialDistributionFunction, StructureFactor,
+)
+from mdhelper_tpu_torch.core.universe import Universe
+
+CASE = {case!r}
+device = torch.device("cuda", torch.cuda.current_device())
+rng = np.random.default_rng(5)
+u = Universe.from_arrays((rng.random((6, 3000, 3)) * 24).astype(np.float32),
+                         [24.0] * 3 + [90.0] * 3)
+
+
+def rdf(**kw):
+    return RadialDistributionFunction(u.atoms, n_bins=64, range=(0.0, 6.0),
+                                      exclusion=(1, 1), verbose=False,
+                                      device=device, **kw)
+
+
+def sf(**kw):
+    return StructureFactor(u.atoms, n_points=6, verbose=False,
+                           device=device, **kw)
+
+
+if CASE == "fused":
+    got = run_together([rdf(), sf()], parallel=True)
+    want = run_together([rdf(), sf()])
+    pairs = [(got[0].results.counts, want[0].results.counts),
+             (got[1].results.ssf, want[1].results.ssf)]
+elif CASE == "ring":
+    got, want = rdf(shard="atoms").run(), rdf().run()
+    assert got._mesh.grouped
+    pairs = [(got.results.counts, want.results.counts)]
+else:
+    got, want = sf(shard="q").run(), sf(method="direct").run()
+    pairs = [(got.results.ssf, want.results.ssf)]
+for a, b in pairs:
+    np.testing.assert_array_equal(a, b)
+print("nccl rank OK")
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fused", "ring", "q"])
+def test_one_nccl_rank_equals_serial(cuda_device, tmp_path, case):
+    """One NCCL rank (a process group of one): run_together(parallel=True),
+    the atom-sharded ring and the q-sharded S(q) equal their serial runs
+    on the card, counts as integers, S(q) bit for bit."""
+
+    from mdhelper_tpu_torch.testing import spawn_ranks
+
+    out = spawn_ranks(NCCL_ONE_RANK.format(case=case), 1, str(tmp_path),
+                      backend="nccl", timeout=300)
+    assert "nccl rank OK" in out[0]

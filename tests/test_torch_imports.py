@@ -205,6 +205,26 @@ def test_sources_cover_the_checkpoint_pairing_and_sasa_layer():
                     or _imports_sympy(n)]
 
 
+def test_sources_cover_the_parallel_layer():
+    """The rank runtime's modules are among the parsed sources and import
+    neither JAX, the JAX package, pandas nor sympy; the package imports
+    with torch alone."""
+
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("parallel/__init__", "parallel/mesh", "parallel/ring",
+                   "analysis/base", "analysis/multi", "analysis/structure",
+                   "ops/_build", "_device", "testing"):
+        assert f"mdhelper_tpu_torch/{module}.py" in names
+        imported = _imported_names(ROOT / f"mdhelper_tpu_torch/{module}.py")
+        assert not [n for n in imported
+                    if _forbidden(n) or _imports_pandas(n)
+                    or _imports_sympy(n)]
+    from mdhelper_tpu_torch.parallel import mesh, ring
+
+    assert mesh.FRAME_AXIS == "frames"
+    assert callable(ring.ring_radial_histogram)
+
+
 def test_import_rule_catches_both_packages():
     assert _forbidden("jax") and _forbidden("jax.numpy")
     assert _forbidden("mdhelper_tpu") and _forbidden("mdhelper_tpu.ops.x")

@@ -12,6 +12,7 @@ them, and ``correlation_fft`` equals the JAX function's to float64
 rounding.
 """
 
+import functools
 import warnings
 
 import numpy as np
@@ -318,12 +319,21 @@ def test_errors_raised_as_jax_raises_them(universes, case):
 
 @pytest.mark.parametrize("kwargs", [
     # groupings="residues" (tests/test_torch_groupings.py) and
-    # method="mesh" (tests/test_torch_mesh.py) are ported.
+    # method="mesh" (tests/test_torch_mesh.py) are ported; so is
+    # parallel=True (tests/test_torch_parallel.py), which with no process
+    # group runs as a world of one, while shard= raises ValueError, as in
+    # the JAX class.
     dict(shard="q"), dict(shard="frames"), dict(parallel=True)])
 def test_unported_options_raise(universes, kwargs):
-    with pytest.raises(NotImplementedError):
-        structure.IntermediateScatteringFunction(
-            universes[1].atoms, device="cpu", **kwargs)
+    make = functools.partial(structure.IntermediateScatteringFunction,
+                             universes[1].atoms, n_points=3, device="cpu",
+                             verbose=False)
+    if "shard" in kwargs:
+        with pytest.raises(ValueError, match="does not support shard="):
+            make(**kwargs)
+        return
+    np.testing.assert_array_equal(make(**kwargs).run().results.cisf,
+                                  make().run().results.cisf)
 
 
 def test_dsf_before_run_raises(universes):

@@ -15,16 +15,14 @@ pytest.importorskip("jax")
 pytest.importorskip("torch")
 
 #: JAX parameters the port does not take yet, by object, with the slice
-#: that brings them (ROADMAP Queue 1): parallel/ (item 10) only.
+#: that brings them (ROADMAP Queue 1): the rest of parallel/ (item 10, its
+#: second part 10b) only, but for the JAX parallel runner's worker-pool
+#: options, which the ranks replace and no slice brings.
 NOT_PORTED = {
     "analysis.structure.RadialDistributionFunction": {
-        "parallel": "parallel/ (item 10)",
-        "shard": "parallel/ (item 10): the atom-sharded ring",
         "kwargs": "parallel/ (item 10): the runtime's mesh options",
     },
     "analysis.structure.StructureFactor": {
-        "parallel": "parallel/ (item 10)",
-        "shard": "parallel/ (item 10): q-sharding",
         "kwargs": "parallel/ (item 10): the runtime's mesh options",
     },
     "analysis.structure.IntermediateScatteringFunction": {
@@ -35,9 +33,6 @@ NOT_PORTED = {
     },
     "analysis.transport.Onsager": {
         "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.multi.run_together": {
-        "parallel": "parallel/ (item 10)",
     },
     "analysis.base.SerialAnalysisBase.run": {
         "kwargs": "parallel/ (item 10): the parallel runner's options",
@@ -50,6 +45,15 @@ NOT_PORTED = {
     },
     "analysis.base.DynamicAnalysisBase": {
         "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.base.ParallelAnalysisBase": {
+        "kwargs": "parallel/ (item 10): the runtime's mesh options",
+    },
+    "analysis.base.ParallelAnalysisBase.run": {
+        "block": "parallel/ (item 10): the JAX worker pool's option, not "
+                 "taken (the ranks are the workers)",
+        "method": "parallel/ (item 10): the JAX worker pool's option, not "
+                  "taken (the ranks are the workers)",
     },
     "analysis.profile.DensityProfile": {
         "kwargs": "parallel/ (item 10): the runtime's mesh options",
@@ -141,13 +145,14 @@ NOT_PORTED = {
 }
 
 #: Parameters the port takes whose other values are not ported yet: the
-#: classes on the serial ``DynamicAnalysisBase`` accept ``parallel=False``
-#: and raise `NotImplementedError` for ``True``, citing parallel/ (item
-#: 10).  Nothing else is on this list.  (``EndToEndVector`` and
-#: ``RouseModes`` take ``parallel`` through ``**kwargs`` and ignore it, as
-#: the JAX classes do; ``TICA`` takes it through ``**kwargs`` and raises.)
+#: classes on ``DynamicAnalysisBase`` that have not set ``_rank_sharded``
+#: accept ``parallel=False`` and raise `NotImplementedError` for ``True``,
+#: citing parallel/ (item 10b).  Nothing else is on this list.
+#: (``EndToEndVector`` and ``RouseModes`` take ``parallel`` through
+#: ``**kwargs`` and ignore it, as the JAX classes do; ``TICA`` takes it
+#: through ``**kwargs`` and raises.)
 NOT_PORTED_VALUES = {
-    dotted: {"parallel": (True, "parallel/ (item 10)")}
+    dotted: {"parallel": (True, "parallel/ (item 10): 10b")}
     for dotted in (
         "analysis.profile.DensityProfile",
         "analysis.profile.RadialDensityProfile",
@@ -184,11 +189,17 @@ NOT_PORTED_VALUES = {
 }
 
 #: Parameters of the port's own: the device of an analysis (and of the
-#: radial histogram, of the FFTs of the transport functions and of the
-#: lifetimes' correlation), the JAX ISF's ``shard`` and ``method`` (which
-#: it takes through ``**kwargs``), and the carry of a run that the JAX
-#: package began.
+#: radial histogram, of the ring, of the FFTs of the transport functions
+#: and of the lifetimes' correlation), the JAX ISF's ``shard`` and
+#: ``method`` (which it takes through ``**kwargs``), the carry of a run
+#: that the JAX package began, and the ranks (``mesh``) and tile axis of
+#: the frame blocks and the gather, which JAX reads from its global
+#: arrays.
 PORT_ONLY = {
+    "parallel.mesh.process_frame_block": {"mesh"},
+    "parallel.mesh.fetch_global": {"mesh", "axis"},
+    "parallel.ring.ring_radial_histogram": {"device"},
+    "analysis.base.ParallelAnalysisBase": {"device"},
     "analysis.structure.radial_histogram": {"device"},
     "analysis.structure.RadialDistributionFunction": {"device"},
     "analysis.structure.StructureFactor": {"device"},
@@ -471,7 +482,28 @@ OBJECTS = [
     "analysis.sasa.sphere_points",
     "analysis.sasa.SolventAccessibleSurfaceArea",
     "analysis.sasa.SolventAccessibleSurfaceArea.run",
+    # parallel/ on torch.distributed: the ranks, the ring, the runners
+    "parallel.mesh.initialize_distributed",
+    "parallel.mesh.get_mesh",
+    "parallel.mesh.process_frame_block",
+    "parallel.mesh.fetch_global",
+    "parallel.ring.ring_radial_histogram",
+    "analysis.base.ParallelAnalysisBase",
+    "analysis.base.ParallelAnalysisBase.run",
+    "analysis.base.DynamicAnalysisBase.run",
 ]
+
+
+#: JAX objects the port does not have, with the reason: the JAX mesh's
+#: placements and its chunk padding, which the ranks do not need (each
+#: reads its block of the chunk the stream pads).
+NOT_PORTED_OBJECTS = {
+    "parallel.mesh.frame_sharding": "a chunk's placement on the JAX mesh",
+    "parallel.mesh.replicated_sharding": "a carry's placement on the JAX "
+                                         "mesh",
+    "parallel.mesh.pad_to_multiple": "the JAX stream's chunk padding; the "
+                                     "port's stream pads its chunks itself",
+}
 
 
 def _resolve(package, dotted):
@@ -502,6 +534,17 @@ def test_signature_matches_jax(dotted):
     for name in set(ref) & set(port):
         assert (port[name].kind, port[name].default) == (
             ref[name].kind, ref[name].default), name
+
+
+@pytest.mark.parametrize("dotted", list(NOT_PORTED_OBJECTS))
+def test_objects_not_ported_are_absent(dotted):
+    """Each listed JAX object exists, and the port has no such name."""
+
+    assert callable(_resolve("mdhelper_tpu", dotted))
+    module, name = dotted.rsplit(".", 1)
+    port = importlib.import_module(f"mdhelper_tpu_torch.{module}")
+    assert not hasattr(port, name)
+    assert name not in port.__all__
 
 
 def test_groupings_are_ported_everywhere():
