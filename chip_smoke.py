@@ -7011,12 +7011,140 @@ def process_seconds():
     return up - start / os.sysconf("SC_CLK_TCK")
 
 
+#: phase_parallel's passes of the rank-sharded profile, velocity, flow and
+#: polymer classes, each one run_together pass over
+#: N_FRAMES frames of a full-width fixture in CHUNK-frame chunks of the
+#: shared stream: name: (fixture, payload width, the analyses' result
+#: keys, each with how the ranks are held to the serial run: "int" and
+#: "store" (a copy of the input, or integer-made) equal; "f64" (float64
+#: sums, and per-frame float64 values that a reduction over the atoms
+#: makes, whose order follows the chunk's shape: a rank's block of
+#: CHUNK / world frames against the serial chunk of CHUNK) bit for bit
+#: on one rank and within rtol 1e-12 on more; "f32" (float32 per-frame
+#: values made so) bit for bit on one rank and within 4 eps32 BOX, the
+#: float32 summation-order bound of tests/test_torch_polymer.py, on
+#: more; "atomic" (float64 sums of the card's atomic adds, the flow
+#: profile's weighted ``bincount``s, whose order varies from run to run)
+#: within rtol 1e-12 on any number of ranks).  The fixtures: velocity_universe (N_ATOMS ions with velocities)
+#: from SEED + 26 and polymer_universe (POLYMER_CHAINS chains of
+#: POLYMER_MONOMERS) from SEED + 27, N_FRAMES frames each.
+RANK_PASSES = {
+    "profiles": ("velocity", 3, (
+        {"number_densities": "int"},  # config 4: ions along z
+        {"number_densities": "int"},  # the same, recentered on cations
+        {"counts": "int"},  # radial, about RADIAL_CENTER_ATOMS ions
+        {"counts": "int"},  # DensityMap2D
+        {"counts": "int"},  # DensityMap3D
+        {"dipoles": "f64", "volumes": "store"},
+        {"_membership": "store", "n_in_zone": "int"},
+    )),
+    "velocities": ("velocity", 3, (
+        {"vacf": "store", "vdos": "store"},
+        {"current": "f64", "acf": "f64"},
+    )),
+    "flow": ("velocity", 6, (
+        {"counts": "int", "velocity": "atomic", "temperature": "atomic"},
+    )),
+    "polymer": ("polymer", 3, (
+        {"gyradii": "f32"},
+        {"scsf": "f64"},
+        {"bond_acf": "f64", "bond_lengths": "f64"},
+        {"msid": "f64"},
+    )),
+}
+
+
+def rank_fixtures():
+    """The fixtures of RANK_PASSES, which every rank and the serial
+    references make alike."""
+
+    _, _, velocity = velocity_universe(np.random.default_rng(SEED + 26),
+                                       N_FRAMES)
+    _, _, polymer = polymer_universe(np.random.default_rng(SEED + 27),
+                                     N_FRAMES)
+    return {"velocity": velocity, "polymer": polymer}
+
+
+def rank_pass(name, fixtures, device):
+    """The analyses of RANK_PASSES[name] (``parallel=True``: over the ranks
+    of a grouped run, a world of one otherwise) on `device`, chunked for
+    the shared stream."""
+
+    from mdhelper_tpu_torch.analysis import (
+        dynamics,
+        electrostatics,
+        flow,
+        polymer,
+        profile,
+    )
+
+    fixture, width, _ = RANK_PASSES[name]
+    u = fixtures[fixture]
+    kw = {"verbose": False, "device": device, "parallel": True}
+    ions = [u.atoms[0::2], u.atoms[1::2]]
+    if name == "profiles":
+        analyses = [
+            profile.DensityProfile(ions, axes="z", n_bins=PROFILE_BINS,
+                                   **kw),
+            profile.DensityProfile(ions, axes="z", n_bins=PROFILE_BINS,
+                                   recenter=0, **kw),
+            profile.RadialDensityProfile(
+                ions, u.atoms[:RADIAL_CENTER_ATOMS], n_bins=PROFILE_BINS,
+                range=(0.0, BOX / 2), **kw),
+            profile.DensityMap2D(ions, n_bins=MAP2D_BINS, **kw),
+            profile.DensityMap3D(ions, n_bins=MAP3D_BINS, **kw),
+            electrostatics.DipoleMoment(ions, **kw),
+            dynamics.SurvivalProbability(u.atoms, ("slab", "z", 10.0, 20.0),
+                                         **kw),
+        ]
+    elif name == "velocities":
+        analyses = [
+            dynamics.VelocityAutocorrelation(u.atoms, **kw),
+            dynamics.ElectricCurrentAutocorrelation(u.atoms, VEL_TEMPERATURE,
+                                                    **kw),
+        ]
+    elif name == "flow":
+        analyses = [flow.FlowProfile(u.atoms, "z", FLOW_BINS, **kw)]
+    else:
+        chains = {"n_chains": POLYMER_CHAINS, "n_monomers": POLYMER_MONOMERS}
+        analyses = [
+            polymer.Gyradius(u.atoms, **chains, **kw),
+            polymer.SingleChainStructureFactor(u.atoms, n_points=N_QPTS,
+                                               **chains, **kw),
+            polymer.PersistenceLength(u.atoms, **chains, **kw),
+            polymer.MeanSquareInternalDistance(u.atoms, **chains, **kw),
+        ]
+    for a in analyses:
+        a._chunk_bytes = CHUNK * u.atoms.n_atoms * width * 4
+    return analyses
+
+
+def rank_pass_arrays(name, analyses):
+    """``{"{name}:{i}:{key}[:{j}]": array}`` of a RANK_PASSES pass's
+    results (a list result one entry an element)."""
+
+    out = {}
+    for i, (a, keys) in enumerate(zip(analyses, RANK_PASSES[name][2])):
+        for key in keys:
+            value = (getattr(a, key) if key.startswith("_")
+                     else a.results[key])
+            parts = (enumerate(value) if isinstance(value, list)
+                     else [(None, value)])
+            for j, v in parts:
+                tail = "" if j is None else f":{j}"
+                out[f"{name}:{i}:{key}{tail}"] = np.asarray(v)
+    return out
+
+
 def parallel_references(workdir):
     """The serial runs on the card that phase_parallel's ranks must equal,
     saved to ``references.npz`` in `workdir`: the fused RDF's counts (the
     atom ring's settings too) and factor S(q), the direct S(q) and the
     cross RDF's counts of the even and odd atoms, on the trajectory every
-    rank makes (:func:`slice_universe` from ``SEED + 25``)."""
+    rank makes (:func:`slice_universe` from ``SEED + 25``); and each pass
+    of RANK_PASSES streamed serially (``run_together(parallel=False)``;
+    the recentered profile takes its pre-pass route, ``parallel=True``
+    being its own flag)."""
 
     import torch
 
@@ -7038,9 +7166,15 @@ def parallel_references(workdir):
     for a in (direct, cross):
         a._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
         a.run()
+    passes = {}
+    fixtures = rank_fixtures()
+    for name in RANK_PASSES:
+        passes.update(rank_pass_arrays(name, run_together(
+            rank_pass(name, fixtures, device))))
     np.savez(os.path.join(workdir, "references.npz"),
              rdf=rdf.results.counts, sq=sq.results.ssf,
-             direct=direct.results.ssf, cross=cross.results.counts)
+             direct=direct.results.ssf, cross=cross.results.counts,
+             **passes)
 
 
 def parallel_child(workdir, device=None):
@@ -7053,11 +7187,19 @@ def parallel_child(workdir, device=None):
     serial runs of :func:`parallel_references`, after an untimed and a
     wall-clock run of each (counts as integers; S(q) bit for bit in a world of one, within
     rtol 1e-12 over more ranks, where only the order of the frame sums
-    differs).  Saves its results
+    differs).  Then each pass of RANK_PASSES (``parallel=True``), held
+    to its serial run key by key (integer counts and stores equal, float64
+    sums bit for bit in a world of one and within rtol 1e-12 over more
+    ranks, the per-frame dipoles, currents and gyradii as RANK_PASSES
+    says, the flow profile's atomic float64 sums within rtol 1e-12
+    everywhere), the polymer pass's trig-sums launches above 0 on every
+    rank.
+    Saves its results
     to ``rank{r}.npz`` in `workdir` and prints one ``PARALLEL {json}``
     line: the rank, world, backend, the seconds since the process started
     at which it entered here (imports and the process group behind it) and
-    left, and for each run its launches by kernel, this rank's frames/s
+    left, the seconds of each recentering pre-pass it ran, and for each
+    run its launches by kernel, this rank's frames/s
     and ms a frame over its own window, its busy share, and the wall-clock
     times (``time.time()``) at which the rank entered and left its
     unprofiled run, from which the parent takes the job's frames/s.  `device` defaults to
@@ -7068,6 +7210,7 @@ def parallel_child(workdir, device=None):
     import torch
     import torch.distributed as dist
 
+    from mdhelper_tpu_torch.analysis import profile
     from mdhelper_tpu_torch.analysis.multi import run_together
     from mdhelper_tpu_torch.analysis.structure import (
         RadialDistributionFunction,
@@ -7080,7 +7223,18 @@ def parallel_child(workdir, device=None):
     if device is None:
         device = torch.device("cuda", torch.cuda.current_device())
     _, u = slice_universe(np.random.default_rng(SEED + 25))
+    fixtures = rank_fixtures()
     refs = np.load(os.path.join(workdir, "references.npz"))
+    # The seconds of each recentering pre-pass this rank runs.
+    prepass_s, prepass = [], profile.DensityProfile._precompute_recenter_shifts
+
+    def timed_prepass(analysis):
+        began = time.perf_counter()
+        shifts = prepass(analysis)
+        prepass_s.append(time.perf_counter() - began)
+        return shifts
+
+    profile.DensityProfile._precompute_recenter_shifts = timed_prepass
 
     def chunked(analysis):
         analysis._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
@@ -7104,11 +7258,19 @@ def parallel_child(workdir, device=None):
         return run_together(slice_analyses(u, device, ("rdf", "sq")),
                             parallel=True, on_chunk=on_chunk)
 
-    # (name, run, the references of its results' counts or ssf in order)
+    def sharded_pass(name):
+        def run(on_chunk=None):
+            return run_together(rank_pass(name, fixtures, device),
+                                parallel=True, on_chunk=on_chunk)
+        return run
+
+    # (name, run, the references of its results' counts or ssf in order;
+    # None for a pass of RANK_PASSES, held key by key)
     runs = [("fused", fused, ("rdf", "sq")), ("ring", ring, ("rdf",)),
             ("q", q_tiles, ("direct",))]
     if world > 1:
         runs.append(("cross_ring", lambda: ring(True), ("cross",)))
+    runs += [(name, sharded_pass(name), None) for name in RANK_PASSES]
     # Each run three times: untimed, so that the card's context, the
     # process group's first collectives and each path's first launches
     # stay out of the timed runs; on the wall clock alone, from a barrier
@@ -7124,13 +7286,39 @@ def parallel_child(workdir, device=None):
         run()
         ended = time.time()
         zero_launches()
-        if name == "fused":
+        if name == "fused" or references is None:
             out, rank_fps, busy = last_chunk_profiled(
-                fused, N_FRAMES // world, CHUNK // world)
+                run, N_FRAMES // world, CHUNK // world)
         else:
             out, wall, busy = profiled_call(run)
             rank_fps = N_FRAMES / wall
         launches = {k: n for k, n in kernel_launch_counts().items() if n}
+        if references is None:
+            for key, got in rank_pass_arrays(name, out).items():
+                kind = RANK_PASSES[name][2][int(key.split(":")[1])][
+                    key.split(":")[2]]
+                want = refs[key]
+                if kind == "atomic" or (kind == "f64" and world > 1):
+                    check(np.allclose(got, want, rtol=1e-12, atol=0.0,
+                                      equal_nan=True),
+                          f"rank {rank}: {key} beyond rtol 1e-12 of the "
+                          "serial run")
+                elif kind == "f32" and world > 1:
+                    check(np.allclose(got, want, rtol=0.0,
+                                      atol=4 * EPS32 * BOX),
+                          f"rank {rank}: {key} beyond 4 eps32 BOX of the "
+                          "serial run")
+                else:
+                    check(np.array_equal(got, want, equal_nan=True),
+                          f"rank {rank}: {key} differs from the serial run")
+                saved[key] = got
+            if name == "polymer":
+                check(launches.get("trig_sums", 0) > 0,
+                      f"rank {rank}: its polymer pass launched no trig sums")
+            report[name] = {"launches": launches, "rank_fps": rank_fps,
+                            "rank_ms_per_frame": 1e3 / rank_fps,
+                            "busy": busy, "began": began, "ended": ended}
+            continue
         for i, (got, ref) in enumerate(zip(out, references)):
             key = "ssf" if "ssf" in got.results else "counts"
             a, b = got.results[key], refs[ref]
@@ -7149,7 +7337,7 @@ def parallel_child(workdir, device=None):
     print("PARALLEL " + json.dumps({
         "rank": rank, "world": world, "backend": dist.get_backend(),
         "entered_s": entered, "left_s": process_seconds(),
-        "runs": report}), flush=True)
+        "prepass_s": prepass_s, "runs": report}), flush=True)
 
 
 def ring_step_vs_plain(device, rng):
@@ -7233,8 +7421,10 @@ def phase_parallel(device, rng, card):
     touch the phases before it): the ring step's kernel against its plain
     version in this process (:func:`ring_step_vs_plain`), then one job of
     one NCCL rank on the card and one of two gloo ranks sharing it, each
-    rank a spawned process (:func:`parallel_child`); any rank that fails
-    fails the smoke.  Every rank of a job must hold the same results.
+    rank a spawned process (:func:`parallel_child`: the fused RDF + S(q),
+    the rings and the q tiles, then the profile, velocity, flow and
+    polymer passes of RANK_PASSES); any rank that fails fails the smoke.
+    Every rank of a job must hold the same results.
     Returns each job's launches by run and kernel, its ranks' reports and
     its frames/s by run, the ring step's and the cross ring block's
     timings and the phase's seconds."""
@@ -7297,7 +7487,11 @@ def parallel_job(world, backend, references, card):
               f"{rep['backend']}")
         print(f"parallel rank {rep['rank']} of {world}: entered its work "
               f"{rep['entered_s']:.1f} s after it started, left at "
-              f"{rep['left_s']:.1f} s")
+              f"{rep['left_s']:.1f} s; its recentering pre-passes (the "
+              "profiles pass's recentered DensityProfile, every frame of "
+              "the selection on every rank) took "
+              + ", ".join(f"{t:.3f}" for t in rep["prepass_s"])
+              + f" s on {card} (information, not a claim)")
         for name, run in rep["runs"].items():
             by_run = launches.setdefault(name, {})
             for kernel, n in run["launches"].items():
@@ -7328,6 +7522,8 @@ def parallel_job(world, backend, references, card):
                    "trig_sums"):
         check(totals.get(kernel, 0) > 0,
               f"{backend} job: {kernel} was never launched by its ranks")
+    check(launches.get("polymer", {}).get("trig_sums", 0) > 0,
+          f"{backend} job: its polymer passes launched no trig sums")
     print(f"parallel job of {world} {backend} rank(s): launches by run "
           f"{launches}; {job_s:.1f} s with start-up")
     return {"launches": launches, "reports": reports, "job_fps": job_fps,
@@ -7808,6 +8004,14 @@ def main():
          f"{N_ATOMS} atoms x q tiles of the {n_q} float64 wavevectors over 1 "
          "NCCL and 2 gloo ranks, exact (timed on the whole set, 2 frames a "
          "launch)", trig_timing["exact", False]),
+        # The single-chain S(q) of the ranks' polymer passes.
+        ("trig_sums", trig_src, pallas_kernels.format(66),
+         ran("trig_sums", (one, "polymer"), (two, "polymer")),
+         f"{POLYMER_CHAINS:,} chains x {POLYMER_MONOMERS} monomers as "
+         f"chain-frames x {n_q:,} float32 wavevectors, exact, frame-sharded "
+         "polymer pass over 1 NCCL and 2 gloo ranks (timed on the "
+         "single-chain S(q) path's shape; ms a frame of all chains)",
+         polymer["trig"]),
     ]
     # Every launch of the jobs' ranks stands in exactly one row above.
     for job in (one, two):
@@ -7817,7 +8021,7 @@ def main():
                     ("fused", "cell_pair_histogram"),
                     ("ring", "cross_pair_histogram"),
                     ("cross_ring", "cross_pair_histogram"),
-                    ("q", "trig_sums")},
+                    ("q", "trig_sums"), ("polymer", "trig_sums")},
                     f"phase_parallel: {n} launches of {kernel} in the "
                     f"{run} run have no row of the kernels line")
     optional = ("launch_ms", "pairs_per_frame", "counted_per_frame",

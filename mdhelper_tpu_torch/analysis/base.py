@@ -29,15 +29,21 @@ one rank a device (:mod:`mdhelper_tpu_torch.parallel.mesh`): each chunk
 holds a multiple of the shard count, rank *r* reads only its contiguous
 block of it (a tail padded with the last frame under mask 0), on its
 prefetch thread, and folds it into a carry of its own.  After the stream
-every carry leaf is summed over the ranks (``_carry_reductions`` names the
-leaves reduced otherwise), per-frame stores are gathered in frame order,
-and every rank concludes to the same results.  An analysis may shard
-another axis instead (``_shard_axis``: the RDF's atoms, the S(q)'s
-wavevectors), reading every frame on every rank.  Without a process group
-``parallel=True`` runs as a world of one on the analysis's device.
-Order-dependent analyses (``_sequential``), analyses that do not declare
-that their carry and stores reduce over the ranks (``_rank_sharded``) and
-checkpoints refuse more than one rank.  There is no host pipeline.
+every carry leaf, at any depth of its dicts, tuples and lists, is summed
+over the ranks (``_carry_reductions`` names the subtrees reduced
+otherwise), the per-frame stores (the buffers of ``_checkpoint_attrs``
+and the ``results`` arrays of ``_result_stores``) are gathered in frame
+order, and every rank concludes to the same results.  A per-frame shift
+table (``_frame_shifts``: a recentered profile's centre-of-mass shifts,
+from a host pre-pass) is subtracted from each chunk on the prefetch
+thread, so an update that would otherwise be order-dependent shards.
+An analysis may shard another axis instead (``_shard_axis``: the RDF's
+atoms, the S(q)'s wavevectors), reading every frame on every rank.
+Without a process group ``parallel=True`` runs as a world of one on the
+analysis's device.  Order-dependent analyses (``_sequential``),
+analyses that do not declare that their carry and stores reduce over the
+ranks (``_rank_sharded``) and checkpoints refuse more than one rank.
+There is no host pipeline.
 """
 
 import logging
@@ -261,9 +267,11 @@ class SerialAnalysisBase:
     #: order-dependent physics (a lag ring, an unwrap scan): the frames
     #: cannot be sharded, so a run over more than one rank raises.
     _sequential = False
-    #: the carry reduces over the ranks (a sum, or ``_carry_reductions``)
-    #: and the per-frame stores are the buffers of ``_checkpoint_attrs``:
-    #: without it a run, fused or not, over more than one rank raises.
+    #: the carry reduces over the ranks (a sum, or ``_carry_reductions``),
+    #: the update weights its frames by the mask, and the per-frame stores
+    #: are the buffers of ``_checkpoint_attrs`` and the ``results`` arrays
+    #: of ``_result_stores``: without it a run, fused or not, over more
+    #: than one rank raises.
     _rank_sharded = False
     #: shard the frames over the ranks (``parallel=True``).
     _parallel = False
@@ -274,8 +282,17 @@ class SerialAnalysisBase:
     #: (then every rank reads every frame).
     _shard_axis = "frames"
     #: carry keys not summed over the ranks: ``"max"``, or
-    #: ``"replicated"`` for a leaf every rank already holds whole.
+    #: ``"replicated"`` for a leaf every rank already holds whole; a key
+    #: names the reduction of every leaf under it.
     _carry_reductions = {}
+    #: per-frame float64 shifts ``(trajectory frames, 3)`` subtracted from
+    #: the position columns of every streamed chunk (None: none); see
+    #: :meth:`_host_transform`.
+    _frame_shifts = None
+    #: frames of the chunk being folded that are not a rank's padding,
+    #: set before each update (for an update that writes a store on the
+    #: device, where reading the mask would wait for the device).
+    _n_real = 0
     #: the ranks of the current run (None: a serial run), and the
     #: positions in the frame selection of the frames this rank streamed.
     _mesh = None
@@ -381,22 +398,26 @@ class SerialAnalysisBase:
             )
 
     def _reduce_rank_carry(self, carry):
-        """The carry reduced over the ranks: each tensor leaf summed,
-        unless ``_carry_reductions`` names another reduction for its key."""
+        """The carry reduced over the ranks: each tensor leaf, at any depth
+        of dicts, tuples and lists, summed, unless ``_carry_reductions``
+        names another reduction for a dict key above it (the nearest such
+        key holds for its whole subtree).  Other leaves are kept."""
 
         from ..parallel.mesh import all_reduce
 
-        def leaf(key, value):
-            op = self._carry_reductions.get(key, "sum")
+        reductions = self._carry_reductions
+
+        def reduce(value, op):
+            if isinstance(value, dict):
+                return {key: reduce(leaf, reductions.get(key, op))
+                        for key, leaf in value.items()}
+            if isinstance(value, (tuple, list)):
+                return type(value)(reduce(leaf, op) for leaf in value)
             if op == "replicated" or not isinstance(value, torch.Tensor):
                 return value
             return all_reduce(value, op)
 
-        if isinstance(carry, dict):
-            return {key: leaf(key, value) for key, value in carry.items()}
-        if isinstance(carry, (tuple, list)):
-            return type(carry)(leaf(None, value) for value in carry)
-        return leaf(None, carry)
+        return reduce(carry, "sum")
 
     def _finish_ranks(self, carry, rows) -> None:
         """End of a stream: keep `carry` (reduced over the ranks in a
@@ -411,32 +432,57 @@ class SerialAnalysisBase:
         if grouped and self._shard_axis == "frames":
             self._gather_rank_stores(rows)
 
+    def _result_stores(self) -> dict:
+        """``results`` keys of the per-frame arrays a run fills in the
+        order it streams its frames (from index 0 of their frame axis),
+        each with its frame axis; a key whose value is a list names each
+        array of it.  Over ranks they are gathered as the buffers of
+        :meth:`_checkpoint_attrs` are.  Subclasses with such arrays
+        override."""
+
+        return {}
+
     def _gather_rank_stores(self, rows) -> None:
-        """Reassemble the per-frame buffers this rank filled (those named
-        by :meth:`_checkpoint_attrs`, rows ``[0, _store_offset)``) into
-        every frame's, in frame order, on every rank: `rows` holds the
-        positions in the frame selection of this rank's frames, in the
-        order it stored them."""
+        """Reassemble the per-frame stores this rank filled (the buffers
+        named by :meth:`_checkpoint_attrs` and the ``results`` arrays of
+        :meth:`_result_stores`, indices ``[0, _store_offset)`` of their
+        frame axis) into every frame's, in frame order, on every rank:
+        `rows` holds the positions in the frame selection of this rank's
+        frames, in the order it stored them."""
 
         from ..parallel.mesh import all_gather_tiles
 
         attrs = self._checkpoint_attrs()
-        if not attrs:
+        stores = self._result_stores()
+        if not attrs and not stores:
             return
         local = np.concatenate(rows) if rows else np.zeros(0, np.int64)
         order = all_gather_tiles(torch.as_tensor(local, dtype=torch.int64))
         order = order.numpy()
         offset = int(getattr(self, "_store_offset", 0))
-        for attr in attrs:
-            buffer = getattr(self, attr)
-            tiles = all_gather_tiles(torch.as_tensor(buffer[:offset]))
+
+        def gathered(buffer, axis=0):
             if isinstance(buffer, torch.Tensor):
+                mine = buffer.movedim(axis, 0)[:offset]
+                tiles = all_gather_tiles(mine.contiguous())
                 full = torch.empty_like(buffer)
-                full[torch.as_tensor(order, device=full.device)] = tiles
-            else:
-                full = np.empty_like(buffer)
-                full[order] = tiles.numpy()
-            setattr(self, attr, full)
+                full.movedim(axis, 0)[
+                    torch.as_tensor(order, device=full.device)] = tiles
+                return full
+            mine = np.moveaxis(buffer, axis, 0)[:offset]
+            tiles = all_gather_tiles(torch.as_tensor(
+                np.ascontiguousarray(mine)))
+            full = np.empty_like(buffer)
+            np.moveaxis(full, axis, 0)[order] = tiles.numpy()
+            return full
+
+        for attr in attrs:
+            setattr(self, attr, gathered(getattr(self, attr)))
+        for key, axis in stores.items():
+            value = self.results[key]
+            self.results[key] = (
+                [gathered(v, axis) for v in value] if isinstance(value, list)
+                else gathered(value, axis))
         self._store_offset = len(order)
 
     # -- chunk protocol ----------------------------------------------------
@@ -444,6 +490,7 @@ class SerialAnalysisBase:
         """Fold one chunk into the carry; store extras (unless None) are
         queued and absorbed one chunk late."""
 
+        self._n_real = batch.n_real
         out = self._update(
             carry, batch.positions, batch.dimensions, batch.mask
         )
@@ -526,6 +573,18 @@ class SerialAnalysisBase:
                     dimensions)
         return trajectory.read_frames(block)
 
+    def _host_transform(self, positions, frames):
+        """A chunk's positions ``(F, N, C)`` as read, after the atom and
+        column gather (columns ``_coord_axes`` of the positions, or all
+        three), with each frame's row of ``_frame_shifts`` subtracted:
+        in float64, rounded once to float32.  `frames` are the chunk's
+        frame indices."""
+
+        columns = [0, 1, 2] if self._coord_axes is None else self._coord_axes
+        shifts = self._frame_shifts[np.asarray(frames)][:, columns]
+        return (np.asarray(positions, dtype=np.float64)
+                - shifts[:, None, :]).astype(np.float32)
+
     def _stream_batches(self) -> Iterator[_Batch]:
         """Stream the selected frames from index ``_stream_from`` of the
         selection on, in chunks of ``_chunk_bytes`` of
@@ -543,7 +602,9 @@ class SerialAnalysisBase:
         (:func:`~mdhelper_tpu_torch.parallel.mesh.process_frame_block` of
         the chunk padded to that multiple), padded with its last frame
         under mask 0 to the block's length; ``_rank_rows`` collects the
-        positions of its frames in the selection."""
+        positions of its frames in the selection.  With ``_frame_shifts``
+        each chunk's real frames go through :meth:`_host_transform`
+        before the padding."""
 
         device = self._device
         atom_indices = self._effective_atom_indices()
@@ -588,6 +649,8 @@ class SerialAnalysisBase:
                 positions = positions[:, atom_indices]
             elif axes is not None:
                 positions = positions[:, :, axes]
+            if self._frame_shifts is not None:
+                positions = self._host_transform(positions, block)
             pos = torch.from_numpy(
                 np.ascontiguousarray(positions, dtype=np.float32)
             )
@@ -856,8 +919,10 @@ class ParallelAnalysisBase(SerialAnalysisBase):
 
     A subclass runs over more than one rank once it sets
     ``_rank_sharded = True``: its carry sums over frames (or names its
-    other reductions in ``_carry_reductions``) and its per-frame stores are
-    the buffers of ``_checkpoint_attrs``.
+    other reductions in ``_carry_reductions``), its update weights the
+    frames by the mask (a rank's padded tail has mask 0), and its per-frame
+    stores are the buffers of ``_checkpoint_attrs`` and the ``results``
+    arrays of ``_result_stores``.
     """
 
     def __init__(self, trajectory, verbose: bool = False, *, device=None):
@@ -893,8 +958,9 @@ class DynamicAnalysisBase(ParallelAnalysisBase):
     :class:`ParallelAnalysisBase`.
 
     A subclass takes ``parallel=True`` once it sets ``_rank_sharded =
-    True`` (see :class:`ParallelAnalysisBase`).  The port's analysis
-    classes on this base do not yet, and raise `NotImplementedError` for
+    True`` (see :class:`ParallelAnalysisBase`): the profile family, the
+    dipole moment, the polymer classes, the flow profile and the velocity
+    stream do.  The others raise `NotImplementedError` for
     ``parallel=True`` (ROADMAP Queue 1, item 10b)."""
 
     def __init__(self, trajectory, parallel: bool, verbose: bool = False,

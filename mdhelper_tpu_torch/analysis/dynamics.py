@@ -93,7 +93,9 @@ class VelocityAutocorrelation(DynamicAnalysisBase):
     reduced : `bool`, keyword-only, default False
         Reduced (LJ) units (omits ``results.units``).
     parallel : `bool`, keyword-only, default False
-        ``True`` raises `NotImplementedError` (ROADMAP Queue 1, item 10).
+        Shard the frames over the ranks: each rank stores the velocities
+        of its own frames, and the stores are gathered in frame order
+        before the correlation.
     device : `torch.device` or `str`, keyword-only, optional
         Where the velocities are kept and correlated (default: the first
         CUDA device); ``"cpu"`` for the CPU.
@@ -114,6 +116,7 @@ class VelocityAutocorrelation(DynamicAnalysisBase):
     _payload = "velocities"
 
     _checkpointable_stores = True
+    _rank_sharded = True
 
     def _checkpoint_attrs(self) -> tuple:
         return ("_store",)
@@ -148,11 +151,12 @@ class VelocityAutocorrelation(DynamicAnalysisBase):
         self._carry = torch.zeros((), device=self._device)
 
         def update(carry, positions, dimensions, mask):
-            # `positions` is the velocity payload.
+            # `positions` is the velocity payload; a rank's padded tail
+            # (mask 0) is not stored.
             del dimensions, mask
-            lo = self._store_offset
-            self._store[lo:lo + len(positions)] = positions
-            self._store_offset += len(positions)
+            lo, n = self._store_offset, self._n_real
+            self._store[lo:lo + n] = positions[:n]
+            self._store_offset += n
             return carry
 
         self._update = update
@@ -240,7 +244,9 @@ class ElectricCurrentAutocorrelation(DynamicAnalysisBase):
     reduced : `bool`, keyword-only, default False
         Reduced (LJ) units (omits ``results.units``).
     parallel : `bool`, keyword-only, default False
-        ``True`` raises `NotImplementedError` (ROADMAP Queue 1, item 10).
+        Shard the frames over the ranks: each rank stores the currents
+        of its own frames, and the stores are gathered in frame order
+        before the correlation.
     device : `torch.device` or `str`, keyword-only, optional
         Where the currents are summed and correlated (default: the first
         CUDA device); ``"cpu"`` for the CPU.
@@ -262,6 +268,7 @@ class ElectricCurrentAutocorrelation(DynamicAnalysisBase):
     _payload = "velocities"
 
     _checkpointable_stores = True
+    _rank_sharded = True
 
     def _checkpoint_attrs(self) -> tuple:
         return ("_current",)
@@ -322,11 +329,12 @@ class ElectricCurrentAutocorrelation(DynamicAnalysisBase):
         def update(carry, positions, dimensions, mask):
             # `positions` is the velocity payload; the float64 sum keeps
             # the cancelling +-q v terms exact to the float32 inputs.
+            # A rank's padded tail (mask 0) is not stored.
             del dimensions, mask
-            lo = self._store_offset
-            self._current[lo:lo + len(positions)] = torch.einsum(
-                "n,bnd->bd", charges, positions.to(torch.float64))
-            self._store_offset += len(positions)
+            lo, n = self._store_offset, self._n_real
+            self._current[lo:lo + n] = torch.einsum(
+                "n,bnd->bd", charges, positions[:n].to(torch.float64))
+            self._store_offset += n
             return carry
 
         self._update = update
@@ -404,7 +412,9 @@ class SurvivalProbability(DynamicAnalysisBase):
     reduced : `bool`, keyword-only, default False
         Reduced (LJ) units (omits ``results.units``).
     parallel : `bool`, keyword-only, default False
-        ``True`` raises `NotImplementedError` (ROADMAP Queue 1, item 10).
+        Shard the frames over the ranks: each rank stores the
+        memberships of its own frames, and they are gathered in frame
+        order before the lifetimes.
     device : `torch.device` or `str`, keyword-only, optional
         Where the chunks are tested (default: the first CUDA device);
         ``"cpu"`` for the CPU.
@@ -422,9 +432,13 @@ class SurvivalProbability(DynamicAnalysisBase):
     """
 
     _checkpointable_stores = True
+    _rank_sharded = True
 
     def _checkpoint_attrs(self) -> tuple:
         return ("_membership",)
+
+    def _result_stores(self) -> dict:
+        return {"n_in_zone": 0}
 
     def __init__(
         self,

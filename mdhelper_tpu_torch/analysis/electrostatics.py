@@ -124,7 +124,8 @@ class DipoleMoment(DynamicAnalysisBase):
         Unwrap positions by image counts, from molecules made whole at
         the first frame.
     parallel : `bool`, default False
-        ``True`` raises `NotImplementedError` (ROADMAP Queue 1, item 10).
+        Shard the frames over the ranks (``unwrap=True`` is
+        order-dependent and runs on one rank only).
     verbose : `bool`, default True
         Log the start and end of :meth:`run`.
     device : `torch.device` or `str`, keyword-only, optional
@@ -132,6 +133,7 @@ class DipoleMoment(DynamicAnalysisBase):
     """
 
     _checkpointable_stores = True
+    _rank_sharded = True
 
     def __init__(
         self,
@@ -295,7 +297,12 @@ class DipoleMoment(DynamicAnalysisBase):
 
         self._update = update
 
+    def _result_stores(self) -> dict:
+        return {"dipoles": 0, "volumes": 0}
+
     def _store_chunk(self, extras, batch) -> None:
+        # A rank's padded tail (mask 0) ends the chunk: only the real
+        # frames are stored.
         dipoles, volumes = extras
         n_real = batch.n_real
         lo = self._store_offset

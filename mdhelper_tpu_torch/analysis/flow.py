@@ -73,7 +73,9 @@ class FlowProfile(DynamicAnalysisBase):
         Reduced (LJ) units: :math:`k_\mathrm{B} = 1` and no
         ``results.units``.
     parallel : `bool`, keyword-only, default False
-        ``True`` raises `NotImplementedError` (ROADMAP Queue 1, item 10).
+        Shard the frames over the ranks (the histograms drop a rank's
+        padded frames by the mask; the float64 sums add up over the
+        ranks).
     device : `torch.device` or `str`, keyword-only, optional
         Where the chunks are binned (default: the first CUDA device);
         ``"cpu"`` for the CPU.
@@ -107,6 +109,7 @@ class FlowProfile(DynamicAnalysisBase):
     """
 
     _payload = "positions+velocities"
+    _rank_sharded = True
 
     def __init__(
         self,

@@ -8,12 +8,21 @@ copies are paid once instead of once per analysis.  Ported from
 :mod:`mdhelper_tpu.analysis.multi`; ``parallel=True`` shards the fused
 stream's frames over the :mod:`torch.distributed` ranks, as
 :class:`~mdhelper_tpu_torch.analysis.base.ParallelAnalysisBase` does.
+
+An analysis with a per-frame shift table (``_frame_shifts``: a
+``DensityProfile(recenter=..., parallel=True)``) gets each chunk's rows of
+it subtracted from its own gathered columns on the device, in float64 and
+rounded once to float32, as its own run subtracts them on the host: on
+float32 positions (the in-memory reader's, XTC's) the fused profile
+equals its standalone run.  The JAX package's fused pass
+drops that shift and returns the profile without recentering.
 """
 
 import logging
 import os
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from .base import (
@@ -58,9 +67,9 @@ def run_together(
         does.  An order-dependent analysis (``_sequential``: the Van Hove
         ring, Onsager, the ISF's lag ring, an unwrap scan) raises over
         more than one rank, as does one whose carry and stores do not yet
-        reduce over the ranks (not ``_rank_sharded``: every class but the
-        RDF, `StructureFactor` and the ISF's time-FFT estimator), and so
-        do `checkpoint` and `initial`.  Per-analysis sharding knobs
+        reduce over the ranks (not ``_rank_sharded``: the classes of
+        ROADMAP Queue 1 item 10b), and so do `checkpoint` and
+        `initial`.  Per-analysis sharding knobs
         (``shard=``) are not supported in fused mode.
     checkpoint : str, optional
         A file path, used as given: every analysis's carry, the
@@ -161,6 +170,18 @@ def run_together(
             None if axes is None else list(axes),
         ))
 
+    def shifted(a, pos, batch, axes):
+        """`pos` less the rows of ``a._frame_shifts`` of the batch's
+        frames (its padded tail: the last frame's), columns `axes`."""
+
+        pad = len(pos) - batch.n_real
+        frames = np.concatenate(
+            (batch.indices, np.repeat(batch.indices[-1:], pad)))
+        rows = a._frame_shifts[frames][:, [0, 1, 2] if axes is None
+                                       else axes]
+        rows = torch.as_tensor(rows, device=pos.device)
+        return (pos.to(torch.float64) - rows[:, None, :]).to(torch.float32)
+
     shared._payload = payloads.pop()
     shared._chunk_bytes = min(a._chunk_bytes for a in analyses)
     # The shared stream prefetches unless an analysis turned it off.
@@ -187,11 +208,14 @@ def run_together(
             logging.info(f"Resuming from {checkpoint} at frame {done}.")
     shared._stream_from = done
     for batch in shared._stream_batches():
-        for i, ((device_fn, absorb), (idx, axes)) in enumerate(
-                zip(parts, gathers)):
+        for i, (a, (device_fn, absorb), (idx, axes)) in enumerate(
+                zip(analyses, parts, gathers)):
             pos = batch.positions if idx is None else batch.positions[:, idx]
             if axes is not None:
                 pos = pos[:, :, axes]
+            if a._frame_shifts is not None:
+                pos = shifted(a, pos, batch, axes)
+            a._n_real = batch.n_real
             carries[i], aux = device_fn(
                 carries[i], pos, batch.dimensions, batch.mask
             )

@@ -219,10 +219,13 @@ def all_gather_tiles(tensor: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """Every rank's `tensor` concatenated along `axis` in rank order, on
     `tensor`'s device.  The tiles may differ in length along `axis` (a
     rank without one passes a length of 0); their other dimensions and
-    dtype must agree.  Without a process group, `tensor`."""
+    dtype must agree.  A bool tensor travels as uint8 (gloo takes no
+    bool).  Without a process group, `tensor`."""
 
     if not _grouped():
         return tensor
+    if tensor.dtype == torch.bool:
+        return all_gather_tiles(tensor.to(torch.uint8), axis).bool()
     world = dist.get_world_size()
     staged = _staged(tensor)
     lengths = _staged(torch.tensor([tensor.shape[axis]], dtype=torch.int64))

@@ -2259,8 +2259,10 @@ from mdhelper_tpu_torch.core.universe import Universe
 CASE = {case!r}
 device = torch.device("cuda", torch.cuda.current_device())
 rng = np.random.default_rng(5)
-u = Universe.from_arrays((rng.random((6, 3000, 3)) * 24).astype(np.float32),
-                         [24.0] * 3 + [90.0] * 3)
+u = Universe.from_arrays(
+    (rng.random((6, 3000, 3)) * 24).astype(np.float32),
+    [24.0] * 3 + [90.0] * 3, charges=np.tile([1.0, -1.0], 1500),
+    velocities=rng.standard_normal((6, 3000, 3)).astype(np.float32))
 
 
 def rdf(**kw):
@@ -2283,9 +2285,56 @@ elif CASE == "ring":
     got, want = rdf(shard="atoms").run(), rdf().run()
     assert got._mesh.grouped
     pairs = [(got.results.counts, want.results.counts)]
-else:
+elif CASE == "q":
     got, want = sf(shard="q").run(), sf(method="direct").run()
     pairs = [(got.results.ssf, want.results.ssf)]
+else:
+    # The classes of ROADMAP Queue 1 item 10b-1, fused over one rank, and
+    # their serial twins (the recentered profile's pre-pass route in both).
+    from mdhelper_tpu_torch.analysis import (
+        dynamics, electrostatics, flow, polymer, profile)
+
+    kw = dict(verbose=False, device=device, parallel=True)
+    ions = [u.atoms[0::2], u.atoms[1::2]]
+    chains = dict(n_chains=60, n_monomers=50)
+
+    def make():
+        if CASE == "velocities":
+            return [dynamics.VelocityAutocorrelation(u.atoms, **kw),
+                    dynamics.ElectricCurrentAutocorrelation(u.atoms, 300.0,
+                                                            **kw)]
+        return [profile.DensityProfile(ions, axes="z", n_bins=50, **kw),
+                profile.DensityProfile(ions, axes="z", n_bins=50,
+                                       recenter=0, **kw),
+                profile.RadialDensityProfile(ions, u.atoms[:4], n_bins=50,
+                                             range=(0.0, 12.0), **kw),
+                profile.DensityMap3D(ions, n_bins=16, **kw),
+                electrostatics.DipoleMoment(ions, **kw),
+                dynamics.SurvivalProbability(u.atoms, ("slab", "z", 4.0, 9.0),
+                                             **kw),
+                polymer.Gyradius(u.atoms, **chains, **kw),
+                polymer.SingleChainStructureFactor(u.atoms, n_points=4,
+                                                   **chains, **kw),
+                polymer.PersistenceLength(u.atoms, **chains, **kw),
+                polymer.MeanSquareInternalDistance(u.atoms, **chains, **kw)]
+
+    got, want = run_together(make(), parallel=True), run_together(make())
+    assert got[0]._mesh.grouped
+    keys = ("number_densities", "counts", "dipoles", "n_in_zone", "gyradii",
+            "scsf", "bond_acf", "msid", "vacf", "current")
+    pairs = [(np.asarray(a.results[k]), np.asarray(b.results[k]))
+             for a, b in zip(got, want) for k in keys if k in b.results]
+    if CASE == "profiles":
+        pairs.append((got[5]._membership, want[5]._membership))
+    if CASE == "velocities":
+        # FlowProfile's float64 sums are the card's atomic adds, whose
+        # order varies from run to run: within rtol 1e-12.
+        fg, fw = (run_together([flow.FlowProfile(u.atoms, "z", 24, **kw)],
+                               parallel=parallel)[0] for parallel in (True,
+                                                                      False))
+        np.testing.assert_array_equal(fg.results.counts, fw.results.counts)
+        np.testing.assert_allclose(fg.results.velocity, fw.results.velocity,
+                                   rtol=1e-12, atol=0)
 for a, b in pairs:
     np.testing.assert_array_equal(a, b)
 print("nccl rank OK")
@@ -2293,11 +2342,15 @@ print("nccl rank OK")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["fused", "ring", "q"])
+@pytest.mark.parametrize("case", ["fused", "ring", "q", "profiles",
+                                  "velocities"])
 def test_one_nccl_rank_equals_serial(cuda_device, tmp_path, case):
     """One NCCL rank (a process group of one): run_together(parallel=True),
     the atom-sharded ring and the q-sharded S(q) equal their serial runs
-    on the card, counts as integers, S(q) bit for bit."""
+    on the card, counts as integers, S(q) bit for bit; so do the profile
+    family, the dipoles, survival, the polymer classes and the velocity
+    stream fused over the rank (the flow profile's atomic sums within
+    rtol 1e-12)."""
 
     from mdhelper_tpu_torch.testing import spawn_ranks
 

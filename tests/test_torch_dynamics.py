@@ -466,8 +466,8 @@ def test_validation(universes, system):
             cls(bare.atoms, *args, device="cpu")
         with pytest.raises(ValueError, match="n_blocks"):
             cls(tu.atoms, *args, n_blocks=0, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            cls(tu.atoms, *args, parallel=True, device="cpu")
+        # parallel=True is taken (ROADMAP Queue 1, item 10b-1)
+        assert cls(tu.atoms, *args, parallel=True, device="cpu")._parallel
     with pytest.raises(ValueError, match="Too few frames"):
         _run(dynamics.VelocityAutocorrelation(tu.atoms, n_blocks=10,
                                               verbose=False, device="cpu"))
@@ -491,9 +491,8 @@ def test_validation(universes, system):
         u = tri if match == "orthorhombic" else tu
         with pytest.raises(ValueError, match=match):
             dynamics.SurvivalProbability(u.atoms, zone, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        dynamics.SurvivalProbability(tu.atoms, ("slab", "z", 1.0, 2.0),
-                                     parallel=True, device="cpu")
+    assert dynamics.SurvivalProbability(tu.atoms, ("slab", "z", 1.0, 2.0),
+                                        parallel=True, device="cpu")._parallel
     with pytest.raises(ValueError, match="'a' must be positive"):
         dynamics.OverlapFunction(tu.atoms, -1.0, device="cpu")
     with pytest.raises(ValueError, match="grouping"):

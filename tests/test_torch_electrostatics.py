@@ -232,6 +232,14 @@ def test_permittivity_guards(system):
 
 
 def test_parallel_raises(system):
+    """``parallel=True`` (ROADMAP Queue 1, item 10b-1) no longer raises:
+    without a process group it runs as a world of one, ``unwrap=True``
+    too, and equals the serial run."""
+
     _, tu, _, _ = system
-    with pytest.raises(NotImplementedError, match="item 10"):
-        electrostatics.DipoleMoment(tu.atoms, parallel=True, device="cpu")
+    for unwrap in (False, True):
+        a, b = (electrostatics.DipoleMoment(
+            tu.atoms, unwrap=unwrap, parallel=parallel, verbose=False,
+            device="cpu").run() for parallel in (True, False))
+        assert a._mesh.world == 1
+        np.testing.assert_array_equal(a.results.dipoles, b.results.dipoles)

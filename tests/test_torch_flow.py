@@ -342,8 +342,8 @@ def test_validation(universes, system):
         flow.FlowProfile(tu.atoms, axis="w", device="cpu")
     with pytest.raises(ValueError, match="n_bins"):
         flow.FlowProfile(tu.atoms, n_bins=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        flow.FlowProfile(tu.atoms, parallel=True, device="cpu")
+    # parallel=True is taken (ROADMAP Queue 1, item 10b-1)
+    assert flow.FlowProfile(tu.atoms, parallel=True, device="cpu")._parallel
     with pytest.raises(RuntimeError, match="run"):
         flow.FlowProfile(tu.atoms, device="cpu").calculate_shear_rate()
     no_box = Universe.from_arrays(pos, None, velocities=vel, masses=masses)

@@ -190,6 +190,15 @@ def profile_b(u, **kw):
                           device="cpu", **kw)
 
 
+def clusters_b(u, **kw):
+    """A class of ROADMAP Queue 1 item 10b-2, which does not reduce over
+    ranks yet."""
+    from mdhelper_tpu_torch.analysis.cluster import ClusterSizeDistribution
+
+    return ClusterSizeDistribution(u.atoms, 1.5, verbose=False,
+                                   device="cpu", **kw)
+
+
 #: name: (factory, trajectory, keywords of the sharded run, result keys)
 SHARDED = {
     "rdf_frames": (rdf_a, "a", {"shard": "frames"}, ("counts", "rdf")),
@@ -285,7 +294,7 @@ refusals = {
     "fused_recentered_profile": lambda: run_together(
         [rdf_b(us["b"]), profile_b(us["b"], recenter=0)], parallel=True),
     "fused_unsharded": lambda: run_together(
-        [rdf_b(us["b"]), profile_b(us["b"])], parallel=True),
+        [rdf_b(us["b"]), clusters_b(us["b"])], parallel=True),
     "unflagged_subclass": lambda: unflagged(
         frame_means_b(us["b"], parallel=True)).run(),
 }
@@ -592,14 +601,14 @@ def test_ring_needs_atoms_and_an_orthorhombic_box(universes):
 
 
 def test_roster_classes_still_refuse_parallel(universes):
-    """Until item 10b, the port's classes on DynamicAnalysisBase raise for
+    """Until item 10b-2, its classes on DynamicAnalysisBase raise for
     ``parallel=True``; a subclass that sets ``_rank_sharded`` runs."""
 
-    from mdhelper_tpu_torch.analysis.profile import DensityProfile
+    from mdhelper_tpu_torch.analysis.cluster import ClusterSizeDistribution
 
     u = universes["a"]
     with pytest.raises(NotImplementedError, match="item 10b"):
-        DensityProfile(u.atoms, parallel=True, device="cpu")
+        ClusterSizeDistribution(u.atoms, 1.5, parallel=True, device="cpu")
     assert issubclass(DynamicAnalysisBase, ParallelAnalysisBase)
     means = _cases["frame_means_b"](u, parallel=True).run(n_jobs=2,
                                                           module="dask")

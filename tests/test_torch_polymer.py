@@ -649,7 +649,10 @@ def test_time_step_quantities(chains):
 
 def test_parallel_runs_serially_or_raises(chains):
     """EndToEndVector and RouseModes take ``parallel`` and ignore it, as
-    the JAX classes do; the four classes on the sharded base raise."""
+    the JAX classes do, and raise for the mesh options; the four classes
+    on the sharded base run ``parallel=True`` (ROADMAP Queue 1, item
+    10b-1) as a world of one without a process group, equal to their
+    serial runs."""
 
     _, u, _ = chains
     for cls in ("EndToEndVector", "RouseModes"):
@@ -658,10 +661,14 @@ def test_parallel_runs_serially_or_raises(chains):
         np.testing.assert_array_equal(a.results.acf, b.results.acf)
         with pytest.raises(NotImplementedError, match="item 10"):
             getattr(polymer, cls)(u.atoms, device="cpu", mesh=None)
-    for cls in ("Gyradius", "SingleChainStructureFactor",
-                "PersistenceLength", "MeanSquareInternalDistance"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            getattr(polymer, cls)(u.atoms, parallel=True, device="cpu")
+    for cls, key in (("Gyradius", "gyradii"),
+                     ("SingleChainStructureFactor", "scsf"),
+                     ("PersistenceLength", "bond_lengths"),
+                     ("MeanSquareInternalDistance", "msid")):
+        a = _run(polymer, cls, u.atoms, parallel=True)
+        b = _run(polymer, cls, u.atoms)
+        assert a._mesh.world == 1
+        np.testing.assert_array_equal(a.results[key], b.results[key])
 
 
 def test_validation_matches_jax(chains):

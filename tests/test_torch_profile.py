@@ -432,8 +432,18 @@ def test_density_maps_equal_jax(system, case):
 @pytest.mark.parametrize("cls", ["DensityProfile", "RadialDensityProfile",
                                  "DensityMap2D", "DensityMap3D"])
 def test_parallel_raises(system, cls):
+    """``parallel=True`` (ROADMAP Queue 1, item 10b-1) no longer raises:
+    without a process group it runs as a world of one and equals the
+    serial run."""
+
     _, tu, _, _ = system
     args = (tu.atoms,) + ((np.zeros(3),) if cls == "RadialDensityProfile"
                           else ())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        getattr(profile, cls)(*args, parallel=True, device="cpu")
+    runs = [getattr(profile, cls)(*args, parallel=parallel, verbose=False,
+                                  device="cpu").run()
+            for parallel in (True, False)]
+    assert runs[0]._mesh.world == 1 and runs[1]._mesh is None
+    for key in ("number_densities", "counts"):
+        if key in runs[1].results:
+            for got, want in zip(runs[0].results[key], runs[1].results[key]):
+                np.testing.assert_array_equal(got, want)

@@ -146,33 +146,21 @@ NOT_PORTED = {
 
 #: Parameters the port takes whose other values are not ported yet: the
 #: classes on ``DynamicAnalysisBase`` that have not set ``_rank_sharded``
-#: accept ``parallel=False`` and raise `NotImplementedError` for ``True``,
-#: citing parallel/ (item 10b).  Nothing else is on this list.
+#: (the 18 of item 10b-2) accept ``parallel=False`` and raise
+#: `NotImplementedError` for ``True``, citing parallel/ (item 10b).
+#: Nothing else is on this list.
 #: (``EndToEndVector`` and ``RouseModes`` take ``parallel`` through
 #: ``**kwargs`` and ignore it, as the JAX classes do; ``TICA`` takes it
 #: through ``**kwargs`` and raises.)
 NOT_PORTED_VALUES = {
     dotted: {"parallel": (True, "parallel/ (item 10): 10b")}
     for dotted in (
-        "analysis.profile.DensityProfile",
-        "analysis.profile.RadialDensityProfile",
-        "analysis.profile.DensityMap2D",
-        "analysis.profile.DensityMap3D",
-        "analysis.electrostatics.DipoleMoment",
-        "analysis.polymer.Gyradius",
-        "analysis.polymer.SingleChainStructureFactor",
-        "analysis.polymer.PersistenceLength",
-        "analysis.polymer.MeanSquareInternalDistance",
         "analysis.cluster.ClusterSizeDistribution",
         "analysis.hbonds.HydrogenBondAnalysis",
         "analysis.orientation.NematicOrderParameter",
         "analysis.orientation.OrientationProfile",
         "analysis.steinhardt.SteinhardtOrderParameter",
         "analysis.steinhardt.TetrahedralOrderParameter",
-        "analysis.dynamics.VelocityAutocorrelation",
-        "analysis.dynamics.ElectricCurrentAutocorrelation",
-        "analysis.dynamics.SurvivalProbability",
-        "analysis.flow.FlowProfile",
         "analysis.interface.WillardChandlerInterface",
         "analysis.interface.IntrinsicDensityProfile",
         "analysis.rmsd.RMSD",
