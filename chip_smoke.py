@@ -6958,42 +6958,62 @@ def profiled_call(fn):
     return out, wall, busy
 
 
-def last_chunk_profiled(runner, frames, chunk):
-    """``runner(on_chunk)`` (a run_together pass streaming `frames` frames
-    on this rank in chunks of `chunk`) with torch.profiler over its last
-    chunk, warmed a chunk ahead: ``(result, frames/s from the end of its
-    first chunk to the start of the profiler's warm-up chunk, busy share
-    of the last chunk's wall time or None when the trace kept no device
-    record)``.  Unlike :func:`run_profiled` it never re-runs the pass,
-    which over ranks would leave the other ranks waiting."""
+def rank_batches(frames, chunk):
+    """This rank's batches of a frame-sharded pass of `frames` frames in
+    chunks of `chunk` frames (a multiple of the world size): one a chunk,
+    but for a last chunk whose padded block holds no frame of this rank."""
+
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    chunks = -(-frames // chunk)
+    last = frames - (chunks - 1) * chunk
+    per = (last + (-last) % world) // world
+    return chunks - (0 if rank * per < last else 1)
+
+
+def last_chunk_profiled(runner, n_batches):
+    """``runner(on_chunk)`` (a run_together pass streaming `n_batches`
+    batches on this rank) with torch.profiler over its last batch, warmed a
+    batch ahead: ``(result, frames/s over the batches after the first and
+    before the profiler's warm-up batch, busy share of the last batch's
+    wall time or None when the trace kept no device record)``; both None
+    for a rank of fewer than four batches (one whose block of a short last
+    chunk was empty), which has no such window.  Unlike
+    :func:`run_profiled` it never re-runs the pass, which over ranks would
+    leave the other ranks waiting."""
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if n_batches < 4:
+        return runner(None), None, None
     prof = profile(activities=[ProfilerActivity.CUDA])
-    marks, seen = {}, [0]
+    marks, seen, timed = {}, [0], [0]
 
     def on_chunk(batch):
-        seen[0] += batch.n_real
-        if "first" not in marks:
+        seen[0] += 1
+        if seen[0] == 1:
             torch.cuda.synchronize()
             marks["first"] = time.perf_counter()
-        if seen[0] == frames - 2 * chunk:
+        elif seen[0] <= n_batches - 2:
+            timed[0] += batch.n_real
+        if seen[0] == n_batches - 2:
             torch.cuda.synchronize()
             marks["warm"] = time.perf_counter()
             prof.prepare_trace()
-        elif seen[0] == frames - chunk:
+        elif seen[0] == n_batches - 1:
             torch.cuda.synchronize()
             prof.start_trace()
             marks["start"] = time.perf_counter()
-        elif seen[0] == frames:
+        elif seen[0] == n_batches:
             torch.cuda.synchronize()
             marks["end"] = time.perf_counter()
             prof.stop()
 
     out = runner(on_chunk)
-    fps = (frames - 3 * chunk) / (marks["warm"] - marks["first"])
+    fps = timed[0] / (marks["warm"] - marks["first"])
     on_device = [(e.time_range.start, e.time_range.end)
                  for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = (busy_us(on_device) / ((marks["end"] - marks["start"]) * 1e6)
@@ -7011,23 +7031,35 @@ def process_seconds():
     return up - start / os.sysconf("SC_CLK_TCK")
 
 
-#: phase_parallel's passes of the rank-sharded profile, velocity, flow and
-#: polymer classes, each one run_together pass over
-#: N_FRAMES frames of a full-width fixture in CHUNK-frame chunks of the
-#: shared stream: name: (fixture, payload width, the analyses' result
-#: keys, each with how the ranks are held to the serial run: "int" and
-#: "store" (a copy of the input, or integer-made) equal; "f64" (float64
-#: sums, and per-frame float64 values that a reduction over the atoms
-#: makes, whose order follows the chunk's shape: a rank's block of
-#: CHUNK / world frames against the serial chunk of CHUNK) bit for bit
-#: on one rank and within rtol 1e-12 on more; "f32" (float32 per-frame
-#: values made so) bit for bit on one rank and within 4 eps32 BOX, the
-#: float32 summation-order bound of tests/test_torch_polymer.py, on
-#: more; "atomic" (float64 sums of the card's atomic adds, the flow
-#: profile's weighted ``bincount``s, whose order varies from run to run)
-#: within rtol 1e-12 on any number of ranks).  The fixtures: velocity_universe (N_ATOMS ions with velocities)
-#: from SEED + 26 and polymer_universe (POLYMER_CHAINS chains of
-#: POLYMER_MONOMERS) from SEED + 27, N_FRAMES frames each.
+#: phase_parallel's passes of the rank-sharded classes, each one
+#: run_together pass over the frames of RANK_PASS_DEPTH of a full-width
+#: fixture in chunks of the shared stream: name: (fixture, payload width,
+#: the analyses' result keys, each with how the ranks are held to the
+#: serial run: "int" and "store" (a copy of the input, or integer-made,
+#: or made frame by frame) equal; "f64" (float64 sums, and per-frame
+#: float64 values that a reduction over the atoms makes, whose order
+#: follows the chunk's shape: a rank's block of chunk / world frames
+#: against the serial chunk) bit for bit on one rank and within rtol 1e-12
+#: on more; "f32" (float32 per-frame values made so) bit for bit on one
+#: rank and within 4 eps32 BOX, the float32 summation-order bound of
+#: tests/test_torch_polymer.py, on more; "q32" (float32 order tensors so
+#: made, of order 1) likewise within 8 eps32, tests/test_torch_
+#: orientation.py's Q_ATOL; "unit64" (per-frame float64 rotations so
+#: made) likewise within 1e-12; "scaled64" (float64 sums, or eigenvalues
+#: of them, some near 0) likewise within 1e-12 of their largest
+#: magnitude; "root64" (an RMSF or a standard deviation: the root of a
+#: float64 mean square less the square of its float64 mean, ROOT_MEANS,
+#: which cancel) likewise within 1e-12 of the mean square over twice the
+#: root, element by element; "atomic" (float64 sums
+#: of the card's atomic adds, the weighted ``bincount``s, whose order
+#: varies from run to run) within rtol 1e-12 on any number of ranks).  The fixtures: velocity_universe
+#: (N_ATOMS ions with velocities) from SEED + 26 and polymer_universe
+#: (POLYMER_CHAINS chains of POLYMER_MONOMERS) from SEED + 27, N_FRAMES
+#: frames each; agg_universe (AGG_ATOMS water atoms, and one atom type for
+#: the order pass) from SEED + 28 and 29, interface_universe from SEED +
+#: 30, superposition_universe (SUP_ATOMS protein atoms in SUP_SOLVENT
+#: solvent atoms) from SEED + 31 and pairing_universe (PAIR_IONS ion
+#: pairs) from SEED + 32, each as deep as its deepest pass.
 RANK_PASSES = {
     "profiles": ("velocity", 3, (
         {"number_densities": "int"},  # config 4: ions along z
@@ -7051,31 +7083,125 @@ RANK_PASSES = {
         {"bond_acf": "f64", "bond_lengths": "f64"},
         {"msid": "f64"},
     )),
+    # The aggregates, order, interfaces, molecules, SASA, bonded and
+    # pairing classes (ROADMAP Queue 1, item 10b-2).
+    "aggregates": ("agg", 3, (
+        {"size_counts": "int", "n_clusters": "int", "largest": "int"},
+        {"counts": "int", "occupancies": "int"},
+        {"Q": "q32"},
+        {"counts": "int", "p1": "atomic", "p2": "atomic"},
+    )),
+    "order": ("order", 3, (
+        {"n_neighbors": "int", "ql": "store", "Ql": "store", "wl": "store",
+         "ql_avg": "store", "wl_avg": "store"},
+        {"q_tet": "store"},
+    )),
+    "interfaces": ("interface", 3, (
+        {"density_field": "scaled64", "levels": "store", "_heights": "store"},
+        {"counts": "int", "number_densities": "f64"},
+    )),
+    "molecules": ("superposition", 3, (
+        {"rmsd": "f64", "rotations": "unit64"},
+        {"rmsf": "root64", "mean_positions": "scaled64"},
+        {"variance": "scaled64", "mean_positions": "scaled64"},
+        {"q": "store"},
+    )),
+    "sasa": ("superposition", 3, (
+        {"areas": "store", "total_areas": "store", "n_neighbors": "int"},
+    )),
+    "bonded": ("polymer", 3, (
+        {"counts": "int", "mean": "f64", "std": "root64"},
+        {"counts": "int", "mean": "f64", "std": "root64"},
+        {"counts": "int"},
+    )),
+    "pairing": ("pairing", 3, (
+        {"counts": "int", "free_fractions": "store", "pair_counts": "int",
+         "_existence": "store", "lifetime": "store", "survival": "store"},
+    )),
 }
+#: the mean beside each "root64" key of RANK_PASSES
+ROOT_MEANS = {"rmsf": "mean_positions", "std": "mean"}
+#: each pass's (frames, frames a chunk): the passes of item 10b-2 leave a
+#: last chunk of odd length, a padded tail on a rank of two, and hold at
+#: least four chunks (last_chunk_profiled's window).
+RANK_PASS_DEPTH = {
+    **{name: (N_FRAMES, CHUNK)
+       for name in ("profiles", "velocities", "flow", "polymer")},
+    "aggregates": (4 * AGG_CHUNK + 3, AGG_CHUNK),
+    "order": (3 * AGG_CHUNK + 3, AGG_CHUNK),
+    "interfaces": (3 * CHUNK + 5, CHUNK),
+    "molecules": (3 * CHUNK + 5, CHUNK),
+    "sasa": (3 * SASA_CHUNK + 3, SASA_CHUNK),
+    "bonded": (3 * CHUNK + 5, CHUNK),
+    "pairing": (3 * CHUNK + 5, CHUNK),
+}
+#: phase_parallel's checkpoints over ranks: frames a chunk of the resumed
+#: runs (killed at their third CHUNK-frame chunk, at frame 2 CHUNK, which
+#: a grid of this many frames from frame 0 does not hold as a boundary; a
+#: multiple of 1, 2 and 4 ranks).
+RANK_RESUME_CHUNK = 12
 
 
 def rank_fixtures():
     """The fixtures of RANK_PASSES, which every rank and the serial
-    references make alike."""
+    references make alike (and the superposition's reference structure
+    and the chains' bonds, angles and dihedrals)."""
+
+    def deepest(fixture):
+        return max(RANK_PASS_DEPTH[name][0]
+                   for name, (f, _, _) in RANK_PASSES.items() if f == fixture)
 
     _, _, velocity = velocity_universe(np.random.default_rng(SEED + 26),
                                        N_FRAMES)
     _, _, polymer = polymer_universe(np.random.default_rng(SEED + 27),
                                      N_FRAMES)
-    return {"velocity": velocity, "polymer": polymer}
+    _, agg = agg_universe(np.random.default_rng(SEED + 28), deepest("agg"))
+    _, order = agg_universe(np.random.default_rng(SEED + 29),
+                            deepest("order"), waters=False)
+    _, interface = interface_universe(np.random.default_rng(SEED + 30),
+                                      deepest("interface"))
+    _, base, _, _, superposition = superposition_universe(
+        np.random.default_rng(SEED + 31), deepest("superposition"))
+    *_, pairing = pairing_universe(np.random.default_rng(SEED + 32),
+                                   deepest("pairing"))
+    from mdhelper_tpu_torch.analysis.bonded import (
+        derive_angles,
+        derive_dihedrals,
+    )
+
+    chain = np.arange(POLYMER_CHAINS)[:, None] * POLYMER_MONOMERS
+    first = (chain + np.arange(POLYMER_MONOMERS - 1)).ravel()
+    bonds = np.stack([first, first + 1], axis=1)
+    return {"velocity": velocity, "polymer": polymer, "agg": agg,
+            "order": order, "interface": interface,
+            "superposition": superposition, "superposition_base": base,
+            "pairing": pairing, "polymer_terms": (
+                bonds, derive_angles(bonds), derive_dihedrals(bonds))}
 
 
-def rank_pass(name, fixtures, device):
+def rank_pass(name, fixtures, device, chunk=None):
     """The analyses of RANK_PASSES[name] (``parallel=True``: over the ranks
     of a grouped run, a world of one otherwise) on `device`, chunked for
-    the shared stream."""
+    the shared stream (in chunks of RANK_PASS_DEPTH's frames, or of
+    `chunk`).  The interfaces take one frame a grid pass, so that a rank's
+    block and the serial chunk split a chunk's frames alike."""
 
     from mdhelper_tpu_torch.analysis import (
+        bonded,
+        cluster,
+        contacts,
         dynamics,
         electrostatics,
         flow,
+        hbonds,
+        interface,
+        orientation,
+        pairing,
         polymer,
         profile,
+        rmsd,
+        sasa,
+        steinhardt,
     )
 
     fixture, width, _ = RANK_PASSES[name]
@@ -7105,6 +7231,59 @@ def rank_pass(name, fixtures, device):
         ]
     elif name == "flow":
         analyses = [flow.FlowProfile(u.atoms, "z", FLOW_BINS, **kw)]
+    elif name == "aggregates":
+        analyses = [
+            cluster.ClusterSizeDistribution(u.atoms, 3.5, "residues", **kw),
+            hbonds.HydrogenBondAnalysis(u, hydrogens_sel="name H*",
+                                        acceptors_sel="name O*", **kw),
+            orientation.NematicOrderParameter(u.select_atoms("name H1"),
+                                              u.select_atoms("name H2"),
+                                              **kw),
+            orientation.OrientationProfile(u.select_atoms("name O"),
+                                           u.select_atoms("name H1"), "z",
+                                           PROFILE_BINS, **kw),
+        ]
+    elif name == "order":
+        analyses = [
+            steinhardt.SteinhardtOrderParameter(u.atoms, 3.5, (4, 6),
+                                                averaged=True, wl=True, **kw),
+            steinhardt.TetrahedralOrderParameter(u.atoms, **kw),
+        ]
+    elif name == "interfaces":
+        ox = u.select_atoms("name OW")
+        analyses = [
+            interface.WillardChandlerInterface(ox, **kw),
+            interface.IntrinsicDensityProfile(
+                ox, [ox, u.select_atoms("name NA"), u.select_atoms("name CL")],
+                **kw),
+        ]
+        for a in analyses:
+            a._grid_bytes = 1
+    elif name in ("molecules", "sasa"):
+        base = fixtures["superposition_base"]
+        protein = u.select_atoms("not resname SOL")
+        heavy = u.select_atoms("not resname SOL and not name H*")
+        backbone = u.select_atoms("name N CA C O and not resname SOL")
+        analyses = [
+            rmsd.RMSD(protein, base, weights="mass", **kw),
+            rmsd.RMSF(protein, base, **kw),
+            rmsd.PrincipalComponentAnalysis(backbone, base[backbone.ix], **kw),
+            contacts.NativeContacts(heavy, method="hard", **kw),
+        ] if name == "molecules" else [
+            sasa.SolventAccessibleSurfaceArea(heavy, n_points=SASA_POINTS,
+                                              **kw)]
+    elif name == "bonded":
+        bonds, angles, dihedrals = fixtures["polymer_terms"]
+        analyses = [
+            bonded.BondLengthDistribution(u.atoms, bonds=bonds, **kw),
+            bonded.BondAngleDistribution(u.atoms, angles=angles, **kw),
+            bonded.DihedralDistribution(u.atoms, dihedrals=dihedrals, **kw),
+        ]
+    elif name == "pairing":
+        site = u.atoms[:5 * PAIR_IONS].select_atoms(f"name {PAIR_SITE}")
+        analyses = [pairing.IonPairAnalysis(site, site, PAIR_SITE_CUT,
+                                            pair_counts=True, lifetimes=True,
+                                            **kw)]
     else:
         chains = {"n_chains": POLYMER_CHAINS, "n_monomers": POLYMER_MONOMERS}
         analyses = [
@@ -7114,8 +7293,9 @@ def rank_pass(name, fixtures, device):
             polymer.PersistenceLength(u.atoms, **chains, **kw),
             polymer.MeanSquareInternalDistance(u.atoms, **chains, **kw),
         ]
+    chunk = chunk or RANK_PASS_DEPTH[name][1]
     for a in analyses:
-        a._chunk_bytes = CHUNK * u.atoms.n_atoms * width * 4
+        a._chunk_bytes = chunk * u.atoms.n_atoms * width * 4
     return analyses
 
 
@@ -7136,7 +7316,7 @@ def rank_pass_arrays(name, analyses):
     return out
 
 
-def parallel_references(workdir):
+def parallel_references(workdir, device=None):
     """The serial runs on the card that phase_parallel's ranks must equal,
     saved to ``references.npz`` in `workdir`: the fused RDF's counts (the
     atom ring's settings too) and factor S(q), the direct S(q) and the
@@ -7144,7 +7324,7 @@ def parallel_references(workdir):
     rank makes (:func:`slice_universe` from ``SEED + 25``); and each pass
     of RANK_PASSES streamed serially (``run_together(parallel=False)``;
     the recentered profile takes its pre-pass route, ``parallel=True``
-    being its own flag)."""
+    being its own flag).  `device` defaults to the current card."""
 
     import torch
 
@@ -7154,7 +7334,8 @@ def parallel_references(workdir):
         StructureFactor,
     )
 
-    device = torch.device("cuda", torch.cuda.current_device())
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     _, u = slice_universe(np.random.default_rng(SEED + 25))
     rdf, sq = run_together(slice_analyses(u, device, ("rdf", "sq")))
     direct = StructureFactor(u.atoms, n_points=N_QPTS, sort=False,
@@ -7170,7 +7351,8 @@ def parallel_references(workdir):
     fixtures = rank_fixtures()
     for name in RANK_PASSES:
         passes.update(rank_pass_arrays(name, run_together(
-            rank_pass(name, fixtures, device))))
+            rank_pass(name, fixtures, device),
+            stop=RANK_PASS_DEPTH[name][0])))
     np.savez(os.path.join(workdir, "references.npz"),
              rdf=rdf.results.counts, sq=sq.results.ssf,
              direct=direct.results.ssf, cross=cross.results.counts,
@@ -7193,17 +7375,22 @@ def parallel_child(workdir, device=None):
     ranks, the per-frame dipoles, currents and gyradii as RANK_PASSES
     says, the flow profile's atomic float64 sums within rtol 1e-12
     everywhere), the polymer pass's trig-sums launches above 0 on every
-    rank.
+    rank.  Last, the checkpoints over ranks (:func:`rank_checkpoint`): the
+    fused RDF + S(q) pass with ``checkpoint=`` one path for every rank, and
+    the pairing pass with a path a rank, each killed at its third chunk and
+    resumed in RANK_RESUME_CHUNK-frame chunks, held to this rank's
+    uninterrupted run (counts and stores equal, S(q) within rtol 1e-12).
     Saves its results
     to ``rank{r}.npz`` in `workdir` and prints one ``PARALLEL {json}``
     line: the rank, world, backend, the seconds since the process started
     at which it entered here (imports and the process group behind it) and
-    left, the seconds of each recentering pre-pass it ran, and for each
-    run its launches by kernel, this rank's frames/s
+    left, the seconds of each recentering pre-pass it ran, for each
+    run its frames, its launches by kernel, this rank's frames/s
     and ms a frame over its own window, its busy share, and the wall-clock
     times (``time.time()``) at which the rank entered and left its
-    unprofiled run, from which the parent takes the job's frames/s.  `device` defaults to
-    the rank's card."""
+    unprofiled run, from which the parent takes the job's frames/s; and
+    for each checkpoint its launches, saves and chunk times.  `device`
+    defaults to the rank's card."""
 
     entered = process_seconds()
 
@@ -7261,7 +7448,8 @@ def parallel_child(workdir, device=None):
     def sharded_pass(name):
         def run(on_chunk=None):
             return run_together(rank_pass(name, fixtures, device),
-                                parallel=True, on_chunk=on_chunk)
+                                parallel=True, on_chunk=on_chunk,
+                                stop=RANK_PASS_DEPTH[name][0])
         return run
 
     # (name, run, the references of its results' counts or ssf in order;
@@ -7286,9 +7474,10 @@ def parallel_child(workdir, device=None):
         run()
         ended = time.time()
         zero_launches()
+        frames, chunk = RANK_PASS_DEPTH.get(name, (N_FRAMES, CHUNK))
         if name == "fused" or references is None:
             out, rank_fps, busy = last_chunk_profiled(
-                run, N_FRAMES // world, CHUNK // world)
+                run, rank_batches(frames, chunk))
         else:
             out, wall, busy = profiled_call(run)
             rank_fps = N_FRAMES / wall
@@ -7298,16 +7487,25 @@ def parallel_child(workdir, device=None):
                 kind = RANK_PASSES[name][2][int(key.split(":")[1])][
                     key.split(":")[2]]
                 want = refs[key]
+                atol = {"f32": 4 * EPS32 * BOX, "q32": 8 * EPS32,
+                        "unit64": 1e-12,
+                        "scaled64": 1e-12 * np.nanmax(np.abs(want))}
+                if kind == "root64":
+                    analysis, name_ = key.rsplit(":", 1)
+                    mean = refs[f"{analysis}:{ROOT_MEANS[name_]}"] ** 2
+                    if mean.ndim > want.ndim:
+                        mean = mean.sum(-1)
+                    atol[kind] = 1e-12 * (want**2 + mean) / (2 * want)
                 if kind == "atomic" or (kind == "f64" and world > 1):
                     check(np.allclose(got, want, rtol=1e-12, atol=0.0,
                                       equal_nan=True),
                           f"rank {rank}: {key} beyond rtol 1e-12 of the "
                           "serial run")
-                elif kind == "f32" and world > 1:
-                    check(np.allclose(got, want, rtol=0.0,
-                                      atol=4 * EPS32 * BOX),
-                          f"rank {rank}: {key} beyond 4 eps32 BOX of the "
-                          "serial run")
+                elif kind in atol and world > 1:
+                    check(np.allclose(got, want, rtol=0.0, atol=atol[kind],
+                                      equal_nan=True),
+                          f"rank {rank}: {key} beyond "
+                          f"{np.max(atol[kind]):.3e} of the serial run")
                 else:
                     check(np.array_equal(got, want, equal_nan=True),
                           f"rank {rank}: {key} differs from the serial run")
@@ -7316,8 +7514,9 @@ def parallel_child(workdir, device=None):
                 check(launches.get("trig_sums", 0) > 0,
                       f"rank {rank}: its polymer pass launched no trig sums")
             report[name] = {"launches": launches, "rank_fps": rank_fps,
-                            "rank_ms_per_frame": 1e3 / rank_fps,
-                            "busy": busy, "began": began, "ended": ended}
+                            "rank_ms_per_frame": rank_fps and 1e3 / rank_fps,
+                            "busy": busy, "began": began, "ended": ended,
+                            "frames": frames}
             continue
         for i, (got, ref) in enumerate(zip(out, references)):
             key = "ssf" if "ssf" in got.results else "counts"
@@ -7331,13 +7530,104 @@ def parallel_child(workdir, device=None):
                       "serial run")
             saved[f"{name}:{i}:{key}"] = a
         report[name] = {"launches": launches, "rank_fps": rank_fps,
-                        "rank_ms_per_frame": 1e3 / rank_fps, "busy": busy,
-                        "began": began, "ended": ended}
+                        "rank_ms_per_frame": rank_fps and 1e3 / rank_fps,
+                        "busy": busy,
+                        "began": began, "ended": ended, "frames": frames}
+
+    # Checkpoints over ranks: the fused pass on one shared path, the
+    # pairing pass on a path a rank.
+    checkpoints = {}
+
+    def fused_chunked(chunk):
+        analyses = slice_analyses(u, device, ("rdf", "sq"))
+        for a in analyses:
+            a._chunk_bytes = chunk * N_ATOMS * 3 * 4
+        return analyses
+
+    resumed, checkpoints["fused_checkpoint"] = rank_checkpoint(
+        fused_chunked, os.path.join(workdir, "fused_checkpoint"))
+    rdf, sq = resumed
+    check(np.array_equal(rdf.results.counts, saved["fused:0:counts"]),
+          f"rank {rank}: the resumed fused RDF counts differ from the "
+          "uninterrupted run's")
+    check(np.allclose(sq.results.ssf, saved["fused:1:ssf"], rtol=1e-12,
+                      atol=0.0), f"rank {rank}: the resumed fused S(q) is "
+          "beyond rtol 1e-12 of the uninterrupted run's")
+    resumed, checkpoints["pairing_checkpoint"] = rank_checkpoint(
+        lambda chunk: rank_pass("pairing", fixtures, device, chunk),
+        os.path.join(workdir, f"pairing_checkpoint_{rank}"),
+        RANK_PASS_DEPTH["pairing"][0])
+    for key, got in rank_pass_arrays("pairing", resumed).items():
+        check(np.array_equal(got, saved[key], equal_nan=True),
+              f"rank {rank}: the resumed pairing pass's {key} differs from "
+              "the uninterrupted run's")
     np.savez(os.path.join(workdir, f"rank{rank}.npz"), **saved)
     print("PARALLEL " + json.dumps({
         "rank": rank, "world": world, "backend": dist.get_backend(),
         "entered_s": entered, "left_s": process_seconds(),
-        "prepass_s": prepass_s, "runs": report}), flush=True)
+        "prepass_s": prepass_s, "runs": report,
+        "checkpoints": checkpoints}), flush=True)
+
+
+def rank_checkpoint(make, path, frames=None):
+    """A checkpoint over the ranks of a spawned job: ``make(chunk)``'s
+    analyses through ``run_together(parallel=True, checkpoint=path)`` over
+    the first `frames` frames (default: all) in CHUNK-frame chunks, killed
+    at the third chunk
+    (:func:`killing_hook`: before its save, at frame 2 CHUNK), then new
+    analyses resumed from the file in RANK_RESUME_CHUNK-frame chunks (its
+    stream starts at the checkpoint's frame, which the resumed grid from
+    frame 0 would split).  The launch counts are set to 0 just before the
+    killed run and read just after the resumed one.  Returns ``(resumed
+    analyses, {"launches", "saves": [(ms, bytes)] of each save of both
+    runs (a save's collectives and write, the device synchronised first),
+    "chunk_ms": the resumed run's chunk to chunk times, "done": the frame
+    it resumed at})``."""
+
+    import torch
+
+    from mdhelper_tpu_torch.analysis import base
+    from mdhelper_tpu_torch.analysis.multi import run_together
+
+    original = base._Checkpoint.save
+    saves, marks, ends = [], [], []
+
+    def timed(self, *args):
+        torch.cuda.synchronize()
+        began = time.perf_counter()
+        original(self, *args)
+        saves.append(((time.perf_counter() - began) * 1e3,
+                      os.path.getsize(self.path)))
+
+    def resumed_chunk(batch):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        ends.append(int(batch.chunk_end))
+
+    base._Checkpoint.save = timed
+    zero_launches()
+    try:
+        try:
+            run_together(make(CHUNK), parallel=True, checkpoint=path,
+                         stop=frames, on_chunk=killing_hook(3))
+        except Killed:
+            pass
+        else:
+            check(False, f"{path}: the killed run ran to its end")
+        with np.load(path) as archive:
+            done = int(archive["__frames_done__"])
+        check(done == 2 * CHUNK and done % RANK_RESUME_CHUNK,
+              f"{path}: killed at frame {done}")
+        resumed = run_together(make(RANK_RESUME_CHUNK), parallel=True,
+                               checkpoint=path, stop=frames,
+                               on_chunk=resumed_chunk)
+    finally:
+        base._Checkpoint.save = original
+    check(ends[0] == done + RANK_RESUME_CHUNK,
+          f"{path}: the resumed run's first chunk ends at {ends[0]}")
+    launches = {k: n for k, n in kernel_launch_counts().items() if n}
+    return resumed, {"launches": launches, "saves": saves,
+                     "chunk_ms": list(1e3 * np.diff(marks)), "done": done}
 
 
 def ring_step_vs_plain(device, rng):
@@ -7422,12 +7712,14 @@ def phase_parallel(device, rng, card):
     version in this process (:func:`ring_step_vs_plain`), then one job of
     one NCCL rank on the card and one of two gloo ranks sharing it, each
     rank a spawned process (:func:`parallel_child`: the fused RDF + S(q),
-    the rings and the q tiles, then the profile, velocity, flow and
-    polymer passes of RANK_PASSES); any rank that fails fails the smoke.
-    Every rank of a job must hold the same results.
-    Returns each job's launches by run and kernel, its ranks' reports and
-    its frames/s by run, the ring step's and the cross ring block's
-    timings and the phase's seconds."""
+    the rings and the q tiles, then the passes of RANK_PASSES -- profiles,
+    velocities, flow, polymer, and item 10b-2's aggregates, order,
+    interfaces, molecules, SASA, bonded and pairing -- then the fused and
+    pairing passes checkpointed, killed and resumed); any rank that fails
+    fails the smoke.  Every rank of a job must hold the same results.
+    Returns each job's launches by run and kernel, its ranks' reports, its
+    frames/s by run and its checkpoints' saves, the ring step's and the
+    cross ring block's timings and the phase's seconds."""
 
     import tempfile
 
@@ -7480,7 +7772,7 @@ def parallel_job(world, backend, references, card):
             for key in arrays[0].files:
                 check(np.array_equal(other[key], arrays[0][key]),
                       f"{backend} job: ranks differ in {key}")
-    launches, runs = {}, {}
+    launches, runs, frames, checkpoints = {}, {}, {}, {}
     for rep in reports:
         check(rep["world"] == world and rep["backend"] == backend,
               f"rank {rep['rank']} ran in a world of {rep['world']} on "
@@ -7498,18 +7790,46 @@ def parallel_job(world, backend, references, card):
                 by_run[kernel] = by_run.get(kernel, 0) + n
             span = runs.setdefault(name, [run["began"], run["ended"]])
             span[:] = min(span[0], run["began"]), max(span[1], run["ended"])
+            frames[name] = run["frames"]
             busy = ("not measured" if run["busy"] is None
                     else f"{100 * run['busy']:.1f} %")
             print(f"parallel {name}: world {world} ({backend}), rank "
-                  f"{rep['rank']}: {run['rank_fps']:.3f} frames/s over its "
-                  f"own window ({run['rank_ms_per_frame']:.3f} ms a frame), "
+                  f"{rep['rank']}: " + (
+                      "frames/s not measured (no window of four batches)"
+                      if run["rank_fps"] is None else
+                      f"{run['rank_fps']:.3f} frames/s over its own window "
+                      f"({run['rank_ms_per_frame']:.3f} ms a frame)") + ", "
                   f"{run['launches']} launches, busy {busy} on {card} "
+                  "(information, not a claim)")
+        for name, ckpt in rep["checkpoints"].items():
+            by_run = launches.setdefault(name, {})
+            for kernel, n in ckpt["launches"].items():
+                by_run[kernel] = by_run.get(kernel, 0) + n
+            ms = [m for m, _ in ckpt["saves"]]
+            # a rank that streamed one resumed chunk has no chunk time
+            share = (np.median(ms) / np.median(ckpt["chunk_ms"])
+                     if ckpt["chunk_ms"] else None)
+            checkpoints.setdefault(name, {})[rep["rank"]] = {
+                "save_ms": ms, "bytes": [b for _, b in ckpt["saves"]],
+                "chunk_ms": ckpt["chunk_ms"], "share": share}
+            print(f"parallel {name}: world {world} ({backend}), rank "
+                  f"{rep['rank']}: killed at frame {ckpt['done']} and "
+                  f"resumed in {RANK_RESUME_CHUNK}-frame chunks; "
+                  f"{len(ms)} saves, ms " + ", ".join(f"{m:.1f}" for m in ms)
+                  + "; MB " + ", ".join(f"{b / 1e6:.3f}"
+                                        for _, b in ckpt["saves"])
+                  + "; the resumed chunks' ms " + ", ".join(
+                      f"{c:.1f}" for c in ckpt["chunk_ms"])
+                  + "; a save's share of a chunk at the median "
+                  + ("not measured" if share is None
+                     else f"{100 * share:.1f} %")
+                  + f"; {ckpt['launches']} launches on {card} "
                   "(information, not a claim)")
     job_fps = {}
     for name, (began, ended) in runs.items():
-        job_fps[name] = N_FRAMES / (ended - began)
+        job_fps[name] = frames[name] / (ended - began)
         print(f"parallel {name}: world {world} ({backend}): "
-              f"{job_fps[name]:.3f} frames/s of the job ({N_FRAMES} frames "
+              f"{job_fps[name]:.3f} frames/s of the job ({frames[name]} frames "
               f"over {ended - began:.3f} s from the first rank's start to "
               "the last rank's end, after a barrier, unprofiled, the "
               f"reductions and gathers included) on {card} (information, "
@@ -7524,10 +7844,13 @@ def parallel_job(world, backend, references, card):
               f"{backend} job: {kernel} was never launched by its ranks")
     check(launches.get("polymer", {}).get("trig_sums", 0) > 0,
           f"{backend} job: its polymer passes launched no trig sums")
+    check(launches.get("fused_checkpoint", {}).get("cell_pair_histogram", 0)
+          > 0, f"{backend} job: its checkpointed fused passes launched no "
+          "cell sweep")
     print(f"parallel job of {world} {backend} rank(s): launches by run "
           f"{launches}; {job_s:.1f} s with start-up")
     return {"launches": launches, "reports": reports, "job_fps": job_fps,
-            "seconds": job_s}
+            "checkpoints": checkpoints, "seconds": job_s}
 
 
 def main():
@@ -7975,9 +8298,11 @@ def main():
 
     rows += [
         ("cell_pair_histogram", self_src, 1070,
-         ran("cell_pair_histogram", (one, "fused"), (two, "fused")),
+         ran("cell_pair_histogram", (one, "fused"), (two, "fused"),
+             (one, "fused_checkpoint"), (two, "fused_checkpoint")),
          f"{N_ATOMS} atoms, frame-sharded fused path over 1 NCCL rank and 2 "
-         "gloo ranks (launches: both jobs' fused runs)", self_timing),
+         "gloo ranks (launches: both jobs' fused runs, and their "
+         "checkpointed runs, killed and resumed)", self_timing),
         ("cross_pair_histogram", cross_src, 1916,
          ran("cross_pair_histogram", (one, "ring")),
          f"{N_ATOMS} x {N_ATOMS}, exclusion (1, 1): the atom ring's one "
@@ -8019,6 +8344,7 @@ def main():
             for kernel, n in by_kernel.items():
                 check((run, kernel) in {
                     ("fused", "cell_pair_histogram"),
+                    ("fused_checkpoint", "cell_pair_histogram"),
                     ("ring", "cross_pair_histogram"),
                     ("cross_ring", "cross_pair_histogram"),
                     ("q", "trig_sums"), ("polymer", "trig_sums")},

@@ -40,10 +40,20 @@ thread, so an update that would otherwise be order-dependent shards.
 An analysis may shard another axis instead (``_shard_axis``: the RDF's
 atoms, the S(q)'s wavevectors), reading every frame on every rank.
 Without a process group ``parallel=True`` runs as a world of one on the
-analysis's device.  Order-dependent analyses (``_sequential``),
+analysis's device.  Order-dependent analyses (``_sequential``) and
 analyses that do not declare that their carry and stores reduce over the
-ranks (``_rank_sharded``) and checkpoints refuse more than one rank.
-There is no host pipeline.
+ranks (``_rank_sharded``: a user subclass that has not) refuse more than
+one rank.
+
+A checkpoint over ranks holds the whole job's state at a chunk boundary,
+as a serial run's does: the carry reduced over the ranks, the stores
+gathered in frame order and the frames done.  Every rank writes the path
+it is given; ranks given one path leave it to the lowest of them, behind
+a barrier.  On resume every rank loads its file, rank 0 keeps the
+summed leaves and the restored store prefix, and the others start
+those from zero, so a file resumes over any number of ranks.  The
+resumed stream starts at the checkpoint's frame, so no chunk straddles
+it.  There is no host pipeline.
 """
 
 import logging
@@ -142,9 +152,9 @@ class _Batch:
     """One device-ready chunk of trajectory data."""
 
     __slots__ = ("positions", "dimensions", "mask", "indices", "n_real",
-                 "host")
+                 "host", "chunk_end")
 
-    def __init__(self, positions, dimensions, mask, indices):
+    def __init__(self, positions, dimensions, mask, indices, chunk_end=None):
         self.positions = positions
         self.dimensions = dimensions
         self.mask = mask
@@ -152,6 +162,8 @@ class _Batch:
         # frames past n_real (a rank's padded tail) have mask 0
         self.n_real = len(indices)
         self.host = None
+        # position in the frame selection where the batch's chunk ends
+        self.chunk_end = chunk_end
 
 
 def carry_from_numpy(analysis, tree):
@@ -297,13 +309,22 @@ class SerialAnalysisBase:
     #: positions in the frame selection of the frames this rank streamed.
     _mesh = None
     _rank_rows = ()
+    #: where each chunk of the current stream ends in the frame selection
+    #: (every chunk's, also those that hold no frame of this rank).
+    _chunk_ends = ()
+    #: frames at the head of the store buffers that a resumed run over
+    #: ranks restored on this rank (rank 0 holds the whole prefix, the
+    #: others none), gathered before this rank's own.
+    _store_prefix = 0
 
-    def __init__(self, trajectory, verbose: bool = False, *, device=None):
+    def __init__(self, trajectory, verbose: bool = False, *, device=None,
+                 **kwargs):
         self._trajectory = trajectory
         self._verbose = verbose
         self._device = resolve_device(device)
         self._pending_stores = []
         self.results = Hash()
+        _ignore_kwargs(self, kwargs)
 
     # -- frame bookkeeping -------------------------------------------------
     def _setup_frames(self, trajectory=None, start=None, stop=None,
@@ -375,10 +396,10 @@ class SerialAnalysisBase:
 
         return get_mesh(self._n_shards())
 
-    def _check_ranks(self, checkpoint=None) -> None:
+    def _check_ranks(self) -> None:
         """Refuse what does not run over more than one rank: an
         order-dependent analysis (the JAX package's multi-host refusal) and
-        a checkpoint."""
+        a user subclass that does not declare ``_rank_sharded``."""
 
         mesh = self._mesh
         if mesh is None or mesh.world == 1:
@@ -391,11 +412,6 @@ class SerialAnalysisBase:
                 "parallel=False."
             )
         _refuse_unsharded(self, mesh.world)
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "checkpoint= over more than one rank is not ported yet "
-                "(ROADMAP Queue 1, item 10b)."
-            )
 
     def _reduce_rank_carry(self, carry):
         """The carry reduced over the ranks: each tensor leaf, at any depth
@@ -405,19 +421,51 @@ class SerialAnalysisBase:
 
         from ..parallel.mesh import all_reduce
 
+        return self._map_rank_carry(
+            carry, lambda value, op: all_reduce(value, op))
+
+    def _map_rank_carry(self, carry, fn):
+        """`carry` with each tensor leaf that is not ``"replicated"`` put
+        through ``fn(leaf, op)``, `op` its reduction (``"sum"``, or the
+        one that ``_carry_reductions`` names above it)."""
+
         reductions = self._carry_reductions
 
-        def reduce(value, op):
+        def walk(value, op):
             if isinstance(value, dict):
-                return {key: reduce(leaf, reductions.get(key, op))
+                return {key: walk(leaf, reductions.get(key, op))
                         for key, leaf in value.items()}
             if isinstance(value, (tuple, list)):
-                return type(value)(reduce(leaf, op) for leaf in value)
+                return type(value)(walk(leaf, op) for leaf in value)
             if op == "replicated" or not isinstance(value, torch.Tensor):
                 return value
-            return all_reduce(value, op)
+            return fn(value, op)
 
-        return reduce(carry, "sum")
+        return walk(carry, "sum")
+
+    def _rank_checkpoint_carry(self, carry):
+        """The whole job's carry for a checkpoint over ranks (every rank
+        gets it): :meth:`_reduce_rank_carry`'s."""
+
+        return self._reduce_rank_carry(carry)
+
+    def _rank_resumed_carry(self, carry, rank: int):
+        """Rank `rank`'s share of a whole job's carry that a checkpoint
+        restored: rank 0 keeps it, the other ranks start the summed leaves
+        from zero; ``"max"`` and ``"replicated"`` leaves stay on every
+        rank."""
+
+        if rank == 0:
+            return carry
+        return self._map_rank_carry(
+            carry, lambda value, op: (torch.zeros_like(value)
+                                      if op == "sum" else value))
+
+    def _check_rank_stores(self) -> None:
+        """A check of the absorbed stores that every rank must pass or
+        fail together, made before each checkpoint save and the gather of
+        a run over ranks (collectively: every rank calls it).  Subclasses
+        whose store check raises override (SASA's occluder budget)."""
 
     def _finish_ranks(self, carry, rows) -> None:
         """End of a stream: keep `carry` (reduced over the ranks in a
@@ -429,6 +477,8 @@ class SerialAnalysisBase:
         grouped = mesh is not None and mesh.grouped
         self._carry = self._reduce_rank_carry(carry) if grouped else carry
         self._drain_stores()
+        if grouped:
+            self._check_rank_stores()
         if grouped and self._shard_axis == "frames":
             self._gather_rank_stores(rows)
 
@@ -442,24 +492,23 @@ class SerialAnalysisBase:
 
         return {}
 
-    def _gather_rank_stores(self, rows) -> None:
-        """Reassemble the per-frame stores this rank filled (the buffers
-        named by :meth:`_checkpoint_attrs` and the ``results`` arrays of
-        :meth:`_result_stores`, indices ``[0, _store_offset)`` of their
-        frame axis) into every frame's, in frame order, on every rank:
-        `rows` holds the positions in the frame selection of this rank's
-        frames, in the order it stored them."""
+    def _gathered_stores(self, rows) -> tuple:
+        """``(buffers, results, frames)``: the per-frame stores this rank
+        filled (the buffers named by :meth:`_checkpoint_attrs` and the
+        ``results`` arrays of :meth:`_result_stores`, indices ``[0,
+        _store_offset)`` of their frame axis, of which the first
+        ``_store_prefix`` are a restored checkpoint's) reassembled into
+        every rank's, in frame order, on every rank, and how many frames
+        they hold.  `rows` holds the positions in the frame selection of
+        this rank's streamed frames, in the order it stored them; entries
+        past those frames are ignored."""
 
         from ..parallel.mesh import all_gather_tiles
 
-        attrs = self._checkpoint_attrs()
-        stores = self._result_stores()
-        if not attrs and not stores:
-            return
-        local = np.concatenate(rows) if rows else np.zeros(0, np.int64)
-        order = all_gather_tiles(torch.as_tensor(local, dtype=torch.int64))
-        order = order.numpy()
         offset = int(getattr(self, "_store_offset", 0))
+        local = np.concatenate(
+            [np.arange(self._store_prefix)] + list(rows)).astype(np.int64)
+        order = all_gather_tiles(torch.as_tensor(local[:offset])).numpy()
 
         def gathered(buffer, axis=0):
             if isinstance(buffer, torch.Tensor):
@@ -476,14 +525,49 @@ class SerialAnalysisBase:
             np.moveaxis(full, axis, 0)[order] = tiles.numpy()
             return full
 
-        for attr in attrs:
-            setattr(self, attr, gathered(getattr(self, attr)))
-        for key, axis in stores.items():
+        buffers = {attr: gathered(getattr(self, attr))
+                   for attr in self._checkpoint_attrs()}
+        results = {}
+        for key, axis in self._result_stores().items():
             value = self.results[key]
-            self.results[key] = (
-                [gathered(v, axis) for v in value] if isinstance(value, list)
-                else gathered(value, axis))
-        self._store_offset = len(order)
+            results[key] = ([gathered(v, axis) for v in value]
+                            if isinstance(value, list)
+                            else gathered(value, axis))
+        return buffers, results, len(order)
+
+    def _gather_rank_stores(self, rows) -> None:
+        """Replace this rank's per-frame stores by every rank's, in frame
+        order (:meth:`_gathered_stores`)."""
+
+        if not self._checkpoint_attrs() and not self._result_stores():
+            return
+        buffers, results, frames = self._gathered_stores(rows)
+        for attr, value in buffers.items():
+            setattr(self, attr, value)
+        self.results.update(results)
+        self._store_offset = frames
+        self._store_prefix = 0
+
+    def _rank_store_state(self, rows) -> dict:
+        """:meth:`_store_state` of the whole job over ranks (collectively:
+        every rank calls it): the stores gathered in frame order, as
+        :meth:`_gather_rank_stores` gathers them; this rank's own stay as
+        they are."""
+
+        if not self._checkpoint_attrs() and not self._result_stores():
+            return self._store_state()
+        buffers, results, frames = self._gathered_stores(rows)
+        state = {"__store_offset__": np.int64(frames)}
+        for key, value in self.results.items():
+            value = results.get(key, value)
+            if isinstance(value, np.ndarray) and value.dtype != object:
+                state[f"results::{key}"] = value
+        for attr, value in buffers.items():
+            value = value[:frames]
+            if isinstance(value, torch.Tensor):
+                value = value.cpu().numpy()
+            state[f"attr::{attr}"] = value
+        return state
 
     # -- chunk protocol ----------------------------------------------------
     def _batched_update(self, carry, batch: _Batch):
@@ -602,7 +686,8 @@ class SerialAnalysisBase:
         (:func:`~mdhelper_tpu_torch.parallel.mesh.process_frame_block` of
         the chunk padded to that multiple), padded with its last frame
         under mask 0 to the block's length; ``_rank_rows`` collects the
-        positions of its frames in the selection.  With ``_frame_shifts``
+        positions of its frames in the selection, and ``_chunk_ends`` where
+        every chunk ends in it.  With ``_frame_shifts``
         each chunk's real frames go through :meth:`_host_transform`
         before the padding."""
 
@@ -620,11 +705,14 @@ class SerialAnalysisBase:
         if mesh is not None:
             chunk = max(mesh.size, chunk - chunk % mesh.size)
         self._rank_rows = []
+        self._chunk_ends = []
         blocks = []
         for lo in range(self._stream_from, self.n_frames, chunk):
             block = self.frames[lo:lo + chunk]
+            end = lo + len(block)
+            self._chunk_ends.append(end)
             if mesh is None:
-                blocks.append((block, 0))
+                blocks.append((block, 0, end))
                 continue
             from ..parallel.mesh import process_frame_block
 
@@ -632,14 +720,14 @@ class SerialAnalysisBase:
                 len(block) + (-len(block)) % mesh.size, mesh)
             local = block[first:min(last, len(block))]
             if len(local):
-                blocks.append((local, last - first - len(local)))
+                blocks.append((local, last - first - len(local), end))
                 self._rank_rows.append(
                     np.arange(lo + first, lo + first + len(local)))
         cuda = device.type == "cuda"
         copy_stream = torch.cuda.Stream(device) if cuda else None
 
-        def stage(block_and_pad):
-            block, pad = block_and_pad
+        def stage(planned):
+            block, pad, end = planned
             positions, dimensions = self._read_payload(block)
             if atom_indices is not None and axes is not None:
                 # One gather of the wanted atoms' wanted columns.
@@ -664,12 +752,12 @@ class SerialAnalysisBase:
                 dims = torch.cat((dims, dims[-1:].expand(pad, -1)))
                 mask[len(block):] = 0.0
             if not cuda:
-                return _Batch(pos, dims, mask, block)
+                return _Batch(pos, dims, mask, block, end)
             host = (pos.pin_memory(), dims.pin_memory(), mask.pin_memory())
             with torch.cuda.stream(copy_stream):
                 pos, dims, mask = (part.to(device, non_blocking=True)
                                    for part in host)
-            batch = _Batch(pos, dims, mask, block)
+            batch = _Batch(pos, dims, mask, block, end)
             # The pinned sources live as long as the batch.
             batch.host = host
             return batch
@@ -831,7 +919,8 @@ class SerialAnalysisBase:
 
     # -- driver ------------------------------------------------------------
     def run(self, start: int = None, stop: int = None, step: int = None,
-            frames=None, verbose: bool = None, checkpoint: str = None):
+            frames=None, verbose: bool = None, checkpoint: str = None,
+            **kwargs):
         """Run the analysis over the selected frames.
 
         With `checkpoint` set (a file path, used as given: no ``.npz`` is
@@ -839,17 +928,18 @@ class SerialAnalysisBase:
         there after every streamed chunk, and a run whose checkpoint
         exists resumes at the first frame it has not folded.  A
         store-type analysis whose buffers are not registered raises
-        `ValueError` before streaming; a checkpoint over more than one
-        rank raises `NotImplementedError` (not ported yet).
+        `ValueError` before streaming.  Over ranks the file holds the
+        whole job's state (see the module docstring), so it resumes over
+        any number of ranks, or serially.  Other keyword arguments (the
+        JAX runner's) are accepted and ignored.
 
         A rank-sharded run (see the module docstring) reduces the carry
         and gathers the stores over the ranks before the conclusion, so
         every rank concludes to the same results.
         """
 
-        from ..core.checkpoint import load_carry, save_carry
-
         verbose = self._verbose if verbose is None else verbose
+        _ignore_kwargs(self, kwargs, "run")
         if verbose:
             time_start = datetime.now()
             logging.info(f"Starting {type(self).__name__} analysis...")
@@ -858,31 +948,24 @@ class SerialAnalysisBase:
             frames=frames,
         )
         self._mesh = self._run_mesh()
-        self._check_ranks(checkpoint)
+        self._check_ranks()
+        self._store_prefix = 0
         self._prepare()
         carry = self._carry
         done = 0
         if checkpoint is not None:
             self._check_checkpointable()
-            if os.path.exists(checkpoint):
-                carry, done, stores = load_carry(checkpoint, carry,
-                                                 with_stores=True)
-                if stores:
-                    self._restore_store_state(stores)
-                logging.info(f"Resuming from {checkpoint} at frame {done}.")
+            file = _Checkpoint(checkpoint, [self], self._mesh, fused=False)
+            (carry,), done = file.load([carry])
         # A resumed run streams from the checkpoint's frame on: no chunk
         # straddles it, so no update sees a frame twice.
         self._stream_from = done
         for batch in self._stream_batches():
             carry = self._batched_update(carry, batch)
             if checkpoint is not None:
-                # The store queue is one chunk late: absorb this chunk's
-                # extras before the buffers are saved with it.
-                self._drain_stores()
-                done += batch.n_real
-                save_carry(checkpoint, carry, done, stores=(
-                    self._store_state() if self._checkpointable_stores
-                    else None))
+                file.save([carry], self._rank_rows, batch.chunk_end)
+        if checkpoint is not None:
+            file.finish([carry], self._rank_rows, self._chunk_ends)
         self._finish_ranks(carry, self._rank_rows)
         self._conclude()
         if verbose:
@@ -892,16 +975,157 @@ class SerialAnalysisBase:
         return self
 
 
+class _Checkpoint:
+    """The checkpoint file of one run (`analyses` of one, ``fused=False``)
+    or fused pass (``fused=True``: the carries as a tuple, the store keys
+    prefixed ``{i}::``) at `path`, over the ranks of `mesh` or serially.
+
+    Over ranks a save writes the whole job's state (each analysis's
+    :meth:`SerialAnalysisBase._rank_checkpoint_carry` and
+    :meth:`SerialAnalysisBase._rank_store_state`) and a load hands each
+    rank its share (:meth:`SerialAnalysisBase._rank_resumed_carry`; the
+    restored store prefix on rank 0 alone).  Every rank writes the path it
+    is given, unless a lower rank was given the same one; when any path is
+    shared, every save ends at a barrier, so no rank reads a file that is
+    being written."""
+
+    def __init__(self, path, analyses, mesh, *, fused: bool):
+        self.path = path
+        self.analyses = analyses
+        self.fused = fused
+        self.mesh = mesh
+        self.grouped = mesh is not None and mesh.grouped
+        self.writes, self.shared = True, False
+        self.saved = 0
+        if self.grouped and mesh.world > 1:
+            import torch.distributed as dist
+
+            mine = os.path.abspath(path)
+            paths = [None] * mesh.world
+            dist.all_gather_object(paths, mine)
+            self.writes = mine not in paths[:mesh.rank]
+            self.shared = len(set(paths)) < len(paths)
+
+    def _agreed(self, done):
+        """`done` (None: no file) agreed over the ranks; a `ValueError`
+        on every rank when their files disagree."""
+
+        if not (self.grouped and self.mesh.world > 1):
+            return done
+        import torch.distributed as dist
+
+        every = [None] * self.mesh.world
+        dist.all_gather_object(every, done)
+        if len(set(every)) > 1:
+            raise ValueError(
+                f"The ranks' checkpoints disagree (frames done by rank, "
+                f"None for no file: {every}); give every rank a file of one "
+                "job, or none."
+            )
+        return done
+
+    def load(self, carries):
+        """``(carries, frames done)``: the prepared `carries`, or those
+        the file holds (this rank's share of them over ranks), with the
+        store state restored into the analyses."""
+
+        from ..core.checkpoint import load_carry
+
+        exists = os.path.exists(self.path)
+        if exists:
+            loaded, done, stores = load_carry(
+                self.path, tuple(carries) if self.fused else carries[0],
+                with_stores=True)
+        if self._agreed(done if exists else None) is None:
+            return carries, 0
+        loaded = list(loaded) if self.fused else [loaded]
+        for i, a in enumerate(self.analyses):
+            prefix = f"{i}::" if self.fused else ""
+            sub = {key[len(prefix):]: value for key, value in stores.items()
+                   if key.startswith(prefix)}
+            if sub:
+                a._restore_store_state(sub)
+            if self.grouped:
+                loaded[i] = a._rank_resumed_carry(loaded[i], self.mesh.rank)
+                offset = int(getattr(a, "_store_offset", 0))
+                if self.mesh.rank == 0:
+                    a._store_prefix = offset
+                elif hasattr(a, "_store_offset"):
+                    a._store_offset = 0
+        logging.info(f"Resuming from {self.path} at frame {done}.")
+        return loaded, done
+
+    def save(self, carries, rows, done) -> None:
+        """Write the state after the chunk that ends at position `done`
+        of the frame selection (collectively over ranks)."""
+
+        states = {}
+        whole = []
+        for i, (a, carry) in enumerate(zip(self.analyses, carries)):
+            # The store queue is one chunk late: absorb this chunk's
+            # extras before the buffers are saved with it.
+            a._drain_stores()
+            if self.grouped:
+                carry = a._rank_checkpoint_carry(carry)
+                a._check_rank_stores()
+            whole.append(carry)
+            if a._checkpointable_stores:
+                state = (a._rank_store_state(rows)
+                         if self.grouped and a._shard_axis == "frames"
+                         else a._store_state())
+                prefix = f"{i}::" if self.fused else ""
+                states.update({f"{prefix}{key}": value
+                               for key, value in state.items()})
+        if self.writes:
+            from ..core.checkpoint import save_carry
+
+            save_carry(self.path, tuple(whole) if self.fused else whole[0],
+                       done, stores=states or None)
+        if self.shared:
+            import torch.distributed as dist
+
+            dist.barrier()
+        self.saved += 1
+
+    def finish(self, carries, rows, chunk_ends) -> None:
+        """After the stream: the saves of the chunks that held no frame of
+        this rank (the last chunk's, where its block is empty), which the
+        other ranks made."""
+
+        for done in chunk_ends[self.saved:]:
+            self.save(carries, rows, done)
+
+
+def _ignore_kwargs(analysis, kwargs, where="__init__") -> None:
+    """Log (at debug level) keyword arguments that are accepted, as the JAX
+    package accepts them, and ignored."""
+
+    if kwargs:
+        logging.debug(
+            f"{type(analysis).__name__}.{where} ignores {sorted(kwargs)}: "
+            "accepted for compatibility with the JAX package."
+        )
+
+
+def _unsharded_message(analysis, what: str) -> str:
+    return (
+        f"{type(analysis).__name__} does not declare that its carry and "
+        f"stores reduce over ranks, so {what}.  A subclass declares it "
+        "with _rank_sharded = True once its carry sums over the frames (or "
+        "names its other reductions in _carry_reductions), its update "
+        "weights the frames by the mask (a rank's padded tail has mask 0) "
+        "and its per-frame stores are the buffers of _checkpoint_attrs and "
+        "the results arrays of _result_stores."
+    )
+
+
 def _refuse_unsharded(analysis, world: int) -> None:
     """Raise unless `analysis` declares ``_rank_sharded``: its carry and
     stores would not be reduced right over `world` ranks."""
 
     if not analysis._rank_sharded:
-        raise NotImplementedError(
-            f"{type(analysis).__name__} does not reduce its carry and "
-            f"stores over {world} ranks yet (ROADMAP Queue 1, item 10b: "
-            "parallel/ for the remaining classes); run it on one rank."
-        )
+        raise NotImplementedError(_unsharded_message(
+            analysis, f"it cannot run over {world} ranks; run it on one"))
 
 
 class ParallelAnalysisBase(SerialAnalysisBase):
@@ -915,7 +1139,9 @@ class ParallelAnalysisBase(SerialAnalysisBase):
     ``run(n_jobs=...)`` caps the shard count; ``module=`` is checked as
     the JAX package checks it and otherwise ignored (the ranks are the
     workers).  The JAX run's ``block=`` and ``method=`` (its worker
-    pool's options) are not taken.
+    pool's options) are not taken.  Other keyword arguments, of the
+    constructor and of :meth:`run`, are accepted and ignored, as the JAX
+    package ignores them.
 
     A subclass runs over more than one rank once it sets
     ``_rank_sharded = True``: its carry sums over frames (or names its
@@ -925,8 +1151,9 @@ class ParallelAnalysisBase(SerialAnalysisBase):
     arrays of ``_result_stores``.
     """
 
-    def __init__(self, trajectory, verbose: bool = False, *, device=None):
-        super().__init__(trajectory, verbose, device=device)
+    def __init__(self, trajectory, verbose: bool = False, *, device=None,
+                 **kwargs):
+        super().__init__(trajectory, verbose, device=device, **kwargs)
         self._parallel = True
         self._n_jobs = None
 
@@ -957,21 +1184,20 @@ class DynamicAnalysisBase(ParallelAnalysisBase):
     :class:`SerialAnalysisBase`, ``parallel=True`` as
     :class:`ParallelAnalysisBase`.
 
-    A subclass takes ``parallel=True`` once it sets ``_rank_sharded =
-    True`` (see :class:`ParallelAnalysisBase`): the profile family, the
-    dipole moment, the polymer classes, the flow profile and the velocity
-    stream do.  The others raise `NotImplementedError` for
-    ``parallel=True`` (ROADMAP Queue 1, item 10b)."""
+    Every frame-parallel class of the package sets ``_rank_sharded =
+    True`` (see :class:`ParallelAnalysisBase`) and takes ``parallel=True``
+    over any number of ranks; an order-dependent one (``_sequential``:
+    TICA's lag ring) takes it on one rank and raises over more, as the
+    JAX package runs it unsharded.  A subclass that sets neither raises
+    `NotImplementedError` for ``parallel=True``."""
 
     def __init__(self, trajectory, parallel: bool, verbose: bool = False,
-                 *, device=None):
-        if parallel and not self._rank_sharded:
-            raise NotImplementedError(
-                f"parallel=True is not ported for {type(self).__name__} yet "
-                "(ROADMAP Queue 1, item 10b: parallel/ for the remaining "
-                "classes); run with parallel=False."
-            )
-        super().__init__(trajectory, verbose, device=device)
+                 *, device=None, **kwargs):
+        if parallel and not (self._rank_sharded or self._sequential):
+            raise NotImplementedError(_unsharded_message(
+                self, "it takes no parallel=True; run it with "
+                "parallel=False"))
+        super().__init__(trajectory, verbose, device=device, **kwargs)
         self._parallel = bool(parallel)
 
     def run(self, start: int = None, stop: int = None, step: int = None,

@@ -110,13 +110,14 @@ class _BondedBase(DynamicAnalysisBase):
 
     #: keep ``m1``, ``m2`` and ``n`` for the mean and standard deviation.
     _moments = True
+    _rank_sharded = True
 
     def __init__(self, group, terms, n_bins, range, *, reduced, parallel,
-                 verbose, device):
+                 verbose, device, **kwargs):
         self.group = group
         self.universe = group.universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
         terms = np.asarray(terms, dtype=np.int64)
         if terms.size == 0:
             raise ValueError(
@@ -154,26 +155,28 @@ class _BondedBase(DynamicAnalysisBase):
         moments = self._moments
 
         def update(carry, positions, dimensions, mask):
-            del mask
             # a box a frame, broadcast over the chunk's (B, M) terms
             box = _frame_boxes(dimensions, triclinic)[0][:, None]
             ends = [positions[:, cols[:, c]] for c in range(cols.shape[1])]
-            counts, x = values(ends, box)
+            # a rank's padded tail (mask 0) counts nothing
+            real = (mask > 0)[:, None]
+            counts, x = values(ends, box, real)
             out = {"counts": carry["counts"] + counts}
             if moments:
-                x = x.double()
+                x = torch.where(real, x.double(), 0.0)
                 out["m1"] = carry["m1"] + x.sum()
                 out["m2"] = carry["m2"] + (x * x).sum()
-                out["n"] = carry["n"] + x.numel()
+                out["n"] = carry["n"] + mask.sum() * x.shape[1]
             return out
 
         self._update = update
 
     def _values_fn(self):
-        """``values(ends, box) -> (counts (n_bins,), values (B, M))`` of
-        one chunk: `ends` holds the ``(B, M, 3)`` positions of each column
-        of the term table, `box` the chunk's boxes ``(B, 1, 3)`` or ``(B,
-        1, 3, 3)``."""
+        """``values(ends, box, real=None) -> (counts (n_bins,), values (B,
+        M))`` of one chunk: `ends` holds the ``(B, M, 3)`` positions of
+        each column of the term table, `box` the chunk's boxes ``(B, 1,
+        3)`` or ``(B, 1, 3, 3)``, `real` ``(B, 1)`` the frames that count
+        (None: all)."""
 
         raise NotImplementedError
 
@@ -186,9 +189,10 @@ class _BondedBase(DynamicAnalysisBase):
                                 device=self._device)
         n_bins = self._n_bins
 
-        def bins(x):
+        def bins(x, real=None):
             idx, ok = _bin_indices(x, edges)
-            return bin_counts(idx, ok, n_bins)
+            return bin_counts(idx, ok if real is None else ok & real,
+                              n_bins)
 
         return bins
 
@@ -227,7 +231,9 @@ class BondLengthDistribution(_BondedBase):
     reduced : `bool`, keyword-only, default False
         Reduced (LJ) units (omits ``results.units``).
     parallel : `bool`, keyword-only, default False
-        Not ported (``True`` raises `NotImplementedError`).
+        Shard the frames over the ranks of :mod:`torch.distributed` (a
+        world of one without a process group): the counts and moments of
+        each rank's real frames (mask 1) add up over the ranks.
     device : optional
         Device the chunks are folded on (default: the first CUDA device,
         which must exist; ``"cpu"`` for the CPU).
@@ -240,11 +246,12 @@ class BondLengthDistribution(_BondedBase):
     def __init__(self, group, n_bins: int = 201, range: tuple = (0.0, 3.0),
                  *, bonds=None, reduced: bool = False,
                  parallel: bool = False, verbose: bool = True,
-                 device=None) -> None:
+                 device=None, **kwargs) -> None:
         if bonds is None:
             bonds = _group_terms(group)
         super().__init__(group, bonds, n_bins, range, reduced=reduced,
-                         parallel=parallel, verbose=verbose, device=device)
+                         parallel=parallel, verbose=verbose, device=device,
+                         **kwargs)
 
     def _prepare(self) -> None:
         super()._prepare()
@@ -260,12 +267,15 @@ class BondLengthDistribution(_BondedBase):
         edges = self.results.edges
         n_bins = self._n_bins
 
-        def values(ends, box):
+        def values(ends, box, real=None):
             p1, p2 = (p.to(torch.float32) for p in ends)
             idx, d2 = _exact_bin_indices(p1, p2, box.to(torch.float32),
                                          edges, elementwise=True,
                                          with_d2=True)
-            # the spill index n_bins holds the out-of-range bonds
+            # the spill index n_bins holds the out-of-range bonds, and
+            # those of frames that do not count
+            if real is not None:
+                idx = torch.where(real, idx, n_bins)
             counts = torch.bincount(idx.reshape(-1),
                                     minlength=n_bins + 1)[:n_bins]
             return counts, torch.sqrt(d2[0].double() + d2[1].double())
@@ -289,11 +299,12 @@ class BondAngleDistribution(_BondedBase):
     def __init__(self, group, n_bins: int = 181,
                  range: tuple = (0.0, 180.0), *, angles=None,
                  reduced: bool = False, parallel: bool = False,
-                 verbose: bool = True, device=None) -> None:
+                 verbose: bool = True, device=None, **kwargs) -> None:
         if angles is None:
             angles = _group_terms(group, derive_angles)
         super().__init__(group, angles, n_bins, range, reduced=reduced,
-                         parallel=parallel, verbose=verbose, device=device)
+                         parallel=parallel, verbose=verbose, device=device,
+                         **kwargs)
 
     def _prepare(self) -> None:
         super()._prepare()
@@ -309,13 +320,13 @@ class BondAngleDistribution(_BondedBase):
         degrees = torch.tensor(np.float32(180.0 / np.pi), device=self._device)
         bins = self._float32_bins_fn()
 
-        def values(ends, box):
+        def values(ends, box, real=None):
             pi, pj, pk = ends
             v1 = _min_image_vectors(pi - pj, box)
             v2 = _min_image_vectors(pk - pj, box)
             cos = _dot3(v1, v2) / _root(_norm2(v1) * _norm2(v2))
             theta = torch.arccos(cos.clamp(-1.0, 1.0)) * degrees
-            return bins(theta), theta
+            return bins(theta, real), theta
 
         return values
 
@@ -339,11 +350,12 @@ class DihedralDistribution(_BondedBase):
     def __init__(self, group, n_bins: int = 181,
                  range: tuple = (-180.0, 180.0), *, dihedrals=None,
                  reduced: bool = False, parallel: bool = False,
-                 verbose: bool = True, device=None) -> None:
+                 verbose: bool = True, device=None, **kwargs) -> None:
         if dihedrals is None:
             dihedrals = _group_terms(group, derive_dihedrals)
         super().__init__(group, dihedrals, n_bins, range, reduced=reduced,
-                         parallel=parallel, verbose=verbose, device=device)
+                         parallel=parallel, verbose=verbose, device=device,
+                         **kwargs)
 
     def _prepare(self) -> None:
         super()._prepare()
@@ -357,7 +369,7 @@ class DihedralDistribution(_BondedBase):
         degrees = torch.tensor(np.float32(180.0 / np.pi), device=self._device)
         bins = self._float32_bins_fn()
 
-        def values(ends, box):
+        def values(ends, box, real=None):
             p0, p1, p2, p3 = ends
             b1 = _min_image_vectors(p1 - p0, box)
             b2 = _min_image_vectors(p2 - p1, box)
@@ -366,6 +378,6 @@ class DihedralDistribution(_BondedBase):
             n2 = torch.linalg.cross(b2, b3)
             m1 = torch.linalg.cross(n1, b2 / _root(_norm2(b2))[..., None])
             phi = torch.atan2(_dot3(m1, n2), _dot3(n1, n2)) * degrees
-            return bins(phi), phi
+            return bins(phi, real), phi
 
         return values

@@ -165,7 +165,11 @@ class ClusterSizeDistribution(DynamicAnalysisBase):
     reduced : `bool`, keyword-only, default False
         Reduced (LJ) units (omits ``results.units``).
     parallel : `bool`, keyword-only, default False
-        Not ported (``True`` raises `NotImplementedError`).
+        Shard the frames over the ranks of :mod:`torch.distributed` (a
+        world of one without a process group): each rank labels the
+        clusters of its block of each chunk, the size counts of its real
+        frames (mask 1) add up over the ranks, and the per-frame counts
+        and largest sizes are gathered in frame order.
     device : optional
         Device the chunks are folded on (default: the first CUDA
         device, which must exist; ``"cpu"`` for the CPU).
@@ -191,6 +195,10 @@ class ClusterSizeDistribution(DynamicAnalysisBase):
     """
 
     _checkpointable_stores = True
+    _rank_sharded = True
+
+    def _result_stores(self) -> dict:
+        return {"n_clusters": 0, "largest": 0}
 
     def __init__(
         self,
@@ -203,11 +211,12 @@ class ClusterSizeDistribution(DynamicAnalysisBase):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         self.group = group
         self.universe = group.universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
 
         if grouping not in ("atoms", "residues", "segments"):
             raise ValueError(f"Invalid grouping: '{grouping}'.")
@@ -273,17 +282,15 @@ class ClusterSizeDistribution(DynamicAnalysisBase):
             return size_hist, is_root.sum(), sizes.max()
 
         def update(carry, positions, dimensions, mask):
-            del mask
             boxes = _frame_boxes(dimensions, triclinic)[0]
             if criterion == "com":
                 positions = centers(positions)
             hists, n_clusters, largest = zip(*(
                 cluster_frame(pos, box) for pos, box in zip(positions, boxes)
             ))
-            carry = {
-                "size_counts": carry["size_counts"]
-                + torch.stack(hists).sum(dim=0).to(torch.float64),
-            }
+            # a rank's padded tail (mask 0) counts no cluster
+            hists = torch.stack(hists).to(torch.float64) * mask[:, None]
+            carry = {"size_counts": carry["size_counts"] + hists.sum(dim=0)}
             return carry, (torch.stack(n_clusters), torch.stack(largest))
 
         self._update = update

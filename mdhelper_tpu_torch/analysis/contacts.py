@@ -71,7 +71,9 @@ class NativeContacts(DynamicAnalysisBase):
     reduced : `bool`, keyword-only, default False
         Reduced (LJ) units (omits ``results.units``).
     parallel : `bool`, keyword-only, default False
-        Not ported (``True`` raises `NotImplementedError`).
+        Shard the frames over the ranks of :mod:`torch.distributed` (a
+        world of one without a process group): q(t) of each rank's real
+        frames is gathered in frame order.
     device : optional
         Device the chunks are folded on (default: the first CUDA device,
         which must exist; ``"cpu"`` for the CPU).
@@ -92,19 +94,23 @@ class NativeContacts(DynamicAnalysisBase):
     """
 
     _checkpointable_stores = True
+    _rank_sharded = True
+
+    def _result_stores(self) -> dict:
+        return {"q": 0}
 
     def __init__(self, group_a, group_b=None, radius=4.5, *, reference=None,
                  method: str = "hard", lambda_: float = 1.8,
                  beta: float = 5.0, reduced: bool = False,
                  parallel: bool = False, verbose: bool = True,
-                 device=None) -> None:
+                 device=None, **kwargs) -> None:
         if group_b is None:
             group_b = group_a
         self.group_a = group_a
         self.group_b = group_b
         self.universe = group_a.universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
         if not isinstance(radius, Real):
             radius = strip_unit(radius, "angstrom")[0]
         if radius <= 0:

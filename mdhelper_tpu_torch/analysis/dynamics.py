@@ -131,11 +131,12 @@ class VelocityAutocorrelation(DynamicAnalysisBase):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         self.group = group
         self.universe = group.universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
         _require_velocities(self._trajectory, "VelocityAutocorrelation")
         if n_blocks < 1:
             raise ValueError("'n_blocks' must be positive.")
@@ -284,11 +285,12 @@ class ElectricCurrentAutocorrelation(DynamicAnalysisBase):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         self.group = group
         self.universe = group.universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
         _require_velocities(self._trajectory,
                             "ElectricCurrentAutocorrelation")
         if n_blocks < 1:
@@ -449,11 +451,12 @@ class SurvivalProbability(DynamicAnalysisBase):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         self.group = group
         self.universe = group.universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
         self._reduced = reduced
         self._setup_periodic_box()
 
@@ -677,6 +680,7 @@ class OverlapFunction(DynamicAnalysisBase):
         reduced: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         from .structure import (
             _frame_time_step,
@@ -687,7 +691,7 @@ class OverlapFunction(DynamicAnalysisBase):
         self.group = group
         self.universe = group.universe
         super().__init__(self.universe.trajectory, False, verbose,
-                         device=device)
+                         device=device, **kwargs)
         if not isinstance(a, Real):
             a = strip_unit(a, "angstrom")[0]
         if a <= 0:

@@ -149,6 +149,7 @@ class DipoleMoment(DynamicAnalysisBase):
         verbose: bool = True,
         *,
         device=None,
+        **kwargs,
     ) -> None:
         self._groups = (
             [groups] if hasattr(groups, "universe") else list(groups)
@@ -156,7 +157,7 @@ class DipoleMoment(DynamicAnalysisBase):
         self._n_groups = len(self._groups)
         self.universe = self._groups[0].universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
 
         if dimensions is not None:
             if len(dimensions) != 3:

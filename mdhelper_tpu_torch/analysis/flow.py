@@ -122,10 +122,11 @@ class FlowProfile(DynamicAnalysisBase):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         self.universe = group.universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
         if group.n_atoms == 0:
             raise ValueError("Empty atom group.")
         if not getattr(self._trajectory, "has_velocities", False):

@@ -74,7 +74,11 @@ class HydrogenBondAnalysis(DynamicAnalysisBase):
     reduced : `bool`, keyword-only, default False
         Reduced (LJ) units (omits ``results.units``).
     parallel : `bool`, keyword-only, default False
-        Not ported (``True`` raises `NotImplementedError`).
+        Shard the frames over the ranks of :mod:`torch.distributed` (a
+        world of one without a process group): the bonded-frame and pair
+        counts of each rank's real frames (mask 1) add up over the
+        ranks, and the per-frame counts and the existence matrix (as
+        uint8 over gloo) are gathered in frame order.
     device : optional
         Device the chunks are folded on (default: the first CUDA
         device, which must exist; ``"cpu"`` for the CPU).
@@ -107,9 +111,13 @@ class HydrogenBondAnalysis(DynamicAnalysisBase):
     """
 
     _checkpointable_stores = True
+    _rank_sharded = True
 
     def _checkpoint_attrs(self) -> tuple:
         return ("_existence",) if self._lifetimes else ()
+
+    def _result_stores(self) -> dict:
+        return {"counts": 0}
 
     def __init__(
         self,
@@ -127,10 +135,11 @@ class HydrogenBondAnalysis(DynamicAnalysisBase):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         self.universe = universe
         super().__init__(universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
 
         if not isinstance(d_a_cutoff, Real):
             d_a_cutoff = strip_unit(d_a_cutoff, "angstrom")[0]
@@ -263,16 +272,17 @@ class HydrogenBondAnalysis(DynamicAnalysisBase):
             return torch.cat(out)
 
         def update(carry, positions, dimensions, mask):
-            del mask
             boxes = _frame_boxes(dimensions, triclinic)[0]
             hb = torch.stack([hbonds_frame(pos, box)
                               for pos, box in zip(positions, boxes)])
+            # a rank's padded tail (mask 0) bonds nothing
+            real = hb & (mask > 0)[:, None, None]
             new = {
                 "bonded_frames": carry["bonded_frames"]
-                + hb.any(dim=2).sum(dim=0).to(torch.float64),
+                + real.any(dim=2).sum(dim=0).to(torch.float64),
             }
             if track_pairs:
-                new["pair_counts"] = carry["pair_counts"] + hb.sum(
+                new["pair_counts"] = carry["pair_counts"] + real.sum(
                     dim=0).to(torch.float64)
             counts = hb.sum(dim=(1, 2))
             if lifetimes:

@@ -337,7 +337,12 @@ class WillardChandlerInterface(DynamicAnalysisBase):
     reduced : `bool`, keyword-only, default False
         Reduced (LJ) units.
     parallel : `bool`, keyword-only, default False
-        ``True`` raises `NotImplementedError` (ROADMAP Queue 1, item 10).
+        Shard the frames over the ranks of :mod:`torch.distributed` (a
+        world of one without a process group): each rank builds the
+        fields of its block of each chunk in grid passes of
+        ``_grid_bytes``, the density of its real frames (mask 1) adds up
+        over the ranks, and the per-frame heights and levels are
+        gathered in frame order.
     device : `torch.device` or `str`, keyword-only, optional
         Where the fields are built (default: the first CUDA device);
         ``"cpu"`` for the CPU.
@@ -378,9 +383,13 @@ class WillardChandlerInterface(DynamicAnalysisBase):
     _grid_bytes: int = 1 << 30
 
     _checkpointable_stores = True
+    _rank_sharded = True
 
     def _checkpoint_attrs(self) -> tuple:
         return ("_heights",)
+
+    def _result_stores(self) -> dict:
+        return {"levels": 0}
 
     def __init__(
         self,
@@ -396,11 +405,12 @@ class WillardChandlerInterface(DynamicAnalysisBase):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         self._group = group
         self.universe = group.universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
         if grouping not in ("atoms", "residues", "segments"):
             raise ValueError(
                 "grouping must be 'atoms', 'residues' or 'segments'."
@@ -659,7 +669,11 @@ class IntrinsicDensityProfile(DynamicAnalysisBase):
     reduced : `bool`, keyword-only, default False
         Reduced (LJ) units.
     parallel : `bool`, keyword-only, default False
-        ``True`` raises `NotImplementedError` (ROADMAP Queue 1, item 10).
+        Shard the frames over the ranks of :mod:`torch.distributed` (a
+        world of one without a process group): each rank finds the
+        surfaces of its block of each chunk and bins its real frames
+        (mask 1), and the counts, areas and frame counts add up over the
+        ranks.
     device : `torch.device` or `str`, keyword-only, optional
         Where the fields are built (default: the first CUDA device);
         ``"cpu"`` for the CPU.
@@ -687,6 +701,7 @@ class IntrinsicDensityProfile(DynamicAnalysisBase):
         `charges` is given.
     """
 
+    _rank_sharded = True
     #: as :attr:`WillardChandlerInterface._grid_bytes`.
     _grid_bytes: int = 1 << 30
 
@@ -710,6 +725,7 @@ class IntrinsicDensityProfile(DynamicAnalysisBase):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         self._surface = surface
         self.universe = surface.universe
@@ -719,7 +735,7 @@ class IntrinsicDensityProfile(DynamicAnalysisBase):
             [groups] if hasattr(groups, "universe") else list(groups)
         )
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
         _setup_wc_geometry(self, "IntrinsicDensityProfile", axis, xi,
                            n_cells, level, order)
         if surface_grouping not in ("atoms", "residues", "segments"):

@@ -18,8 +18,6 @@ equals its standalone run.  The JAX package's fused pass
 drops that shift and returns the profile without recentering.
 """
 
-import logging
-import os
 from typing import Sequence
 
 import numpy as np
@@ -28,6 +26,7 @@ import torch
 from .base import (
     ParallelAnalysisBase,
     SerialAnalysisBase,
+    _Checkpoint,
     _refuse_unsharded,
     carry_from_numpy,
 )
@@ -65,19 +64,21 @@ def run_together(
         reduced and gathered before the conclusions, as
         :class:`~mdhelper_tpu_torch.analysis.base.ParallelAnalysisBase`
         does.  An order-dependent analysis (``_sequential``: the Van Hove
-        ring, Onsager, the ISF's lag ring, an unwrap scan) raises over
-        more than one rank, as does one whose carry and stores do not yet
-        reduce over the ranks (not ``_rank_sharded``: the classes of
-        ROADMAP Queue 1 item 10b), and so do `checkpoint` and
-        `initial`.  Per-analysis sharding knobs
-        (``shard=``) are not supported in fused mode.
+        ring, Onsager, the ISF's lag ring, TICA, an unwrap scan) raises
+        over more than one rank, as does a user subclass that does not
+        declare that its carry and stores reduce over the ranks (not
+        ``_rank_sharded``), and so does `initial` (the JAX package has no
+        ``initial=``: ROADMAP Queue 3, item 18).  Per-analysis sharding
+        knobs (``shard=``) are not supported in fused mode.
     checkpoint : str, optional
         A file path, used as given: every analysis's carry, the
         registered store buffers (keys prefixed ``{i}::``) and the
         stream position are written there after each chunk, and a pass
         whose checkpoint exists resumes at the first frame it has not
         folded (the contract of ``run(checkpoint=...)``; every store-type
-        analysis must be registered).
+        analysis must be registered).  Over ranks the file holds the
+        whole job's state, as ``run(checkpoint=...)``'s does, and
+        resumes over any number of ranks.
     initial : sequence, optional
         Per analysis, ``None`` or a carry of the JAX package's
         counterpart fetched as numpy, to continue a run that the JAX
@@ -145,10 +146,11 @@ def run_together(
                 )
         for a in analyses:
             _refuse_unsharded(a, mesh.world)
-        if checkpoint is not None or initial is not None:
+        if initial is not None:
             raise NotImplementedError(
-                "checkpoint= and initial= over more than one rank are not "
-                "ported yet (ROADMAP Queue 1, item 10b)."
+                f"initial= does not run over {mesh.world} ranks: a carry of "
+                "the JAX package's run continues on one rank (the JAX "
+                "package has no initial=; ROADMAP Queue 3, item 18)."
             )
 
     for i, a in enumerate(analyses):
@@ -156,7 +158,11 @@ def run_together(
             a._trajectory, start=start, stop=stop, step=step, frames=frames
         )
         a._mesh = None
+        a._store_prefix = 0
         a._prepare()
+        # The fused stream's ranks, which a store that checks itself over
+        # them reads (SASA's occluder budget).
+        a._mesh = mesh
         if initial is not None and initial[i] is not None:
             a._carry = carry_from_numpy(a, initial[i])
 
@@ -190,22 +196,10 @@ def run_together(
     carries = [a._carry for a in analyses]
     done = 0
     if checkpoint is not None:
-        from ..core.checkpoint import load_carry, save_carry
-
         for a in analyses:
             a._check_checkpointable()
-        if os.path.exists(checkpoint):
-            loaded, done, stores = load_carry(checkpoint, tuple(carries),
-                                              with_stores=True)
-            carries = list(loaded)
-            for i, a in enumerate(analyses):
-                prefix = f"{i}::"
-                sub = {key[len(prefix):]: value
-                       for key, value in stores.items()
-                       if key.startswith(prefix)}
-                if sub:
-                    a._restore_store_state(sub)
-            logging.info(f"Resuming from {checkpoint} at frame {done}.")
+        file = _Checkpoint(checkpoint, analyses, mesh, fused=True)
+        carries, done = file.load(carries)
     shared._stream_from = done
     for batch in shared._stream_batches():
         for i, (a, (device_fn, absorb), (idx, axes)) in enumerate(
@@ -224,16 +218,9 @@ def run_together(
         if on_chunk is not None:
             on_chunk(batch)
         if checkpoint is not None:
-            merged = {}
-            for i, a in enumerate(analyses):
-                # absorb this chunk's extras before the buffers are saved
-                a._drain_stores()
-                if a._checkpointable_stores:
-                    for key, value in a._store_state().items():
-                        merged[f"{i}::{key}"] = value
-            done += batch.n_real
-            save_carry(checkpoint, tuple(carries), done,
-                       stores=merged or None)
+            file.save(carries, shared._rank_rows, batch.chunk_end)
+    if checkpoint is not None:
+        file.finish(carries, shared._rank_rows, shared._chunk_ends)
 
     for a, carry in zip(analyses, carries):
         # Each analysis's carry and stores reduce as its own run()'s do.

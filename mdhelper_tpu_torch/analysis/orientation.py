@@ -86,7 +86,11 @@ class NematicOrderParameter(DynamicAnalysisBase):
     reduced : `bool`, keyword-only, default False
         Reduced (LJ) units (omits ``results.units``).
     parallel : `bool`, keyword-only, default False
-        Not ported (``True`` raises `NotImplementedError`).
+        Shard the frames over the ranks of :mod:`torch.distributed` (a
+        world of one without a process group): the per-frame order
+        tensors (and axes, with ``acf=True``) of each rank's real frames
+        are gathered in frame order, and every rank concludes from all
+        of them.
     device : optional
         Device the chunks are folded on (default: the first CUDA
         device, which must exist; ``"cpu"`` for the CPU).
@@ -110,9 +114,13 @@ class NematicOrderParameter(DynamicAnalysisBase):
     """
 
     _checkpointable_stores = True
+    _rank_sharded = True
 
     def _checkpoint_attrs(self) -> tuple:
         return ("_axes",) if self._acf else ()
+
+    def _result_stores(self) -> dict:
+        return {"Q": 0}
 
     def __init__(
         self,
@@ -124,13 +132,14 @@ class NematicOrderParameter(DynamicAnalysisBase):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         (
             self._atom_indices, self._b_col, self._e_col
         ) = _compact_pair_columns(begins, ends)
         self.universe = begins.universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
         self._begins_ix = begins.ix
         self._ends_ix = ends.ix
         self._acf = bool(acf)
@@ -259,7 +268,10 @@ class OrientationProfile(DynamicAnalysisBase):
     reduced : `bool`, keyword-only, default :code:`False`
         Reduced (LJ) units.
     parallel : `bool`, keyword-only, default :code:`False`
-        Not ported (``True`` raises `NotImplementedError`).
+        Shard the frames over the ranks of :mod:`torch.distributed` (a
+        world of one without a process group): each rank bins the
+        entities of its real frames (mask 1), and the counts and sums
+        add up over the ranks.
     device : optional
         Device the chunks are folded on (default: the first CUDA
         device, which must exist; ``"cpu"`` for the CPU).
@@ -274,6 +286,8 @@ class OrientationProfile(DynamicAnalysisBase):
         Orientational order profiles (NaN in empty bins).
     """
 
+    _rank_sharded = True
+
     def __init__(
         self,
         begins,
@@ -286,13 +300,14 @@ class OrientationProfile(DynamicAnalysisBase):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         (
             self._atom_indices, self._b_col, self._e_col
         ) = _compact_pair_columns(begins, ends)
         self.universe = begins.universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
         self._setup_periodic_box()
         if self._triclinic:
             raise ValueError(

@@ -66,7 +66,11 @@ class IonPairAnalysis(DynamicAnalysisBase):
         Reduced (LJ) units: `cutoff` is dimensionless and
         ``results.units`` is omitted.
     parallel : `bool`, keyword-only, default :code:`False`
-        ``True`` raises `NotImplementedError` (ROADMAP Queue 1, item 10).
+        Shard the frames over the ranks of :mod:`torch.distributed` (a
+        world of one without a process group): the partner and pair
+        counts of each rank's real frames (mask 1) add up over the ranks,
+        and the per-frame counts, free fractions and the existence
+        matrix (as uint8 over gloo) are gathered in frame order.
     device : `torch.device` or `str`, keyword-only, optional
         Where the chunks are swept (default: the first CUDA device);
         ``"cpu"`` for the CPU.
@@ -97,9 +101,13 @@ class IonPairAnalysis(DynamicAnalysisBase):
     """
 
     _checkpointable_stores = True
+    _rank_sharded = True
 
     def _checkpoint_attrs(self) -> tuple:
         return ("_existence",) if self._lifetimes else ()
+
+    def _result_stores(self) -> dict:
+        return {"counts": 0, "free_fractions": 0}
 
     def __init__(
         self,
@@ -114,11 +122,12 @@ class IonPairAnalysis(DynamicAnalysisBase):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         self._groups = [group1, group2]
         self.universe = group1.universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
 
         if not isinstance(cutoff, Real):
             cutoff = strip_unit(cutoff, "angstrom")[0]
@@ -221,7 +230,8 @@ class IonPairAnalysis(DynamicAnalysisBase):
         n1, n2 = self._n_entities
 
         def update(carry, positions, dimensions, mask):
-            del mask
+            # a rank's padded tail (mask 0) pairs nothing in the carry
+            real = mask > 0
             boxes = _frame_boxes(dimensions, triclinic)[0]
             # one box a frame, broadcast over (rows, N_2)
             boxes = boxes[:, None, None]
@@ -241,12 +251,15 @@ class IonPairAnalysis(DynamicAnalysisBase):
                 partners2 += w.sum(dim=1)
                 if track_pairs:
                     # in place: the carry's matrix is the run's own
-                    new["pair_counts"][lo:hi] += w.sum(dim=0)
+                    new["pair_counts"][lo:hi] += (
+                        w & real[:, None, None]).sum(dim=0)
                 if lifetimes:
                     within.append(w)
             partners1 = torch.cat(partners1, dim=1)
-            new["partners1"] = carry["partners1"] + partners1.sum(dim=0)
-            new["partners2"] = carry["partners2"] + partners2.sum(dim=0)
+            new["partners1"] = carry["partners1"] + (
+                partners1 * real[:, None]).sum(dim=0)
+            new["partners2"] = carry["partners2"] + (
+                partners2 * real[:, None]).sum(dim=0)
             counts = partners1.sum(dim=1)
             free1 = (partners1 == 0).sum(dim=1)
             free2 = (partners2 == 0).sum(dim=1)

@@ -390,11 +390,12 @@ class DensityProfile(DynamicAnalysisBase):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         self._groups = _as_groups(groups)
         self.universe = self._groups[0].universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
 
         self._n_groups = len(self._groups)
         self._groupings = _broadcast_groupings(self._groups, groupings)
@@ -887,12 +888,13 @@ class RadialDensityProfile(DynamicAnalysisBase):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         self._groups = _as_groups(groups)
         self._n_groups = len(self._groups)
         self.universe = self._groups[0].universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
 
         if geometry not in ("spherical", "cylindrical"):
             raise ValueError(
@@ -1193,11 +1195,12 @@ class DensityMap2D(_DensityMap):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         self._groups = _as_groups(groups)
         self.universe = self._groups[0].universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
         self._require_orthorhombic("DensityMap2D")
         if axes not in ("xy", "xz", "yz"):
             raise ValueError("axes must be 'xy', 'xz' or 'yz'.")
@@ -1292,11 +1295,12 @@ class DensityMap3D(_DensityMap):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         self._groups = _as_groups(groups)
         self.universe = self._groups[0].universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
         self._require_orthorhombic("DensityMap3D")
         if isinstance(n_bins, Real):
             n_bins = (int(n_bins),) * 3

@@ -98,11 +98,11 @@ class _SuperpositionBase(DynamicAnalysisBase):
 
     def __init__(self, group, reference=None, *, align: bool = True,
                  weights=None, reduced: bool = False, parallel: bool = False,
-                 verbose: bool = True, device=None) -> None:
+                 verbose: bool = True, device=None, **kwargs) -> None:
         self.group = group
         self.universe = group.universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
         if group.n_atoms < 3:
             raise ValueError(
                 "'group' must contain at least 3 atoms for a rigid-body "
@@ -240,7 +240,10 @@ class RMSD(_SuperpositionBase):
     reduced : `bool`, keyword-only, default False
         Reduced (LJ) units (omits ``results.units``).
     parallel : `bool`, keyword-only, default False
-        Not ported (``True`` raises `NotImplementedError`).
+        Shard the frames over the ranks of :mod:`torch.distributed` (a
+        world of one without a process group): each rank fits its block
+        of each chunk, and the RMSDs and rotations of its real frames are
+        gathered in frame order.
     device : optional
         Device the chunks are folded on (default: the first CUDA device,
         which must exist; ``"cpu"`` for the CPU).
@@ -257,6 +260,10 @@ class RMSD(_SuperpositionBase):
     """
 
     _checkpointable_stores = True
+    _rank_sharded = True
+
+    def _result_stores(self) -> dict:
+        return {"rmsd": 0, "rotations": 0}
 
     def _prepare(self) -> None:
         self._resolve_reference()
@@ -304,7 +311,10 @@ class RMSF(_SuperpositionBase):
     \rangle|^2`).
 
     Parameters are those of :class:`RMSD`; ``weights`` affect the
-    superposition only (fluctuations are per atom, unweighted).
+    superposition only (fluctuations are per atom, unweighted).  With
+    ``parallel=True`` each rank sums its real frames (mask 1) and counts
+    them in a float64 tensor, and the sums and counts add up over the
+    ranks.
 
     Results
     -------
@@ -314,6 +324,8 @@ class RMSF(_SuperpositionBase):
         The aligned average structure in the reference's centered frame,
         shape ``(N, 3)``.
     """
+
+    _rank_sharded = True
 
     def _prepare(self) -> None:
         self._resolve_reference()
@@ -325,17 +337,18 @@ class RMSF(_SuperpositionBase):
         self._carry = {
             "sum": torch.zeros((n, 3), dtype=torch.float64, device=device),
             "sumsq": torch.zeros(n, dtype=torch.float64, device=device),
-            "count": 0,
+            "count": torch.zeros((), dtype=torch.float64, device=device),
         }
         fit = self._fit_fn()
 
         def update(carry, positions, dimensions, mask):
-            del dimensions, mask
-            aligned = fit(positions)[2]
+            del dimensions
+            # a rank's padded tail (mask 0) adds nothing
+            aligned = fit(positions)[2] * mask[:, None, None]
             return {
                 "sum": carry["sum"] + aligned.sum(dim=0),
                 "sumsq": carry["sumsq"] + (aligned * aligned).sum(dim=(0, 2)),
-                "count": carry["count"] + len(aligned),
+                "count": carry["count"] + mask.sum(),
             }
 
         self._update = update
@@ -370,7 +383,9 @@ class PrincipalComponentAnalysis(_SuperpositionBase):
 
     Parameters are those of :class:`RMSD` (``weights`` affect the
     superposition only; the covariance is unweighted, MDAnalysis
-    semantics).
+    semantics).  With ``parallel=True`` each rank accumulates the moments
+    of its real frames (mask 1) and counts them in a float64 tensor, and
+    the moments and counts add up over the ranks.
 
     Results
     -------
@@ -389,6 +404,8 @@ class PrincipalComponentAnalysis(_SuperpositionBase):
     components after :meth:`run`.
     """
 
+    _rank_sharded = True
+
     def _prepare(self) -> None:
         self._resolve_reference()
         n3 = 3 * len(self._atom_indices)
@@ -400,17 +417,18 @@ class PrincipalComponentAnalysis(_SuperpositionBase):
         self._carry = {
             "sum": torch.zeros(n3, dtype=torch.float64, device=device),
             "m2": torch.zeros((n3, n3), dtype=torch.float64, device=device),
-            "count": 0,
+            "count": torch.zeros((), dtype=torch.float64, device=device),
         }
         fit = self._fit_fn()
 
         def update(carry, positions, dimensions, mask):
-            del dimensions, mask
-            x = fit(positions)[2].reshape(len(positions), -1)
+            del dimensions
+            # a rank's padded tail (mask 0) adds nothing
+            x = fit(positions)[2].reshape(len(positions), -1) * mask[:, None]
             return {
                 "sum": carry["sum"] + x.sum(dim=0),
                 "m2": carry["m2"].addmm_(x.T, x),
-                "count": carry["count"] + len(x),
+                "count": carry["count"] + mask.sum(),
             }
 
         self._update = update
@@ -477,7 +495,9 @@ class TICA(_SuperpositionBase):
     instantaneous and lagged second moments take ``2 (3N)^2`` float64 on
     the device.
 
-    Parameters are those of :class:`RMSD`, plus:
+    Parameters are those of :class:`RMSD` (``parallel=True`` runs on one
+    rank and raises `NotImplementedError` over more: the lag ring is
+    order-dependent, and the JAX package runs TICA unsharded), plus:
 
     lag : `int`, keyword-only, default 1
         Lag :math:`\tau` in analyzed-frame steps (the selected frames must

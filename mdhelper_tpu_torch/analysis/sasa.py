@@ -141,7 +141,13 @@ class SolventAccessibleSurfaceArea(DynamicAnalysisBase):
         Reduced (LJ) units: `probe_radius` and `radii` are dimensionless
         and ``results.units`` is omitted.
     parallel : `bool`, keyword-only, default :code:`False`
-        ``True`` raises `NotImplementedError` (ROADMAP Queue 1, item 10).
+        Shard the frames over the ranks of :mod:`torch.distributed` (a
+        world of one without a process group): the areas, totals and
+        candidate counts of each rank's real frames are gathered in
+        frame order.  The occluder budget is checked over every rank (the
+        most candidates of any frame, a max over the ranks) before the
+        gather and each checkpoint save, so every rank escalates
+        together.
     device : `torch.device` or `str`, keyword-only, optional
         Where the frames are swept (default: the first CUDA device);
         ``"cpu"`` for the CPU.
@@ -165,6 +171,10 @@ class SolventAccessibleSurfaceArea(DynamicAnalysisBase):
     """
 
     _checkpointable_stores = True
+    _rank_sharded = True
+
+    def _result_stores(self) -> dict:
+        return {"areas": 0, "total_areas": 0, "n_neighbors": 0}
 
     def __init__(
         self,
@@ -178,11 +188,12 @@ class SolventAccessibleSurfaceArea(DynamicAnalysisBase):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         self.group = group
         self.universe = group.universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
         if not isinstance(probe_radius, Real):
             probe_radius = strip_unit(probe_radius, "angstrom")[0]
         if probe_radius < 0:
@@ -238,6 +249,7 @@ class SolventAccessibleSurfaceArea(DynamicAnalysisBase):
                 "results.times": ureg.picosecond,
             }
         self._store_offset = 0
+        self._most_candidates = 0
         self._reach_warned = False
         self._carry = torch.zeros((), device=self._device)
         self._make_update()
@@ -335,20 +347,38 @@ class SolventAccessibleSurfaceArea(DynamicAnalysisBase):
         areas = np.asarray(areas, dtype=np.float64)[:n_real]
         counts = np.asarray(counts)[:n_real].astype(np.int64)
         self._check_min_image_reach(batch)
-        k = self._active_budget
-        overflow = int(counts.max(initial=0)) - k
-        if overflow > 0:
-            raise OccluderOverflow(
-                f"an atom had {k + overflow} occlusion candidates "
-                f"against a max_occluders budget of {k}; re-run with "
-                f"max_occluders >= {k + overflow}."
-            )
+        most = int(counts.max(initial=0))
+        if self._mesh is not None and self._mesh.grouped:
+            # Over ranks the budget is checked on every rank together
+            # (_check_rank_stores); a rank raising alone would leave the
+            # others waiting in their next collective.
+            self._most_candidates = max(self._most_candidates, most)
+        else:
+            self._check_budget(most)
         lo = self._store_offset
         hi = lo + n_real
         self.results.areas[lo:hi] = areas
         self.results.total_areas[lo:hi] = areas.sum(axis=1)
         self.results.n_neighbors[lo:hi] = counts
         self._store_offset += n_real
+
+    def _check_budget(self, most: int) -> None:
+        """Raise :class:`OccluderOverflow` when an atom had `most`
+        candidates, more than the active budget."""
+
+        k = self._active_budget
+        if most > k:
+            raise OccluderOverflow(
+                f"an atom had {most} occlusion candidates against a "
+                f"max_occluders budget of {k}; re-run with "
+                f"max_occluders >= {most}."
+            )
+
+    def _check_rank_stores(self) -> None:
+        from ..parallel.mesh import all_reduce
+
+        self._check_budget(int(all_reduce(
+            torch.tensor(self._most_candidates, dtype=torch.int64), "max")))
 
     def run(self, *args, **kwargs):
         """Run, doubling the occlusion-candidate budget on overflow: each

@@ -84,7 +84,10 @@ class SteinhardtOrderParameter(DynamicAnalysisBase):
     reduced : `bool`, keyword-only, default False
         Reduced (LJ) units (omits ``results.units``).
     parallel : `bool`, keyword-only, default False
-        Not ported (``True`` raises `NotImplementedError`).
+        Shard the frames over the ranks of :mod:`torch.distributed` (a
+        world of one without a process group): each rank's host makes
+        the invariants of its real frames, and every per-frame array is
+        gathered in frame order.
     device : optional
         Device the chunks are folded on (default: the first CUDA
         device, which must exist; ``"cpu"`` for the CPU).
@@ -111,6 +114,17 @@ class SteinhardtOrderParameter(DynamicAnalysisBase):
     """
 
     _checkpointable_stores = True
+    _rank_sharded = True
+
+    def _result_stores(self) -> dict:
+        keys = ["ql", "ql_mean", "Ql", "n_neighbors"]
+        if self._wl:
+            keys.append("wl")
+        if self._averaged:
+            keys.append("ql_avg")
+            if self._wl:
+                keys.append("wl_avg")
+        return {key: 0 for key in keys}
 
     def __init__(
         self,
@@ -124,11 +138,12 @@ class SteinhardtOrderParameter(DynamicAnalysisBase):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         self.group = group
         self.universe = group.universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
         if not isinstance(cutoff, Real):
             cutoff = strip_unit(cutoff, "angstrom")[0]
         if cutoff <= 0:
@@ -279,7 +294,10 @@ class TetrahedralOrderParameter(DynamicAnalysisBase):
     reduced : `bool`, keyword-only, default False
         Reduced (LJ) units (omits ``results.units``).
     parallel : `bool`, keyword-only, default False
-        Not ported (``True`` raises `NotImplementedError`).
+        Shard the frames over the ranks of :mod:`torch.distributed` (a
+        world of one without a process group): the per-particle and
+        per-frame values of each rank's real frames are gathered in
+        frame order.
     device : optional
         Device the chunks are folded on (default: the first CUDA
         device, which must exist; ``"cpu"`` for the CPU).
@@ -295,6 +313,10 @@ class TetrahedralOrderParameter(DynamicAnalysisBase):
     """
 
     _checkpointable_stores = True
+    _rank_sharded = True
+
+    def _result_stores(self) -> dict:
+        return {"q_tet": 0, "q_tet_mean": 0}
 
     def __init__(
         self,
@@ -305,11 +327,12 @@ class TetrahedralOrderParameter(DynamicAnalysisBase):
         parallel: bool = False,
         verbose: bool = True,
         device=None,
+        **kwargs,
     ) -> None:
         self.group = group
         self.universe = group.universe
         super().__init__(self.universe.trajectory, parallel, verbose,
-                         device=device)
+                         device=device, **kwargs)
         n_neighbors = int(n_neighbors)
         if n_neighbors < 2:
             raise ValueError("'n_neighbors' must be at least 2.")

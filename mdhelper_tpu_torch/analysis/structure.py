@@ -683,7 +683,7 @@ class RadialDistributionFunction(_CellPlanned):
                  groupings="atoms", reduced: bool = False,
                  n_batches: int = None, parallel: bool = False,
                  shard: str = None, capacity_sigmas: float = 4.0,
-                 verbose: bool = True, device=None):
+                 verbose: bool = True, device=None, **kwargs):
         if shard not in {None, "frames", "atoms"}:
             raise ValueError(
                 "Invalid shard. Valid values: None, 'frames', 'atoms'."
@@ -702,7 +702,8 @@ class RadialDistributionFunction(_CellPlanned):
         self.ag1 = ag1
         self.ag2 = ag1 if same_atoms else ag2
         self.universe = ag1.universe
-        super().__init__(self.universe.trajectory, verbose, device=device)
+        super().__init__(self.universe.trajectory, verbose, device=device,
+                         **kwargs)
         self._shard = shard
         self._parallel = bool(parallel) or shard == "frames"
         if shard == "atoms":
@@ -1193,7 +1194,7 @@ class StructureFactor(SerialAnalysisBase):
                  q_max=None, wavevectors=None, sort: bool = True,
                  unique: bool = True, parallel: bool = False,
                  shard: str = None, precision: str = "auto",
-                 method: str = "auto", verbose: bool = True, device=None):
+                 method: str = "auto", verbose: bool = True, device=None, **kwargs):
         self._groups = (
             [groups] if hasattr(groups, "universe") else list(groups)
         )
@@ -1207,7 +1208,8 @@ class StructureFactor(SerialAnalysisBase):
                 "shard='q' applies to the direct wavevector sweep; "
                 f"method='{method}' distributes over frames instead."
             )
-        super().__init__(self.universe.trajectory, verbose, device=device)
+        super().__init__(self.universe.trajectory, verbose, device=device,
+                         **kwargs)
         self._shard = shard
         self._parallel = bool(parallel) or shard == "frames"
         if shard == "q":
@@ -1454,6 +1456,7 @@ class StructureFactor(SerialAnalysisBase):
             tiles = np.array_split(np.arange(len(wavevectors)), mesh.size)
             tile = (tiles[mesh.index] if mesh.index is not None
                     else np.arange(0))
+            self._q_tile = tile
             wavevectors = wavevectors[tile]
         self._carry = {
             "ssf": torch.zeros(
@@ -1515,6 +1518,25 @@ class StructureFactor(SerialAnalysisBase):
         if self._shard == "q":
             return carry
         return super()._reduce_rank_carry(carry)
+
+    def _rank_checkpoint_carry(self, carry):
+        """A q-sharded run's checkpoint holds every rank's q tile, in
+        order (the whole job's sums), else the base's."""
+
+        if self._shard == "q":
+            from ..parallel.mesh import all_gather_tiles
+
+            return {"ssf": all_gather_tiles(carry["ssf"], axis=1)}
+        return super()._rank_checkpoint_carry(carry)
+
+    def _rank_resumed_carry(self, carry, rank: int):
+        """A q-sharded run resumes each rank's own q tile of the whole
+        job's sums, else the base's share."""
+
+        if self._shard == "q":
+            tile = torch.as_tensor(self._q_tile, device=carry["ssf"].device)
+            return {"ssf": carry["ssf"][:, tile]}
+        return super()._rank_resumed_carry(carry, rank)
 
     def _conclude(self) -> None:
         # The JAX package's fetch_global: a q-sharded run's tiles in order.
@@ -1858,14 +1880,14 @@ class IntermediateScatteringFunction(StructureFactor):
                  lags=None, incoherent: bool = False, fft: bool = None,
                  parallel: bool = False, shard=None,
                  precision: str = "auto", method: str = "auto",
-                 verbose: bool = True, device=None):
+                 verbose: bool = True, device=None, **kwargs):
         super().__init__(
             groups, groupings, mode=mode, form=form, dimensions=dimensions,
             n_points=n_points, n_surfaces=n_surfaces,
             n_surface_points=n_surface_points, q_max=q_max,
             wavevectors=wavevectors, sort=sort, unique=unique,
             parallel=parallel, shard=shard, precision=precision,
-            method=method, verbose=verbose, device=device,
+            method=method, verbose=verbose, device=device, **kwargs,
         )
         if shard is not None:
             # The JAX message: neither frame- nor q-sharding applies.
@@ -2269,10 +2291,11 @@ class VanHoveFunction(_CellPlanned):
                  dt=None, n_lags: int = None, lags=None,
                  self_part: bool = True, distinct_part: bool = True,
                  capacity_sigmas: float = 4.0, reduced: bool = False,
-                 verbose: bool = True, device=None):
+                 verbose: bool = True, device=None, **kwargs):
         self.group = group
         self.universe = group.universe
-        super().__init__(self.universe.trajectory, verbose, device=device)
+        super().__init__(self.universe.trajectory, verbose, device=device,
+                         **kwargs)
         if not (self_part or distinct_part):
             raise ValueError(
                 "At least one of self_part/distinct_part is required."

@@ -364,12 +364,13 @@ class Onsager(SerialAnalysisBase):
                  center: bool = False, center_atom: bool = False,
                  center_wrap: bool = False, fft: bool = True,
                  reduced: bool = False, unwrap: bool = False,
-                 verbose: bool = True, device=None):
+                 verbose: bool = True, device=None, **kwargs):
         self._groups = (
             [groups] if hasattr(groups, "universe") else list(groups)
         )
         self.universe = self._groups[0].universe
-        super().__init__(self.universe.trajectory, verbose, device=device)
+        super().__init__(self.universe.trajectory, verbose, device=device,
+                         **kwargs)
         self.results.units = {"_kBT": ureg.kilojoule / ureg.mole}
         self._n_groups = len(self._groups)
         self._groupings = _groupings_per_group(

@@ -9,7 +9,8 @@ holds them.
 or ``4:nccl`` (one NCCL rank a card, on four cards).  Each job prints its
 ranks' lines and its frames/s as the smoke does; the last line is one
 JSON object, ``{"card": ..., "jobs": {WORLD: {"launches": {run:
-{kernel: n}}, "job_fps": {run: frames/s}, "seconds": s}}}``, which
+{kernel: n}}, "job_fps": {run: frames/s}, "checkpoints": {run: {rank:
+{"save_ms", "bytes", "chunk_ms", "share"}}}, "seconds": s}}}``, which
 ``--out`` also writes to FILE.  Needs a CUDA card for each NCCL rank.
 """
 
@@ -48,7 +49,8 @@ def main(argv):
         for world, backend in jobs:
             job = chip_smoke.parallel_job(world, backend, references, card)
             results[world] = {key: job[key]
-                              for key in ("launches", "job_fps", "seconds")}
+                              for key in ("launches", "job_fps",
+                                          "checkpoints", "seconds")}
     line = json.dumps({"card": card, "jobs": results})
     if out is not None:
         with open(out, "w") as f:

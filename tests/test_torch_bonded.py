@@ -389,6 +389,6 @@ def test_validation():
                      "DihedralDistribution"):
             with pytest.raises(ValueError, match="No bonded terms"):
                 getattr(module, name)(u.atoms, verbose=False, **device)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        bonded.BondLengthDistribution(tu.atoms, bonds=[[0, 1]],
-                                      parallel=True, device="cpu")
+    # parallel=True is taken (ROADMAP Queue 1, item 10b-2)
+    assert bonded.BondLengthDistribution(tu.atoms, bonds=[[0, 1]],
+                                         parallel=True, device="cpu")._parallel

@@ -272,6 +272,6 @@ def test_validation_matches_jax(waters):
         with pytest.raises(ValueError, match=match):
             cluster.ClusterSizeDistribution(tu.atoms, *args, device="cpu",
                                             **kwargs)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cluster.ClusterSizeDistribution(tu.atoms, 2.0, parallel=True,
-                                        device="cpu")
+    # parallel=True is taken (ROADMAP Queue 1, item 10b-2)
+    assert cluster.ClusterSizeDistribution(tu.atoms, 2.0, parallel=True,
+                                           device="cpu")._parallel

@@ -216,8 +216,9 @@ def test_validation(systems):
             np.float64 if cls is JaxUniverse else np.float32), np.zeros(6))
         with pytest.raises(ValueError, match="periodic box"):
             make(boxless.atoms, verbose=False, **device)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        contacts.NativeContacts(tu.atoms, parallel=True, device="cpu")
+    # parallel=True is taken (ROADMAP Queue 1, item 10b-2)
+    assert contacts.NativeContacts(tu.atoms, parallel=True,
+                                   device="cpu")._parallel
 
 
 def test_contact_pair_helpers_match_jax():

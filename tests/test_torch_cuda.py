@@ -2288,6 +2288,100 @@ elif CASE == "ring":
 elif CASE == "q":
     got, want = sf(shard="q").run(), sf(method="direct").run()
     pairs = [(got.results.ssf, want.results.ssf)]
+elif CASE == "checkpoint":
+    # Killed at its second 2-frame chunk, resumed in 3-frame chunks from
+    # frame 2 (which a 3-frame grid from frame 0 splits): equal to the
+    # uninterrupted run over the rank, S(q) within rtol 1e-12.
+    import os
+
+    from mdhelper_tpu_torch.analysis.pairing import IonPairAnalysis
+
+    class Killed(Exception):
+        pass
+
+    def make(chunk):
+        out = [rdf(), sf(), IonPairAnalysis(u.atoms[0::2], u.atoms[1::2],
+                                            3.0, pair_counts=True,
+                                            lifetimes=True, verbose=False,
+                                            device=device, parallel=True)]
+        for a in out:
+            a._chunk_bytes = chunk * 3000 * 3 * 4
+        return out
+
+    def kill(batch):
+        if batch.chunk_end == 4:
+            raise Killed
+
+    path = os.path.join(WORKDIR, "resume")
+    whole = run_together(make(2), parallel=True)
+    try:
+        run_together(make(2), parallel=True, checkpoint=path, on_chunk=kill)
+        raise AssertionError("not killed")
+    except Killed:
+        pass
+    with np.load(path) as archive:
+        assert int(archive["__frames_done__"]) == 2
+    got = run_together(make(3), parallel=True, checkpoint=path)
+    np.testing.assert_allclose(got[1].results.ssf, whole[1].results.ssf,
+                               rtol=1e-12, atol=0)
+    pairs = [(got[0].results.counts, whole[0].results.counts),
+             (got[2].results.pair_counts, whole[2].results.pair_counts),
+             (got[2].results.counts, whole[2].results.counts),
+             (got[2]._existence, whole[2]._existence)]
+elif CASE in ("aggregates", "molecules"):
+    # The classes of ROADMAP Queue 1 item 10b-2, fused over one rank, and
+    # their serial twins, on 300 waters (a weighted bincount's atomic sums
+    # within rtol 1e-12).
+    from mdhelper_tpu_torch.analysis import (
+        bonded, cluster, contacts, hbonds, interface, orientation, pairing,
+        rmsd, sasa, steinhardt)
+    from mdhelper_tpu_torch.testing import water_system
+
+    frames, topology = water_system(np.random.default_rng(7), 300, 20.0, 6)
+    w = Universe.from_arrays(frames, [20.0] * 3 + [90.0] * 3, **topology)
+    kw = dict(verbose=False, device=device, parallel=True)
+    ox, h1 = w.atoms[0::3], w.atoms[1::3]
+
+    def make():
+        if CASE == "aggregates":
+            return [
+                cluster.ClusterSizeDistribution(w.atoms, 2.0, "residues",
+                                                **kw),
+                hbonds.HydrogenBondAnalysis(w, pair_counts=True,
+                                            lifetimes=True, **kw),
+                orientation.NematicOrderParameter(ox, h1, acf=True, **kw),
+                orientation.OrientationProfile(ox, h1, "z", 10, **kw),
+                steinhardt.SteinhardtOrderParameter(ox, 3.5, averaged=True,
+                                                    wl=True, **kw),
+                steinhardt.TetrahedralOrderParameter(ox, **kw),
+                interface.WillardChandlerInterface(ox, n_cells=16, **kw),
+                interface.IntrinsicDensityProfile(ox, [h1], n_cells=16,
+                                                  **kw)]
+        return [
+            rmsd.RMSD(w.atoms[:30], **kw), rmsd.RMSF(w.atoms[:30], **kw),
+            rmsd.PrincipalComponentAnalysis(w.atoms[:30], **kw),
+            bonded.BondLengthDistribution(w.atoms, **kw),
+            bonded.BondAngleDistribution(w.atoms, **kw),
+            contacts.NativeContacts(ox, **kw),
+            pairing.IonPairAnalysis(ox, h1, 2.2, pair_counts=True,
+                                    lifetimes=True, **kw),
+            sasa.SolventAccessibleSurfaceArea(
+                w.atoms[:90], n_points=60, radii=np.tile([1.52, 1.1, 1.1], 30),
+                **kw)]
+
+    got, want = run_together(make(), parallel=True), run_together(make())
+    assert got[0]._mesh.grouped
+    keys = ("size_counts", "n_clusters", "counts", "pair_counts",
+            "occupancies", "Q", "C1", "ql", "wl_avg", "n_neighbors", "q_tet",
+            "levels", "density_field", "number_densities", "rmsd",
+            "rotations", "rmsf", "variance", "mean", "q", "free_fractions",
+            "areas", "lifetime")
+    pairs = [(np.asarray(a.results[k]), np.asarray(b.results[k]))
+             for a, b in zip(got, want) for k in keys if k in b.results]
+    if CASE == "aggregates":
+        pairs.append((got[1]._existence, want[1]._existence))
+        np.testing.assert_allclose(got[3].results.p1, want[3].results.p1,
+                                   rtol=1e-12, atol=0)
 else:
     # The classes of ROADMAP Queue 1 item 10b-1, fused over one rank, and
     # their serial twins (the recentered profile's pre-pass route in both).
@@ -2343,14 +2437,19 @@ print("nccl rank OK")
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["fused", "ring", "q", "profiles",
-                                  "velocities"])
+                                  "velocities", "aggregates", "molecules",
+                                  "checkpoint"])
 def test_one_nccl_rank_equals_serial(cuda_device, tmp_path, case):
     """One NCCL rank (a process group of one): run_together(parallel=True),
     the atom-sharded ring and the q-sharded S(q) equal their serial runs
     on the card, counts as integers, S(q) bit for bit; so do the profile
     family, the dipoles, survival, the polymer classes and the velocity
     stream fused over the rank (the flow profile's atomic sums within
-    rtol 1e-12)."""
+    rtol 1e-12), and the aggregates, order, interfaces, molecules, bonded
+    distributions, contacts, ion pairs and SASA (the orientation
+    profile's atomic sums within rtol 1e-12).  A checkpointed fused pass
+    over the rank, killed and resumed across a chunk grid, equals its
+    uninterrupted run."""
 
     from mdhelper_tpu_torch.testing import spawn_ranks
 

@@ -106,7 +106,11 @@ def test_serial_dynamic_base_streams_as_the_serial_base(system):
 
 def test_parallel_raises(system):
     _, tu, _ = system
-    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
+    """The bare base declares neither ``_rank_sharded`` nor
+    ``_sequential``: ``parallel=True`` raises, naming what a subclass
+    must declare."""
+
+    with pytest.raises(NotImplementedError, match="_rank_sharded = True"):
         DynamicAnalysisBase(tu.trajectory, True, device="cpu")
 
 

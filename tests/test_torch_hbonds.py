@@ -322,5 +322,6 @@ def test_validation_matches_jax(waters):
             jax_hbonds.HydrogenBondAnalysis(jax_u, verbose=False, **kwargs)
         with pytest.raises(ValueError, match=match):
             hbonds.HydrogenBondAnalysis(port_u, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        hbonds.HydrogenBondAnalysis(tu, parallel=True, device="cpu")
+    # parallel=True is taken (ROADMAP Queue 1, item 10b-2)
+    assert hbonds.HydrogenBondAnalysis(tu, parallel=True,
+                                       device="cpu")._parallel

@@ -479,8 +479,8 @@ def test_default_grid_and_validation(universes, system):
                 interface.IntrinsicDensityProfile):
         with pytest.raises(ValueError, match="orthorhombic"):
             cls(tri.atoms, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            cls(tu.atoms, parallel=True, device="cpu")
+        # parallel=True is taken (ROADMAP Queue 1, item 10b-2)
+        assert cls(tu.atoms, parallel=True, device="cpu")._parallel
         for kwargs, match in ((dict(axis="w"), "axis"), (dict(axis=3), "axis"),
                               (dict(xi=0.0), "xi"),
                               (dict(n_cells=2), "n_cells"),

@@ -239,5 +239,6 @@ def test_validation_matches_jax(waters):
                                            device="cpu", **kwargs)
     for cls in (orientation.NematicOrderParameter,
                 orientation.OrientationProfile):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            cls(*_axes(tu, "OH", False), parallel=True, device="cpu")
+        # parallel=True is taken (ROADMAP Queue 1, item 10b-2)
+        assert cls(*_axes(tu, "OH", False), parallel=True,
+                   device="cpu")._parallel

@@ -385,5 +385,6 @@ def test_validation(ions):
         pairing.IonPairAnalysis(g1, g2, CUT, ("atoms",), device="cpu")
     with pytest.raises(ValueError, match="non-empty"):
         pairing.IonPairAnalysis(g1[:0], g2, CUT, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pairing.IonPairAnalysis(g1, g2, CUT, parallel=True, device="cpu")
+    # parallel=True is taken (ROADMAP Queue 1, item 10b-2)
+    assert pairing.IonPairAnalysis(g1, g2, CUT, parallel=True,
+                                   device="cpu")._parallel

@@ -190,14 +190,6 @@ def profile_b(u, **kw):
                           device="cpu", **kw)
 
 
-def clusters_b(u, **kw):
-    """A class of ROADMAP Queue 1 item 10b-2, which does not reduce over
-    ranks yet."""
-    from mdhelper_tpu_torch.analysis.cluster import ClusterSizeDistribution
-
-    return ClusterSizeDistribution(u.atoms, 1.5, verbose=False,
-                                   device="cpu", **kw)
-
 
 #: name: (factory, trajectory, keywords of the sharded run, result keys)
 SHARDED = {
@@ -294,7 +286,8 @@ refusals = {
     "fused_recentered_profile": lambda: run_together(
         [rdf_b(us["b"]), profile_b(us["b"], recenter=0)], parallel=True),
     "fused_unsharded": lambda: run_together(
-        [rdf_b(us["b"]), clusters_b(us["b"])], parallel=True),
+        [rdf_b(us["b"]), unflagged(frame_means_b(us["b"], parallel=True))],
+        parallel=True),
     "unflagged_subclass": lambda: unflagged(
         frame_means_b(us["b"], parallel=True)).run(),
 }
@@ -426,14 +419,14 @@ def test_overflow_on_one_rank_replans_every_rank(ranks, universes):
     ("isf_ring", "NotImplementedError", "Order-dependent analyses"),
     ("sequential_subclass", "NotImplementedError",
      "Order-dependent analyses"),
-    ("checkpoint", "NotImplementedError", "item 10b"),
+    ("checkpoint", "ValueError", "not registered for checkpointing"),
     ("fused_vanhove", "ValueError", "order-dependent physics"),
     ("fused_onsager", "ValueError", "order-dependent physics"),
-    ("fused_initial", "NotImplementedError", "item 10b"),
+    ("fused_initial", "NotImplementedError", "Queue 3, item 18"),
     ("fused_rouse", "ValueError", "order-dependent physics"),
     ("fused_recentered_profile", "ValueError", "order-dependent physics"),
-    ("fused_unsharded", "NotImplementedError", "item 10b"),
-    ("unflagged_subclass", "NotImplementedError", "item 10b"),
+    ("fused_unsharded", "NotImplementedError", "_rank_sharded = True"),
+    ("unflagged_subclass", "NotImplementedError", "_rank_sharded = True"),
 ])
 def test_refusals_over_ranks(ranks, name, kind, words):
     for _, notes in ranks:
@@ -601,14 +594,20 @@ def test_ring_needs_atoms_and_an_orthorhombic_box(universes):
 
 
 def test_roster_classes_still_refuse_parallel(universes):
-    """Until item 10b-2, its classes on DynamicAnalysisBase raise for
-    ``parallel=True``; a subclass that sets ``_rank_sharded`` runs."""
+    """A user subclass of DynamicAnalysisBase that declares neither
+    ``_rank_sharded`` nor ``_sequential`` raises for ``parallel=True``,
+    naming what it must declare; a subclass that sets ``_rank_sharded``
+    runs, and so does every class of the package (its roster:
+    ``tests/test_torch_parallel_roster.py``)."""
 
-    from mdhelper_tpu_torch.analysis.cluster import ClusterSizeDistribution
+    class Undeclared(DynamicAnalysisBase):
+        def __init__(self, u, parallel=False):
+            super().__init__(u.trajectory, parallel, device="cpu")
 
     u = universes["a"]
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        ClusterSizeDistribution(u.atoms, 1.5, parallel=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="_rank_sharded = True"):
+        Undeclared(u, parallel=True)
+    assert Undeclared(u)._parallel is False
     assert issubclass(DynamicAnalysisBase, ParallelAnalysisBase)
     means = _cases["frame_means_b"](u, parallel=True).run(n_jobs=2,
                                                           module="dask")

@@ -649,18 +649,18 @@ def test_time_step_quantities(chains):
 
 def test_parallel_runs_serially_or_raises(chains):
     """EndToEndVector and RouseModes take ``parallel`` and ignore it, as
-    the JAX classes do, and raise for the mesh options; the four classes
-    on the sharded base run ``parallel=True`` (ROADMAP Queue 1, item
-    10b-1) as a world of one without a process group, equal to their
-    serial runs."""
+    the JAX classes do, and accept and ignore the JAX runtime's other
+    keywords (ROADMAP Queue 1, item 10b-2); the four classes on the
+    sharded base run ``parallel=True`` (item 10b-1) as a world of one
+    without a process group, equal to their serial runs."""
 
     _, u, _ = chains
     for cls in ("EndToEndVector", "RouseModes"):
         a = _run(polymer, cls, u.atoms, parallel=True)
         b = _run(polymer, cls, u.atoms)
         np.testing.assert_array_equal(a.results.acf, b.results.acf)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            getattr(polymer, cls)(u.atoms, device="cpu", mesh=None)
+        c = _run(polymer, cls, u.atoms, mesh=None)
+        np.testing.assert_array_equal(c.results.acf, b.results.acf)
     for cls, key in (("Gyradius", "gyradii"),
                      ("SingleChainStructureFactor", "scsf"),
                      ("PersistenceLength", "bond_lengths"),

@@ -430,6 +430,8 @@ def test_validation(protein):
             with pytest.raises(RuntimeError, match="run"):
                 getattr(module, cls)(universe.atoms, verbose=False,
                                      **device).transform()
+    # parallel=True is taken (ROADMAP Queue 1, item 10b-2; TICA on one
+    # rank)
     for cls in ("RMSD", "RMSF", "PrincipalComponentAnalysis", "TICA"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            getattr(rmsd, cls)(u.atoms, parallel=True, device="cpu")
+        assert getattr(rmsd, cls)(u.atoms, parallel=True,
+                                  device="cpu")._parallel

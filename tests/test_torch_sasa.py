@@ -456,8 +456,8 @@ def test_validation_errors():
         cls(tu.atoms, max_occluders=0, **one)
     with pytest.raises(ValueError, match="at least 1"):
         cls(tu.atoms[:0], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cls(tu.atoms, parallel=True, **one)
+    # parallel=True is taken (ROADMAP Queue 1, item 10b-2)
+    assert cls(tu.atoms, parallel=True, **one)._parallel
 
 
 def test_units_and_reduced():

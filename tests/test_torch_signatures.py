@@ -14,167 +14,46 @@ import pytest
 pytest.importorskip("jax")
 pytest.importorskip("torch")
 
-#: JAX parameters the port does not take yet, by object, with the slice
-#: that brings them (ROADMAP Queue 1): the rest of parallel/ (item 10, its
-#: second part 10b) only, but for the JAX parallel runner's worker-pool
-#: options, which the ranks replace and no slice brings.
+#: JAX parameters the port does not take, by object, with the reason: the
+#: JAX parallel runner's worker-pool options, which the ranks replace and no
+#: slice brings (parallel/, ROADMAP Queue 1 item 10).
 NOT_PORTED = {
-    "analysis.structure.RadialDistributionFunction": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.structure.StructureFactor": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.structure.IntermediateScatteringFunction": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.structure.VanHoveFunction": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.transport.Onsager": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.base.SerialAnalysisBase.run": {
-        "kwargs": "parallel/ (item 10): the parallel runner's options",
-    },
-    "analysis.pairing.IonPairAnalysis": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.sasa.SolventAccessibleSurfaceArea": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.base.DynamicAnalysisBase": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.base.ParallelAnalysisBase": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
     "analysis.base.ParallelAnalysisBase.run": {
         "block": "parallel/ (item 10): the JAX worker pool's option, not "
                  "taken (the ranks are the workers)",
         "method": "parallel/ (item 10): the JAX worker pool's option, not "
                   "taken (the ranks are the workers)",
     },
-    "analysis.profile.DensityProfile": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.profile.RadialDensityProfile": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.profile.DensityMap2D": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.profile.DensityMap3D": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.electrostatics.DipoleMoment": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.polymer.Gyradius": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.polymer.SingleChainStructureFactor": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.polymer.PersistenceLength": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.polymer.MeanSquareInternalDistance": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.cluster.ClusterSizeDistribution": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.hbonds.HydrogenBondAnalysis": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.orientation.NematicOrderParameter": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.orientation.OrientationProfile": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.steinhardt.SteinhardtOrderParameter": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.steinhardt.TetrahedralOrderParameter": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.dynamics.VelocityAutocorrelation": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.dynamics.ElectricCurrentAutocorrelation": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.dynamics.SurvivalProbability": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.dynamics.OverlapFunction": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.flow.FlowProfile": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.interface.WillardChandlerInterface": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.interface.IntrinsicDensityProfile": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.rmsd.RMSD": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.rmsd.RMSF": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.rmsd.PrincipalComponentAnalysis": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.bonded.BondLengthDistribution": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.bonded.BondAngleDistribution": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.bonded.DihedralDistribution": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
-    "analysis.contacts.NativeContacts": {
-        "kwargs": "parallel/ (item 10): the runtime's mesh options",
-    },
 }
 
-#: Parameters the port takes whose other values are not ported yet: the
-#: classes on ``DynamicAnalysisBase`` that have not set ``_rank_sharded``
-#: (the 18 of item 10b-2) accept ``parallel=False`` and raise
-#: `NotImplementedError` for ``True``, citing parallel/ (item 10b).
-#: Nothing else is on this list.
-#: (``EndToEndVector`` and ``RouseModes`` take ``parallel`` through
-#: ``**kwargs`` and ignore it, as the JAX classes do; ``TICA`` takes it
-#: through ``**kwargs`` and raises.)
-NOT_PORTED_VALUES = {
-    dotted: {"parallel": (True, "parallel/ (item 10): 10b")}
-    for dotted in (
-        "analysis.cluster.ClusterSizeDistribution",
-        "analysis.hbonds.HydrogenBondAnalysis",
-        "analysis.orientation.NematicOrderParameter",
-        "analysis.orientation.OrientationProfile",
-        "analysis.steinhardt.SteinhardtOrderParameter",
-        "analysis.steinhardt.TetrahedralOrderParameter",
-        "analysis.interface.WillardChandlerInterface",
-        "analysis.interface.IntrinsicDensityProfile",
-        "analysis.rmsd.RMSD",
-        "analysis.rmsd.RMSF",
-        "analysis.rmsd.PrincipalComponentAnalysis",
-        "analysis.rmsd.TICA",
-        "analysis.bonded.BondLengthDistribution",
-        "analysis.bonded.BondAngleDistribution",
-        "analysis.bonded.DihedralDistribution",
-        "analysis.contacts.NativeContacts",
-        "analysis.pairing.IonPairAnalysis",
-        "analysis.sasa.SolventAccessibleSurfaceArea",
-    )
-}
+#: Parameters the port takes whose other values are not ported yet: none.
+#: Every class on ``DynamicAnalysisBase`` takes ``parallel=True``
+#: (``TICA`` on one rank, as the JAX package runs it unsharded).
+NOT_PORTED_VALUES = {}
+
+#: The classes that took ``parallel=True`` last, with parallel/'s second
+#: part (ROADMAP Queue 1 item 10b-2); each also takes the JAX classes'
+#: ``**kwargs``.
+LAST_PARALLEL = (
+    "analysis.cluster.ClusterSizeDistribution",
+    "analysis.hbonds.HydrogenBondAnalysis",
+    "analysis.orientation.NematicOrderParameter",
+    "analysis.orientation.OrientationProfile",
+    "analysis.steinhardt.SteinhardtOrderParameter",
+    "analysis.steinhardt.TetrahedralOrderParameter",
+    "analysis.interface.WillardChandlerInterface",
+    "analysis.interface.IntrinsicDensityProfile",
+    "analysis.rmsd.RMSD",
+    "analysis.rmsd.RMSF",
+    "analysis.rmsd.PrincipalComponentAnalysis",
+    "analysis.rmsd.TICA",
+    "analysis.bonded.BondLengthDistribution",
+    "analysis.bonded.BondAngleDistribution",
+    "analysis.bonded.DihedralDistribution",
+    "analysis.contacts.NativeContacts",
+    "analysis.pairing.IonPairAnalysis",
+    "analysis.sasa.SolventAccessibleSurfaceArea",
+)
 
 #: Parameters of the port's own: the device of an analysis (and of the
 #: radial histogram, of the ring, of the FFTs of the transport functions
@@ -543,19 +422,13 @@ def test_groupings_are_ported_everywhere():
 
 
 def test_units_centering_and_charges_are_ported():
-    """Only parallel/ (item 10) remains: no checkpoint, unit, reduced-unit,
-    centering, charge or file parameter, and of the profile and
-    electrostatics parameters only ``parallel=True``."""
+    """Only the JAX worker pool's options remain: no checkpoint, unit,
+    reduced-unit, centering, charge, file or mesh parameter, and no value
+    that raises."""
 
     listed = set().union(*(set(v) for v in NOT_PORTED.values()))
-    partly = set().union(*(set(v) for v in NOT_PORTED_VALUES.values()))
-    assert partly == {"parallel"}
-    assert not {"recenter", "neutralize", "unwrap", "average", "scales",
-                "dimensions", "geometry", "axes", "dt"} & listed
-    assert not {"reduced", "n_batches", "temperature", "charges", "center",
-                "center_atom", "center_wrap", "times", "velocities",
-                "forces"} & listed
-    assert "checkpoint" not in listed
+    assert listed == {"block", "method"}
+    assert not NOT_PORTED_VALUES
     for reasons in NOT_PORTED.values():
         for reason in reasons.values():
             assert "(item 10)" in reason, reason
@@ -606,16 +479,27 @@ def _arguments(dotted, u):
     return (u.atoms,), {}
 
 
-@pytest.mark.parametrize("dotted", list(NOT_PORTED_VALUES))
-def test_values_not_ported_raise(dotted):
-    """Each listed value raises `NotImplementedError` naming its item; the
-    default runs."""
+@pytest.mark.parametrize("dotted", LAST_PARALLEL)
+def test_parallel_and_kwargs_are_taken(dotted, caplog):
+    """``parallel=True`` runs (a world of one without a process group) to
+    the default run's results, and a keyword of the JAX runtime is accepted
+    and ignored with a debug line naming it."""
+
+    import logging
+
+    import numpy as np
 
     cls = _resolve("mdhelper_tpu_torch", dotted)
     u = _universe()
     args, kwargs = _arguments(dotted, u)
-    for name, (value, reason) in NOT_PORTED_VALUES[dotted].items():
-        assert "(item 10)" in reason
-        with pytest.raises(NotImplementedError, match="item 10"):
-            cls(*args, device="cpu", **{name: value}, **kwargs)
-        cls(*args, device="cpu", verbose=False, **kwargs).run()
+    with caplog.at_level(logging.DEBUG):
+        sharded = cls(*args, device="cpu", verbose=False, parallel=True,
+                      mesh_axis="frames", **kwargs)
+    assert "mesh_axis" in caplog.text
+    sharded.run()
+    assert sharded._mesh.world == 1
+    serial = cls(*args, device="cpu", verbose=False, **kwargs).run()
+    for key, value in serial.results.items():
+        if isinstance(value, np.ndarray) and value.dtype != object:
+            np.testing.assert_array_equal(sharded.results[key], value,
+                                          err_msg=key)

@@ -407,8 +407,9 @@ def test_validation_and_units(fluid):
             getattr(steinhardt, name)(*targs, device="cpu", **kwargs)
     for name, args in (("SteinhardtOrderParameter", (tu.atoms, 3.0)),
                        ("TetrahedralOrderParameter", (tu.atoms,))):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            getattr(steinhardt, name)(*args, parallel=True, device="cpu")
+        # parallel=True is taken (ROADMAP Queue 1, item 10b-2)
+        assert getattr(steinhardt, name)(*args, parallel=True,
+                                         device="cpu")._parallel
     # A Quantity cutoff, and times from the trajectory's dt (no time step
     # of the class's own, as in the JAX class).
     ref = jax_steinhardt.SteinhardtOrderParameter(
