@@ -126,7 +126,14 @@ on an 18,000-atom ionic liquid (residue centers with lifetimes, like
 ions, a triclinic cell; against the port's CPU run) and the
 Shrake-Rupley SASA of slice 18's protein (heavy atoms and all; against
 the CPU run and a float64 oracle); no kernel of the kernels line
-launches there; and last, slice 20, parallel/ on torch.distributed: the
+launches there; then slice 23, the host packages around the main path
+(:func:`phase_host_packages`): config 5's melt from create_atoms through
+a LAMMPS data file and back, a 16-frame walk of it through an AMBER
+NetCDF file into run_together([RDF, Onsager]) on the card inside
+core.profiling.trace (the self sweep's device records in the trace, the
+counts equal to an untraced run's), the MSD fitted with fit.power, the
+exact trig sums tuned with benchmark_grid and the StructureFactor
+n_threads shim; and last, slice 20, parallel/ on torch.distributed: the
 ring step (the cross kernel with global exclusion ids) against the plain
 dense block at 5,000 atoms on the straddle fixture with exclusions (1, 1)
 and (2, 3), then a job of one NCCL rank and one of two gloo ranks sharing
@@ -7853,6 +7860,274 @@ def parallel_job(world, backend, references, card):
             "checkpoints": checkpoints, "seconds": job_s}
 
 
+# Slice 23, the host packages around the main path at config 5's width: the
+# melt of POLYMER_CHAINS chains of POLYMER_MONOMERS beads from create_atoms
+# (bonds HOST_BOND A long), and HOST_FRAMES frames of a random walk of its
+# beads, N(0, HOST_STEP) A a frame and axis, streamed from an AMBER NetCDF
+# file.  The fitted MSD exponent and prefactor are held to the walk's within
+# HOST_FIT_TOL (the MSD is averaged over 300k atom-axes, so its noise is
+# about 0.3 % at the last lag).  The tuner sweeps the exact trig sums over
+# HOST_TUNE_FRAMES frames in batches of HOST_TUNE_BATCHES.
+HOST_FRAMES, HOST_STEP, HOST_BOND = 16, 0.05, 1.0
+#: the cell capacity's headroom for the melt: its chains sit one a cell of
+#: a close-factor grid, so the 8^3 plan's fullest cell holds 4.6 sigmas
+#: over the mean, and the default 4 overflowed (ROADMAP Queue 3, item 1).
+HOST_SIGMAS = 8.0
+HOST_FIT_TOL = 0.02
+HOST_TUNE_FRAMES, HOST_TUNE_BATCHES = 8, (1, 2, 8)
+#: how far a wall-clock median may fall below the fastest CUDA-event time
+#: of the same call (they are separate runs of one call).
+HOST_TUNE_SLACK = 0.02
+#: traced runs at most: the profiler now and then drops a whole window's
+#: device records (run_profiled).
+HOST_TRACE_RUNS = 3
+
+
+def seeded_create_atoms(rng, *args, **kwargs):
+    """``algorithm.topology.create_atoms(*args, **kwargs)`` with numpy's
+    ``default_rng()`` (which create_atoms calls unseeded) giving a
+    generator seeded from `rng`."""
+
+    from mdhelper_tpu_torch.algorithm.topology import create_atoms
+
+    seeded = np.random.default_rng(rng.integers(2**63))
+    unseeded = np.random.default_rng
+    np.random.default_rng = lambda *a, **k: seeded
+    try:
+        return create_atoms(*args, **kwargs)
+    finally:
+        np.random.default_rng = unseeded
+
+
+def traced_kernels(log_dir):
+    """The device records of the Chrome traces in `log_dir`: each kernel's
+    name and count."""
+
+    import collections
+
+    names = collections.Counter()
+    for name in os.listdir(log_dir):
+        if name.endswith(".pt.trace.json"):
+            with open(os.path.join(log_dir, name)) as fh:
+                events = json.load(fh)["traceEvents"]
+            names.update(e["name"] for e in events
+                         if e.get("cat") == "kernel")
+    return names
+
+
+def phase_host_packages(device, rng, card):
+    """Slice 23's host packages around the main path on the card.  The
+    melt: ``create_atoms`` builds POLYMER_CHAINS random-walk chains of
+    POLYMER_MONOMERS beads with their bonds, ``lammps.topology.write_data``
+    writes them and ``io.topology_files.read_lammps_data`` reads them back
+    (positions equal to the file's 6 digits, bonds equal).  The walk:
+    HOST_FRAMES frames go through ``openmm.file.NetCDFFile`` and back
+    through ``Universe.from_files`` (the data file and the NetCDF file),
+    and run_together([RDF, Onsager]) runs them on the card inside
+    ``core.profiling.trace``, with ``Timer`` stages around the read and
+    the runs: the self cell sweep launched once a chunk, its device
+    records in the trace under its kernel name, and the RDF counts equal
+    to an untraced run's as integers.  ``fit.power.power1`` fits the MSD
+    (the walk's exponent and prefactor within HOST_FIT_TOL).
+    ``benchmark_grid`` sweeps the exact trig sums' frame batch (row 9),
+    each median at least the fastest CUDA-event time of the same call.
+    The ``n_threads`` shim: ``StructureFactor.run(n_threads=4)`` warns and
+    gives the S(q) of a run without it."""
+
+    import tempfile
+    import warnings
+
+    import torch
+    from scipy.optimize import curve_fit
+
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+        StructureFactor,
+    )
+    from mdhelper_tpu_torch.analysis.transport import Onsager
+    from mdhelper_tpu_torch.core.profiling import Timer, benchmark_grid, trace
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.fit.power import power1
+    from mdhelper_tpu_torch.io.topology_files import read_lammps_data
+    from mdhelper_tpu_torch.lammps.topology import write_data
+    from mdhelper_tpu_torch.openmm.file import NetCDFFile
+    from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+    from mdhelper_tpu_torch.ops import cuda_kernels
+
+    started = time.perf_counter()
+    timer = Timer()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with timer("create_atoms"):
+            pos, bonds = seeded_create_atoms(
+                rng, [BOX] * 3, N_ATOMS, POLYMER_MONOMERS, length=HOST_BOND,
+                bonds=True, wrap=True)
+        check(pos.shape == (N_ATOMS, 3) and bonds.shape == (
+            N_ATOMS - POLYMER_CHAINS, 2),
+            f"create_atoms: {pos.shape}, {bonds.shape}")
+        bond = pos[bonds[:, 1]] - pos[bonds[:, 0]]
+        bond -= BOX * np.round(bond / BOX)
+        check(np.allclose(np.linalg.norm(bond, axis=1), HOST_BOND),
+              "create_atoms: bond lengths off")
+        data = os.path.join(tmp, "melt.data")
+        with timer("write_data"):
+            write_data(data, (pos,), bonds=(bonds + 1,),
+                       dimensions=[BOX] * 3, masses=[1.0])
+        with timer("read_lammps_data"):
+            back = read_lammps_data(data)
+        check(np.array_equal(back["positions"],
+                             np.char.mod("%.6g", pos).astype(float)),
+              "read_lammps_data: positions differ from the file's")
+        check(np.array_equal(back["bonds"], bonds),
+              "read_lammps_data: bonds differ from those written")
+
+        steps = rng.normal(0.0, HOST_STEP, (HOST_FRAMES, N_ATOMS, 3))
+        steps[0] = back["positions"]
+        walk = np.cumsum(steps, axis=0)
+        del steps
+        nc = os.path.join(tmp, "walk.nc")
+        with timer("write_model"):
+            NetCDFFile.write_model(
+                nc, np.arange(HOST_FRAMES, dtype=float),
+                np.mod(walk, BOX).astype(np.float32),
+                cell_lengths=np.full((HOST_FRAMES, 3), BOX),
+                cell_angles=np.full((HOST_FRAMES, 3), 90.0)).close()
+
+        with timer("read"):
+            u = Universe.from_files(data, nc)
+        check(u.atoms.n_atoms == N_ATOMS
+              and u.trajectory.n_frames == HOST_FRAMES,
+              "Universe.from_files: wrong sizes")
+
+        def analyses():
+            made = [RadialDistributionFunction(
+                        u.atoms, n_bins=N_BINS, range=(0.0, R_MAX),
+                        exclusion=(1, 1), capacity_sigmas=HOST_SIGMAS,
+                        verbose=False, device=device),
+                    Onsager(u.atoms, unwrap=True, verbose=False,
+                            device=device)]
+            for a in made:
+                a._chunk_bytes = CHUNK * N_ATOMS * 3 * 4
+            return made
+
+        n_chunks = -(-HOST_FRAMES // CHUNK)
+        for run in range(1, HOST_TRACE_RUNS + 1):
+            log_dir = os.path.join(tmp, f"trace{run}")
+            rdf, ons = analyses()
+            reset_launches()
+            with trace(log_dir), timer("traced run"):
+                run_together([rdf, ons])
+            launches = cch.cell_pair_histogram.launches
+            check(launches == n_chunks,
+                  f"{launches} self sweeps for {n_chunks} chunks")
+            kernels = traced_kernels(log_dir)
+            sweeps = sum(n for name, n in kernels.items()
+                         if "cell_sweep_kernel" in name
+                         and "HalfShellPairs" in name)
+            if sweeps:
+                break
+            print(f"trace {run}: no device record of the self sweep; "
+                  f"kernels traced: {dict(kernels)}")
+        check(sweeps, "the traces hold no device record of the self sweep")
+        out["traced_runs"], out["traced_sweeps"] = run, sweeps
+        out["launches"] = launches
+        out["trace_bytes"] = sum(
+            os.path.getsize(os.path.join(log_dir, n))
+            for n in os.listdir(log_dir))
+        plain_rdf = analyses()[0]
+        with timer("untraced run"):
+            run_together([plain_rdf])
+        check(np.array_equal(rdf.results.counts, plain_rdf.results.counts),
+              "the traced RDF counts differ from the untraced run's")
+        check(np.all(np.isfinite(rdf.results.rdf)), "g(r) not finite")
+
+        # msd_self is the MSD over 2d: 3 sigma^2 t / 6 for the walk.
+        msd = ons.results.msd_self[0, 0]
+        t = np.arange(1, HOST_FRAMES, dtype=float)
+        (a, b), _ = curve_fit(power1, t, msd[1:], p0=(msd[1], 1.0))
+        check(abs(b - 1.0) < HOST_FIT_TOL,
+              f"power1: MSD exponent {b:.5f}, not 1 within {HOST_FIT_TOL}")
+        check(abs(a / (HOST_STEP**2 / 2) - 1.0) < HOST_FIT_TOL,
+              f"power1: MSD prefactor {a:.6g}, not {HOST_STEP**2 / 2} "
+              f"within {HOST_FIT_TOL} of it")
+        out["exponent"], out["prefactor"] = b, a
+
+        # The tuner: the exact trig sums of the 24^3 grid's float64
+        # wavevectors over HOST_TUNE_FRAMES frames of the walk.
+        frames = torch.from_numpy(
+            np.mod(walk[:HOST_TUNE_FRAMES], BOX).astype(np.float32)).to(
+                device)
+        grid = np.stack(np.meshgrid(*[np.arange(N_QPTS)] * 3,
+                                    indexing="ij"), -1).reshape(-1, 3)[1:]
+        qs = torch.from_numpy(2 * np.pi / BOX * grid.astype(float)).to(
+            device)
+
+        def build(batch):
+            def call(qs, frames):
+                return [cuda_kernels.trig_sums(
+                    qs, frames[i:i + batch], precision="exact")
+                    for i in range(0, HOST_TUNE_FRAMES, batch)]
+            return call
+
+        configs = [{"batch": b} for b in HOST_TUNE_BATCHES]
+        cuda_kernels.trig_sums.launches = 0
+        best, ranking = benchmark_grid(build, configs, qs, frames)
+        out["tuner_launches"] = cuda_kernels.trig_sums.launches
+        check(len(ranking) == len(configs),
+              f"benchmark_grid dropped a configuration: {ranking}")
+        out["tuner"] = []
+        for median, config in ranking:
+            call = build(**config)
+            event_ms = min(time_ms(lambda: call(qs, frames), 1)
+                           for _ in range(3))
+            check(median * 1e3 >= (1 - HOST_TUNE_SLACK) * event_ms,
+                  f"benchmark_grid: {config} median {median * 1e3:.3f} ms "
+                  f"under its CUDA-event time {event_ms:.3f} ms")
+            out["tuner"].append((config["batch"], median * 1e3, event_ms))
+        out["best_batch"] = best["batch"]
+        del frames
+
+        # The n_threads shim on the card.
+        def sq():
+            return StructureFactor(u.atoms, n_points=8, verbose=False,
+                                   device=device)
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            shimmed = sq().run(stop=2, n_threads=4)
+        check(any("n_threads" in str(w.message) for w in caught),
+              "StructureFactor.run(n_threads=4) did not warn")
+        plain = sq().run(stop=2)
+        check(np.array_equal(shimmed.results.ssf, plain.results.ssf),
+              "S(q) with n_threads differs from the run without it")
+        del u, rdf, ons, plain_rdf, walk
+    out["seconds"] = time.perf_counter() - started
+    totals = timer.totals
+    print(f"host packages on {card}: create_atoms {POLYMER_CHAINS} chains x "
+          f"{POLYMER_MONOMERS} {totals['create_atoms']:.3f} s, write_data "
+          f"{totals['write_data']:.3f} s, read_lammps_data "
+          f"{totals['read_lammps_data']:.3f} s (positions and bonds equal), "
+          f"NetCDF write_model of {HOST_FRAMES} frames "
+          f"{totals['write_model']:.3f} s")
+    print(f"host packages on {card}: traced run_together([RDF, Onsager]) "
+          f"{totals['traced run'] / out['traced_runs']:.3f} s a run, "
+          f"{out['launches']} self sweeps ({out['traced_runs']} run(s) to a "
+          f"trace with the self sweep: {out['traced_sweeps']} device "
+          f"record(s), {out['trace_bytes']} bytes), untraced RDF "
+          f"{totals['untraced run']:.3f} s, counts equal; power1 MSD "
+          f"exponent {out['exponent']:.5f}, prefactor "
+          f"{out['prefactor']:.6g} (walk {HOST_STEP**2 / 2:.6g})")
+    print(f"host packages on {card}: benchmark_grid over the exact trig "
+          f"sums of {HOST_TUNE_FRAMES} frames x {len(grid)} wavevectors "
+          "(batch, median ms, fastest CUDA-event ms): "
+          + ", ".join(f"({b}, {m:.3f}, {e:.3f})" for b, m, e in out["tuner"])
+          + f"; best batch {out['best_batch']}, {out['tuner_launches']} "
+          "launches; StructureFactor.run(n_threads=4) warned, S(q) equal")
+    print(timer.report())
+    return out
+
+
 def main():
     import torch
 
@@ -8041,6 +8316,10 @@ def main():
           f"{areas['heavy']['fps']:.3f}, all {areas['all']['fps']:.3f} "
           f"frames/s on {card} (information, not a claim); the SASA phase "
           f"took {areas['seconds']:.1f} s")
+
+    # Slice 23 draws from its own generator.
+    host = phase_host_packages(device, np.random.default_rng(SEED + 26), card)
+    print(f"the host-packages phase took {host['seconds']:.1f} s")
 
     # Slice 20 draws from its own generator, and runs last: its ranks'
     # process groups live in child processes, after every other phase.

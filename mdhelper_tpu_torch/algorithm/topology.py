@@ -5,22 +5,30 @@ Topology helpers
 The part of :mod:`mdhelper_tpu.algorithm.topology` the ported analyses
 call: box matrices and volumes, the minimum-image convention, wrapping,
 the image-flag :func:`unwrap` of consecutive frames, the bonded
-:func:`unwrap_edge` that makes molecules whole, and bond guessing by
-distance (:func:`guess_bonds`, over :func:`resolve_vdw_radii`).  NumPy
-only, apart from :func:`triclinic_matrices` and :func:`unwrap`, which
-also take torch tensors.
+:func:`unwrap_edge` that makes molecules whole, bond guessing by
+distance (:func:`guess_bonds`, over :func:`resolve_vdw_radii`) and the
+initial positions of melts, chains and lattices (:func:`create_atoms`).
+NumPy only, apart from :func:`triclinic_matrices` and :func:`unwrap`,
+which also take torch tensors.
 """
 
 import warnings
+from typing import Any, Union
 
 import numpy as np
 import torch
 
-from .utility import find_connected_nodes
+from .. import FOUND_OPENMM
+from .unit import strip_unit
+from .utility import find_connected_nodes, get_closest_factors, replicate
+
+if FOUND_OPENMM:
+    from openmm import app
 
 __all__ = [
     "VDW_RADII",
     "box_volume",
+    "create_atoms",
     "guess_bonds",
     "minimize_vectors",
     "resolve_vdw_radii",
@@ -136,6 +144,161 @@ def minimize_vectors(vectors, dimensions) -> np.ndarray:
                     best = np.where(mask, d2, best)
                     out = np.where(mask[..., None], cand, out)
     return out[0] if single else out
+
+
+def create_atoms(
+    dims: Any,
+    N: int = None,
+    N_p: int = 1,
+    *,
+    lattice: str = None,
+    length: Union[float, Any] = 0.34,
+    flexible: bool = False,
+    bonds: bool = False,
+    angles: bool = False,
+    dihedrals: bool = False,
+    randomize: bool = False,
+    length_unit=None,
+    wrap: bool = False,
+) -> Any:
+    r"""Generate initial particle positions for coarse-grained systems,
+    as :func:`mdhelper_tpu.algorithm.topology.create_atoms` (host-side
+    numpy set-up code).
+
+    Without `lattice`: `N` random positions in the box `dims` (``N_p=1``)
+    or ``N // N_p`` random-walk chains of `N_p` beads `length` apart, one
+    chain a cell of a close-factor grid of the box, returned with the
+    chains' `bonds`, `angles` and `dihedrals` index arrays when asked for
+    (``randomize`` shuffles the chains, ``wrap`` wraps the beads into the
+    box).  With `lattice` (``"fcc"``, ``"hcp"``, ``"cubic"`` or
+    ``"honeycomb"``): the lattice sites of spacing `length` that fit in
+    `dims` and the lattice's own dimensions; ``flexible`` rounds the cell
+    counts to the nearest integer instead of down.  `dims` may be an
+    ``openmm.app.Topology`` when OpenMM is installed, and quantities are
+    stripped to `length_unit`, in which the results are returned.  The
+    generator is numpy's unseeded ``default_rng()``.
+    """
+
+    if FOUND_OPENMM and isinstance(dims, app.Topology):
+        dims = dims.getUnitCellDimensions()
+    dims, length_unit = strip_unit(dims, length_unit)
+    length, length_unit = strip_unit(length, length_unit)
+    dims = np.asarray(dims, dtype=float)
+    scale = length_unit if length_unit is not None else 1
+
+    if lattice is None:
+        if N is None:
+            raise ValueError("The number of particles N must be specified.")
+        if not isinstance(N, (int, np.integer)):
+            raise ValueError("The number of particles N must be an integer.")
+        if not (isinstance(N_p, (int, np.integer)) and 1 <= N_p <= N):
+            emsg = ("The number of particles N_p in each segment must "
+                    "be an integer between 1 and N.")
+            raise ValueError(emsg)
+        if N_p > 1 and N % N_p:
+            emsg = (f"{N=} particles cannot be evenly divided into "
+                    f"segments with {N_p=} particles.")
+            raise ValueError(emsg)
+
+        rng = np.random.default_rng()
+        if N_p == 1:
+            return rng.random((N, 3)) * dims * scale
+
+        # Random-walk polymer replicated across a grid of unit cells.
+        segments = N // N_p
+        n_cells = get_closest_factors(segments, 3)
+        cell_dims = dims / n_cells
+
+        cell_pos = np.zeros((N_p, 3))
+        cell_pos[0] = cell_dims / 4
+        steps = rng.random((N_p - 1, 3)) * 2 - 1
+        steps *= length / np.linalg.norm(steps, axis=1, keepdims=True)
+        cell_pos[1:] = cell_pos[0] + np.cumsum(steps, axis=0)
+
+        pos = replicate(cell_dims, cell_pos, n_cells)
+        if randomize:
+            pos = rng.permutation(pos.reshape(segments, -1, 3)).reshape(-1, 3)
+        if wrap:
+            for i in range(3):
+                pos[pos[:, i] < 0, i] += dims[i]
+                pos[pos[:, i] > dims[i], i] -= dims[i]
+
+        out = [pos * scale]
+        chain_starts = N_p * np.arange(segments)[:, None]
+        if bonds:
+            offsets = np.arange(N_p - 1)[None, :, None]
+            out.append(
+                (chain_starts[:, :, None] + offsets
+                 + np.arange(2)).reshape(-1, 2)
+            )
+        if angles:
+            offsets = np.arange(N_p - 2)[None, :, None]
+            out.append(
+                (chain_starts[:, :, None] + offsets
+                 + np.arange(3)).reshape(-1, 3)
+            )
+        if dihedrals:
+            offsets = np.arange(N_p - 3)[None, :, None]
+            out.append(
+                (chain_starts[:, :, None] + offsets
+                 + np.arange(4)).reshape(-1, 4)
+            )
+        return out[0] if len(out) == 1 else tuple(out)
+
+    # Lattice systems.
+    around = np.around if flexible else np.floor
+    if lattice == "cubic":
+        _dims = dims.copy()
+        _dims[dims == 0] = 1
+        n_cells = around(_dims / length).astype(int)
+        cell_dims = length * np.ones(3)
+        axes = [length * np.arange(n) for n in n_cells]
+        pos = np.stack(np.meshgrid(*axes), axis=-1).reshape(-1, 3)
+    else:
+        if lattice == "fcc":
+            cell_dims = length * np.array(
+                (1.0, np.sqrt(3), 3 * np.sqrt(6) / 3)
+            )
+            cell_pos = length * np.array((
+                (0, 0, 0),
+                (0.5, np.sqrt(3) / 2, 0),
+                (0.5, np.sqrt(3) / 6, np.sqrt(6) / 3),
+                (0, 2 * np.sqrt(3) / 3, np.sqrt(6) / 3),
+                (0, np.sqrt(3) / 3, 2 * np.sqrt(6) / 3),
+                (0.5, 5 * np.sqrt(3) / 6, 2 * np.sqrt(6) / 3),
+            ))
+        elif lattice == "hcp":
+            cell_dims = length * np.array(
+                (1.0, np.sqrt(3), 2 * np.sqrt(6) / 3)
+            )
+            cell_pos = length * np.array((
+                (0, 0, 0),
+                (0.5, np.sqrt(3) / 2, 0),
+                (0.5, np.sqrt(3) / 6, np.sqrt(6) / 3),
+                (0, 2 * np.sqrt(3) / 3, np.sqrt(6) / 3),
+            ))
+        elif lattice == "honeycomb":
+            cell_dims = length * np.array((np.sqrt(3), 3.0, np.inf))
+            cell_pos = length * np.array((
+                (0, 0, 0),
+                (0, 1, 0),
+                (np.sqrt(3) / 2, 1.5, 0),
+                (np.sqrt(3) / 2, 2.5, 0),
+            ))
+        else:
+            raise ValueError(f"Invalid lattice type: '{lattice}'.")
+
+        n_cells = around(dims / cell_dims).astype(int)
+        n_cells[n_cells == 0] = 1
+        cell_dims[np.isinf(cell_dims)] = 0
+        pos = replicate(cell_dims, cell_pos, n_cells)
+
+    if flexible:
+        n_cells[dims == 0] = 0
+        pos = pos[~np.any(pos[:, dims == 0] > 0, axis=1)]
+    else:
+        pos = pos[~np.any(pos > dims, axis=1)]
+    return pos * scale, n_cells * cell_dims * scale
 
 
 def wrap(positions, dimensions, *, in_place: bool = True):

@@ -4,13 +4,11 @@ Unit manipulation
 
 Helpers for stripping, converting and reducing units, ported from
 :mod:`mdhelper_tpu.algorithm.unit` onto the port's own unit engine
-(:mod:`mdhelper_tpu_torch.units`).
-
-The JAX package also takes ``openmm.unit`` quantities here when OpenMM
-is installed.  Those conversions come with the port of its ``openmm``
-package: until then an OpenMM quantity or unit raises, with the errors
-the JAX package raises when OpenMM is absent (a `TypeError` for LJ bases,
-:class:`~mdhelper_tpu_torch.units.UnitsError` for a conversion).
+(:mod:`mdhelper_tpu_torch.units`).  When OpenMM is installed they also
+take ``openmm.unit`` quantities and units, as in the JAX package.
+OpenMM's vacuum permittivity comes from
+:mod:`mdhelper_tpu_torch.openmm.unit`, which imports this module, so it is
+imported where it is used.
 """
 
 from numbers import Number
@@ -21,6 +19,9 @@ import numpy as np
 from .. import FOUND_OPENMM, Q_, ureg
 from ..units import Unit, UnitsError
 
+if FOUND_OPENMM:
+    from openmm import unit as openmm_unit
+
 __all__ = ["get_scaling_factors", "get_lj_scaling_factors", "strip_unit"]
 
 
@@ -30,17 +31,6 @@ def _is_openmm_quantity(value: Any) -> bool:
 
 def _is_openmm_unit(value: Any) -> bool:
     return getattr(value, "__module__", None) == "openmm.unit.unit"
-
-
-def _no_openmm():
-    """The error of a conversion to or from ``openmm.unit``."""
-
-    if not FOUND_OPENMM:
-        return UnitsError("OpenMM is not installed.")
-    return UnitsError(
-        "openmm.unit quantities are not supported by this package yet; "
-        "pass mdhelper_tpu_torch Quantity objects."
-    )
 
 
 def get_scaling_factors(
@@ -96,8 +86,8 @@ def get_lj_scaling_factors(
     ----------
     bases : `dict`
         Fundamental quantities ``{"mass": ..., "length": ...,
-        "energy": ...}`` as :class:`mdhelper_tpu_torch.units.Quantity`
-        objects.
+        "energy": ...}`` as :class:`mdhelper_tpu_torch.units.Quantity` or
+        ``openmm.unit.Quantity`` objects.
     other : `dict`, optional
         Additional factors, as in :func:`get_scaling_factors`.
 
@@ -107,28 +97,37 @@ def get_lj_scaling_factors(
         Scaling factors.
     """
 
-    if not isinstance(bases["mass"], Q_):
-        if FOUND_OPENMM:
-            raise TypeError(
-                "The base quantities must be mdhelper_tpu_torch Quantity "
-                "objects (openmm.unit quantities are not supported by "
-                "this package yet)."
-            )
+    if isinstance(bases["mass"], Q_):
+        avogadro = ureg.avogadro_constant
+        boltzmann = ureg.boltzmann_constant
+        bases["molar_energy"] = bases["energy"] * avogadro
+        bases["time"] = (
+            bases["mass"] * bases["length"] ** 2 / bases["molar_energy"]
+        ).sqrt().to(ureg.picosecond)
+        bases["charge"] = (
+            4 * np.pi * ureg.vacuum_permittivity
+            * bases["length"] * bases["energy"]
+        ).sqrt().to(ureg.elementary_charge)
+    elif FOUND_OPENMM:
+        from ..openmm.unit import VACUUM_PERMITTIVITY
+
+        avogadro = openmm_unit.AVOGADRO_CONSTANT_NA
+        boltzmann = openmm_unit.BOLTZMANN_CONSTANT_kB
+        bases["molar_energy"] = bases["energy"] * avogadro
+        bases["time"] = (
+            bases["mass"] * bases["length"] ** 2 / bases["molar_energy"]
+        ).sqrt().in_units_of(openmm_unit.picosecond)
+        bases["charge"] = (
+            4 * np.pi * VACUUM_PERMITTIVITY
+            * bases["length"] * bases["energy"]
+        ).sqrt().in_units_of(openmm_unit.elementary_charge)
+    else:
         raise TypeError(
             "The base quantities must be mdhelper_tpu_torch Quantity "
             "objects (or openmm.unit quantities, but OpenMM was not "
             "found)."
         )
-    avogadro = ureg.avogadro_constant
-    boltzmann = ureg.boltzmann_constant
-    bases["molar_energy"] = bases["energy"] * avogadro
-    bases["time"] = (
-        bases["mass"] * bases["length"] ** 2 / bases["molar_energy"]
-    ).sqrt().to(ureg.picosecond)
-    bases["charge"] = (
-        4 * np.pi * ureg.vacuum_permittivity
-        * bases["length"] * bases["energy"]
-    ).sqrt().to(ureg.elementary_charge)
+
     bases["velocity"] = bases["length"] / bases["time"]
     bases["force"] = bases["molar_energy"] / bases["length"]
     bases["temperature"] = bases["energy"] / boltzmann
@@ -148,9 +147,10 @@ def strip_unit(
 ) -> tuple:
     """Strip the unit from a quantity, optionally converting first.
 
-    Accepts plain numbers and :class:`mdhelper_tpu_torch.units.Quantity`
-    objects; `unit_` may be a string or an
-    :class:`mdhelper_tpu_torch.units.Unit`.
+    Accepts plain numbers, :class:`mdhelper_tpu_torch.units.Quantity`
+    objects and (when OpenMM is installed) ``openmm.unit.Quantity``
+    objects; `unit_` may be a string, an
+    :class:`mdhelper_tpu_torch.units.Unit` or an ``openmm.unit.Unit``.
 
     Returns
     -------
@@ -165,9 +165,57 @@ def strip_unit(
         if unit_ is None:
             return value.magnitude, value.units
         if _is_openmm_unit(unit_):
-            raise _no_openmm()
+            # Convert the OpenMM target unit to a native Unit for the
+            # conversion, but hand back the OpenMM unit object.
+            native = _native_from_openmm_unit(unit_)
+            return value.m_as(native), unit_
         native = ureg.Unit(unit_) if not isinstance(unit_, Unit) else unit_
         return value.m_as(native), native
+
     if _is_openmm_quantity(value):
-        raise _no_openmm()
+        if unit_ is None:
+            return value.value_in_unit(value.unit), value.unit
+        if _is_openmm_unit(unit_):
+            return value.value_in_unit(unit_), unit_
+        # A str target hands back the OpenMM unit, a native Unit target
+        # the native Unit, as in the JAX package.
+        swap = not isinstance(unit_, str)
+        native = ureg.Unit(unit_) if not isinstance(unit_, Unit) else unit_
+        omm = _openmm_from_native_unit(native)
+        stripped = value.value_in_unit(omm)
+        return (stripped, native) if swap else (stripped, omm)
+
     return value, unit_
+
+
+def _native_from_openmm_unit(omm_unit) -> Unit:
+    """Convert an ``openmm.unit.Unit`` into a native :class:`Unit`."""
+
+    native = ureg.Unit("")
+    for base, power in omm_unit.iter_base_or_scaled_units():
+        native = native * ureg.Unit(base.name.replace(" ", "_")) ** power
+    return native
+
+
+def _openmm_from_native_unit(native: Unit):
+    """Convert a native :class:`Unit` into an ``openmm.unit.Unit``.
+
+    Raises a `ValueError` when a component unit has no OpenMM
+    equivalent.
+    """
+
+    if not FOUND_OPENMM:  # pragma: no cover - guarded by callers
+        raise UnitsError("OpenMM is not installed.")
+    omm = openmm_unit.dimensionless
+    try:
+        for name, power in native.names.items():
+            omm *= getattr(openmm_unit, name) ** float(power)
+    except AttributeError:
+        emsg = (
+            "At least one unit in 'unit_' is not defined the same way "
+            "in openmm.unit and mdhelper_tpu_torch.units, so the "
+            "conversion cannot be performed. Try an openmm.unit.Quantity "
+            "instead."
+        )
+        raise ValueError(emsg)
+    return omm

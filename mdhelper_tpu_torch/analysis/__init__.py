@@ -32,6 +32,8 @@ from . import (  # noqa: F401
 from .base import (  # noqa: F401
     DynamicAnalysisBase,
     Hash,
+    NumbaAnalysisBase,
+    ParallelAnalysisBase,
     SerialAnalysisBase,
 )
 from .multi import run_together  # noqa: F401
@@ -61,5 +63,7 @@ __all__ = [
     "transport",
     "DynamicAnalysisBase",
     "Hash",
+    "NumbaAnalysisBase",
+    "ParallelAnalysisBase",
     "SerialAnalysisBase",
 ]

@@ -58,6 +58,7 @@ it.  There is no host pipeline.
 
 import logging
 import os
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
 from typing import Iterator
@@ -67,7 +68,8 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["DynamicAnalysisBase", "Hash", "ParallelAnalysisBase",
+__all__ = ["DynamicAnalysisBase", "Hash", "JittedAnalysisBase",
+           "NumbaAnalysisBase", "ParallelAnalysisBase",
            "SerialAnalysisBase", "carry_from_numpy", "carry_leaves",
            "existence_lifetimes"]
 
@@ -1126,6 +1128,31 @@ def _refuse_unsharded(analysis, world: int) -> None:
     if not analysis._rank_sharded:
         raise NotImplementedError(_unsharded_message(
             analysis, f"it cannot run over {world} ranks; run it on one"))
+
+
+class NumbaAnalysisBase(SerialAnalysisBase):
+    """The JAX package's parity shim for a thread-pooled base: ``run``
+    takes ``n_threads`` and ignores it with a warning (CUDA and PyTorch
+    schedule the device's threads), and otherwise runs as
+    :meth:`SerialAnalysisBase.run`, ``checkpoint=`` and a rank-sharded
+    run included."""
+
+    def run(self, start: int = None, stop: int = None, step: int = None,
+            frames=None, n_threads: int = None, verbose: bool = None,
+            **kwargs) -> "NumbaAnalysisBase":
+        if n_threads is not None:
+            warnings.warn(
+                "n_threads is accepted for API parity but ignored: CUDA "
+                "and PyTorch manage device parallelism (like the "
+                "n_batches no-op).",
+                stacklevel=2,
+            )
+        return super().run(start=start, stop=stop, step=step,
+                           frames=frames, verbose=verbose, **kwargs)
+
+
+#: The JAX package's other name for the shim.
+JittedAnalysisBase = NumbaAnalysisBase
 
 
 class ParallelAnalysisBase(SerialAnalysisBase):

@@ -97,7 +97,12 @@ from ..ops.histogram import (
 )
 from ..ops.mesh_scattering import mesh_plan, mesh_trig_sums
 from ..parallel.mesh import fetch_global
-from .base import SerialAnalysisBase, _check_even_frame_spacing, carry_leaves
+from .base import (
+    NumbaAnalysisBase,
+    SerialAnalysisBase,
+    _check_even_frame_spacing,
+    carry_leaves,
+)
 
 __all__ = [
     "radial_histogram",
@@ -1104,7 +1109,7 @@ def group_mean_last_axis(values, group, n_unique):
     return np.moveaxis(sums, 0, -1)
 
 
-class StructureFactor(SerialAnalysisBase):
+class StructureFactor(NumbaAnalysisBase):
     r"""Static structure factor :math:`S(q)` and partial structure
     factors :math:`S_{\alpha\beta}(q)` from particle positions.
 

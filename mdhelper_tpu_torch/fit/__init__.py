@@ -2,13 +2,25 @@
 Curve-fitting models
 ====================
 
-Plain numpy functions shaped for :func:`scipy.optimize.curve_fit`, as in
-:mod:`mdhelper_tpu.fit`.  Only the exponential models are ported so far
-(the polymer relaxation times fit a stretched exponential); the other
-model modules come with the host-only packages (ROADMAP Queue 1, item
-11).
+Plain numpy functions shaped for :func:`scipy.optimize.curve_fit`, module
+for module as in :mod:`mdhelper_tpu.fit`.  Host-side numpy: fits operate
+on small reduced results, never on device data.
 """
 
-from . import exponential  # noqa: F401
+from . import (  # noqa: F401
+    distribution,
+    exponential,
+    fourier,
+    gaussian,
+    polynomial,
+    power,
+)
 
-__all__ = ["exponential"]
+__all__ = [
+    "distribution",
+    "exponential",
+    "fourier",
+    "gaussian",
+    "polynomial",
+    "power",
+]

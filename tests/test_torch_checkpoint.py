@@ -217,8 +217,10 @@ CHUNK_ROUNDED = {
     "SingleChainStructureFactor", "TICA",
 }
 
-#: The abstract bases the analyses derive from.
-BASES = {"SerialAnalysisBase", "ParallelAnalysisBase", "DynamicAnalysisBase"}
+#: The abstract bases the analyses derive from (with the n_threads shim
+#: and its other name).
+BASES = {"SerialAnalysisBase", "ParallelAnalysisBase", "DynamicAnalysisBase",
+         "NumbaAnalysisBase", "JittedAnalysisBase"}
 
 
 def _public_classes():

@@ -225,6 +225,70 @@ def test_sources_cover_the_parallel_layer():
     assert callable(ring.ring_radial_histogram)
 
 
+#: JAX modules without a port module of the same path: the two bench-only
+#: ops files (not ported), and the two Pallas files, whose kernels the
+#: port's CUDA wrappers replace.
+NOT_MIRRORED = {
+    "ops/cell_histogram.py": None,
+    "ops/bench_kernels.py": None,
+    "ops/pallas_cell_histogram.py": "ops/cuda_cell_histogram.py",
+    "ops/pallas_kernels.py": "ops/cuda_kernels.py",
+}
+
+
+def test_every_jax_module_has_a_port_module():
+    """Every ``mdhelper_tpu/**/*.py`` has a port module of the same path
+    (paths only, nothing imported), but for :data:`NOT_MIRRORED`, whose
+    CUDA counterparts exist."""
+
+    jax_root, port_root = ROOT / "mdhelper_tpu", ROOT / "mdhelper_tpu_torch"
+    missing = sorted(
+        str(path.relative_to(jax_root))
+        for path in jax_root.rglob("*.py")
+        if not (port_root / path.relative_to(jax_root)).exists())
+    assert missing == sorted(NOT_MIRRORED)
+    for counterpart in filter(None, NOT_MIRRORED.values()):
+        assert (port_root / counterpart).exists()
+    for module in ("fit/fourier", "plot/axis", "lammps/topology",
+                   "core/profiling", "openmm/system", "openmm/reporter"):
+        assert (port_root / f"{module}.py") in SOURCES
+
+
+def _imports_matplotlib(name):
+    return name.split(".")[0] == "matplotlib"
+
+
+def test_matplotlib_is_imported_only_under_plot():
+    """matplotlib (which the machine with the card lacks) is imported by
+    the modules of ``plot/`` alone."""
+
+    plot = ROOT / "mdhelper_tpu_torch" / "plot"
+    importers = {path for path in SOURCES
+                 if any(map(_imports_matplotlib, _imported_names(path)))}
+    assert importers and all(plot in path.parents for path in importers)
+    assert _imports_matplotlib("matplotlib.patches")
+    assert not _imports_matplotlib("matplotlibrc")
+
+
+def test_package_imports_without_matplotlib_or_openmm():
+    """``import mdhelper_tpu_torch`` and its host-side subpackages import
+    neither matplotlib nor OpenMM, in a fresh interpreter."""
+
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, mdhelper_tpu_torch, mdhelper_tpu_torch.analysis, "
+        "mdhelper_tpu_torch.fit, mdhelper_tpu_torch.lammps, "
+        "mdhelper_tpu_torch.openmm, mdhelper_tpu_torch.core.profiling; "
+        "print(sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('matplotlib', 'openmm')))"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]"
+
+
 def test_import_rule_catches_both_packages():
     assert _forbidden("jax") and _forbidden("jax.numpy")
     assert _forbidden("mdhelper_tpu") and _forbidden("mdhelper_tpu.ops.x")

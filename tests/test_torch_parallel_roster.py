@@ -811,7 +811,8 @@ def test_roster_matches_jax():
                     or name in JAX_ROSTER):
                 found[name] = obj
     assert set(found) - {"DynamicAnalysisBase", "SerialAnalysisBase",
-                         "ParallelAnalysisBase"} == set(JAX_ROSTER)
+                         "ParallelAnalysisBase", "NumbaAnalysisBase",
+                         "JittedAnalysisBase"} == set(JAX_ROSTER)
     for name, status in JAX_ROSTER.items():
         cls = found[name]
         if status == "host":

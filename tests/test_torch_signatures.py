@@ -358,6 +358,60 @@ OBJECTS = [
     "analysis.base.ParallelAnalysisBase",
     "analysis.base.ParallelAnalysisBase.run",
     "analysis.base.DynamicAnalysisBase.run",
+    # the host-only packages: the n_threads shim, create_atoms, profiling,
+    # fit, lammps, plot and the OpenMM modules that import without OpenMM
+    # (tests/test_torch_openmm.py holds the others' signatures under a fake
+    # OpenMM)
+    "analysis.base.NumbaAnalysisBase.run",
+    "algorithm.topology.create_atoms",
+    "core.profiling.Timer",
+    "core.profiling.Timer.report",
+    "core.profiling.trace",
+    "core.profiling.benchmark_grid",
+    "fit.distribution.weibull",
+    "fit.fourier.fourier",
+    "fit.fourier.fourier1",
+    "fit.fourier.fourier8",
+    "fit.gaussian.gauss",
+    "fit.gaussian.gauss1",
+    "fit.gaussian.gauss8",
+    "fit.polynomial.poly",
+    "fit.polynomial.poly1",
+    "fit.polynomial.poly9",
+    "fit.power.power",
+    "fit.power.power1",
+    "fit.power.power2",
+    "lammps.topology.create_atoms",
+    "lammps.topology.write_data",
+    "plot.axis.set_up_tabular_legend",
+    "plot.color.adjust_lightness",
+    "plot.rcparam.update",
+    "openmm.expressions.ewald_g",
+    "openmm.expressions.pme_mesh_dimensions",
+    "openmm.expressions.coul_gauss_energy",
+    "openmm.expressions.dpd_energy",
+    "openmm.expressions.gauss_energy",
+    "openmm.expressions.ljts_energy",
+    "openmm.expressions.solvation_energy",
+    "openmm.expressions.yukawa_energy",
+    "openmm.expressions.fene_energy",
+    "openmm.file.NetCDFFile",
+    "openmm.file.NetCDFFile.get_dimensions",
+    "openmm.file.NetCDFFile.get_times",
+    "openmm.file.NetCDFFile.get_positions",
+    "openmm.file.NetCDFFile.get_velocities",
+    "openmm.file.NetCDFFile.get_forces",
+    "openmm.file.NetCDFFile.write_header",
+    "openmm.file.NetCDFFile.write_file",
+    "openmm.file.NetCDFFile.write_model",
+    "openmm.unit.get_scaling_factors",
+    "openmm.unit.get_lj_scaling_factors",
+    "openmm.system.register_particles",
+    "openmm.system.add_slab_correction",
+    "openmm.system.add_image_charges",
+    "openmm.system.add_electric_field",
+    "openmm.system.estimate_pressure_tensor",
+    "openmm.utility.optimize_pme",
 ]
 
 
