@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import FOUND_OPENMM
+from ..core import profiling
 from .unit import strip_unit
 from .utility import find_connected_nodes, get_closest_factors, replicate
 
@@ -438,6 +439,15 @@ def unwrap_edge(*, group=None, positions=None, bonds=None, dimensions=None,
     """
 
     del thresholds
+    atoms = group.n_atoms if group is not None else (
+        None if positions is None else len(positions))
+    with profiling.span("unwrap.edge", atoms=atoms):
+        return _unwrap_edge(group, positions, bonds, dimensions, masses)
+
+
+def _unwrap_edge(group, positions, bonds, dimensions, masses):
+    """:func:`unwrap_edge`'s work, outside its span."""
+
     if group is not None:
         positions = np.array(group.positions, dtype=float)
         dims = np.asarray(group.dimensions, dtype=float)

@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..core import profiling
 
 __all__ = ["DynamicAnalysisBase", "Hash", "JittedAnalysisBase",
            "NumbaAnalysisBase", "ParallelAnalysisBase",
@@ -577,9 +578,11 @@ class SerialAnalysisBase:
         queued and absorbed one chunk late."""
 
         self._n_real = batch.n_real
-        out = self._update(
-            carry, batch.positions, batch.dimensions, batch.mask
-        )
+        with profiling.span("fold", analysis=type(self).__name__,
+                            frames=batch.n_real):
+            out = self._update(
+                carry, batch.positions, batch.dimensions, batch.mask
+            )
         if self._store_chunk is None:
             return out
         carry, extras = out
@@ -593,37 +596,40 @@ class SerialAnalysisBase:
         chunk, whose copy has had a chunk of compute to finish."""
 
         parts = extras if isinstance(extras, (tuple, list)) else (extras,)
-        event = cuda = None
-        host = []
-        for part in parts:
-            if part.device.type == "cuda":
-                cuda = part.device
-                pinned = torch.empty(part.shape, dtype=part.dtype,
-                                     pin_memory=True)
-                pinned.copy_(part, non_blocking=True)
-                part = pinned
-            host.append(part)
-        if cuda is not None:
-            # One event after the last copy covers them all.
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(cuda))
-        if isinstance(extras, (tuple, list)):
-            host = type(extras)(host)
-        else:
-            host = host[0]
-        self._drain_stores()
-        self._pending_stores.append((host, event, batch))
+        with profiling.span("store.queue",
+                            bytes=sum(part.nbytes for part in parts)):
+            event = cuda = None
+            host = []
+            for part in parts:
+                if part.device.type == "cuda":
+                    cuda = part.device
+                    pinned = torch.empty(part.shape, dtype=part.dtype,
+                                         pin_memory=True)
+                    pinned.copy_(part, non_blocking=True)
+                    part = pinned
+                host.append(part)
+            if cuda is not None:
+                # One event after the last copy covers them all.
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(cuda))
+            if isinstance(extras, (tuple, list)):
+                host = type(extras)(host)
+            else:
+                host = host[0]
+            self._drain_stores()
+            self._pending_stores.append((host, event, batch))
 
     def _drain_stores(self) -> None:
-        for extras, event, batch in self._pending_stores:
-            if event is not None:
-                event.synchronize()
-            if isinstance(extras, (tuple, list)):
-                extras = type(extras)(part.numpy() for part in extras)
-            else:
-                extras = extras.numpy()
-            self._store_chunk(extras, batch)
-        self._pending_stores.clear()
+        with profiling.span("store.drain"):
+            for extras, event, batch in self._pending_stores:
+                if event is not None:
+                    event.synchronize()
+                if isinstance(extras, (tuple, list)):
+                    extras = type(extras)(part.numpy() for part in extras)
+                else:
+                    extras = extras.numpy()
+                self._store_chunk(extras, batch)
+            self._pending_stores.clear()
 
     def _effective_atom_indices(self):
         """``_atom_indices``, with the identity selection normalized to
@@ -777,11 +783,21 @@ class SerialAnalysisBase:
 
         if not blocks:
             return
+        def wait(i):
+            """The span of the consumer's wait for chunk `i`."""
+
+            return profiling.span("stream.wait", chunk=i,
+                                  frames=len(blocks[i][0]))
+
         if not self._prefetch_batches:
-            staged = stage(blocks[0])
+            with wait(0):
+                staged = stage(blocks[0])
             for i in range(len(blocks)):
                 batch = consume(staged)
-                staged = stage(blocks[i + 1]) if i + 1 < len(blocks) else None
+                staged = None
+                if i + 1 < len(blocks):
+                    with wait(i + 1):
+                        staged = stage(blocks[i + 1])
                 yield batch
             return
         # One worker, one chunk deep: it reads chunk n + 1 (the XTC
@@ -790,7 +806,9 @@ class SerialAnalysisBase:
         with ThreadPoolExecutor(max_workers=1) as worker:
             future = worker.submit(stage, blocks[0])
             for i in range(len(blocks)):
-                batch = consume(future.result())
+                with wait(i):
+                    staged = future.result()
+                batch = consume(staged)
                 if i + 1 < len(blocks):
                     future = worker.submit(stage, blocks[i + 1])
                 yield batch
@@ -952,24 +970,28 @@ class SerialAnalysisBase:
         self._mesh = self._run_mesh()
         self._check_ranks()
         self._store_prefix = 0
-        self._prepare()
-        carry = self._carry
-        done = 0
-        if checkpoint is not None:
-            self._check_checkpointable()
-            file = _Checkpoint(checkpoint, [self], self._mesh, fused=False)
-            (carry,), done = file.load([carry])
-        # A resumed run streams from the checkpoint's frame on: no chunk
-        # straddles it, so no update sees a frame twice.
-        self._stream_from = done
-        for batch in self._stream_batches():
-            carry = self._batched_update(carry, batch)
+        name = type(self).__name__
+        with profiling.span("pass", analyses=name, frames=self.n_frames):
+            with profiling.span("prepare", analysis=name):
+                self._prepare()
+            carry = self._carry
+            done = 0
             if checkpoint is not None:
-                file.save([carry], self._rank_rows, batch.chunk_end)
-        if checkpoint is not None:
-            file.finish([carry], self._rank_rows, self._chunk_ends)
-        self._finish_ranks(carry, self._rank_rows)
-        self._conclude()
+                self._check_checkpointable()
+                file = _Checkpoint(checkpoint, [self], self._mesh, fused=False)
+                (carry,), done = file.load([carry])
+            # A resumed run streams from the checkpoint's frame on: no chunk
+            # straddles it, so no update sees a frame twice.
+            self._stream_from = done
+            for batch in self._stream_batches():
+                carry = self._batched_update(carry, batch)
+                if checkpoint is not None:
+                    file.save([carry], self._rank_rows, batch.chunk_end)
+            if checkpoint is not None:
+                file.finish([carry], self._rank_rows, self._chunk_ends)
+            self._finish_ranks(carry, self._rank_rows)
+            with profiling.span("conclude", analysis=name):
+                self._conclude()
         if verbose:
             logging.info(
                 f"Analysis finished in {datetime.now() - time_start}."

@@ -23,6 +23,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..core import profiling
 from .base import (
     ParallelAnalysisBase,
     SerialAnalysisBase,
@@ -153,78 +154,86 @@ def run_together(
                 "package has no initial=; ROADMAP Queue 3, item 18)."
             )
 
-    for i, a in enumerate(analyses):
-        a._setup_frames(
-            a._trajectory, start=start, stop=stop, step=step, frames=frames
-        )
-        a._mesh = None
-        a._store_prefix = 0
-        a._prepare()
-        # The fused stream's ranks, which a store that checks itself over
-        # them reads (SASA's occluder budget).
-        a._mesh = mesh
-        if initial is not None and initial[i] is not None:
-            a._carry = carry_from_numpy(a, initial[i])
-
-    parts = [a._fused_parts() for a in analyses]
-    gathers = []
-    for a in analyses:
-        idx = a._effective_atom_indices()
-        axes = a._coord_axes
-        gathers.append((
-            None if idx is None else torch.as_tensor(idx, device=device),
-            None if axes is None else list(axes),
-        ))
-
-    def shifted(a, pos, batch, axes):
-        """`pos` less the rows of ``a._frame_shifts`` of the batch's
-        frames (its padded tail: the last frame's), columns `axes`."""
-
-        pad = len(pos) - batch.n_real
-        frames = np.concatenate(
-            (batch.indices, np.repeat(batch.indices[-1:], pad)))
-        rows = a._frame_shifts[frames][:, [0, 1, 2] if axes is None
-                                       else axes]
-        rows = torch.as_tensor(rows, device=pos.device)
-        return (pos.to(torch.float64) - rows[:, None, :]).to(torch.float32)
-
-    shared._payload = payloads.pop()
-    shared._chunk_bytes = min(a._chunk_bytes for a in analyses)
-    # The shared stream prefetches unless an analysis turned it off.
-    shared._prefetch_batches = all(a._prefetch_batches for a in analyses)
-
-    carries = [a._carry for a in analyses]
-    done = 0
-    if checkpoint is not None:
-        for a in analyses:
-            a._check_checkpointable()
-        file = _Checkpoint(checkpoint, analyses, mesh, fused=True)
-        carries, done = file.load(carries)
-    shared._stream_from = done
-    for batch in shared._stream_batches():
-        for i, (a, (device_fn, absorb), (idx, axes)) in enumerate(
-                zip(analyses, parts, gathers)):
-            pos = batch.positions if idx is None else batch.positions[:, idx]
-            if axes is not None:
-                pos = pos[:, :, axes]
-            if a._frame_shifts is not None:
-                pos = shifted(a, pos, batch, axes)
-            a._n_real = batch.n_real
-            carries[i], aux = device_fn(
-                carries[i], pos, batch.dimensions, batch.mask
+    names = [type(a).__name__ for a in analyses]
+    with profiling.span("pass", analyses=",".join(names),
+                        frames=shared.n_frames):
+        for i, a in enumerate(analyses):
+            a._setup_frames(
+                a._trajectory, start=start, stop=stop, step=step, frames=frames
             )
-            if absorb is not None and aux is not None:
-                absorb(aux, batch)
-        if on_chunk is not None:
-            on_chunk(batch)
-        if checkpoint is not None:
-            file.save(carries, shared._rank_rows, batch.chunk_end)
-    if checkpoint is not None:
-        file.finish(carries, shared._rank_rows, shared._chunk_ends)
+            a._mesh = None
+            a._store_prefix = 0
+            with profiling.span("prepare", analysis=names[i]):
+                a._prepare()
+            # The fused stream's ranks, which a store that checks itself over
+            # them reads (SASA's occluder budget).
+            a._mesh = mesh
+            if initial is not None and initial[i] is not None:
+                a._carry = carry_from_numpy(a, initial[i])
 
-    for a, carry in zip(analyses, carries):
-        # Each analysis's carry and stores reduce as its own run()'s do.
-        a._mesh = mesh
-        a._finish_ranks(carry, shared._rank_rows)
-        a._conclude()
+        parts = [a._fused_parts() for a in analyses]
+        gathers = []
+        for a in analyses:
+            idx = a._effective_atom_indices()
+            axes = a._coord_axes
+            gathers.append((
+                None if idx is None else torch.as_tensor(idx, device=device),
+                None if axes is None else list(axes),
+            ))
+
+        def shifted(a, pos, batch, axes):
+            """`pos` less the rows of ``a._frame_shifts`` of the batch's
+            frames (its padded tail: the last frame's), columns `axes`."""
+
+            pad = len(pos) - batch.n_real
+            frames = np.concatenate(
+                (batch.indices, np.repeat(batch.indices[-1:], pad)))
+            rows = a._frame_shifts[frames][:, [0, 1, 2] if axes is None
+                                           else axes]
+            rows = torch.as_tensor(rows, device=pos.device)
+            return (pos.to(torch.float64) - rows[:, None, :]).to(torch.float32)
+
+        shared._payload = payloads.pop()
+        shared._chunk_bytes = min(a._chunk_bytes for a in analyses)
+        # The shared stream prefetches unless an analysis turned it off.
+        shared._prefetch_batches = all(a._prefetch_batches for a in analyses)
+
+        carries = [a._carry for a in analyses]
+        done = 0
+        if checkpoint is not None:
+            for a in analyses:
+                a._check_checkpointable()
+            file = _Checkpoint(checkpoint, analyses, mesh, fused=True)
+            carries, done = file.load(carries)
+        shared._stream_from = done
+        for batch in shared._stream_batches():
+            for i, (a, (device_fn, absorb), (idx, axes)) in enumerate(
+                    zip(analyses, parts, gathers)):
+                pos = (batch.positions if idx is None
+                       else batch.positions[:, idx])
+                if axes is not None:
+                    pos = pos[:, :, axes]
+                if a._frame_shifts is not None:
+                    pos = shifted(a, pos, batch, axes)
+                a._n_real = batch.n_real
+                with profiling.span("fold", analysis=names[i],
+                                    frames=batch.n_real):
+                    carries[i], aux = device_fn(
+                        carries[i], pos, batch.dimensions, batch.mask
+                    )
+                if absorb is not None and aux is not None:
+                    absorb(aux, batch)
+            if on_chunk is not None:
+                on_chunk(batch)
+            if checkpoint is not None:
+                file.save(carries, shared._rank_rows, batch.chunk_end)
+        if checkpoint is not None:
+            file.finish(carries, shared._rank_rows, shared._chunk_ends)
+
+        for a, name, carry in zip(analyses, names, carries):
+            # Each analysis's carry and stores reduce as its own run()'s do.
+            a._mesh = mesh
+            a._finish_ranks(carry, shared._rank_rows)
+            with profiling.span("conclude", analysis=name):
+                a._conclude()
     return analyses

@@ -76,6 +76,7 @@ from .._device import resolve_device
 from ..algorithm.topology import triclinic_matrices
 from ..algorithm.unit import strip_unit
 from ..algorithm.utility import get_closest_factors
+from ..core import profiling
 from ..ops.cuda_cell_histogram import (
     _ASYM_SLOT_BYTES,
     _SLOT_BYTES,
@@ -549,16 +550,17 @@ class _CellPlanned(SerialAnalysisBase):
 
     def _searched_cell_plan(self):
         if self._cell_plan_cache is None:
-            n1, n2 = self._plan_atoms
-            extents = _plan_extents(self.universe.dimensions,
-                                    self._triclinic)
-            if self._axes is not None:
-                extents = extents[list(self._axes)]
-            self._cell_plan_cache = cell_plan_search(
-                n1, extents, float(self._range[1]), n_atoms2=n2,
-                capacity_sigmas=self._capacity_sigmas,
-                slot_bytes=self._slot_bytes,
-            )
+            with profiling.span("plan.cells"):
+                n1, n2 = self._plan_atoms
+                extents = _plan_extents(self.universe.dimensions,
+                                        self._triclinic)
+                if self._axes is not None:
+                    extents = extents[list(self._axes)]
+                self._cell_plan_cache = cell_plan_search(
+                    n1, extents, float(self._range[1]), n_atoms2=n2,
+                    capacity_sigmas=self._capacity_sigmas,
+                    slot_bytes=self._slot_bytes,
+                )
         return self._cell_plan_cache
 
     def run(self, *args, **kwargs):

@@ -62,6 +62,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..core import profiling
 from . import _build
 from .doublefloat import (
     df_add,
@@ -737,15 +738,16 @@ def _tables(positions, box, dims, capacity, ex=None, ex_j=None,
     as integers whatever the cell assignment.  `id_offset` as
     :func:`_slot_table`'s."""
 
-    if box.ndim == 3:
-        wrapped, cell_xyz = _triclinic_wrap_cells(positions, box, dims)
-        return _slot_table(wrapped, dims, capacity, None, ex=ex,
-                           cell_xyz=cell_xyz, ex_j=ex_j,
-                           id_offset=id_offset)
-    cell_size = box / torch.tensor(dims, dtype=torch.float32,
-                                   device=box.device)
-    return _slot_table(positions, dims, capacity, cell_size, ex=ex,
-                       ex_j=ex_j, id_offset=id_offset)
+    with profiling.span("plan.slots"):
+        if box.ndim == 3:
+            wrapped, cell_xyz = _triclinic_wrap_cells(positions, box, dims)
+            return _slot_table(wrapped, dims, capacity, None, ex=ex,
+                               cell_xyz=cell_xyz, ex_j=ex_j,
+                               id_offset=id_offset)
+        cell_size = box / torch.tensor(dims, dtype=torch.float32,
+                                       device=box.device)
+        return _slot_table(positions, dims, capacity, cell_size, ex=ex,
+                           ex_j=ex_j, id_offset=id_offset)
 
 
 def _bin_index(d2, consts, n_bins):
