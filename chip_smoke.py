@@ -40,6 +40,9 @@ phases (8 + 8 frames each), and the brute-force pair histogram through
 its op at 100k atoms (exclusions (1, 1), None, (4, 4) and (2, 3), and
 the straddle fixture) against its plain version and the fast self cell
 kernel; the exact trig sums must equal their plain version bit for bit.
+Then the factor route's kernel (no TPU kernel), 8 frames of 100k atoms on
+the 24^3 grid in one launch, exact, against its plain version and a
+float64 oracle, timed beside the plain version and the old eager route.
 Then the cross RDF of two overlapping groups, and slice 10: the fast
 trig sums on 8 and on 64 (the lag launch of a full ring) displacement
 frames in +-L against their plain version and a float64 oracle, and the
@@ -824,15 +827,20 @@ def phase_slice(device, rng):
 
     from mdhelper_tpu_torch.algorithm.correlation import msd_fft
     from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
+    from mdhelper_tpu_torch.ops import factor_scattering as fs
 
     traj, u = slice_universe(rng)
     analyses = slice_analyses(u, device)
     cch.cell_pair_histogram.launches = 0
+    fs.factor_trig_sums.launches = 0
     fps = run_timed(analyses)
     launches = cch.cell_pair_histogram.launches
+    factor_launches = fs.factor_trig_sums.launches
     n_chunks = -(-N_FRAMES // CHUNK)
     check(launches == n_chunks,
           f"{launches} kernel launches for {n_chunks} chunks")
+    check(factor_launches == n_chunks,
+          f"{factor_launches} factor-sums launches for {n_chunks} chunks")
     rdf, sf, ons = analyses
 
     g = rdf.results.rdf
@@ -871,7 +879,7 @@ def phase_slice(device, rng):
           f"{g[-20:].mean():.5f}; S(q) 64-point max rel err "
           f"{np.max(np.abs(ssf[0, pick] - ref) / ref):.3e}; "
           f"msd_self(last lag) {msd_self[0, 0, -1]:.4f}")
-    return launches, fps
+    return launches, fps, factor_launches
 
 
 def phase_cross_rdf(device, rng):
@@ -2544,6 +2552,120 @@ def phase_trig_kernels(device, rng):
     return timing
 
 
+
+#: frames of one factor-sums launch in phase_factor_sums (the fused path's
+#: chunk).
+FACTOR_FRAMES = 8
+
+
+def factor_bound(n_frames, n_atoms, k):
+    """``bound_ms`` and ``bound_by`` a frame of the factor sums over the
+    grid `k`: the contraction's and the xy products' 8 Kx Ky Kz + 6 Kx Ky
+    float32 operations an atom (an FMA as two; the tables left out) over
+    the float32 peak, against the positions read and the sums written once
+    over the memory rate."""
+
+    kx, ky, kz = k
+    ops_ms = n_atoms * (8 * kx * ky * kz + 6 * kx * ky) / PEAK_F32 * 1e3
+    bytes_ms = (12 * n_atoms + 8 * kx * ky * kz) / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None}
+
+
+def phase_factor_sums(device, rng):
+    """The factor route's kernel (csrc/factor_sums.cu; no TPU kernel: the
+    JAX package's factor route is XLA matmuls) at the fused path's shape:
+    FACTOR_FRAMES frames of 100k atoms on the 24^3 grid in one launch,
+    exact, in the fused path's wavevector order.  The kernel and its plain
+    version (the eager tables and float32 matmuls frame by frame) are held
+    against a float64 oracle on the card within the tolerances of
+    tests/test_torch_cuda.py (2e-6 and 4e-6 of the mean amplitude), and
+    against each other within the sum of the two; two launches give the
+    same bits; then the kernel, the plain version and
+    the old eager route (the plain version frame by frame, gathered and
+    stacked, as the analysis called it before the kernel) are timed in ms
+    a frame beside the bound."""
+
+    import torch
+
+    from mdhelper_tpu_torch.analysis.structure import _wavevector_grid
+    from mdhelper_tpu_torch.ops import factor_scattering as fs
+
+    started = time.perf_counter()
+    frames, _ = uniform_frames(rng, device, FACTOR_FRAMES, N_ATOMS,
+                               cube(N_ATOMS))
+    box = (BOX,) * 3
+    plan = fs.factor_plan(_wavevector_grid(box, N_QPTS), box)
+    k, flat = plan["k"], torch.as_tensor(plan["flat_idx"], device=device)
+    args = dict(k=k, box=box, precision="exact", flat_idx=flat)
+    workspace = fs.factor_workspace(k, N_ATOMS, FACTOR_FRAMES, device)
+    kernel = lambda: fs.factor_trig_sums(  # noqa: E731
+        frames, workspace=workspace, **args)
+    plain = lambda: fs.factor_trig_sums_reference(frames, **args)  # noqa
+
+    def old_route():
+        sums = [fs.factor_trig_sums_reference(p, k=k, box=box,
+                                              precision="exact")
+                for p in frames]
+        return (torch.stack([c[flat] for c, _ in sums]),
+                torch.stack([s[flat] for _, s in sums]))
+
+    k_out, again = kernel(), kernel()
+    p_out = plain()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(k_out, again)),
+          "factor sums: two launches differ")
+    # float64 oracle on the card: complex128 tables, atom chunks.
+    oracle = []
+    for p in frames.double():
+        acc = torch.zeros((k[0] * k[1], k[2]), dtype=torch.complex128,
+                          device=device)
+        for lo in range(0, N_ATOMS, 20_000):
+            q = p[lo:lo + 20_000]
+            tables = [torch.exp(2j * np.pi * torch.arange(
+                n, dtype=torch.float64, device=device)[:, None]
+                * q[None, :, a] / box[a]) for a, n in enumerate(k)]
+            acc += (tables[0][:, None] * tables[1][None]).reshape(
+                k[0] * k[1], -1) @ tables[2].T
+        oracle.append(acc.reshape(-1)[flat])
+    oracle = torch.stack(oracle)
+    amp = float(oracle.abs().mean())
+    errs = {}
+    for name, out, tol in (("kernel", k_out, 2e-6), ("plain", p_out, 4e-6)):
+        errs[name] = max(float((out[0].double() - oracle.real).abs().max()),
+                         float((out[1].double() - oracle.imag).abs().max()))
+        check(errs[name] <= tol * amp,
+              f"factor sums: {name} off the float64 oracle by "
+              f"{errs[name]:.3e} > {tol * amp:.3e}")
+    max_abs_err = max(float((k_out[i] - p_out[i]).abs().max())
+                      for i in range(2))
+    # Each is within its tolerance of the oracle, so the two are within
+    # the sum of them.
+    tolerance = (2e-6 + 4e-6) * amp
+    check(max_abs_err <= tolerance,
+          f"factor sums: kernel off the plain version by {max_abs_err:.3e} "
+          f"> {tolerance:.3e}")
+    kernel_ms = [time_ms(kernel, 5) / FACTOR_FRAMES for _ in range(2)]
+    plain_ms = time_ms(plain, 1) / FACTOR_FRAMES
+    eager_ms = time_ms(old_route, 1) / FACTOR_FRAMES
+    out = {"mode": "exact", "max_abs_err": max_abs_err,
+           "oracle_err": errs, "tolerance": tolerance,
+           "ms": float(np.mean(kernel_ms)), "plain_ms": plain_ms,
+           "eager_ms": eager_ms, **factor_bound(FACTOR_FRAMES, N_ATOMS, k)}
+    print(f"factor sums exact, {FACTOR_FRAMES} x {N_ATOMS} atoms on the "
+          f"{k} grid: max |kernel - float64| {errs['kernel']:.3e}, |plain "
+          f"- float64| {errs['plain']:.3e} (mean amplitude {amp:.3f}); "
+          f"|kernel - plain| {max_abs_err:.3e} (tolerance {tolerance:.3e}); "
+          f"two launches equal; per "
+          f"frame kernel {out['ms']:.4f} ms (runs "
+          f"{[round(x, 4) for x in kernel_ms]}), plain torch "
+          f"{plain_ms:.3f} ms, the old eager route {eager_ms:.3f} ms; bound "
+          f"{out['bound_ms']:.4f} ms by {out['bound_by']} "
+          f"({100 * out['bound_ms'] / out['ms']:.1f} % of the kernel's "
+          f"time); the phase took {time.perf_counter() - started:.1f} s")
+    return out
+
 def sq_analysis(u, device, **kwargs):
     """A StructureFactor over `u` with the direct path's settings
     (overridden by `kwargs`) and CHUNK-frame chunks."""
@@ -4059,10 +4181,13 @@ def kernel_launch_counts():
     from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch
     from mdhelper_tpu_torch.ops import cuda_kernels
 
+    from mdhelper_tpu_torch.ops import factor_scattering
+
     kernels = (cch.cell_pair_histogram, cch.cross_pair_histogram,
                cch.triclinic_cell_pair_histogram,
                cch.triclinic_cross_pair_histogram, cuda_kernels.trig_sums,
-               cuda_kernels.pair_histogram)
+               cuda_kernels.pair_histogram,
+               factor_scattering.factor_trig_sums)
     return {k.__name__: k.launches for k in kernels}
 
 
@@ -6934,11 +7059,12 @@ RING_STEP_R, RING_STEP_BINS = 5.0, 16
 def zero_launches():
     """Every kernel wrapper's launch counts set to 0."""
 
-    from mdhelper_tpu_torch.ops import cuda_kernels
+    from mdhelper_tpu_torch.ops import cuda_kernels, factor_scattering
 
     reset_launches()
     cuda_kernels.trig_sums.launches = 0
     cuda_kernels.pair_histogram.launches = 0
+    factor_scattering.factor_trig_sums.launches = 0
 
 
 def profiled_call(fn):
@@ -7846,7 +7972,7 @@ def parallel_job(world, backend, references, card):
         for kernel, n in by_run.items():
             totals[kernel] = totals.get(kernel, 0) + n
     for kernel in ("cell_pair_histogram", "cross_pair_histogram",
-                   "trig_sums"):
+                   "trig_sums", "factor_trig_sums"):
         check(totals.get(kernel, 0) > 0,
               f"{backend} job: {kernel} was never launched by its ranks")
     check(launches.get("polymer", {}).get("trig_sums", 0) > 0,
@@ -8150,7 +8276,7 @@ def main():
     self_timing = phase_kernels(device, rng)
     cross_timing = phase_cross_kernels(device, rng)
     stream_timing = phase_stream_sizes(device, rng)
-    launches, fps = phase_slice(device, rng)
+    launches, fps, factor_launches = phase_slice(device, rng)
     print(f"fused RDF+S(q)+MSD: {fps:.3f} frames/s on {card} "
           "(information, not a claim)")
     rdf_launches, rdf_fps = phase_cross_rdf(device, rng)
@@ -8200,6 +8326,9 @@ def main():
               "(information, not a claim)")
     print(f"factor S(q), exact: {sq['factor_fps']:.3f} frames/s on {card} "
           "(information, not a claim)")
+    # The factor route's kernel draws from its own generator.
+    factor_timing = phase_factor_sums(device,
+                                      np.random.default_rng(SEED + 27))
     hist_launches, hist_timing = phase_pair_histogram(device, sq_rng)
     # Slice 7 draws from its own generator.
     phase_overlap(device, np.random.default_rng(SEED + 6))
@@ -8515,6 +8644,12 @@ def main():
                      "frames a launch), "
                      f"{precision} (launches: the {precision} direct S(q) "
                      "path)", trig_timing[precision, False]))
+    rows.append(("factor_sums", "mdhelper_tpu_torch/csrc/factor_sums.cu",
+                 "none: the JAX factor route (mdhelper_tpu/ops/"
+                 "factor_scattering.py) is XLA matmuls", factor_launches,
+                 f"{N_ATOMS} atoms x the {N_QPTS}^3 grid, exact, "
+                 f"{FACTOR_FRAMES} frames a launch (launches: the fused "
+                 "path's, one a chunk)", factor_timing))
     rows.append(("pair_histogram",
                  "mdhelper_tpu_torch/csrc/pair_histogram.cu",
                  pallas_kernels.format(203), hist_launches,
@@ -8608,6 +8743,16 @@ def main():
          f"{N_ATOMS} atoms x q tiles of the {n_q} float64 wavevectors over 1 "
          "NCCL and 2 gloo ranks, exact (timed on the whole set, 2 frames a "
          "launch)", trig_timing["exact", False]),
+        ("factor_sums", "mdhelper_tpu_torch/csrc/factor_sums.cu",
+         "none: the JAX factor route (mdhelper_tpu/ops/"
+         "factor_scattering.py) is XLA matmuls",
+         ran("factor_trig_sums", (one, "fused"), (two, "fused"),
+             (one, "fused_checkpoint"), (two, "fused_checkpoint")),
+         f"{N_ATOMS} atoms x the {N_QPTS}^3 grid, exact, frame-sharded "
+         "fused path over 1 NCCL rank and 2 gloo ranks (launches: both "
+         "jobs' fused runs, and their checkpointed runs, killed and "
+         f"resumed; timed at {FACTOR_FRAMES} frames a launch)",
+         factor_timing),
         # The single-chain S(q) of the ranks' polymer passes.
         ("trig_sums", trig_src, pallas_kernels.format(66),
          ran("trig_sums", (one, "polymer"), (two, "polymer")),
@@ -8624,6 +8769,8 @@ def main():
                 check((run, kernel) in {
                     ("fused", "cell_pair_histogram"),
                     ("fused_checkpoint", "cell_pair_histogram"),
+                    ("fused", "factor_trig_sums"),
+                    ("fused_checkpoint", "factor_trig_sums"),
                     ("ring", "cross_pair_histogram"),
                     ("cross_ring", "cross_pair_histogram"),
                     ("q", "trig_sums"), ("polymer", "trig_sums")},
@@ -8631,7 +8778,7 @@ def main():
                     f"{run} run have no row of the kernels line")
     optional = ("launch_ms", "pairs_per_frame", "counted_per_frame",
                 "terms_per_frame", "plain_shape",
-                "option", "oracle_err", "tolerance")
+                "option", "oracle_err", "tolerance", "eager_ms")
     print(f"chip_smoke.py took {time.perf_counter() - started:.1f} s "
           "(kernel build included)")
     print(card)

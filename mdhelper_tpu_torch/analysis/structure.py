@@ -90,7 +90,11 @@ from ..ops.cuda_cell_histogram import (
 )
 from ..algorithm.correlation import correlation_fft
 from ..ops.cuda_kernels import trig_sums, trig_workspace
-from ..ops.factor_scattering import factor_plan, factor_trig_sums
+from ..ops.factor_scattering import (
+    factor_plan,
+    factor_trig_sums,
+    factor_workspace,
+)
 from ..ops.histogram import (
     _min_image_distance,
     displacement_histogram_frame,
@@ -1388,9 +1392,13 @@ class StructureFactor(NumbaAnalysisBase):
         sin)``: one group's float32 ``(B, N_q)`` trig sums of any ``(B,
         n, 3)`` batch (a chunk's frames, or a frame's displacements over
         its lags), in `precision` (default: the analysis's).  `workspace`
-        (:func:`~mdhelper_tpu_torch.ops.cuda_kernels.trig_workspace`)
-        holds the partial sums of the direct launches.  `wavevectors`
-        (direct sums only: a rank's q tile) replaces the analysis's."""
+        holds the partial sums of the route's launches: a
+        :func:`~mdhelper_tpu_torch.ops.cuda_kernels.trig_workspace` on the
+        direct route, a
+        :func:`~mdhelper_tpu_torch.ops.factor_scattering.factor_workspace`
+        on the factor route (the split's direct extras, a few wavevectors,
+        allocate their own).  `wavevectors` (direct sums only: a rank's q
+        tile) replaces the analysis's."""
 
         if self._method == "mesh":
             return self._mesh_sums_fn()
@@ -1415,19 +1423,17 @@ class StructureFactor(NumbaAnalysisBase):
 
         def sums(pos, precision=None, workspace=None):
             precision = precision or default
-            frames = [
-                factor_trig_sums(p, k=plan["k"], box=plan["box"],
-                                 precision=precision)
-                for p in pos
-            ]
-            c = torch.stack([f[0][flat] for f in frames])
-            s = torch.stack([f[1][flat] for f in frames])
+            # The whole batch in one call (one kernel launch on the card),
+            # in the caller's wavevector order.
+            c, s = factor_trig_sums(
+                pos.to(torch.float32).contiguous(), k=plan["k"],
+                box=plan["box"], precision=precision, flat_idx=flat,
+                workspace=workspace)
             if split is None:
                 return c, s
             # The off-grid extras pay the direct sums (all frames in one
             # launch); the permutation restores the caller's order.
-            cr, sr = trig_sums(qs_rest, pos, precision=precision,
-                               workspace=workspace)
+            cr, sr = trig_sums(qs_rest, pos, precision=precision)
             return (torch.cat((c, cr), dim=1)[:, inv_perm],
                     torch.cat((s, sr), dim=1)[:, inv_perm])
 
@@ -2010,14 +2016,14 @@ class IntermediateScatteringFunction(StructureFactor):
             self._carry["ring_pos"] = zeros(n_lags, self._N, 3,
                                             dtype=torch.float32)
             self._carry["iisf"] = zeros(n_sel, n_groups, n_q)
-            direct_qs = (0 if self._method == "mesh"
-                         else n_q if self._factor is None
-                         else 0 if self._factor_split is None
-                         else len(self._factor_split["qs_rest"]))
-            if device.type == "cuda" and direct_qs:
+            if device.type == "cuda" and self._method != "mesh":
                 # The displacement launches' partial sums, once a run.
-                workspace = trig_workspace(
-                    n_sel, max(n for _, n in slices), direct_qs, device)
+                n_most = max(n for _, n in slices)
+                workspace = (
+                    trig_workspace(n_sel, n_most, n_q, device)
+                    if self._factor is None
+                    else factor_workspace(self._factor["k"], n_most, n_sel,
+                                          device))
 
         def fold_frame(carry, pos, cos, sin):
             """Fold one frame (its positions and ``(G, N_q)`` sums) into

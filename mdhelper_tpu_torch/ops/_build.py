@@ -90,6 +90,9 @@ _SIGNATURES = {
     "pair_histogram_launch": (
         _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P,
     ),
+    "factor_sums_launch": (
+        _P, _P, _P, _P, _P, _P, *(_I,) * 16, *(_F,) * 5, _P,
+    ),
 }
 
 _info = {}

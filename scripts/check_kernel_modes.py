@@ -17,8 +17,10 @@ the widest histogram its shared memory holds.  The trig sums
 low words, are held with their plain version against a float64 oracle
 within the tolerances of ``tests/test_pallas.py`` (1e-4 and 1e-6 of the
 mean amplitude), and on the card the exact sums equal the plain
-version's bit for bit.  One line a case, and a non-zero exit when any
-fails.
+version's bit for bit; so are the factor sums (``csrc/factor_sums.cu``)
+on ragged grids, unwrapped coordinates and a permuted wavevector order,
+without the bit-for-bit test (they add in another order).  One line a
+case, and a non-zero exit when any fails.
 
 ``--device cuda`` runs the kernels on the card (the nvcc build).  The
 default, ``--device cpu``, runs the same CUDA sources on the CPU: they are
@@ -54,6 +56,7 @@ from mdhelper_tpu_torch.algorithm.topology import (  # noqa: E402
 from mdhelper_tpu_torch.ops import _build  # noqa: E402
 from mdhelper_tpu_torch.ops import cuda_cell_histogram as cch  # noqa: E402
 from mdhelper_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from mdhelper_tpu_torch.ops import factor_scattering as fs  # noqa: E402
 from mdhelper_tpu_torch.testing import (  # noqa: E402
     edge_straddle_positions,
     edge_straddle_triclinic_positions,
@@ -71,6 +74,7 @@ RUNTIME = r"""
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(...)
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct int2 { int x, y; };
 struct dim3 {
@@ -252,7 +256,7 @@ def op_cases(rng, device):
     def tensor(array, dtype=np.float32):
         return torch.from_numpy(np.asarray(array, dtype)).to(device)
 
-    def trig_check(pos, qs, w, precision):
+    def trig_check(pos, qs, w, precision, bits=True, rtol=0.0):
         phases = np.asarray(qs, np.float64) @ pos.astype(np.float64).transpose(
             0, 2, 1)
         w64 = 1.0 if w is None else w.astype(np.float64)
@@ -262,15 +266,26 @@ def op_cases(rng, device):
             oc, osn).mean()
 
         def check(k, p):
-            # On the card the exact sums are the plain version's bits; the
-            # CPU stand-in takes the host's sincosf, which rounds otherwise
-            # than torch's cos and sin there.
-            same = (precision != "exact" or device == "cpu"
+            # On the card the exact sums are the plain version's bits (with
+            # `bits`); the CPU stand-in takes the host's sincosf, which
+            # rounds otherwise than torch's cos and sin there.
+            same = (not bits or precision != "exact" or device == "cpu"
                     or all(torch.equal(a, b) for a, b in zip(k, p)))
             return same and all(
-                np.abs(out[i].cpu().numpy() - ref).max() <= tol
+                (np.abs(out[i].cpu().numpy() - ref)
+                 <= tol + rtol * np.abs(ref)).all()
                 for out in (k, p) for i, ref in ((0, oc), (1, osn)))
         return check
+
+    def factor_check(pos, w, k, lengths, flat, precision):
+        # Not the plain version's bits (the sums add in another order).
+        # The grid holds q = 0, whose sum of weights does not cancel: its
+        # float32 rounding scales with the sum, hence the rtol.
+        grids = [2 * np.pi * np.arange(n) / length
+                 for n, length in zip(k, lengths)]
+        qs = np.stack(np.meshgrid(*grids, indexing="ij"), -1).reshape(
+            -1, 3)[flat]
+        return trig_check(pos, qs, w, precision, bits=False, rtol=1e-6)
 
     out = []
     box = 24.0
@@ -296,6 +311,27 @@ def op_cases(rng, device):
                 lambda a=args, pr=precision: ck.trig_sums_reference(
                     *a, precision=pr),
                 trig_check(pos, qs, w, precision)))
+    # The factor sums (csrc/factor_sums.cu) on ragged grids, unwrapped
+    # coordinates, with and without weights, in the caller's order.
+    for k, n, lengths in (((5, 7, 3), 300, (20.0, 17.5, 23.0)),
+                          ((40, 1, 1), 200, (20.0, 17.5, 23.0)),
+                          ((3, 9, 17), 130, (10.0, 11.0, 12.0))):
+        pos = (rng.random((2, n, 3)) * lengths).astype(np.float32)
+        pos[:, ::3] += np.float32([3, -2, 5]) * np.float32(lengths)
+        flat = rng.permutation(k[0] * k[1] * k[2])
+        for weighted in (False, True):
+            w = rng.random(n).astype(np.float32) if weighted else None
+            args = (tensor(pos), None if w is None else tensor(w))
+            for precision in ("fast", "exact"):
+                out.append((
+                    f"factor_sums {n} atoms on {k} weights {weighted} "
+                    f"{precision}",
+                    lambda a=args, k=k, b=lengths, pr=precision, f=flat:
+                    fs._factor_sums_kernel(*a, k, b, pr, f),
+                    lambda a=args, k=k, b=lengths, pr=precision, f=flat:
+                    fs.factor_trig_sums_reference(*a, k=k, box=b,
+                                                  precision=pr, flat_idx=f),
+                    factor_check(pos, w, k, lengths, flat, precision)))
     pos = tensor(rng.random((900, 3)) * box)
     straddle = tensor(edge_straddle_positions(rng, 16.0))
     # Unwrapped: up to two boxes outside [0, L) on each axis.

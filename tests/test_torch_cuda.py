@@ -956,6 +956,323 @@ def test_isf_on_the_card_equals_cpu(cuda_device, lags):
     np.testing.assert_array_equal(results[1][1][0], 1.0)
 
 
+
+def _factor_oracle(pos, w, k, box):
+    """float64 ``(B, Kx Ky Kz)`` cos and sin sums of frames `pos` on the
+    card: complex128 axis tables of the float32 positions, contracted in
+    atom chunks."""
+
+    device = pos.device
+    cos, sin = [], []
+    for p in pos.double():
+        acc = torch.zeros((k[0] * k[1], k[2]), dtype=torch.complex128,
+                          device=device)
+        for lo in range(0, p.shape[0], 20_000):
+            q = p[lo:lo + 20_000]
+            tables = [torch.exp(2j * np.pi * torch.arange(
+                n, dtype=torch.float64, device=device)[:, None]
+                * q[None, :, a] / box[a]) for a, n in enumerate(k)]
+            if w is not None:
+                tables[2] = tables[2] * w[lo:lo + 20_000].double()
+            exy = (tables[0][:, None] * tables[1][None]).reshape(
+                k[0] * k[1], -1)
+            acc += exy @ tables[2].T
+        cos.append(acc.real.reshape(-1))
+        sin.append(acc.imag.reshape(-1))
+    return torch.stack(cos), torch.stack(sin)
+
+
+#: the factor sums' tolerances (kernel, plain version) over the float64
+#: oracle's mean amplitude, at every grid point but q = 0.  Fast: the trig
+#: sums' 1e-4 (tests/test_pallas.py; the float32 phases err by about 1.6e-5
+#: of it at 100k atoms).  Exact: the tables are the same float32 bits in
+#: both (torch.cos and torch.sin on the card and the kernel's sincosf are
+#: the same precise routine), so the error is the sums' float32 rounding:
+#: the plain version's float32 matmuls over atom chunks of up to 29k atoms,
+#: added chunk to chunk in float32, read 1.6e-6 of the mean amplitude at
+#: 100k atoms x 8 frames; the kernel's float32 stage and slice sums folded
+#: in float64 read 0.9e-6.  Twice and a half those readings.  At q = 0
+#: every term is the weight, so the sum does not cancel and is held to
+#: FACTOR_Q0_RTOL (kernel, plain version) of itself besides: the plain
+#: version's float32 matmul adds up to 29k weights in sequence, about 2e-6
+#: of the sum at 100k atoms (a random walk of roundings), ten times that;
+#: the kernel's float32 slice sums of a few thousand atoms, folded in
+#: float64, about 2e-8, fifty times that.
+FACTOR_TOLERANCE = {"exact": (2e-6, 4e-6), "fast": (1e-4, 1e-4)}
+FACTOR_Q0_RTOL = (1e-6, 2e-5)
+
+
+def _assert_factor_close(got, oracle, tol, q0_rtol):
+    """``(cos, sin)`` grid-order sums `got` within `tol` of the float64
+    `oracle` past q = 0, and within `tol` plus `q0_rtol` of it at q = 0
+    (index 0 of the grid)."""
+
+    for out, ref in zip(got, oracle):
+        err = (out.double() - ref).abs()
+        assert float(err[:, 1:].max()) <= tol
+        assert bool((err[:, 0] <= q0_rtol * ref[:, 0].abs() + tol).all())
+
+#: (grid, atoms, box) of the factor kernel's cases: the fused path's
+#: shape, a grid of two boxes a frame, and a ragged grid.
+FACTOR_CASES = {
+    "24^3 100k": ((24, 24, 24), 100_000, (50.0, 50.0, 50.0)),
+    "32^3": ((32, 32, 32), 20_000, (30.0, 30.0, 30.0)),
+    "5x7x3": ((5, 7, 3), 5003, (20.0, 17.5, 23.0)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", list(FACTOR_CASES))
+def test_factor_sums_kernel_equals_reference(cuda_device, case, weighted,
+                                             precision):
+    """The factor kernel and its plain version on two frames, each within
+    its FACTOR_TOLERANCE of a float64 oracle (the reasons are there), with
+    weights drawn from [0.5, 1.5) (so that a weight applied twice shows).
+    Two launches give the same bits, as does each frame launched alone,
+    each launch is counted once, and the gather through flat_idx is the
+    full grid's columns."""
+
+    from mdhelper_tpu_torch.ops import factor_scattering as fs
+
+    k, n, box = FACTOR_CASES[case]
+    rng = np.random.default_rng(67)
+    pos = torch.from_numpy((rng.random((2, n, 3)) * box).astype(
+        np.float32)).to(cuda_device)
+    w = (torch.from_numpy((rng.random(n) + 0.5).astype(np.float32)).to(
+        cuda_device) if weighted else None)
+    flat = torch.from_numpy(rng.permutation(k[0] * k[1] * k[2])).to(
+        cuda_device)
+    before = fs.factor_trig_sums.launches
+    kernel = fs.factor_trig_sums(pos, w, k=k, box=box, precision=precision)
+    again = fs.factor_trig_sums(pos, w, k=k, box=box, precision=precision)
+    picked = fs.factor_trig_sums(pos, w, k=k, box=box, precision=precision,
+                                 flat_idx=flat)
+    alone = [fs.factor_trig_sums(p, w, k=k, box=box, precision=precision)
+             for p in pos]
+    torch.cuda.synchronize()
+    assert fs.factor_trig_sums.launches == before + 5
+    plain = fs.factor_trig_sums_reference(pos, w, k=k, box=box,
+                                          precision=precision)
+    oracle = _factor_oracle(pos, w, k, box)
+    amp = float(torch.hypot(*oracle).mean())
+    tol_kernel, tol_plain = (t * amp for t in FACTOR_TOLERANCE[precision])
+    for i in (0, 1):
+        assert kernel[i].shape == (2, k[0] * k[1] * k[2])
+        torch.testing.assert_close(kernel[i], again[i], rtol=0, atol=0)
+        torch.testing.assert_close(picked[i], kernel[i][:, flat], rtol=0,
+                                   atol=0)
+        for b in (0, 1):
+            torch.testing.assert_close(alone[b][i], kernel[i][b], rtol=0,
+                                       atol=0)
+    _assert_factor_close(kernel, oracle, tol_kernel, FACTOR_Q0_RTOL[0])
+    _assert_factor_close(plain, oracle, tol_plain, FACTOR_Q0_RTOL[1])
+
+
+@pytest.mark.cuda
+def test_factor_sums_wrapper_checks_on_the_card(cuda_device):
+    """A frame (N, 3) gives (N_q,) sums; a factor_workspace made for three
+    frames serves one and three and gives a call's own bits; a workspace
+    too small, of another dtype or strided raises, as do CPU weights with
+    CUDA positions; an index outside the grid gives NaN sums."""
+
+    from mdhelper_tpu_torch.ops import factor_scattering as fs
+
+    rng = np.random.default_rng(68)
+    k, box = (6, 5, 9), (12.0, 11.0, 13.0)
+    pos = torch.from_numpy((rng.random((3, 700, 3)) * 12.0).astype(
+        np.float32)).to(cuda_device)
+    workspace = fs.factor_workspace(k, 700, 3, cuda_device)
+    one = fs.factor_trig_sums(pos[0], k=k, box=box, workspace=workspace)
+    three = fs.factor_trig_sums(pos, k=k, box=box, workspace=workspace)
+    own = fs.factor_trig_sums(pos, k=k, box=box)
+    torch.cuda.synchronize()
+    assert one[0].shape == (k[0] * k[1] * k[2],)
+    for i in (0, 1):
+        torch.testing.assert_close(three[i], own[i], rtol=0, atol=0)
+        torch.testing.assert_close(one[i], own[i][0], rtol=0, atol=0)
+    size = fs._factor_launch_plan(k, 700, 3)["size"]
+    for bad in (workspace[:size - 1], workspace.double(),
+                workspace.repeat(2)[::2]):
+        with pytest.raises(ValueError, match="workspace"):
+            fs.factor_trig_sums(pos, k=k, box=box, workspace=bad)
+    with pytest.raises(ValueError, match="weights"):
+        fs.factor_trig_sums(pos, torch.ones(700), k=k, box=box)
+    outside = torch.tensor([0, 5, k[0] * k[1] * k[2], -1],
+                           device=cuda_device)
+    picked = fs.factor_trig_sums(pos, k=k, box=box, flat_idx=outside)
+    for i in (0, 1):
+        torch.testing.assert_close(picked[i][:, :2], own[i][:, [0, 5]],
+                                   rtol=0, atol=0)
+        assert torch.isnan(picked[i][:, 2:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slice_frames, launches", [(100, 3), (3, 5)])
+def test_factor_sums_within_workspace_budget(cuda_device, monkeypatch,
+                                             slice_frames, launches):
+    """A budget of `slice_frames` slice-frames of partial sums, where 20k
+    atoms take 45 slices of 448 atoms a frame: 100 take the 5 frames two
+    a launch, in the same slices, so the sums are the unbounded call's
+    bits; 3 take them one a launch in 3 slices of 6,720 atoms.  Each
+    launch is counted and the sums stay within FACTOR_TOLERANCE of the
+    float64 oracle."""
+
+    from mdhelper_tpu_torch.ops import factor_scattering as fs
+
+    k, n, box = (24, 24, 24), 20_000, (30.0, 30.0, 30.0)
+    n_grid = k[0] * k[1] * k[2]
+    rng = np.random.default_rng(71)
+    pos = torch.from_numpy((rng.random((5, n, 3)) * box).astype(
+        np.float32)).to(cuda_device)
+    w = torch.from_numpy((rng.random(n) + 0.5).astype(np.float32)).to(
+        cuda_device)
+    unbounded = fs.factor_trig_sums(pos, w, k=k, box=box, precision="exact")
+    split = fs._factor_launch_plan(k, n, 5)["split"]
+    monkeypatch.setattr(fs, "_FACTOR_WORKSPACE", slice_frames * 8 * n_grid)
+    plan = fs._factor_launch_plan(k, n, 5)
+    assert 4 * plan["size"] <= fs._FACTOR_WORKSPACE
+    assert -(-5 // plan["frames"]) == launches
+    workspace = fs.factor_workspace(k, n, 5, cuda_device)
+    assert 4 * workspace.numel() <= fs._FACTOR_WORKSPACE
+    before = fs.factor_trig_sums.launches
+    got = fs.factor_trig_sums(pos, w, k=k, box=box, precision="exact",
+                              workspace=workspace)
+    torch.cuda.synchronize()
+    assert fs.factor_trig_sums.launches == before + launches
+    if plan["split"] == split:
+        for i in (0, 1):
+            torch.testing.assert_close(got[i], unbounded[i], rtol=0, atol=0)
+    else:
+        assert slice_frames == 3
+    oracle = _factor_oracle(pos, w, k, box)
+    amp = float(torch.hypot(*oracle).mean())
+    _assert_factor_close(got, oracle, FACTOR_TOLERANCE["exact"][0] * amp,
+                         FACTOR_Q0_RTOL[0])
+
+
+class _TorchCalls(torch.overrides.TorchFunctionMode):
+    """The names of the torch functions and tensor methods called on this
+    thread while the mode is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = set()
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        self.names.add(getattr(func, "__name__", str(func)))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.cuda
+def test_fused_traffic_launches_factor_kernel_once_a_chunk(cuda_device):
+    """run_together of the fused traffic's three analyses (self RDF with
+    exclusion (1, 1), the factor S(q) exact, the unwrapped Onsager MSD):
+    one factor launch a chunk, and the same results as on the CPU within
+    the S(q) gate.  The S(q) alone calls no product and no trig function
+    of the plain version's tables on the card, where the CPU calls both."""
+
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.analysis.structure import (
+        RadialDistributionFunction,
+        StructureFactor,
+    )
+    from mdhelper_tpu_torch.analysis.transport import Onsager
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.ops import factor_scattering as fs
+
+    rng = np.random.default_rng(69)
+    n, n_frames, chunk = 3000, 12, 4
+    box = float(n / 0.8) ** (1 / 3)
+    walk = rng.random((n, 3)) * box + np.cumsum(
+        rng.normal(0.0, 0.3, (n_frames, n, 3)), axis=0)
+    traj = np.mod(walk, box).astype(np.float32)
+    u = Universe.from_arrays(traj, np.array([box] * 3 + [90.0] * 3))
+    results = []
+    for device in ("cpu", cuda_device):
+        kw = dict(verbose=False, device=device)
+        runs = [RadialDistributionFunction(u.atoms, n_bins=60,
+                                           range=(0.0, 5.0),
+                                           exclusion=(1, 1), **kw),
+                StructureFactor(u.atoms, n_points=8, method="factor",
+                                precision="exact", **kw),
+                Onsager(u.atoms, unwrap=True, **kw)]
+        for run in runs:
+            run._chunk_bytes = chunk * n * 3 * 4
+        before = fs.factor_trig_sums.launches
+        run_together(runs)
+        if device != "cpu":
+            assert fs.factor_trig_sums.launches == before + n_frames // chunk
+        sq = StructureFactor(u.atoms, n_points=8, method="factor",
+                             precision="exact", **kw)
+        with _TorchCalls() as calls:
+            run_together([sq])
+        eager = calls.names & {"matmul", "__matmul__", "mm", "bmm", "cos",
+                               "sin"}
+        assert bool(eager) == (device == "cpu"), eager
+        results.append([r.results for r in runs])
+    cpu, card = results
+    np.testing.assert_array_equal(card[0].counts, cpu[0].counts)
+    np.testing.assert_allclose(card[1].ssf, cpu[1].ssf, rtol=1e-4, atol=1e-5)
+    for key in ("msd_self", "msd_cross"):
+        np.testing.assert_allclose(card[2][key], cpu[2][key], rtol=1e-8,
+                                   atol=1e-9 * np.abs(cpu[2][key]).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [None, "partial"])
+def test_factor_routes_on_the_card_equal_cpu(cuda_device, mode):
+    """The mixed lattice plus surface extras (method="auto": the lattice
+    through the factor kernel, the extras through the trig sums) and the
+    ISF's coherent and incoherent lag ring on the default route: the same
+    results on the card as on the CPU within the S(q) gate, one factor
+    launch a chunk and group, and for the ISF one more a frame and group
+    (its displacements, on the workspace its _prepare made)."""
+
+    from mdhelper_tpu_torch.analysis.multi import run_together
+    from mdhelper_tpu_torch.analysis.structure import (
+        IntermediateScatteringFunction,
+        StructureFactor,
+    )
+    from mdhelper_tpu_torch.core.universe import Universe
+    from mdhelper_tpu_torch.ops import factor_scattering as fs
+
+    rng = np.random.default_rng(70)
+    n, n_frames, chunk = 2000, 12, 4
+    box = float(n / 0.8) ** (1 / 3)
+    walk = rng.random((n, 3)) * box + np.cumsum(
+        rng.normal(0.0, 0.3, (n_frames, n, 3)), axis=0)
+    traj = np.mod(walk, box).astype(np.float32)
+    u = Universe.from_arrays(traj, np.array([box] * 3 + [90.0] * 3))
+    groups = (u.atoms if mode is None
+              else [u.atoms[0::2], u.atoms[1::2]])
+    n_groups = 1 if mode is None else 2
+    results = []
+    for device in ("cpu", cuda_device):
+        kw = dict(n_points=6, sort=False, unique=False, verbose=False,
+                  device=device, mode=mode)
+        runs = [StructureFactor(groups, n_surfaces=2, **kw),
+                IntermediateScatteringFunction(groups, n_lags=5,
+                                               incoherent=True, **kw)]
+        assert runs[0]._factor_setup() is not None
+        assert runs[0]._factor_split is not None
+        for run in runs:
+            run._chunk_bytes = chunk * n * 3 * 4
+        launches = []
+        for run in runs:
+            before = fs.factor_trig_sums.launches
+            run_together([run])
+            launches.append(fs.factor_trig_sums.launches - before)
+        if device != "cpu":
+            assert launches == [n_groups * n_frames // chunk,
+                                n_groups * (n_frames // chunk + n_frames)]
+        results.append([runs[0].results.ssf, runs[1].results.cisf,
+                        runs[1].results.iisf])
+    for cpu, card in zip(*results):
+        np.testing.assert_allclose(card, cpu, rtol=1e-4, atol=1e-5)
+
+
 # -- the second design's edges: work-item and ring-tile boundaries ---------
 
 #: atoms a cell holds, cycled over a grid's cells: empty, one, half a
